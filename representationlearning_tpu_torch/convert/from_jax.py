@@ -1,0 +1,93 @@
+"""JAX variable tree -> PyTorch state_dict: the exact inverse of
+``representationlearning_tpu/convert/torch2jax.py::convert_tscd`` and of its MiT
+and SegFormer-head rules.
+
+The input is the ``{"params": ..., "batch_stats": ...}`` tree of nested dicts,
+with numpy (or array-like) leaves. Layout rules, each the transpose of the
+forward rule, so a round trip is bit for bit:
+
+- Dense kernel (in, out)         -> Linear weight (out, in)
+- Conv kernel HWIO               -> Conv2d weight OIHW (depthwise (3,3,1,C) -> (C,1,3,3))
+- LayerNorm/BatchNorm ``scale``  -> ``weight``
+- batch_stats ``mean``/``var``   -> ``running_mean``/``running_var``, plus
+  ``num_batches_tracked`` = 0, which the forward converter drops
+- scopes: ``block{s}_{b}`` -> ``block{s}.{b}``, ``dwconv/Conv_0`` -> ``dwconv.dwconv``,
+  ``decoder/linear_c{i}`` -> ``decoder.linear_c{i}.proj``
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Iterator, Mapping
+
+import numpy as np
+import torch
+
+
+def _flatten(tree: Mapping[str, Any], prefix=()) -> Iterator[tuple[tuple[str, ...], Any]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _module_name(scopes: tuple[str, ...]) -> str:
+    out = []
+    for i, s in enumerate(scopes):
+        m = re.fullmatch(r"block(\d)_(\d+)", s)
+        if m:
+            out.append(f"block{m.group(1)}.{m.group(2)}")
+        elif s == "Conv_0" and i > 0 and scopes[i - 1] == "dwconv":
+            out.append("dwconv")
+        elif re.fullmatch(r"linear_c\d", s) and i > 0 and scopes[i - 1] == "decoder":
+            out.append(f"{s}.proj")
+        else:
+            out.append(s)
+    return ".".join(out)
+
+
+def _param(leaf: str, w: np.ndarray) -> tuple[str, np.ndarray]:
+    if leaf == "kernel":
+        if w.ndim == 2:
+            return "weight", w.T
+        if w.ndim == 4:
+            return "weight", w.transpose(3, 2, 0, 1)
+        raise ValueError(f"kernel of rank {w.ndim}")
+    if leaf == "scale":
+        return "weight", w
+    if leaf == "bias":
+        return "bias", w
+    raise KeyError(f"unknown param leaf {leaf!r}")
+
+
+def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """Any MiT / SegFormer-head / TSCD variable tree (or a subtree of one, such
+    as a single Block) -> the port's state_dict."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unexpected collections {sorted(unknown)}")
+    sd: dict[str, torch.Tensor] = {}
+
+    def put(key, w):
+        sd[key] = torch.from_numpy(np.array(w))  # a writable, contiguous copy
+
+    def name(path, leaf):
+        mod = _module_name(path[:-1])
+        return f"{mod}.{leaf}" if mod else leaf  # a module's own leaves have no prefix
+
+    for path, w in _flatten(variables.get("params", {})):
+        leaf, w = _param(path[-1], np.asarray(w))
+        put(name(path, leaf), w)
+    for path, w in _flatten(variables.get("batch_stats", {})):
+        stat = {"mean": "running_mean", "var": "running_var"}.get(path[-1])
+        if stat is None:
+            raise KeyError(f"unknown batch_stats leaf {path!r}")
+        put(name(path, stat), np.asarray(w))
+        sd[name(path, "num_batches_tracked")] = torch.tensor(0, dtype=torch.int64)
+    return sd
+
+
+def tscd_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``TSCD`` variables -> the port's ``TSCD`` state_dict (inverse of
+    ``convert_tscd``)."""
+    return state_dict_from_jax(variables)

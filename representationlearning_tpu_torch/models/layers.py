@@ -1,0 +1,101 @@
+"""Shared building blocks (the port of ``representationlearning_tpu/models/layers.py``).
+
+Initialisers take an explicit ``torch.Generator``. ``TorchConv`` of the JAX
+package is ``nn.Conv2d`` here, whose integer padding it mirrored.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def trunc_normal_init(t: torch.Tensor, std: float = 0.02,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+    """Normal(0, std) truncated at +-2 std, in place (timm's trunc_normal_ as the
+    JAX package applies it, `mix_transformer.py:31-43`)."""
+    with torch.no_grad():
+        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def fan_out_conv_init(w: torch.Tensor, groups: int = 1,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+    """Conv weight (O, I/groups, kh, kw) ~ Normal(0, sqrt(2 / fan_out)),
+    fan_out = kh * kw * O / groups (`mix_transformer.py:38-43`), in place."""
+    out_ch, _, kh, kw = w.shape
+    fan_out = kh * kw * out_ch // groups
+    with torch.no_grad():
+        return nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_out), generator=generator)
+
+
+def lecun_normal_init(w: torch.Tensor,
+                      generator: torch.Generator | None = None) -> torch.Tensor:
+    """Normal(0, 1 / sqrt(fan_in)) in place, fan_in = I * kh * kw (flax's
+    lecun_normal scale, which the JAX AttnProj uses)."""
+    with torch.no_grad():
+        return nn.init.normal_(w, 0.0, w[0].numel() ** -0.5, generator=generator)
+
+
+def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> None:
+    """The reference `_init_weights` over a module tree: Linear trunc-normal(0.02)
+    with zero bias, LayerNorm/BatchNorm ones/zeros, Conv2d fan-out normal with
+    zero bias (`mix_transformer.py:31-43`)."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            trunc_normal_init(m.weight, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
+            nn.init.ones_(m.weight)
+            nn.init.zeros_(m.bias)
+        elif isinstance(m, nn.Conv2d):
+            fan_out_conv_init(m.weight, m.groups, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, AttnProj):
+            lecun_normal_init(m.weight, generator=generator)
+            nn.init.zeros_(m.bias)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: drops the whole residual branch per sample in training;
+    the identity in eval."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class AttnProj(nn.Module):
+    """The TSCD affinity head (`TSCD_model.py:38,73-76`): a 1x1 conv with 2 * nh
+    input channels over the channel concat of the last two exported attention
+    maps. The parameters are those of ``nn.Conv2d(in_ch, 1, 1)`` (state_dict
+    ``weight`` (1, in_ch, 1, 1), ``bias`` (1,)); the forward contracts each
+    (B, nh, N, N) map against its slice of the weight instead of building the
+    concat. Returns pre-sigmoid logits (B, N, N) in f32."""
+
+    def __init__(self, in_ch: int):
+        super().__init__()
+        self.in_ch = in_ch
+        self.weight = nn.Parameter(torch.empty(1, in_ch, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(1))
+        lecun_normal_init(self.weight)
+
+    def forward(self, attn_list) -> torch.Tensor:
+        w = self.weight[0, :, 0, 0].float()
+        out = None
+        ofs = 0
+        for a in attn_list:
+            nh = a.shape[1]
+            term = torch.einsum("bknm,k->bnm", a.float(), w[ofs:ofs + nh])
+            out = term if out is None else out + term
+            ofs += nh
+        return out + self.bias[0].float()

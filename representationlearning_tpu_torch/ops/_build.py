@@ -1,0 +1,107 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``representationlearning_tpu_torch/csrc/`` are compiled with
+``nvcc`` into a shared library with a plain C interface and loaded with
+``ctypes``. The build happens at first use, into ``representationlearning_tpu_torch/
+_build/<hash>/``, keyed by a hash of the sources and the flags, so an edited
+source rebuilds and an unchanged one loads what is there. Nothing here runs at
+import time: the CPU paths never call ``load_library``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C entry point -> argument types; every pointer and the stream are c_void_p
+SIGNATURES = {
+    "mit_block": {
+        "k1_ln_stats": (_P, _P, _I, _I, _P),
+        "k1_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "k1_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "k1_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    },
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, dict] = {}  # name -> {"path", "ptxas"} of this process
+
+
+def find_nvcc() -> str:
+    for cand in (os.environ.get("NVCC"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+                 shutil.which("nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or NVCC to build the CUDA kernels")
+
+
+def _sources(name: str) -> list[Path]:
+    d = CSRC / name
+    srcs = sorted(d.glob("*.cu"))
+    if not srcs:
+        raise FileNotFoundError(f"no CUDA sources under {d}")
+    return srcs
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted((CSRC / name).glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _compile(name: str, out: Path) -> str:
+    nvcc = find_nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources(name))]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent build sees the old or the new file
+    return proc.stdout + proc.stderr
+
+
+def load_library(name: str = "mit_block") -> ctypes.CDLL:
+    """Build (if needed) and load the kernels of ``csrc/<name>/``."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        path = BUILD_DIR / _digest(name) / f"lib{name}.so"
+        ptxas = ""
+        if not path.exists():
+            ptxas = _compile(name, path)
+        lib = ctypes.CDLL(str(path))
+        for fn, argtypes in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+        build_log[name] = {"path": str(path), "ptxas": ptxas}
+        _libs[name] = lib
+        return lib
+
+
+def check(err: int, fn: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA error {err} at launch")

@@ -1,0 +1,329 @@
+"""Kernel K1: one whole MiT encoder block, for inference.
+
+    y   = x + proj(softmax(q(ln1(x)) k(srln(sr(ln1(x))))^T * hd^-1/2) v)      [SRA]
+    out = y + fc2(gelu(dwconv3x3(fc1(ln2(y)))))                              [MixFFN]
+
+The counterpart of ``representationlearning_tpu/ops/pallas/mit_block.py``
+(``fused_block_pallas``, whose body is ``_block_math``). The TPU kernel keeps one
+whole image in VMEM; an H100 SM has 227 KB of shared memory, so on the card the
+block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
+
+    ln_stats      LayerNorm row statistics (one-pass variance, eps 1e-6)
+    linear        bf16 GEMM, LayerNorm prologue, bias/residual epilogue
+                  (q, kv, proj + residual, fc1, fc2 + residual)
+    sr_conv       the stride-sr sr x sr conv as an implicit-im2col GEMM (sr > 1)
+    attention     per-head softmax(q k^T * scale) v, optional raw-logit export
+    dwconv_gelu   3x3 depthwise conv + bias + exact (A&S erf) GELU
+
+Intermediates between kernels stay f32; matmul operands are rounded to bf16 and
+accumulate in f32, LayerNorm, softmax and GELU run in f32 -- the numerics of the
+TPU kernel. Each of the five wrappers below runs its kernel on a CUDA tensor
+(compute dtype bf16 only; anything else raises) and its plain PyTorch version,
+``<name>_reference``, on a CPU tensor. ``fused_block_reference`` is the same
+composition with the plain versions only; ``fused_block`` is the dispatcher.
+
+Layouts follow the JAX kernel: tokens (B, N, C), N = H * W row-major. Weights
+are torch layouts: ``nn.Linear`` (out, in), conv OIHW, depthwise (hid, 1, 3, 3).
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+from typing import Mapping
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+LN_EPS = 1e-6
+
+# launches of each kernel since the last reset; the wrappers add one per launch
+LAUNCHES = {"ln_stats": 0, "linear": 0, "sr_conv": 0, "attention": 0, "dwconv_gelu": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ------------------------------------------------------------------ plain math
+def erf_as(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz-Stegun 7.1.26 erf (max abs err 1.5e-7), the TPU kernel's `_erf`."""
+    a1, a2, a3, a4, a5 = (0.254829592, -0.284496736, 1.421413741,
+                          -1.453152027, 1.061405429)
+    p_ = 0.3275911
+    s = torch.sign(x)
+    ax = torch.abs(x)
+    t = 1.0 / (1.0 + p_ * ax)
+    poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
+    return s * (1.0 - poly * torch.exp(-ax * ax))
+
+
+def gelu_as(x: torch.Tensor) -> torch.Tensor:
+    return 0.5 * x * (1.0 + erf_as(x * (2.0 ** -0.5)))
+
+
+def mm(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """a @ b with operands rounded to `dtype` and an f32 product: the TPU kernel's
+    `jnp.dot(..., preferred_element_type=f32)`. A bf16 matmul would round the
+    result to bf16 as well, so the operands go back to f32 before multiplying."""
+    return a.to(dtype).float() @ b.to(dtype).float()
+
+
+def _apply_ln(x, stats, w, b):
+    return (x.float() - stats[..., 0:1]) * stats[..., 1:2] * w.float() + b.float()
+
+
+def ln_stats_reference(x: torch.Tensor) -> torch.Tensor:
+    """(..., C) -> (..., 2) holding [mean, rsqrt(var + eps)], var = E[x^2] - mean^2."""
+    x32 = x.float()
+    mu = x32.mean(-1)
+    var = (x32 * x32).mean(-1) - mu * mu
+    return torch.stack([mu, torch.rsqrt(var + LN_EPS)], dim=-1)
+
+
+def linear_reference(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
+                     dtype=torch.bfloat16):
+    """LN?(a) @ w^T + bias (+ residual), all f32 but the `dtype`-rounded operands."""
+    a = a.float() if stats is None else _apply_ln(a, stats, ln_w, ln_b)
+    out = mm(a, w.t(), dtype) + bias.float()
+    return out if residual is None else out + residual.float()
+
+
+def sr_conv_reference(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr,
+                      dtype=torch.bfloat16):
+    """Stride-sr sr x sr conv of LN(x) on the (H, W) grid as a patch matmul,
+    cropped to full windows (VALID). w_flat is (C, sr*sr*C) in (ky, kx, c) order."""
+    B, _, C = x.shape
+    Hs, Ws = H // sr, W // sr
+    h = _apply_ln(x, stats, ln_w, ln_b).reshape(B, H, W, C)[:, : Hs * sr, : Ws * sr]
+    hs = h.reshape(B, Hs, sr, Ws, sr, C).permute(0, 1, 3, 2, 4, 5)
+    hs = hs.reshape(B, Hs * Ws, sr * sr * C)
+    return mm(hs, w_flat.t(), dtype) + bias.float()
+
+
+def attention_reference(q, kv, *, nh, dtype=torch.bfloat16, export=False):
+    """Per-head softmax(q k^T * hd^-1/2) v. q (B, N, C), kv (B, Nk, 2C) with
+    feature f = (i2 * nh + head) * hd + d. Returns (out (B, N, C) f32, raw
+    pre-scale logits (B, nh, N, Nk) f32 or None)."""
+    B, N, C = q.shape
+    Nk = kv.shape[1]
+    hd = C // nh
+    qh = q.float().reshape(B, N, nh, hd).transpose(1, 2)
+    k = kv[..., :C].float().reshape(B, Nk, nh, hd).transpose(1, 2)
+    v = kv[..., C:].float().reshape(B, Nk, nh, hd).transpose(1, 2)
+    s_raw = mm(qh, k.transpose(-1, -2), dtype)                      # (B, nh, N, Nk)
+    if Nk == 0:
+        o = q.new_zeros((B, nh, N, hd), dtype=torch.float32)
+    else:
+        s = s_raw * hd ** -0.5
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        o = mm(e / e.sum(dim=-1, keepdim=True), v, dtype)
+    out = o.transpose(1, 2).reshape(B, N, C)
+    return out, (s_raw if export else None)
+
+
+def dwconv_gelu_reference(f, w, bias, *, H, W):
+    """gelu(3x3 zero-padded depthwise conv(f) + bias) on the (H, W) grid, as the
+    TPU kernel's nine shifted multiply-adds. f (B, H*W, hid), w (hid, 1, 3, 3)."""
+    B, N, hid = f.shape
+    fi = f.float().reshape(B, H, W, hid)
+    dw = w.float().reshape(hid, 3, 3)
+    acc = torch.zeros_like(fi)
+    for ky in range(3):
+        for kx in range(3):
+            dy, dx = ky - 1, kx - 1
+            src = fi[:, max(0, dy): H + min(0, dy), max(0, dx): W + min(0, dx)]
+            pad = (0, 0, max(0, -dx), max(0, dx), max(0, -dy), max(0, dy))
+            acc = acc + F.pad(src * dw[:, ky, kx], pad)
+    return gelu_as((acc + bias.float()).reshape(B, N, hid))
+
+
+# ------------------------------------------------------------ kernel wrappers
+def _check(t: torch.Tensor, name: str, device: torch.device, shape=None,
+           dtype=torch.float32) -> None:
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _compute_dtype(dtype) -> None:
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"K1 on CUDA takes compute dtype bfloat16, got {dtype}; the float32 "
+            "CUDA path is not ported yet")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(fn: str, *args) -> None:
+    lib = _build.load_library("mit_block")
+    _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
+
+
+def ln_stats(x: torch.Tensor) -> torch.Tensor:
+    if not x.is_cuda:
+        return ln_stats_reference(x)
+    C = x.shape[-1]
+    _check(x, "x", x.device)
+    out = torch.empty(x.shape[:-1] + (2,), device=x.device, dtype=torch.float32)
+    rows = x.numel() // C if C else 0
+    if rows:
+        _launch("k1_ln_stats", x.data_ptr(), out.data_ptr(), rows, C)
+        LAUNCHES["ln_stats"] += 1
+    return out
+
+
+def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
+           dtype=torch.bfloat16):
+    if not a.is_cuda:
+        return linear_reference(a, w, bias, stats=stats, ln_w=ln_w, ln_b=ln_b,
+                                residual=residual, dtype=dtype)
+    _compute_dtype(dtype)
+    Nout, K = w.shape
+    dev = a.device
+    if K % 32:
+        raise ValueError(f"linear: K={K} is not a multiple of 32")
+    _check(a, "a", dev)
+    if a.shape[-1] != K:
+        raise ValueError(f"linear: a has {a.shape[-1]} features, w takes {K}")
+    M = a.numel() // K
+    _check(w, "w", dev, (Nout, K), torch.bfloat16)
+    _check(bias, "bias", dev, (Nout,))
+    if stats is not None:
+        _check(stats, "stats", dev, a.shape[:-1] + (2,))
+        _check(ln_w, "ln_w", dev, (K,))
+        _check(ln_b, "ln_b", dev, (K,))
+    out = torch.empty(a.shape[:-1] + (Nout,), device=dev, dtype=torch.float32)
+    if residual is not None:
+        _check(residual, "residual", dev, out.shape)
+    if M:
+        _launch("k1_linear", a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(stats),
+                _ptr(ln_w), _ptr(ln_b), _ptr(residual), out.data_ptr(), M, Nout, K)
+        LAUNCHES["linear"] += 1
+    return out
+
+
+def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat16):
+    if not x.is_cuda:
+        return sr_conv_reference(x, stats, ln_w, ln_b, w_flat, bias, H=H, W=W, sr=sr,
+                                 dtype=dtype)
+    _compute_dtype(dtype)
+    B, N, C = x.shape
+    dev = x.device
+    if N != H * W or C % 32:
+        raise ValueError(f"sr_conv: N={N}, H*W={H * W}, C={C} (C % 32 must be 0)")
+    _check(x, "x", dev)
+    _check(stats, "stats", dev, (B, N, 2))
+    _check(ln_w, "ln_w", dev, (C,))
+    _check(ln_b, "ln_b", dev, (C,))
+    _check(w_flat, "w_flat", dev, (C, sr * sr * C), torch.bfloat16)
+    _check(bias, "bias", dev, (C,))
+    Nk = (H // sr) * (W // sr)
+    out = torch.empty((B, Nk, C), device=dev, dtype=torch.float32)
+    if B * Nk:
+        _launch("k1_sr_conv", x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
+                ln_b.data_ptr(), w_flat.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                B, H, W, C, sr)
+        LAUNCHES["sr_conv"] += 1
+    return out
+
+
+def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False):
+    if not q.is_cuda:
+        return attention_reference(q, kv, nh=nh, dtype=dtype, export=export)
+    _compute_dtype(dtype)
+    B, N, C = q.shape
+    Nk = kv.shape[1]
+    if C % nh or C // nh not in (32, 64):
+        raise NotImplementedError(f"attention kernel takes head dim 32 or 64, got C={C}, nh={nh}")
+    _check(q, "q", q.device)
+    _check(kv, "kv", q.device, (B, Nk, 2 * C))
+    out = torch.empty((B, N, C), device=q.device, dtype=torch.float32)
+    logits = (torch.empty((B, nh, N, Nk), device=q.device, dtype=torch.float32)
+              if export else None)
+    if B * N:
+        _launch("k1_attention", q.data_ptr(), kv.data_ptr(), out.data_ptr(), _ptr(logits),
+                B, N, Nk, C, nh, float(C // nh) ** -0.5)
+        LAUNCHES["attention"] += 1
+    return out, logits
+
+
+def dwconv_gelu(f, w, bias, *, H, W):
+    if not f.is_cuda:
+        return dwconv_gelu_reference(f, w, bias, H=H, W=W)
+    B, N, hid = f.shape
+    if N != H * W:
+        raise ValueError(f"dwconv_gelu: N={N} but H*W={H * W}")
+    _check(f, "f", f.device)
+    _check(w, "w", f.device, (hid, 1, 3, 3))
+    _check(bias, "bias", f.device, (hid,))
+    out = torch.empty_like(f)
+    if f.numel():
+        _launch("k1_dwconv_gelu", f.data_ptr(), w.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), B, H, W, hid)
+        LAUNCHES["dwconv_gelu"] += 1
+    return out
+
+
+# --------------------------------------------------------------- the block
+PLAIN = SimpleNamespace(ln_stats=ln_stats_reference, linear=linear_reference,
+                        sr_conv=sr_conv_reference, attention=attention_reference,
+                        dwconv_gelu=dwconv_gelu_reference)
+DISPATCH = SimpleNamespace(ln_stats=ln_stats, linear=linear, sr_conv=sr_conv,
+                           attention=attention, dwconv_gelu=dwconv_gelu)
+
+
+def _block(x, p, *, H, W, sr, nh, dtype, export, ops):
+    """The block as K1's kernel sequence; `ops` supplies the five pieces."""
+    C = x.shape[-1]
+    xf = x.float()
+
+    def wt(k):  # matmul weight, rounded to the compute dtype once per call
+        return p[k].to(dtype)
+
+    ln1 = dict(ln_w=p["ln1_weight"], ln_b=p["ln1_bias"])
+    s1 = ops.ln_stats(xf)
+    q = ops.linear(xf, wt("q_weight"), p["q_bias"], stats=s1, dtype=dtype, **ln1)
+    if sr > 1:
+        w_flat = wt("sr_weight").permute(0, 2, 3, 1).reshape(C, sr * sr * C).contiguous()
+        xs = ops.sr_conv(xf, s1, p["ln1_weight"], p["ln1_bias"], w_flat, p["sr_bias"],
+                         H=H, W=W, sr=sr, dtype=dtype)
+        kv = ops.linear(xs, wt("kv_weight"), p["kv_bias"], stats=ops.ln_stats(xs),
+                        ln_w=p["srnorm_weight"], ln_b=p["srnorm_bias"], dtype=dtype)
+    else:
+        kv = ops.linear(xf, wt("kv_weight"), p["kv_bias"], stats=s1, dtype=dtype, **ln1)
+    o, logits = ops.attention(q, kv, nh=nh, dtype=dtype, export=export)
+    y = ops.linear(o, wt("proj_weight"), p["proj_bias"], residual=xf, dtype=dtype)
+    f = ops.linear(y, wt("fc1_weight"), p["fc1_bias"], stats=ops.ln_stats(y),
+                   ln_w=p["ln2_weight"], ln_b=p["ln2_bias"], dtype=dtype)
+    g = ops.dwconv_gelu(f, p["dw_weight"], p["dw_bias"], H=H, W=W)
+    out = ops.linear(g, wt("fc2_weight"), p["fc2_bias"], residual=y, dtype=dtype)
+    out = out.to(x.dtype)
+    return (out, logits) if export else out
+
+
+def fused_block_reference(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int,
+                          W: int, sr: int, nh: int, dtype=torch.float32,
+                          export: bool = False):
+    """Plain PyTorch K1 on any device: the math of the TPU kernel's `_block_math`.
+    Returns out (B, N, C) in x.dtype, plus the raw logits (B, nh, N, Nk) f32
+    when `export`."""
+    return _block(x, p, H=H, W=W, sr=sr, nh=nh, dtype=dtype, export=export, ops=PLAIN)
+
+
+def fused_block(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int, W: int,
+                sr: int, nh: int, dtype=torch.float32, export: bool = False):
+    """K1 dispatcher: the CUDA kernels for a CUDA tensor (bf16 compute only), the
+    plain version for a CPU tensor. Nothing falls back."""
+    if x.is_cuda:
+        _compute_dtype(dtype)
+    return _block(x, p, H=H, W=W, sr=sr, nh=nh, dtype=dtype, export=export, ops=DISPATCH)
+

@@ -1,0 +1,137 @@
+"""Kernel K1's CUDA kernels against their plain versions, on a CUDA card.
+
+Small and ragged shapes (token counts, key counts and widths that no tile
+divides, an empty key set, both head widths) complement ``chip_smoke.py``, which
+checks the kernels at the model's own shapes. Every test here needs the card and
+skips without one. The file imports no JAX, so it also runs where JAX is not
+installed: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
+"""
+import pytest
+import torch
+
+from representationlearning_tpu_torch.ops import mit_block as tmb
+
+pytestmark = pytest.mark.cuda
+
+# Same tolerances and reasons as chip_smoke.py: identical bf16 operands, f32
+# sums in another order; the attention output also sees a few probabilities
+# rounded to the neighbouring bf16 value.
+TOL = {"ln_stats": 1e-5, "linear": 1e-4, "sr_conv": 1e-4, "attention": 1e-3,
+       "logits": 1e-4, "dwconv_gelu": 1e-5}
+BF16 = torch.bfloat16
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _close(got, want, tol):
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol * max(1.0, want.float().abs().max().item()), err
+
+
+def _rand(gen, *shape, dev, scale=1.0, shift=0.0):
+    return (torch.randn(shape, generator=gen) * scale + shift).to(dev)
+
+
+def test_ln_stats(dev):
+    g = torch.Generator().manual_seed(0)
+    x = _rand(g, 3, 37, 320, dev=dev, scale=2.0, shift=0.5)
+    _close(tmb.ln_stats(x), tmb.ln_stats_reference(x), TOL["ln_stats"])
+
+
+@pytest.mark.parametrize("M,Nout,K,ln,res", [(100, 96, 64, True, False),
+                                             (130, 64, 160, False, True),
+                                             (1, 2048, 512, True, True)])
+def test_linear(dev, M, Nout, K, ln, res):
+    g = torch.Generator().manual_seed(M)
+    a = _rand(g, M, K, dev=dev)
+    w = _rand(g, Nout, K, dev=dev, scale=0.05).to(BF16)
+    kw = dict(bias=_rand(g, Nout, dev=dev))
+    if ln:
+        kw.update(stats=tmb.ln_stats_reference(a), ln_w=_rand(g, K, dev=dev, shift=1.0),
+                  ln_b=_rand(g, K, dev=dev, scale=0.1))
+    if res:
+        kw["residual"] = _rand(g, M, Nout, dev=dev)
+    before = tmb.LAUNCHES["linear"]
+    _close(tmb.linear(a, w, **kw), tmb.linear_reference(a, w, **kw), TOL["linear"])
+    assert tmb.LAUNCHES["linear"] == before + 1
+
+
+@pytest.mark.parametrize("H,W,C,sr", [(13, 11, 64, 4), (16, 16, 32, 8), (9, 7, 96, 2)])
+def test_sr_conv(dev, H, W, C, sr):
+    g = torch.Generator().manual_seed(H * W)
+    x = _rand(g, 2, H * W, C, dev=dev)
+    args = (x, tmb.ln_stats_reference(x), _rand(g, C, dev=dev, shift=1.0),
+            _rand(g, C, dev=dev, scale=0.1),
+            _rand(g, C, sr * sr * C, dev=dev, scale=0.05).to(BF16), _rand(g, C, dev=dev))
+    _close(tmb.sr_conv(*args, H=H, W=W, sr=sr), tmb.sr_conv_reference(*args, H=H, W=W, sr=sr),
+           TOL["sr_conv"])
+
+
+@pytest.mark.parametrize("N,Nk,C,nh", [(70, 50, 64, 1), (64, 130, 128, 2), (33, 200, 160, 5),
+                                       (65, 0, 64, 1)])
+def test_attention_with_export(dev, N, Nk, C, nh):
+    g = torch.Generator().manual_seed(N + Nk)
+    q, kv = _rand(g, 2, N, C, dev=dev), _rand(g, 2, Nk, 2 * C, dev=dev)
+    out, logits = tmb.attention(q, kv, nh=nh, export=True)
+    want, want_logits = tmb.attention_reference(q, kv, nh=nh, dtype=BF16, export=True)
+    assert logits.shape == (2, nh, N, Nk)
+    _close(out, want, TOL["attention"])
+    if Nk:
+        _close(logits, want_logits, TOL["logits"])
+    else:
+        assert not out.any()
+    plain_out, none = tmb.attention(q, kv, nh=nh)
+    assert none is None and torch.equal(plain_out, out)
+
+
+@pytest.mark.parametrize("H,W,hid", [(7, 9, 96), (1, 5, 32), (16, 16, 256)])
+def test_dwconv_gelu(dev, H, W, hid):
+    g = torch.Generator().manual_seed(hid)
+    f = _rand(g, 2, H * W, hid, dev=dev)
+    w, b = _rand(g, hid, 1, 3, 3, dev=dev, scale=0.3), _rand(g, hid, dev=dev)
+    _close(tmb.dwconv_gelu(f, w, b, H=H, W=W), tmb.dwconv_gelu_reference(f, w, b, H=H, W=W),
+           TOL["dwconv_gelu"])
+
+
+@pytest.mark.parametrize("hw,C,sr,nh,export", [(19, 64, 8, 1, False), (13, 128, 4, 2, False),
+                                               (8, 512, 1, 8, True), (4, 64, 8, 1, False)])
+def test_fused_block_matches_plain(dev, hw, C, sr, nh, export):
+    """The whole block, kernels against plain version, bf16 compute on a bf16
+    stream (2e-2 of the largest magnitude: bf16 rounding flips propagate, as
+    in chip_smoke.py). The last geometry has no keys (grid below the stride)."""
+    from representationlearning_tpu_torch.models.layers import init_weights
+    from representationlearning_tpu_torch.models.mit import FusedBlock
+
+    g = torch.Generator().manual_seed(hw + C)
+    blk = FusedBlock(C, nh, 4.0, sr, export_attn=export, dtype=BF16).eval()
+    init_weights(blk, g)
+    p = {k: v.detach().to(dev) for k, v in blk.kernel_params().items()}
+    x = _rand(g, 2, hw * hw, C, dev=dev).to(BF16)
+    with torch.no_grad():
+        got = tmb.fused_block(x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=BF16, export=export)
+        want = tmb.fused_block_reference(x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=BF16,
+                                         export=export)
+    for a, b in zip(got if export else (got,), want if export else (want,)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 2e-2 * b.float().abs().max().item(), err
+
+
+def test_cuda_path_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 16, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        tmb.fused_block(x, {}, H=4, W=4, sr=1, nh=1, dtype=torch.float32)
+    w = torch.zeros(64, 64, device=dev)  # f32 weight: the kernel takes bf16
+    with pytest.raises(TypeError):
+        tmb.linear(x, w, torch.zeros(64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        tmb.ln_stats(torch.zeros(64, 16, device=dev).t())
+    with pytest.raises(ValueError, match="on cpu"):
+        tmb.linear(x, w.to(BF16), torch.zeros(64))

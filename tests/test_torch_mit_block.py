@@ -1,0 +1,180 @@
+"""Kernel K1 (one MiT block) of the PyTorch port against the JAX package.
+
+The same numpy-seeded tokens and weights go through the JAX `fused_block_reference`
+and `fused_block_pallas` (interpret mode on the CPU) and through the port's
+`fused_block_reference` / `fused_block` (which, on a CPU tensor, runs the plain
+version). Geometries are those of `tests/test_pallas_attention.py:156-157`,
+including grids that the sr stride does not divide (19 % 8, 13 % 4).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from representationlearning_tpu.models.mit import Block
+from representationlearning_tpu.ops.pallas import mit_block as jmb
+from representationlearning_tpu_torch.ops import mit_block as tmb
+
+torch.set_num_threads(2)
+
+GEOMETRIES = [(16, 64, 8, 1), (16, 128, 4, 2), (8, 320, 2, 5), (8, 512, 1, 8),
+              (19, 64, 8, 1), (13, 128, 4, 2)]
+# f32: both sides do the same f32 math, summed in another order (XLA vs torch
+# matmuls over K <= 4 * 512); 2e-5 is the JAX package's own fused-vs-Block bound
+F32_ATOL = 2e-5
+# raw logits are unscaled q.k sums over hd = 64 with |q|,|k| ~ 1-3: one more
+# order of magnitude than the block output, as in test_pallas_attention.py:228
+LOGIT_ATOL = 2e-4
+
+
+def torch_params(p: dict) -> dict:
+    """The JAX kernel's flat param dict -> the port's, in torch layouts."""
+    out = {}
+    for k, v in p.items():
+        v = np.asarray(v, np.float32)
+        if k == "sr_kernel":
+            v = v.transpose(3, 2, 0, 1)                     # HWIO -> OIHW
+        elif k == "dw_kernel":
+            v = v.transpose(2, 0, 1)[:, None]               # (3,3,hid) -> (hid,1,3,3)
+        elif k.endswith("_kernel"):
+            v = v.T                                         # (in, out) -> (out, in)
+        name = k.replace("_kernel", "_weight").replace("_scale", "_weight")
+        out[name] = torch.from_numpy(np.array(v))
+    return out
+
+
+def _setup(hw, C, sr, nh, seed, export=False):
+    rng = np.random.default_rng(seed)
+    tok = rng.standard_normal((2, hw * hw, C)).astype(np.float32)
+    blk = Block(C, nh, 4.0, sr, export_attn=export)
+    v = blk.init(jax.random.PRNGKey(seed), jnp.asarray(tok), hw, hw)
+    p = jmb.block_variables_to_fused(v["params"])
+    # non-trivial LayerNorm affines and biases, so their wiring is checked too
+    p = {k: (jnp.asarray(rng.standard_normal(np.shape(a)).astype(np.float32) * 0.1
+                         + (1.0 if k.endswith("_scale") else 0.0))
+             if (k.endswith("_bias") or k.endswith("_scale")) else a)
+         for k, a in p.items()}
+    return tok, p, torch_params(p)
+
+
+@pytest.mark.parametrize("hw,C,sr,nh", GEOMETRIES)
+def test_fused_block_reference_matches_jax(hw, C, sr, nh):
+    tok, p, tp = _setup(hw, C, sr, nh, seed=hw + C)
+    want = np.asarray(jmb.fused_block_reference(jnp.asarray(tok), p, H=hw, W=hw, sr=sr, nh=nh))
+    wantk = np.asarray(jmb.fused_block_pallas(jnp.asarray(tok), p, H=hw, W=hw, sr=sr, nh=nh,
+                                              interpret=True))
+    got = tmb.fused_block_reference(torch.from_numpy(tok), tp, H=hw, W=hw, sr=sr, nh=nh)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+    np.testing.assert_allclose(got.numpy(), wantk, atol=F32_ATOL)
+    # on a CPU tensor the dispatcher is the plain version, bit for bit
+    disp = tmb.fused_block(torch.from_numpy(tok), tp, H=hw, W=hw, sr=sr, nh=nh)
+    assert torch.equal(disp, got)
+
+
+def test_fused_block_export_matches_jax():
+    hw, C, nh = 8, 512, 8
+    tok, p, tp = _setup(hw, C, 1, nh, seed=3, export=True)
+    want, want_attn = jmb.fused_block_reference(jnp.asarray(tok), p, H=hw, W=hw, sr=1, nh=nh,
+                                                export=True)
+    wantk, attnk = jmb.fused_block_pallas(jnp.asarray(tok), p, H=hw, W=hw, sr=1, nh=nh,
+                                          export=True, interpret=True)
+    got, attn = tmb.fused_block_reference(torch.from_numpy(tok), tp, H=hw, W=hw, sr=1,
+                                          nh=nh, export=True)
+    assert attn.shape == (2, nh, hw * hw, hw * hw) and attn.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), atol=LOGIT_ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(wantk), atol=F32_ATOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(attnk), atol=LOGIT_ATOL)
+
+
+@pytest.mark.parametrize("hw,C,sr,nh,export", [(16, 64, 8, 1, False), (8, 512, 1, 8, True)])
+def test_fused_block_bf16_matches_jax_bf16(hw, C, sr, nh, export):
+    """bf16 operands / f32 accumulation (the headline's dtype) on a bf16 stream,
+    port against JAX. Both round the same f32 operands to bf16, so they agree to
+    f32 summation order except where an operand sits on a bf16 rounding
+    boundary; the block output itself is stored in bf16, whose spacing at the
+    output's magnitude (|out| < 8) is at most 2^-5: tolerance 1 bf16 ulp there.
+    The logits are sums of hd = 64 products of bf16-rounded q and k; q comes out
+    of an f32 LN + matmul summed in another order, so some q elements round to
+    the neighbouring bf16 value (2^-8 relative) on one side: 2e-2 bounds a few
+    such flips at |q_i k_i| <= 4."""
+    tok, p, tp = _setup(hw, C, sr, nh, seed=7, export=export)
+    xj = jnp.asarray(tok, jnp.bfloat16)
+    xt = torch.from_numpy(tok).to(torch.bfloat16)
+    want = jmb.fused_block_reference(xj, p, H=hw, W=hw, sr=sr, nh=nh, dtype=jnp.bfloat16,
+                                     export=export)
+    got = tmb.fused_block_reference(xt, tp, H=hw, W=hw, sr=sr, nh=nh, dtype=torch.bfloat16,
+                                    export=export)
+    if export:
+        (want, want_attn), (got, attn) = want, got
+        np.testing.assert_allclose(attn.numpy(), np.asarray(want_attn), atol=2e-2)
+    assert got.dtype == torch.bfloat16
+    w32 = np.asarray(want.astype(jnp.float32))
+    assert np.abs(w32).max() < 8.0
+    np.testing.assert_allclose(got.float().numpy(), w32, atol=2.0 ** -5)
+
+
+@pytest.mark.parametrize("piece", ["ln_stats", "linear", "sr_conv", "attention",
+                                   "dwconv_gelu"])
+def test_wrappers_on_cpu_are_the_plain_versions(piece):
+    """Each kernel wrapper, given CPU tensors, returns its plain version's result
+    bit for bit and launches nothing."""
+    g = torch.Generator().manual_seed(0)
+    B, H, W, C, sr, nh = 2, 8, 8, 64, 2, 2
+    N = H * W
+    x = torch.randn(B, N, C, generator=g)
+    st = tmb.ln_stats_reference(x)
+    lw, lb = torch.randn(C, generator=g), torch.randn(C, generator=g)
+    args = {
+        "ln_stats": ((x,), {}),
+        "linear": ((x, torch.randn(3 * C, C, generator=g), torch.randn(3 * C, generator=g)),
+                   dict(stats=st, ln_w=lw, ln_b=lb)),
+        "sr_conv": ((x, st, lw, lb, torch.randn(C, sr * sr * C, generator=g),
+                     torch.randn(C, generator=g)), dict(H=H, W=W, sr=sr)),
+        "attention": ((x, torch.randn(B, N // 4, 2 * C, generator=g)),
+                      dict(nh=nh, export=True)),
+        "dwconv_gelu": ((x, torch.randn(C, 1, 3, 3, generator=g), torch.randn(C, generator=g)),
+                        dict(H=H, W=W)),
+    }[piece]
+    tmb.reset_launches()
+    got = getattr(tmb, piece)(*args[0], **args[1])
+    want = getattr(tmb, piece + "_reference")(*args[0], **args[1])
+    for a, b in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert torch.equal(a, b)
+    assert sum(tmb.LAUNCHES.values()) == 0
+
+
+def test_plain_pieces_match_textbook_torch():
+    """The plain pieces against PyTorch's own ops: LayerNorm, softmax attention,
+    depthwise conv + exact GELU (A&S erf is within 1.5e-7 of erf)."""
+    g = torch.Generator().manual_seed(1)
+    B, H, W, C, nh = 2, 6, 5, 32, 2
+    x = torch.randn(B, H * W, C, generator=g) * 3 + 1
+    st = tmb.ln_stats_reference(x)
+    ln = torch.nn.functional.layer_norm(x, (C,), eps=1e-6)
+    np.testing.assert_allclose(tmb._apply_ln(x, st, torch.ones(C), torch.zeros(C)).numpy(),
+                               ln.numpy(), atol=1e-5)
+    kv = torch.randn(B, 7, 2 * C, generator=g)
+    out, _ = tmb.attention_reference(x, kv, nh=nh, dtype=torch.float32)
+    q = x.reshape(B, -1, nh, C // nh).transpose(1, 2)
+    k, v = (t.reshape(B, 7, nh, C // nh).transpose(1, 2) for t in kv.split(C, dim=-1))
+    sdpa = torch.softmax(q @ k.transpose(-1, -2) * (C // nh) ** -0.5, -1) @ v
+    np.testing.assert_allclose(out.numpy(), sdpa.transpose(1, 2).reshape(B, -1, C).numpy(),
+                               atol=1e-5)
+    w, b = torch.randn(C, 1, 3, 3, generator=g), torch.randn(C, generator=g)
+    got = tmb.dwconv_gelu_reference(x, w, b, H=H, W=W)
+    conv = torch.nn.functional.conv2d(x.transpose(1, 2).reshape(B, C, H, W), w, b,
+                                      padding=1, groups=C)
+    want = torch.nn.functional.gelu(conv).flatten(2).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5)
+
+
+def test_zero_key_geometry_gives_zero_attention():
+    """A grid smaller than the sr stride has no keys: the attention output is
+    zero, as in the TPU kernel (`mit_block.py:152-157`)."""
+    tok, p, tp = _setup(4, 64, 8, 1, seed=11)
+    want = np.asarray(jmb.fused_block_reference(jnp.asarray(tok), p, H=4, W=4, sr=8, nh=1))
+    got = tmb.fused_block_reference(torch.from_numpy(tok), tp, H=4, W=4, sr=8, nh=1)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)

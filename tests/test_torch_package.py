@@ -1,0 +1,79 @@
+"""Package boundary of the PyTorch port: no JAX anywhere in its import graph, and
+no kernel build on the CPU path."""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import representationlearning_tpu_torch as port
+from representationlearning_tpu_torch.models.tscd import TSCD
+from representationlearning_tpu_torch.ops import _build
+from representationlearning_tpu_torch.ops import mit_block as tmb
+
+torch.set_num_threads(2)
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."))
+
+
+def test_every_module_imports_without_jax():
+    mods = _modules()
+    assert "representationlearning_tpu_torch.ops.mit_block" in mods
+    code = ("import sys, importlib\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "
+            "'flax', 'representationlearning_tpu.')) or k == 'representationlearning_tpu')\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)
+
+
+def test_cpu_forward_never_touches_the_kernel_loader(monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("kernel loader called on the CPU path")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    monkeypatch.setattr(_build, "find_nvcc", refuse)
+    m = TSCD("mit_b0", 21, fused_blocks=True, dtype=torch.bfloat16,
+             act_dtype=torch.bfloat16).eval()
+    with torch.no_grad():
+        cls, seg, attns, pred = m(torch.randn(1, 3, 32, 32))
+    assert seg.shape == (1, 21, 8, 8) and pred.shape == (1, 4, 4)
+    assert torch.isfinite(seg.float()).all()
+
+
+def test_kernel_build_is_keyed_by_the_sources():
+    """The build directory is named by a hash of the CUDA sources and flags, and
+    it lies under a directory that .gitignore lists."""
+    d = _build._digest("mit_block")
+    assert len(d) == 16 and d == _build._digest("mit_block")
+    assert {p.name for p in (_build.CSRC / "mit_block").glob("*.cu")} == {
+        "ln_stats.cu", "gemm.cu", "attention.cu", "dwconv_gelu.cu"}
+    ignored = (ROOT / ".gitignore").read_text().split()
+    assert "representationlearning_tpu_torch/_build/" in ignored
+
+
+def test_fusedblock_refuses_training_mode():
+    blk = TSCD("mit_b0", 21, fused_blocks=True).encoder.block1[0]
+    blk.train()
+    with pytest.raises(ValueError, match="inference-only"):
+        blk(torch.zeros(1, 16, 32), 4, 4)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line without CUDA, in
+    the repo and alone in an empty directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    src = ROOT / "chip_smoke.py"
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(src.read_text())
+    for script, cwd in ((src, ROOT), (alone, tmp_path)):
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd, capture_output=True,
+                           text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok": true' not in r.stdout
