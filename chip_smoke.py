@@ -1,19 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's main path, TSCD / MiT-B1 segmentation inference at 512 x 512,
-batch 8, bf16 compute and a bf16 residual stream, with every encoder block on
-kernel K1 (``representationlearning_tpu_torch/ops/mit_block.py``), and checks it:
+Drives the port's two paths and checks them. The first is TSCD / MiT-B1
+segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
+stream, with every encoder block on kernel K1
+(``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
+pseudo-label call (``train/scd.py::scd_pseudo_labels``) at the configuration of
+``configs/scd_voc.yaml``: batch 8 x 320 x 320, multi-scale flip CAMs through K1,
+pseudo labels, background-aware VARM refinement through K2 (``ops/affinity.py``)
+and K3 (``ops/varm.py``), affinity labels; and the trainer's validation step.
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
-2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``;
+2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
+   both libraries side by side;
 3. kernel vs plain: each K1 kernel, and the whole block, against its plain
-   PyTorch version on the same inputs, at the four MiT-B1 stage geometries;
+   PyTorch version on the same inputs, at the four MiT-B1 stage geometries of
+   the 512 x 512 forward, with each kernel's bound and, where one PyTorch call
+   computes the same function, that call's time; the same comparison, untimed,
+   at the twelve geometries of the pseudo-label call's forwards (batch 16 at
+   320, 160 and 480 pixels a side); then K2 in its three modes and K3 at 18
+   and 42 channels at the refinement's own size;
 4. slice: the model's forward through the kernels, its output shapes, the
    launch counts of every kernel, and seg / attn_pred against the same model run
    with the plain block; one ``cam_only`` forward;
-5. timing: CUDA-event times of each kernel and of the whole forward, kernel
-   path against plain path.
+5. pseudo labels: ``scd_pseudo_labels`` through the kernels, its launch counts,
+   and its CAMs and labels against the same call with K1, K2 and K3 swapped for
+   their plain versions; the validation step at batch 1 and 8 x 512 x 512;
+6. timing: CUDA-event times of each kernel, of the whole forward and of the
+   whole pseudo-label call, kernel path against plain path.
 
 Run from the root of the repository: ``python3 chip_smoke.py [--seed N]``. Every
 phase prints its results; the line before the last is a JSON object with one
@@ -29,6 +43,7 @@ import subprocess
 import sys
 import time
 import traceback
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -39,9 +54,33 @@ BATCH, IMAGE, NUM_CLASSES = 8, 512, 21
 STAGES = [(128, 64, 1, 8, False), (64, 128, 2, 4, False), (32, 320, 5, 2, False),
           (32, 512, 8, 1, True)]
 DEPTH = 2  # MiT-B1 blocks per stage
-REPLACES = "representationlearning_tpu/ops/pallas/mit_block.py:259"
-SOURCES = {"ln_stats": "ln_stats.cu", "linear": "gemm.cu", "sr_conv": "gemm.cu",
-           "attention": "attention.cu", "dwconv_gelu": "dwconv_gelu.cu"}
+PALLAS = "representationlearning_tpu/ops/pallas/"
+# kernel -> (source under csrc/, the TPU kernel it replaces)
+KERNELS = {"ln_stats": ("mit_block/ln_stats.cu", PALLAS + "mit_block.py:259"),
+           "linear": ("mit_block/gemm.cu", PALLAS + "mit_block.py:259"),
+           "sr_conv": ("mit_block/gemm.cu", PALLAS + "mit_block.py:259"),
+           "attention": ("mit_block/attention.cu", PALLAS + "mit_block.py:259"),
+           "dwconv_gelu": ("mit_block/dwconv_gelu.cu", PALLAS + "mit_block.py:259"),
+           "affinity": ("refine/affinity.cu", PALLAS + "affinity.py:134"),
+           "varm_propagate": ("refine/varm.cu", PALLAS + "varm.py:91")}
+
+# The SCD pseudo-label path (configs/scd_voc.yaml): crop, CAM scales, refinement
+# at half resolution with 2 * (max_present + 1) mask channels
+CROP, CAM_SCALES, MAX_PRESENT = 320, (1.0, 0.5, 1.5), 8
+DILATIONS, VARM_ITERS, DOWN_SCALE = (1, 2, 4, 8, 12, 24), 10, 2
+
+
+def cam_stages(side: int) -> list[tuple]:
+    """The MiT-B1 block geometries of a `cam_only` forward at side x side: the
+    token grids are side / 4, / 8, / 16, / 16, and no block exports its logits."""
+    t = side // 4
+    return [(hw, C, nh, sr, False)
+            for hw, (_, C, nh, sr, _) in zip((t, t // 2, t // 4, t // 4), STAGES)]
+
+
+# Published peaks of one H100 SXM at its full power limit: device memory bytes/s,
+# dense bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
+PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
 
 # Kernel against plain version on the SAME inputs; a result passes when
 # max|kernel - plain| <= tol * max(1, max|plain|).
@@ -60,6 +99,20 @@ PIECE_TOL = {
     # f32 only; the multiply-adds may fuse, erf's exp differs in the last bit
     "dwconv_gelu": 1e-5,
 }
+# K2, absolute, on weights in [-w2, 1 + w2]: the sums over the K taps run in tap
+# order in the kernel and in torch's order in the plain version, and `expf`
+# differs from `torch.exp` in the last bits. K3 has no tolerance of its own: it
+# must equal its plain version bit for bit, and fails beyond 1e-6 if it does not.
+AFFINITY_TOL = 2e-5
+VARM_TOL = 1e-6
+# Labels of the kernel path against the plain path: both run the CAM forwards in
+# bf16, so a pixel whose score lies within a bf16 spacing of a threshold or of
+# the runner-up may fall on the other side.
+LABEL_SHARE = 0.995
+# The segmentation argmax of the validation step at random weights: the 21 class
+# logits of a pixel lie close together, so the path difference (6e-2 at a largest
+# logit of 11) flips more of them than it flips thresholded CAMs.
+SEG_SHARE = 0.99
 # The raw logits: f32 sums of hd = 64 exact bf16 products in another order.
 LOGIT_TOL = 1e-4
 # Whole block and whole model, kernel path against plain path: each side rounds
@@ -99,6 +152,78 @@ def use_plain(blocks, tmb, plain: bool) -> None:
             vars(b).pop("block_fn", None)  # back to the class attribute
 
 
+_KERNEL_FNS: dict = {}  # the K2 / K3 wrappers, kept while their plain versions stand in
+
+
+def use_plain_refine(plain: bool) -> None:
+    """Swap K2 and K3 for their plain versions where `models/refine.py` looks
+    them up, or back to the kernels."""
+    from representationlearning_tpu_torch.ops import affinity as ta
+    from representationlearning_tpu_torch.ops import varm as tv
+
+    for mod, name in ((ta, "affinity"), (tv, "varm_propagate")):
+        kernel = _KERNEL_FNS.setdefault(name, getattr(mod, name))
+        setattr(mod, name, getattr(mod, name + "_reference") if plain else kernel)
+
+
+def nbytes(*objs) -> int:
+    """Bytes of every tensor among objs (tuples, lists and dict values opened)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif hasattr(o, "data_ptr"):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def k1_flops(name: str, a: tuple, kw: dict) -> tuple[float, float]:
+    """(operations, the card's peak rate for them) of one K1 kernel call, from
+    its arguments' shapes."""
+    if name == "ln_stats":  # sum and sum of squares: 3 per element
+        return 3.0 * a[0].numel(), PEAK_F32
+    if name == "linear":  # (M, K) @ (K, Nout)
+        n_out, k = a[1].shape
+        return 2.0 * (a[0].numel() // k) * n_out * k, PEAK_BF16
+    if name == "sr_conv":  # (B * Nk, sr * sr * C) @ (sr * sr * C, C)
+        b, _, c = a[0].shape
+        sr = kw["sr"]
+        return 2.0 * b * (kw["H"] // sr) * (kw["W"] // sr) * c * sr * sr * c, PEAK_BF16
+    if name == "attention":  # q k^T and p v: 2 * 2 * B * N * Nk * C
+        b, n, c = a[0].shape
+        return 4.0 * b * n * a[1].shape[1] * c, PEAK_BF16
+    if name == "dwconv_gelu":  # 9 multiply-adds, bias, and about 20 for the GELU
+        return 40.0 * a[0].numel(), PEAK_F32
+    raise KeyError(name)
+
+
+def pseudo_batch(torch, gen, device):
+    """A training batch as the SCD loader gives it: normalised images whose
+    denormalised values look like rand * 255, 1-3 present classes per image,
+    and on every other image a box that leaves a zero-padded border."""
+    import torch.nn.functional as F
+    mean = torch.tensor([123.675, 116.28, 103.53])[None, :, None, None]
+    std = torch.tensor([58.395, 57.12, 57.375])[None, :, None, None]
+    coarse = torch.rand((BATCH, 3, CROP // 32, CROP // 32), generator=gen)
+    raw = F.interpolate(coarse, size=(CROP, CROP), mode="bilinear", align_corners=False)
+    raw = (0.75 * raw + 0.25 * torch.rand((BATCH, 3, CROP, CROP), generator=gen)) * 255.0
+    x = (raw - mean) / std
+    cls = torch.zeros((BATCH, NUM_CLASSES - 1))
+    box = torch.tensor([[0, CROP, 0, CROP]] * BATCH)
+    for i in range(BATCH):
+        n = 1 + i % 3
+        cls[i, torch.randperm(NUM_CLASSES - 1, generator=gen)[:n]] = 1.0
+        if i % 2:
+            y0, y1, x1 = 8 * i, CROP - 4 * i, CROP - 16 * i
+            box[i] = torch.tensor([y0, y1, 0, x1])
+            keep = torch.zeros((1, CROP, CROP), dtype=torch.bool)
+            keep[:, y0:y1, :x1] = True
+            x[i] = torch.where(keep, x[i], torch.zeros(()))
+    return x.to(device), cls.to(device), box.to(device)
+
+
 class Phases:
     def __init__(self, torch, seed: int):
         self.torch = torch
@@ -108,7 +233,25 @@ class Phases:
         self.piece_err: dict[str, float] = {}
         self.piece_ms: dict[str, float] = {}
         self.piece_plain_ms: dict[str, float] = {}
-        self.launches: dict[str, int] = {}
+        self.piece_library_ms: dict[str, float | None] = {}
+        self.library_covers: dict[str, str] = {}
+        # least time of each kernel's work, split into its two sides: [bytes, operations]
+        self.piece_bound: dict[str, list[float]] = {}
+        self.launches: dict[str, int] = {}          # in the path that owns the kernel
+        self.launches_pseudo: dict[str, int] = {}   # K1's, in the pseudo-label call
+        self.refine_inputs = None
+        # the 8 blocks of a headline forward, each as ONE function: least time
+        # [bytes, operations], and the time the five kernels take for them
+        self.block_bound = [0.0, 0.0]
+        self.block_ms = 0.0
+
+    def add_bound(self, name: str, n_bytes: float, flops: float, peak: float,
+                  times: int = 1) -> None:
+        """Add one call's bound: bytes over the memory rate or operations over
+        their peak rate, whichever is larger."""
+        t_bytes, t_ops = 1e3 * n_bytes / PEAK_BYTES, 1e3 * flops / peak
+        side = self.piece_bound.setdefault(name, [0.0, 0.0])
+        side[0 if t_bytes >= t_ops else 1] += times * max(t_bytes, t_ops)
 
     def check(self, ok: bool, what: str) -> None:
         log(f"  [{'ok' if ok else 'FAIL'}] {what}")
@@ -152,12 +295,16 @@ class Phases:
     def build(self, _build) -> None:
         log("== build")
         t0 = time.perf_counter()
-        _build.load_library("mit_block")
-        info = _build.build_log["mit_block"]
-        log(f"  mit_block: {time.perf_counter() - t0:.1f} s -> {info['path']}")
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        names = sorted(_build.SIGNATURES)
+        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
+            list(pool.map(_build.load_library, names))
+        log(f"  {', '.join(names)}: {time.perf_counter() - t0:.1f} s")
+        for name in names:
+            info = _build.build_log[name]
+            log(f"  {name} -> {info['path']}")
+            for line in info["ptxas"].splitlines():
+                if "registers" in line or "spill" in line or "Compiling entry" in line:
+                    log(f"  ptxas: {line.strip()}")
 
     # ------------------------------------------------------------- phase 3
     def _block_params(self, C, nh, sr, export, gen):
@@ -175,81 +322,254 @@ class Phases:
                     t.add_(0.1 * torch.randn(t.shape, generator=gen))
         return {k: v.detach().to(self.dev) for k, v in blk.kernel_params().items()}
 
+    def _library_call(self, name, a, kw):
+        """One PyTorch call that computes what a K1 kernel call computes, on the
+        same inputs cast to bf16 beforehand; None where there is none. A yardstick
+        only: nothing in the port calls these."""
+        torch = self.torch
+        import torch.nn.functional as F
+        bf16 = torch.bfloat16
+        if name == "linear":
+            x, w, bias = a[0].to(bf16), a[1], a[2].to(bf16)
+            return lambda: F.linear(x, w, bias)
+        if name == "sr_conv":
+            x, stats, ln_w, ln_b, w_flat, bias = a
+            B, _, C = x.shape
+            H, W, sr = kw["H"], kw["W"], kw["sr"]
+            h = ((x - stats[..., 0:1]) * stats[..., 1:2] * ln_w + ln_b).to(bf16)
+            h = h.reshape(B, H, W, C).permute(0, 3, 1, 2).contiguous()
+            w = w_flat.reshape(C, sr, sr, C).permute(0, 3, 1, 2).contiguous()
+            bias = bias.to(bf16)
+            return lambda: F.conv2d(h, w, bias, stride=sr)
+        if name == "attention" and not kw.get("export") and a[1].shape[1]:
+            q, kv = a
+            B, N, C = q.shape
+            nh = kw["nh"]
+
+            def heads(t):  # (B, n, C) -> (B, nh, n, hd)
+                return t.to(bf16).reshape(B, -1, nh, C // nh).transpose(1, 2).contiguous()
+
+            qh, kh, vh = heads(q), heads(kv[..., :C]), heads(kv[..., C:])
+            return lambda: F.scaled_dot_product_attention(qh, kh, vh)
+        return None
+
     def kernels_vs_plain(self, tmb) -> None:
         """Each piece of K1 against its plain version on the inputs the kernel
-        path gives it, then the whole block, at every stage geometry."""
+        path gives it, then the whole block: at every stage geometry of the
+        headline forward, timed, and at every geometry the pseudo-label call's
+        three `[x; flip x]` forwards give the kernels, checked only."""
         torch = self.torch
-        log("== kernel vs plain (same inputs), B = 8, bf16 compute")
         gen = torch.Generator().manual_seed(self.seed)
-        names = list(PIECE_TOL)
-        for k in names:
+        for k in PIECE_TOL:
             self.piece_err[k] = 0.0
             self.piece_ms[k] = self.piece_plain_ms[k] = 0.0
-        for hw, C, nh, sr, export in STAGES:
-            N = hw * hw
-            x = torch.randn(BATCH, N, C, generator=gen).to(self.dev, torch.bfloat16)
-            p = self._block_params(C, nh, sr, export, gen)
-            calls: list[tuple[str, tuple, dict]] = []
+        self.piece_library_ms.update(ln_stats=None, dwconv_gelu=None, linear=0.0,
+                                     sr_conv=0.0, attention=0.0)
+        self.library_covers.update(
+            linear="F.linear on bf16: the product and the bias of every launch, "
+                   "without the LayerNorm prologue and the residual",
+            sr_conv="F.conv2d on bf16, stride sr, on the normalised tokens: every launch, "
+                    "without the LayerNorm prologue",
+            attention="F.scaled_dot_product_attention on bf16: the launches that "
+                      "export no logits (6 of 8)")
+        log(f"== kernel vs plain (same inputs), headline forward: B = {BATCH}, "
+            f"{IMAGE} x {IMAGE}, bf16 compute")
+        for stage in STAGES:
+            self._block_vs_plain(tmb, gen, BATCH, *stage, timed=True)
+        for scale in CAM_SCALES:
+            side = int(scale * CROP)
+            log(f"== kernel vs plain (same inputs), pseudo-label forward: B = {2 * BATCH}, "
+                f"{side} x {side}, bf16 compute")
+            for stage in cam_stages(side):
+                self._block_vs_plain(tmb, gen, 2 * BATCH, *stage, timed=False)
 
-            def recording(name):
-                def run(*a, **kw):
-                    got = getattr(tmb, name)(*a, **kw)
-                    want = getattr(tmb, name + "_reference")(*a, **kw)
-                    got_t = got if isinstance(got, tuple) else (got,)
-                    want_t = want if isinstance(want, tuple) else (want,)
-                    for i, (g, w) in enumerate(zip(got_t, want_t)):
-                        if g is None and w is None:
-                            continue
-                        err, mag = max_err(g, w)
-                        tol = (LOGIT_TOL if i == 1 else PIECE_TOL[name]) * max(1.0, mag)
-                        what = f"{name}{' logits' if i == 1 else ''} @ N={N} C={C} " \
-                               f"shape {tuple(g.shape)}"
-                        self.check(err <= tol, f"{what}: max abs err {err:.3e} "
-                                               f"(max |plain| {mag:.3e}, tol {tol:.3e})")
-                        self.piece_err[name] = max(self.piece_err[name], err)
-                    calls.append((name, a, kw))
-                    return got
-                return run
+    def _block_vs_plain(self, tmb, gen, B, hw, C, nh, sr, export, *, timed: bool) -> None:
+        """One block geometry: every kernel call of the block against its plain
+        version, the kernel sequence against `fused_block`, the whole block
+        against its plain version; with `timed`, the times and bounds too."""
+        torch = self.torch
+        names = list(PIECE_TOL)
+        N = hw * hw
+        at = f"B={B} N={N} C={C}"
+        x = torch.randn(B, N, C, generator=gen).to(self.dev, torch.bfloat16)
+        p = self._block_params(C, nh, sr, export, gen)
+        calls: list[tuple[str, tuple, dict]] = []
+        block_flops = 0.0  # tensor-core operations of the whole block
 
-            ops = SimpleNamespace(**{n: recording(n) for n in names})
-            with torch.no_grad():
-                res = tmb._block(x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=torch.bfloat16,
-                                 export=export, ops=ops)
+        def recording(name):
+            def run(*a, **kw):
+                nonlocal block_flops
+                got = getattr(tmb, name)(*a, **kw)
+                want = getattr(tmb, name + "_reference")(*a, **kw)
+                got_t = got if isinstance(got, tuple) else (got,)
+                want_t = want if isinstance(want, tuple) else (want,)
+                for i, (g, w) in enumerate(zip(got_t, want_t)):
+                    if g is None and w is None:
+                        continue
+                    err, mag = max_err(g, w)
+                    tol = (LOGIT_TOL if i == 1 else PIECE_TOL[name]) * max(1.0, mag)
+                    what = f"{name}{' logits' if i == 1 else ''} @ {at} shape {tuple(g.shape)}"
+                    self.check(bool(torch.isfinite(g.float()).all()) and err <= tol,
+                               f"{what}: max abs err {err:.3e} "
+                               f"(max |plain| {mag:.3e}, tol {tol:.3e})")
+                    self.piece_err[name] = max(self.piece_err[name], err)
+                calls.append((name, a, kw))
+                flops, peak = k1_flops(name, a, kw)
+                if peak == PEAK_BF16:
+                    block_flops += flops
+                if timed:
+                    # the least time for this call: every argument read once, every
+                    # output written once, against its operations at their peak rate
+                    self.add_bound(name, nbytes(a, kw, got), flops, peak, times=DEPTH)
+                return got
+            return run
+
+        ops = SimpleNamespace(**{n: recording(n) for n in names})
+        kw = dict(H=hw, W=hw, sr=sr, nh=nh, dtype=torch.bfloat16, export=export)
+        with torch.no_grad():
+            res = tmb._block(x, p, ops=ops, **kw)
+            torch.cuda.synchronize()
+            got = tmb.fused_block(x, p, **kw)
+            want = tmb.fused_block_reference(x, p, **kw)
+            torch.cuda.synchronize()
+        got_t = got if export else (got,)
+        want_t = want if export else (want,)
+        same = all(torch.equal(a, b) for a, b in zip(res if export else (res,), got_t))
+        self.check(same, f"block @ {at}: fused_block = the recorded kernel sequence")
+        for i, (g, w) in enumerate(zip(got_t, want_t)):
+            err, mag = max_err(g, w)
+            rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
+            tol = PATH_TOL * mag
+            self.check(bool(torch.isfinite(g.float()).all()) and err <= tol,
+                       f"whole block{' logits' if i else ''} @ {at} nh={nh} "
+                       f"sr={sr}: max abs err {err:.3e} (max |plain| {mag:.3e}, "
+                       f"tol {tol:.3e}), rel L2 {rel:.2e}")
+        if not timed:
+            return
+        # the whole block as one function: the tokens in and out in the stream's
+        # dtype, the parameters, the exported logits; the intermediates that the
+        # five kernels hand to each other through device memory are not counted
+        t_bytes = 1e3 * nbytes(x, p, got) / PEAK_BYTES
+        t_ops = 1e3 * block_flops / PEAK_BF16
+        self.block_bound[0 if t_bytes >= t_ops else 1] += DEPTH * max(t_bytes, t_ops)
+        # device time of every piece over its calls in one block, x DEPTH blocks
+        for name, a, kw_ in calls:
+            k_ms = self.time_ms(lambda: getattr(tmb, name)(*a, **kw_), iters=10)
+            p_ms = self.time_ms(lambda: getattr(tmb, name + "_reference")(*a, **kw_),
+                                iters=10)
+            self.piece_ms[name] += DEPTH * k_ms
+            self.piece_plain_ms[name] += DEPTH * p_ms
+            lib_fn = self._library_call(name, a, kw_)
+            if lib_fn is not None:
+                self.piece_library_ms[name] += DEPTH * self.time_ms(lib_fn, iters=10)
+        with torch.no_grad():
+            blk_ms = self.time_ms(lambda: tmb.fused_block(x, p, **kw), iters=10)
+            plain_ms = self.time_ms(lambda: tmb.fused_block_reference(x, p, **kw), iters=10)
+        self.block_ms += DEPTH * blk_ms
+        log(f"  K1 block @ stage N={N} C={C}: kernels {blk_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms per block; bound of the block as one function "
+            f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+
+    # ------------------------------------------------------------- phase 3b
+    def _refine_images(self, gen, B, H, W):
+        """Denormalised images in [0, 255] at the refinement's size: "smooth" is a
+        coarse random field upsampled, with noise on top; "noise" is rand * 255;
+        "border" is the smooth one inside a constant frame, as a zero-padded crop
+        looks after denormalisation."""
+        torch = self.torch
+        import torch.nn.functional as F
+        coarse = torch.rand((B, 3, H // 16, W // 16), generator=gen)
+        smooth = F.interpolate(coarse, size=(H, W), mode="bilinear", align_corners=False)
+        smooth = (0.85 * smooth + 0.15 * torch.rand((B, 3, H, W), generator=gen)) * 255.0
+        border = torch.tensor([123.675, 116.28, 103.53])[None, :, None, None].expand(
+            B, 3, H, W).clone()
+        border[:, :, H // 8: H - H // 10, : W - W // 5] = \
+            smooth[:, :, H // 8: H - H // 10, : W - W // 5]
+        noise = torch.rand((B, 3, H, W), generator=gen) * 255.0
+        return {k: v.contiguous().to(self.dev)
+                for k, v in (("smooth", smooth), ("noise", noise), ("border", border))}
+
+    def refine_kernels_vs_plain(self, ta, tv) -> None:
+        """K2 in its three modes and K3 at the channel counts of the pseudo-label
+        path, against their plain versions, at the refinement's own size."""
+        torch = self.torch
+        B, S, K = BATCH, CROP // DOWN_SCALE, 8 * len(DILATIONS)
+        log(f"== K2 / K3 vs plain (same inputs), B = {B}, {S} x {S}, K = {K}, "
+            f"{VARM_ITERS} iterations")
+        gen = torch.Generator().manual_seed(self.seed + 1)
+        images = self._refine_images(gen, B, S, S)
+        self.piece_err["affinity"] = 0.0
+        with torch.no_grad():
+            for kind, img in images.items():
+                for mode in ("par", "pamr", "varm"):
+                    got = ta.affinity(img, DILATIONS, mode, w1=0.3, w2=0.01)
+                    torch.cuda.synchronize()
+                    want = ta.affinity_reference(img, DILATIONS, mode, w1=0.3, w2=0.01)
+                    err = (got - want).abs().max().item()
+                    self.piece_err["affinity"] = max(self.piece_err["affinity"], err)
+                    self.check(bool(torch.isfinite(got).all()) and err <= AFFINITY_TOL,
+                               f"affinity {mode} on the {kind} image, shape {tuple(got.shape)}: "
+                               f"max abs err {err:.3e} (tol {AFFINITY_TOL:.0e}), values in "
+                               f"[{got.min().item():.4f}, {got.max().item():.4f}]")
+                    if kind == "border" and mode != "par":
+                        # deep in the frame every neighbour equals the centre
+                        uniform = (1.0 if mode == "pamr" else 1.0 - 0.01) / K
+                        dev_u = (got[:, :, :4, -4:] - uniform).abs().max().item()
+                        self.check(dev_u <= 1e-7, f"affinity {mode}: uniform softmax on the "
+                                                  f"flat frame (max deviation {dev_u:.1e})")
+                    del got, want
+            ref = ta.affinity(images["smooth"], DILATIONS, "varm")
+            self.piece_err["varm_propagate"] = 0.0
+            masks = {}
+            for C in (2 * (MAX_PRESENT + 1), 2 * NUM_CLASSES):
+                m = torch.softmax(4.0 * torch.randn((B, C, S, S), generator=gen), dim=1)
+                masks[C] = m.to(self.dev)
+                got = tv.varm_propagate(masks[C], ref, DILATIONS, VARM_ITERS)
                 torch.cuda.synchronize()
-                got = tmb.fused_block(x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=torch.bfloat16,
-                                      export=export)
-                want = tmb.fused_block_reference(x, p, H=hw, W=hw, sr=sr, nh=nh,
-                                                 dtype=torch.bfloat16, export=export)
-                torch.cuda.synchronize()
-            got_t = got if export else (got,)
-            want_t = want if export else (want,)
-            same = all(torch.equal(a, b) for a, b in zip(res if export else (res,), got_t))
-            self.check(same, f"block @ N={N} C={C}: fused_block = the recorded kernel sequence")
-            for i, (g, w) in enumerate(zip(got_t, want_t)):
-                err, mag = max_err(g, w)
-                rel = ((g.float() - w.float()).norm() / w.float().norm()).item()
-                tol = PATH_TOL * mag
-                self.check(bool(torch.isfinite(g.float()).all()) and err <= tol,
-                           f"whole block{' logits' if i else ''} @ N={N} C={C} nh={nh} "
-                           f"sr={sr}: max abs err {err:.3e} (max |plain| {mag:.3e}, "
-                           f"tol {tol:.3e}), rel L2 {rel:.2e}")
-            # device time of every piece over its calls in one block, x DEPTH blocks
-            for name, a, kw in calls:
-                k_ms = self.time_ms(lambda: getattr(tmb, name)(*a, **kw), iters=10)
-                p_ms = self.time_ms(lambda: getattr(tmb, name + "_reference")(*a, **kw),
-                                    iters=10)
-                self.piece_ms[name] += DEPTH * k_ms
-                self.piece_plain_ms[name] += DEPTH * p_ms
-            with torch.no_grad():
-                blk_ms = self.time_ms(lambda: tmb.fused_block(
-                    x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=torch.bfloat16, export=export),
-                    iters=10)
-                plain_ms = self.time_ms(lambda: tmb.fused_block_reference(
-                    x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=torch.bfloat16, export=export),
-                    iters=10)
-            log(f"  K1 block @ stage N={N} C={C}: kernels {blk_ms:.3f} ms, "
-                f"plain {plain_ms:.3f} ms per block")
-            del calls, res, got, want
+                want = tv.varm_propagate_reference(masks[C], ref, DILATIONS, VARM_ITERS)
+                same = torch.equal(got, want)
+                err = (got - want).abs().max().item()
+                self.piece_err["varm_propagate"] = max(self.piece_err["varm_propagate"], err)
+                self.check(same or err <= VARM_TOL,
+                           f"varm_propagate C = {C}, {VARM_ITERS} iterations: "
+                           f"{'equal to the plain version bit for bit' if same else 'NOT equal'}"
+                           f", max abs err {err:.3e}")
+                del got, want
+        self.refine_inputs = (images["smooth"], ref, masks)
+
+    def time_refine_kernels(self, ta, tv) -> None:
+        """Device times of K2 and K3 at the pseudo-label path's shapes, and their
+        bounds: every input read once and every output written once, against the
+        operations of the function as it is defined (not of the passes a kernel
+        chooses to repeat)."""
+        torch = self.torch
+        img, ref, masks = self.refine_inputs
+        B, _, H, W = img.shape
+        K = ref.shape[1]
+        with torch.no_grad():
+            for mode in ("varm", "par", "pamr"):
+                k_ms = self.time_ms(lambda: ta.affinity(img, DILATIONS, mode), iters=20)
+                p_ms = self.time_ms(lambda: ta.affinity_reference(img, DILATIONS, mode), iters=3)
+                log(f"  affinity {mode}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+                if mode == "varm":  # the pseudo-label path's mode
+                    self.piece_ms["affinity"], self.piece_plain_ms["affinity"] = k_ms, p_ms
+            # per pixel and tap: mean 3, variance 9, logit 14, softmax 4, and for
+            # varm the variation term 21 and its softmax 5
+            self.add_bound("affinity", nbytes(img, ref), 56.0 * B * H * W * K, PEAK_F32)
+            for C, m in masks.items():
+                k_ms = self.time_ms(lambda: tv.varm_propagate(m, ref, DILATIONS, VARM_ITERS),
+                                    iters=5)
+                p_ms = self.time_ms(
+                    lambda: tv.varm_propagate_reference(m, ref, DILATIONS, VARM_ITERS), iters=2)
+                log(f"  varm_propagate C = {C}: kernel {k_ms:.3f} ms per call of {VARM_ITERS} "
+                    f"iterations ({k_ms / VARM_ITERS:.3f} ms per iteration), plain {p_ms:.3f} ms")
+                if C == 2 * (MAX_PRESENT + 1):  # the configured path (max_present = 8)
+                    self.piece_ms["varm_propagate"] = k_ms
+                    self.piece_plain_ms["varm_propagate"] = p_ms
+                    # one multiply and one add per tap, channel, pixel and iteration
+                    self.add_bound("varm_propagate", nbytes(m, ref, m),
+                                   2.0 * m.numel() * K * VARM_ITERS, PEAK_F32)
+        self.piece_library_ms.update(affinity=None, varm_propagate=None)
 
     # ------------------------------------------------------------- phase 4
     def run_slice(self, tmb):
@@ -262,7 +582,9 @@ class Phases:
         gen = torch.Generator().manual_seed(self.seed)
         model = TSCD("mit_b1", NUM_CLASSES, dtype=torch.bfloat16, fused_blocks=True,
                      act_dtype=torch.bfloat16, collect_attns="last2",
-                     generator=gen).eval().to(self.dev)
+                     generator=gen).eval()  # no device named: built on the card
+        self.check(all(t.is_cuda for t in model.state_dict().values()),
+                   "TSCD() without a device put its parameters and buffers on the card")
         blocks = [m for m in model.encoder.modules() if isinstance(m, FusedBlock)]
         self.check(len(blocks) == 8, f"{len(blocks)} of the 8 encoder blocks are FusedBlocks")
         x = torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen).to(self.dev)
@@ -317,9 +639,136 @@ class Phases:
         return model, blocks, x
 
     # ------------------------------------------------------------- phase 5
+    def _share(self, what: str, got, want, least: float = LABEL_SHARE) -> None:
+        share = (got == want).float().mean().item()
+        self.check(got.shape == want.shape and share >= least,
+                   f"{what} {tuple(got.shape)}: the two agree on "
+                   f"{100.0 * share:.3f}% of the entries (at least {100.0 * least:.1f}%)")
+
+    def run_pseudo_labels(self, tmb, ta, tv, model, blocks):
+        torch = self.torch
+        from representationlearning_tpu_torch.models.mit import FusedBlock
+        from representationlearning_tpu_torch.models.tscd import TSCD
+        from representationlearning_tpu_torch.train import scd as ts
+
+        S = CROP // DOWN_SCALE
+        log(f"== pseudo labels: scd_pseudo_labels, {BATCH} x 3 x {CROP} x {CROP}, scales "
+            f"{CAM_SCALES}, refinement at {S} x {S}, K = {8 * len(DILATIONS)}, "
+            f"{VARM_ITERS} iterations")
+        gen = torch.Generator().manual_seed(self.seed + 2)
+        twin = TSCD("mit_b1", NUM_CLASSES, dtype=torch.bfloat16, fused_blocks=True,
+                    act_dtype=torch.bfloat16, collect_attns="none", generator=gen).eval()
+        twin_blocks = [m for m in twin.encoder.modules() if isinstance(m, FusedBlock)]
+        x, cls, box = pseudo_batch(torch, gen, self.dev)
+        cfg = ts.SCDConfig(num_classes=NUM_CLASSES, crop_size=CROP, cam_scales=CAM_SCALES,
+                           varm_dilations=DILATIONS, varm_iters=VARM_ITERS,
+                           max_present=MAX_PRESENT)
+        attn_mask = ts._attn_mask(cfg)
+        self.check(attn_mask.is_cuda, "_attn_mask() without a device made its mask on the card")
+        mods = (tmb, ta, tv)
+
+        def run(c):
+            for mod in mods:
+                mod.reset_launches()
+            out = ts.scd_pseudo_labels(twin, x, cls, box, c, attn_mask=attn_mask)
+            torch.cuda.synchronize()
+            return out, {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+        # three forwards of the [x; flip x] batch, 8 blocks each; per block as in
+        # the headline slice; one K2 and VARM_ITERS K3 launches per refine call
+        n_fwd = len(CAM_SCALES)
+        n_sr = sum(DEPTH for _, _, _, sr, _ in STAGES if sr > 1)
+        want = {"ln_stats": n_fwd * (2 * 8 + n_sr), "linear": n_fwd * 5 * 8,
+                "sr_conv": n_fwd * n_sr, "attention": n_fwd * 8, "dwconv_gelu": n_fwd * 8,
+                "affinity": 1, "varm_propagate": VARM_ITERS}
+        results = {}
+        for label, c in ((f"max_present = {MAX_PRESENT}", cfg),
+                         ("max_present = None", cfg._replace(max_present=None))):
+            out, counts = run(c)
+            log(f"  launches, {label}: {counts}")
+            self.check(counts == want, f"launch counts {want}: {n_fwd * 8} K1 block runs, "
+                                       f"1 K2 and {VARM_ITERS} K3 launches ({label})")
+            results[label] = out
+            if c is cfg:
+                self.launches_pseudo = {k: counts[k] for k in PIECE_TOL}
+                self.launches.update(affinity=counts["affinity"],
+                                     varm_propagate=counts["varm_propagate"])
+        (cams, pseudo, refined, ref_label), full = results.values()
+        N = (CROP // 16) ** 2
+        self.check(tuple(cams.shape) == (BATCH, NUM_CLASSES - 1, CROP, CROP)
+                   and tuple(pseudo.shape) == tuple(refined.shape) == (BATCH, CROP, CROP)
+                   and tuple(ref_label.shape) == (BATCH, N, N),
+                   f"shapes: cams {tuple(cams.shape)}, labels {tuple(refined.shape)}, "
+                   f"affinity labels {tuple(ref_label.shape)}")
+        self.check(bool(torch.isfinite(cams).all()) and 0.0 <= cams.min().item()
+                   and cams.max().item() <= 1.0 + 1e-5, "cams finite and in [0, 1]")
+        present = [set((cls[i] > 0).nonzero().flatten().add(1).tolist()) | {0, 255}
+                   for i in range(BATCH)]
+        self.check(all(set(refined[i].unique().tolist()) <= present[i] for i in range(BATCH)),
+                   "refined labels hold only background, the present classes and ignore")
+        self.check(bool((refined[1, : box[1, 0]] == 255).all()
+                        and (refined[1, :, box[1, 3]:] == 255).all()),
+                   "refined labels are ignore outside the image box")
+        fg = ((refined > 0) & (refined < 255)).float().mean().item()
+        log(f"  refined labels: {100.0 * fg:.1f}% foreground, "
+            f"{100.0 * (refined == 255).float().mean().item():.1f}% ignore")
+        self._share(f"refined labels, max_present = {MAX_PRESENT} against all "
+                    f"{NUM_CLASSES - 1} classes,", refined, full[2])
+
+        # the same call with K1, K2 and K3 swapped for their plain versions
+        use_plain(twin_blocks, tmb, True)
+        use_plain_refine(True)
+        try:
+            (p_cams, p_pseudo, p_refined, p_ref), counts = run(cfg)
+        finally:
+            use_plain(twin_blocks, tmb, False)
+            use_plain_refine(False)
+        self.check(sum(counts.values()) == 0, "plain path launched no kernel")
+        err, mag = max_err(cams, p_cams)
+        self.check(err <= PATH_TOL * mag, f"cams: kernel path vs plain path max abs err "
+                                          f"{err:.3e} (max |plain| {mag:.3e}, tol "
+                                          f"{PATH_TOL * mag:.3e})")
+        self._share("pseudo labels, kernel path against plain path,", pseudo, p_pseudo)
+        self._share("refined labels, kernel path against plain path,", refined, p_refined)
+        self._share("affinity labels, kernel path against plain path,", ref_label, p_ref)
+        del results, full, p_cams, p_pseudo, p_refined, p_ref
+
+        # the trainer's validation step, on the exporting model of the headline slice
+        log(f"== eval step: make_scd_eval_step, {IMAGE} x {IMAGE}, collect_attns = last2")
+        step = ts.make_scd_eval_step(model, cfg)
+        for b in (1, BATCH):
+            img = torch.randn((b, 3, IMAGE, IMAGE), generator=gen).to(self.dev)
+            batch = {"image": img, "cls_label": cls[:b]}
+            for mod in mods:
+                mod.reset_launches()
+            got = step(batch)
+            torch.cuda.synchronize()
+            ran = sum(tmb.LAUNCHES.values())
+            use_plain(blocks, tmb, True)
+            try:
+                plain = step(batch)
+                torch.cuda.synchronize()
+            finally:
+                use_plain(blocks, tmb, False)
+            self.check(ran > 0 and all(tuple(got[k].shape) == (b, IMAGE, IMAGE)
+                                       for k in ("seg_pred", "cam_label", "ref_label"))
+                       and tuple(got["cls_pred"].shape) == (b, NUM_CLASSES - 1),
+                       f"batch {b}: seg_pred, cam_label, ref_label {(b, IMAGE, IMAGE)}, "
+                       f"cls_pred {tuple(got['cls_pred'].shape)}, {ran} K1 launches")
+            self.check(int(got["seg_pred"].max()) < NUM_CLASSES
+                       and int(got["ref_label"].max()) < NUM_CLASSES
+                       and int(got["cam_label"].max()) < NUM_CLASSES,
+                       f"batch {b}: every label below {NUM_CLASSES}")
+            for k, least in (("seg_pred", SEG_SHARE), ("cam_label", LABEL_SHARE)):
+                self._share(f"batch {b} {k}, kernel path against plain path,", got[k],
+                            plain[k], least)
+            del got, plain
+        return twin, twin_blocks, (x, cls, box, cfg, attn_mask)
+
+    # ------------------------------------------------------------- phase 6
     def timing(self, tmb, model, blocks, x, card: str) -> None:
         torch = self.torch
-        log(f"== timing (CUDA events, {card})")
+        log(f"== timing of the forward (CUDA events, {card})")
 
         def forward():
             with torch.no_grad():
@@ -328,7 +777,7 @@ class Phases:
         times = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             use_plain(blocks, tmb, which == "plain")
-            times[which].append(self.time_ms(forward, iters=5))
+            times[which].append(self.time_ms(forward, iters=3))
         use_plain(blocks, tmb, False)
         for which, ts in times.items():
             ms = min(ts)
@@ -339,8 +788,80 @@ class Phases:
         log(f"  peak device memory, kernel path: "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for k in PIECE_TOL:
+            lib = self.piece_library_ms[k]
             log(f"  {k}: {self.piece_ms[k]:.3f} ms per forward (plain "
-                f"{self.piece_plain_ms[k]:.3f} ms)")
+                f"{self.piece_plain_ms[k]:.3f} ms, bound {sum(self.piece_bound[k]):.4f} ms, "
+                f"library call {'none' if lib is None else f'{lib:.3f} ms'})")
+        by_bytes, by_ops = self.block_bound
+        log(f"  K1, the 8 blocks of a forward each as one function (tokens in and out in "
+            f"bf16, parameters, exported logits; 2 M K N operations at the bf16 peak): "
+            f"bound {by_bytes + by_ops:.4f} ms ({by_bytes:.4f} by bytes, {by_ops:.4f} by "
+            f"operations), kernels {self.block_ms:.3f} ms; the per-kernel bounds above "
+            f"take the f32 tensors between the five kernels as given")
+
+    def timing_pseudo(self, tmb, twin, twin_blocks, args, card: str) -> None:
+        """The whole pseudo-label call, kernel path against plain path in turns,
+        and the kernel path's stages one by one."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.refine import varm_refine
+        from representationlearning_tpu_torch.train import scd as ts
+        from representationlearning_tpu_torch.wsss import camutils as cu
+
+        x, cls, box, cfg, attn_mask = args
+        log(f"== timing of the pseudo-label call (CUDA events, {card})")
+
+        def call():
+            ts.scd_pseudo_labels(twin, x, cls, box, cfg, attn_mask=attn_mask)
+
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            use_plain(twin_blocks, tmb, which == "plain")
+            use_plain_refine(which == "plain")
+            try:
+                times[which].append(self.time_ms(call, iters=3, warmup=1))
+            finally:
+                use_plain(twin_blocks, tmb, False)
+                use_plain_refine(False)
+        for which, ts_ms in times.items():
+            ms = min(ts_ms)
+            log(f"  scd_pseudo_labels, {which} path: {', '.join(f'{t:.2f}' for t in ts_ms)} ms "
+                f"per batch of {BATCH} -> {BATCH * 1000.0 / ms:.1f} images/s (best run)")
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        log(f"  peak device memory, kernel path: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+        with torch.no_grad():
+            cams, _ = cu.multi_scale_cam_with_ref_mat(
+                lambda a: twin(a, cam_only=True), x, cfg.cam_scales)
+            denorm = x * x.new_tensor(cfg.std)[None, :, None, None] \
+                + x.new_tensor(cfg.mean)[None, :, None, None]
+
+            def refine_fn(im, m):
+                return varm_refine(im, m, dilations=cfg.varm_dilations, num_iter=cfg.varm_iters)
+
+            def refine():
+                return cu.refine_cams_with_bkg_v2(refine_fn, denorm, cams, cls, box,
+                                                  max_present=cfg.max_present)
+
+            refined = refine()
+            stages = {
+                "multi_scale_cam (3 x 16 forwards on K1, resizes)":
+                    lambda: cu.multi_scale_cam_with_ref_mat(
+                        lambda a: twin(a, cam_only=True), x, cfg.cam_scales),
+                "cam_to_label": lambda: cu.cam_to_label(cams, cls, box, ignore_mid=True),
+                "refine_cams_with_bkg_v2 (resizes, softmax, K2, K3, argmax)": refine,
+                "cams_to_refine_label": lambda: cu.cams_to_refine_label(refined, mask=attn_mask),
+            }
+            for name, fn in stages.items():
+                log(f"  stage {name}: {self.time_ms(fn, iters=5, warmup=1):.3f} ms")
+            from representationlearning_tpu_torch.ops.image import flip_lr, resize_bilinear
+            for scale in cfg.cam_scales:
+                side = int(scale * CROP)
+                xs = resize_bilinear(x, (side, side))
+                cat = torch.cat([xs, flip_lr(xs)], dim=0)
+                ms = self.time_ms(lambda: twin(cat, cam_only=True), iters=5, warmup=1)
+                log(f"  cam_only forward of {tuple(cat.shape)}: {ms:.3f} ms")
 
 
 def main() -> int:
@@ -359,7 +880,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from representationlearning_tpu_torch.ops import _build
+    from representationlearning_tpu_torch.ops import affinity as ta
     from representationlearning_tpu_torch.ops import mit_block as tmb
+    from representationlearning_tpu_torch.ops import varm as tv
 
     ph = Phases(torch, args.seed)
     torch.manual_seed(args.seed)
@@ -369,24 +892,35 @@ def main() -> int:
     except Exception:  # noqa: BLE001 -- nothing else can run without the kernels
         traceback.print_exc()
         return 1
-    state = None  # (model, its FusedBlocks, input) once the slice ran
+    state = {}  # what a phase hands to the later ones
+
+    def slice_():
+        state["model"], state["blocks"], state["x"] = ph.run_slice(tmb)
+
+    def pseudo():
+        state["twin"], state["twin_blocks"], state["args"] = ph.run_pseudo_labels(
+            tmb, ta, tv, state["model"], state["blocks"])
+
+    def timing():
+        log(f"== timing of K2 / K3 (CUDA events, {card})")
+        ph.time_refine_kernels(ta, tv)
+        ph.timing(tmb, state["model"], state["blocks"], state["x"], card)
+        ph.timing_pseudo(tmb, state["twin"], state["twin_blocks"], state["args"], card)
+
     for name, fn in (("kernel vs plain", lambda: ph.kernels_vs_plain(tmb)),
-                     ("slice", lambda: ph.run_slice(tmb))):
+                     ("K2 / K3 vs plain", lambda: ph.refine_kernels_vs_plain(ta, tv)),
+                     ("slice", slice_), ("pseudo labels", pseudo), ("timing", timing)):
         try:
-            state = fn() or state
+            fn()
         except Exception:  # noqa: BLE001 -- report the phase, go on with the next
             traceback.print_exc()
             ph.failures.append(f"phase {name} raised")
         torch.cuda.empty_cache()
-    if state is not None:
-        try:
-            ph.timing(tmb, *state, card)
-        except Exception:  # noqa: BLE001
-            traceback.print_exc()
-            ph.failures.append("phase timing raised")
-    missing = [k for k in PIECE_TOL if ph.launches.get(k, 0) == 0]
+    missing = [k for k in KERNELS if ph.launches.get(k, 0) == 0]
+    missing += [f"{k} (pseudo-label call)" for k in PIECE_TOL
+                if ph.launches_pseudo.get(k, 0) == 0]
     if missing:
-        ph.failures.append(f"kernels never launched on the main path: {missing}")
+        ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
     if leaked:
         ph.failures.append(f"jax was imported: {leaked[:5]}")
@@ -395,10 +929,20 @@ def main() -> int:
         for f in ph.failures:
             log(f"  - {f}")
         return 1
-    kernels = [{"name": k, "route": "cuda",
-                "source": f"{PKG}/csrc/mit_block/{SOURCES[k]}", "replaces": REPLACES,
-                "launches": ph.launches[k], "max_abs_err": ph.piece_err[k],
-                "ms": ph.piece_ms[k], "plain_ms": ph.piece_plain_ms[k]} for k in PIECE_TOL]
+    kernels = []
+    for k, (source, replaces) in KERNELS.items():
+        by_bytes, by_ops = ph.piece_bound[k]
+        entry = {"name": k, "route": "cuda", "source": f"{PKG}/csrc/{source}",
+                 "replaces": replaces, "launches": ph.launches[k],
+                 "max_abs_err": ph.piece_err[k], "ms": ph.piece_ms[k],
+                 "plain_ms": ph.piece_plain_ms[k], "bound_ms": by_bytes + by_ops,
+                 "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+                 "library_ms": ph.piece_library_ms[k]}
+        if k in ph.launches_pseudo:
+            entry["launches_pseudo_label"] = ph.launches_pseudo[k]
+        if k in ph.library_covers:
+            entry["library_covers"] = ph.library_covers[k]
+        kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

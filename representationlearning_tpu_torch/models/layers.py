@@ -1,7 +1,9 @@
 """Shared building blocks (the port of ``representationlearning_tpu/models/layers.py``).
 
-Initialisers take an explicit ``torch.Generator``. ``TorchConv`` of the JAX
-package is ``nn.Conv2d`` here, whose integer padding it mirrored.
+Initialisers take an explicit ``torch.Generator`` (a CPU one) and draw on the
+CPU whatever device the parameter lives on, so a seed gives the same weights on
+the card and on the CPU. ``TorchConv`` of the JAX package is ``nn.Conv2d`` here,
+whose integer padding it mirrored.
 """
 from __future__ import annotations
 
@@ -11,12 +13,20 @@ import torch
 from torch import nn
 
 
+def _draw(t: torch.Tensor, fill) -> torch.Tensor:
+    """Fill `t` in place with what `fill` draws into a CPU tensor of its shape."""
+    with torch.no_grad():
+        if t.device.type == "cpu":
+            return fill(t)
+        return t.copy_(fill(torch.empty(t.shape, dtype=t.dtype)))
+
+
 def trunc_normal_init(t: torch.Tensor, std: float = 0.02,
                       generator: torch.Generator | None = None) -> torch.Tensor:
     """Normal(0, std) truncated at +-2 std, in place (timm's trunc_normal_ as the
     JAX package applies it, `mix_transformer.py:31-43`)."""
-    with torch.no_grad():
-        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    return _draw(t, lambda u: nn.init.trunc_normal_(u, 0.0, std, -2.0 * std, 2.0 * std,
+                                                    generator=generator))
 
 
 def fan_out_conv_init(w: torch.Tensor, groups: int = 1,
@@ -25,16 +35,16 @@ def fan_out_conv_init(w: torch.Tensor, groups: int = 1,
     fan_out = kh * kw * O / groups (`mix_transformer.py:38-43`), in place."""
     out_ch, _, kh, kw = w.shape
     fan_out = kh * kw * out_ch // groups
-    with torch.no_grad():
-        return nn.init.normal_(w, 0.0, math.sqrt(2.0 / fan_out), generator=generator)
+    return _draw(w, lambda u: nn.init.normal_(u, 0.0, math.sqrt(2.0 / fan_out),
+                                              generator=generator))
 
 
 def lecun_normal_init(w: torch.Tensor,
                       generator: torch.Generator | None = None) -> torch.Tensor:
     """Normal(0, 1 / sqrt(fan_in)) in place, fan_in = I * kh * kw (flax's
     lecun_normal scale, which the JAX AttnProj uses)."""
-    with torch.no_grad():
-        return nn.init.normal_(w, 0.0, w[0].numel() ** -0.5, generator=generator)
+    return _draw(w, lambda u: nn.init.normal_(u, 0.0, w[0].numel() ** -0.5,
+                                              generator=generator))
 
 
 def init_weights(module: nn.Module, generator: torch.Generator | None = None) -> None:

@@ -7,12 +7,18 @@ stage-4 features. NCHW in and out:
 - ``cam_only=True`` -> (cam_s4 (B, C-1, h, w), attn_pred)
 - default           -> (cls_logits (B, C-1), seg (B, C, H/4, W/4), attns, attn_pred)
 ``attn_pred`` is None under ``collect_attns="none"``.
+
+The model is built on the card: ``device=None`` means ``torch.device("cuda")``
+and construction raises where there is none; the CPU is the caller's explicit
+choice (``device="cpu"``, as the tests do). The initial weights depend on the
+generator only, not on the device.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from .._device import resolve_device
 from ..ops.image import adaptive_avg_pool_11, adaptive_max_pool_11
 from .layers import AttnProj, init_weights
 from .mit import MIT_CONFIGS, MixVisionTransformer
@@ -24,21 +30,24 @@ class TSCD(nn.Module):
                  embedding_dim: int = 256, strides=(4, 2, 2, 1), pooling: str = "gmp",
                  use_flash: bool = False, fused_blocks: bool = False,
                  collect_attns: bool | str = "last2", dtype=torch.float32,
-                 act_dtype=None, generator: torch.Generator | None = None):
+                 act_dtype=None, generator: torch.Generator | None = None,
+                 device: torch.device | str | None = None):
         super().__init__()
         if pooling not in ("gmp", "gap"):
             raise ValueError(f"pooling: {pooling!r}")
         self.num_classes, self.pooling = num_classes, pooling
         cfg = dict(MIT_CONFIGS[backbone])
-        self.encoder = MixVisionTransformer(
-            strides=tuple(strides), dtype=dtype, use_flash=use_flash,
-            fused_blocks=fused_blocks, collect_attns=collect_attns, act_dtype=act_dtype,
-            **cfg)
-        self.decoder = SegFormerHead(cfg["embed_dims"], num_classes, embedding_dim,
-                                     dtype=dtype)
-        # 2 stage-4 blocks x 8 heads = 16 input channels (`TSCD_model.py:38`)
-        self.attn_proj = AttnProj(16)
-        self.classifier = nn.Conv2d(cfg["embed_dims"][3], num_classes - 1, 1, bias=False)
+        with resolve_device(device):  # parameters and buffers are created there
+            self.encoder = MixVisionTransformer(
+                strides=tuple(strides), dtype=dtype, use_flash=use_flash,
+                fused_blocks=fused_blocks, collect_attns=collect_attns,
+                act_dtype=act_dtype, **cfg)
+            self.decoder = SegFormerHead(cfg["embed_dims"], num_classes, embedding_dim,
+                                         dtype=dtype)
+            # 2 stage-4 blocks x 8 heads = 16 input channels (`TSCD_model.py:38`)
+            self.attn_proj = AttnProj(16)
+            self.classifier = nn.Conv2d(cfg["embed_dims"][3], num_classes - 1, 1,
+                                        bias=False)
         init_weights(self, generator)
 
     def _pool(self, x):

@@ -4,8 +4,10 @@ The sources under ``representationlearning_tpu_torch/csrc/`` are compiled with
 ``nvcc`` into a shared library with a plain C interface and loaded with
 ``ctypes``. The build happens at first use, into ``representationlearning_tpu_torch/
 _build/<hash>/``, keyed by a hash of the sources and the flags, so an edited
-source rebuilds and an unchanged one loads what is there. Nothing here runs at
-import time: the CPU paths never call ``load_library``.
+source rebuilds and an unchanged one loads what is there. Every source of a
+library is compiled by an ``nvcc`` of its own, all started together, and the
+objects are linked at the end. Nothing here runs at import time: the CPU paths
+never call ``load_library``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argument types; every pointer and the stream are c_void_p
@@ -34,9 +36,15 @@ SIGNATURES = {
         "k1_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "k1_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
+    "refine": {
+        # imgs, out, B, H, W, dilations (host), n_dil, mode, scale, w2, pos (host), stream
+        "k2_affinity": (_P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P),
+        # src, ref, dst, B, C, H, W, dilations (host), n_dil, stream
+        "k3_varm_iter": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
+    },
 }
 
-_lock = threading.Lock()
+_locks = {name: threading.Lock() for name in SIGNATURES}  # libraries build side by side
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, dict] = {}  # name -> {"path", "ptxas"} of this process
 
@@ -69,21 +77,31 @@ def _digest(name: str) -> str:
 def _compile(name: str, out: Path) -> str:
     nvcc = find_nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources(name))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent build sees the old or the new file
-    return proc.stdout + proc.stderr
+    log = []
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        jobs = []
+        for src in _sources(name):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", os.path.join(tmp, src.stem + ".o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        link = [nvcc, "-shared", "-o", os.path.join(tmp, out.name),
+                *(cmd[-2] for cmd, _ in jobs)]
+        results = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in jobs]
+        for cmd, text, rc in results:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+            log.append(text)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        os.replace(link[3], out)  # atomic: a concurrent build sees the old or the new file
+    return "".join(log)
 
 
 def load_library(name: str = "mit_block") -> ctypes.CDLL:
     """Build (if needed) and load the kernels of ``csrc/<name>/``."""
-    with _lock:
+    with _locks[name]:
         lib = _libs.get(name)
         if lib is not None:
             return lib

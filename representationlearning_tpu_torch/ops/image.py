@@ -1,8 +1,10 @@
-"""Image ops on the inference path (the port of the matching part of
-``representationlearning_tpu/ops/image.py``). Tensors are NCHW.
+"""Image ops on the inference and pseudo-label paths (the port of the matching
+part of ``representationlearning_tpu/ops/image.py``). Tensors are NCHW; every
+function works on the last two axes (H, W) and runs where its input lives.
 
 The JAX package hand-builds torch's bilinear taps; here ``F.interpolate`` is the
-semantics itself. The TPU routing choice ``resize_bilinear_auto`` is not ported.
+semantics itself. The TPU routing choices ``resize_bilinear_auto`` and
+``resize_bilinear_mm`` are not ported: every call site uses ``resize_bilinear``.
 """
 from __future__ import annotations
 
@@ -29,3 +31,44 @@ def adaptive_max_pool_11(x: torch.Tensor) -> torch.Tensor:
 
 def adaptive_avg_pool_11(x: torch.Tensor) -> torch.Tensor:
     return x.mean(dim=(-2, -1), keepdim=True)
+
+
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """``F.interpolate(mode='nearest')`` of (..., H, W): src index =
+    floor(i * in / out), computed in f32 as torch does. Any dtype (labels too)."""
+    H_out, W_out = int(size[0]), int(size[1])
+    H_in, W_in = x.shape[-2:]
+    if (H_out, W_out) == (H_in, W_in):
+        return x
+
+    def index(n_out: int, n_in: int) -> torch.Tensor:
+        i = torch.arange(n_out, dtype=torch.float32, device=x.device) * (n_in / n_out)
+        return i.floor().long().clamp_(0, n_in - 1)
+
+    return x.index_select(-2, index(H_out, H_in)).index_select(-1, index(W_out, W_in))
+
+
+def interpolate(x: torch.Tensor, size=None, scale_factor=None, mode: str = "bilinear",
+                align_corners: bool = False) -> torch.Tensor:
+    """Dispatcher with ``F.interpolate``'s signature over the two resizes above."""
+    if size is None:
+        sf = scale_factor if isinstance(scale_factor, (tuple, list)) else \
+            (scale_factor, scale_factor)
+        size = (int(x.shape[-2] * sf[0]), int(x.shape[-1] * sf[1]))
+    if mode == "bilinear":
+        return resize_bilinear(x, size, align_corners=align_corners)
+    if mode == "nearest":
+        return resize_nearest(x, size)
+    raise ValueError(f"unsupported mode {mode!r}")
+
+
+def flip_lr(x: torch.Tensor) -> torch.Tensor:
+    """Horizontal flip: the W axis of (..., H, W)."""
+    return x.flip(-1)
+
+
+def minmax_normalize_cam(cam: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Reference CAM normalisation (`utils/camutils.py:110-111`):
+    cam += max(-cam); cam /= max(cam) + eps, maxes over H, W per (B, C)."""
+    cam = cam + adaptive_max_pool_11(-cam)
+    return cam / (adaptive_max_pool_11(cam) + eps)

@@ -21,7 +21,7 @@ def test_jax_init_loads_strictly_into_the_port():
     v = jax.jit(JTSCD(backbone="mit_b0", num_classes=21).init)(jax.random.PRNGKey(0), x)
     v = jax.tree_util.tree_map(np.asarray, v)
     sd = tscd_state_dict_from_jax(v)
-    m = TSCD("mit_b0", 21, fused_blocks=True)
+    m = TSCD("mit_b0", 21, fused_blocks=True, device="cpu")
     m.load_state_dict(sd, strict=True)
     q = v["params"]["encoder"]["block2_1"]["attn"]["q"]["kernel"]
     assert torch.equal(m.encoder.block2[1].attn.q.weight, torch.from_numpy(q.T.copy()))
@@ -34,7 +34,7 @@ def test_roundtrip_through_convert_tscd_is_bit_exact(backbone, fused):
     """port state_dict -> `convert_tscd` -> `tscd_state_dict_from_jax` returns
     the same names, dtypes and bits (trained-looking BN stats included)."""
     g = torch.Generator().manual_seed(1)
-    m = TSCD(backbone, 21, fused_blocks=fused, generator=g)
+    m = TSCD(backbone, 21, fused_blocks=fused, generator=g, device="cpu")
     bn = m.decoder.linear_fuse.bn
     with torch.no_grad():
         bn.running_mean.copy_(torch.randn(bn.running_mean.shape, generator=g))

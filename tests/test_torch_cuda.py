@@ -1,4 +1,4 @@
-"""Kernel K1's CUDA kernels against their plain versions, on a CUDA card.
+"""The CUDA kernels (K1, K2, K3) against their plain versions, on a CUDA card.
 
 Small and ragged shapes (token counts, key counts and widths that no tile
 divides, an empty key set, both head widths) complement ``chip_smoke.py``, which
@@ -9,7 +9,9 @@ installed: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 import pytest
 import torch
 
+from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import mit_block as tmb
+from representationlearning_tpu_torch.ops import varm as TV
 
 pytestmark = pytest.mark.cuda
 
@@ -135,3 +137,88 @@ def test_cuda_path_refuses_what_it_does_not_take(dev):
         tmb.ln_stats(torch.zeros(64, 16, device=dev).t())
     with pytest.raises(ValueError, match="on cpu"):
         tmb.linear(x, w.to(BF16), torch.zeros(64))
+
+
+# ------------------------------------------------------------------ K2, K3
+SCD_DILATIONS = (1, 2, 4, 8, 12, 24)
+
+
+def _image(gen, B, H, W, dev, border=False):
+    img = torch.rand((B, 3, H, W), generator=gen) * 255.0
+    if border:  # a constant frame, as a zero-padded crop has after denormalisation
+        img[:, :, :, : W // 2] = 116.28
+        img[:, :, : H // 2] = 116.28
+    return img.to(dev)
+
+
+@pytest.mark.parametrize("mode", ["par", "pamr", "varm"])
+@pytest.mark.parametrize("H,W,dil,border", [(20, 28, (1, 2, 4), False),
+                                            (13, 37, SCD_DILATIONS, False),  # H < max dilation
+                                            (64, 60, SCD_DILATIONS, True), (1, 5, (1, 3), False)])
+def test_affinity_matches_plain(dev, H, W, dil, border, mode):
+    """2e-5 on weights in [-w2, 1 + w2]: the sums over K run in another order
+    and `expf` differs from `torch.exp` in the last bits."""
+    img = _image(torch.Generator().manual_seed(H * W), 2, H, W, dev, border)
+    before = TA.LAUNCHES["affinity"]
+    got = TA.affinity(img, dil, mode, w1=0.3, w2=0.01)
+    assert TA.LAUNCHES["affinity"] == before + 1
+    want = TA.affinity_reference(img, dil, mode, w1=0.3, w2=0.01)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= 2e-5
+    if border:  # every tap of the corner pixel lies in the flat frame: a uniform softmax
+        K = 8 * len(dil)
+        uniform = {"pamr": 1.0 / K, "varm": (1.0 - 0.01) / K}.get(mode)
+        if uniform is not None:
+            assert (got[:, :, 0, 0] - uniform).abs().max().item() <= 1e-7
+
+
+@pytest.mark.parametrize("layout", ["channel_first", "kept_axis"])
+@pytest.mark.parametrize("H,W,C,dil,num_iter", [(20, 28, 1, (1, 2, 4), 3),
+                                                (13, 37, 5, SCD_DILATIONS, 4),
+                                                (33, 40, 18, SCD_DILATIONS, 10),
+                                                (16, 16, 7, (1, 2), 1), (9, 9, 3, (2,), 0)])
+def test_varm_propagate_equals_plain(dev, H, W, C, dil, num_iter, layout):
+    """No fused multiply-add and the plain version's order of summation: equal
+    bit for bit."""
+    g = torch.Generator().manual_seed(H * W + C)
+    masks = torch.rand((2, C, H, W), generator=g).to(dev)
+    ref = TA.affinity_reference(_image(g, 2, H, W, dev), dil, "varm")
+    if layout == "kept_axis":
+        ref = ref[:, :, None]
+    before = TV.LAUNCHES["varm_propagate"]
+    got = TV.varm_propagate(masks, ref, dil, num_iter)
+    assert TV.LAUNCHES["varm_propagate"] == before + num_iter
+    assert torch.equal(got, TV.varm_propagate_reference(masks, ref, dil, num_iter))
+
+
+def test_refine_runs_both_kernels(dev):
+    from representationlearning_tpu_torch.models import refine as TR
+
+    g = torch.Generator().manual_seed(0)
+    imgs, masks = _image(g, 2, 24, 20, dev), torch.rand((2, 5, 12, 10), generator=g).to(dev)
+    for fn, mode in ((TR.varm_refine, "varm"), (TR.par_refine, "par"), (TR.pamr_refine, "pamr")):
+        k2, k3 = TA.LAUNCHES["affinity"], TV.LAUNCHES["varm_propagate"]
+        got = fn(imgs, masks, dilations=(1, 2, 4), num_iter=3)
+        assert (TA.LAUNCHES["affinity"], TV.LAUNCHES["varm_propagate"]) == (k2 + 1, k3 + 3)
+        want = fn(imgs.cpu(), masks.cpu(), dilations=(1, 2, 4), num_iter=3)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4, mode
+    # the variants' affinity is plain PyTorch; their propagation is K3
+    for extra in ("pos", "-var"):
+        k2, k3 = TA.LAUNCHES["affinity"], TV.LAUNCHES["varm_propagate"]
+        got = TR.par_variant_refine(imgs, masks, dilations=(1, 2), num_iter=3, extra=extra)
+        assert (TA.LAUNCHES["affinity"], TV.LAUNCHES["varm_propagate"]) == (k2, k3 + 3)
+        want = TR.par_variant_refine(imgs.cpu(), masks.cpu(), dilations=(1, 2), num_iter=3,
+                                     extra=extra)
+        assert (got.cpu() - want).abs().max().item() <= 1e-4, extra
+
+
+def test_refine_kernels_refuse_what_they_do_not_take(dev):
+    img = torch.zeros(1, 3, 8, 8, device=dev)
+    with pytest.raises(TypeError, match="float32"):
+        TA.affinity(img.double(), (1,), "par")
+    with pytest.raises(ValueError, match=r"\(B, 3, H, W\)"):
+        TA.affinity(torch.zeros(1, 4, 8, 8, device=dev), (1,), "par")
+    with pytest.raises(ValueError, match="dilations"):
+        TA.affinity(img, tuple(range(1, 18)), "par")
+    with pytest.raises(ValueError, match="ref on"):
+        TV.varm_propagate(torch.zeros(1, 2, 8, 8, device=dev), torch.zeros(1, 8, 8, 8), (1,), 1)

@@ -23,7 +23,9 @@ def _modules():
 
 def test_every_module_imports_without_jax():
     mods = _modules()
-    assert "representationlearning_tpu_torch.ops.mit_block" in mods
+    assert {"representationlearning_tpu_torch." + m for m in (
+        "ops.mit_block", "ops.affinity", "ops.varm", "ops.neighbors", "models.refine",
+        "wsss.camutils", "train.scd")} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "
@@ -39,11 +41,39 @@ def test_cpu_forward_never_touches_the_kernel_loader(monkeypatch):
     monkeypatch.setattr(_build, "load_library", refuse)
     monkeypatch.setattr(_build, "find_nvcc", refuse)
     m = TSCD("mit_b0", 21, fused_blocks=True, dtype=torch.bfloat16,
-             act_dtype=torch.bfloat16).eval()
+             act_dtype=torch.bfloat16, device="cpu").eval()
     with torch.no_grad():
         cls, seg, attns, pred = m(torch.randn(1, 3, 32, 32))
     assert seg.shape == (1, 21, 8, 8) and pred.shape == (1, 4, 4)
     assert torch.isfinite(seg.float()).all()
+
+
+def test_tscd_builds_on_the_card_unless_asked_for_the_cpu():
+    """`device=None` means the card and raises where there is none; the CPU is
+    the caller's explicit choice, and the seed alone fixes the weights."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TSCD("mit_b0", 21)
+    a = TSCD("mit_b0", 21, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = TSCD("mit_b0", 21, device=torch.device("cpu"),
+             generator=torch.Generator().manual_seed(3))
+    assert all(p.device.type == "cpu" for p in a.parameters())
+    assert all(torch.equal(u, w) for u, w in zip(a.state_dict().values(),
+                                                 b.state_dict().values()))
+
+
+def test_cpu_refine_never_touches_the_kernel_loader(monkeypatch):
+    from representationlearning_tpu_torch.models.refine import par_refine, varm_refine
+
+    def refuse(*a, **k):
+        raise AssertionError("kernel loader called on the CPU path")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    imgs, masks = torch.rand(1, 3, 12, 12) * 255, torch.rand(1, 4, 6, 6)
+    for fn in (varm_refine, par_refine):
+        out = fn(imgs, masks, dilations=(1, 2), num_iter=2)
+        assert out.shape == (1, 4, 12, 12) and torch.isfinite(out).all()
 
 
 def test_kernel_build_is_keyed_by_the_sources():
@@ -53,12 +83,16 @@ def test_kernel_build_is_keyed_by_the_sources():
     assert len(d) == 16 and d == _build._digest("mit_block")
     assert {p.name for p in (_build.CSRC / "mit_block").glob("*.cu")} == {
         "ln_stats.cu", "gemm.cu", "attention.cu", "dwconv_gelu.cu"}
+    assert {p.name for p in (_build.CSRC / "refine").glob("*.cu")} == {
+        "affinity.cu", "varm.cu"}
+    assert _build._digest("refine") != d
+    assert set(_build.SIGNATURES["refine"]) == {"k2_affinity", "k3_varm_iter"}
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "representationlearning_tpu_torch/_build/" in ignored
 
 
 def test_fusedblock_refuses_training_mode():
-    blk = TSCD("mit_b0", 21, fused_blocks=True).encoder.block1[0]
+    blk = TSCD("mit_b0", 21, fused_blocks=True, device="cpu").encoder.block1[0]
     blk.train()
     with pytest.raises(ValueError, match="inference-only"):
         blk(torch.zeros(1, 16, 32), 4, 4)

@@ -26,14 +26,15 @@ BF16_REL = 2e-2
 @pytest.fixture(scope="module")
 def setup():
     x = np.random.default_rng(0).standard_normal((2, 64, 64, 3)).astype(np.float32)
-    tm = TSCD("mit_b0", 21, fused_blocks=True, generator=torch.Generator().manual_seed(0))
+    tm = TSCD("mit_b0", 21, fused_blocks=True, generator=torch.Generator().manual_seed(0),
+              device="cpu")
     sd = tm.state_dict()
     return x, torch.from_numpy(x.transpose(0, 3, 1, 2).copy()), sd, \
         convert_tscd(state_dict_to_numpy(sd))
 
 
 def _port(sd, **kw):
-    m = TSCD("mit_b0", 21, **kw).eval()
+    m = TSCD("mit_b0", 21, device="cpu", **kw).eval()
     m.load_state_dict(sd)
     return m
 
