@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's two paths and checks them. The first is TSCD / MiT-B1
+Drives the port's three paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -9,6 +9,11 @@ pseudo-label call (``train/scd.py::scd_pseudo_labels``) at the configuration of
 ``configs/scd_voc.yaml``: batch 8 x 320 x 320, multi-scale flip CAMs through K1,
 pseudo labels, background-aware VARM refinement through K2 (``ops/affinity.py``)
 and K3 (``ops/varm.py``), affinity labels; and the trainer's validation step.
+The third is the SCD train step (``train/scd.py::make_scd_train_step``) at the same
+configuration: the trained ``TSCD("mit_b1", use_flash=True)`` in f32 with K4
+(``ops/attention.py``, forward and backward) under the six attentions of stages
+1-3, the bf16 fused CAM twin on the same parameters (K1), the refinement (K2,
+K3), six losses, backward and one AdamW update a step.
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -17,8 +22,9 @@ and K3 (``ops/varm.py``), affinity labels; and the trainer's validation step.
    PyTorch version on the same inputs, at the four MiT-B1 stage geometries of
    the 512 x 512 forward, with each kernel's bound and, where one PyTorch call
    computes the same function, that call's time; the same comparison, untimed,
-   at the twelve geometries of the pseudo-label call's forwards (batch 16 at
-   320, 160 and 480 pixels a side); then K2 in its three modes and K3 at 18
+   at the twenty-four geometries of the CAM forwards (batch 16 at 320, 160
+   and 480 pixels a side in the pseudo-label call and the train step, and at
+   96, 48 and 144 in the train step's 0.3-scale set); then K2 in its three modes and K3 at 18
    and 42 channels at the refinement's own size;
 4. slice: the model's forward through the kernels, its output shapes, the
    launch counts of every kernel, and seg / attn_pred against the same model run
@@ -26,12 +32,22 @@ and K3 (``ops/varm.py``), affinity labels; and the trainer's validation step.
 5. pseudo labels: ``scd_pseudo_labels`` through the kernels, its launch counts,
    and its CAMs and labels against the same call with K1, K2 and K3 swapped for
    their plain versions; the validation step at batch 1 and 8 x 512 x 512;
-6. timing: CUDA-event times of each kernel, of the whole forward and of the
-   whole pseudo-label call, kernel path against plain path.
+6. K4 vs plain: flash attention forward and backward (dq, dk, dv against autograd
+   through the plain version, random cotangent; two backward runs give equal
+   bits) at the train step's six geometries, the three of the 512 x 512
+   forward, Nk = 1 and one bf16 case; ``TSCD(use_flash=True)`` in eval against
+   ``use_flash=False`` on the same weights;
+7. train step: a few steps through ``make_scd_train_step``; launch counts of
+   every kernel per step; the first step's losses and gradient norms per
+   parameter group against the same step on the plain path from the same seed
+   and masks; frozen and updated parameters; step count and learning rate; the
+   warm-up switch; a checkpoint saved and restored gives the same next step;
+8. timing: CUDA-event times of each kernel, of the whole forward, of the whole
+   pseudo-label call and of the train step, kernel path against plain path.
 
 Run from the root of the repository: ``python3 chip_smoke.py [--seed N]``. Every
 phase prints its results; the line before the last is a JSON object with one
-entry per kernel, and the last line is ``{"ok": true, ...}``. Without a CUDA
+entry per kernel (K1's five, K2, K3, K4 forward and K4 backward), and the last line is ``{"ok": true, ...}``. Without a CUDA
 card, or without the package beside the script, it exits non-zero and prints no
 result.
 """
@@ -41,6 +57,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from concurrent.futures import ThreadPoolExecutor
@@ -62,12 +79,31 @@ KERNELS = {"ln_stats": ("mit_block/ln_stats.cu", PALLAS + "mit_block.py:259"),
            "attention": ("mit_block/attention.cu", PALLAS + "mit_block.py:259"),
            "dwconv_gelu": ("mit_block/dwconv_gelu.cu", PALLAS + "mit_block.py:259"),
            "affinity": ("refine/affinity.cu", PALLAS + "affinity.py:134"),
-           "varm_propagate": ("refine/varm.cu", PALLAS + "varm.py:91")}
+           "varm_propagate": ("refine/varm.cu", PALLAS + "varm.py:91"),
+           "flash_fwd": ("attention/flash_fwd.cu", PALLAS + "attention.py:95"),
+           "flash_bwd": ("attention/flash_bwd.cu", PALLAS + "attention.py:134")}
 
 # The SCD pseudo-label path (configs/scd_voc.yaml): crop, CAM scales, refinement
 # at half resolution with 2 * (max_present + 1) mask channels
 CROP, CAM_SCALES, MAX_PRESENT = 320, (1.0, 0.5, 1.5), 8
 DILATIONS, VARM_ITERS, DOWN_SCALE = (1, 2, 4, 8, 12, 24), 10, 2
+
+
+# K4's (BH, Nq, Nk) in one train step, hd = 64: the non-exporting blocks of stages
+# 1-3 (DEPTH launches each) of the main forward at CROP and of the second forward
+# at int(0.3 * CROP); and at the 512 x 512 forward
+HD = 64
+
+
+def flash_shapes(side: int) -> list[tuple[int, int, int]]:
+    t = side // 4
+    return [(BATCH * nh, (t // f) ** 2, (t // f // sr) ** 2)
+            for f, (_, _, nh, sr, export) in zip((1, 2, 4), STAGES) if not export]
+
+
+# optimiser and schedule of configs/scd_voc.yaml
+LR, WEIGHT_DECAY, WARMUP, MAX_ITERS = 6e-5, 0.01, 1500, 20000
+TRAIN_STEPS = 3
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -122,6 +158,35 @@ LOGIT_TOL = 1e-4
 # 2e-2 of the largest magnitude is about five bf16 spacings (the bound of the
 # port's bf16 CPU parity test against the JAX package).
 PATH_TOL = 2e-2
+# K4 against its plain version, times max(1, max|plain|). f32: the same f32
+# products, summed tile by tile under an online softmax in the kernel and under
+# one softmax in the plain version; the JAX package holds its kernel to 1e-4
+# forward and rtol 2e-4 (atol 2e-5) backward (tests/test_pallas_attention.py:56,108).
+# bf16: the kernel rounds p and ds to bf16 before their products as the TPU kernel
+# does, the plain version works in f32 and rounds its result: a few bf16 spacings.
+FLASH_TOL = {"fwd": 1e-4, "bwd": 2e-4, "bf16": 2e-2}
+# TSCD(use_flash=True) against use_flash=False, f32 on both sides through eight
+# blocks and the head: the f32 end-to-end bound of the port's CPU parity tests.
+FLASH_MODEL_TOL = 2e-4
+# First train step, kernel path against plain path, same seed and masks. `cls`
+# does not see the CAM twin: only K4 differs, f32 against f32. The other five
+# read the twin's bf16 CAMs (within PATH_TOL of each other) and the labels made
+# from them (equal on at least LABEL_SHARE of the pixels), so a loss, and the
+# gradient norm of a parameter group, may move by about the share of pixels
+# whose label flipped plus the CAM difference: 2e-2 of its value, with an
+# absolute floor for losses near zero.
+STEP_CLS_TOL = 1e-4
+STEP_TOL, STEP_ATOL = 2e-2, 2e-3
+# The same step twice from a restored checkpoint: K1-K4 repeat bit for bit, but
+# `index_add_` in the bilateral grid and the backward of gathers, `grid_sample`
+# and resizes add with atomics in an order that changes from run to run.
+RESUME_TOL = 1e-4
+# The parameters after those two steps, absolute: the updates differ by that
+# noise in the gradients, far below one f32 spacing of a parameter near 1
+# (1.2e-7), so a parameter lands on the same f32 value or the next; a moment
+# that was not restored would move it by the whole update (1.2e-6 in the heads
+# at this step's learning rate).
+RESUME_PARAM_TOL = 5e-7
 
 
 def log(msg: str = "") -> None:
@@ -239,6 +304,7 @@ class Phases:
         self.piece_bound: dict[str, list[float]] = {}
         self.launches: dict[str, int] = {}          # in the path that owns the kernel
         self.launches_pseudo: dict[str, int] = {}   # K1's, in the pseudo-label call
+        self.launches_train: dict[str, int] = {}    # every kernel's, in one train step
         self.refine_inputs = None
         # the 8 blocks of a headline forward, each as ONE function: least time
         # [bytes, operations], and the time the five kernels take for them
@@ -376,17 +442,24 @@ class Phases:
             f"{IMAGE} x {IMAGE}, bf16 compute")
         for stage in STAGES:
             self._block_vs_plain(tmb, gen, BATCH, *stage, timed=True)
-        for scale in CAM_SCALES:
-            side = int(scale * CROP)
-            log(f"== kernel vs plain (same inputs), pseudo-label forward: B = {2 * BATCH}, "
-                f"{side} x {side}, bf16 compute")
-            for stage in cam_stages(side):
-                self._block_vs_plain(tmb, gen, 2 * BATCH, *stage, timed=False)
+        # the CAM forwards at the crop (the pseudo-label call and the train step)
+        # and at 0.3 of it (the train step's second set): there the token grids
+        # are no multiples of sr, so `sr_conv` drops rows and columns, and at the
+        # smallest the attention sees one key
+        for base in (CROP, int(0.3 * CROP)):
+            for scale in CAM_SCALES:
+                side = int(scale * base)
+                log(f"== kernel vs plain (same inputs), CAM forward: B = {2 * BATCH}, "
+                    f"{side} x {side}, bf16 compute")
+                worst = max(self._block_vs_plain(tmb, gen, 2 * BATCH, *stage, timed=False)
+                            for stage in cam_stages(side))
+                log(f"  K1 at {side} x {side}: largest error {worst:.3f} of its tolerance")
 
-    def _block_vs_plain(self, tmb, gen, B, hw, C, nh, sr, export, *, timed: bool) -> None:
+    def _block_vs_plain(self, tmb, gen, B, hw, C, nh, sr, export, *, timed: bool) -> float:
         """One block geometry: every kernel call of the block against its plain
         version, the kernel sequence against `fused_block`, the whole block
-        against its plain version; with `timed`, the times and bounds too."""
+        against its plain version; with `timed`, the times and bounds too.
+        Returns the largest error found as a share of its tolerance."""
         torch = self.torch
         names = list(PIECE_TOL)
         N = hw * hw
@@ -395,10 +468,11 @@ class Phases:
         p = self._block_params(C, nh, sr, export, gen)
         calls: list[tuple[str, tuple, dict]] = []
         block_flops = 0.0  # tensor-core operations of the whole block
+        worst = 0.0  # largest error / tolerance of this geometry
 
         def recording(name):
             def run(*a, **kw):
-                nonlocal block_flops
+                nonlocal block_flops, worst
                 got = getattr(tmb, name)(*a, **kw)
                 want = getattr(tmb, name + "_reference")(*a, **kw)
                 got_t = got if isinstance(got, tuple) else (got,)
@@ -413,6 +487,7 @@ class Phases:
                                f"{what}: max abs err {err:.3e} "
                                f"(max |plain| {mag:.3e}, tol {tol:.3e})")
                     self.piece_err[name] = max(self.piece_err[name], err)
+                    worst = max(worst, err / tol)
                 calls.append((name, a, kw))
                 flops, peak = k1_flops(name, a, kw)
                 if peak == PEAK_BF16:
@@ -444,8 +519,9 @@ class Phases:
                        f"whole block{' logits' if i else ''} @ {at} nh={nh} "
                        f"sr={sr}: max abs err {err:.3e} (max |plain| {mag:.3e}, "
                        f"tol {tol:.3e}), rel L2 {rel:.2e}")
+            worst = max(worst, err / tol)
         if not timed:
-            return
+            return worst
         # the whole block as one function: the tokens in and out in the stream's
         # dtype, the parameters, the exported logits; the intermediates that the
         # five kernels hand to each other through device memory are not counted
@@ -469,6 +545,7 @@ class Phases:
         log(f"  K1 block @ stage N={N} C={C}: kernels {blk_ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms per block; bound of the block as one function "
             f"{max(t_bytes, t_ops):.4f} ms (bytes {t_bytes:.4f}, operations {t_ops:.4f})")
+        return worst
 
     # ------------------------------------------------------------- phase 3b
     def _refine_images(self, gen, B, H, W):
@@ -765,7 +842,275 @@ class Phases:
             del got, plain
         return twin, twin_blocks, (x, cls, box, cfg, attn_mask)
 
-    # ------------------------------------------------------------- phase 6
+    # ------------------------------------------------------------- phase 6 (K4)
+    def _flash_inputs(self, gen, BH, Nq, Nk, dtype):
+        torch = self.torch
+        q, k, v, do = (torch.randn(shape, generator=gen).to(self.dev, dtype)
+                       for shape in ((BH, Nq, HD), (BH, Nk, HD), (BH, Nk, HD), (BH, Nq, HD)))
+        return q.requires_grad_(), k.requires_grad_(), v.requires_grad_(), do
+
+    def flash_vs_plain(self, tf) -> None:
+        """K4 forward and backward against the plain softmax composition and
+        autograd through it, on the same inputs and cotangent."""
+        torch = self.torch
+        import torch.nn.functional as F
+        f32, bf16 = torch.float32, torch.bfloat16
+        train = flash_shapes(CROP) + flash_shapes(int(CROP * 0.3))
+        cases = [(s, f32, "train step") for s in train] \
+            + [(s, f32, "512 x 512 forward") for s in flash_shapes(IMAGE)] \
+            + [((3, 70, 1), f32, "Nk = 1"), (train[0], bf16, "bf16")]
+        log(f"== K4 vs plain (same inputs): flash attention forward and backward, hd = {HD}")
+        gen = torch.Generator().manual_seed(self.seed + 3)
+        scale = HD ** -0.5
+        for k in ("flash_fwd", "flash_bwd"):
+            self.piece_err[k] = self.piece_ms[k] = self.piece_plain_ms[k] = 0.0
+            self.piece_library_ms[k] = 0.0
+        self.piece_err["flash_bf16"] = 0.0
+        self.library_covers.update(
+            flash_fwd="F.scaled_dot_product_attention on the same f32 tensors",
+            flash_bwd="the backward of F.scaled_dot_product_attention on the same f32 tensors")
+        for (BH, Nq, Nk), dtype, what in cases:
+            q, k, v, do = self._flash_inputs(gen, BH, Nq, Nk, dtype)
+            out = tf.flash_attention(q, k, v, scale)
+            grads = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+            again = torch.autograd.grad(tf.flash_attention(q, k, v, scale), (q, k, v), do)
+            torch.cuda.synchronize()
+            want = tf.flash_attention_reference(q, k, v, scale)
+            want_grads = torch.autograd.grad(want, (q, k, v), do, retain_graph=True)
+            at = f"(BH, Nq, Nk) = ({BH}, {Nq}, {Nk}) {str(dtype).split('.')[-1]}, {what}"
+            for name, g, w in (("o", out, want), ("dq", grads[0], want_grads[0]),
+                               ("dk", grads[1], want_grads[1]), ("dv", grads[2], want_grads[2])):
+                side = "fwd" if name == "o" else "bwd"
+                err, mag = max_err(g, w)
+                tol = FLASH_TOL["bf16" if dtype == bf16 else side] * max(1.0, mag)
+                self.check(g.dtype == dtype and bool(torch.isfinite(g.float()).all())
+                           and err <= tol,
+                           f"flash {name} @ {at}: max abs err {err:.3e} (max |plain| {mag:.3e}, "
+                           f"tol {tol:.3e})")
+                key = "flash_bf16" if dtype == bf16 else "flash_" + side
+                self.piece_err[key] = max(self.piece_err[key], err)
+            self.check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                       f"flash backward @ {at}: two runs on the same inputs give equal bits")
+            if what != "train step":
+                continue
+            # times and bounds of the DEPTH launches a step makes at this geometry
+            sdpa = F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale)
+            fwd = {"": lambda: tf.flash_attention(q, k, v, scale),
+                   "plain": lambda: tf.flash_attention_reference(q, k, v, scale),
+                   "library": lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
+                                                                     scale=scale)}
+            bwd = {"": lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
+                   "plain": lambda: torch.autograd.grad(want, (q, k, v), do, retain_graph=True),
+                   "library": lambda: torch.autograd.grad(sdpa, (q, k, v), do[None],
+                                                          retain_graph=True)}
+            for name, fns in (("flash_fwd", fwd), ("flash_bwd", bwd)):
+                ms = {which: self.time_ms(fn, iters=10) for which, fn in fns.items()}
+                self.piece_ms[name] += DEPTH * ms[""]
+                self.piece_plain_ms[name] += DEPTH * ms["plain"]
+                self.piece_library_ms[name] += DEPTH * ms["library"]
+                log(f"  {name} @ ({BH}, {Nq}, {Nk}): kernel {ms['']:.4f} ms, plain "
+                    f"{ms['plain']:.4f} ms, library call {ms['library']:.4f} ms per launch")
+            lse = BH * Nq * 4
+            # forward: q, k, v read, o and the row logsumexp written; 2 products of
+            # 2 BH Nq Nk hd operations, f32 outside the tensor cores
+            self.add_bound("flash_fwd", nbytes(q, k, v, out) + lse, 4.0 * BH * Nq * Nk * HD,
+                           PEAK_F32, times=DEPTH)
+            # backward: q, k, v, o, do, lse read, dq, dk, dv written; 5 products
+            self.add_bound("flash_bwd", nbytes(q, k, v, out, do, grads) + lse,
+                           10.0 * BH * Nq * Nk * HD, PEAK_F32, times=DEPTH)
+
+    def flash_model(self, tf) -> None:
+        """TSCD(use_flash=True) in eval against use_flash=False on the same weights."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.tscd import TSCD
+
+        log(f"== TSCD(mit_b1, use_flash=True) against use_flash=False, eval, f32, "
+            f"{BATCH} x 3 x {CROP} x {CROP}")
+        gen = torch.Generator().manual_seed(self.seed + 4)
+        flash = TSCD("mit_b1", NUM_CLASSES, use_flash=True, generator=gen).eval()
+        plain = TSCD("mit_b1", NUM_CLASSES, use_flash=False).eval()
+        plain.load_state_dict(flash.state_dict())
+        x = pseudo_batch(torch, gen, self.dev)[0]
+        tf.reset_launches()
+        with torch.no_grad():
+            got, want = flash(x), plain(x)
+        torch.cuda.synchronize()
+        self.check(tf.LAUNCHES == {"flash_fwd": 3 * DEPTH, "flash_bwd": 0},
+                   f"launches {tf.LAUNCHES}: the six non-exporting attentions ran on K4")
+        for name, g, w in (("cls", got[0], want[0]), ("seg", got[1], want[1]),
+                           ("attn_pred", got[3], want[3])):
+            err, mag = max_err(g, w)
+            tol = FLASH_MODEL_TOL * max(1.0, mag)
+            self.check(bool(torch.isfinite(g).all()) and err <= tol,
+                       f"{name} {tuple(g.shape)}: max abs err {err:.3e} (max |plain| {mag:.3e}, "
+                       f"tol {tol:.3e})")
+
+    # ------------------------------------------------------------- phase 7
+    def _trainer(self, gen, tmb, *, use_flash: bool, cam_iters: int = -1):
+        """Model, fused CAM twin on the same parameters, optimiser state and step
+        function of the train step's configuration."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.mit import FusedBlock
+        from representationlearning_tpu_torch.models.tscd import TSCD, share_parameters
+        from representationlearning_tpu_torch.train import optim
+        from representationlearning_tpu_torch.train import scd as ts
+        from representationlearning_tpu_torch.train.state import TrainState
+
+        model = TSCD("mit_b1", NUM_CLASSES, use_flash=use_flash, collect_attns="last2",
+                     generator=gen)
+        twin = share_parameters(
+            TSCD("mit_b1", NUM_CLASSES, dtype=torch.bfloat16, fused_blocks=True,
+                 act_dtype=torch.bfloat16, collect_attns="none"), model).eval()
+        cfg = ts.SCDConfig(num_classes=NUM_CLASSES, crop_size=CROP, cam_scales=CAM_SCALES,
+                           varm_dilations=DILATIONS, varm_iters=VARM_ITERS,
+                           max_present=MAX_PRESENT, energy_method="grid", cam_iters=cam_iters)
+        state = TrainState.create(model, optim.make_poly_warmup_adamw(
+            model, LR, WEIGHT_DECAY, WARMUP, MAX_ITERS, param_labels=optim.tscd_param_labels))
+        return SimpleNamespace(
+            model=model, twin=twin, cfg=cfg, state=state,
+            twin_blocks=[m for m in twin.encoder.modules() if isinstance(m, FusedBlock)],
+            step=ts.make_scd_train_step(model, cfg, cam_model=twin),
+            labels=optim.tscd_param_labels(n for n, _ in model.named_parameters()))
+
+    def _group_norms(self, t) -> dict[str, float]:
+        """l2 norm of the gradients that lie in .grad, per parameter group."""
+        sq = {}
+        for n, p in t.model.named_parameters():
+            sq[t.labels[n]] = sq.get(t.labels[n], 0.0) + p.grad.float().square().sum().item()
+        return {k: v ** 0.5 for k, v in sq.items()}
+
+    def _one_step(self, t, batch, seed: int, norms: dict | None = None):
+        """One call of the step function; with `norms`, the gradient norms per
+        group are read just before the optimiser consumes the gradients."""
+        torch = self.torch
+        if norms is not None:
+            apply = t.state.apply_gradients
+
+            def recording():
+                norms.update(self._group_norms(t))
+                return apply()
+
+            t.state.apply_gradients = recording
+        try:
+            _, metrics = t.step(t.state, batch, torch.Generator().manual_seed(seed))
+        finally:
+            vars(t.state).pop("apply_gradients", None)
+        torch.cuda.synchronize()
+        return {k: v.item() for k, v in metrics.items()}
+
+    def run_train_steps(self, tmb, ta, tv, tf):
+        torch = self.torch
+        from representationlearning_tpu_torch.train import checkpoints as ck
+        from representationlearning_tpu_torch.train import optim
+
+        log(f"== train step: make_scd_train_step, TSCD(mit_b1, use_flash=True) f32 + bf16 "
+            f"fused CAM twin, {BATCH} x 3 x {CROP} x {CROP}, AdamW {LR}, warm-up {WARMUP}")
+        gen = torch.Generator().manual_seed(self.seed + 5)
+        x, cls, box = pseudo_batch(torch, gen, self.dev)
+        batch = {"image": x, "cls_label": cls, "img_box": box}
+        state_gen = gen.get_state()
+        t = self._trainer(gen, tmb, use_flash=True)
+        self.check(all(p.is_cuda for p in t.model.parameters())
+                   and all(a is b for a, b in zip(t.twin.parameters(), t.model.parameters())),
+                   "model built on the card; the CAM twin holds the model's own parameters")
+        initial = {n: p.detach().clone() for n, p in t.model.named_parameters()}
+        mods = (tmb, ta, tv, tf)
+        n_fwd = 2 * len(CAM_SCALES)  # CAM forwards of the twin a step, 8 blocks each
+        n_sr = sum(DEPTH for _, _, _, sr, _ in STAGES if sr > 1)
+        want = {"ln_stats": n_fwd * (2 * 8 + n_sr), "linear": n_fwd * 5 * 8,
+                "sr_conv": n_fwd * n_sr, "attention": n_fwd * 8, "dwconv_gelu": n_fwd * 8,
+                "affinity": 1, "varm_propagate": VARM_ITERS,
+                "flash_fwd": 2 * 3 * DEPTH, "flash_bwd": 2 * 3 * DEPTH}
+        sched = optim.poly_warmup_schedule(LR, WARMUP, MAX_ITERS)
+        first, norms = None, {}
+        for i in range(TRAIN_STEPS):
+            for mod in mods:
+                mod.reset_launches()
+            met = self._one_step(t, batch, self.seed + 100 + i, norms if i == 0 else None)
+            counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+            first = first or met
+            if i == 0:
+                self.launches_train = counts
+            log(f"  step {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in met.items()))
+            self.check(counts == want,
+                       f"step {i + 1} launch counts {counts}: 12 K4 forward, 12 K4 backward, "
+                       f"{n_fwd * 8} K1 block runs, 1 K2, {VARM_ITERS} K3")
+            self.check(all(map(lambda v: v == v and abs(v) != float("inf"), met.values())),
+                       f"step {i + 1}: the six losses and the total are finite")
+            lrs = t.state.learning_rates
+            self.check(t.state.step == i + 1 and abs(lrs[0] - sched(i + 1)) <= 1e-12
+                       and abs(lrs[1] - 10 * sched(i + 1)) <= 1e-11,
+                       f"step count {t.state.step}, next learning rates {lrs[0]:.6e} (encoder) "
+                       f"and {lrs[1]:.6e} (heads) as the schedule says")
+        frozen = [n for n in initial if t.labels[n] == "norm"]
+        params = dict(t.model.named_parameters())
+        self.check(all(torch.equal(params[n], initial[n]) for n in frozen),
+                   f"the {len(frozen)} frozen encoder norm tensors are unchanged after "
+                   f"{TRAIN_STEPS} steps")
+        still = [n for n in initial if t.labels[n] != "norm" and torch.equal(params[n], initial[n])]
+        self.check(not still, f"every other parameter tensor ({len(initial) - len(frozen)}) "
+                              f"changed after {TRAIN_STEPS} steps" + (f"; not {still[:4]}"
+                                                                     if still else ""))
+        bn = t.model.decoder.linear_fuse.bn
+        self.check(int(bn.num_batches_tracked) == TRAIN_STEPS
+                   and bool((bn.running_var != 1).all()),
+                   "BatchNorm running statistics moved once a step (the main forward's)")
+
+        # a checkpoint saved and restored gives the same next step
+        with tempfile.TemporaryDirectory() as d:
+            ck.save(d, t.state.step, t.state)
+            a = self._one_step(t, batch, self.seed + 200)
+            after_a = [p.detach().clone() for p in t.model.parameters()]
+            self.check(ck.latest_step(d) == TRAIN_STEPS, f"checkpoint step_{TRAIN_STEPS} saved")
+            ck.restore(d, t.state)
+        self.check(t.state.step == TRAIN_STEPS, "restored the step count")
+        b = self._one_step(t, batch, self.seed + 200)
+        worst = max(abs(a[k] - b[k]) / max(1.0, abs(a[k])) for k in a)
+        drift = max((u - w).abs().max().item() for u, w in zip(after_a, t.model.parameters()))
+        self.check(worst <= RESUME_TOL and drift <= RESUME_PARAM_TOL
+                   and t.state.step == TRAIN_STEPS + 1,
+                   f"the step after the restore repeats the step after the save: losses within "
+                   f"{worst:.2e} (tol {RESUME_TOL:.0e}), parameters within {drift:.2e} "
+                   f"(tol {RESUME_PARAM_TOL:.0e})")
+
+        # the warm-up switch: within cam_iters only `cls` is in the total
+        gen.set_state(state_gen)
+        w = self._trainer(gen, tmb, use_flash=True, cam_iters=2000)
+        met = self._one_step(w, batch, self.seed + 100)
+        self.check(met["total"] == met["cls"] and abs(met["cls"] - first["cls"]) <= 1e-5,
+                   f"cam_iters = 2000: total {met['total']:.6f} = cls {met['cls']:.6f}, the same "
+                   "cls as with all six losses in the total")
+        del w
+
+        # the same first step on the plain path: no K4, plain K1, K2, K3
+        gen.set_state(state_gen)
+        pl = self._trainer(gen, tmb, use_flash=False)
+        self.check(all(torch.equal(p, initial[n]) for n, p in pl.model.named_parameters()),
+                   "the plain-path model starts from the same weights")
+        use_plain(pl.twin_blocks, tmb, True)
+        use_plain_refine(True)
+        p_norms = {}
+        for mod in mods:
+            mod.reset_launches()
+        try:
+            p_met = self._one_step(pl, batch, self.seed + 100, p_norms)
+        finally:
+            use_plain_refine(False)
+        self.check(sum(v for mod in mods for v in mod.LAUNCHES.values()) == 0,
+                   "plain path launched no kernel")
+        for k, v in first.items():
+            tol = STEP_CLS_TOL * max(1.0, abs(p_met[k])) if k == "cls" \
+                else STEP_TOL * abs(p_met[k]) + STEP_ATOL
+            self.check(abs(v - p_met[k]) <= tol,
+                       f"first step, {k}: kernel path {v:.6f}, plain path {p_met[k]:.6f} "
+                       f"(tol {tol:.2e})")
+        for k, v in norms.items():
+            self.check(abs(v - p_norms[k]) <= STEP_TOL * p_norms[k],
+                       f"first step, gradient norm of group {k}: kernel path {v:.6e}, plain "
+                       f"path {p_norms[k]:.6e} (tol {STEP_TOL * p_norms[k]:.2e})")
+        return t, pl, batch
+
+    # ------------------------------------------------------------- phase 8
     def timing(self, tmb, model, blocks, x, card: str) -> None:
         torch = self.torch
         log(f"== timing of the forward (CUDA events, {card})")
@@ -863,6 +1208,38 @@ class Phases:
                 ms = self.time_ms(lambda: twin(cat, cam_only=True), iters=5, warmup=1)
                 log(f"  cam_only forward of {tuple(cat.shape)}: {ms:.3f} ms")
 
+    def timing_train(self, tmb, t, pl, batch, card: str) -> None:
+        """The whole train step, kernel path against plain path in turns."""
+        torch = self.torch
+        log(f"== timing of the train step (CUDA events, {card})")
+
+        def stepper(tr):
+            return lambda: tr.step(tr.state, batch, torch.Generator().manual_seed(self.seed))
+
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            plain = which == "plain"
+            use_plain(pl.twin_blocks, tmb, plain)
+            use_plain_refine(plain)
+            try:
+                times[which].append(self.time_ms(stepper(pl if plain else t), iters=3, warmup=1))
+            finally:
+                use_plain_refine(False)
+        for which, ts_ms in times.items():
+            ms = min(ts_ms)
+            log(f"  train step, {which} path: {', '.join(f'{v:.2f}' for v in ts_ms)} ms per "
+                f"batch of {BATCH} -> {BATCH * 1000.0 / ms:.1f} images/s (best run)")
+        torch.cuda.reset_peak_memory_stats()
+        stepper(t)()
+        torch.cuda.synchronize()
+        log(f"  peak device memory, kernel path: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for k in ("flash_fwd", "flash_bwd"):
+            log(f"  {k}: {self.piece_ms[k]:.3f} ms per step over its {self.launches_train[k]} "
+                f"launches, each timed alone (plain {self.piece_plain_ms[k]:.3f} ms, bound "
+                f"{sum(self.piece_bound[k]):.4f} ms, library call "
+                f"{self.piece_library_ms[k]:.3f} ms)")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -881,6 +1258,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from representationlearning_tpu_torch.ops import _build
     from representationlearning_tpu_torch.ops import affinity as ta
+    from representationlearning_tpu_torch.ops import attention as tf
     from representationlearning_tpu_torch.ops import mit_block as tmb
     from representationlearning_tpu_torch.ops import varm as tv
 
@@ -901,24 +1279,35 @@ def main() -> int:
         state["twin"], state["twin_blocks"], state["args"] = ph.run_pseudo_labels(
             tmb, ta, tv, state["model"], state["blocks"])
 
+    def train():
+        state["trainer"], state["plain_trainer"], state["batch"] = ph.run_train_steps(
+            tmb, ta, tv, tf)
+
     def timing():
         log(f"== timing of K2 / K3 (CUDA events, {card})")
         ph.time_refine_kernels(ta, tv)
         ph.timing(tmb, state["model"], state["blocks"], state["x"], card)
         ph.timing_pseudo(tmb, state["twin"], state["twin_blocks"], state["args"], card)
+        ph.timing_train(tmb, state["trainer"], state["plain_trainer"], state["batch"], card)
 
     for name, fn in (("kernel vs plain", lambda: ph.kernels_vs_plain(tmb)),
                      ("K2 / K3 vs plain", lambda: ph.refine_kernels_vs_plain(ta, tv)),
-                     ("slice", slice_), ("pseudo labels", pseudo), ("timing", timing)):
+                     ("slice", slice_), ("pseudo labels", pseudo),
+                     ("K4 vs plain", lambda: ph.flash_vs_plain(tf)),
+                     ("K4 in the model", lambda: ph.flash_model(tf)),
+                     ("train step", train), ("timing", timing)):
         try:
             fn()
         except Exception:  # noqa: BLE001 -- report the phase, go on with the next
             traceback.print_exc()
             ph.failures.append(f"phase {name} raised")
         torch.cuda.empty_cache()
+    for k in ("flash_fwd", "flash_bwd"):  # K4's own path is the train step
+        ph.launches[k] = ph.launches_train.get(k, 0)
     missing = [k for k in KERNELS if ph.launches.get(k, 0) == 0]
     missing += [f"{k} (pseudo-label call)" for k in PIECE_TOL
                 if ph.launches_pseudo.get(k, 0) == 0]
+    missing += [f"{k} (train step)" for k in KERNELS if ph.launches_train.get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -940,6 +1329,9 @@ def main() -> int:
                  "library_ms": ph.piece_library_ms[k]}
         if k in ph.launches_pseudo:
             entry["launches_pseudo_label"] = ph.launches_pseudo[k]
+        entry["launches_train_step"] = ph.launches_train[k]
+        if k == "flash_fwd":  # both directions, at its looser tolerance
+            entry["max_abs_err_bf16"] = ph.piece_err["flash_bf16"]
         if k in ph.library_covers:
             entry["library_covers"] = ph.library_covers[k]
         kernels.append(entry)

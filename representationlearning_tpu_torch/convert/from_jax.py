@@ -91,3 +91,13 @@ def tscd_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Te
     """JAX ``TSCD`` variables -> the port's ``TSCD`` state_dict (inverse of
     ``convert_tscd``)."""
     return state_dict_from_jax(variables)
+
+
+def named_tree_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A tree shaped like the JAX ``params`` (the gradients, an optax moment
+    such as ``mu`` or ``nu``) -> tensors under the port's parameter names. The
+    layouts are linear maps, so the transposes that carry the weights carry
+    these too; compare with ``dict(model.named_parameters())``, the ``.grad``s
+    or ``optimizer.state[p]["exp_avg"]``. BatchNorm statistics go through
+    ``state_dict_from_jax({"batch_stats": ...})``."""
+    return state_dict_from_jax({"params": tree})

@@ -7,6 +7,7 @@ whose integer padding it mirrored.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -70,18 +71,64 @@ def init_weights(module: nn.Module, generator: torch.Generator | None = None) ->
 
 class DropPath(nn.Module):
     """Stochastic depth: drops the whole residual branch per sample in training;
-    the identity in eval."""
+    the identity in eval.
+
+    The per-sample keep mask is drawn on the CPU from ``generator`` (a CPU
+    ``torch.Generator``; None is the global one) and then moved to x's device,
+    so a seed gives the same masks on the card and on the CPU. A caller that
+    runs the branch twice (gradient checkpointing) draws once with ``draw`` and
+    passes ``mask``."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw(self, batch: int, device, generator: torch.Generator | None = None):
+        """The keep mask (batch,) bool on ``device``; None where the module is
+        the identity."""
+        if self.rate == 0.0 or not self.training:
+            return None
+        return (torch.rand((batch,), generator=generator) < 1.0 - self.rate).to(device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
-        keep = 1.0 - self.rate
-        mask = torch.rand((x.shape[0],) + (1,) * (x.ndim - 1), device=x.device) < keep
-        return torch.where(mask, x / keep, torch.zeros_like(x))
+        if mask is None:
+            mask = self.draw(x.shape[0], x.device, generator)
+        mask = mask.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+        return torch.where(mask, x / (1.0 - self.rate), torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """Elementwise dropout, as flax's ``nn.Dropout``. Without a generator it is
+    ``F.dropout``. With one (a CPU generator) the mask is drawn on x's device by
+    a generator seeded from it, so the same seed gives the same mask on the same
+    device without a mask-sized copy from the host."""
+    if rate == 0.0 or not training:
+        return x
+    if generator is None:
+        return nn.functional.dropout(x, rate, training=True)
+    seed = int(torch.randint(2 ** 62, (1,), generator=generator))
+    dev_gen = torch.Generator(device=x.device).manual_seed(seed)
+    mask = torch.rand(x.shape, generator=dev_gen, device=x.device) >= rate
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
+@contextlib.contextmanager
+def bn_stats_frozen(model: nn.Module):
+    """Inside, a training forward of ``model`` normalises with batch statistics
+    and leaves the running ones alone: the JAX train step keeps the statistics
+    of its first forward only."""
+    heads = [m for m in model.modules() if getattr(m, "track_stats", False)]
+    for m in heads:
+        m.track_stats = False
+    try:
+        yield
+    finally:
+        for m in heads:
+            m.track_stats = True
 
 
 class AttnProj(nn.Module):

@@ -16,11 +16,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import mha_flash
 from ..ops.mit_block import fused_block, mm
 from .layers import DropPath
-
-_K4_MISSING = ("use_flash=True runs kernel K4 (representationlearning_tpu/ops/pallas/"
-               "attention.py::flash_attention), which is not ported yet")
 
 
 class DWConv(nn.Module):
@@ -52,15 +52,18 @@ class MixFFN(nn.Module):
 class SRAttention(nn.Module):
     """Spatial-reduction attention returning (out, exported logits or None). The
     exported map is the raw q k^T, average-pooled over sr x sr query windows when
-    sr > 1 so that it is (B, nh, Nk, Nk) (`mix_transformer.py:123-133`)."""
+    sr > 1 so that it is (B, nh, Nk, Nk) (`mix_transformer.py:123-133`).
+
+    ``use_flash`` runs kernel K4 (``ops/attention.py``) where the block exports
+    nothing and no probability is dropped (eval, or ``attn_drop == 0``): q, k
+    and v reach it in the dtype the Linear layers return, f32, whatever
+    ``dtype`` says, as in the JAX package."""
 
     def __init__(self, dim, num_heads, sr_ratio=1, qkv_bias=True, attn_drop=0.0,
                  proj_drop=0.0, export_attn=True, use_flash=False, dtype=torch.float32):
         super().__init__()
-        if use_flash:
-            raise NotImplementedError(_K4_MISSING)
         self.num_heads, self.sr_ratio = num_heads, sr_ratio
-        self.export_attn, self.dtype = export_attn, dtype
+        self.export_attn, self.dtype, self.use_flash = export_attn, dtype, use_flash
         self.q = nn.Linear(dim, dim, bias=qkv_bias)
         self.kv = nn.Linear(dim, 2 * dim, bias=qkv_bias)
         self.attn_drop = nn.Dropout(attn_drop)
@@ -83,6 +86,10 @@ class SRAttention(nn.Module):
         Nk = xs.shape[1]
         kv = self.kv(xs).reshape(B, Nk, 2, nh, hd).permute(2, 0, 3, 1, 4)
         k, v = kv[0], kv[1]                                          # (B, nh, Nk, hd)
+        if self.use_flash and not self.export_attn and (
+                not self.training or self.attn_drop.p == 0.0):
+            out = mha_flash(q, k, v, hd ** -0.5).transpose(1, 2).reshape(B, N, C)
+            return self.proj_drop(self.proj(out)), None
         logits = mm(q, k.transpose(-1, -2), self.dtype)              # (B, nh, N, Nk)
         attn = self.attn_drop(torch.softmax(logits * hd ** -0.5, dim=-1))
         out = mm(attn, v, self.dtype).transpose(1, 2).reshape(B, N, C)
@@ -112,10 +119,12 @@ class Block(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = MixFFN(dim, int(dim * mlp_ratio), drop)
 
-    def forward(self, x, H, W):
+    def forward(self, x, H, W, drop_masks=(None, None)):
+        """drop_masks: the keep masks of the two residual branches, as
+        ``DropPath.draw`` gives them; None draws from the global generator."""
         h, attn = self.attn(self.norm1(x), H, W)
-        x = x + self.drop_path(h)
-        x = x + self.drop_path(self.mlp(self.norm2(x), H, W))
+        x = x + self.drop_path(h, drop_masks[0])
+        x = x + self.drop_path(self.mlp(self.norm2(x), H, W), drop_masks[1])
         return x, attn
 
 
@@ -156,7 +165,7 @@ class FusedBlock(Block):
                      srnorm_weight=a.norm.weight, srnorm_bias=a.norm.bias)
         return p
 
-    def forward(self, x, H, W):
+    def forward(self, x, H, W, drop_masks=(None, None)):
         if self.training:
             raise ValueError("FusedBlock is inference-only; call .eval() or build the "
                              "model with fused_blocks=False for training")
@@ -200,6 +209,14 @@ class MixVisionTransformer(nn.Module):
     act_dtype: storage dtype of the residual stream between blocks; fused blocks
       take it directly, plain blocks get f32 (`models/mit.py:415-419` of the JAX
       package). None keeps f32.
+    use_flash: kernel K4 under the attention of every block that exports nothing.
+    remat: gradient checkpointing per block (``torch.utils.checkpoint``): the
+      block's activations are recomputed in the backward pass, with the same
+      drop-path masks. Every block is then a plain ``Block``, as in the JAX
+      package.
+
+    ``forward(x, generator=None)``: the drop-path masks of a training forward are
+    drawn from ``generator`` (a CPU ``torch.Generator``), in block order.
     """
 
     def __init__(self, embed_dims: Sequence[int] = (64, 128, 320, 512),
@@ -209,14 +226,14 @@ class MixVisionTransformer(nn.Module):
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, dtype=torch.float32, use_flash: bool = False,
                  collect_attns: bool | str = "last2", fused_blocks: bool = False,
-                 act_dtype=None):
+                 act_dtype=None, remat: bool = False):
         super().__init__()
         mode = {True: "all", False: "none"}.get(collect_attns, collect_attns)
         if mode not in ("all", "last2", "none"):
             raise ValueError(f"collect_attns: {collect_attns!r}")
         self.depths = list(depths)
         self.embed_dims = list(embed_dims)
-        self.act_dtype = act_dtype
+        self.act_dtype, self.remat = act_dtype, remat
         total = sum(depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         self.wants: list[list[bool]] = []
@@ -228,7 +245,7 @@ class MixVisionTransformer(nn.Module):
             blocks, wants = [], []
             for b in range(depths[s]):
                 want = mode == "all" or (mode == "last2" and cur + b >= total - 2)
-                fused = fused_blocks and (not want or sr_ratios[s] == 1)
+                fused = fused_blocks and not remat and (not want or sr_ratios[s] == 1)
                 cls = FusedBlock if fused else Block
                 blocks.append(cls(embed_dims[s], num_heads[s], mlp_ratios[s], sr_ratios[s],
                                   qkv_bias, drop_rate, attn_drop_rate, dpr[cur + b],
@@ -239,14 +256,19 @@ class MixVisionTransformer(nn.Module):
             self.wants.append(wants)
             cur += depths[s]
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
         outs, attns = [], []
         for s in range(4):
             x, H, W = getattr(self, f"patch_embed{s + 1}")(x)
             for blk, want in zip(getattr(self, f"block{s + 1}"), self.wants[s]):
                 if self.act_dtype is not None:
                     x = x.to(self.act_dtype if isinstance(blk, FusedBlock) else torch.float32)
-                x, attn = blk(x, H, W)
+                masks = tuple(blk.drop_path.draw(x.shape[0], x.device, generator)
+                              for _ in range(2))
+                if self.remat and torch.is_grad_enabled():
+                    x, attn = checkpoint(blk, x, H, W, masks, use_reentrant=False)
+                else:
+                    x, attn = blk(x, H, W, masks)
                 if want:
                     attns.append(attn)
             # stats in f32 on the (possibly bf16) stream; f32 out, as flax's LayerNorm

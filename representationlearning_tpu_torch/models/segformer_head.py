@@ -3,7 +3,8 @@ segformer_head.py`), the port of ``representationlearning_tpu/models/segformer_h
 
 Per-stage linear embed -> bilinear upsample to the stride-4 grid
 (align_corners=False) -> concat [c4, c3, c2, c1] -> 1x1 fuse conv -> BN (eps
-1e-5) -> ReLU -> dropout -> 1x1 classifier. With ``dtype=bfloat16`` the embeds
+1e-5) -> ReLU -> dropout (elementwise, as the JAX head's ``nn.Dropout``) -> 1x1
+classifier. With ``dtype=bfloat16`` the embeds
 and the fused map are stored in bf16 (f32 accumulation inside the products), and
 BN runs in f32, as the JAX head does. The JAX package's sliced-fuse rewrite
 (`_SlicedFuseConv`) is a TPU lowering of the same math and is not ported.
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.image import resize_bilinear
+from .layers import dropout
 
 
 class _MLP(nn.Module):
@@ -45,10 +47,16 @@ class SegFormerHead(nn.Module):
         for i, c in enumerate(in_channels, start=1):
             setattr(self, f"linear_c{i}", _MLP(c, embedding_dim))
         self.linear_fuse = _ConvModule(embedding_dim * 4, embedding_dim)
-        self.dropout = nn.Dropout2d(dropout_rate)
+        self.dropout_rate = dropout_rate
+        # a training forward moves the BatchNorm running statistics unless the
+        # caller switches this off (`layers.bn_stats_frozen`)
+        self.track_stats = True
         self.linear_pred = nn.Conv2d(embedding_dim, num_classes, 1)
 
-    def forward(self, feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, feats: Sequence[torch.Tensor],
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """generator: the source of the training-mode dropout mask (see
+        ``layers.dropout``); None is the global one."""
         c1 = feats[0]
         B, _, h, w = c1.shape
         embeds = []
@@ -63,7 +71,20 @@ class SegFormerHead(nn.Module):
         x = torch.cat(embeds, dim=1)
         x = F.conv2d(x, self.linear_fuse.conv.weight.to(self.dtype))
         bn = self.linear_fuse.bn
-        x = F.batch_norm(x.float(), bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                         training=self.training, momentum=bn.momentum, eps=bn.eps)
-        x = self.dropout(F.relu(x))
+        x = x.float()
+        if self.training:
+            # batch statistics; the running average takes the biased variance, as
+            # flax's BatchNorm does (torch's own update takes the unbiased one), at
+            # torch momentum 0.1 = flax momentum 0.9
+            if self.track_stats:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                    bn.running_mean.lerp_(mean, bn.momentum)
+                    bn.running_var.lerp_(var, bn.momentum)
+                    bn.num_batches_tracked += 1
+            x = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        else:
+            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                             training=False, eps=bn.eps)
+        x = dropout(F.relu(x), self.dropout_rate, self.training, generator)
         return self.linear_pred(x)

@@ -6,7 +6,9 @@ exported attention maps -> sigmoid) + CAM classifier (1x1, no bias) on the
 stage-4 features. NCHW in and out:
 - ``cam_only=True`` -> (cam_s4 (B, C-1, h, w), attn_pred)
 - default           -> (cls_logits (B, C-1), seg (B, C, H/4, W/4), attns, attn_pred)
-``attn_pred`` is None under ``collect_attns="none"``.
+``attn_pred`` is None under ``collect_attns="none"``. In training mode the
+drop-path masks and the head's dropout mask are drawn from ``generator`` (a CPU
+``torch.Generator``; None is the global one).
 
 The model is built on the card: ``device=None`` means ``torch.device("cuda")``
 and construction raises where there is none; the CPU is the caller's explicit
@@ -30,7 +32,8 @@ class TSCD(nn.Module):
                  embedding_dim: int = 256, strides=(4, 2, 2, 1), pooling: str = "gmp",
                  use_flash: bool = False, fused_blocks: bool = False,
                  collect_attns: bool | str = "last2", dtype=torch.float32,
-                 act_dtype=None, generator: torch.Generator | None = None,
+                 act_dtype=None, remat: bool = False,
+                 generator: torch.Generator | None = None,
                  device: torch.device | str | None = None):
         super().__init__()
         if pooling not in ("gmp", "gap"):
@@ -41,7 +44,7 @@ class TSCD(nn.Module):
             self.encoder = MixVisionTransformer(
                 strides=tuple(strides), dtype=dtype, use_flash=use_flash,
                 fused_blocks=fused_blocks, collect_attns=collect_attns,
-                act_dtype=act_dtype, **cfg)
+                act_dtype=act_dtype, remat=remat, **cfg)
             self.decoder = SegFormerHead(cfg["embed_dims"], num_classes, embedding_dim,
                                          dtype=dtype)
             # 2 stage-4 blocks x 8 heads = 16 input channels (`TSCD_model.py:38`)
@@ -53,12 +56,27 @@ class TSCD(nn.Module):
     def _pool(self, x):
         return adaptive_max_pool_11(x) if self.pooling == "gmp" else adaptive_avg_pool_11(x)
 
-    def forward(self, x: torch.Tensor, cam_only: bool = False):
-        feats, attns = self.encoder(x)
+    def forward(self, x: torch.Tensor, cam_only: bool = False,
+                generator: torch.Generator | None = None):
+        feats, attns = self.encoder(x, generator)
         x4 = feats[3]
         attn_pred = torch.sigmoid(self.attn_proj(attns[-2:])) if attns else None
         if cam_only:
             return self.classifier(x4).detach(), attn_pred
         cls_logits = self.classifier(self._pool(x4)).reshape(x.shape[0], self.num_classes - 1)
-        seg = self.decoder(feats)
+        seg = self.decoder(feats, generator)
         return cls_logits, seg, attns, attn_pred
+
+
+def share_parameters(twin: nn.Module, model: nn.Module) -> nn.Module:
+    """Make every parameter and buffer of ``twin`` the very tensor that ``model``
+    holds under the same name, so the twin (for example the fused bf16 CAM model
+    of the SCD trainer, `cli/train_scd.py:146-149` of the JAX package) always
+    runs on the trained model's current weights. Returns the twin."""
+    params, buffers = dict(model.named_parameters()), dict(model.named_buffers())
+    for prefix, mod in twin.named_modules():
+        for store, source in ((mod._parameters, params), (mod._buffers, buffers)):
+            for leaf in store:
+                if store[leaf] is not None:
+                    store[leaf] = source[f"{prefix}.{leaf}" if prefix else leaf]
+    return twin

@@ -42,6 +42,13 @@ SIGNATURES = {
         # src, ref, dst, B, C, H, W, dilations (host), n_dil, stream
         "k3_varm_iter": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     },
+    "attention": {
+        # q, k, v, o, lse, BH, Nq, Nk, D, scale, is_bf16, stream
+        "k4_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, o, do, lse, dq, dk, dv, ws, BH, Nq, Nk, D, scale, chunk, is_bf16, stream
+        "k4_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
+                         _P),
+    },
 }
 
 _locks = {name: threading.Lock() for name in SIGNATURES}  # libraries build side by side

@@ -72,3 +72,21 @@ def minmax_normalize_cam(cam: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     cam += max(-cam); cam /= max(cam) + eps, maxes over H, W per (B, C)."""
     cam = cam + adaptive_max_pool_11(-cam)
     return cam / (adaptive_max_pool_11(cam) + eps)
+
+
+def grid_sample_bilinear(x: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``F.grid_sample(x, grid, mode='bilinear', padding_mode='border',
+    align_corners=True)``: x (N, C, H, W), grid (N, Hg, Wg, 2) holding (x, y) in
+    [-1, 1] -> (N, C, Hg, Wg). Differentiable in x."""
+    return F.grid_sample(x, grid.to(x.dtype), mode="bilinear", padding_mode="border",
+                         align_corners=True)
+
+
+def pad_replicate(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Replicate-pad H and W of (N, C, H, W) by `pad` on each side."""
+    return F.pad(x, (pad, pad, pad, pad), mode="replicate")
+
+
+def torch_std(x: torch.Tensor, axis, keepdims: bool = False) -> torch.Tensor:
+    """``torch.std`` with its default, the unbiased estimate (ddof = 1)."""
+    return x.std(dim=axis, unbiased=True, keepdim=keepdims)

@@ -1,1 +1,1 @@
-"""Trainers. Only the inference half of the SCD trainer is ported so far."""
+"""Trainers: the SCD trainer (train step, validation step), optimisers, state, checkpoints."""

@@ -1,25 +1,36 @@
-"""The inference half of the SCD end-to-end WSSS trainer, the port of the
-matching part of ``representationlearning_tpu/train/scd.py``
-(`SCD-AAAI2023/scripts/dist_train_voc.py:95-146,311-336`):
+"""The SCD end-to-end WSSS trainer, the port of
+``representationlearning_tpu/train/scd.py``
+(`SCD-AAAI2023/scripts/dist_train_voc.py:95-146,181-432`):
 
 - ``scd_pseudo_labels``: multi-scale flip CAMs -> pseudo labels -> background-
   aware VARM refinement -> pairwise affinity labels, the part of the train step
   that runs without gradients;
+- ``scd_losses`` / ``scd_total_loss``: the main forward, a second forward at 0.3
+  scale, the CAMs of both through the CAM model, the labels, and the six losses
+  with the warm-up switch;
+- ``make_scd_train_step``: forward, backward and one optimiser update per call;
 - ``make_scd_eval_step``: the validation forward.
 
-The losses, the optimiser and the train step itself are not ported yet; the
-train step will call ``scd_pseudo_labels`` for its labels. Tensors are NCHW.
+Per iteration (SURVEY.md 3.1): forward -> multi-scale flip CAM (+ 0.3x forward
+and CAM set) -> pseudo labels -> VARM refine -> affinity labels -> 6 losses ->
+schedule-weighted sum -> backward -> PolyWarmupAdamW step. Tensors are NCHW.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from .._device import resolve_device
+from ..losses import wsss as LW
+from ..losses.energy import get_energy_loss
+from ..models.layers import bn_stats_frozen
 from ..models.refine import varm_refine
 from ..ops.image import resize_bilinear
 from ..wsss import camutils as CU
+from .state import TrainState
 
 
 class SCDConfig(NamedTuple):
@@ -103,6 +114,124 @@ def scd_pseudo_labels(cam_model, images: torch.Tensor, cls_label: torch.Tensor,
     ref_label = CU.cams_to_refine_label(refined_label, mask=attn_mask,
                                         ignore_index=cfg.ignore_index, down=16)
     return cams, pseudo_label, refined_label, ref_label
+
+
+@contextlib.contextmanager
+def _eval_mode(model):
+    """``model`` in eval mode inside, back in the mode it had afterwards."""
+    was = model.training
+    model.eval()
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+def scd_losses(model, batch, cfg: SCDConfig, attn_mask: torch.Tensor | None = None,
+               generator: torch.Generator | None = None, cam_model=None, coords=None):
+    """The six SCD losses and the diagnostics of one batch.
+
+    batch: dict(image (B, 3, H, W) normalised, cls_label (B, C - 1), img_box
+    (B, 4)) on the model's device. ``model`` runs in the mode it is in (train:
+    drop path, dropout and BatchNorm batch statistics, whose running average
+    moves with the main forward only). ``cam_model`` is the model that makes
+    the CAMs without gradients, usually the fused twin with
+    ``collect_attns="none"`` on the same parameters; None is ``model`` itself in
+    eval mode (`utils/camutils.py:88,118` torch.no_grad). ``generator`` (a CPU
+    ``torch.Generator``) feeds the drop-path and dropout masks and then the
+    correlation loss's coordinates, unless ``coords`` gives those. Each stage
+    (main_forward, pseudo_labels, small_forward, small_cams, losses, energy_loss)
+    is a named range in a ``torch.profiler`` trace.
+
+    Returns ({"cls", "seg", "energy", "aux", "corr", "er"}, {"pseudo_label",
+    "refined_label", "segs", "cams"})."""
+    inputs, cls_labels, img_box = batch["image"], batch["cls_label"], batch["img_box"]
+    H, W = inputs.shape[-2:]
+    if cam_model is None:
+        cam_model, cam_mode = model, (lambda: _eval_mode(model))
+    else:
+        cam_mode = contextlib.nullcontext
+
+    with record_function("main_forward"):
+        cls_logits, segs, _, attn_pred = model(inputs, generator=generator)
+
+    # multi-scale CAMs, pseudo labels, VARM refine, affinity labels
+    # (`dist_train_voc.py:311-336`)
+    with record_function("pseudo_labels"), cam_mode():
+        cams, pseudo_label, refined_label, ref_label = scd_pseudo_labels(
+            cam_model, inputs, cls_labels, img_box, cfg, attn_mask=attn_mask)
+
+    # the same at 0.3 scale (`:316-324`)
+    inputs2 = resize_bilinear(inputs, (int(H * 0.3), int(W * 0.3)), align_corners=True)
+    with record_function("small_forward"), bn_stats_frozen(model):
+        _, segs2, _, _ = model(inputs2, generator=generator)
+    with record_function("small_cams"), cam_mode(), torch.no_grad():
+        cams2 = CU.multi_scale_cam(lambda x: cam_model(x, cam_only=True), inputs2,
+                                   cfg.cam_scales)
+
+    with record_function("losses"):
+        cams1 = resize_bilinear(cams, cams2.shape[-2:], align_corners=True)
+        loss_er = LW.equivariance_loss(cams1[:, 1:], cams2[:, 1:])
+
+        segs_up = resize_bilinear(segs, (H, W), align_corners=True)
+        segs2_up = resize_bilinear(segs2, cams2.shape[-2:], align_corners=True)
+        loss_corr = LW.contrastive_corr_loss(cams, cams2, segs_up, segs2_up,
+                                             n_samples=cfg.corr_samples, generator=generator,
+                                             coords=coords)
+        loss_aux, _, _ = LW.aux_loss(attn_pred, ref_label)
+        loss_seg = LW.seg_loss(segs_up, refined_label, cfg.ignore_index)
+        loss_cls = LW.multilabel_soft_margin_loss(cls_logits, cls_labels)
+    with record_function("energy_loss"):
+        loss_energy = get_energy_loss(inputs, segs_up, refined_label, img_box, mean=cfg.mean,
+                                      std=cfg.std, weight=cfg.energy_weight,
+                                      method=cfg.energy_method)
+
+    losses = {"cls": loss_cls, "seg": loss_seg, "energy": loss_energy, "aux": loss_aux,
+              "corr": loss_corr, "er": loss_er}
+    aux_out = {"pseudo_label": pseudo_label, "refined_label": refined_label,
+               "segs": segs_up, "cams": cams}
+    return losses, aux_out
+
+
+def scd_total_loss(losses: dict, step: int, cfg: SCDConfig) -> torch.Tensor:
+    """Warm-up schedule (`dist_train_voc.py:350-353`): the classification loss
+    alone for the first ``cam_iters`` steps, then the weighted sum of all six."""
+    if int(step) <= cfg.cam_iters:
+        return 1.0 * losses["cls"]
+    return (1.0 * losses["cls"] + cfg.w_seg * losses["seg"] + cfg.w_energy * losses["energy"]
+            + cfg.w_aux * losses["aux"] + cfg.w_corr * losses["corr"]
+            + cfg.w_er * losses["er"])
+
+
+def make_scd_train_step(model, cfg: SCDConfig, cam_model=None,
+                        device: torch.device | str | None = None):
+    """One SCD training iteration as a function ``train_step(state, batch,
+    generator=None) -> (state, metrics)``.
+
+    ``model`` is the trained TSCD (``collect_attns="last2"``), ``state`` a
+    ``TrainState`` over it; ``cam_model`` as in ``scd_losses``. The batch is moved
+    to ``device``, the card unless the caller names another (it raises where
+    there is none). The state is updated in place and returned; metrics holds
+    the six losses and their ``total``, detached. Beside the stages of ``scd_losses`` the
+    profiler sees the ranges backward and optimizer."""
+    device = resolve_device(device)
+    attn_mask = _attn_mask(cfg, device)
+
+    def train_step(state: TrainState, batch, generator: torch.Generator | None = None):
+        model.train()
+        batch = {k: v.to(device) for k, v in batch.items()}
+        losses, _ = scd_losses(model, batch, cfg, attn_mask, generator=generator,
+                               cam_model=cam_model)
+        total = scd_total_loss(losses, state.step, cfg)
+        with record_function("backward"):
+            total.backward()
+        with record_function("optimizer"):
+            state.apply_gradients()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["total"] = total.detach()
+        return state, metrics
+
+    return train_step
 
 
 def make_scd_eval_step(model, cfg: SCDConfig, device: torch.device | str | None = None):

@@ -1,4 +1,4 @@
-"""The CUDA kernels (K1, K2, K3) against their plain versions, on a CUDA card.
+"""The CUDA kernels (K1, K2, K3, K4) against their plain versions, on a CUDA card.
 
 Small and ragged shapes (token counts, key counts and widths that no tile
 divides, an empty key set, both head widths) complement ``chip_smoke.py``, which
@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from representationlearning_tpu_torch.ops import affinity as TA
+from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import mit_block as tmb
 from representationlearning_tpu_torch.ops import varm as TV
 
@@ -222,3 +223,79 @@ def test_refine_kernels_refuse_what_they_do_not_take(dev):
         TA.affinity(img, tuple(range(1, 18)), "par")
     with pytest.raises(ValueError, match="ref on"):
         TV.varm_propagate(torch.zeros(1, 2, 8, 8, device=dev), torch.zeros(1, 8, 8, 8), (1,), 1)
+
+
+# K4, f32: the same products, summed tile by tile with an online softmax in the
+# kernel and in one softmax in the plain version (the JAX package's own test:
+# 1e-4 forward, rtol 2e-4 / atol 2e-5 backward). bf16: the kernel rounds p and ds
+# to bf16 before their products, the plain version computes in f32 and rounds the
+# result: a few bf16 spacings (2^-8 relative) of the largest entry.
+FLASH_TOL = {torch.float32: 1e-4, BF16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("BH,Nq,Nk,D", [(3, 70, 9, 64), (2, 1, 1, 32), (5, 130, 257, 32),
+                                        (2, 577, 100, 64), (1, 64, 64, 64), (4, 36, 9, 64)])
+def test_flash_attention_forward_and_backward(dev, dtype, BH, Nq, Nk, D):
+    g = torch.Generator().manual_seed(Nq * Nk)
+    q, k, v = (_rand(g, BH, n, D, dev=dev).to(dtype).requires_grad_() for n in (Nq, Nk, Nk))
+    cot = _rand(g, BH, Nq, D, dev=dev).to(dtype)
+    scale = D ** -0.5
+    before = dict(TF.LAUNCHES)
+    out = TF.flash_attention(q, k, v, scale)
+    grads = torch.autograd.grad(out, (q, k, v), cot)
+    again = torch.autograd.grad(TF.flash_attention(q, k, v, scale), (q, k, v), cot)
+    torch.cuda.synchronize()
+    assert TF.LAUNCHES == {"flash_fwd": before["flash_fwd"] + 2,
+                           "flash_bwd": before["flash_bwd"] + 2}
+    want = TF.flash_attention_reference(q, k, v, scale)
+    want_grads = torch.autograd.grad(want, (q, k, v), cot)
+    assert out.dtype == dtype and out.shape == q.shape
+    _close(out, want, FLASH_TOL[dtype])
+    for got, w, twice in zip(grads, want_grads, again):
+        assert got.dtype == dtype and got.shape == w.shape
+        _close(got, w, FLASH_TOL[dtype])
+        assert torch.equal(got, twice)   # no atomics: the same bits on a rerun
+
+
+def test_flash_attention_raises_on_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(2, 8, 48, device=dev)
+    with pytest.raises(ValueError, match="D = 32 or 64"):
+        TF.flash_attention(q, q, q, 1.0)
+    q = torch.zeros(2, 8, 64, device=dev)
+    with pytest.raises(ValueError, match="not contiguous"):
+        TF.flash_attention(q, q.transpose(0, 1).contiguous().transpose(0, 1), q, 1.0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        TF.flash_attention(q.half(), q.half(), q.half(), 1.0)
+
+
+def test_flash_attention_refuses_a_second_derivative(dev):
+    """The backward is a raw kernel launch with no graph of its own."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (_rand(g, 2, n, 64, dev=dev).requires_grad_() for n in (20, 9, 9))
+    cot = _rand(g, 2, 20, 64, dev=dev).requires_grad_()
+    dq, = torch.autograd.grad(TF.flash_attention(q, k, v, 0.125), q, cot, create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dq.sum().backward()
+
+
+def test_tscd_use_flash_runs_k4_forward_and_backward(dev):
+    from representationlearning_tpu_torch.models.tscd import TSCD
+
+    gen = torch.Generator().manual_seed(0)
+    m = TSCD("mit_b0", 6, use_flash=True, generator=gen).eval()
+    ref = TSCD("mit_b0", 6, use_flash=False).eval()
+    ref.load_state_dict(m.state_dict())
+    x = torch.randn(2, 3, 96, 96, generator=gen).to(dev)
+    TF.reset_launches()
+    losses = []
+    for model in (m, ref):
+        cls, seg, _, pred = model(x)
+        loss = cls.square().mean() + seg.square().mean() + pred.square().mean()
+        loss.backward()
+        losses.append(loss.detach())
+    assert TF.LAUNCHES == {"flash_fwd": 6, "flash_bwd": 6}
+    _close(losses[0], losses[1], 1e-5)
+    for (n, a), b in zip(m.named_parameters(), ref.parameters()):
+        err = (a.grad - b.grad).abs().max().item()
+        assert err <= 2e-3 * max(b.grad.abs().max().item(), 1e-6), (n, err)

@@ -1,0 +1,186 @@
+"""K4 of the PyTorch port (`ops/attention.py`) against the JAX package's flash
+attention: the plain version that CPU tensors run, forward and the three
+gradients, against the Pallas kernel in interpret mode at tileable shapes and
+against `_xla_attention` at ragged ones; and `TSCD(use_flash=True)` at `mit_b0`
+against the JAX model with the interpreter patched in, outputs and parameter
+gradients."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import representationlearning_tpu.ops.pallas.attention as JA
+from representationlearning_tpu.models.tscd import TSCD as JTSCD
+from representationlearning_tpu_torch.convert.from_jax import (named_tree_from_jax,
+                                                               tscd_state_dict_from_jax)
+from representationlearning_tpu_torch.models import mit as tmit
+from representationlearning_tpu_torch.models.tscd import TSCD
+from representationlearning_tpu_torch.ops import attention as TA
+
+torch.set_num_threads(2)
+
+# f32 on both sides: the same products, summed tile by tile with an online softmax
+# on the JAX side and in one softmax here (the JAX package's own test holds its
+# kernel to 1e-4 forward, rtol 2e-4 / atol 2e-5 backward, test_pallas_attention.py:56,108)
+FWD_ATOL = 1e-5
+GRAD_RTOL, GRAD_ATOL = 2e-4, 2e-5
+
+TILEABLE = [(2, 256, 256, 64), (3, 512, 64, 32), (1, 64, 16, 64)]
+RAGGED = [(2, 100, 9, 64), (3, 36, 9, 64), (2, 70, 1, 32), (1, 400, 100, 64)]
+
+
+def _inputs(shape, seed=0):
+    BH, Nq, Nk, D = shape
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((BH, Nq, D)).astype(np.float32),
+            rng.standard_normal((BH, Nk, D)).astype(np.float32),
+            rng.standard_normal((BH, Nk, D)).astype(np.float32),
+            rng.standard_normal((BH, Nq, D)).astype(np.float32))
+
+
+def _port(q, k, v, cot, scale, fn):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = fn(tq, tk, tv, scale)
+    grads = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(cot))
+    return out.detach().numpy(), [g.numpy() for g in grads]
+
+
+def _jax(q, k, v, cot, scale, fn):
+    args = [jnp.asarray(a) for a in (q, k, v)]
+    out, vjp = jax.vjp(lambda a, b, c: fn(a, b, c, scale), *args)
+    return np.asarray(out), [np.asarray(g) for g in vjp(jnp.asarray(cot))]
+
+
+@pytest.mark.parametrize("shape", TILEABLE)
+def test_plain_version_matches_the_pallas_kernel_interpreted(shape):
+    q, k, v, cot = _inputs(shape)
+    scale = shape[3] ** -0.5
+    assert JA._tileable(shape[1], shape[2], 256, 256)
+    want, wg = _jax(q, k, v, cot, scale, functools.partial(JA.flash_attention, interpret=True))
+    TA.reset_launches()
+    got, gg = _port(q, k, v, cot, scale, TA.flash_attention)
+    assert TA.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}  # CPU tensors: plain version
+    np.testing.assert_allclose(got, want, atol=FWD_ATOL)
+    for a, b in zip(gg, wg):
+        np.testing.assert_allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+def test_plain_version_matches_xla_attention_at_ragged_shapes(shape):
+    q, k, v, cot = _inputs(shape, seed=1)
+    scale = shape[3] ** -0.5
+    want, wg = _jax(q, k, v, cot, scale, JA._xla_attention)
+    got, gg = _port(q, k, v, cot, scale, TA.flash_attention_reference)
+    np.testing.assert_allclose(got, want, atol=FWD_ATOL)
+    for a, b in zip(gg, wg):
+        np.testing.assert_allclose(a, b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+def test_mha_flash_folds_heads_and_keeps_bf16():
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((2, 5, 36, 32)).astype(np.float32)
+    k = rng.standard_normal((2, 5, 9, 32)).astype(np.float32)
+    v = rng.standard_normal((2, 5, 9, 32)).astype(np.float32)
+    want = np.asarray(JA.mha_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.2))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = TA.mha_flash(tq, tk, tv, 0.2)
+    assert got.shape == (2, 5, 36, 32)
+    np.testing.assert_allclose(got.numpy(), want, atol=FWD_ATOL)
+    # a strided view (heads of a Linear's output) gives the same
+    strided = TA.mha_flash(tq.transpose(1, 2).contiguous().transpose(1, 2), tk, tv, 0.2)
+    assert torch.equal(strided, got)
+    bf = TA.mha_flash(tq.bfloat16(), tk.bfloat16(), tv.bfloat16(), 0.2)
+    assert bf.dtype == torch.bfloat16
+    # inputs rounded to bf16 (2^-9 relative), the result stored in bf16
+    np.testing.assert_allclose(bf.float().numpy(), want, atol=3e-2)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros(2, 8, 64)
+    for bad in ((q, q[:1], q[:1]), (q[..., :48], q[..., :48], q[..., :48]),
+                (q, q.double(), q), (q.transpose(0, 1), q, q)):
+        with pytest.raises((ValueError, TypeError), match="flash_attention"):
+            TA._check(*bad)
+    assert TA._check(q, q[:, :3].contiguous(), q[:, :3].contiguous()) == (2, 8, 3, 64)
+    # the backward's chunking depends on the shape only and fills the card
+    assert TA.bwd_chunk(8, 6400) == 1 and TA.bwd_chunk(8, 16384) == 3
+    assert TA.bwd_chunk(1, 1) == 1
+
+
+def test_sr_attention_flash_branch_rules():
+    """K4 runs where the block exports nothing and no probability is dropped
+    (JAX `models/mit.py:100-102`); otherwise the plain composition."""
+    x = torch.randn(2, 64, 64, generator=torch.Generator().manual_seed(0))
+    seen = []
+    orig = tmit.mha_flash
+    tmit.mha_flash = lambda *a: seen.append(a[0].shape) or orig(*a)
+    try:
+        flash = tmit.SRAttention(64, 2, sr_ratio=2, export_attn=False, use_flash=True)
+        out, attn = flash.eval()(x, 8, 8)
+        assert attn is None and out.shape == x.shape and seen == [(2, 2, 64, 32)]
+        flash.train()(x, 8, 8)              # attn_drop == 0: still the kernel's branch
+        assert len(seen) == 2
+        tmit.SRAttention(64, 2, sr_ratio=2, export_attn=True, use_flash=True).eval()(x, 8, 8)
+        drop = tmit.SRAttention(64, 2, export_attn=False, use_flash=True, attn_drop=0.1)
+        drop.train()(x, 8, 8)
+        assert len(seen) == 2               # exporting, or dropping in training: plain
+        drop.eval()(x, 8, 8)
+        assert len(seen) == 3
+        plain = tmit.SRAttention(64, 2, sr_ratio=2, export_attn=False, use_flash=False)
+        plain.load_state_dict(flash.state_dict())
+        np.testing.assert_allclose(plain.eval()(x, 8, 8)[0].detach().numpy(),
+                                   out.detach().numpy(), atol=1e-5)
+    finally:
+        tmit.mha_flash = orig
+
+
+@pytest.fixture(scope="module")
+def tscd_setup():
+    x = np.random.default_rng(0).standard_normal((1, 64, 64, 3)).astype(np.float32)
+    v = jax.jit(JTSCD(backbone="mit_b0", num_classes=6).init)(jax.random.PRNGKey(0),
+                                                               jnp.asarray(x))
+    return x, v
+
+
+def _loss_and_grads_jax(model, v, x):
+    def loss(params):
+        cls_logits, seg, _, pred = model.apply({**v, "params": params}, x, train=False)
+        return (cls_logits ** 2).mean() + (seg ** 2).mean() + (pred ** 2).mean()
+
+    orig = JA.flash_attention
+    JA.flash_attention = functools.partial(orig, interpret=True)
+    try:
+        return jax.value_and_grad(loss)(v["params"])
+    finally:
+        JA.flash_attention = orig
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_tscd_use_flash_matches_jax_outputs_and_gradients(tscd_setup, remat):
+    x, v = tscd_setup
+    want, wg = _loss_and_grads_jax(JTSCD(backbone="mit_b0", num_classes=6, use_flash=True), v,
+                                   jnp.asarray(x))
+    m = TSCD("mit_b0", 6, use_flash=True, remat=remat, device="cpu").eval()
+    m.load_state_dict(tscd_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, v)))
+    calls = []
+    orig = tmit.mha_flash
+    tmit.mha_flash = lambda *a: calls.append(a[0].shape[2:]) or orig(*a)
+    try:
+        cls_logits, seg, _, pred = m(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+        loss = (cls_logits ** 2).mean() + (seg ** 2).mean() + (pred ** 2).mean()
+        loss.backward()
+    finally:
+        tmit.mha_flash = orig
+    # the six blocks of stages 1-3 (twice under remat: once more in the backward)
+    assert calls[:6] == [(256, 32)] * 2 + [(64, 32)] * 2 + [(16, 32)] * 2
+    assert len(calls) == (12 if remat else 6)
+    np.testing.assert_allclose(float(loss.detach()), float(want), rtol=1e-5)
+    want_grads = named_tree_from_jax(jax.tree_util.tree_map(np.asarray, wg))
+    got = {n: p.grad for n, p in m.named_parameters()}
+    assert set(got) == set(want_grads)
+    for n, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want_grads[n].numpy(), rtol=2e-3, atol=2e-5,
+                                   err_msg=n)

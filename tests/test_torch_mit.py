@@ -104,6 +104,20 @@ def test_mix_vision_transformer_mit_b0_matches_jax(mode):
         np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATOL_DEEP)
 
 
-def test_use_flash_names_the_missing_kernel():
-    with pytest.raises(NotImplementedError, match="K4"):
-        tmit.SRAttention(64, 1, use_flash=True)
+@pytest.mark.parametrize("stage", [(64, 1, 8), (128, 2, 4), (320, 5, 2)])
+def test_use_flash_block_matches_the_jax_block(stage):
+    """A non-exporting `Block(use_flash=True)` (K4 under its attention; on CPU
+    tensors the plain version) against the JAX block on converted weights, whose
+    shapes here are no tile multiples and take `_xla_attention`."""
+    C, nh, sr = stage
+    rng = np.random.default_rng(C)
+    x = rng.standard_normal((2, 16 * 16, C)).astype(np.float32)
+    jb = jmit.Block(C, nh, 4.0, sr, export_attn=False, use_flash=True)
+    v = jb.init(jax.random.PRNGKey(0), jnp.asarray(x), 16, 16)
+    want, none = jb.apply(v, jnp.asarray(x), 16, 16)
+    tb = tmit.Block(C, nh, 4.0, sr, export_attn=False, use_flash=True).eval()
+    tb.load_state_dict(state_dict_from_jax(jax.tree_util.tree_map(np.asarray, v)))
+    with torch.no_grad():
+        got, attn = tb(torch.from_numpy(x), 16, 16)
+    assert none is None and attn is None
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)

@@ -25,7 +25,8 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert {"representationlearning_tpu_torch." + m for m in (
         "ops.mit_block", "ops.affinity", "ops.varm", "ops.neighbors", "models.refine",
-        "wsss.camutils", "train.scd")} <= set(mods)
+        "wsss.camutils", "train.scd", "ops.attention", "ops.bilateral", "losses.wsss",
+        "losses.energy", "train.optim", "train.state", "train.checkpoints")} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "
@@ -85,8 +86,11 @@ def test_kernel_build_is_keyed_by_the_sources():
         "ln_stats.cu", "gemm.cu", "attention.cu", "dwconv_gelu.cu"}
     assert {p.name for p in (_build.CSRC / "refine").glob("*.cu")} == {
         "affinity.cu", "varm.cu"}
-    assert _build._digest("refine") != d
+    assert {p.name for p in (_build.CSRC / "attention").glob("*.cu")} == {
+        "flash_fwd.cu", "flash_bwd.cu"}
+    assert len({d, _build._digest("refine"), _build._digest("attention")}) == 3
     assert set(_build.SIGNATURES["refine"]) == {"k2_affinity", "k3_varm_iter"}
+    assert set(_build.SIGNATURES["attention"]) == {"k4_flash_fwd", "k4_flash_bwd"}
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "representationlearning_tpu_torch/_build/" in ignored
 
@@ -111,3 +115,28 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                            text=True, timeout=120)
         assert r.returncode != 0
         assert '"ok": true' not in r.stdout
+
+
+def test_cpu_train_step_never_touches_the_kernel_loader(monkeypatch):
+    """The whole train step on CPU tensors: K1, K2, K3 and K4 all take their plain
+    versions, forward and backward."""
+    from representationlearning_tpu_torch.ops import attention as TA
+    from representationlearning_tpu_torch.train import optim as TO
+    from representationlearning_tpu_torch.train import scd as TS
+    from representationlearning_tpu_torch.train.state import TrainState
+
+    def refuse(*a, **k):
+        raise AssertionError("kernel loader called on the CPU path")
+
+    monkeypatch.setattr(_build, "load_library", refuse)
+    TA.reset_launches()
+    gen = torch.Generator().manual_seed(0)
+    m = TSCD("mit_b0", 6, use_flash=True, device="cpu", generator=gen)
+    cfg = TS.SCDConfig(num_classes=6, crop_size=128, cam_scales=(1.0,), cam_iters=-1,
+                       varm_dilations=(1, 2), varm_iters=2, corr_samples=4)
+    state = TrainState.create(m, TO.make_poly_warmup_adamw(m, 6e-5, 0.01, 10, 100))
+    batch = {"image": torch.randn(2, 3, 128, 128, generator=gen),
+             "cls_label": torch.eye(5)[:2], "img_box": torch.tensor([[0, 128, 0, 128]] * 2)}
+    state, metrics = TS.make_scd_train_step(m, cfg, device="cpu")(state, batch, gen)
+    assert state.step == 1 and torch.isfinite(metrics["total"])
+    assert TA.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
