@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's three paths and checks them. The first is TSCD / MiT-B1
+Drives the port's four paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -13,11 +13,16 @@ The third is the SCD train step (``train/scd.py::make_scd_train_step``) at the s
 configuration: the trained ``TSCD("mit_b1", use_flash=True)`` in f32 with K4
 (``ops/attention.py``, forward and backward) under the six attentions of stages
 1-3, the bf16 fused CAM twin on the same parameters (K1), the refinement (K2,
-K3), six losses, backward and one AdamW update a step.
+K3), six losses, backward and one AdamW update a step. The fourth is the
+RSSFormer predict (``models/rssformer.py::HRNetFusion``): ``hrnetv2_w32``, 7
+classes, bf16 convolutions, 4 x 3 x 512 x 512, with the FFN of each of its eight
+transformer blocks on K5 (``ops/mlp_dwbn.py``) and their window attention on K6
+(``ops/isa_attention.py``). The headline forward also runs with ``pre_sr=True``,
+the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
-   both libraries side by side;
+   the four libraries side by side;
 3. kernel vs plain: each K1 kernel, and the whole block, against its plain
    PyTorch version on the same inputs, at the four MiT-B1 stage geometries of
    the 512 x 512 forward, with each kernel's bound and, where one PyTorch call
@@ -42,12 +47,23 @@ K3), six losses, backward and one AdamW update a step.
    parameter group against the same step on the plain path from the same seed
    and masks; frozen and updated parameters; step count and learning rate; the
    warm-up switch; a checkpoint saved and restored gives the same next step;
+7b. K5 / K6 / K1' vs plain: K5 and its two pieces at the predict path's shape
+   (4, 16384, 32), hid 128, and at two small odd planes (one below the dilations,
+   one non-square); K6 at (1444, 49, 32), 2 heads, at one window and at another
+   window size; the K1 block with ``h`` and ``xs`` handed in at the three sr > 1
+   stage geometries; then the RSSFormer predict forward (exactly 8 launches of
+   each K5 kernel and of K6, probabilities against the same model with both
+   flags off) and the headline forward with ``pre_sr=True`` against
+   ``pre_sr=False``, with its launch counts;
 8. timing: CUDA-event times of each kernel, of the whole forward, of the whole
-   pseudo-label call and of the train step, kernel path against plain path.
+   pseudo-label call and of the train step, kernel path against plain path; the
+   RSSFormer predict four ways (both flags on, each alone, both off) and the
+   headline forward with and without ``pre_sr``.
 
 Run from the root of the repository: ``python3 chip_smoke.py [--seed N]``. Every
 phase prints its results; the line before the last is a JSON object with one
-entry per kernel (K1's five, K2, K3, K4 forward and K4 backward), and the last line is ``{"ok": true, ...}``. Without a CUDA
+entry per kernel (K1's five, K2, K3, K4 forward and backward, K5's two, K6 and the
+K1' block), and the last line is ``{"ok": true, ...}``. Without a CUDA
 card, or without the package beside the script, it exits non-zero and prints no
 result.
 """
@@ -81,7 +97,21 @@ KERNELS = {"ln_stats": ("mit_block/ln_stats.cu", PALLAS + "mit_block.py:259"),
            "affinity": ("refine/affinity.cu", PALLAS + "affinity.py:134"),
            "varm_propagate": ("refine/varm.cu", PALLAS + "varm.py:91"),
            "flash_fwd": ("attention/flash_fwd.cu", PALLAS + "attention.py:95"),
-           "flash_bwd": ("attention/flash_bwd.cu", PALLAS + "attention.py:134")}
+           "flash_bwd": ("attention/flash_bwd.cu", PALLAS + "attention.py:134"),
+           "mlp_fc1": ("rssformer/mlp_dwbn.cu", PALLAS + "mlp_dwbn.py:115"),
+           "mlp_taps": ("rssformer/mlp_dwbn.cu", PALLAS + "mlp_dwbn.py:115"),
+           "isa_core": ("rssformer/isa_attention.cu", PALLAS + "isa_attention.py:106"),
+           # K1' is K1's kernels in another order of work: `linear` without its
+           # LayerNorm prologue on h and xs handed in
+           "mit_block_presr": ("mit_block/gemm.cu", PALLAS + "mit_block.py:230")}
+TRAIN_KERNELS = ("ln_stats", "linear", "sr_conv", "attention", "dwconv_gelu", "affinity",
+                 "varm_propagate", "flash_fwd", "flash_bwd")  # launched in a train step
+
+# The RSSFormer predict (bench.py::bench_rssformer_predict): hrnetv2_w32, 7 classes,
+# 4 x 512 x 512; its transformer blocks sit on branch 0 (width 32, 128 x 128 tokens,
+# 7 x 7 windows over the grid padded to 133: 19 x 19 windows an image, 2 heads)
+RSS_BATCH, RSS_CLASSES, RSS_DIM, RSS_HEADS, RSS_WINDOW = 4, 7, 32, 2, 7
+RSS_BLOCKS = 8  # one a HighResolutionModule: 1 + 4 + 3 in stages 2-4
 
 # The SCD pseudo-label path (configs/scd_voc.yaml): crop, CAM scales, refinement
 # at half resolution with 2 * (max_present + 1) mask channels
@@ -187,6 +217,27 @@ RESUME_TOL = 1e-4
 # that was not restored would move it by the whole update (1.2e-6 in the heads
 # at this step's learning rate).
 RESUME_PARAM_TOL = 5e-7
+# K5 against its plain version on the same inputs, times max(1, max|plain|). fc1
+# stores its result in bf16: equal except where the kernel's f32 sum lands on the
+# other side of a rounding boundary, then one bf16 spacing (2^-8 of the value,
+# 2^-7 of the largest covers it). The taps piece and the whole block: such a
+# flipped bf16 operand of the next product moves an output by a bf16 spacing of
+# the hidden value (2^-9 of it, relative) times a weight. Some 3e-4 of the hidden
+# values flip and an output reads 128 of them, so a few percent of the outputs
+# move by about 2e-4 and fewer by more: 1e-2 of the largest magnitude bounds the
+# worst, and all but a thousandth of the entries lie within 1e-3 of it.
+K5_TOL = {"mlp_fc1": 2.0 ** -7, "mlp_taps": 1e-2, "whole": 1e-2}
+K5_NEAR, K5_FAR_SHARE = 1e-3, 1e-3
+# K6: f32 sums of at most 100 products in another order, `expf` against
+# `torch.exp`; with bf16 operands a probability next to a rounding boundary may
+# take the neighbouring bf16 value (2^-8 of a value below 1).
+K6_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# RSSFormer probabilities (in [0, 1]), K5 and K6 against the cuDNN convolutions
+# and the plain attention core, both in bf16: the unfused FFN rounds each conv's
+# result to bf16 and adds the three branches in bf16, K5 keeps f32 sums, so the
+# two differ by a few bf16 spacings of the hidden values through eight blocks
+# (1e-2 on the CPU at hrnetv2_w18); the classes agree on at least 99% of pixels.
+RSS_TOL, RSS_SHARE = 3e-2, 0.99
 
 
 def log(msg: str = "") -> None:
@@ -229,6 +280,44 @@ def use_plain_refine(plain: bool) -> None:
     for mod, name in ((ta, "affinity"), (tv, "varm_propagate")):
         kernel = _KERNEL_FNS.setdefault(name, getattr(mod, name))
         setattr(mod, name, getattr(mod, name + "_reference") if plain else kernel)
+
+
+def calm(torch, module, gen) -> None:
+    """Random weights a deep model can be checked with: the module's own
+    initialisation, plus noise on every bias, norm affine and BatchNorm statistic
+    (so their wiring shows), BatchNorm scales around 0.5 (so the residual stream
+    of some forty blocks stays of order 1) and a classifier whose logits are of
+    order 1 (its fan-out initialisation gives a one-hot softmax)."""
+    from torch import nn
+
+    def noise(t, scale):
+        return (scale * torch.randn(t.shape, generator=gen)).to(t.device)
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.weight.mul_(0.5).add_(noise(m.weight, 0.05))
+                m.running_mean.add_(noise(m.running_mean, 0.1))
+                m.running_var.copy_((0.75 + 0.5 * torch.rand(m.running_var.shape, generator=gen))
+                                    .to(m.running_var.device))
+            elif isinstance(m, nn.LayerNorm):
+                m.weight.add_(noise(m.weight, 0.1))
+            if getattr(m, "bias", None) is not None:
+                m.bias.add_(noise(m.bias, 0.1))
+        if hasattr(module, "head"):
+            module.head[0].weight.mul_(0.1)
+
+
+def set_rss_flags(model, fused_mlp: bool, fused_attn: bool) -> None:
+    """Switch every MlpDWBN between K5 and its convolutions, and every Mhca
+    between K6 and its plain attention core; the parameters are the same."""
+    from representationlearning_tpu_torch.models.rssformer_modules import Mhca, MlpDWBN
+
+    for m in model.modules():
+        if isinstance(m, MlpDWBN):
+            m.fused = fused_mlp
+        elif isinstance(m, Mhca):
+            m.fused = fused_attn
 
 
 def nbytes(*objs) -> int:
@@ -1110,6 +1199,246 @@ class Phases:
                        f"path {p_norms[k]:.6e} (tol {STEP_TOL * p_norms[k]:.2e})")
         return t, pl, batch
 
+    # ------------------------------------------------------------- phase 7b (K5, K6, K1')
+    def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
+        """max |got - want| against tol * max(1, max |want|); with `far_share`,
+        also the share of entries beyond K5_NEAR of that magnitude."""
+        torch = self.torch
+        err, mag = max_err(got, want)
+        scale = max(1.0, mag)
+        ok = bool(torch.isfinite(got.float()).all()) and err <= tol * scale
+        msg = (f"{what} {tuple(got.shape)}: max abs err {err:.3e} (max |plain| {mag:.3e}, "
+               f"tol {tol * scale:.3e})")
+        if far_share is not None:
+            far = ((got.float() - want.float()).abs() > K5_NEAR * scale).float().mean().item()
+            ok = ok and far <= far_share
+            msg += f", {100.0 * far:.4f}% of the entries beyond {K5_NEAR * scale:.1e}"
+        self.check(ok, msg)
+        return err
+
+    def mlp_vs_plain(self, tm) -> None:
+        """K5 and its two kernels against their plain versions on the same inputs."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.layers import init_weights
+        from representationlearning_tpu_torch.models.rssformer_modules import MlpDWBN
+
+        bf16 = torch.bfloat16
+        hid, cout, side = 4 * RSS_DIM, RSS_DIM, IMAGE // 4
+        log(f"== K5 vs plain (same inputs): MlpDWBN feed-forward block, Cin {RSS_DIM}, hid {hid}, "
+            f"out {cout}, bf16 operands")
+        gen = torch.Generator().manual_seed(self.seed + 6)
+        mod = MlpDWBN(RSS_DIM, hid, cout, dtype=bf16, fused=True).eval()
+        init_weights(mod, gen)
+        calm(torch, mod, gen)
+        mod.to(self.dev)
+        with torch.no_grad():
+            p = {k: v.detach() for k, v in mod.kernel_params().items()}
+        f1 = (p["fc1_weight"].reshape(hid, RSS_DIM).to(bf16), p["fc1_bias"], p["bn1_scale"],
+              p["bn1_shift"])
+        rest = (tm.tap_weights(p).to(bf16).contiguous(), p["dw_bias"], p["bn2_scale"],
+                p["bn2_shift"], p["fc2_weight"].reshape(cout, hid).to(bf16), p["fc2_bias"],
+                p["bn3_scale"], p["bn3_shift"])
+        for k in ("mlp_fc1", "mlp_taps", "mlp_whole"):
+            self.piece_err[k] = 0.0
+        for B, H, W, what in ((RSS_BATCH, side, side, "the predict path's shape"),
+                              (2, 7, 9, "a plane below both dilations"),
+                              (1, 20, 45, "a non-square plane of 900 tokens")):
+            x = torch.randn(B, H * W, RSS_DIM, generator=gen).to(self.dev)
+            with torch.no_grad():
+                h, hp = tm.mlp_fc1(x, *f1), tm.mlp_fc1_reference(x, *f1)
+                out = tm.mlp_taps(hp, *rest, H=H, W=W)
+                got = tm.fused_mlp_dwbn(x, p, H=H, W=W, dtype=bf16)
+                torch.cuda.synchronize()
+                outp = tm.mlp_taps_reference(hp, *rest, H=H, W=W)
+                want = tm.fused_mlp_dwbn_reference(x, p, H=H, W=W, dtype=bf16)
+            log(f"  B = {B}, {H} x {W} ({what})")
+            for name, g, w in (("mlp_fc1", h, hp), ("mlp_taps", out, outp), ("whole", got, want)):
+                err = self._err_check(f"{name} @ B={B} {H}x{W}", g, w, K5_TOL[name],
+                                      None if name == "mlp_fc1" else K5_FAR_SHARE)
+                key = "mlp_whole" if name == "whole" else name
+                self.piece_err[key] = max(self.piece_err[key], err)
+            if H == side:
+                self.mlp_inputs = (mod, x, p, f1, rest, hp, out, h)
+
+    def isa_vs_plain(self, ti) -> None:
+        """K6 against its plain version on the same inputs."""
+        torch = self.torch
+        f32, bf16 = torch.float32, torch.bfloat16
+        side = IMAGE // 4
+        per_side = -(-side // RSS_WINDOW)               # the grid is padded to 7 * 19 = 133
+        NW, T = RSS_BATCH * per_side * per_side, RSS_WINDOW * RSS_WINDOW
+        log(f"== K6 vs plain (same inputs): window attention with the DAL gate, "
+            f"{NW} windows of {T} x {RSS_DIM}, {RSS_HEADS} heads")
+        gen = torch.Generator().manual_seed(self.seed + 7)
+        self.piece_err["isa_core"] = self.piece_err["isa_core_f32"] = 0.0
+        for nw, t, C, nh, dtype, what in (
+                (NW, T, RSS_DIM, RSS_HEADS, bf16, "the predict path's shape"),
+                (1, T, RSS_DIM, RSS_HEADS, bf16, "one window"),
+                (37, 16, RSS_DIM, RSS_HEADS, bf16, "4 x 4 windows"),
+                (NW, T, RSS_DIM, RSS_HEADS, f32, "f32 operands"),
+                (5, 100, 18, 2, f32, "head width 9, 10 x 10 windows")):
+            q, k, v = (torch.randn(nw, t, C, generator=gen).to(self.dev) for _ in range(3))
+            q = q * (C // nh) ** -0.5
+            got = ti.isa_core(q, k, v, nh=nh, dtype=dtype)
+            torch.cuda.synchronize()
+            want = ti.isa_core_reference(q, k, v, nh=nh, dtype=dtype)
+            name = str(dtype).split(".")[-1]
+            err = self._err_check(f"isa_core @ {what}, {name}", got, want, K6_TOL[name])
+            key = "isa_core" if dtype == bf16 else "isa_core_f32"
+            self.piece_err[key] = max(self.piece_err[key], err)
+            if nw == NW and dtype == bf16:
+                self.isa_inputs = (q, k, v, got)
+
+    def presr_vs_plain(self, tmb) -> None:
+        """K1': the block with h = ln1(x) and xs = srnorm(srconv(h) + b) handed in,
+        kernels against plain version, at the three sr > 1 stage geometries of
+        the headline forward; timed, with the bound of the block as one function."""
+        torch = self.torch
+        bf16 = torch.bfloat16
+        log(f"== K1' vs plain (same inputs): the block with h and xs handed in, B = {BATCH}")
+        gen = torch.Generator().manual_seed(self.seed + 8)
+        name = "mit_block_presr"
+        self.piece_err[name] = self.piece_ms[name] = self.piece_plain_ms[name] = 0.0
+        self.piece_library_ms[name] = None
+        self.presr_front_ms = 0.0
+        for hw, C, nh, sr, _ in STAGES:
+            if sr == 1:
+                continue
+            N, Nk = hw * hw, (hw // sr) ** 2
+            x = torch.randn(BATCH, N, C, generator=gen).to(self.dev, bf16)
+            p = self._block_params(C, nh, sr, False, gen)
+            kw = dict(H=hw, W=hw, sr=sr, nh=nh, dtype=bf16)
+            with torch.no_grad():
+                h, xs = tmb.sr_reduce(x, p, H=hw, W=hw, sr=sr, dtype=bf16)
+                tmb.reset_launches()
+                got = tmb.fused_block(x, p, h=h, xs=xs, **kw)
+                counts = dict(tmb.LAUNCHES)
+                torch.cuda.synchronize()
+                want = tmb.fused_block_reference(x, p, h=h, xs=xs, **kw)
+                whole = tmb.fused_block(x, p, **kw)
+            self.check(counts == {"ln_stats": 1, "linear": 5, "sr_conv": 0, "attention": 1,
+                                  "dwconv_gelu": 1},
+                       f"block @ N={N} C={C} sr={sr}: launches {counts}, no sr_conv and no "
+                       "ln_stats of the front")
+            for what, ref in (("its plain version", want), ("the block without the variant", whole)):
+                err, mag = max_err(got, ref)
+                self.check(bool(torch.isfinite(got.float()).all()) and err <= PATH_TOL * mag,
+                           f"block with h, xs @ N={N} C={C} sr={sr} against {what}: max abs err "
+                           f"{err:.3e} (max {mag:.3e}, tol {PATH_TOL * mag:.3e})")
+                if ref is want:
+                    self.piece_err[name] = max(self.piece_err[name], err)
+            with torch.no_grad():
+                k_ms = self.time_ms(lambda: tmb.fused_block(x, p, h=h, xs=xs, **kw), iters=10)
+                p_ms = self.time_ms(lambda: tmb.fused_block_reference(x, p, h=h, xs=xs, **kw),
+                                    iters=5)
+                f_ms = self.time_ms(lambda: tmb.sr_reduce(x, p, H=hw, W=hw, sr=sr, dtype=bf16),
+                                    iters=10)
+                w_ms = self.time_ms(lambda: tmb.fused_block(x, p, **kw), iters=10)
+            self.piece_ms[name] += DEPTH * k_ms
+            self.piece_plain_ms[name] += DEPTH * p_ms
+            self.presr_front_ms += DEPTH * f_ms
+            # the block as one function: x, h, xs, the parameters it reads, out; its
+            # products: q, proj (C x C), fc1, fc2 (C x 4C), kv (Nk rows), q k^T and p v
+            used = {k: v for k, v in p.items() if not k.startswith(("sr", "ln1"))}
+            flops = BATCH * (20.0 * N * C * C + 4.0 * Nk * C * C + 4.0 * N * Nk * C)
+            self.add_bound(name, nbytes(x, h, xs, used, got), flops, PEAK_BF16, times=DEPTH)
+            log(f"  K1' block @ N={N} C={C} sr={sr}: kernels {k_ms:.3f} ms + front "
+                f"(F.layer_norm, F.conv2d, F.layer_norm) {f_ms:.3f} ms, plain {p_ms:.3f} ms; "
+                f"the block without the variant {w_ms:.3f} ms")
+
+    def run_rssformer(self, tm, ti):
+        torch = self.torch
+        from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+
+        log(f"== RSSFormer predict: HRNetFusion(hrnetv2_w32, {RSS_CLASSES} classes, bf16, "
+            f"fused_mlp, fused_attn), {RSS_BATCH} x 3 x {IMAGE} x {IMAGE}")
+        gen = torch.Generator().manual_seed(self.seed + 9)
+        model = HRNetFusion("hrnetv2_w32", RSS_CLASSES, dtype=torch.bfloat16, fused_mlp=True,
+                            fused_attn=True, generator=gen).eval()  # no device named: the card
+        self.check(all(t.is_cuda for t in model.state_dict().values()),
+                   "HRNetFusion() without a device put its parameters and buffers on the card")
+        calm(torch, model, gen)
+        x = torch.randn(RSS_BATCH, 3, IMAGE, IMAGE, generator=gen).to(self.dev)
+
+        def forward(fused_mlp, fused_attn):
+            set_rss_flags(model, fused_mlp, fused_attn)
+            tm.reset_launches()
+            ti.reset_launches()
+            with torch.no_grad():
+                out = model(x)
+            torch.cuda.synchronize()
+            return out, {**tm.LAUNCHES, **ti.LAUNCHES}
+
+        prob, counts = forward(True, True)
+        log(f"  launches in one forward: {counts}")
+        want = {"mlp_fc1": RSS_BLOCKS, "mlp_taps": RSS_BLOCKS, "isa_core": RSS_BLOCKS}
+        self.check(counts == want, f"launch counts {want}: the FFN and the attention core of "
+                                   f"each of the {RSS_BLOCKS} transformer blocks ran on K5 and K6")
+        self.launches.update(counts)
+        self.check(tuple(prob.shape) == (RSS_BATCH, RSS_CLASSES, IMAGE, IMAGE)
+                   and prob.dtype == torch.float32 and bool(torch.isfinite(prob).all()),
+                   f"probabilities {tuple(prob.shape)} {prob.dtype}, finite")
+        rows = (prob.sum(dim=1) - 1.0).abs().max().item()
+        self.check(rows <= 1e-4 and 0.0 <= prob.min().item() and prob.std().item() > 0.01,
+                   f"probabilities sum to 1 over the classes (max deviation {rows:.1e}), spread "
+                   f"{prob.std().item():.3f}, largest {prob.max().item():.3f}")
+        plain, counts = forward(False, False)
+        self.check(sum(counts.values()) == 0, "both flags off: no K5 or K6 launch (cuDNN "
+                                              "convolutions, plain attention core)")
+        err = (prob - plain).abs().max().item()
+        self.check(err <= RSS_TOL, f"probabilities, K5 + K6 against both flags off: max abs err "
+                                   f"{err:.3e} (tol {RSS_TOL:.0e})")
+        self._share("classes (argmax), K5 + K6 against both flags off,", prob.argmax(1),
+                    plain.argmax(1), RSS_SHARE)
+        self.rss_err = err
+        for flags, want in (((True, False), {"mlp_fc1": RSS_BLOCKS, "mlp_taps": RSS_BLOCKS,
+                                             "isa_core": 0}),
+                            ((False, True), {"mlp_fc1": 0, "mlp_taps": 0,
+                                             "isa_core": RSS_BLOCKS})):
+            out, counts = forward(*flags)
+            e = (out - plain).abs().max().item()
+            self.check(counts == want and e <= RSS_TOL,
+                       f"fused_mlp, fused_attn = {flags}: launches {counts}, max abs err against "
+                       f"both off {e:.3e}")
+        set_rss_flags(model, True, True)
+        return model, x
+
+    def run_presr(self, tmb, model, blocks, x) -> None:
+        """The headline TSCD forward with `pre_sr=True` against `pre_sr=False`."""
+        torch = self.torch
+        log(f"== K1' in the model: the headline forward with pre_sr=True, "
+            f"{BATCH} x 3 x {IMAGE} x {IMAGE}")
+
+        def forward(pre_sr):
+            for b in blocks:
+                b.pre_sr = pre_sr
+            tmb.reset_launches()
+            with torch.no_grad():
+                out = model(x)
+            torch.cuda.synchronize()
+            return out, dict(tmb.LAUNCHES)
+
+        try:
+            got, counts = forward(True)
+        finally:
+            for b in blocks:
+                b.pre_sr = False
+        ref, ref_counts = forward(False)
+        n_sr = sum(DEPTH for _, _, _, sr, _ in STAGES if sr > 1)
+        # an sr > 1 block keeps the ln_stats of LN2 only; an sr == 1 block is as before
+        want = {"ln_stats": n_sr + 2 * (8 - n_sr), "linear": 5 * 8, "sr_conv": 0,
+                "attention": 8, "dwconv_gelu": 8}
+        log(f"  launches with pre_sr: {counts}; without: {ref_counts}")
+        self.check(counts == want, f"launch counts {want}: no sr_conv, {ref_counts['ln_stats']} "
+                                   f"-> {want['ln_stats']} ln_stats")
+        self.launches["mit_block_presr"] = sum(counts.values())
+        for k, g, w in (("cls", got[0], ref[0]), ("seg", got[1], ref[1]),
+                        ("attn_pred", got[3], ref[3])):
+            err, mag = max_err(g, w)
+            self.check(bool(torch.isfinite(g.float()).all()) and err <= PATH_TOL * mag,
+                       f"{k}: pre_sr=True against pre_sr=False max abs err {err:.3e} "
+                       f"(max {mag:.3e}, tol {PATH_TOL * mag:.3e})")
+
     # ------------------------------------------------------------- phase 8
     def timing(self, tmb, model, blocks, x, card: str) -> None:
         torch = self.torch
@@ -1240,6 +1569,121 @@ class Phases:
                 f"{sum(self.piece_bound[k]):.4f} ms, library call "
                 f"{self.piece_library_ms[k]:.3f} ms)")
 
+    def timing_presr(self, tmb, model, blocks, x, card: str) -> None:
+        torch = self.torch
+        log(f"== timing of the headline forward with and without pre_sr (CUDA events, {card})")
+
+        def forward():
+            with torch.no_grad():
+                model(x)
+
+        times = {False: [], True: []}
+        try:
+            for pre_sr in (False, True, True, False):
+                for b in blocks:
+                    b.pre_sr = pre_sr
+                times[pre_sr].append(self.time_ms(forward, iters=3))
+        finally:
+            for b in blocks:
+                b.pre_sr = False
+        for pre_sr, ts in times.items():
+            log(f"  forward, pre_sr={pre_sr}: {', '.join(f'{t:.2f}' for t in ts)} ms per batch "
+                f"of {BATCH} -> {BATCH * 1000.0 / min(ts):.1f} tiles/s (best run)")
+        k = "mit_block_presr"
+        log(f"  {k}: the 6 sr > 1 blocks of a forward with h, xs handed in {self.piece_ms[k]:.3f} "
+            f"ms (plain {self.piece_plain_ms[k]:.3f} ms, bound {sum(self.piece_bound[k]):.4f} "
+            f"ms), their library front {self.presr_front_ms:.3f} ms")
+
+    def timing_rss(self, tm, ti, model, x, card: str) -> None:
+        """K5 and K6 a forward with their bounds, the unfused module beside K5, and
+        the whole predict four ways."""
+        torch = self.torch
+        import torch.nn.functional as F
+        bf16 = torch.bfloat16
+        log(f"== timing of K5, K6 and the RSSFormer predict (CUDA events, {card})")
+        mod, xm, p, f1, rest, hp, out, h = self.mlp_inputs
+        H = W = IMAGE // 4
+        M, hid, cout = xm.shape[0] * xm.shape[1], 4 * RSS_DIM, RSS_DIM
+        xb, b1 = xm.to(bf16), f1[1].to(bf16)
+        with torch.no_grad():
+            fns = {"mlp_fc1": (lambda: tm.mlp_fc1(xm, *f1), lambda: tm.mlp_fc1_reference(xm, *f1),
+                               lambda: F.linear(xb, f1[0], b1)),
+                   "mlp_taps": (lambda: tm.mlp_taps(hp, *rest, H=H, W=W),
+                                lambda: tm.mlp_taps_reference(hp, *rest, H=H, W=W), None)}
+            for name, (kern, plain, lib) in fns.items():
+                self.piece_ms[name] = RSS_BLOCKS * self.time_ms(kern, iters=20)
+                self.piece_plain_ms[name] = RSS_BLOCKS * self.time_ms(plain, iters=3)
+                self.piece_library_ms[name] = None if lib is None else \
+                    RSS_BLOCKS * self.time_ms(lib, iters=20)
+            whole = self.time_ms(lambda: tm.fused_mlp_dwbn(xm, p, H=H, W=W, dtype=bf16), iters=20)
+            mod.fused = False
+            unfused = self.time_ms(lambda: mod(xm, H, W), iters=20)
+            mod.fused = True
+        self.library_covers["mlp_fc1"] = "F.linear on bf16: the product and the bias, without " \
+                                         "bn1 and the GELU"
+        # fc1: x, the weight and three vectors read, the bf16 plane written; taps: the
+        # plane, 19 + 1 weights and six vectors read, the tokens written; a tap counts
+        # only where its source lies inside the plane (outside it is zero by definition)
+        self.add_bound("mlp_fc1", nbytes(xm, f1, h), 2.0 * M * RSS_DIM * hid, PEAK_BF16,
+                       times=RSS_BLOCKS)
+        tap_tokens = xm.shape[0] * sum(max(0, H - abs(dy)) * max(0, W - abs(dx))
+                                       for dy, dx in tm.tap_offsets())
+        self.add_bound("mlp_taps", nbytes(hp, rest, out),
+                       2.0 * hid * (hid * tap_tokens + M * cout), PEAK_BF16, times=RSS_BLOCKS)
+        self.unfused_mlp_ms = RSS_BLOCKS * unfused
+        log(f"  K5 a launch: fc1 {self.piece_ms['mlp_fc1'] / RSS_BLOCKS:.4f} ms + taps "
+            f"{self.piece_ms['mlp_taps'] / RSS_BLOCKS:.4f} ms; fused_mlp_dwbn (the two and the "
+            f"weight packing) {whole:.4f} ms; the unfused MlpDWBN module (cuDNN bf16 convs, f32 "
+            f"BatchNorm and GELU) {unfused:.4f} ms")
+        q, k, v, got = self.isa_inputs
+        nh, hd = RSS_HEADS, RSS_DIM // RSS_HEADS
+        NW, T, C = q.shape
+
+        def heads(t):
+            return t.to(bf16).reshape(NW, T, nh, hd).transpose(1, 2).contiguous()
+
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        with torch.no_grad():
+            self.piece_ms["isa_core"] = RSS_BLOCKS * self.time_ms(
+                lambda: ti.isa_core(q, k, v, nh=nh, dtype=bf16), iters=20)
+            self.piece_plain_ms["isa_core"] = RSS_BLOCKS * self.time_ms(
+                lambda: ti.isa_core_reference(q, k, v, nh=nh, dtype=bf16), iters=5)
+            self.piece_library_ms["isa_core"] = RSS_BLOCKS * self.time_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0), iters=20)
+        self.library_covers["isa_core"] = "F.scaled_dot_product_attention on bf16 heads: the " \
+                                          "softmax attention without the DAL gate"
+        # q k^T and p v: 2 * 2 T T C a window; the gate's q^T k: 2 T C hd
+        self.add_bound("isa_core", nbytes(q, k, v, got), NW * (4.0 * T * T * C + 2.0 * T * C * hd),
+                       PEAK_BF16, times=RSS_BLOCKS)
+        for name in ("mlp_fc1", "mlp_taps", "isa_core"):
+            lib = self.piece_library_ms[name]
+            log(f"  {name}: {self.piece_ms[name]:.3f} ms per forward of {RSS_BLOCKS} launches "
+                f"(plain {self.piece_plain_ms[name]:.3f} ms, bound "
+                f"{sum(self.piece_bound[name]):.4f} ms by "
+                f"{'bytes' if self.piece_bound[name][0] else 'operations'}, library call "
+                f"{'none' if lib is None else f'{lib:.3f} ms'})")
+
+        def forward():
+            with torch.no_grad():
+                model(x)
+
+        order = [(False, False), (True, True), (True, False), (False, True),
+                 (False, True), (True, False), (True, True), (False, False)]
+        times: dict = {}
+        for flags in order:
+            set_rss_flags(model, *flags)
+            times.setdefault(flags, []).append(self.time_ms(forward, iters=6))
+        set_rss_flags(model, True, True)
+        for flags, ts in times.items():
+            log(f"  predict, fused_mlp={flags[0]}, fused_attn={flags[1]}: "
+                f"{', '.join(f'{t:.2f}' for t in ts)} ms per batch of {RSS_BATCH} -> "
+                f"{RSS_BATCH * 1000.0 / min(ts):.1f} tiles/s (best run)")
+        torch.cuda.reset_peak_memory_stats()
+        forward()
+        torch.cuda.synchronize()
+        log(f"  peak device memory, both flags on: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1259,7 +1703,9 @@ def main() -> int:
     from representationlearning_tpu_torch.ops import _build
     from representationlearning_tpu_torch.ops import affinity as ta
     from representationlearning_tpu_torch.ops import attention as tf
+    from representationlearning_tpu_torch.ops import isa_attention as ti
     from representationlearning_tpu_torch.ops import mit_block as tmb
+    from representationlearning_tpu_torch.ops import mlp_dwbn as tm
     from representationlearning_tpu_torch.ops import varm as tv
 
     ph = Phases(torch, args.seed)
@@ -1283,19 +1729,31 @@ def main() -> int:
         state["trainer"], state["plain_trainer"], state["batch"] = ph.run_train_steps(
             tmb, ta, tv, tf)
 
+    def rss():
+        state["rss_model"], state["rss_x"] = ph.run_rssformer(tm, ti)
+
     def timing():
         log(f"== timing of K2 / K3 (CUDA events, {card})")
         ph.time_refine_kernels(ta, tv)
         ph.timing(tmb, state["model"], state["blocks"], state["x"], card)
         ph.timing_pseudo(tmb, state["twin"], state["twin_blocks"], state["args"], card)
         ph.timing_train(tmb, state["trainer"], state["plain_trainer"], state["batch"], card)
+        ph.timing_presr(tmb, state["model"], state["blocks"], state["x"], card)
+        ph.timing_rss(tm, ti, state["rss_model"], state["rss_x"], card)
 
     for name, fn in (("kernel vs plain", lambda: ph.kernels_vs_plain(tmb)),
                      ("K2 / K3 vs plain", lambda: ph.refine_kernels_vs_plain(ta, tv)),
                      ("slice", slice_), ("pseudo labels", pseudo),
                      ("K4 vs plain", lambda: ph.flash_vs_plain(tf)),
                      ("K4 in the model", lambda: ph.flash_model(tf)),
-                     ("train step", train), ("timing", timing)):
+                     ("train step", train),
+                     ("K5 vs plain", lambda: ph.mlp_vs_plain(tm)),
+                     ("K6 vs plain", lambda: ph.isa_vs_plain(ti)),
+                     ("K1' vs plain", lambda: ph.presr_vs_plain(tmb)),
+                     ("RSSFormer predict", rss),
+                     ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
+                                                              state["blocks"], state["x"])),
+                     ("timing", timing)):
         try:
             fn()
         except Exception:  # noqa: BLE001 -- report the phase, go on with the next
@@ -1307,7 +1765,8 @@ def main() -> int:
     missing = [k for k in KERNELS if ph.launches.get(k, 0) == 0]
     missing += [f"{k} (pseudo-label call)" for k in PIECE_TOL
                 if ph.launches_pseudo.get(k, 0) == 0]
-    missing += [f"{k} (train step)" for k in KERNELS if ph.launches_train.get(k, 0) == 0]
+    missing += [f"{k} (train step)" for k in TRAIN_KERNELS
+                if ph.launches_train.get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -1329,7 +1788,15 @@ def main() -> int:
                  "library_ms": ph.piece_library_ms[k]}
         if k in ph.launches_pseudo:
             entry["launches_pseudo_label"] = ph.launches_pseudo[k]
-        entry["launches_train_step"] = ph.launches_train[k]
+        if k in ph.launches_train:
+            entry["launches_train_step"] = ph.launches_train[k]
+        if k == "mlp_taps":  # the block as one function, and the module K5 stands in for
+            entry["max_abs_err_whole_block"] = ph.piece_err["mlp_whole"]
+            entry["unfused_module_ms"] = ph.unfused_mlp_ms
+        if k == "isa_core":
+            entry["max_abs_err_f32"] = ph.piece_err["isa_core_f32"]
+        if k == "mit_block_presr":
+            entry["library_front_ms"] = ph.presr_front_ms
         if k == "flash_fwd":  # both directions, at its looser tolerance
             entry["max_abs_err_bf16"] = ph.piece_err["flash_bf16"]
         if k in ph.library_covers:

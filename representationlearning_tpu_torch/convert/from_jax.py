@@ -1,6 +1,6 @@
 """JAX variable tree -> PyTorch state_dict: the exact inverse of
 ``representationlearning_tpu/convert/torch2jax.py::convert_tscd`` and of its MiT
-and SegFormer-head rules.
+and SegFormer-head rules, and of ``convert_rssformer`` / ``convert_hrnet``.
 
 The input is the ``{"params": ..., "batch_stats": ...}`` tree of nested dicts,
 with numpy (or array-like) leaves. Layout rules, each the transpose of the
@@ -60,9 +60,11 @@ def _param(leaf: str, w: np.ndarray) -> tuple[str, np.ndarray]:
     raise KeyError(f"unknown param leaf {leaf!r}")
 
 
-def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def state_dict_from_jax(variables: Mapping[str, Any],
+                        module_name=_module_name) -> dict[str, torch.Tensor]:
     """Any MiT / SegFormer-head / TSCD variable tree (or a subtree of one, such
-    as a single Block) -> the port's state_dict."""
+    as a single Block) -> the port's state_dict. ``module_name`` maps the flax
+    scopes of a leaf to the dotted name of its module."""
     unknown = set(variables) - {"params", "batch_stats"}
     if unknown:
         raise KeyError(f"unexpected collections {sorted(unknown)}")
@@ -72,7 +74,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]
         sd[key] = torch.from_numpy(np.array(w))  # a writable, contiguous copy
 
     def name(path, leaf):
-        mod = _module_name(path[:-1])
+        mod = module_name(path[:-1])
         return f"{mod}.{leaf}" if mod else leaf  # a module's own leaves have no prefix
 
     for path, w in _flatten(variables.get("params", {})):
@@ -91,6 +93,51 @@ def tscd_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Te
     """JAX ``TSCD`` variables -> the port's ``TSCD`` state_dict (inverse of
     ``convert_tscd``)."""
     return state_dict_from_jax(variables)
+
+
+_HRNET_SCOPES = (
+    (r"layer1_(\d)", r"layer1.\1"),
+    (r"downsample_conv", "downsample.0"), (r"downsample_bn", "downsample.1"),
+    (r"stage(\d)_m(\d)", r"stage\1.\2"),
+    (r"branch(\d)_block(\d)", r"branches.\1.\2"),
+    (r"t(\d)_conv", r"\1.0"), (r"t(\d)_bn", r"\1.1"),
+    (r"t(\d)_conv(\d)", r"\1.\2.0"), (r"t(\d)_bn(\d)", r"\1.\2.1"),
+)
+_FUSE_LEAVES = ((r"conv", "0"), (r"bn", "1"), (r"conv(\d)", r"\1.0"), (r"bn(\d)", r"\1.1"))
+
+
+def _rssformer_module_name(scopes: tuple[str, ...]) -> str:
+    """flax scopes of the JAX ``HRNetFusion`` -> the reference's module name, the
+    inverse of the rules of ``convert_rssformer`` and ``convert_hrnet``."""
+    if scopes[0] == "backbone":
+        out = ["backbone.hrnet"]
+        for i, s in enumerate(scopes[1:], start=1):
+            rules = _HRNET_SCOPES
+            m = re.fullmatch(r"fuse(\d)_(\d)", s)
+            if m:
+                out.append(f"fuse_layers.{m.group(1)}.{m.group(2)}")
+                continue
+            if re.fullmatch(r"fuse\d_\d", scopes[i - 1]):
+                rules = _FUSE_LEAVES
+            for pat, rep in rules:
+                if re.fullmatch(pat, s):
+                    s = re.sub(pat, rep, s)
+                    break
+            out.append(s)
+        return ".".join(out)
+    if scopes[0] == "neck":
+        return "neck.fuse_conv." + {"conv": "0", "bn": "1"}[scopes[1]]
+    if scopes == ("head_conv",):
+        return "head.0"
+    if scopes == ("headaux",):
+        return "headaux.0"
+    raise KeyError(f"unknown scope {'/'.join(scopes)}")
+
+
+def rssformer_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``HRNetFusion`` variables (an HRNetV2 backbone) -> the port's
+    ``HRNetFusion`` state_dict: the inverse of ``convert_rssformer``."""
+    return state_dict_from_jax(variables, _rssformer_module_name)
 
 
 def named_tree_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -1,0 +1,323 @@
+// K5: the RSSFormer MlpDWBN feed-forward block, as two kernels.
+//
+// Replaces: `fused_mlp_dwbn_pallas`
+//   (representationlearning_tpu/ops/pallas/mlp_dwbn.py:115, call :132), whose body
+//   is `_mlp_math` (:52-82): fc1 + bn1 + GELU, the 19 shifted (N, hid) x (hid, hid)
+//   products of the 1x1, 3x3 d6 and 3x3 d12 convolutions + bias + bn2 + GELU, and
+//   fc2 + bn3 + GELU, with bf16 operands and f32 sums.
+// What bounds it on the H100: operations. At (4, 16384, 32), hid 128, out 32 a call
+//   is 2 * 65536 * 128 * (32 + 19 * 128 + 32) = 41.9 GFLOP of tensor-core work
+//   against about 18 MB of input, output and weights.
+// What the design does about it: the Pallas kernel holds one whole image, its
+//   hidden plane and a copy padded by 12 in VMEM; a Hopper block has 227 KB, and a
+//   tile with a halo of 12 would compute fc1 several times over. So `fc1_kernel`
+//   writes the hidden plane once, already rounded to bf16 (the TPU kernel rounds it
+//   to bf16 at each of its 19 uses: the same rounding, done once), 16.8 MB that
+//   stay in the 50 MB L2. `taps_kernel` then is an implicit GEMM: a block owns 128
+//   consecutive tokens and all 128 hidden features, and walks 19 taps x 2 chunks
+//   of K = 64. Each A row is the hidden vector of the token shifted by the tap, or
+//   zeros where that lies outside the plane (`cp.async` with a source size of 0:
+//   no padded copy). A and B tiles are double-buffered with `cp.async`; eight warps
+//   multiply with WMMA (bf16 mma.sync, f32 accumulators, 32 x 64 a warp). The
+//   epilogue adds the bias, applies bn2 and GELU, leaves the tile in shared memory
+//   as bf16, multiplies it by fc2's weight from shared memory and applies bn3 and
+//   GELU, so the second hidden plane never reaches device memory.
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace rss {
+
+namespace wmma = nvcuda::wmma;
+
+constexpr int kHid = 128;            // hidden width both kernels are built for
+constexpr int kBM = 128;             // tokens a block
+constexpr int kBK = 64;              // K step of the tap GEMM
+constexpr int kLd = kBK + 8;         // bf16 row pitch of the A/B stages (144 bytes)
+constexpr int kLdH = kHid + 8;       // bf16 row pitch of the hidden tile and of fc2's weight
+constexpr int kLdS = 20;             // f32 row pitch of a warp's 16 x 16 scratch
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTaps = 19;
+constexpr int kChunks = kHid / kBK;
+constexpr int kIters = kTaps * kChunks;
+constexpr int kStageElems = kBM * kLd;                       // one A (or B) stage
+constexpr int kPipeBytes = 4 * kStageElems * (int)sizeof(bf16);  // 2 x (A + B)
+constexpr int kScratchBytes = kWarps * 16 * kLdS * (int)sizeof(float);
+
+static_assert(kBM * kLdH * 2 * (int)sizeof(bf16) <= kPipeBytes,
+              "the hidden tile and fc2's weight reuse the pipeline stages");
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// (dy, dx) of tap t in the order of `_mlp_math`: the 1x1, then d = 6 and d = 12
+// over (ky, kx).
+__device__ __forceinline__ void tap_offset(int tap, int& dy, int& dx) {
+  if (tap == 0) {
+    dy = dx = 0;
+    return;
+  }
+  const int t = tap - 1;
+  const int d = t < 9 ? 6 : 12;
+  const int k = t < 9 ? t : t - 9;
+  dy = (k / 3 - 1) * d;
+  dx = (k % 3 - 1) * d;
+}
+
+using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
+using BFrag = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+
+// One K step of a warp's 32 x 64 tile: a rows [wm, wm + 32), b features [wn, wn + 64).
+__device__ __forceinline__ void warp_mma(AccFrag (&acc)[2][4], const bf16* a, int lda,
+                                         const bf16* b, int ldb, int wm, int wn, int kk) {
+  AFrag af[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], a + (wm + i * 16) * lda + kk, lda);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    BFrag bfr;
+    wmma::load_matrix_sync(bfr, b + (wn + j * 16) * ldb + kk, ldb);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
+  }
+}
+
+// A 16 x 16 accumulator through the warp's scratch: lane l then holds the eight
+// values of row l / 2, columns (l % 2) * 8 .. + 8, after bias, BN affine and GELU.
+__device__ __forceinline__ void frag_epilogue(const AccFrag& acc, float* scratch, int lane,
+                                              const float* bias, const float* scale,
+                                              const float* shift, int col0, float (&v)[8]) {
+  wmma::store_matrix_sync(scratch, acc, kLdS, wmma::mem_row_major);
+  __syncwarp();
+  const int rr = lane >> 1, cc = (lane & 1) * 8;
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int c = col0 + cc + e;
+    v[e] = bias_bn_gelu(scratch[rr * kLdS + cc + e], __ldg(bias + c), __ldg(scale + c),
+                        __ldg(shift + c));
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  __align__(16) __nv_bfloat162 h[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  return *reinterpret_cast<const uint4*>(h);
+}
+
+// h[M, 128] (bf16) = gelu(bn1(x[M, cin] @ w1[128, cin]^T + b1)); cin % 16 == 0.
+__global__ void __launch_bounds__(kThreads)
+fc1_kernel(const float* __restrict__ x, const bf16* __restrict__ w1,
+           const float* __restrict__ b1, const float* __restrict__ s1,
+           const float* __restrict__ t1, bf16* __restrict__ hout, int M, int cin) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ld = cin + 8;
+  bf16* As = reinterpret_cast<bf16*>(smem);
+  bf16* Bs = As + kBM * ld;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* scratch = reinterpret_cast<float*>(smem + 2 * kBM * ld * sizeof(bf16))
+      + warp * 16 * kLdS;
+  const int m0 = blockIdx.x * kBM;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+
+  const int per4 = cin / 4;
+  for (int idx = tid; idx < kBM * per4; idx += kThreads) {
+    const int r = idx / per4, c = (idx - r * per4) * 4;
+    const int gm = m0 + r;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (gm < M) v = *reinterpret_cast<const float4*>(x + (size_t)gm * cin + c);
+    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(As + r * ld + c);
+    dst[0] = __floats2bfloat162_rn(v.x, v.y);
+    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+  }
+  const int per8 = cin / 8;
+  for (int idx = tid; idx < kHid * per8; idx += kThreads) {
+    const int n = idx / per8, c = (idx - n * per8) * 8;
+    *reinterpret_cast<uint4*>(Bs + n * ld + c) =
+        *reinterpret_cast<const uint4*>(w1 + (size_t)n * cin + c);
+  }
+  __syncthreads();
+
+  AccFrag acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+  for (int kk = 0; kk < cin; kk += 16) warp_mma(acc, As, ld, Bs, ld, wm, wn, kk);
+
+  const int rr = lane >> 1, cc = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v[8];
+      const int col0 = wn + j * 16;
+      frag_epilogue(acc[i][j], scratch, lane, b1, s1, t1, col0, v);
+      const int gm = m0 + wm + i * 16 + rr;
+      if (gm < M) *reinterpret_cast<uint4*>(hout + (size_t)gm * kHid + col0 + cc) = pack8(v);
+    }
+}
+
+// out[M, cout] = gelu(bn3(gelu(bn2(sum_t shift_t(h) @ taps[t]^T + dwb)) @ w2^T + b2)),
+// M = B * N tokens on (H, W) grids; h (M, 128) bf16; taps (19, 128, 128) bf16 as
+// (out, in); w2 (cout, 128) bf16; cout % 16 == 0, cout <= 128.
+__global__ void __launch_bounds__(kThreads, 2)
+taps_kernel(const bf16* __restrict__ h, const bf16* __restrict__ taps,
+            const float* __restrict__ dwb, const float* __restrict__ s2,
+            const float* __restrict__ t2, const bf16* __restrict__ w2,
+            const float* __restrict__ b2, const float* __restrict__ s3,
+            const float* __restrict__ t3, float* __restrict__ out, int M, int N, int H,
+            int W, int cout) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* As = reinterpret_cast<bf16*>(smem);        // [2][kBM][kLd]
+  bf16* Bs = As + 2 * kStageElems;                 // [2][kHid][kLd]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  float* scratch = reinterpret_cast<float*>(smem + kPipeBytes) + warp * 16 * kLdS;
+  const int m0 = blockIdx.x * kBM;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+
+  // the four A rows (and B rows) this thread copies in every stage, 16 bytes each
+  const int c8 = (tid & 7) * 8;
+  int ry[4], rx[4], rtok[4];
+  bool rok[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gm = m0 + (tid >> 3) + 32 * i;
+    rok[i] = gm < M;
+    const int n = gm % N;
+    ry[i] = n / W;
+    rx[i] = n - ry[i] * W;
+    rtok[i] = gm;
+  }
+
+  auto load = [&](int stage, int it) {
+    const int tap = it / kChunks, k0 = (it - tap * kChunks) * kBK;
+    int dy, dx;
+    tap_offset(tap, dy, dx);
+    bf16* a = As + stage * kStageElems;
+    bf16* b = Bs + stage * kStageElems;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (tid >> 3) + 32 * i;
+      const int yy = ry[i] + dy, xx = rx[i] + dx;
+      const bool ok = rok[i] && yy >= 0 && yy < H && xx >= 0 && xx < W;
+      const bf16* src = ok ? h + (size_t)(rtok[i] + dy * W + dx) * kHid + k0 + c8 : h;
+      cp_async16(a + r * kLd + c8, src, ok ? 16 : 0);   // 0 bytes read: the row is zeros
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = (tid >> 3) + 32 * i;
+      cp_async16(b + n * kLd + c8, taps + ((size_t)tap * kHid + n) * kHid + k0 + c8, 16);
+    }
+    cp_async_commit();
+  };
+
+  AccFrag acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+
+  load(0, 0);
+  for (int it = 0; it < kIters; ++it) {
+    if (it + 1 < kIters) {
+      load((it + 1) & 1, it + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* a = As + (it & 1) * kStageElems;
+    const bf16* b = Bs + (it & 1) * kStageElems;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) warp_mma(acc, a, kLd, b, kLd, wm, wn, kk);
+    __syncthreads();
+  }
+
+  // the stages are free: the hidden tile and fc2's weight take their place
+  bf16* h2 = reinterpret_cast<bf16*>(smem);
+  bf16* w2s = h2 + kBM * kLdH;
+  for (int idx = tid; idx < cout * (kHid / 8); idx += kThreads) {
+    const int n = idx / (kHid / 8), c = (idx % (kHid / 8)) * 8;
+    *reinterpret_cast<uint4*>(w2s + n * kLdH + c) =
+        *reinterpret_cast<const uint4*>(w2 + (size_t)n * kHid + c);
+  }
+  const int rr = lane >> 1, cc = (lane & 1) * 8;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float v[8];
+      const int col0 = wn + j * 16;
+      frag_epilogue(acc[i][j], scratch, lane, dwb, s2, t2, col0, v);
+      *reinterpret_cast<uint4*>(h2 + (wm + i * 16 + rr) * kLdH + col0 + cc) = pack8(v);
+    }
+  __syncthreads();
+
+  // fc2: warp w owns rows [16 w, 16 w + 16) of the tile, 16 output features at a time
+  const int gm = m0 + warp * 16 + rr;
+  for (int nf = 0; nf < cout / 16; ++nf) {
+    AccFrag o;
+    wmma::fill_fragment(o, 0.0f);
+#pragma unroll
+    for (int kk = 0; kk < kHid; kk += 16) {
+      AFrag af;
+      BFrag bfr;
+      wmma::load_matrix_sync(af, h2 + warp * 16 * kLdH + kk, kLdH);
+      wmma::load_matrix_sync(bfr, w2s + nf * 16 * kLdH + kk, kLdH);
+      wmma::mma_sync(o, af, bfr, o);
+    }
+    float v[8];
+    frag_epilogue(o, scratch, lane, b2, s3, t3, nf * 16, v);
+    if (gm < M) {
+      float4* dst = reinterpret_cast<float4*>(out + (size_t)gm * cout + nf * 16 + cc);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
+  }
+}
+
+}  // namespace rss
+
+extern "C" int k5_mlp_fc1(const void* x, const void* w1, const void* b1, const void* s1,
+                          const void* t1, void* h, int M, int cin, void* stream) {
+  const int smem = 2 * rss::kBM * (cin + 8) * (int)sizeof(rss::bf16) + rss::kScratchBytes;
+  cudaError_t err = cudaFuncSetAttribute(rss::fc1_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  rss::fc1_kernel<<<(M + rss::kBM - 1) / rss::kBM, rss::kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const rss::bf16*)w1, (const float*)b1, (const float*)s1,
+      (const float*)t1, (rss::bf16*)h, M, cin);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int k5_mlp_taps(const void* h, const void* taps, const void* dwb, const void* s2,
+                           const void* t2, const void* w2, const void* b2, const void* s3,
+                           const void* t3, void* out, int B, int H, int W, int cout,
+                           void* stream) {
+  const int smem = rss::kPipeBytes + rss::kScratchBytes;
+  cudaError_t err = cudaFuncSetAttribute(rss::taps_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int N = H * W, M = B * N;
+  rss::taps_kernel<<<(M + rss::kBM - 1) / rss::kBM, rss::kThreads, smem,
+                     (cudaStream_t)stream>>>(
+      (const rss::bf16*)h, (const rss::bf16*)taps, (const float*)dwb, (const float*)s2,
+      (const float*)t2, (const rss::bf16*)w2, (const float*)b2, (const float*)s3,
+      (const float*)t3, (float*)out, M, N, H, W, cout);
+  return (int)cudaGetLastError();
+}

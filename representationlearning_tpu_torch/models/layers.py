@@ -121,14 +121,50 @@ def bn_stats_frozen(model: nn.Module):
     """Inside, a training forward of ``model`` normalises with batch statistics
     and leaves the running ones alone: the JAX train step keeps the statistics
     of its first forward only."""
-    heads = [m for m in model.modules() if getattr(m, "track_stats", False)]
-    for m in heads:
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm2d) and m.track_stats]
+    for m in norms:
         m.track_stats = False
     try:
         yield
     finally:
-        for m in heads:
+        for m in norms:
             m.track_stats = True
+
+
+def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """``conv(x)`` as the JAX package's ``TorchConv(dtype=...)`` computes it:
+    with a dtype, input, weight and bias are cast to it and the result comes out
+    in it (bf16 for the tensor cores, f32 sums inside); None is the plain f32
+    conv. The parameters stay f32."""
+    if dtype is None or dtype == torch.float32:
+        return conv(x.float())
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return nn.functional.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
+                                conv.padding, conv.dilation, conv.groups)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's conventions: statistics and output in f32
+    whatever the input's dtype, and in training the running average takes the
+    biased batch variance (torch's own update takes the unbiased one), at torch
+    momentum 0.1 = flax momentum 0.9. ``track_stats = False`` (see
+    ``bn_stats_frozen``) leaves the running statistics alone."""
+
+    track_stats = True
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        if not self.training:
+            return nn.functional.batch_norm(x, self.running_mean, self.running_var,
+                                            self.weight, self.bias, False, 0.0, self.eps)
+        if self.track_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+        return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                                        self.eps)
 
 
 class AttnProj(nn.Module):

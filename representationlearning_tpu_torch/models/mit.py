@@ -19,7 +19,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha_flash
-from ..ops.mit_block import fused_block, mm
+from ..ops.mit_block import fused_block, mm, sr_reduce
 from .layers import DropPath
 
 
@@ -133,13 +133,15 @@ class FusedBlock(Block):
     CUDA kernels on the card, the plain version on the CPU. It holds the same
     submodules as `Block`, so the two share state_dict names and a checkpoint
     loads into either. Export (the raw pre-scale logits, (B, nh, N, N) f32) is
-    for sr == 1 blocks only, as in the JAX package."""
+    for sr == 1 blocks only, as in the JAX package. ``pre_sr`` (sr > 1 blocks
+    only) computes LN1 and the sr front by library calls (``sr_reduce``) and
+    hands them to the block, the JAX package's `PRE_SR` variant; off as there."""
 
     block_fn = staticmethod(fused_block)  # an instance may swap in fused_block_reference
 
     def __init__(self, dim, num_heads, mlp_ratio=4.0, sr_ratio=1, qkv_bias=True,
                  drop=0.0, attn_drop=0.0, drop_path=0.0, export_attn=False,
-                 use_flash=False, dtype=torch.float32):
+                 use_flash=False, dtype=torch.float32, pre_sr=False):
         if export_attn and sr_ratio != 1:
             raise ValueError("FusedBlock attention export requires sr == 1; "
                              "use Block for exporting sr > 1 blocks")
@@ -147,6 +149,7 @@ class FusedBlock(Block):
             raise ValueError("FusedBlock needs the q/kv biases (qkv_bias=True)")
         super().__init__(dim, num_heads, mlp_ratio, sr_ratio, qkv_bias, drop, attn_drop,
                          drop_path, export_attn, use_flash, dtype)
+        self.pre_sr = pre_sr
 
     def kernel_params(self) -> dict[str, torch.Tensor]:
         a, m = self.attn, self.mlp
@@ -169,8 +172,12 @@ class FusedBlock(Block):
         if self.training:
             raise ValueError("FusedBlock is inference-only; call .eval() or build the "
                              "model with fused_blocks=False for training")
-        res = self.block_fn(x, self.kernel_params(), H=H, W=W, sr=self.sr_ratio,
-                            nh=self.num_heads, dtype=self.dtype, export=self.export_attn)
+        p, sr = self.kernel_params(), self.sr_ratio
+        front = {}
+        if self.pre_sr and sr > 1:
+            front["h"], front["xs"] = sr_reduce(x, p, H=H, W=W, sr=sr, dtype=self.dtype)
+        res = self.block_fn(x, p, H=H, W=W, sr=sr, nh=self.num_heads, dtype=self.dtype,
+                            export=self.export_attn, **front)
         return res if self.export_attn else (res, None)
 
 
@@ -206,6 +213,7 @@ class MixVisionTransformer(nn.Module):
     collect_attns: True/"all" | "last2" | False/"none" -- which blocks export.
     fused_blocks: run every non-exporting block, and every exporting sr == 1 block,
       as a FusedBlock (K1). Same state_dict either way.
+    pre_sr: the fused sr > 1 blocks take the PRE_SR variant (see ``FusedBlock``).
     act_dtype: storage dtype of the residual stream between blocks; fused blocks
       take it directly, plain blocks get f32 (`models/mit.py:415-419` of the JAX
       package). None keeps f32.
@@ -226,7 +234,7 @@ class MixVisionTransformer(nn.Module):
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.1, dtype=torch.float32, use_flash: bool = False,
                  collect_attns: bool | str = "last2", fused_blocks: bool = False,
-                 act_dtype=None, remat: bool = False):
+                 act_dtype=None, remat: bool = False, pre_sr: bool = False):
         super().__init__()
         mode = {True: "all", False: "none"}.get(collect_attns, collect_attns)
         if mode not in ("all", "last2", "none"):
@@ -246,10 +254,11 @@ class MixVisionTransformer(nn.Module):
             for b in range(depths[s]):
                 want = mode == "all" or (mode == "last2" and cur + b >= total - 2)
                 fused = fused_blocks and not remat and (not want or sr_ratios[s] == 1)
-                cls = FusedBlock if fused else Block
+                cls, extra = (FusedBlock, dict(pre_sr=pre_sr)) if fused else (Block, {})
                 blocks.append(cls(embed_dims[s], num_heads[s], mlp_ratios[s], sr_ratios[s],
                                   qkv_bias, drop_rate, attn_drop_rate, dpr[cur + b],
-                                  export_attn=want, use_flash=use_flash, dtype=dtype))
+                                  export_attn=want, use_flash=use_flash, dtype=dtype,
+                                  **extra))
                 wants.append(want)
             setattr(self, f"block{s + 1}", nn.ModuleList(blocks))
             setattr(self, f"norm{s + 1}", nn.LayerNorm(embed_dims[s], eps=1e-6))

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.image import resize_bilinear
-from .layers import dropout
+from .layers import BatchNorm2d, dropout
 
 
 class _MLP(nn.Module):
@@ -35,7 +35,7 @@ class _ConvModule(nn.Module):
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
         self.conv = nn.Conv2d(in_ch, out_ch, 1, bias=False)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
+        self.bn = BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
 
 
 class SegFormerHead(nn.Module):
@@ -48,9 +48,6 @@ class SegFormerHead(nn.Module):
             setattr(self, f"linear_c{i}", _MLP(c, embedding_dim))
         self.linear_fuse = _ConvModule(embedding_dim * 4, embedding_dim)
         self.dropout_rate = dropout_rate
-        # a training forward moves the BatchNorm running statistics unless the
-        # caller switches this off (`layers.bn_stats_frozen`)
-        self.track_stats = True
         self.linear_pred = nn.Conv2d(embedding_dim, num_classes, 1)
 
     def forward(self, feats: Sequence[torch.Tensor],
@@ -70,21 +67,6 @@ class SegFormerHead(nn.Module):
             embeds.append(resize_bilinear(e, (h, w), align_corners=False))
         x = torch.cat(embeds, dim=1)
         x = F.conv2d(x, self.linear_fuse.conv.weight.to(self.dtype))
-        bn = self.linear_fuse.bn
-        x = x.float()
-        if self.training:
-            # batch statistics; the running average takes the biased variance, as
-            # flax's BatchNorm does (torch's own update takes the unbiased one), at
-            # torch momentum 0.1 = flax momentum 0.9
-            if self.track_stats:
-                with torch.no_grad():
-                    var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-                    bn.running_mean.lerp_(mean, bn.momentum)
-                    bn.running_var.lerp_(var, bn.momentum)
-                    bn.num_batches_tracked += 1
-            x = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
-        else:
-            x = F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                             training=False, eps=bn.eps)
+        x = self.linear_fuse.bn(x)           # f32, flax's running update
         x = dropout(F.relu(x), self.dropout_rate, self.training, generator)
         return self.linear_pred(x)

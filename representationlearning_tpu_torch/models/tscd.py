@@ -32,7 +32,7 @@ class TSCD(nn.Module):
                  embedding_dim: int = 256, strides=(4, 2, 2, 1), pooling: str = "gmp",
                  use_flash: bool = False, fused_blocks: bool = False,
                  collect_attns: bool | str = "last2", dtype=torch.float32,
-                 act_dtype=None, remat: bool = False,
+                 act_dtype=None, remat: bool = False, pre_sr: bool = False,
                  generator: torch.Generator | None = None,
                  device: torch.device | str | None = None):
         super().__init__()
@@ -44,7 +44,7 @@ class TSCD(nn.Module):
             self.encoder = MixVisionTransformer(
                 strides=tuple(strides), dtype=dtype, use_flash=use_flash,
                 fused_blocks=fused_blocks, collect_attns=collect_attns,
-                act_dtype=act_dtype, remat=remat, **cfg)
+                act_dtype=act_dtype, remat=remat, pre_sr=pre_sr, **cfg)
             self.decoder = SegFormerHead(cfg["embed_dims"], num_classes, embedding_dim,
                                          dtype=dtype)
             # 2 stage-4 blocks x 8 heads = 16 input channels (`TSCD_model.py:38`)

@@ -49,6 +49,14 @@ SIGNATURES = {
         "k4_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                          _P),
     },
+    "rssformer": {
+        # x, w1, b1, scale1, shift1, h, M, Cin, stream
+        "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+        # h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, out, B, H, W, Cout, stream
+        "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # q, k, v, out, NW, T, C, nh, round_bf16, stream
+        "k6_isa_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    },
 }
 
 _locks = {name: threading.Lock() for name in SIGNATURES}  # libraries build side by side

@@ -21,6 +21,9 @@ TPU kernel. Each of the five wrappers below runs its kernel on a CUDA tensor
 (compute dtype bf16 only; anything else raises) and its plain PyTorch version,
 ``<name>_reference``, on a CPU tensor. ``fused_block_reference`` is the same
 composition with the plain versions only; ``fused_block`` is the dispatcher.
+Both take the PRE_SR variant of the TPU kernel (``_kernel_presr``): with ``h =
+ln1(x)`` and ``xs = srnorm(srconv(h) + b)`` computed outside (``sr_reduce``) and
+handed in, the block starts at q and kv.
 
 Layouts follow the JAX kernel: tokens (B, N, C), N = H * W row-major. Weights
 are torch layouts: ``nn.Linear`` (out, in), conv OIHW, depthwise (hid, 1, 3, 3).
@@ -281,25 +284,55 @@ DISPATCH = SimpleNamespace(ln_stats=ln_stats, linear=linear, sr_conv=sr_conv,
                            attention=attention, dwconv_gelu=dwconv_gelu)
 
 
-def _block(x, p, *, H, W, sr, nh, dtype, export, ops):
-    """The block as K1's kernel sequence; `ops` supplies the five pieces."""
+def sr_reduce(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int, W: int, sr: int,
+              dtype=torch.float32):
+    """The front of the PRE_SR block variant (the JAX package's `sr_reduce_xla`):
+    h = ln1(x) and xs = srnorm(srconv(h) + bias) by library calls, outside any
+    kernel, as there. x (B, N, C) tokens -> h (B, N, C) f32, xs (B, Nk, C) f32.
+    The conv runs in `dtype` (under bf16 its result is bf16 too, one rounding
+    more than the JAX version's f32 result)."""
+    B, N, C = x.shape
+    Hs, Ws = H // sr, W // sr
+    h = F.layer_norm(x.float(), (C,), p["ln1_weight"].float(), p["ln1_bias"].float(), LN_EPS)
+    if Hs * Ws == 0:     # a map smaller than one sr x sr patch reduces to no token
+        return h, h.new_empty((B, 0, C))
+    h2d = h.reshape(B, H, W, C)[:, : Hs * sr, : Ws * sr].permute(0, 3, 1, 2)
+    xs = F.conv2d(h2d.to(dtype), p["sr_weight"].to(dtype), None, stride=sr).float()
+    xs = xs.flatten(2).transpose(1, 2) + p["sr_bias"].float()
+    xs = F.layer_norm(xs, (C,), p["srnorm_weight"].float(), p["srnorm_bias"].float(), LN_EPS)
+    return h, xs
+
+
+def _block(x, p, *, H, W, sr, nh, dtype, export, ops, h=None, xs=None):
+    """The block as K1's kernel sequence; `ops` supplies the five pieces. With
+    `h` and `xs` given (the PRE_SR variant, sr > 1, no export) LN1 and the sr
+    front were computed outside: q and kv are plain linears of them, and neither
+    `ln_stats` of the front nor `sr_conv` runs."""
     C = x.shape[-1]
     xf = x.float()
+    if (h is None) != (xs is None):
+        raise ValueError("h and xs come together (see sr_reduce)")
+    if xs is not None and (export or sr == 1):
+        raise ValueError("the PRE_SR variant is for sr > 1 blocks that export nothing")
 
     def wt(k):  # matmul weight, rounded to the compute dtype once per call
         return p[k].to(dtype)
 
     ln1 = dict(ln_w=p["ln1_weight"], ln_b=p["ln1_bias"])
-    s1 = ops.ln_stats(xf)
-    q = ops.linear(xf, wt("q_weight"), p["q_bias"], stats=s1, dtype=dtype, **ln1)
-    if sr > 1:
-        w_flat = wt("sr_weight").permute(0, 2, 3, 1).reshape(C, sr * sr * C).contiguous()
-        xs = ops.sr_conv(xf, s1, p["ln1_weight"], p["ln1_bias"], w_flat, p["sr_bias"],
-                         H=H, W=W, sr=sr, dtype=dtype)
-        kv = ops.linear(xs, wt("kv_weight"), p["kv_bias"], stats=ops.ln_stats(xs),
-                        ln_w=p["srnorm_weight"], ln_b=p["srnorm_bias"], dtype=dtype)
+    if xs is not None:
+        q = ops.linear(h, wt("q_weight"), p["q_bias"], dtype=dtype)
+        kv = ops.linear(xs, wt("kv_weight"), p["kv_bias"], dtype=dtype)
     else:
-        kv = ops.linear(xf, wt("kv_weight"), p["kv_bias"], stats=s1, dtype=dtype, **ln1)
+        s1 = ops.ln_stats(xf)
+        q = ops.linear(xf, wt("q_weight"), p["q_bias"], stats=s1, dtype=dtype, **ln1)
+        if sr > 1:
+            w_flat = wt("sr_weight").permute(0, 2, 3, 1).reshape(C, sr * sr * C).contiguous()
+            xs = ops.sr_conv(xf, s1, p["ln1_weight"], p["ln1_bias"], w_flat, p["sr_bias"],
+                             H=H, W=W, sr=sr, dtype=dtype)
+            kv = ops.linear(xs, wt("kv_weight"), p["kv_bias"], stats=ops.ln_stats(xs),
+                            ln_w=p["srnorm_weight"], ln_b=p["srnorm_bias"], dtype=dtype)
+        else:
+            kv = ops.linear(xf, wt("kv_weight"), p["kv_bias"], stats=s1, dtype=dtype, **ln1)
     o, logits = ops.attention(q, kv, nh=nh, dtype=dtype, export=export)
     y = ops.linear(o, wt("proj_weight"), p["proj_bias"], residual=xf, dtype=dtype)
     f = ops.linear(y, wt("fc1_weight"), p["fc1_bias"], stats=ops.ln_stats(y),
@@ -312,18 +345,21 @@ def _block(x, p, *, H, W, sr, nh, dtype, export, ops):
 
 def fused_block_reference(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int,
                           W: int, sr: int, nh: int, dtype=torch.float32,
-                          export: bool = False):
+                          export: bool = False, h=None, xs=None):
     """Plain PyTorch K1 on any device: the math of the TPU kernel's `_block_math`.
     Returns out (B, N, C) in x.dtype, plus the raw logits (B, nh, N, Nk) f32
-    when `export`."""
-    return _block(x, p, H=H, W=W, sr=sr, nh=nh, dtype=dtype, export=export, ops=PLAIN)
+    when `export`. `h`, `xs`: the PRE_SR variant (see `_block`, `sr_reduce`)."""
+    return _block(x, p, H=H, W=W, sr=sr, nh=nh, dtype=dtype, export=export, ops=PLAIN,
+                  h=h, xs=xs)
 
 
 def fused_block(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int, W: int,
-                sr: int, nh: int, dtype=torch.float32, export: bool = False):
+                sr: int, nh: int, dtype=torch.float32, export: bool = False, h=None,
+                xs=None):
     """K1 dispatcher: the CUDA kernels for a CUDA tensor (bf16 compute only), the
-    plain version for a CPU tensor. Nothing falls back."""
+    plain version for a CPU tensor. Nothing falls back. `h`, `xs`: the PRE_SR
+    variant (see `_block`, `sr_reduce`)."""
     if x.is_cuda:
         _compute_dtype(dtype)
-    return _block(x, p, H=H, W=W, sr=sr, nh=nh, dtype=dtype, export=export, ops=DISPATCH)
-
+    return _block(x, p, H=H, W=W, sr=sr, nh=nh, dtype=dtype, export=export, ops=DISPATCH,
+                  h=h, xs=xs)

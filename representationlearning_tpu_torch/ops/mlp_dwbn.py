@@ -1,0 +1,210 @@
+"""Kernel K5: the whole RSSFormer MlpDWBN feed-forward block, for inference.
+
+    h   = gelu(bn1(fc1(x)))                       1x1, Cin -> hid
+    h   = gelu(bn2(dw(h) + dw6(h) + dw12(h)))     1x1 + 3x3 d6 + 3x3 d12, hid -> hid
+    out = gelu(bn3(fc2(h)))                       1x1, hid -> Cout
+
+The counterpart of ``representationlearning_tpu/ops/pallas/mlp_dwbn.py``
+(``fused_mlp_dwbn_pallas``, whose body is ``_mlp_math``). The three "dw" convs are
+full hid x hid convolutions, not depthwise, so the middle step is 19 products of
+the hidden plane, shifted by the tap offsets and zero outside the plane, with
+(hid, hid) matrices. BatchNorms are inference affines, folded outside
+(``fold_bn_affine``); GELU is the exact one through the A&S erf of K1.
+
+The TPU kernel keeps a whole image in VMEM (the hidden plane alone is 8.4 MB at
+128 x 128 x 128 f32); an H100 block has 227 KB of shared memory. On the card K5
+is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cu``):
+
+    mlp_fc1    x -> gelu(bn1(x W1 + b1)), written to device memory in bf16: the
+               TPU kernel rounds h to bf16 at each of its 19 uses, so storing
+               the rounded plane is the same rounding, done once
+    mlp_taps   a 19-tap implicit GEMM over tiles of 128 tokens (taps outside the
+               plane read as zero, no padded copy), bias + bn2 + GELU, then fc2
+               from shared memory + bn3 + GELU
+
+Each wrapper runs its kernel on a CUDA tensor (compute dtype bf16 and hid = 128
+only; anything else raises) and its plain PyTorch version, ``<name>_reference``,
+on a CPU tensor. ``fused_mlp_dwbn_reference`` is `_mlp_math` step by step;
+``fused_mlp_dwbn`` is the dispatcher.
+
+Layouts: tokens (B, N, C), N = H * W row-major, f32. Weights are torch conv
+layouts (OIHW): ``fc1_weight`` (hid, Cin, 1, 1), ``dw1_weight`` (hid, hid, 1, 1),
+``dw6_weight`` / ``dw12_weight`` (hid, hid, 3, 3), ``fc2_weight`` (Cout, hid, 1, 1);
+``dw_bias`` is the sum of the three branch biases.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import torch
+
+from . import _build
+from .mit_block import _check, gelu_as, mm
+
+DILATIONS = (6, 12)  # of dw6 and dw12 (`ffn_block.py`); the kernel has them built in
+HID = 128            # the hidden width the CUDA kernels are compiled for
+
+# launches of each kernel since the last reset; the wrappers add one per launch
+LAUNCHES = {"mlp_fc1": 0, "mlp_taps": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def fold_bn_affine(weight, bias, mean, var, eps: float = 1e-5):
+    """Inference BatchNorm as a per-channel affine y = x * g + s with
+    g = weight / sqrt(var + eps), s = bias - mean * g, in f32."""
+    g = weight.float() * torch.rsqrt(var.float() + eps)
+    return g, bias.float() - mean.float() * g
+
+
+def tap_offsets() -> list[tuple[int, int]]:
+    """(dy, dx) of the 19 taps in the order of `_mlp_math`: dw1, then dw6 and
+    dw12 over (ky, kx)."""
+    return [(0, 0)] + [((ky - 1) * d, (kx - 1) * d)
+                       for d in DILATIONS for ky in range(3) for kx in range(3)]
+
+
+def tap_weights(p: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """The 19 (hid_out, hid_in) tap matrices, stacked in `tap_offsets` order."""
+    hid = p["dw1_weight"].shape[0]
+    return torch.cat([p["dw1_weight"].reshape(1, hid, hid)]
+                     + [p[k].permute(2, 3, 0, 1).reshape(9, hid, hid)
+                        for k in ("dw6_weight", "dw12_weight")])
+
+
+# ------------------------------------------------------------------ plain math
+def mlp_fc1_reference(x, w1, b1, scale, shift, *, dtype=torch.bfloat16):
+    """gelu(bn1(x @ w1^T + b1)): x (B, N, Cin) f32, w1 (hid, Cin). Returns the
+    hidden plane (B, N, hid), rounded to `dtype` when that is bf16 (every later
+    use rounds it so), else f32."""
+    h = mm(x, w1.t(), dtype) + b1.float()
+    h = gelu_as(h * scale.float() + shift.float())
+    return h.to(dtype) if dtype == torch.bfloat16 else h
+
+
+def mlp_taps_reference(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, *,
+                       H, W, dtype=torch.bfloat16):
+    """The 19 shifted products of the hidden plane, bn2, GELU, fc2, bn3, GELU.
+    h (B, N, hid), taps (19, hid, hid) as (out, in), w2 (Cout, hid). f32 out."""
+    B, N, hid = h.shape
+    hp = h.float().reshape(B, H, W, hid)
+    acc = torch.zeros((B, H, W, hid), dtype=torch.float32, device=h.device)
+    for (dy, dx), wt in zip(tap_offsets(), taps):
+        y0, y1 = max(0, -dy), min(H, H - dy)   # output rows whose source row is in the plane
+        x0, x1 = max(0, -dx), min(W, W - dx)
+        if y0 >= y1 or x0 >= x1:
+            continue                            # the whole tap reads padding
+        src = hp[:, y0 + dy: y1 + dy, x0 + dx: x1 + dx]
+        acc[:, y0:y1, x0:x1] += mm(src, wt.t(), dtype)
+    acc = acc.reshape(B, N, hid) + dw_bias.float()
+    g = gelu_as(acc * scale2.float() + shift2.float())
+    out = mm(g, w2.t(), dtype) + b2.float()
+    return gelu_as(out * scale3.float() + shift3.float())
+
+
+# ------------------------------------------------------------ kernel wrappers
+def _compute_dtype(dtype) -> None:
+    if dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"K5 on CUDA takes compute dtype bfloat16, got {dtype}; the float32 "
+            "CUDA path is not ported yet")
+
+
+def _widths(hid: int, cin: int | None = None, cout: int | None = None) -> None:
+    if hid != HID:
+        raise NotImplementedError(
+            f"the K5 kernels are built for hidden width {HID} (hrnetv2_w32), got {hid}")
+    if cin is not None and (cin % 16 or not 16 <= cin <= 256):
+        raise NotImplementedError(
+            f"mlp_fc1 takes an input width that is a multiple of 16 up to 256, got {cin}")
+    if cout is not None and (cout % 16 or not 16 <= cout <= 128):
+        raise NotImplementedError(
+            f"mlp_taps takes an output width that is a multiple of 16 up to 128, got {cout}")
+
+
+def _launch(fn: str, *args) -> None:
+    lib = _build.load_library("rssformer")
+    _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
+
+
+def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16):
+    if not x.is_cuda:
+        return mlp_fc1_reference(x, w1, b1, scale, shift, dtype=dtype)
+    _compute_dtype(dtype)
+    B, N, cin = x.shape
+    hid = w1.shape[0]
+    _widths(hid, cin=cin)
+    dev = x.device
+    _check(x, "x", dev)
+    _check(w1, "w1", dev, (hid, cin), torch.bfloat16)
+    for name, t in (("b1", b1), ("scale", scale), ("shift", shift)):
+        _check(t, name, dev, (hid,))
+    h = torch.empty((B, N, hid), device=dev, dtype=torch.bfloat16)
+    if B * N:
+        _launch("k5_mlp_fc1", x.data_ptr(), w1.data_ptr(), b1.data_ptr(), scale.data_ptr(),
+                shift.data_ptr(), h.data_ptr(), B * N, cin)
+        LAUNCHES["mlp_fc1"] += 1
+    return h
+
+
+def mlp_taps(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, *, H, W,
+             dtype=torch.bfloat16):
+    if not h.is_cuda:
+        return mlp_taps_reference(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3,
+                                  H=H, W=W, dtype=dtype)
+    _compute_dtype(dtype)
+    B, N, hid = h.shape
+    cout = w2.shape[0]
+    _widths(hid, cout=cout)
+    if N != H * W:
+        raise ValueError(f"mlp_taps: N={N} but H*W={H * W}")
+    dev = h.device
+    _check(h, "h", dev, dtype=torch.bfloat16)
+    _check(taps, "taps", dev, (19, hid, hid), torch.bfloat16)
+    _check(w2, "w2", dev, (cout, hid), torch.bfloat16)
+    for name, t in (("dw_bias", dw_bias), ("scale2", scale2), ("shift2", shift2)):
+        _check(t, name, dev, (hid,))
+    for name, t in (("b2", b2), ("scale3", scale3), ("shift3", shift3)):
+        _check(t, name, dev, (cout,))
+    out = torch.empty((B, N, cout), device=dev, dtype=torch.float32)
+    if B * N:
+        _launch("k5_mlp_taps", h.data_ptr(), taps.data_ptr(), dw_bias.data_ptr(),
+                scale2.data_ptr(), shift2.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                scale3.data_ptr(), shift3.data_ptr(), out.data_ptr(), B, H, W, cout)
+        LAUNCHES["mlp_taps"] += 1
+    return out
+
+
+# ------------------------------------------------------------------ the block
+def _mlp(x, p, *, H, W, dtype, fc1, taps_fn):
+    """K5 as its two pieces; `fc1` and `taps_fn` are the wrappers or the plain
+    versions. Matmul weights are rounded to the compute dtype once per call."""
+    hid = p["fc1_weight"].shape[0]
+    cout = p["fc2_weight"].shape[0]
+    xf = x.float().contiguous()
+    h = fc1(xf, p["fc1_weight"].reshape(hid, -1).to(dtype), p["fc1_bias"],
+            p["bn1_scale"], p["bn1_shift"], dtype=dtype)
+    out = taps_fn(h, tap_weights(p).to(dtype).contiguous(), p["dw_bias"], p["bn2_scale"],
+                  p["bn2_shift"], p["fc2_weight"].reshape(cout, hid).to(dtype),
+                  p["fc2_bias"], p["bn3_scale"], p["bn3_shift"], H=H, W=W, dtype=dtype)
+    return out.to(x.dtype)
+
+
+def fused_mlp_dwbn_reference(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int,
+                             W: int, dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch K5 on any device: the math of the TPU kernel's `_mlp_math`.
+    x (B, N, Cin) -> (B, N, Cout) in x.dtype."""
+    return _mlp(x, p, H=H, W=W, dtype=dtype, fc1=mlp_fc1_reference,
+                taps_fn=mlp_taps_reference)
+
+
+def fused_mlp_dwbn(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int, W: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    """K5 dispatcher: the CUDA kernels for a CUDA tensor (bf16 compute, hid 128
+    only), the plain version for a CPU tensor. Nothing falls back."""
+    if x.is_cuda:
+        _compute_dtype(dtype)
+    return _mlp(x, p, H=H, W=W, dtype=dtype, fc1=mlp_fc1, taps_fn=mlp_taps)

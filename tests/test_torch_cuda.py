@@ -1,4 +1,5 @@
-"""The CUDA kernels (K1, K2, K3, K4) against their plain versions, on a CUDA card.
+"""The CUDA kernels (K1 and its PRE_SR variant, K2-K6) against their plain versions, on a
+CUDA card.
 
 Small and ragged shapes (token counts, key counts and widths that no tile
 divides, an empty key set, both head widths) complement ``chip_smoke.py``, which
@@ -11,7 +12,9 @@ import torch
 
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
+from representationlearning_tpu_torch.ops import isa_attention as TI
 from representationlearning_tpu_torch.ops import mit_block as tmb
+from representationlearning_tpu_torch.ops import mlp_dwbn as TM
 from representationlearning_tpu_torch.ops import varm as TV
 
 pytestmark = pytest.mark.cuda
@@ -299,3 +302,192 @@ def test_tscd_use_flash_runs_k4_forward_and_backward(dev):
     for (n, a), b in zip(m.named_parameters(), ref.parameters()):
         err = (a.grad - b.grad).abs().max().item()
         assert err <= 2e-3 * max(b.grad.abs().max().item(), 1e-6), (n, err)
+
+
+# ------------------------------------------------------------------ K1' (PRE_SR)
+@pytest.mark.parametrize("hw,C,sr,nh", [(19, 64, 8, 1), (13, 128, 4, 2), (8, 320, 2, 5)])
+def test_pre_sr_block_matches_plain(dev, hw, C, sr, nh):
+    """The PRE_SR variant on the card: q and kv are linears of h and xs handed
+    in; one ln_stats, five linears, no sr_conv. Same bound as the whole block."""
+    from representationlearning_tpu_torch.models.layers import init_weights
+    from representationlearning_tpu_torch.models.mit import FusedBlock
+
+    g = torch.Generator().manual_seed(hw + C)
+    blk = FusedBlock(C, nh, 4.0, sr, dtype=BF16, pre_sr=True).eval()
+    init_weights(blk, g)
+    p = {k: v.detach().to(dev) for k, v in blk.kernel_params().items()}
+    x = _rand(g, 2, hw * hw, C, dev=dev).to(BF16)
+    kw = dict(H=hw, W=hw, sr=sr, nh=nh, dtype=BF16)
+    with torch.no_grad():
+        h, xs = tmb.sr_reduce(x, p, H=hw, W=hw, sr=sr, dtype=BF16)
+        tmb.reset_launches()
+        got = tmb.fused_block(x, p, h=h, xs=xs, **kw)
+        assert tmb.LAUNCHES == {"ln_stats": 1, "linear": 5, "sr_conv": 0, "attention": 1,
+                                "dwconv_gelu": 1}
+        want = tmb.fused_block_reference(x, p, h=h, xs=xs, **kw)
+        whole = tmb.fused_block(x, p, **kw)
+    for ref in (want, whole):
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= 2e-2 * ref.float().abs().max().item(), err
+
+
+# ------------------------------------------------------------------ K5
+def _mlp_params(g, cin, hid, cout, dev):
+    def r(*s, sc=1.0, sh=0.0):
+        return _rand(g, *s, dev=dev, scale=sc, shift=sh)
+
+    return {"fc1_weight": r(hid, cin, 1, 1, sc=cin ** -0.5), "fc1_bias": r(hid, sc=0.1),
+            "bn1_scale": r(hid, sc=0.2, sh=1.0), "bn1_shift": r(hid, sc=0.1),
+            "dw1_weight": r(hid, hid, 1, 1, sc=0.05), "dw6_weight": r(hid, hid, 3, 3, sc=0.03),
+            "dw12_weight": r(hid, hid, 3, 3, sc=0.03), "dw_bias": r(hid, sc=0.1),
+            "bn2_scale": r(hid, sc=0.2, sh=1.0), "bn2_shift": r(hid, sc=0.1),
+            "fc2_weight": r(cout, hid, 1, 1, sc=hid ** -0.5), "fc2_bias": r(cout, sc=0.1),
+            "bn3_scale": r(cout, sc=0.2, sh=1.0), "bn3_shift": r(cout, sc=0.1)}
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout", [(2, 7, 9, 32, 32), (1, 5, 30, 16, 48),
+                                            (3, 20, 13, 64, 16), (1, 64, 64, 32, 32),
+                                            (2, 1, 1, 256, 128)])
+def test_fused_mlp_dwbn_matches_plain(dev, B, H, W, cin, cout):
+    """K5 and its two pieces against their plain versions: planes below the
+    dilations, non-square ones, token counts that 128 does not divide, several
+    widths. fc1 stores bf16: equal up to one bf16 spacing (2^-7 of the largest)
+    on the few values whose f32 sum lands on the other side of a rounding
+    boundary. The taps piece and the whole: such a flipped operand moves an
+    output by a bf16 spacing of the hidden value times a weight (about 2e-4; an
+    output reads 128 hidden values, so a few percent of the outputs see one);
+    1e-2 of the largest magnitude bounds the worst, and all but a thousandth of
+    the entries lie within 1e-3."""
+    g = torch.Generator().manual_seed(H * W + cin)
+    p = _mlp_params(g, cin, 128, cout, dev)
+    x = _rand(g, B, H * W, cin, dev=dev)
+    w1 = p["fc1_weight"].reshape(128, cin).to(BF16)
+    f1 = (w1, p["fc1_bias"], p["bn1_scale"], p["bn1_shift"])
+    rest = (TM.tap_weights(p).to(BF16).contiguous(), p["dw_bias"], p["bn2_scale"],
+            p["bn2_shift"], p["fc2_weight"].reshape(cout, 128).to(BF16), p["fc2_bias"],
+            p["bn3_scale"], p["bn3_shift"])
+    TM.reset_launches()
+    with torch.no_grad():
+        h, hp = TM.mlp_fc1(x, *f1), TM.mlp_fc1_reference(x, *f1)
+        out, outp = TM.mlp_taps(hp, *rest, H=H, W=W), TM.mlp_taps_reference(hp, *rest, H=H, W=W)
+        got = TM.fused_mlp_dwbn(x, p, H=H, W=W, dtype=BF16)
+        want = TM.fused_mlp_dwbn_reference(x, p, H=H, W=W, dtype=BF16)
+    assert TM.LAUNCHES == {"mlp_fc1": 2, "mlp_taps": 2}
+    assert h.dtype == BF16 and got.dtype == torch.float32 and got.shape == (B, H * W, cout)
+    _close(h, hp, 2.0 ** -7)
+    for a, b in ((out, outp), (got, want)):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b, 1e-2)
+        far = ((a - b).abs() > 1e-3 * max(1.0, b.abs().max().item())).float().mean().item()
+        assert far <= 1e-3, far
+
+
+def test_fused_mlp_dwbn_refuses_what_it_does_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    x = torch.zeros(1, 16, 32, device=dev)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 128, 32, dev), H=4, W=4, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="hidden width 128"):
+        TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 72, 32, dev), H=4, W=4, dtype=BF16)
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        TM.fused_mlp_dwbn(torch.zeros(1, 16, 40, device=dev), _mlp_params(g, 40, 128, 40, dev),
+                          H=4, W=4, dtype=BF16)
+    with pytest.raises(ValueError, match="H\\*W"):
+        TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 128, 32, dev), H=3, W=4, dtype=BF16)
+
+
+# ------------------------------------------------------------------ K6
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("NW,T,C,nh", [(1, 49, 32, 2), (133, 49, 32, 2), (7, 16, 36, 4),
+                                       (5, 100, 18, 2), (3, 49, 64, 1), (2, 1, 8, 8)])
+def test_isa_core_matches_plain(dev, dtype, NW, T, C, nh):
+    """f32: the same products, sums of at most 100 terms in another order, `expf`
+    against `torch.exp`: 1e-5. bf16: besides, a probability next to a rounding
+    boundary may take the neighbouring bf16 value (2^-8 of a value below 1):
+    1e-3. Window counts that no chunk divides, head widths 9, 18 and 1."""
+    g = torch.Generator().manual_seed(NW + T)
+    q, k, v = (_rand(g, NW, T, C, dev=dev) for _ in range(3))
+    q = q * (C // nh) ** -0.5
+    before = TI.LAUNCHES["isa_core"]
+    got = TI.isa_core(q, k, v, nh=nh, dtype=dtype)
+    assert TI.LAUNCHES["isa_core"] == before + 1
+    want = TI.isa_core_reference(q, k, v, nh=nh, dtype=dtype)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    _close(got, want, 1e-5 if dtype == torch.float32 else 1e-3)
+
+
+def test_isa_attention_core_backward_is_the_plain_version(dev):
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (_rand(g, 6, 49, 32, dev=dev).requires_grad_() for _ in range(3))
+    cot = _rand(g, 6, 49, 32, dev=dev)
+    before = TI.LAUNCHES["isa_core"]
+    grads = torch.autograd.grad(TI.isa_attention_core(q, k, v, 2, BF16), (q, k, v), cot)
+    assert TI.LAUNCHES["isa_core"] == before + 1     # the forward only
+    want = torch.autograd.grad(TI.isa_core_reference(q, k, v, nh=2, dtype=BF16), (q, k, v), cot)
+    for a, b in zip(grads, want):
+        _close(a, b, 1e-5)
+
+
+def test_isa_core_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(2, 49, 32, device=dev)
+    with pytest.raises(ValueError, match="not contiguous"):
+        TI.isa_core(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, nh=2)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        big = torch.zeros(1, 400, 64, device=dev)
+        TI.isa_core(big, big, big, nh=2)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        TI.isa_core(q, q, q, nh=2, dtype=torch.float16)
+
+
+def test_hrnetfusion_runs_k5_and_k6(dev):
+    """Two transformer blocks' worth of the model at full width: the module of
+    stage 2 and one of stage 3, both flags on against both off."""
+    from representationlearning_tpu_torch.models.hrnet import HighResolutionModule
+    from representationlearning_tpu_torch.models.layers import init_weights
+
+    g = torch.Generator().manual_seed(0)
+    mods = []
+    for fused in (True, False):
+        with dev:
+            m = HighResolutionModule(2, (32, 64), dtype=BF16, fused_mlp=fused,
+                                     fused_attn=fused).eval()
+        mods.append(m)
+    init_weights(mods[0], g)
+    with torch.no_grad():
+        for bn in (b for b in mods[0].modules() if isinstance(b, torch.nn.BatchNorm2d)):
+            bn.weight.mul_(0.5)
+    mods[1].load_state_dict(mods[0].state_dict())
+    xs = [_rand(g, 2, 32, 40, 36, dev=dev), _rand(g, 2, 64, 20, 18, dev=dev)]
+    TM.reset_launches()
+    TI.reset_launches()
+    with torch.no_grad():
+        got = mods[0](xs)
+        assert TM.LAUNCHES == {"mlp_fc1": 1, "mlp_taps": 1} and TI.LAUNCHES == {"isa_core": 1}
+        want = mods[1](xs)
+    assert TM.LAUNCHES == {"mlp_fc1": 1, "mlp_taps": 1} and TI.LAUNCHES == {"isa_core": 1}
+    for a, b in zip(got, want):
+        err = (a - b).abs().max().item()
+        assert err <= 2e-2 * b.abs().max().item(), err
+
+
+def test_fused_flags_launch_nothing_where_the_kernels_are_not_the_function(dev):
+    """K5 folds running statistics and K6 drops no probability: a training call
+    of `MlpDWBN(fused=True)`, and one of `Mhca(fused=True)` with live dropout,
+    take the plain branches and launch nothing; the same modules in eval mode
+    launch once each."""
+    from representationlearning_tpu_torch.models.rssformer_modules import Mhca, MlpDWBN
+
+    g = torch.Generator().manual_seed(0)
+    with dev:
+        mlp = MlpDWBN(32, 128, 32, dtype=BF16, fused=True)
+        attn = Mhca(32, 2, dropout=0.5, fused=True, dtype=BF16)
+    x, w = _rand(g, 2, 6 * 5, 32, dev=dev), _rand(g, 4, 49, 32, dev=dev)
+    TM.reset_launches()
+    TI.reset_launches()
+    mlp.train()(x, 6, 5)
+    attn.train()(w, w, w)
+    assert sum(TM.LAUNCHES.values()) == 0 and sum(TI.LAUNCHES.values()) == 0
+    with torch.no_grad():
+        mlp.eval()(x, 6, 5)
+        attn.eval()(w, w, w)
+    assert TM.LAUNCHES == {"mlp_fc1": 1, "mlp_taps": 1} and TI.LAUNCHES == {"isa_core": 1}

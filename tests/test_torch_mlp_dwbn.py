@@ -1,0 +1,141 @@
+"""Kernel K5 (the RSSFormer MlpDWBN feed-forward block) of the PyTorch port
+against the JAX package.
+
+The same numpy-seeded tokens and weights go through the JAX
+`fused_mlp_dwbn_reference` and `fused_mlp_dwbn_pallas` (interpret mode on the CPU,
+as `tests/test_pallas_mlp_dwbn.py:64-95` runs them) and through the port's
+`fused_mlp_dwbn_reference` / `fused_mlp_dwbn` (which, on a CPU tensor, is the
+plain version). Planes include one smaller than the dilations (every d12 tap but
+the centre reads padding) and non-square ones.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from representationlearning_tpu.ops.pallas import mlp_dwbn as jm
+from representationlearning_tpu_torch.ops import mlp_dwbn as tm
+
+torch.set_num_threads(2)
+
+# f32: both sides do the same f32 math; the 19 tap products are summed in the
+# same order, the sums inside a product (K <= 64) in XLA's or torch's order
+F32_ATOL = 2e-5
+GEOMETRIES = [(12, 9, 8, 32, 8), (5, 7, 16, 64, 16), (16, 16, 8, 32, 8), (30, 13, 4, 24, 12)]
+
+
+def jax_params(rng, cin, hid, cout):
+    def r(*s, sc=1.0, sh=0.0):
+        return (rng.standard_normal(s) * sc + sh).astype(np.float32)
+
+    return {
+        "fc1_kernel": r(cin, hid, sc=0.2), "fc1_bias": r(hid, sc=0.1),
+        "bn1_scale": r(hid, sc=0.2, sh=1.0), "bn1_shift": r(hid, sc=0.1),
+        "dw1_kernel": r(hid, hid, sc=0.1), "dw6_kernel": r(3, 3, hid, hid, sc=0.05),
+        "dw12_kernel": r(3, 3, hid, hid, sc=0.05), "dw_bias": r(hid, sc=0.1),
+        "bn2_scale": r(hid, sc=0.2, sh=1.0), "bn2_shift": r(hid, sc=0.1),
+        "fc2_kernel": r(hid, cout, sc=0.2), "fc2_bias": r(cout, sc=0.1),
+        "bn3_scale": r(cout, sc=0.2, sh=1.0), "bn3_shift": r(cout, sc=0.1),
+    }
+
+
+def torch_params(p: dict) -> dict:
+    """The JAX kernel's flat param dict -> the port's, in torch conv layouts."""
+    out = {}
+    for k, v in p.items():
+        if k in ("fc1_kernel", "dw1_kernel", "fc2_kernel"):
+            v = v.T[:, :, None, None]                       # (in, out) -> (out, in, 1, 1)
+        elif k.endswith("_kernel"):
+            v = v.transpose(3, 2, 0, 1)                     # HWIO -> OIHW
+        out[k.replace("_kernel", "_weight")] = torch.from_numpy(np.array(v))
+    return out
+
+
+def _setup(H, W, cin, hid, cout, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((2, H * W, cin)).astype(np.float32)
+    p = jax_params(rng, cin, hid, cout)
+    return x, {k: jnp.asarray(v) for k, v in p.items()}, torch_params(p)
+
+
+@pytest.mark.parametrize("H,W,cin,hid,cout", GEOMETRIES)
+def test_fused_mlp_dwbn_reference_matches_jax(H, W, cin, hid, cout):
+    x, jp, tp = _setup(H, W, cin, hid, cout, seed=H * W)
+    want = np.asarray(jm.fused_mlp_dwbn_reference(jnp.asarray(x), jp, H=H, W=W))
+    wantk = np.asarray(jm.fused_mlp_dwbn_pallas(jnp.asarray(x), jp, H=H, W=W, interpret=True))
+    got = tm.fused_mlp_dwbn_reference(torch.from_numpy(x), tp, H=H, W=W)
+    assert got.shape == (2, H * W, cout) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+    np.testing.assert_allclose(got.numpy(), wantk, atol=F32_ATOL)
+    # on a CPU tensor the dispatcher is the plain version, bit for bit
+    tm.reset_launches()
+    assert torch.equal(tm.fused_mlp_dwbn(torch.from_numpy(x), tp, H=H, W=W), got)
+    assert sum(tm.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("H,W,cin,hid,cout", GEOMETRIES[:2])
+def test_fused_mlp_dwbn_bf16_matches_jax_bf16(H, W, cin, hid, cout):
+    """bf16 operands, f32 sums. Both sides round the same f32 values to bf16
+    before each product; where the two frameworks' f32 sums differ in the last
+    bits a hidden value rounds to the neighbouring bf16 (2^-8 relative) and moves
+    the output by that times a weight: 2e-3 of the largest magnitude bounds a
+    few such flips."""
+    x, jp, tp = _setup(H, W, cin, hid, cout, seed=3)
+    want = np.asarray(jm.fused_mlp_dwbn_reference(jnp.asarray(x), jp, H=H, W=W,
+                                                  dtype=jnp.bfloat16))
+    got = tm.fused_mlp_dwbn_reference(torch.from_numpy(x), tp, H=H, W=W,
+                                      dtype=torch.bfloat16).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-3 * np.abs(want).max())
+
+
+def test_pieces_compose_to_the_whole():
+    """mlp_fc1 then mlp_taps, the two kernels' plain versions, are the block."""
+    H, W, cin, hid, cout = 9, 11, 16, 32, 16
+    x, _, tp = _setup(H, W, cin, hid, cout, seed=5)
+    xt = torch.from_numpy(x)
+    for dtype in (torch.float32, torch.bfloat16):
+        h = tm.mlp_fc1_reference(xt, tp["fc1_weight"].reshape(hid, cin).to(dtype),
+                                 tp["fc1_bias"], tp["bn1_scale"], tp["bn1_shift"], dtype=dtype)
+        assert h.dtype == dtype and h.shape == (2, H * W, hid)
+        out = tm.mlp_taps_reference(
+            h, tm.tap_weights(tp).to(dtype), tp["dw_bias"], tp["bn2_scale"], tp["bn2_shift"],
+            tp["fc2_weight"].reshape(cout, hid).to(dtype), tp["fc2_bias"], tp["bn3_scale"],
+            tp["bn3_shift"], H=H, W=W, dtype=dtype)
+        assert torch.equal(out, tm.fused_mlp_dwbn_reference(xt, tp, H=H, W=W, dtype=dtype))
+
+
+def test_taps_match_torch_dilated_convs():
+    """The 19 shifted products against F.conv2d with dilation 6 and 12."""
+    import torch.nn.functional as F
+
+    H, W, hid = 14, 10, 16
+    g = torch.Generator().manual_seed(0)
+    h = torch.randn(2, H * W, hid, generator=g)
+    p = {"dw1_weight": torch.randn(hid, hid, 1, 1, generator=g),
+         "dw6_weight": torch.randn(hid, hid, 3, 3, generator=g),
+         "dw12_weight": torch.randn(hid, hid, 3, 3, generator=g)}
+    assert tm.tap_offsets()[:3] == [(0, 0), (-6, -6), (-6, 0)] and len(tm.tap_offsets()) == 19
+    one, zero = torch.ones(hid), torch.zeros(hid)
+    eye = torch.eye(hid)
+    got = tm.mlp_taps_reference(h, tm.tap_weights(p), zero, one, zero, eye, zero, one, zero,
+                                H=H, W=W, dtype=torch.float32)
+    m = h.transpose(1, 2).reshape(2, hid, H, W)
+    conv = F.conv2d(m, p["dw1_weight"]) + F.conv2d(m, p["dw6_weight"], padding=6, dilation=6) \
+        + F.conv2d(m, p["dw12_weight"], padding=12, dilation=12)
+    want = F.gelu(F.gelu(conv)).flatten(2).transpose(1, 2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-5)
+
+
+def test_fold_bn_affine_matches_jax_and_batch_norm():
+    rng = np.random.default_rng(1)
+    w, b, mean = (rng.standard_normal(12).astype(np.float32) for _ in range(3))
+    var = (np.abs(rng.standard_normal(12)) + 0.5).astype(np.float32)
+    g, s = tm.fold_bn_affine(*(torch.from_numpy(a) for a in (w, b, mean, var)))
+    jg, js = jm.fold_bn_affine(*(jnp.asarray(a) for a in (w, b, mean, var)))
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-6)
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=1e-6, atol=1e-7)
+    x = torch.randn(3, 12, 4, 4)
+    want = torch.nn.functional.batch_norm(x, *(torch.from_numpy(a) for a in (mean, var, w, b)),
+                                          training=False, eps=1e-5)
+    np.testing.assert_allclose((x * g[:, None, None] + s[:, None, None]).numpy(),
+                               want.numpy(), atol=1e-5)

@@ -26,7 +26,9 @@ def test_every_module_imports_without_jax():
     assert {"representationlearning_tpu_torch." + m for m in (
         "ops.mit_block", "ops.affinity", "ops.varm", "ops.neighbors", "models.refine",
         "wsss.camutils", "train.scd", "ops.attention", "ops.bilateral", "losses.wsss",
-        "losses.energy", "train.optim", "train.state", "train.checkpoints")} <= set(mods)
+        "losses.energy", "train.optim", "train.state", "train.checkpoints", "ops.mlp_dwbn",
+        "ops.isa_attention", "models.rssformer_modules", "models.hrnet", "models.rssformer",
+        "infer.tta", "infer.sliding")} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "
@@ -88,7 +90,11 @@ def test_kernel_build_is_keyed_by_the_sources():
         "affinity.cu", "varm.cu"}
     assert {p.name for p in (_build.CSRC / "attention").glob("*.cu")} == {
         "flash_fwd.cu", "flash_bwd.cu"}
-    assert len({d, _build._digest("refine"), _build._digest("attention")}) == 3
+    assert {p.name for p in (_build.CSRC / "rssformer").glob("*.cu")} == {
+        "mlp_dwbn.cu", "isa_attention.cu"}
+    assert len({d, _build._digest("refine"), _build._digest("attention"),
+                _build._digest("rssformer")}) == 4
+    assert set(_build.SIGNATURES["rssformer"]) == {"k5_mlp_fc1", "k5_mlp_taps", "k6_isa_core"}
     assert set(_build.SIGNATURES["refine"]) == {"k2_affinity", "k3_varm_iter"}
     assert set(_build.SIGNATURES["attention"]) == {"k4_flash_fwd", "k4_flash_bwd"}
     ignored = (ROOT / ".gitignore").read_text().split()

@@ -115,7 +115,7 @@ def test_head_batch_statistics_and_running_average_match_flax():
     with layers.bn_stats_frozen(th):
         again = th(tf)
     assert torch.equal(again, got) and torch.equal(bn.running_var, before)
-    assert th.track_stats
+    assert bn.track_stats
     # eval normalises with the running statistics, as `train=False`
     want_eval = jh.apply({"params": v["params"], "batch_stats": mutated["batch_stats"]}, jf)
     np.testing.assert_allclose(th.eval()(tf).detach().numpy().transpose(0, 2, 3, 1),
