@@ -26,7 +26,12 @@ the PRE_SR variant of K1 (K1').
 3. kernel vs plain: each K1 kernel, and the whole block, against its plain
    PyTorch version on the same inputs, at the four MiT-B1 stage geometries of
    the 512 x 512 forward, with each kernel's bound and, where one PyTorch call
-   computes the same function, that call's time; the same comparison, untimed,
+   computes the same function, that call's time (`attention` and `sr_conv` and
+   their library calls by replaying a CUDA graph, so that the host's time to
+   launch does not count; `attention` split into the launches that export and
+   those that do not); `attention` around the largest key count of its
+   one-pass form, `sr_conv` at every number of K slices, both twice for equal
+   bits, and what the wrappers refuse; the same comparison, untimed,
    at the twenty-four geometries of the CAM forwards (batch 16 at 320, 160
    and 480 pixels a side in the pseudo-label call and the train step, and at
    96, 48 and 144 in the train step's 0.3-scale set); then K2 in its three modes and K3 at 18
@@ -91,7 +96,7 @@ PALLAS = "representationlearning_tpu/ops/pallas/"
 # kernel -> (source under csrc/, the TPU kernel it replaces)
 KERNELS = {"ln_stats": ("mit_block/ln_stats.cu", PALLAS + "mit_block.py:259"),
            "linear": ("mit_block/gemm.cu", PALLAS + "mit_block.py:259"),
-           "sr_conv": ("mit_block/gemm.cu", PALLAS + "mit_block.py:259"),
+           "sr_conv": ("mit_block/sr_conv.cu", PALLAS + "mit_block.py:259"),
            "attention": ("mit_block/attention.cu", PALLAS + "mit_block.py:259"),
            "dwconv_gelu": ("mit_block/dwconv_gelu.cu", PALLAS + "mit_block.py:259"),
            "affinity": ("refine/affinity.cu", PALLAS + "affinity.py:134"),
@@ -399,6 +404,10 @@ class Phases:
         # [bytes, operations], and the time the five kernels take for them
         self.block_bound = [0.0, 0.0]
         self.block_ms = 0.0
+        # `attention` a headline forward, split: the launches that export the logits
+        # and those that do not (the only ones the library call covers)
+        self.attn_split = {k: {"launches": 0, "ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+                           for k in ("no_export", "export")}
 
     def add_bound(self, name: str, n_bytes: float, flops: float, peak: float,
                   times: int = 1) -> None:
@@ -427,6 +436,33 @@ class Phases:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def graph_ms(self, fn, iters: int = 10, reps: int = 3) -> float:
+        """Mean device time of fn(): `iters` calls captured in one CUDA graph, replayed
+        `reps` times. The host's time to launch, which exceeds the device time of the
+        port's smallest kernels, does not count."""
+        torch = self.torch
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        stream = torch.cuda.Stream()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            fn()
+            with torch.cuda.graph(graph, stream=stream):
+                for _ in range(iters):
+                    fn()
+        torch.cuda.synchronize()
+        graph.replay()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / (iters * reps)
 
     # ------------------------------------------------------------- phase 1
     def environment(self, nvcc: str) -> str:
@@ -531,6 +567,7 @@ class Phases:
             f"{IMAGE} x {IMAGE}, bf16 compute")
         for stage in STAGES:
             self._block_vs_plain(tmb, gen, BATCH, *stage, timed=True)
+        self._redesigned_at_their_edges(tmb, gen)
         # the CAM forwards at the crop (the pseudo-label call and the train step)
         # and at 0.3 of it (the train step's second set): there the token grids
         # are no multiples of sr, so `sr_conv` drops rows and columns, and at the
@@ -543,6 +580,85 @@ class Phases:
                 worst = max(self._block_vs_plain(tmb, gen, 2 * BATCH, *stage, timed=False)
                             for stage in cam_stages(side))
                 log(f"  K1 at {side} x {side}: largest error {worst:.3f} of its tolerance")
+
+    def _redesigned_at_their_edges(self, tmb, gen) -> None:
+        """`attention` around the largest key count of its one-pass form, with and
+        without export, both head widths, query counts below one tile; `sr_conv` at
+        every number of K slices a plan can hold, both tile widths; each twice for
+        equal bits; and what the two wrappers refuse."""
+        torch = self.torch
+        from representationlearning_tpu_torch.ops import _build
+        bf16 = torch.bfloat16
+        bound = tmb.ATTN_ONE_PASS_KEYS
+        log(f"== attention at the edge of its one-pass form ({bound} keys), sr_conv at every "
+            f"number of K slices")
+        self.check(_build.load_library("mit_block").k1_attention_one_pass_keys() == bound,
+                   f"the kernel's one-pass bound is the wrapper's ({bound})")
+
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen)).to(self.dev)
+
+        worst, same = 0.0, True
+        for Nk in (bound - 1, bound, bound + 1):
+            for (C, nh), N in ((64, 2), 9), ((64, 1), 36), ((128, 2), 36), ((32, 1), 9):
+                q, kv = rand(2, N, C), rand(2, Nk, 2 * C)
+                for export in (False, True):
+                    got = tmb.attention(q, kv, nh=nh, export=export)
+                    again = tmb.attention(q, kv, nh=nh, export=export)
+                    torch.cuda.synchronize()
+                    want = tmb.attention_reference(q, kv, nh=nh, dtype=bf16, export=export)
+                    for i, tol in ((0, PIECE_TOL["attention"]), (1, LOGIT_TOL)):
+                        if got[i] is None:
+                            continue
+                        err, mag = max_err(got[i], want[i])
+                        worst = max(worst, err / (tol * max(1.0, mag)))
+                        same = same and torch.equal(got[i], again[i])
+                        self.piece_err["attention"] = max(self.piece_err["attention"],
+                                                          err if i == 0 else 0.0)
+        self.check(worst <= 1.0, f"attention at Nk = {bound - 1}, {bound}, {bound + 1}, head "
+                                 f"widths 32 and 64, N = 9 and 36, with and without export: "
+                                 f"largest error {worst:.3f} of its tolerance")
+        self.check(same, "attention: two runs give equal bits (output and logits)")
+
+        worst, same, tried = 0.0, True, []
+        for H, C, sr in ((16, 64, 8), (9, 320, 2)):
+            x = rand(2, H * H, C)
+            args = (x, tmb.ln_stats_reference(x), rand(C) + 1.0, rand(C, scale=0.1),
+                    rand(C, sr * sr * C, scale=0.05).to(bf16), rand(C))
+            want = tmb.sr_conv_reference(*args, H=H, W=H, sr=sr)
+            counts = tmb.sr_conv_slice_counts(sr * sr * C)
+            tried.append(counts)
+            for tile in (64, 128):
+                for slices in counts:
+                    got = tmb.sr_conv(*args, H=H, W=H, sr=sr, plan=(tile, slices))
+                    again = tmb.sr_conv(*args, H=H, W=H, sr=sr, plan=(tile, slices))
+                    torch.cuda.synchronize()
+                    err, mag = max_err(got, want)
+                    worst = max(worst, err / (PIECE_TOL["sr_conv"] * max(1.0, mag)))
+                    same = same and torch.equal(got, again)
+                    self.piece_err["sr_conv"] = max(self.piece_err["sr_conv"], err)
+        self.check(worst <= 1.0, f"sr_conv with K cut into {tried[0]} slices (K = 4096) and "
+                                 f"{tried[1]} (K = 1280), tiles 64 and 128: largest error "
+                                 f"{worst:.3f} of its tolerance")
+        self.check(same, "sr_conv: two runs give equal bits at every number of slices")
+
+        def raises(exc, fn) -> bool:
+            try:
+                fn()
+            except exc:
+                return True
+            return False
+
+        q, kv = rand(1, 8, 96), rand(1, 4, 192)
+        x = rand(1, 16, 48)
+        bad = (x, tmb.ln_stats_reference(x), rand(48), rand(48), rand(48, 192).to(bf16), rand(48))
+        self.check(raises(NotImplementedError, lambda: tmb.attention(q, kv, nh=2))
+                   and raises(ValueError, lambda: tmb.attention(q, kv[:, :, :96].contiguous(), nh=3))
+                   and raises(ValueError, lambda: tmb.sr_conv(*bad, H=4, W=4, sr=2))
+                   and raises(RuntimeError, lambda: tmb.sr_conv(*args, H=9, W=9, sr=2, plan=(64, 41)))
+                   and raises(RuntimeError, lambda: tmb.sr_conv(*args, H=9, W=9, sr=2, plan=(96, 2))),
+                   "the wrappers refuse head width 48, a kv of the wrong width, C % 32 != 0, "
+                   "more slices than K steps and a tile width the kernel lacks")
 
     def _block_vs_plain(self, tmb, gen, B, hw, C, nh, sr, export, *, timed: bool) -> float:
         """One block geometry: every kernel call of the block against its plain
@@ -577,14 +693,15 @@ class Phases:
                                f"(max |plain| {mag:.3e}, tol {tol:.3e})")
                     self.piece_err[name] = max(self.piece_err[name], err)
                     worst = max(worst, err / tol)
-                calls.append((name, a, kw))
                 flops, peak = k1_flops(name, a, kw)
                 if peak == PEAK_BF16:
                     block_flops += flops
+                # the least time for this call: every argument read once, every
+                # output written once, against its operations at their peak rate
+                n_bytes = nbytes(a, kw, got)
+                calls.append((name, a, kw, 1e3 * max(n_bytes / PEAK_BYTES, flops / peak)))
                 if timed:
-                    # the least time for this call: every argument read once, every
-                    # output written once, against its operations at their peak rate
-                    self.add_bound(name, nbytes(a, kw, got), flops, peak, times=DEPTH)
+                    self.add_bound(name, n_bytes, flops, peak, times=DEPTH)
                 return got
             return run
 
@@ -618,15 +735,34 @@ class Phases:
         t_ops = 1e3 * block_flops / PEAK_BF16
         self.block_bound[0 if t_bytes >= t_ops else 1] += DEPTH * max(t_bytes, t_ops)
         # device time of every piece over its calls in one block, x DEPTH blocks
-        for name, a, kw_ in calls:
-            k_ms = self.time_ms(lambda: getattr(tmb, name)(*a, **kw_), iters=10)
+        # (`attention`, `sr_conv` and their library calls by graph replay: some of their
+        # launches take less time on the device than the host takes to launch them)
+        for name, a, kw_, bound in calls:
+            redesigned = name in ("attention", "sr_conv")
+            timer = self.graph_ms if redesigned else self.time_ms
+            k_ms = timer(lambda: getattr(tmb, name)(*a, **kw_), iters=10)
             p_ms = self.time_ms(lambda: getattr(tmb, name + "_reference")(*a, **kw_),
                                 iters=10)
             self.piece_ms[name] += DEPTH * k_ms
             self.piece_plain_ms[name] += DEPTH * p_ms
             lib_fn = self._library_call(name, a, kw_)
-            if lib_fn is not None:
-                self.piece_library_ms[name] += DEPTH * self.time_ms(lib_fn, iters=10)
+            lib_ms = None if lib_fn is None else timer(lib_fn, iters=10)
+            if lib_ms is not None:
+                self.piece_library_ms[name] += DEPTH * lib_ms
+            if not redesigned:
+                continue
+            exporting = name == "attention" and export
+            if name == "attention":
+                part = self.attn_split["export" if exporting else "no_export"]
+                part["launches"] += DEPTH
+                part["ms"] += DEPTH * k_ms
+                part["bound_ms"] += DEPTH * bound
+                part["library_ms"] += DEPTH * (lib_ms or 0.0)
+            extra = f", plan (tile, K slices) {tmb.sr_conv_plan(B * (hw // sr) ** 2, C, sr * sr * C)}" \
+                if name == "sr_conv" else (", exporting" if exporting else "")
+            log(f"  {name} @ stage N={N} Nk={(hw // sr) ** 2} C={C}{extra}, a launch: kernel "
+                f"{k_ms:.4f} ms, bound {bound:.4f} ms, library call "
+                f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, plain {p_ms:.4f} ms")
         with torch.no_grad():
             blk_ms = self.time_ms(lambda: tmb.fused_block(x, p, **kw), iters=10)
             plain_ms = self.time_ms(lambda: tmb.fused_block_reference(x, p, **kw), iters=10)
@@ -1301,6 +1437,9 @@ class Phases:
         self.piece_err[name] = self.piece_ms[name] = self.piece_plain_ms[name] = 0.0
         self.piece_library_ms[name] = None
         self.presr_front_ms = 0.0
+        # the two fronts of the same six blocks by graph replay, like with like: the
+        # library calls of `sr_reduce`, and K1's own ln_stats, sr_conv, ln_stats
+        self.front_graph_ms = {"library": 0.0, "k1": 0.0}
         for hw, C, nh, sr, _ in STAGES:
             if sr == 1:
                 continue
@@ -1334,6 +1473,18 @@ class Phases:
                 f_ms = self.time_ms(lambda: tmb.sr_reduce(x, p, H=hw, W=hw, sr=sr, dtype=bf16),
                                     iters=10)
                 w_ms = self.time_ms(lambda: tmb.fused_block(x, p, **kw), iters=10)
+                xf = x.float()
+                w_flat = p["sr_weight"].to(bf16).permute(0, 2, 3, 1).reshape(C, -1).contiguous()
+
+                def k1_front():
+                    s1 = tmb.ln_stats(xf)
+                    return tmb.ln_stats(tmb.sr_conv(xf, s1, p["ln1_weight"], p["ln1_bias"], w_flat,
+                                                    p["sr_bias"], H=hw, W=hw, sr=sr))
+
+                fronts = {"library": lambda: tmb.sr_reduce(x, p, H=hw, W=hw, sr=sr, dtype=bf16),
+                          "k1": k1_front}
+                for which, fn in fronts.items():
+                    self.front_graph_ms[which] += DEPTH * self.graph_ms(fn, iters=10)
             self.piece_ms[name] += DEPTH * k_ms
             self.piece_plain_ms[name] += DEPTH * p_ms
             self.presr_front_ms += DEPTH * f_ms
@@ -1466,6 +1617,11 @@ class Phases:
             log(f"  {k}: {self.piece_ms[k]:.3f} ms per forward (plain "
                 f"{self.piece_plain_ms[k]:.3f} ms, bound {sum(self.piece_bound[k]):.4f} ms, "
                 f"library call {'none' if lib is None else f'{lib:.3f} ms'})")
+        for which, part in self.attn_split.items():
+            lib = part["library_ms"]
+            log(f"  attention, the {part['launches']} launches with {which.replace('_', ' ')}: "
+                f"{part['ms']:.3f} ms, bound {part['bound_ms']:.4f} ms, library call "
+                f"{f'{lib:.3f} ms' if lib else 'none'}")
         by_bytes, by_ops = self.block_bound
         log(f"  K1, the 8 blocks of a forward each as one function (tokens in and out in "
             f"bf16, parameters, exported logits; 2 M K N operations at the bf16 peak): "
@@ -1593,6 +1749,10 @@ class Phases:
         log(f"  {k}: the 6 sr > 1 blocks of a forward with h, xs handed in {self.piece_ms[k]:.3f} "
             f"ms (plain {self.piece_plain_ms[k]:.3f} ms, bound {sum(self.piece_bound[k]):.4f} "
             f"ms), their library front {self.presr_front_ms:.3f} ms")
+        log(f"  the front of those 6 blocks by graph replay: F.layer_norm, F.conv2d, F.layer_norm "
+            f"{self.front_graph_ms['library']:.3f} ms; K1's ln_stats, sr_conv, ln_stats "
+            f"{self.front_graph_ms['k1']:.3f} ms (its LayerNorms are applied in the prologues "
+            f"of sr_conv and of the q and kv linears)")
 
     def timing_rss(self, tm, ti, model, x, card: str) -> None:
         """K5 and K6 a forward with their bounds, the unfused module beside K5, and
@@ -1797,8 +1957,16 @@ def main() -> int:
             entry["max_abs_err_f32"] = ph.piece_err["isa_core_f32"]
         if k == "mit_block_presr":
             entry["library_front_ms"] = ph.presr_front_ms
+            entry["library_front_graph_ms"] = ph.front_graph_ms["library"]
+            entry["k1_front_graph_ms"] = ph.front_graph_ms["k1"]
         if k == "flash_fwd":  # both directions, at its looser tolerance
             entry["max_abs_err_bf16"] = ph.piece_err["flash_bf16"]
+        if k in ("attention", "sr_conv"):
+            entry["timed_by"] = "CUDA graph replay (kernel and library call)"
+        if k == "attention":  # the library call covers the launches that export nothing
+            for which, part in ph.attn_split.items():
+                entry.update({f"{key}_{which}": part[key] or None
+                              for key in ("launches", "ms", "bound_ms", "library_ms")})
         if k in ph.library_covers:
             entry["library_covers"] = ph.library_covers[k]
         kernels.append(entry)

@@ -4,6 +4,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 #include <mma.h>
 
 namespace k1 {
@@ -41,6 +42,63 @@ __device__ __forceinline__ float erf_as(float x) {
   const float t = 1.0f / (1.0f + p * ax);
   const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
   return s * (1.0f - poly * expf(-ax * ax));
+}
+
+
+// ---- warp-level tensor-core pieces shared by attention.cu and sr_conv.cu ----
+// mma.sync m16n8k16, bf16 operands, f32 sums. With g = lane / 4, t = lane % 4:
+//   A (16 x 16, row major): a0 = (row g, k 2t..2t+1), a1 = (row g + 8, same k),
+//                           a2 = (row g, k 2t+8..2t+9), a3 = (row g + 8, same k)
+//   B (16 x 8):             b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
+//   C (16 x 8):             c0, c1 = (row g, n 2t..2t+1), c2, c3 = (row g + 8, same n)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8, and receives of matrix i the pair (row g, columns 2t..2t+1).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed: the pair is (rows 2t..2t+1, column g).
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// 16 bytes from device memory to shared memory without passing through
+// registers; with `valid` false the 16 bytes are filled with zeros instead.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid = true) {
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// two f32 -> one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace k1

@@ -1,15 +1,14 @@
-// K1 part 2: the block's matrix products, as one tiled bf16 tensor-core GEMM
-// with a LayerNorm prologue and a bias/residual epilogue.
+// K1 part 2: the block's linear layers, as one tiled bf16 tensor-core GEMM
+// with a LayerNorm prologue and a bias/residual epilogue. (The sr x sr conv of
+// the block has a kernel of its own, sr_conv.cu.)
 //
 // Replaces: every `_mm` of the TPU kernel's body
 //   representationlearning_tpu/ops/pallas/mit_block.py:42-44, reached from
 //   `fused_block_pallas` :259 -> `_kernel` :216 -> `_block_math` :62:
-//   LN1 -> q (:80-81), the sr x sr stride-sr patch conv + bias (:85-135, "taps"),
-//   kv (:140), proj + residual 1 (:164-165), LN2 -> fc1 (:167-168) and
-//   fc2 + residual 2 (:183-184).
-// What bounds it on the H100: at the block's shapes (K = C <= 512 for the
-//   linears, K = sr*sr*C <= 4096 for the sr conv, M = 8 * 16384 tokens at stage
-//   1) the products are thin; the operand and result bytes (A in f32, C in f32)
+//   LN1 -> q (:80-81), kv (:140), proj + residual 1 (:164-165), LN2 -> fc1
+//   (:167-168) and fc2 + residual 2 (:183-184).
+// What bounds it on the H100: at the block's shapes (K = C <= 512, up to 2048
+//   for fc2, M = 8 * 16384 tokens at stage 1) the products are thin; the operand and result bytes (A in f32, C in f32)
 //   weigh more than the tensor-core work, so it is bound by device memory and by
 //   the simple, unpipelined tile loads of this first version.
 // What the design does about it: the Pallas kernel holds a whole image in VMEM
@@ -17,9 +16,7 @@
 //   kernel tiles over tokens (64 x 64 output tiles, K in steps of 32) and keeps
 //   only the tiles in shared memory. LayerNorm is applied while A is loaded (row
 //   statistics come from ln_stats.cu), so the normalised activations are never
-//   written out; the sr conv reads its non-overlapping patches straight from the
-//   token grid (implicit im2col, VALID crop), so no patch matrix is built. A and
-//   B are rounded to bf16 in shared memory and multiplied with WMMA
+//   written out. A and B are rounded to bf16 in shared memory and multiplied with WMMA
 //   (mma.sync underneath) into f32 accumulators, the numerics of the TPU
 //   kernel's bf16-operand / f32-accumulate dots. Bias and residual are added in
 //   f32 in the epilogue.
@@ -34,17 +31,13 @@ constexpr int kLdA = kBK + 8;   // bf16 row pitch of the A/B tiles (80 bytes)
 constexpr int kLdC = kBN + 4;   // f32 row pitch of the output tile
 constexpr int kGemmThreads = 128;
 
-struct PatchGeo {  // token grid of the implicit im2col (IM2COL only)
-  int C, H, W, sr, Hs, Ws;
-};
-
-template <bool LN, bool IM2COL>
+template <bool LN>
 __global__ void __launch_bounds__(kGemmThreads)
 gemm_kernel(const float* __restrict__ A, const bf16* __restrict__ Wt,
             const float* __restrict__ bias, const float* __restrict__ stats,
             const float* __restrict__ lnw, const float* __restrict__ lnb,
             const float* __restrict__ res, float* __restrict__ out,
-            int M, int Nout, int K, PatchGeo g) {
+            int M, int Nout, int K) {
   __shared__ __align__(128) bf16 As[kBM * kLdA];
   __shared__ __align__(128) bf16 Bs[kBN * kLdA];
   __shared__ __align__(128) float Cs[kBM * kLdC];
@@ -73,30 +66,13 @@ gemm_kernel(const float* __restrict__ A, const bf16* __restrict__ Wt,
       const int k = k0 + kc;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (gm < M) {
-        size_t src;
-        int c;
-        if (IM2COL) {
-          // column k = (ky * sr + kx) * C + c of patch gm = (b, pi, pj)
-          const int tap = k / g.C;
-          c = k - tap * g.C;
-          const int ky = tap / g.sr, kx = tap - ky * g.sr;
-          const int per = g.Hs * g.Ws;
-          const int b = gm / per;
-          const int p = gm - b * per;
-          const int pi = p / g.Ws, pj = p - pi * g.Ws;
-          src = (size_t)b * g.H * g.W + (size_t)(pi * g.sr + ky) * g.W + (pj * g.sr + kx);
-          v = *reinterpret_cast<const float4*>(A + src * g.C + c);
-        } else {
-          src = gm;
-          c = k;
-          v = *reinterpret_cast<const float4*>(A + (size_t)gm * K + k);
-        }
+        v = *reinterpret_cast<const float4*>(A + (size_t)gm * K + k);
         if (LN) {
-          const float mu = stats[2 * src], rs = stats[2 * src + 1];
-          v.x = ln_apply(v.x, mu, rs, lnw[c + 0], lnb[c + 0]);
-          v.y = ln_apply(v.y, mu, rs, lnw[c + 1], lnb[c + 1]);
-          v.z = ln_apply(v.z, mu, rs, lnw[c + 2], lnb[c + 2]);
-          v.w = ln_apply(v.w, mu, rs, lnw[c + 3], lnb[c + 3]);
+          const float mu = stats[2 * (size_t)gm], rs = stats[2 * (size_t)gm + 1];
+          v.x = ln_apply(v.x, mu, rs, lnw[k + 0], lnb[k + 0]);
+          v.y = ln_apply(v.y, mu, rs, lnw[k + 1], lnb[k + 1]);
+          v.z = ln_apply(v.z, mu, rs, lnw[k + 2], lnb[k + 2]);
+          v.w = ln_apply(v.w, mu, rs, lnw[k + 3], lnb[k + 3]);
         }
       }
       __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(As + r * kLdA + kc);
@@ -160,31 +136,14 @@ extern "C" int k1_linear(const void* a, const void* w, const void* bias, const v
                          const void* lnw, const void* lnb, const void* res, void* out,
                          int M, int Nout, int K, void* stream) {
   const dim3 grid((M + k1::kBM - 1) / k1::kBM, (Nout + k1::kBN - 1) / k1::kBN);
-  const k1::PatchGeo g{K, 1, 1, 1, 1, 1};
   if (stats != nullptr) {
-    k1::gemm_kernel<true, false><<<grid, k1::kGemmThreads, 0, (cudaStream_t)stream>>>(
+    k1::gemm_kernel<true><<<grid, k1::kGemmThreads, 0, (cudaStream_t)stream>>>(
         (const float*)a, (const k1::bf16*)w, (const float*)bias, (const float*)stats,
-        (const float*)lnw, (const float*)lnb, (const float*)res, (float*)out, M, Nout, K, g);
+        (const float*)lnw, (const float*)lnb, (const float*)res, (float*)out, M, Nout, K);
   } else {
-    k1::gemm_kernel<false, false><<<grid, k1::kGemmThreads, 0, (cudaStream_t)stream>>>(
+    k1::gemm_kernel<false><<<grid, k1::kGemmThreads, 0, (cudaStream_t)stream>>>(
         (const float*)a, (const k1::bf16*)w, (const float*)bias, nullptr, nullptr, nullptr,
-        (const float*)res, (float*)out, M, Nout, K, g);
+        (const float*)res, (float*)out, M, Nout, K);
   }
-  return (int)cudaGetLastError();
-}
-
-// out[B * Hs * Ws, C] = im2col(LN(x))[., sr*sr*C] @ w[C, sr*sr*C]^T + bias: the
-// stride-sr sr x sr conv over the (H, W) token grid of x (B, H*W, C), cropped to
-// full windows. w is the OHWI weight flattened to (C, sr*sr*C); C % 32 == 0.
-extern "C" int k1_sr_conv(const void* x, const void* stats, const void* lnw, const void* lnb,
-                          const void* w, const void* bias, void* out, int B, int H, int W,
-                          int C, int sr, void* stream) {
-  const int Hs = H / sr, Ws = W / sr;
-  const int M = B * Hs * Ws, K = sr * sr * C;
-  const dim3 grid((M + k1::kBM - 1) / k1::kBM, (C + k1::kBN - 1) / k1::kBN);
-  const k1::PatchGeo g{C, H, W, sr, Hs, Ws};
-  k1::gemm_kernel<true, true><<<grid, k1::kGemmThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const k1::bf16*)w, (const float*)bias, (const float*)stats,
-      (const float*)lnw, (const float*)lnb, nullptr, (float*)out, M, C, K, g);
   return (int)cudaGetLastError();
 }

@@ -32,8 +32,11 @@ SIGNATURES = {
     "mit_block": {
         "k1_ln_stats": (_P, _P, _I, _I, _P),
         "k1_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-        "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "k1_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        # x, stats, ln_w, ln_b, w, bias, workspace, out, B, H, W, C, sr, tile, slices, stream
+        "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        # q, kv, bf16 workspace, out, logits, B, N, Nk, C, nh, scale, stream
+        "k1_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        "k1_attention_one_pass_keys": (),
         "k1_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "refine": {

@@ -11,8 +11,10 @@ block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
     ln_stats      LayerNorm row statistics (one-pass variance, eps 1e-6)
     linear        bf16 GEMM, LayerNorm prologue, bias/residual epilogue
                   (q, kv, proj + residual, fc1, fc2 + residual)
-    sr_conv       the stride-sr sr x sr conv as an implicit-im2col GEMM (sr > 1)
-    attention     per-head softmax(q k^T * scale) v, optional raw-logit export
+    sr_conv       the stride-sr sr x sr conv as an implicit-im2col GEMM (sr > 1),
+                  split along K by `sr_conv_plan`, the slices added in order
+    attention     per-head softmax(q k^T * scale) v, optional raw-logit export;
+                  one pass over the keys up to ATTN_ONE_PASS_KEYS, two beyond
     dwconv_gelu   3x3 depthwise conv + bias + exact (A&S erf) GELU
 
 Intermediates between kernels stay f32; matmul operands are rounded to bf16 and
@@ -30,6 +32,7 @@ are torch layouts: ``nn.Linear`` (out, in), conv OIHW, depthwise (hid, 1, 3, 3).
 """
 from __future__ import annotations
 
+import math
 from types import SimpleNamespace
 from typing import Mapping
 
@@ -47,6 +50,51 @@ LAUNCHES = {"ln_stats": 0, "linear": 0, "sr_conv": 0, "attention": 0, "dwconv_ge
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# The attention kernel keeps all keys of an (image, head) in shared memory and the
+# whole score rows in registers up to this many keys (one pass); beyond it, key
+# tiles stream through shared memory in two passes (csrc/mit_block/attention.cu).
+ATTN_ONE_PASS_KEYS = 256
+
+# The sr conv kernel (csrc/mit_block/sr_conv.cu): output tiles of SR_TILE_M rows,
+# K walked in steps of SR_K_STEP columns.
+SR_TILE_M, SR_K_STEP = 64, 32
+SR_TARGET_BLOCKS = 2 * 132   # two thread blocks on each of the H100's 132 SMs
+SR_MIN_STEPS = 4             # a slice shorter than this is all prologue
+SR_MAX_SLICES = 32
+
+
+def sr_conv_plan(M: int, C: int, K: int) -> tuple[int, int]:
+    """(tile, slices) of the sr conv kernel for an (M, K) x (K, C) product: the
+    width of a block's output tile and the number of slices K is cut into, so
+    that tiles x slices comes as near to SR_TARGET_BLOCKS as the work allows. A
+    function of the shapes only: the same call always adds in the same order."""
+    if K % SR_K_STEP:
+        raise ValueError(f"sr_conv: K={K} is not a multiple of {SR_K_STEP}")
+    tile = 64 if C <= 64 else 128
+    steps = K // SR_K_STEP
+    tiles = max(1, math.ceil(M / SR_TILE_M)) * math.ceil(C / tile)
+    slices = min(math.ceil(SR_TARGET_BLOCKS / tiles), max(1, steps // SR_MIN_STEPS),
+                 SR_MAX_SLICES)
+    per = math.ceil(steps / slices)
+    return tile, math.ceil(steps / per)     # no slice is empty
+
+
+def sr_conv_slice_counts(K: int) -> list[int]:
+    """Every number of slices the kernel takes for this K: those that leave no slice
+    empty when each but the last holds ceil(steps / slices) K steps."""
+    steps = K // SR_K_STEP
+    return [s for s in range(1, SR_MAX_SLICES + 1) if (s - 1) * math.ceil(steps / s) < steps]
+
+
+def sr_conv_slices(K: int, slices: int) -> list[tuple[int, int]]:
+    """The [begin, end) columns of each K slice, as the kernel cuts them: whole K
+    steps, every slice as long as the first but possibly the last."""
+    steps = K // SR_K_STEP
+    per = math.ceil(steps / slices)
+    return [(s * per * SR_K_STEP, min(steps, (s + 1) * per) * SR_K_STEP)
+            for s in range(slices)]
 
 
 # ------------------------------------------------------------------ plain math
@@ -93,16 +141,35 @@ def linear_reference(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=N
     return out if residual is None else out + residual.float()
 
 
-def sr_conv_reference(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr,
-                      dtype=torch.bfloat16):
-    """Stride-sr sr x sr conv of LN(x) on the (H, W) grid as a patch matmul,
-    cropped to full windows (VALID). w_flat is (C, sr*sr*C) in (ky, kx, c) order."""
+def _sr_patches(x, stats, ln_w, ln_b, *, H, W, sr):
+    """LN(x) on the (H, W) grid cut into its full sr x sr windows: (B, Hs * Ws,
+    sr * sr * C) f32, columns in (ky, kx, c) order."""
     B, _, C = x.shape
     Hs, Ws = H // sr, W // sr
     h = _apply_ln(x, stats, ln_w, ln_b).reshape(B, H, W, C)[:, : Hs * sr, : Ws * sr]
     hs = h.reshape(B, Hs, sr, Ws, sr, C).permute(0, 1, 3, 2, 4, 5)
-    hs = hs.reshape(B, Hs * Ws, sr * sr * C)
+    return hs.reshape(B, Hs * Ws, sr * sr * C)
+
+
+def sr_conv_reference(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr,
+                      dtype=torch.bfloat16):
+    """Stride-sr sr x sr conv of LN(x) on the (H, W) grid as a patch matmul,
+    cropped to full windows (VALID). w_flat is (C, sr*sr*C) in (ky, kx, c) order."""
+    hs = _sr_patches(x, stats, ln_w, ln_b, H=H, W=W, sr=sr)
     return mm(hs, w_flat.t(), dtype) + bias.float()
+
+
+def sr_conv_sliced_reference(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, slices,
+                             dtype=torch.bfloat16):
+    """`sr_conv_reference` with the kernel's order of summation: one partial
+    product for each K slice of `sr_conv_slices`, added in slice order, then the
+    bias."""
+    hs = _sr_patches(x, stats, ln_w, ln_b, H=H, W=W, sr=sr)
+    out = None
+    for k0, k1 in sr_conv_slices(hs.shape[-1], slices):
+        part = mm(hs[..., k0:k1], w_flat[:, k0:k1].t(), dtype)
+        out = part if out is None else out + part
+    return out + bias.float()
 
 
 def attention_reference(q, kv, *, nh, dtype=torch.bfloat16, export=False):
@@ -214,7 +281,10 @@ def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
     return out
 
 
-def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat16):
+def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat16,
+            plan=None):
+    """`plan`: a (tile, slices) other than `sr_conv_plan`'s, for tests and tuning; it
+    changes the order of the f32 sums on the card and nothing on the CPU."""
     if not x.is_cuda:
         return sr_conv_reference(x, stats, ln_w, ln_b, w_flat, bias, H=H, W=W, sr=sr,
                                  dtype=dtype)
@@ -232,10 +302,14 @@ def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat1
     Nk = (H // sr) * (W // sr)
     out = torch.empty((B, Nk, C), device=dev, dtype=torch.float32)
     if B * Nk:
+        tile, slices = sr_conv_plan(B * Nk, C, sr * sr * C) if plan is None else plan
+        # the slices' partial results; the kernel's second step adds them in order
+        ws = (torch.empty((slices, B * Nk, C), device=dev, dtype=torch.float32)
+              if slices > 1 else None)
         _launch("k1_sr_conv", x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
-                ln_b.data_ptr(), w_flat.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                B, H, W, C, sr)
-        LAUNCHES["sr_conv"] += 1
+                ln_b.data_ptr(), w_flat.data_ptr(), bias.data_ptr(), _ptr(ws),
+                out.data_ptr(), B, H, W, C, sr, tile, slices)
+        LAUNCHES["sr_conv"] += 1   # one a call, whatever number of device kernels it takes
     return out
 
 
@@ -249,12 +323,16 @@ def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False):
         raise NotImplementedError(f"attention kernel takes head dim 32 or 64, got C={C}, nh={nh}")
     _check(q, "q", q.device)
     _check(kv, "kv", q.device, (B, Nk, 2 * C))
-    out = torch.empty((B, N, C), device=q.device, dtype=torch.float32)
     logits = (torch.empty((B, nh, N, Nk), device=q.device, dtype=torch.float32)
               if export else None)
+    if Nk == 0:     # no key: zero by definition (the TPU kernel's case), nothing to launch
+        return torch.zeros((B, N, C), device=q.device, dtype=torch.float32), logits
+    out = torch.empty((B, N, C), device=q.device, dtype=torch.float32)
     if B * N:
-        _launch("k1_attention", q.data_ptr(), kv.data_ptr(), out.data_ptr(), _ptr(logits),
-                B, N, Nk, C, nh, float(C // nh) ** -0.5)
+        # k and v rounded to bf16 once, head by head, by the kernel's first step
+        kvb = torch.empty((B * Nk * 2 * C,), device=q.device, dtype=torch.bfloat16)
+        _launch("k1_attention", q.data_ptr(), kv.data_ptr(), kvb.data_ptr(), out.data_ptr(),
+                _ptr(logits), B, N, Nk, C, nh, float(C // nh) ** -0.5)
         LAUNCHES["attention"] += 1
     return out, logits
 

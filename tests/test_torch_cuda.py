@@ -97,6 +97,85 @@ def test_attention_with_export(dev, N, Nk, C, nh):
     assert none is None and torch.equal(plain_out, out)
 
 
+@pytest.mark.parametrize("N", [9, 36])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("off", [-1, 0, 1])
+def test_attention_around_the_one_pass_bound(dev, off, hd, N):
+    """The last key count of the one-pass form, the bound and the first count of
+    the streaming form, exporting (so at Nk <= bound too); query counts below one
+    tile; two runs give equal bits."""
+    from representationlearning_tpu_torch.ops import _build
+    assert _build.load_library("mit_block").k1_attention_one_pass_keys() == tmb.ATTN_ONE_PASS_KEYS
+    Nk, nh = tmb.ATTN_ONE_PASS_KEYS + off, 2
+    g = torch.Generator().manual_seed(Nk + hd + N)
+    q, kv = _rand(g, 2, N, nh * hd, dev=dev), _rand(g, 2, Nk, 2 * nh * hd, dev=dev)
+    before = tmb.LAUNCHES["attention"]
+    out, logits = tmb.attention(q, kv, nh=nh, export=True)
+    assert tmb.LAUNCHES["attention"] == before + 1
+    want, want_logits = tmb.attention_reference(q, kv, nh=nh, dtype=BF16, export=True)
+    _close(out, want, TOL["attention"])
+    _close(logits, want_logits, TOL["logits"])
+    again, logits2 = tmb.attention(q, kv, nh=nh, export=True)
+    assert torch.equal(out, again) and torch.equal(logits, logits2)
+    assert torch.equal(tmb.attention(q, kv, nh=nh)[0], out)
+
+
+@pytest.mark.parametrize("Nk", [400, 1024, 1030])
+def test_attention_streaming_form(dev, Nk):
+    """Key counts that 64 and 4 do and do not divide, token counts that 64 does not."""
+    g = torch.Generator().manual_seed(Nk)
+    q, kv = _rand(g, 2, 130, 128, dev=dev), _rand(g, 2, Nk, 256, dev=dev)
+    out, logits = tmb.attention(q, kv, nh=2, export=True)
+    want, want_logits = tmb.attention_reference(q, kv, nh=2, dtype=BF16, export=True)
+    _close(out, want, TOL["attention"])
+    _close(logits, want_logits, TOL["logits"])
+    assert torch.equal(tmb.attention(q, kv, nh=2, export=True)[1], logits)
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("H,C,sr", [(16, 64, 8), (9, 320, 2), (13, 128, 4)])
+def test_sr_conv_at_every_number_of_slices(dev, H, C, sr, tile):
+    """Every number of K slices a plan can hold (no slice empty), both tile widths:
+    within the kernel's tolerance of the plain version, equal bits on a second
+    run, one launch counted a call."""
+    g = torch.Generator().manual_seed(H * C)
+    x = _rand(g, 2, H * H, C, dev=dev)
+    args = (x, tmb.ln_stats_reference(x), _rand(g, C, dev=dev, shift=1.0),
+            _rand(g, C, dev=dev, scale=0.1),
+            _rand(g, C, sr * sr * C, dev=dev, scale=0.05).to(BF16), _rand(g, C, dev=dev))
+    want = tmb.sr_conv_reference(*args, H=H, W=H, sr=sr)
+    K = sr * sr * C
+    counts = tmb.sr_conv_slice_counts(K)
+    assert tmb.sr_conv_plan(2 * (H // sr) ** 2, C, K)[1] in counts
+    for slices in counts:
+        before = tmb.LAUNCHES["sr_conv"]
+        got = tmb.sr_conv(*args, H=H, W=H, sr=sr, plan=(tile, slices))
+        assert tmb.LAUNCHES["sr_conv"] == before + 1
+        _close(got, want, TOL["sr_conv"])
+        assert torch.equal(got, tmb.sr_conv(*args, H=H, W=H, sr=sr, plan=(tile, slices)))
+
+
+def test_redesigned_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    q, kv = _rand(g, 1, 8, 96, dev=dev), _rand(g, 1, 4, 192, dev=dev)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        tmb.attention(q, kv, nh=2)
+    with pytest.raises(ValueError, match="shape"):
+        tmb.attention(q, kv[:, :, :96].contiguous(), nh=3)
+    with pytest.raises(TypeError):
+        tmb.attention(q.to(BF16), kv, nh=3)
+    x = _rand(g, 1, 16, 64, dev=dev)
+    args = (x, tmb.ln_stats_reference(x), _rand(g, 64, dev=dev), _rand(g, 64, dev=dev),
+            _rand(g, 64, 256, dev=dev).to(BF16), _rand(g, 64, dev=dev))
+    with pytest.raises(RuntimeError, match="k1_sr_conv"):      # 8 K steps, 9 slices
+        tmb.sr_conv(*args, H=4, W=4, sr=2, plan=(64, 9))
+    with pytest.raises(RuntimeError, match="k1_sr_conv"):      # no such tile width
+        tmb.sr_conv(*args, H=4, W=4, sr=2, plan=(96, 2))
+    with pytest.raises(ValueError):
+        tmb.sr_conv(x[..., :48].contiguous(), *args[1:], H=4, W=4, sr=2)
+    assert torch.isfinite(tmb.sr_conv(*args, H=4, W=4, sr=2)).all()   # and goes on working
+
+
 @pytest.mark.parametrize("H,W,hid", [(7, 9, 96), (1, 5, 32), (16, 16, 256)])
 def test_dwconv_gelu(dev, H, W, hid):
     g = torch.Generator().manual_seed(hid)

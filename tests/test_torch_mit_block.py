@@ -178,3 +178,103 @@ def test_zero_key_geometry_gives_zero_attention():
     want = np.asarray(jmb.fused_block_reference(jnp.asarray(tok), p, H=4, W=4, sr=8, nh=1))
     got = tmb.fused_block_reference(torch.from_numpy(tok), tp, H=4, W=4, sr=8, nh=1)
     np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+
+
+# ------------------------------------------------- sr_conv's split along K
+# (tokens a side, C, sr) of the sr > 1 blocks: the 512 x 512 forward at batch 8, the
+# CAM forwards of the pseudo-label call and the train step at batch 16 (crop 320 at
+# scales 1, 0.5, 1.5, and 0.3 of it), and a map smaller than one patch
+_SR_STAGES = [(64, 8, 1), (128, 4, 2), (320, 2, 4)]            # C, sr, grid divisor
+SR_GEOMETRIES = [(8, 128 // f, C, sr) for C, sr, f in _SR_STAGES]
+SR_GEOMETRIES += [(16, side // 4 // f, C, sr) for side in (320, 160, 480, 96, 48, 144)
+                  for C, sr, f in _SR_STAGES]
+SR_GEOMETRIES += [(16, 3, 64, 8)]
+
+
+@pytest.mark.parametrize("B,hw,C,sr", SR_GEOMETRIES)
+def test_sr_conv_plan_cuts_k_into_whole_steps_once(B, hw, C, sr):
+    """The plan is a function of (M, C, K) alone, its slices are whole K steps, none
+    empty, and together they cover [0, K) once and in order: what makes the
+    kernel's sum deterministic and complete."""
+    M, K = B * (hw // sr) ** 2, sr * sr * C
+    tile, slices = tmb.sr_conv_plan(M, C, K)
+    assert (tile, slices) == tmb.sr_conv_plan(M, C, K)
+    assert tile in (64, 128) and slices in tmb.sr_conv_slice_counts(K)
+    cuts = tmb.sr_conv_slices(K, slices)
+    assert len(cuts) == slices and cuts[0][0] == 0 and cuts[-1][1] == K
+    for (a0, a1), (b0, _) in zip(cuts, cuts[1:] + [(K, K)]):
+        assert a0 < a1 == b0 and (a1 - a0) % tmb.SR_K_STEP == 0
+    blocks = max(1, -(-M // tmb.SR_TILE_M)) * -(-C // tile) * slices
+    if M >= 2048:       # the 512 x 512 forward: at least one block for each of 132 SMs
+        assert blocks >= 132
+    if slices > 1:      # never more blocks than the next smaller cut would need
+        assert blocks // slices * (slices - 1) < tmb.SR_TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("hw,C,sr,slices", [(16, 64, 8, 9), (16, 64, 8, 32), (13, 128, 4, 8),
+                                            (9, 320, 2, 3), (9, 320, 2, 20), (8, 64, 4, 1)])
+def test_sr_conv_sum_in_slice_order_matches_plain(hw, C, sr, slices):
+    """Partial products of the K slices, added in slice order, then the bias: the
+    kernel's order of summation, in plain PyTorch. Against the one-product plain
+    version it differs by f32 rounding of sums of at most 4096 exact products of
+    bf16 operands: 1e-4 of the largest magnitude, the card's tolerance."""
+    g = torch.Generator().manual_seed(hw * C)
+    x = torch.randn(2, hw * hw, C, generator=g) * 2 + 0.5
+    args = (x, tmb.ln_stats_reference(x), torch.randn(C, generator=g) + 1.0,
+            torch.randn(C, generator=g) * 0.1,
+            (torch.randn(C, sr * sr * C, generator=g) * 0.05).to(torch.bfloat16),
+            torch.randn(C, generator=g))
+    want = tmb.sr_conv_reference(*args, H=hw, W=hw, sr=sr)
+    got = tmb.sr_conv_sliced_reference(*args, H=hw, W=hw, sr=sr, slices=slices)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
+    if slices == 1:
+        assert torch.equal(got, want)
+
+
+def _setup_hw(H, W, C, sr, nh, seed):
+    rng = np.random.default_rng(seed)
+    tok = rng.standard_normal((1, H * W, C)).astype(np.float32)
+    blk = Block(C, nh, 4.0, sr)
+    v = blk.init(jax.random.PRNGKey(seed), jnp.asarray(tok), H, W)
+    p = jmb.block_variables_to_fused(v["params"])
+    p = {k: (jnp.asarray(rng.standard_normal(np.shape(a)).astype(np.float32) * 0.1
+                         + (1.0 if k.endswith("_scale") else 0.0))
+             if (k.endswith("_bias") or k.endswith("_scale")) else a)
+         for k, a in p.items()}
+    return tok, p, torch_params(p)
+
+
+# (H, W) with sr = 2 giving Nk = (H // 2) * (W // 2) keys: none, one, the last count
+# below the one-pass bound of the CUDA kernel, the bound, the first beyond, and 1024
+@pytest.mark.parametrize("H,W,Nk", [(1, 1, 0), (3, 3, 1), (30, 34, 255), (33, 33, 256),
+                                    (2, 514, 257), (65, 65, 1024)])
+@pytest.mark.parametrize("nh", [1, 2])
+def test_attention_reference_matches_jax_around_the_one_pass_bound(H, W, Nk, nh):
+    """`attention_reference` is the oracle of both forms of the CUDA kernel. Here it
+    is held, inside the block, to the JAX `fused_block_reference` at the key counts
+    where the kernel changes form, with token counts that no query tile divides
+    (1, 9, 1020, 1089, 1028, 4225) and both head widths (64 and 32). f32 on both
+    sides, sums in another order: 2e-5, the per-block bound of this file."""
+    assert (H // 2) * (W // 2) == Nk and tmb.ATTN_ONE_PASS_KEYS == 256
+    tok, p, tp = _setup_hw(H, W, 64, 2, nh, seed=Nk + nh)
+    want = np.asarray(jmb.fused_block_reference(jnp.asarray(tok), p, H=H, W=W, sr=2, nh=nh))
+    got = tmb.fused_block_reference(torch.from_numpy(tok), tp, H=H, W=W, sr=2, nh=nh)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+    # and on its own: the attention of the block's q and kv is a softmax over Nk keys
+    q = torch.from_numpy(tok)
+    kv = torch.from_numpy(np.random.default_rng(Nk).standard_normal((1, Nk, 128))
+                          .astype(np.float32))
+    out, logits = tmb.attention_reference(q, kv, nh=nh, dtype=torch.float32, export=True)
+    assert out.shape == q.shape and logits.shape == (1, nh, H * W, Nk)
+    if Nk == 0:
+        assert not out.any()
+    else:
+        hd = 64 // nh
+        k = kv[..., :64].reshape(1, Nk, nh, hd).transpose(1, 2)
+        v = kv[..., 64:].reshape(1, Nk, nh, hd).transpose(1, 2)
+        qh = q.reshape(1, -1, nh, hd).transpose(1, 2)
+        want_out = torch.softmax(qh @ k.transpose(-1, -2) * hd ** -0.5, -1) @ v
+        np.testing.assert_allclose(out.numpy(),
+                                   want_out.transpose(1, 2).reshape(1, -1, 64).numpy(),
+                                   atol=F32_ATOL)
