@@ -26,12 +26,14 @@ the PRE_SR variant of K1 (K1').
 3. kernel vs plain: each K1 kernel, and the whole block, against its plain
    PyTorch version on the same inputs, at the four MiT-B1 stage geometries of
    the 512 x 512 forward, with each kernel's bound and, where one PyTorch call
-   computes the same function, that call's time (`attention` and `sr_conv` and
-   their library calls by replaying a CUDA graph, so that the host's time to
-   launch does not count; `attention` split into the launches that export and
-   those that do not); `attention` around the largest key count of its
-   one-pass form, `sr_conv` at every number of K slices, both twice for equal
-   bits, and what the wrappers refuse; the same comparison, untimed,
+   computes the same function, that call's time (`attention`, `sr_conv`,
+   `linear` and their library calls by replaying a CUDA graph, so that the host's
+   time to launch does not count; `attention` split into the launches that export
+   and those that do not; `linear` a line a stage for its five launches);
+   `attention` around the largest key count of its one-pass form, `sr_conv` at
+   every number of K slices, `linear` at the edges of its tiles and with every
+   tile its plan can choose, each twice for equal bits, and what the wrappers
+   refuse; the same comparison, untimed,
    at the twenty-four geometries of the CAM forwards (batch 16 at 320, 160
    and 480 pixels a side in the pseudo-label call and the train step, and at
    96, 48 and 144 in the train step's 0.3-scale set); then K2 in its three modes and K3 at 18
@@ -408,6 +410,9 @@ class Phases:
         # and those that do not (the only ones the library call covers)
         self.attn_split = {k: {"launches": 0, "ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
                            for k in ("no_export", "export")}
+        # the one stream every CUDA graph is captured on: cuBLAS keeps a workspace of its
+        # own for each stream it has run on, which would stay allocated for the whole run
+        self.capture_stream = None
 
     def add_bound(self, name: str, n_bytes: float, flops: float, peak: float,
                   times: int = 1) -> None:
@@ -445,7 +450,9 @@ class Phases:
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
-        stream = torch.cuda.Stream()
+        if self.capture_stream is None:
+            self.capture_stream = torch.cuda.Stream()
+        stream = self.capture_stream
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(stream):
             fn()
@@ -584,14 +591,15 @@ class Phases:
     def _redesigned_at_their_edges(self, tmb, gen) -> None:
         """`attention` around the largest key count of its one-pass form, with and
         without export, both head widths, query counts below one tile; `sr_conv` at
-        every number of K slices a plan can hold, both tile widths; each twice for
-        equal bits; and what the two wrappers refuse."""
+        every number of K slices a plan can hold, both tile widths; `linear` at the
+        edges of its tiles and with every tile a plan can choose; each twice for
+        equal bits; and what the three wrappers refuse."""
         torch = self.torch
         from representationlearning_tpu_torch.ops import _build
         bf16 = torch.bfloat16
         bound = tmb.ATTN_ONE_PASS_KEYS
         log(f"== attention at the edge of its one-pass form ({bound} keys), sr_conv at every "
-            f"number of K slices")
+            f"number of K slices, linear at the edges of its tiles")
         self.check(_build.load_library("mit_block").k1_attention_one_pass_keys() == bound,
                    f"the kernel's one-pass bound is the wrapper's ({bound})")
 
@@ -642,6 +650,47 @@ class Phases:
                                  f"{worst:.3f} of its tolerance")
         self.check(same, "sr_conv: two runs give equal bits at every number of slices")
 
+        lib = _build.load_library("mit_block")
+        held = [[lib.k1_linear_blocks_per_sm(t, ln) for ln in (0, 1)]
+                for t in range(len(tmb.LINEAR_TILES))]
+        self.check(all(h == [n, n] for h, n in zip(held, tmb.LINEAR_BLOCKS_PER_SM)),
+                   f"linear: blocks an SM holds of each tile {list(tmb.LINEAR_TILES)}, without "
+                   f"and with the LayerNorm prologue, {held}, are the plan's "
+                   f"{list(tmb.LINEAR_BLOCKS_PER_SM)}")
+        # `linear`: M of one row and of one tile of rows less or more one, Nout that no
+        # column tile divides, K of one, two and 64 steps, LayerNorm and residual each on
+        # and off; every tile the plan can choose, one and two M tiles a block
+        worst, same, n = 0.0, True, 0
+        rows = sorted({r for r, _ in tmb.LINEAR_TILES})
+        ms = sorted({1} | {r + d for r in rows for d in (-1, 1)})
+        for M in ms:
+            for Nout in (96, 640, 1280):
+                for K in (32, 64, 2048):
+                    a, w = rand(M, K), rand(Nout, K, scale=0.05).to(bf16)
+                    for ln in (False, True):
+                        for res in (False, True):
+                            kw = dict(bias=rand(Nout))
+                            if ln:
+                                kw.update(stats=tmb.ln_stats_reference(a), ln_w=rand(K) + 1.0,
+                                          ln_b=rand(K, scale=0.1))
+                            if res:
+                                kw["residual"] = rand(M, Nout)
+                            got = tmb.linear(a, w, **kw)
+                            runs = [tmb.linear(a, w, **kw)]
+                            runs += [tmb.linear(a, w, plan=(tile, per), **kw)
+                                     for tile in tmb.LINEAR_TILES for per in (1, 2)]
+                            torch.cuda.synchronize()
+                            err, mag = max_err(got, tmb.linear_reference(a, w, **kw))
+                            worst = max(worst, err / (PIECE_TOL["linear"] * max(1.0, mag)))
+                            same = same and all(torch.equal(got, r) for r in runs)
+                            self.piece_err["linear"] = max(self.piece_err["linear"], err)
+                            n += 1
+        self.check(worst <= 1.0, f"linear at M = {ms}, Nout = 96, 640, 1280, K = 32, 64, 2048, "
+                                 f"LayerNorm and residual on and off ({n} cases): largest error "
+                                 f"{worst:.3f} of its tolerance")
+        self.check(same, f"linear: a second run and every tile {list(tmb.LINEAR_TILES)} "
+                         f"walking 1 and 2 M tiles a block give equal bits")
+
         def raises(exc, fn) -> bool:
             try:
                 fn()
@@ -652,6 +701,13 @@ class Phases:
         q, kv = rand(1, 8, 96), rand(1, 4, 192)
         x = rand(1, 16, 48)
         bad = (x, tmb.ln_stats_reference(x), rand(48), rand(48), rand(48, 192).to(bf16), rand(48))
+        w_lin, b_lin, a_lin = rand(96, 64).to(bf16), rand(96), rand(8, 64)
+        self.check(raises(ValueError, lambda: tmb.linear(x, rand(96, 48).to(bf16), b_lin))
+                   and raises(RuntimeError, lambda: tmb.linear(a_lin, w_lin, b_lin,
+                                                               plan=((64, 96), 1)))
+                   and raises(RuntimeError, lambda: tmb.linear(a_lin, w_lin, b_lin,
+                                                               plan=((64, 64), 0))),
+                   "linear refuses K % 32 != 0, a tile the kernel lacks and no M tile a block")
         self.check(raises(NotImplementedError, lambda: tmb.attention(q, kv, nh=2))
                    and raises(ValueError, lambda: tmb.attention(q, kv[:, :, :96].contiguous(), nh=3))
                    and raises(ValueError, lambda: tmb.sr_conv(*bad, H=4, W=4, sr=2))
@@ -735,10 +791,11 @@ class Phases:
         t_ops = 1e3 * block_flops / PEAK_BF16
         self.block_bound[0 if t_bytes >= t_ops else 1] += DEPTH * max(t_bytes, t_ops)
         # device time of every piece over its calls in one block, x DEPTH blocks
-        # (`attention`, `sr_conv` and their library calls by graph replay: some of their
-        # launches take less time on the device than the host takes to launch them)
+        # (`attention`, `sr_conv`, `linear` and their library calls by graph replay: some
+        # of their launches take less time on the device than the host takes to launch them)
+        lin = []  # the five `linear` launches of the block: (kernel, bound, library) ms
         for name, a, kw_, bound in calls:
-            redesigned = name in ("attention", "sr_conv")
+            redesigned = name in ("attention", "sr_conv", "linear")
             timer = self.graph_ms if redesigned else self.time_ms
             k_ms = timer(lambda: getattr(tmb, name)(*a, **kw_), iters=10)
             p_ms = self.time_ms(lambda: getattr(tmb, name + "_reference")(*a, **kw_),
@@ -749,7 +806,9 @@ class Phases:
             lib_ms = None if lib_fn is None else timer(lib_fn, iters=10)
             if lib_ms is not None:
                 self.piece_library_ms[name] += DEPTH * lib_ms
-            if not redesigned:
+            if name == "linear":
+                lin.append((k_ms, bound, lib_ms))
+            if not redesigned or name == "linear":
                 continue
             exporting = name == "attention" and export
             if name == "attention":
@@ -763,6 +822,11 @@ class Phases:
             log(f"  {name} @ stage N={N} Nk={(hw // sr) ** 2} C={C}{extra}, a launch: kernel "
                 f"{k_ms:.4f} ms, bound {bound:.4f} ms, library call "
                 f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, plain {p_ms:.4f} ms")
+        log(f"  linear @ stage N={N} C={C}, its {len(lin)} launches (q, kv, proj, fc1, fc2): "
+            f"kernel {' / '.join(f'{k:.4f}' for k, _, _ in lin)} ms, bound "
+            f"{' / '.join(f'{b:.4f}' for _, b, _ in lin)} ms, library call "
+            f"{' / '.join(f'{l:.4f}' for _, _, l in lin)} ms; in all {sum(k for k, _, _ in lin):.4f}, "
+            f"{sum(b for _, b, _ in lin):.4f}, {sum(l for _, _, l in lin):.4f} ms a block")
         with torch.no_grad():
             blk_ms = self.time_ms(lambda: tmb.fused_block(x, p, **kw), iters=10)
             plain_ms = self.time_ms(lambda: tmb.fused_block_reference(x, p, **kw), iters=10)
@@ -1961,7 +2025,7 @@ def main() -> int:
             entry["k1_front_graph_ms"] = ph.front_graph_ms["k1"]
         if k == "flash_fwd":  # both directions, at its looser tolerance
             entry["max_abs_err_bf16"] = ph.piece_err["flash_bf16"]
-        if k in ("attention", "sr_conv"):
+        if k in ("attention", "sr_conv", "linear"):
             entry["timed_by"] = "CUDA graph replay (kernel and library call)"
         if k == "attention":  # the library call covers the launches that export nothing
             for which, part in ph.attn_split.items():

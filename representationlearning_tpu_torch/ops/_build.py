@@ -31,7 +31,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mit_block": {
         "k1_ln_stats": (_P, _P, _I, _I, _P),
-        "k1_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+        # a, w, bias, stats, ln_w, ln_b, residual, out, M, Nout, K, tile, per, stream
+        "k1_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "k1_linear_blocks_per_sm": (_I, _I),   # tile, LayerNorm prologue
         # x, stats, ln_w, ln_b, w, bias, workspace, out, B, H, W, C, sr, tile, slices, stream
         "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
         # q, kv, bf16 workspace, out, logits, B, N, Nk, C, nh, scale, stream

@@ -10,7 +10,8 @@ block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
 
     ln_stats      LayerNorm row statistics (one-pass variance, eps 1e-6)
     linear        bf16 GEMM, LayerNorm prologue, bias/residual epilogue
-                  (q, kv, proj + residual, fc1, fc2 + residual)
+                  (q, kv, proj + residual, fc1, fc2 + residual), its output
+                  tile and the M tiles a block walks chosen by `linear_plan`
     sr_conv       the stride-sr sr x sr conv as an implicit-im2col GEMM (sr > 1),
                   split along K by `sr_conv_plan`, the slices added in order
     attention     per-head softmax(q k^T * scale) v, optional raw-logit export;
@@ -32,6 +33,7 @@ are torch layouts: ``nn.Linear`` (out, in), conv OIHW, depthwise (hid, 1, 3, 3).
 """
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
 from typing import Mapping
@@ -56,6 +58,49 @@ def reset_launches() -> None:
 # whole score rows in registers up to this many keys (one pass); beyond it, key
 # tiles stream through shared memory in two passes (csrc/mit_block/attention.cu).
 ATTN_ONE_PASS_KEYS = 256
+
+# The linear kernel (csrc/mit_block/gemm.cu): a block's output tile, (rows, columns),
+# one of these instantiations (their index is the kernel's tile id), and the blocks of
+# each that an SM holds at once; K walked in steps of LINEAR_K_STEP columns.
+LINEAR_TILES = ((64, 64), (64, 128), (128, 256))
+LINEAR_BLOCKS_PER_SM = (4, 3, 1)
+LINEAR_K_STEP = 32
+LINEAR_SMS = 132
+LINEAR_WIDE_MIN_BLOCKS = 96   # the 128 x 256 tile needs about one block an SM
+LINEAR_MAX_PER = 4
+LINEAR_MAX_GROUPS = 65535     # the grid's second dimension
+
+
+@functools.lru_cache(maxsize=1024)   # the host's time a launch counts: shapes repeat
+def linear_plan(M: int, Nout: int, K: int) -> tuple[tuple[int, int], int]:
+    """(tile, per) of the linear kernel for an (M, K) x (K, Nout) product: the
+    block's output tile and the number of M tiles a block walks. The 128 x 256 tile
+    (half the L2 traffic of the others per product) where 256 divides Nout and it
+    still gives about one block an SM, its blocks walking up to LINEAR_MAX_PER M
+    tiles so that the grid is about one wave; else the 64 x 128 tile where it gives
+    at least two blocks an SM; else 64 x 64. The four-warp tiles walk one M tile a
+    block: three or four of them share an SM. A function of the shapes only; every
+    plan sums each output over its whole K in the same order, so all give the same
+    bits."""
+    if K % LINEAR_K_STEP:
+        raise ValueError(f"linear: K={K} is not a multiple of {LINEAR_K_STEP}")
+
+    def blocks(t):
+        rows, cols = LINEAR_TILES[t]
+        return max(1, math.ceil(M / rows)) * math.ceil(Nout / cols)
+
+    if Nout % 256 == 0 and blocks(2) >= LINEAR_WIDE_MIN_BLOCKS:
+        t = 2
+    elif Nout > 64 and blocks(1) >= 2 * LINEAR_SMS:
+        t = 1
+    else:
+        t = 0
+    per = 1
+    if LINEAR_BLOCKS_PER_SM[t] == 1:
+        per = min(LINEAR_MAX_PER, math.ceil(blocks(t) / LINEAR_SMS))
+    mtiles = max(1, math.ceil(M / LINEAR_TILES[t][0]))
+    return LINEAR_TILES[t], max(per, math.ceil(mtiles / LINEAR_MAX_GROUPS))
+
 
 # The sr conv kernel (csrc/mit_block/sr_conv.cu): output tiles of SR_TILE_M rows,
 # K walked in steps of SR_K_STEP columns.
@@ -251,16 +296,23 @@ def ln_stats(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _aligned(t, name: str, nbytes: int = 16) -> None:
+    if t is not None and t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data not {nbytes}-byte aligned (the kernel reads vectors)")
+
+
 def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
-           dtype=torch.bfloat16):
+           dtype=torch.bfloat16, plan=None):
+    """`plan`: a (tile, per) other than `linear_plan`'s, for tests and tuning; every
+    plan gives the same bits on the card, and it changes nothing on the CPU."""
     if not a.is_cuda:
         return linear_reference(a, w, bias, stats=stats, ln_w=ln_w, ln_b=ln_b,
                                 residual=residual, dtype=dtype)
     _compute_dtype(dtype)
     Nout, K = w.shape
     dev = a.device
-    if K % 32:
-        raise ValueError(f"linear: K={K} is not a multiple of 32")
+    if K % LINEAR_K_STEP:
+        raise ValueError(f"linear: K={K} is not a multiple of {LINEAR_K_STEP}")
     _check(a, "a", dev)
     if a.shape[-1] != K:
         raise ValueError(f"linear: a has {a.shape[-1]} features, w takes {K}")
@@ -274,10 +326,17 @@ def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
     out = torch.empty(a.shape[:-1] + (Nout,), device=dev, dtype=torch.float32)
     if residual is not None:
         _check(residual, "residual", dev, out.shape)
+    for t, name in ((a, "a"), (bias, "bias"), (ln_w, "ln_w"), (ln_b, "ln_b"),
+                    (residual, "residual")):
+        _aligned(t, name)
+    _aligned(stats, "stats", 8)
     if M:
+        tile, per = linear_plan(M, Nout, K) if plan is None else plan
+        tile_id = LINEAR_TILES.index(tuple(tile)) if tuple(tile) in LINEAR_TILES else -1
         _launch("k1_linear", a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(stats),
-                _ptr(ln_w), _ptr(ln_b), _ptr(residual), out.data_ptr(), M, Nout, K)
-        LAUNCHES["linear"] += 1
+                _ptr(ln_w), _ptr(ln_b), _ptr(residual), out.data_ptr(), M, Nout, K,
+                tile_id, per)
+        LAUNCHES["linear"] += 1   # one a call, whatever plan it runs
     return out
 
 

@@ -53,8 +53,22 @@ def test_ln_stats(dev):
 
 @pytest.mark.parametrize("M,Nout,K,ln,res", [(100, 96, 64, True, False),
                                              (130, 64, 160, False, True),
-                                             (1, 2048, 512, True, True)])
+                                             (1, 2048, 512, True, True),
+                                             # the kernel's edges: M of one row and of one
+                                             # tile of rows less or more one (64 and 128),
+                                             # Nout that no column tile divides, K of one
+                                             # step, of two and of 64 steps
+                                             (1, 96, 32, False, True),
+                                             (63, 640, 64, True, False),
+                                             (65, 1280, 2048, False, False),
+                                             (127, 96, 2048, True, True),
+                                             (129, 640, 32, True, True),
+                                             (129, 1280, 64, False, True),
+                                             # rows that 16 bytes do not divide (scalar stores)
+                                             (65, 90, 64, True, True)])
 def test_linear(dev, M, Nout, K, ln, res):
+    """Within the tolerance of the plain version; a second run and every tile the
+    plan can choose, walked one and three M tiles a block, give the same bits."""
     g = torch.Generator().manual_seed(M)
     a = _rand(g, M, K, dev=dev)
     w = _rand(g, Nout, K, dev=dev, scale=0.05).to(BF16)
@@ -65,8 +79,27 @@ def test_linear(dev, M, Nout, K, ln, res):
     if res:
         kw["residual"] = _rand(g, M, Nout, dev=dev)
     before = tmb.LAUNCHES["linear"]
-    _close(tmb.linear(a, w, **kw), tmb.linear_reference(a, w, **kw), TOL["linear"])
+    got = tmb.linear(a, w, **kw)
+    _close(got, tmb.linear_reference(a, w, **kw), TOL["linear"])
     assert tmb.LAUNCHES["linear"] == before + 1
+    assert torch.equal(tmb.linear(a, w, **kw), got)
+    for tile in tmb.LINEAR_TILES:
+        for per in (1, 3):
+            assert torch.equal(tmb.linear(a, w, plan=(tile, per), **kw), got), (tile, per)
+
+
+def test_linear_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    a, w, b = _rand(g, 8, 64, dev=dev), _rand(g, 96, 64, dev=dev).to(BF16), _rand(g, 96, dev=dev)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tmb.linear(a[:, :48].contiguous(), w[:, :48].contiguous(), b)
+    with pytest.raises(ValueError, match="aligned"):
+        tmb.linear(torch.empty(8 * 64 + 1, device=dev)[1:].view(8, 64), w, b)
+    with pytest.raises(RuntimeError, match="k1_linear"):      # no such tile
+        tmb.linear(a, w, b, plan=((64, 96), 1))
+    with pytest.raises(RuntimeError, match="k1_linear"):      # no M tile a block
+        tmb.linear(a, w, b, plan=((64, 64), 0))
+    assert torch.isfinite(tmb.linear(a, w, b)).all()           # and goes on working
 
 
 @pytest.mark.parametrize("H,W,C,sr", [(13, 11, 64, 4), (16, 16, 32, 8), (9, 7, 96, 2)])

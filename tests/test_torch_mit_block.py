@@ -278,3 +278,88 @@ def test_attention_reference_matches_jax_around_the_one_pass_bound(H, W, Nk, nh)
         np.testing.assert_allclose(out.numpy(),
                                    want_out.transpose(1, 2).reshape(1, -1, 64).numpy(),
                                    atol=F32_ATOL)
+
+
+# ------------------------------------------------- linear's plan of tiles
+# (M, Nout, K) of every `linear` launch: the five of a block (q, kv, proj, fc1, fc2)
+# at each stage of the 512 x 512 forward at batch 8 (the PRE_SR path's q and kv
+# are the same products without the LayerNorm), and of the CAM forwards of the
+# pseudo-label call and the train step at batch 16 (crop 320 at scales 1, 0.5, 1.5,
+# and 0.3 of it): token counts no tile divides, kv of one key row an image
+_LIN_STAGES = [(64, 8, 1), (128, 4, 2), (320, 2, 4), (512, 1, 4)]   # C, sr, grid divisor
+
+
+def _linear_geometries():
+    geos = set()
+    for B, side in [(8, 512)] + [(16, s) for s in (320, 160, 480, 96, 48, 144)]:
+        for C, sr, f in _LIN_STAGES:
+            hw = side // 4 // f
+            M, Mk = B * hw * hw, B * (hw // sr) ** 2
+            geos |= {(M, C, C), (M, 4 * C, C), (M, C, 4 * C)}
+            if Mk:
+                geos.add((Mk, 2 * C, C))
+    return sorted(geos)
+
+
+LINEAR_GEOMETRIES = _linear_geometries()
+
+
+@pytest.mark.parametrize("M,Nout,K", LINEAR_GEOMETRIES)
+def test_linear_plan_picks_a_tile_the_kernel_has(M, Nout, K):
+    """The plan is a function of (M, Nout, K) alone, names a tile the kernel is
+    instantiated for, covers M and Nout with whole tiles and leaves no block
+    empty, keeps the grid within the card's limit, and lets a block walk several M
+    tiles only on the tile of which an SM holds one block. The wide tile covers
+    Nout <= 256 in one column tile; a narrower tile where Nout > 64 is chosen only
+    because a wider one would give too few blocks."""
+    tile, per = tmb.linear_plan(M, Nout, K)
+    assert (tile, per) == tmb.linear_plan(M, Nout, K)
+    assert tile in tmb.LINEAR_TILES
+    t = tmb.LINEAR_TILES.index(tile)
+    rows, cols = tile
+    mtiles, ctiles = -(-M // rows), -(-Nout // cols)
+    groups = -(-mtiles // per)
+    assert groups * per * rows >= M and (groups - 1) * per * rows < M
+    assert ctiles * cols >= Nout and groups <= tmb.LINEAR_MAX_GROUPS
+    assert 1 <= per <= tmb.LINEAR_MAX_PER
+    if tmb.LINEAR_BLOCKS_PER_SM[t] > 1:
+        assert per == 1
+    if t == 2 and Nout <= 256:
+        assert ctiles == 1
+    blocks = [-(-M // r) * -(-Nout // c) for r, c in tmb.LINEAR_TILES]
+    if t == 0 and Nout > 64:
+        assert blocks[1] < 2 * tmb.LINEAR_SMS
+    if t < 2 and Nout % 256 == 0:
+        assert blocks[2] < tmb.LINEAR_WIDE_MIN_BLOCKS
+
+
+@pytest.mark.parametrize("tile", tmb.LINEAR_TILES)
+@pytest.mark.parametrize("per", [1, 3])
+@pytest.mark.parametrize("ln,res", [(True, False), (False, True)])
+def test_linear_with_a_plan_on_cpu_is_the_plain_version(tile, per, ln, res):
+    """On CPU tensors `linear(..., plan=)` runs `linear_reference` whatever the plan,
+    launches nothing, and is held to the JAX kernel's `_ln` and `_mm` (f32 operands:
+    the same math summed in another order, 2e-5, this file's per-block bound)."""
+    rng = np.random.default_rng(per + 7 * ln)
+    M, Nout, K = 37, 96, 64
+    a = rng.standard_normal((M, K)).astype(np.float32) * 2 + 0.5
+    w = (rng.standard_normal((Nout, K)) * 0.1).astype(np.float32)
+    b, lw, lb = (rng.standard_normal(n).astype(np.float32) for n in (Nout, K, K))
+    r = rng.standard_normal((M, Nout)).astype(np.float32)
+    at = torch.from_numpy(a)
+    kw = dict(residual=torch.from_numpy(r) if res else None)
+    if ln:
+        kw.update(stats=tmb.ln_stats_reference(at), ln_w=torch.from_numpy(lw),
+                  ln_b=torch.from_numpy(lb))
+    tmb.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        got = tmb.linear(at, torch.from_numpy(w), torch.from_numpy(b), plan=(tile, per),
+                         dtype=dtype, **kw)
+        assert torch.equal(got, tmb.linear_reference(at, torch.from_numpy(w),
+                                                     torch.from_numpy(b), dtype=dtype, **kw))
+    assert sum(tmb.LAUNCHES.values()) == 0
+    x = jmb._ln(jnp.asarray(a), jnp.asarray(lw), jnp.asarray(lb)) if ln else jnp.asarray(a)
+    want = jmb._mm(x, jnp.asarray(w).T, jnp.float32) + jnp.asarray(b)
+    if res:
+        want = want + jnp.asarray(r)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
