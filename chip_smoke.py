@@ -56,14 +56,17 @@ the PRE_SR variant of K1 (K1').
    warm-up switch; a checkpoint saved and restored gives the same next step;
 7b. K5 / K6 / K1' vs plain: K5 and its two pieces at the predict path's shape
    (4, 16384, 32), hid 128, and at two small odd planes (one below the dilations,
-   one non-square); K6 at (1444, 49, 32), 2 heads, at one window and at another
-   window size; the K1 block with ``h`` and ``xs`` handed in at the three sr > 1
+   one non-square); K6 at (1444, 49, 32), 2 heads, at one window and at 1443
+   (fewer windows than, and a count not divided by, a step of four), at
+   another window size, at windows whose gate matrix is all negative (head widths
+   16 and 9), each launched twice for equal bits; the K1 block with ``h`` and ``xs`` handed in at the three sr > 1
    stage geometries; then the RSSFormer predict forward (exactly 8 launches of
    each K5 kernel and of K6, probabilities against the same model with both
    flags off) and the headline forward with ``pre_sr=True`` against
    ``pre_sr=False``, with its launch counts;
-8. timing: CUDA-event times of each kernel, of the whole forward, of the whole
-   pseudo-label call and of the train step, kernel path against plain path; the
+8. timing: CUDA-event times of each kernel (K6 and its library call by CUDA-graph
+   replay), of the whole forward, of the whole pseudo-label call and of the train
+   step, kernel path against plain path; the
    RSSFormer predict four ways (both flags on, each alone, both off) and the
    headline forward with and without ``pre_sr``.
 
@@ -325,6 +328,19 @@ def set_rss_flags(model, fused_mlp: bool, fused_attn: bool) -> None:
             m.fused = fused_mlp
         elif isinstance(m, Mhca):
             m.fused = fused_attn
+
+
+def isa_trap_move(ti, q, k, want, nh: int, dtype) -> tuple[bool, float]:
+    """(every entry of every M_h is negative, how far the K6 output `want` would
+    move if the gate's max also took a padded entry of 0)."""
+    NW, T, C = q.shape
+    hd = C // nh
+    m = ti.mm(q.reshape(NW, T, nh, hd).transpose(1, 2).transpose(-1, -2),
+              k.reshape(NW, T, nh, hd).transpose(1, 2), dtype)
+    s, mx = m.sum(dim=(-2, -1)) / (hd * hd), m.amax(dim=(-2, -1))
+    ratio = (s + mx.clamp(min=0.0)).sigmoid() / (s + mx).sigmoid()   # (NW, nh)
+    moved = want.reshape(NW, T, nh, hd) * (ratio - 1.0)[:, None, :, None]
+    return bool((m < 0).all()), moved.abs().max().item()
 
 
 def nbytes(*objs) -> int:
@@ -1471,19 +1487,38 @@ class Phases:
             f"{NW} windows of {T} x {RSS_DIM}, {RSS_HEADS} heads")
         gen = torch.Generator().manual_seed(self.seed + 7)
         self.piece_err["isa_core"] = self.piece_err["isa_core_f32"] = 0.0
-        for nw, t, C, nh, dtype, what in (
-                (NW, T, RSS_DIM, RSS_HEADS, bf16, "the predict path's shape"),
-                (1, T, RSS_DIM, RSS_HEADS, bf16, "one window"),
-                (37, 16, RSS_DIM, RSS_HEADS, bf16, "4 x 4 windows"),
-                (NW, T, RSS_DIM, RSS_HEADS, f32, "f32 operands"),
-                (5, 100, 18, 2, f32, "head width 9, 10 x 10 windows")):
+        log(f"  the predict path's plan (windows a step, warps, ring stages): "
+            f"{ti.isa_plan(NW, T, RSS_DIM, RSS_HEADS, bf16)}")
+        wide = {"plan": (4, 8, 2)}  # four windows a step
+        for nw, t, C, nh, dtype, sign, kw, what in (
+                (NW, T, RSS_DIM, RSS_HEADS, bf16, False, {}, "the predict path's shape"),
+                (1, T, RSS_DIM, RSS_HEADS, bf16, False, wide,
+                 "one window, fewer than a step of plan (4, 8, 2)"),
+                (NW - 1, T, RSS_DIM, RSS_HEADS, bf16, False, wide,
+                 "a window count that a step of plan (4, 8, 2) does not divide"),
+                (37, 16, RSS_DIM, RSS_HEADS, bf16, False, {}, "4 x 4 windows"),
+                (64, T, RSS_DIM, RSS_HEADS, bf16, True, {}, "every entry of M_h negative"),
+                (64, T, 18, 2, bf16, True, {}, "every entry of M_h negative, head width 9"),
+                (NW, T, RSS_DIM, RSS_HEADS, f32, False, {}, "f32 operands"),
+                (64, T, RSS_DIM, RSS_HEADS, f32, True, {}, "f32, every entry of M_h negative"),
+                (5, 100, 18, 2, f32, False, {}, "head width 9, 10 x 10 windows")):
             q, k, v = (torch.randn(nw, t, C, generator=gen).to(self.dev) for _ in range(3))
+            if sign:  # q >= 0 and k <= 0, small: every entry of M_h lies a little below 0
+                q, k = 0.2 * q.abs(), -0.4 * k.abs()
             q = q * (C // nh) ** -0.5
-            got = ti.isa_core(q, k, v, nh=nh, dtype=dtype)
+            got = ti.isa_core(q, k, v, nh=nh, dtype=dtype, **kw)
+            again = ti.isa_core(q, k, v, nh=nh, dtype=dtype, **kw)
             torch.cuda.synchronize()
             want = ti.isa_core_reference(q, k, v, nh=nh, dtype=dtype)
             name = str(dtype).split(".")[-1]
             err = self._err_check(f"isa_core @ {what}, {name}", got, want, K6_TOL[name])
+            self.check(torch.equal(got, again), "  the same bits from a second launch")
+            if sign:
+                neg, moved = isa_trap_move(ti, q, k, want, nh, dtype)
+                tol = K6_TOL[name] * max(1.0, want.abs().max().item())
+                self.check(neg and moved > tol,
+                           f"  every M_h entry negative, and a max that let a padded 0 in "
+                           f"would move the output by {moved:.3e} (> tol {tol:.3e})")
             key = "isa_core" if dtype == bf16 else "isa_core_f32"
             self.piece_err[key] = max(self.piece_err[key], err)
             if nw == NW and dtype == bf16:
@@ -1824,7 +1859,8 @@ class Phases:
         torch = self.torch
         import torch.nn.functional as F
         bf16 = torch.bfloat16
-        log(f"== timing of K5, K6 and the RSSFormer predict (CUDA events, {card})")
+        log(f"== timing of K5, K6 and the RSSFormer predict (CUDA events; K6 and its library "
+            f"call by CUDA-graph replay; {card})")
         mod, xm, p, f1, rest, hp, out, h = self.mlp_inputs
         H = W = IMAGE // 4
         M, hid, cout = xm.shape[0] * xm.shape[1], 4 * RSS_DIM, RSS_DIM
@@ -1867,13 +1903,15 @@ class Phases:
             return t.to(bf16).reshape(NW, T, nh, hd).transpose(1, 2).contiguous()
 
         qh, kh, vh = heads(q), heads(k), heads(v)
-        with torch.no_grad():
-            self.piece_ms["isa_core"] = RSS_BLOCKS * self.time_ms(
-                lambda: ti.isa_core(q, k, v, nh=nh, dtype=bf16), iters=20)
+        with torch.no_grad():  # the kernel and the library call by graph replay
+            self.piece_ms["isa_core"] = RSS_BLOCKS * self.graph_ms(
+                lambda: ti.isa_core(q, k, v, nh=nh, dtype=bf16))
+            self.isa_f32_ms = RSS_BLOCKS * self.graph_ms(
+                lambda: ti.isa_core(q, k, v, nh=nh, dtype=torch.float32))
             self.piece_plain_ms["isa_core"] = RSS_BLOCKS * self.time_ms(
                 lambda: ti.isa_core_reference(q, k, v, nh=nh, dtype=bf16), iters=5)
-            self.piece_library_ms["isa_core"] = RSS_BLOCKS * self.time_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0), iters=20)
+            self.piece_library_ms["isa_core"] = RSS_BLOCKS * self.graph_ms(
+                lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
         self.library_covers["isa_core"] = "F.scaled_dot_product_attention on bf16 heads: the " \
                                           "softmax attention without the DAL gate"
         # q k^T and p v: 2 * 2 T T C a window; the gate's q^T k: 2 T C hd
@@ -1886,6 +1924,8 @@ class Phases:
                 f"{sum(self.piece_bound[name]):.4f} ms by "
                 f"{'bytes' if self.piece_bound[name][0] else 'operations'}, library call "
                 f"{'none' if lib is None else f'{lib:.3f} ms'})")
+        log(f"  isa_core with f32 operands: {self.isa_f32_ms:.3f} ms per forward of {RSS_BLOCKS} "
+            f"launches (graph replay)")
 
         def forward():
             with torch.no_grad():
@@ -2019,13 +2059,14 @@ def main() -> int:
             entry["unfused_module_ms"] = ph.unfused_mlp_ms
         if k == "isa_core":
             entry["max_abs_err_f32"] = ph.piece_err["isa_core_f32"]
+            entry["ms_f32"] = ph.isa_f32_ms
         if k == "mit_block_presr":
             entry["library_front_ms"] = ph.presr_front_ms
             entry["library_front_graph_ms"] = ph.front_graph_ms["library"]
             entry["k1_front_graph_ms"] = ph.front_graph_ms["k1"]
         if k == "flash_fwd":  # both directions, at its looser tolerance
             entry["max_abs_err_bf16"] = ph.piece_err["flash_bf16"]
-        if k in ("attention", "sr_conv", "linear"):
+        if k in ("attention", "sr_conv", "linear", "isa_core"):
             entry["timed_by"] = "CUDA graph replay (kernel and library call)"
         if k == "attention":  # the library call covers the launches that export nothing
             for which, part in ph.attn_split.items():

@@ -4,6 +4,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace rss {
 
@@ -39,6 +40,56 @@ __device__ __forceinline__ float erf_as(float x) {
 __device__ __forceinline__ float bias_bn_gelu(float v, float bias, float scale, float shift) {
   const float u = __fadd_rn(__fmul_rn(__fadd_rn(v, bias), scale), shift);
   return 0.5f * u * (1.0f + erf_as(u * 0.70710678118654752f));
+}
+
+// ---- copies (K5, K6) and warp-level tensor-core pieces (K6), as K1 has them
+// (csrc/mit_block/common.cuh)
+// mma.sync m16n8k16, bf16 operands, f32 sums. With g = lane / 4, t = lane % 4:
+//   A (16 x 16, row major): a0 = (row g, k 2t..2t+1), a1 = (row g + 8, same k),
+//                           a2 = (row g, k 2t+8..2t+9), a3 = (row g + 8, same k)
+//   B (16 x 8):             b0 = (k 2t..2t+1, n g), b1 = (k 2t+8..2t+9, n g)
+//   C (16 x 8):             c0, c1 = (row g, n 2t..2t+1), c2, c3 = (row g + 8, same n)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes (or 4) from device memory to shared memory without passing through
+// registers; of the 16, the bytes past `src_bytes` are filled with zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// two f32 -> one register of two bf16, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 }  // namespace rss

@@ -48,20 +48,6 @@ constexpr int kScratchBytes = kWarps * 16 * kLdS * (int)sizeof(float);
 static_assert(kBM * kLdH * 2 * (int)sizeof(bf16) <= kPipeBytes,
               "the hidden tile and fc2's weight reuse the pipeline stages");
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // (dy, dx) of tap t in the order of `_mlp_math`: the 1x1, then d = 6 and d = 12
 // over (ky, kx).
 __device__ __forceinline__ void tap_offset(int tap, int& dy, int& dx) {

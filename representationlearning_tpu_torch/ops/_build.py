@@ -59,8 +59,9 @@ SIGNATURES = {
         "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
         # h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, out, B, H, W, Cout, stream
         "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        # q, k, v, out, NW, T, C, nh, round_bf16, stream
-        "k6_isa_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        # q, k, v, out, NW, T, C, nh, round_bf16, windows, warps, stages, blocks, stream
+        "k6_isa_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "k6_isa_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),  # T, C, nh, bf16, plan
     },
 }
 
@@ -126,9 +127,11 @@ def load_library(name: str = "mit_block") -> ctypes.CDLL:
         if lib is not None:
             return lib
         path = BUILD_DIR / _digest(name) / f"lib{name}.so"
-        ptxas = ""
+        log = path.with_suffix(".ptxas.txt")  # what `-Xptxas -v` said when it was built
         if not path.exists():
-            ptxas = _compile(name, path)
+            log.parent.mkdir(parents=True, exist_ok=True)
+            log.write_text(_compile(name, path))
+        ptxas = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[name].items():
             f = getattr(lib, fn)

@@ -10,14 +10,18 @@ with the heads written side by side, (NW, T, C). The counterpart of
 body is ``_core_math``). Under ``dtype=bfloat16`` q, k, the probabilities and v
 are rounded to bf16 before each product and the sums are f32, as there.
 
-``isa_core`` runs the CUDA kernel (``csrc/rssformer/isa_attention.cu``, one block a
-window) on CUDA tensors and ``isa_core_reference``, the plain PyTorch version, on
-CPU tensors. ``isa_attention_core`` is the differentiable entry point: its
-forward is ``isa_core``, its backward recomputes the plain version under
-autograd, as the JAX ``custom_vjp`` does (the JAX package has no backward
-kernel either).
+``isa_core`` runs the CUDA kernel (``csrc/rssformer/isa_attention.cu``: persistent
+blocks walk the windows through a ``cp.async`` ring, warps share out the rows,
+bf16 tensor-core products, the steps chosen by ``isa_plan``) on CUDA tensors and
+``isa_core_reference``, the plain PyTorch version, on CPU tensors.
+``isa_attention_core`` is the differentiable entry point: its forward is
+``isa_core``, its backward recomputes the plain version under autograd, as the
+JAX ``custom_vjp`` does (the JAX package has no backward kernel either).
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -25,7 +29,15 @@ from . import _build
 from .mit_block import _check, mm
 
 LAUNCHES = {"isa_core": 0}
-SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may ask for on sm_90
+
+# The kernel (csrc/rssformer/isa_attention.cu) holds a window's score rows in
+# registers and a ring of `stages` steps of `windows` windows (q, k, v, rows at
+# pitch `isa_pitch(C)`) in shared memory; the rows of a (window, head) are shared
+# out to warps / (windows * nh) warps, in tiles of 16 rows (bf16) or 32 (f32).
+ISA_MAX_T = 128
+ISA_MAX_HD = 64
+ISA_MAX_WARPS = 8
+SMEM_LIMIT = 227 * 1024       # dynamic shared memory a block may ask for on sm_90
 
 
 def reset_launches() -> None:
@@ -52,15 +64,55 @@ def isa_core_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, nh:
     return (alpha * o).transpose(1, 2).reshape(NW, T, C).to(q.dtype)
 
 
-def _smem_bytes(T: int, C: int) -> int:
-    return 4 * (3 * T * (C + 1) + T * T + 8)
+def isa_pitch(C: int) -> int:
+    """Floats between two token rows of a stage: the least P >= C with P % 32 == 4."""
+    return C + ((4 - C) & 31)
+
+
+def isa_smem_bytes(T: int, C: int, nh: int, windows: int, stages: int) -> int:
+    """The ring, and the gate of each (window, head) of a step."""
+    return 4 * (stages * 3 * windows * T * isa_pitch(C) + windows * nh)
+
+
+@functools.lru_cache(maxsize=256)
+def isa_plan(NW: int, T: int, C: int, nh: int, dtype=torch.bfloat16) -> tuple[int, int, int]:
+    """(windows, warps, stages) of the kernel: the windows a step, the warps a block
+    and the stages of the ring. One window a step and two stages, so that four
+    blocks share an SM at the predict path's shape; two warps a (window, head)
+    where it has two row tiles (16 rows under bf16, 32 under f32), at most
+    ISA_MAX_WARPS. (Measured on the H100 at 1444 windows of 49 x 32: PERF.md.) A
+    function of the shapes only; every plan sums each output in the same order,
+    so all give the same bits."""
+    hd = C // nh
+    if T > ISA_MAX_T or hd > ISA_MAX_HD:
+        raise NotImplementedError(
+            f"K6 holds a window's score rows in registers: T={T}, hd={hd}; it takes at "
+            f"most {ISA_MAX_T} tokens a window and head width {ISA_MAX_HD}")
+    if isa_smem_bytes(T, C, nh, 1, 2) > SMEM_LIMIT:
+        raise NotImplementedError(
+            f"K6 keeps two steps of a window in shared memory: T={T}, C={C} need "
+            f"{isa_smem_bytes(T, C, nh, 1, 2)} bytes, a block has {SMEM_LIMIT}")
+    parts = 2 if T > (16 if dtype == torch.bfloat16 else 32) else 1
+    return 1, min(ISA_MAX_WARPS, nh * parts), 2
+
+
+@functools.lru_cache(maxsize=256)
+def _grid_per_sm(T, C, nh, bf16, windows, warps, stages) -> int:
+    lib = _build.load_library("rssformer")
+    return lib.k6_isa_blocks_per_sm(T, C, nh, bf16, windows, warps, stages)
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def isa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, nh: int,
-             dtype=torch.float32) -> torch.Tensor:
+             dtype=torch.float32, plan=None) -> torch.Tensor:
     """K6 without a gradient: the kernel on CUDA tensors, the plain version on
     CPU tensors. f32 tensors; `dtype` (f32 or bf16) is the operand type of the
-    products."""
+    products. `plan`: a (windows, warps, stages) other than `isa_plan`'s, for tests
+    and tuning; every plan gives the same bits."""
     NW, T, C = q.shape
     if C % nh:
         raise ValueError(f"isa_core: C={C} is not a multiple of nh={nh}")
@@ -68,19 +120,27 @@ def isa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, nh: int,
         return isa_core_reference(q, k, v, nh=nh, dtype=dtype)
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"K6 takes compute dtype float32 or bfloat16, got {dtype}")
-    if _smem_bytes(T, C) > SMEM_LIMIT:
-        raise NotImplementedError(
-            f"K6 keeps a window in shared memory: T={T}, C={C} need {_smem_bytes(T, C)} "
-            f"bytes, a block has {SMEM_LIMIT}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t, name, q.device, (NW, T, C))
     out = torch.empty_like(q)
-    if q.numel():
-        lib = _build.load_library("rssformer")
-        _build.check(lib.k6_isa_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     NW, T, C, nh, int(dtype == torch.bfloat16),
-                                     torch.cuda.current_stream().cuda_stream), "k6_isa_core")
-        LAUNCHES["isa_core"] += 1
+    if not q.numel():
+        return out
+    windows, warps, stages = isa_plan(NW, T, C, nh, dtype)  # refuses what the kernel cannot take
+    if plan is not None:
+        windows, warps, stages = plan
+        if not (windows >= 1 and 1 <= warps <= ISA_MAX_WARPS and stages in (2, 3)
+                and isa_smem_bytes(T, C, nh, windows, stages) <= SMEM_LIMIT):
+            raise ValueError(f"isa_core: plan {plan} is not one the kernel takes")
+    bf16 = int(dtype == torch.bfloat16)
+    per_sm = _grid_per_sm(T, C, nh, bf16, windows, warps, stages)
+    if per_sm < 1:
+        raise RuntimeError(f"k6_isa_core: plan {(windows, warps, stages)} fits no SM")
+    blocks = min(math.ceil(NW / windows), per_sm * _sms(q.device.index or 0))
+    lib = _build.load_library("rssformer")
+    _build.check(lib.k6_isa_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 NW, T, C, nh, bf16, windows, warps, stages, blocks,
+                                 torch.cuda.current_stream().cuda_stream), "k6_isa_core")
+    LAUNCHES["isa_core"] += 1
     return out
 
 

@@ -10,6 +10,7 @@ installed: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 import pytest
 import torch
 
+from chip_smoke import isa_trap_move
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -509,6 +510,14 @@ def test_fused_mlp_dwbn_refuses_what_it_does_not_take(dev):
 
 
 # ------------------------------------------------------------------ K6
+def _isa_plans(T, C, nh):
+    """Every (windows, warps, stages) that fits in shared memory, with one, two or
+    more warps a (window, head) of a step, and one warp for all of them."""
+    plans = {(w, min(TI.ISA_MAX_WARPS, f * w * nh), s) for w in (1, 2, 4)
+             for s in (2, 3) for f in (1, 2, 8)} | {(2, 1, 2)}
+    return sorted(p for p in plans if TI.isa_smem_bytes(T, C, nh, p[0], p[2]) <= TI.SMEM_LIMIT)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("NW,T,C,nh", [(1, 49, 32, 2), (133, 49, 32, 2), (7, 16, 36, 4),
                                        (5, 100, 18, 2), (3, 49, 64, 1), (2, 1, 8, 8)])
@@ -516,7 +525,8 @@ def test_isa_core_matches_plain(dev, dtype, NW, T, C, nh):
     """f32: the same products, sums of at most 100 terms in another order, `expf`
     against `torch.exp`: 1e-5. bf16: besides, a probability next to a rounding
     boundary may take the neighbouring bf16 value (2^-8 of a value below 1):
-    1e-3. Window counts that no chunk divides, head widths 9, 18 and 1."""
+    1e-3. Window counts that no step of windows divides, head widths 9, 18 and 1;
+    every plan and a second launch give the same bits, one launch a call."""
     g = torch.Generator().manual_seed(NW + T)
     q, k, v = (_rand(g, NW, T, C, dev=dev) for _ in range(3))
     q = q * (C // nh) ** -0.5
@@ -526,6 +536,27 @@ def test_isa_core_matches_plain(dev, dtype, NW, T, C, nh):
     want = TI.isa_core_reference(q, k, v, nh=nh, dtype=dtype)
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     _close(got, want, 1e-5 if dtype == torch.float32 else 1e-3)
+    assert torch.equal(TI.isa_core(q, k, v, nh=nh, dtype=dtype), got)
+    plans = _isa_plans(T, C, nh)
+    for plan in plans:
+        assert torch.equal(TI.isa_core(q, k, v, nh=nh, dtype=dtype, plan=plan), got), plan
+    assert TI.LAUNCHES["isa_core"] == before + 2 + len(plans)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("C,nh", [(32, 2), (18, 2)])
+def test_isa_core_gate_of_an_all_negative_window(dev, dtype, C, nh):
+    """Small q >= 0 and k <= 0 put every entry of M_h a little below 0: the gate's
+    max is the largest negative entry, never a padded 0, which would move the output
+    by far more than the tolerance (head widths 16 and 9)."""
+    g = torch.Generator().manual_seed(C)
+    q = 0.2 * _rand(g, 6, 49, C, dev=dev).abs() * (C // nh) ** -0.5
+    k, v = -0.4 * _rand(g, 6, 49, C, dev=dev).abs(), _rand(g, 6, 49, C, dev=dev)
+    want = TI.isa_core_reference(q, k, v, nh=nh, dtype=dtype)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    _close(TI.isa_core(q, k, v, nh=nh, dtype=dtype), want, tol)
+    negative, moved = isa_trap_move(TI, q, k, want, nh, dtype)
+    assert negative and moved > 10 * tol * max(1.0, want.abs().max().item())
 
 
 def test_isa_attention_core_backward_is_the_plain_version(dev):
@@ -544,9 +575,14 @@ def test_isa_core_refuses_what_it_does_not_take(dev):
     q = torch.zeros(2, 49, 32, device=dev)
     with pytest.raises(ValueError, match="not contiguous"):
         TI.isa_core(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, nh=2)
-    with pytest.raises(NotImplementedError, match="shared memory"):
+    with pytest.raises(NotImplementedError, match="at most 128 tokens"):
         big = torch.zeros(1, 400, 64, device=dev)
         TI.isa_core(big, big, big, nh=2)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        wide = torch.zeros(1, 128, 2048, device=dev)
+        TI.isa_core(wide, wide, wide, nh=32)
+    with pytest.raises(ValueError, match="plan"):
+        TI.isa_core(q, q, q, nh=2, plan=(1, 9, 2))
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         TI.isa_core(q, q, q, nh=2, dtype=torch.float16)
 

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import isa_trap_move
 from representationlearning_tpu.ops.pallas import isa_attention as ji
 from representationlearning_tpu_torch.ops import isa_attention as ti
 
@@ -18,7 +19,10 @@ torch.set_num_threads(2)
 F32_ATOL = 1e-5
 # gradients: the JAX package's own bound (tests/test_pallas_isa.py:58)
 GRAD_TOL = 1e-4
-SHAPES = [(12, 49, 32, 2), (7, 49, 64, 4), (3, 16, 32, 1), (5, 49, 18, 2), (1, 25, 40, 2)]
+# the predict path's window, head widths 16, 9, 32 and 20, and the card kernel's
+# edges: one token and head width 1, 100 tokens, head width 64
+SHAPES = [(12, 49, 32, 2), (7, 49, 64, 4), (3, 16, 32, 1), (5, 49, 18, 2), (1, 25, 40, 2),
+          (3, 1, 8, 8), (2, 100, 18, 2), (2, 49, 64, 1)]
 
 
 def _qkv(NW, T, C, nh, seed=0):
@@ -76,6 +80,67 @@ def test_isa_attention_core_grads_match_jax(dtype):
         w = np.asarray(w)
         tol = GRAD_TOL if dtype == "float32" else 2e-2 * np.abs(w).max()
         np.testing.assert_allclose(got.numpy(), w, atol=tol, rtol=GRAD_TOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C,nh", [(32, 2), (18, 2)])
+def test_isa_core_gate_of_an_all_negative_window_matches_jax(dtype, C, nh):
+    """Small q >= 0 and k <= 0: every entry of M_h lies a little below 0, so the
+    gate's max is the largest negative entry, and a max that let a padded 0 in
+    would move the output by far more than the tolerance."""
+    q, k, v = _qkv(4, 49, C, nh, seed=5)
+    q, k = 0.2 * np.abs(q), -0.4 * np.abs(k)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = np.asarray(ji._core_reference(*(jnp.asarray(a) for a in (q, k, v)), nh=nh, dtype=jdt))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    got = ti.isa_core_reference(tq, tk, tv, nh=nh, dtype=tdt)
+    tol = F32_ATOL if dtype == "float32" else 1e-3 * np.abs(want).max()
+    np.testing.assert_allclose(got.numpy(), want, atol=tol)
+    negative, moved = isa_trap_move(ti, tq, tk, got, nh, tdt)
+    assert negative and moved > 10 * tol
+
+
+@pytest.mark.parametrize("NW,T,C,nh,dtype,want", [
+    # the predict path: 1444 windows of 49 x 32, 2 heads; one window a step, two
+    # warps a head (four 16-row tiles under bf16, two 32-row tiles under f32), two
+    # stages: four blocks an SM
+    (1444, 49, 32, 2, torch.bfloat16, (1, 4, 2)),
+    (1444, 49, 32, 2, torch.float32, (1, 4, 2)),
+    (1, 49, 32, 2, torch.bfloat16, (1, 4, 2)),
+    # one row tile: one warp a head
+    (2, 1, 8, 8, torch.bfloat16, (1, 8, 2)),
+    (7, 16, 36, 4, torch.bfloat16, (1, 4, 2)),
+    (37, 16, 32, 2, torch.bfloat16, (1, 2, 2)),
+    (5, 32, 32, 2, torch.float32, (1, 2, 2)),
+    # at most ISA_MAX_WARPS
+    (7, 49, 36, 4, torch.bfloat16, (1, 8, 2)),
+    (7, 49, 64, 8, torch.bfloat16, (1, 8, 2)),
+    (5, 100, 18, 2, torch.bfloat16, (1, 4, 2)),
+    (3, 49, 64, 1, torch.bfloat16, (1, 2, 2)),
+])
+def test_isa_plan(NW, T, C, nh, dtype, want):
+    plan = ti.isa_plan(NW, T, C, nh, dtype)
+    assert plan == want
+    windows, warps, stages = plan
+    assert 1 <= warps <= ti.ISA_MAX_WARPS and stages in (2, 3)
+    assert ti.isa_smem_bytes(T, C, nh, windows, stages) <= ti.SMEM_LIMIT
+
+
+def test_isa_pitch_and_shared_memory():
+    """Rows 2t and 2t + 1 of a column fall in 32 different banks: P % 32 == 4."""
+    for C in (8, 18, 32, 36, 64, 100):
+        P = ti.isa_pitch(C)
+        assert P >= C and P % 32 == 4 and P - C < 32
+    # the predict path's step: 2 windows of 49 x 36 floats, q, k, v, two stages, 4 gates
+    assert ti.isa_smem_bytes(49, 32, 2, 2, 2) == 4 * (2 * 3 * 2 * 49 * 36 + 4)
+
+
+@pytest.mark.parametrize("shape,match", [((1, 129, 32, 2), "at most 128 tokens"),
+                                         ((1, 49, 130, 2), "head width 64"),
+                                         ((1, 128, 2048, 32), "shared memory")])
+def test_isa_plan_refuses_what_the_kernel_does_not_take(shape, match):
+    with pytest.raises(NotImplementedError, match=match):
+        ti.isa_plan(*shape)
 
 
 def test_backward_is_autograd_through_the_plain_version():

@@ -6,7 +6,8 @@ without the profiler (CUDA events), traces a few back-to-back forwards with
 ``torch.profiler`` and prints: the card and its power limit, the window's length
 per forward, the share of it in which no kernel ran (the device's idle share,
 also against the untraced time, since the profiler slows the host), the kernel
-launches per forward, and the kernels that take most of the device time. By
+launches per forward, and the kernels that take most of the device time (and K5's
+and K6's, wherever they rank). By
 default both ``fused_mlp`` (K5) and ``fused_attn`` (K6) are on; ``--unfused``
 traces the cuDNN path. With ``--out DIR`` it also writes a Chrome trace there.
 
@@ -93,8 +94,11 @@ def main() -> int:
           f"{100.0 * (1.0 - busy / window):.2f}% of the traced window, "
           f"{100.0 * max(0.0, 1.0 - busy_ms / untraced):.2f}% of the untraced forward; "
           f"{len(kernels) / n:.0f} kernel launches per forward")
-    for name, (us, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
-        print(f"  {us / n / 1e3:8.3f} ms  {count / n:6.0f} launches  {name[:100]}")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    # the sixteen largest, then the port's own kernels (K5, K6) further down
+    for i, (name, (us, count)) in enumerate(ranked):
+        if i < 16 or "rss::" in name:
+            print(f"  {us / n / 1e3:8.3f} ms  {count / n:6.0f} launches  {name[:100]}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         path = os.path.join(args.out, "rssformer_predict_trace.json")
