@@ -47,7 +47,11 @@ the PRE_SR variant of K1 (K1').
 6. K4 vs plain: flash attention forward and backward (dq, dk, dv against autograd
    through the plain version, random cotangent; two backward runs give equal
    bits) at the train step's six geometries, the three of the 512 x 512
-   forward, Nk = 1 and one bf16 case; ``TSCD(use_flash=True)`` in eval against
+   forward, Nk = 1 and one bf16 case; at the train geometries two more forward
+   runs give o and the row logsumexp with equal bits, the logsumexp within 1e-5
+   of ``torch.logsumexp``, and forward and backward, the plain version and the
+   library call are timed by CUDA-graph replay (the 512 x 512 geometries'
+   forward too, apart from the step's sums); ``TSCD(use_flash=True)`` in eval against
    ``use_flash=False`` on the same weights;
 7. train step: a few steps through ``make_scd_train_step``; launch counts of
    every kernel per step; the first step's losses and gradient norms per
@@ -64,8 +68,8 @@ the PRE_SR variant of K1 (K1').
    each K5 kernel and of K6, probabilities against the same model with both
    flags off) and the headline forward with ``pre_sr=True`` against
    ``pre_sr=False``, with its launch counts;
-8. timing: CUDA-event times of each kernel (K6 and its library call by CUDA-graph
-   replay), of the whole forward, of the whole pseudo-label call and of the train
+8. timing: CUDA-event times of each kernel (K4 and K6 and their library calls by
+   CUDA-graph replay), of the whole forward, of the whole pseudo-label call and of the train
    step, kernel path against plain path; the
    RSSFormer predict four ways (both flags on, each alone, both off) and the
    headline forward with and without ``pre_sr``.
@@ -157,6 +161,7 @@ def cam_stages(side: int) -> list[tuple]:
 # Published peaks of one H100 SXM at its full power limit: device memory bytes/s,
 # dense bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
 PEAK_BYTES, PEAK_BF16, PEAK_F32 = 3.35e12, 989e12, 67e12
+PEAK_TF32 = 494.7e12  # dense TF32 tensor-core FLOP/s
 
 # Kernel against plain version on the SAME inputs; a result passes when
 # max|kernel - plain| <= tol * max(1, max|plain|).
@@ -1171,17 +1176,27 @@ class Phases:
             self.piece_err[k] = self.piece_ms[k] = self.piece_plain_ms[k] = 0.0
             self.piece_library_ms[k] = 0.0
         self.piece_err["flash_bf16"] = 0.0
+        self.flash_fwd_fma_bound = 0.0
+        self.flash_eval_ms = {"": 0.0, "library": 0.0}
         self.library_covers.update(
             flash_fwd="F.scaled_dot_product_attention on the same f32 tensors",
             flash_bwd="the backward of F.scaled_dot_product_attention on the same f32 tensors")
+        if self.capture_stream is None:
+            self.capture_stream = torch.cuda.Stream()
         for (BH, Nq, Nk), dtype, what in cases:
             q, k, v, do = self._flash_inputs(gen, BH, Nq, Nk, dtype)
-            out = tf.flash_attention(q, k, v, scale)
+            # the forwards run on the capture stream, so that the backward of each runs
+            # there too and a CUDA graph can capture it
+            self.capture_stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.capture_stream):
+                out = tf.flash_attention(q, k, v, scale)
+                want = tf.flash_attention_reference(q, k, v, scale)
+                sdpa = F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale)
+            torch.cuda.current_stream().wait_stream(self.capture_stream)
             grads = torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
             again = torch.autograd.grad(tf.flash_attention(q, k, v, scale), (q, k, v), do)
-            torch.cuda.synchronize()
-            want = tf.flash_attention_reference(q, k, v, scale)
             want_grads = torch.autograd.grad(want, (q, k, v), do, retain_graph=True)
+            torch.cuda.synchronize()
             at = f"(BH, Nq, Nk) = ({BH}, {Nq}, {Nk}) {str(dtype).split('.')[-1]}, {what}"
             for name, g, w in (("o", out, want), ("dq", grads[0], want_grads[0]),
                                ("dk", grads[1], want_grads[1]), ("dv", grads[2], want_grads[2])):
@@ -1196,33 +1211,61 @@ class Phases:
                 self.piece_err[key] = max(self.piece_err[key], err)
             self.check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                        f"flash backward @ {at}: two runs on the same inputs give equal bits")
+            if what == "train step":
+                with torch.no_grad():
+                    runs = [tf.flash_forward(q, k, v, scale) for _ in range(2)]
+                    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+                    lerr = (runs[0][1] - torch.logsumexp(s, dim=-1)).abs().max().item()
+                self.check(torch.equal(runs[0][0], out) and torch.equal(runs[1][0], out)
+                           and torch.equal(runs[0][1], runs[1][1]),
+                           f"flash forward @ {at}: two more runs give o and lse with equal bits")
+                self.check(lerr <= 1e-5, f"flash lse @ {at}: max abs err {lerr:.3e} against "
+                           f"torch.logsumexp of the scaled scores (tol 1.000e-05)")
+                del runs, s
+            if what == "512 x 512 forward":  # the eval forward: timed, not a step's work
+                with torch.no_grad():
+                    ms = {"": self.graph_ms(lambda: tf.flash_attention(q, k, v, scale)),
+                          "library": self.graph_ms(lambda: F.scaled_dot_product_attention(
+                              q[None], k[None], v[None], scale=scale))}
+                for which in ms:
+                    self.flash_eval_ms[which] += DEPTH * ms[which]
+                log(f"  flash_fwd @ ({BH}, {Nq}, {Nk}), 512 x 512 forward: kernel "
+                    f"{ms['']:.4f} ms, library call {ms['library']:.4f} ms per launch "
+                    f"(CUDA graph replay)")
             if what != "train step":
                 continue
-            # times and bounds of the DEPTH launches a step makes at this geometry
-            sdpa = F.scaled_dot_product_attention(q[None], k[None], v[None], scale=scale)
-            fwd = {"": lambda: tf.flash_attention(q, k, v, scale),
-                   "plain": lambda: tf.flash_attention_reference(q, k, v, scale),
-                   "library": lambda: F.scaled_dot_product_attention(q[None], k[None], v[None],
-                                                                     scale=scale)}
+            # times and bounds of the DEPTH launches a step makes at this geometry, by
+            # CUDA graph replay: a launch takes less device time than the host's launch
+            with torch.no_grad():
+                fwd = {"": lambda: tf.flash_attention(q, k, v, scale),
+                       "plain": lambda: tf.flash_attention_reference(q, k, v, scale),
+                       "library": lambda: F.scaled_dot_product_attention(q[None], k[None],
+                                                                         v[None], scale=scale)}
+                ms_fwd = {which: self.graph_ms(fn) for which, fn in fwd.items()}
             bwd = {"": lambda: torch.autograd.grad(out, (q, k, v), do, retain_graph=True),
                    "plain": lambda: torch.autograd.grad(want, (q, k, v), do, retain_graph=True),
                    "library": lambda: torch.autograd.grad(sdpa, (q, k, v), do[None],
                                                           retain_graph=True)}
-            for name, fns in (("flash_fwd", fwd), ("flash_bwd", bwd)):
-                ms = {which: self.time_ms(fn, iters=10) for which, fn in fns.items()}
+            ms_bwd = {which: self.graph_ms(fn) for which, fn in bwd.items()}
+            for name, ms in (("flash_fwd", ms_fwd), ("flash_bwd", ms_bwd)):
                 self.piece_ms[name] += DEPTH * ms[""]
                 self.piece_plain_ms[name] += DEPTH * ms["plain"]
                 self.piece_library_ms[name] += DEPTH * ms["library"]
                 log(f"  {name} @ ({BH}, {Nq}, {Nk}): kernel {ms['']:.4f} ms, plain "
-                    f"{ms['plain']:.4f} ms, library call {ms['library']:.4f} ms per launch")
+                    f"{ms['plain']:.4f} ms, library call {ms['library']:.4f} ms per launch "
+                    f"(CUDA graph replay)")
             lse = BH * Nq * 4
             # forward: q, k, v read, o and the row logsumexp written; 2 products of
-            # 2 BH Nq Nk hd operations, f32 outside the tensor cores
-            self.add_bound("flash_fwd", nbytes(q, k, v, out) + lse, 4.0 * BH * Nq * Nk * HD,
-                           PEAK_F32, times=DEPTH)
+            # 2 BH Nq Nk hd operations, each f32-exact product three TF32 products on the
+            # tensor cores (the bound); as f32 multiply-adds they would take 67 TFLOP/s
+            ops = 4.0 * BH * Nq * Nk * HD
+            self.add_bound("flash_fwd", nbytes(q, k, v, out) + lse, 3 * ops, PEAK_TF32,
+                           times=DEPTH)
+            self.flash_fwd_fma_bound += DEPTH * 1e3 * ops / PEAK_F32
             # backward: q, k, v, o, do, lse read, dq, dk, dv written; 5 products
             self.add_bound("flash_bwd", nbytes(q, k, v, out, do, grads) + lse,
                            10.0 * BH * Nq * Nk * HD, PEAK_F32, times=DEPTH)
+            del out, want, sdpa, grads, again, want_grads
 
     def flash_model(self, tf) -> None:
         """TSCD(use_flash=True) in eval against use_flash=False on the same weights."""
@@ -2066,7 +2109,10 @@ def main() -> int:
             entry["k1_front_graph_ms"] = ph.front_graph_ms["k1"]
         if k == "flash_fwd":  # both directions, at its looser tolerance
             entry["max_abs_err_bf16"] = ph.piece_err["flash_bf16"]
-        if k in ("attention", "sr_conv", "linear", "isa_core"):
+            entry["bound_ms_f32_fma"] = ph.flash_fwd_fma_bound
+            entry["ms_512_forward"] = ph.flash_eval_ms[""]
+            entry["library_ms_512_forward"] = ph.flash_eval_ms["library"]
+        if k in ("attention", "sr_conv", "linear", "isa_core", "flash_fwd", "flash_bwd"):
             entry["timed_by"] = "CUDA graph replay (kernel and library call)"
         if k == "attention":  # the library call covers the launches that export nothing
             for which, part in ph.attn_split.items():

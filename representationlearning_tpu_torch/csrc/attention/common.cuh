@@ -1,15 +1,16 @@
-// Shared pieces of kernel K4 (flash attention, forward and backward): the tile
-// loader and three register-tiled products over tiles in shared memory. See the
-// note at the top of flash_fwd.cu and flash_bwd.cu.
+// Shared pieces of the K4 backward (flash attention): the tile loader and three
+// register-tiled products over tiles in shared memory. See the note at the top of
+// flash_bwd.cu. (The forward, flash_fwd.cu, runs on the tensor cores and keeps its
+// own pieces.)
 //
 // A thread block has 128 threads seen as 8 x 16 (ty, tx). Of a 64-row output
 // tile thread (ty, tx) owns rows ty + 8 i (i < 8) and columns tx + 16 j, so the
-// 16 threads that share a row are the lanes of one half-warp, and a row
-// reduction is four shuffles. Tiles of q, k, v, do are stored as f32 with an
-// odd pitch (HD + 1), the score tiles with pitch 65: a warp's reads are then
-// either one address (broadcast) or 16 different banks. bf16 inputs are
-// widened on the way into shared memory, which is exact; products of two bf16
-// values are exact in f32, so the sums are f32 accumulations of bf16 operands.
+// 16 threads that share a row are the lanes of one half-warp. Tiles of q, k, v,
+// do are stored as f32 with an odd pitch (HD + 1), the score tiles with pitch 65:
+// a warp's reads are then either one address (broadcast) or 16 different banks.
+// bf16 inputs are widened on the way into shared memory, which is exact; products
+// of two bf16 values are exact in f32, so the sums are f32 accumulations of bf16
+// operands.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -48,19 +49,6 @@ __device__ __forceinline__ float round_to(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// over the 16 lanes that share a row of the output tile
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

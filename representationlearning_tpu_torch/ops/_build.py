@@ -48,8 +48,9 @@ SIGNATURES = {
         "k3_varm_iter": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
     },
     "attention": {
-        # q, k, v, o, lse, BH, Nq, Nk, D, scale, is_bf16, stream
-        "k4_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+        # q, k, v, o, lse, BH, Nq, Nk, D, scale, is_bf16, warps, blocks, stream
+        "k4_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
+        "k4_flash_fwd_blocks_per_sm": (_I, _I, _I, _I),  # Nk, D, is_bf16, warps
         # q, k, v, o, do, lse, dq, dk, dv, ws, BH, Nq, Nk, D, scale, chunk, is_bf16, stream
         "k4_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
                          _P),

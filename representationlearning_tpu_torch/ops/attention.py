@@ -4,8 +4,8 @@ attention (`mix_transformer.py:94-133`).
 The counterpart of ``representationlearning_tpu/ops/pallas/attention.py``
 (``flash_attention``, ``mha_flash``): ``softmax(q k^T * scale) v`` with the
 (Nq, Nk) scores kept out of device memory in both directions. q is (BH, Nq, D),
-k and v are (BH, Nk, D); D is 32 or 64, the dtype f32 (f32 products) or bf16
-(bf16 operands, f32 accumulation).
+k and v are (BH, Nk, D); D is 32 or 64, the dtype f32 (f32-accurate products)
+or bf16 (bf16 operands, f32 accumulation).
 
 ``flash_attention`` launches the CUDA kernels (``csrc/attention/flash_fwd.cu``,
 ``flash_bwd.cu``) on CUDA tensors through ``_Flash``, a ``torch.autograd.Function``
@@ -14,8 +14,20 @@ backward kernel; any Nq >= 1 and Nk >= 1 runs on them (the TPU wrapper keeps its
 kernel for tile multiples). On CPU tensors it runs ``flash_attention_reference``,
 the plain softmax composition, which autograd differentiates. Nothing falls
 back: a build or launch failure raises.
+
+The forward is bound by the bytes of q and o and, close behind, by its f32
+products (PERF.md). So it runs both products on the tensor cores (``mma.sync``:
+bf16 operands, or f32 operands split into two TF32 halves, three TF32 products
+a product, which holds f32 accuracy), keeps K and V of a bh in shared memory for
+all the 16-row query tiles a block walks, and fills the card with a plan
+(``flash_plan``: warps a block, blocks as many as the card holds at once, each
+taking an equal run of query tiles). The key tile is a function of Nk alone
+(``fwd_key_tile``) and each output row is summed by one warp in a fixed order,
+so every plan and every rerun gives the same bits.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -27,8 +39,17 @@ from . import _build
 # dk / dv shares)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 
-TILE_Q = 64           # query rows per thread block tile (csrc/attention/common.cuh)
+TILE_Q = 64           # query rows per thread block tile of the backward (common.cuh)
 _TARGET_BLOCKS = 528  # 4 thread blocks on each of an H100's 132 SMs
+
+# The forward kernel (csrc/attention/flash_fwd.cu): warps of 16 query rows, key tiles
+# of Nk rounded up to 16 where Nk <= FWD_LONG_TILE, else of FWD_LONG_TILE keys; K and V
+# in shared memory beside two q stages a warp.
+FWD_MAX_WARPS = 8
+FWD_LONG_TILE = 128
+SMEM_LIMIT = 227 * 1024      # dynamic shared memory a block may ask for on sm_90
+SM_SMEM = 228 * 1024         # shared memory of an SM, 1 KB of it reserved a block
+H100_SMS = 132
 
 
 def reset_launches() -> None:
@@ -51,6 +72,106 @@ def bwd_chunk(BH: int, Nq: int) -> int:
     so a rerun sums the dk / dv shares in the same order."""
     nqt = -(-Nq // TILE_Q)
     return max(1, min(nqt, (BH * nqt) // _TARGET_BLOCKS))
+
+
+def fwd_key_tile(Nk: int) -> int:
+    """Keys a tile of the forward kernel: a function of Nk alone, so every plan at one
+    shape sums in the same order."""
+    return FWD_LONG_TILE if Nk > FWD_LONG_TILE else -(-Nk // 16) * 16
+
+
+def fwd_smem_bytes(Nk: int, D: int, bf16: bool, warps: int) -> tuple[int, int]:
+    """(bytes of shared memory, K / V slots) of a forward block: two q stages a warp
+    (16 rows at pitch D + 8), and every key tile where they fit beside them (the
+    resident form), else two slots that the key tiles stream through."""
+    e = 2 if bf16 else 4
+    bk = fwd_key_tile(Nk)
+    nkt = -(-Nk // bk)
+    q = warps * 2 * 16 * (D + 8) * e
+    kv = bk * ((D + 8) + (D + 8 if bf16 else D + 4)) * e
+    slots = nkt if q + nkt * kv <= SMEM_LIMIT else 2
+    return q + slots * kv, slots
+
+
+def _blocks_per_sm_estimate(Nk: int, D: int, bf16: bool, warps: int) -> int:
+    smem, _ = fwd_smem_bytes(Nk, D, bf16, warps)
+    return max(1, min(64 // warps, SM_SMEM // (smem + 1024)))
+
+
+def flash_plan(BH: int, Nq: int, Nk: int, D: int, dtype=torch.float32,
+               blocks_per_sm: int | None = None, sms: int = H100_SMS) -> tuple[int, int]:
+    """(warps, blocks) of the forward kernel. Four warps a block where the launch has
+    four 16-row query tiles for every SM, fewer below that so that the small launches
+    still spread over the SMs; eight in place of four under f32 or where K and V of
+    several key tiles fill an SM's shared memory (an SM then holds one block and one
+    K / V copy for its eight warps; measured, PERF.md); as many blocks as the card holds at once
+    (`blocks_per_sm`, its occupancy; without it an estimate from shared memory), but
+    no more than leave each warp a tile. Block b takes the tiles [b T / G, (b + 1) T / G)
+    of the T = BH ceil(Nq / 16) tiles. Every plan gives the same bits."""
+    tiles = BH * -(-Nq // 16)
+    warps = max(1, min(4, tiles // sms))
+    if warps == 4 and (dtype == torch.float32
+                       or fwd_smem_bytes(Nk, D, dtype == torch.bfloat16, 4)[1] > 1):
+        warps = 8  # f32, or K and V of several key tiles: one block an SM, a wide one
+    per_sm = blocks_per_sm or _blocks_per_sm_estimate(Nk, D, dtype == torch.bfloat16, warps)
+    return warps, max(1, min(-(-tiles // warps), per_sm * sms))
+
+
+def check_plan(plan, Nk: int, D: int, dtype) -> tuple[int, int]:
+    """The plan as (warps, blocks), or ValueError if the kernel does not take it."""
+    try:
+        warps, blocks = (int(x) for x in plan)
+    except (TypeError, ValueError):
+        raise ValueError(f"flash_attention: plan {plan!r} is not (warps, blocks)") from None
+    if not (1 <= warps <= FWD_MAX_WARPS and blocks >= 1
+            and fwd_smem_bytes(Nk, D, dtype == torch.bfloat16, warps)[0] <= SMEM_LIMIT):
+        raise ValueError(f"flash_attention: plan {plan!r} is not one the kernel takes")
+    return warps, blocks
+
+
+@functools.lru_cache(maxsize=256)
+def _blocks_per_sm(Nk: int, D: int, bf16: bool, warps: int) -> int:
+    lib = _build.load_library("attention")
+    return lib.k4_flash_fwd_blocks_per_sm(Nk, D, int(bf16), warps)
+
+
+@functools.lru_cache(maxsize=8)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its data starts on 16 bytes (the kernel's 16-byte copies), else
+    a copy that does."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                  plan=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel on CUDA tensors: (o, lse), o (BH, Nq, D) in q's dtype and
+    lse (BH, Nq) f32, the row logsumexp of the scaled scores. `plan`: a (warps,
+    blocks) other than `flash_plan`'s, for tests and tuning."""
+    BH, Nq, Nk, D = _check(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    if plan is None:
+        sms = _sms(q.device.index or 0)
+        warps, _ = flash_plan(BH, Nq, Nk, D, q.dtype, sms=sms)
+        per_sm = _blocks_per_sm(Nk, D, bf16, warps)
+        if per_sm < 1:
+            raise RuntimeError(f"k4_flash_fwd: {warps} warps at Nk = {Nk} fit no SM")
+        plan = flash_plan(BH, Nq, Nk, D, q.dtype, per_sm, sms)
+    warps, blocks = check_plan(plan, Nk, D, q.dtype)
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    o = torch.empty_like(q)
+    lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
+    lib = _build.load_library("attention")
+    with torch.cuda.device(q.device):
+        err = lib.k4_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                               lse.data_ptr(), BH, Nq, Nk, D, float(scale), int(bf16), warps,
+                               blocks, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "k4_flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return o, lse
 
 
 def _check(q, k, v) -> tuple[int, int, int, int]:
@@ -82,18 +203,8 @@ class _Flash(torch.autograd.Function):
     gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        BH, Nq, Nk, D = _check(q, k, v)
-        o = torch.empty_like(q)
-        lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
-        lib = _build.load_library("attention")
-        with torch.cuda.device(q.device):
-            err = lib.k4_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                   lse.data_ptr(), BH, Nq, Nk, D, float(scale),
-                                   int(q.dtype == torch.bfloat16),
-                                   torch.cuda.current_stream().cuda_stream)
-        _build.check(err, "k4_flash_fwd")
-        LAUNCHES["flash_fwd"] += 1
+    def forward(ctx, q, k, v, scale, plan=None):
+        o, lse = flash_forward(q, k, v, scale, plan)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.scale = float(scale)
         return o
@@ -118,16 +229,20 @@ class _Flash(torch.autograd.Function):
                                    torch.cuda.current_stream().cuda_stream)
         _build.check(err, "k4_flash_bwd")
         LAUNCHES["flash_bwd"] += 1
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float) -> torch.Tensor:
+                    scale: float, *, plan=None) -> torch.Tensor:
     """K4 dispatcher: q (BH, Nq, D), k, v (BH, Nk, D) -> (BH, Nq, D), differentiable
-    in q, k and v."""
+    in q, k and v. `plan`: the forward kernel's (warps, blocks), for tests and
+    tuning; checked on any device, used on the card."""
+    if plan is not None:
+        BH, Nq, Nk, D = _check(q, k, v)
+        check_plan(plan, Nk, D, q.dtype)
     if not q.is_cuda:
         return flash_attention_reference(q, k, v, scale)
-    return _Flash.apply(q, k, v, scale)
+    return _Flash.apply(q, k, v, scale, plan)
 
 
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:

@@ -7,6 +7,8 @@ checks the kernels at the model's own shapes. Every test here needs the card and
 skips without one. The file imports no JAX, so it also runs where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
 """
+import math
+
 import pytest
 import torch
 
@@ -393,6 +395,71 @@ def test_flash_attention_refuses_a_second_derivative(dev):
     dq, = torch.autograd.grad(TF.flash_attention(q, k, v, 0.125), q, cot, create_graph=True)
     with pytest.raises(RuntimeError, match="once_differentiable"):
         dq.sum().backward()
+
+
+def _flash_plans(BH, Nq, Nk, D, dtype):
+    """The default plan, and every warp count with one block (which then walks every
+    bh), with seven blocks (runs of tiles that cross bh boundaries) and with 264 (two
+    an SM: at these shapes more blocks than tiles' worth of warps)."""
+    plans = {TF.flash_plan(BH, Nq, Nk, D, dtype)}
+    for warps in range(1, TF.FWD_MAX_WARPS + 1):
+        plans |= {(warps, 1), (warps, 7), (warps, 132 * 2)}
+    return sorted(plans)
+
+
+def _lse_want(q, k, scale):
+    return torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("BH,Nq,Nk,D", [(3, 70, 9, 64), (2, 577, 100, 64), (5, 130, 257, 32),
+                                        (2, 300, 257, 64), (2, 200, 256, 64), (40, 36, 9, 64)])
+def test_flash_forward_every_plan_gives_equal_bits(dev, dtype, BH, Nq, Nk, D):
+    """Blocks that walk several bh (one block), a run of tiles that no warp count divides,
+    the resident and the streamed K / V (f32, D 64, Nk 257)."""
+    g = torch.Generator().manual_seed(BH * Nq + Nk)
+    q, k, v = (_rand(g, BH, n, D, dev=dev).to(dtype) for n in (Nq, Nk, Nk))
+    o, lse = TF.flash_forward(q, k, v, D ** -0.5)
+    for plan in _flash_plans(BH, Nq, Nk, D, dtype):
+        o1, l1 = TF.flash_forward(q, k, v, D ** -0.5, plan)
+        assert torch.equal(o1, o) and torch.equal(l1, lse), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Nk", [1, 9, 100, 104, 129, 257])
+@pytest.mark.parametrize("Nq", [1, 15, 16, 17, 65])
+def test_flash_forward_at_the_edges(dev, dtype, D, Nk, Nq):
+    """o within FLASH_TOL of the plain version, lse within 1e-5 of torch.logsumexp of the
+    scaled scores, equal bits on a rerun, one launch a call."""
+    g = torch.Generator().manual_seed(Nq * 1000 + Nk)
+    q, k, v = (_rand(g, 3, n, D, dev=dev).to(dtype) for n in (Nq, Nk, Nk))
+    scale = D ** -0.5
+    before = TF.LAUNCHES["flash_fwd"]
+    o, lse = TF.flash_forward(q, k, v, scale)
+    assert TF.LAUNCHES["flash_fwd"] == before + 1
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == (3, Nq)
+    _close(o, TF.flash_attention_reference(q, k, v, scale), FLASH_TOL[dtype])
+    _close(lse, _lse_want(q, k, scale), 1e-5)
+    o2, l2 = TF.flash_forward(q, k, v, scale)
+    assert torch.equal(o2, o) and torch.equal(l2, lse)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("Nk", [9, 100, 257])
+def test_flash_forward_near_one_hot_and_equal_scores(dev, dtype, Nk):
+    """Scores scaled by 30 (a softmax that is nearly one-hot, probabilities down to
+    exp(-hundreds)), and rows whose scores are all equal (q row 0: a uniform softmax)."""
+    g = torch.Generator().manual_seed(Nk)
+    q, k, v = (_rand(g, 4, n, 64, dev=dev) for n in (100, Nk, Nk))
+    q[:, 7] = 0.0
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    for scale in (30 * 64 ** -0.5, 64 ** -0.5):
+        o, lse = TF.flash_forward(q, k, v, scale)
+        _close(o, TF.flash_attention_reference(q, k, v, scale), FLASH_TOL[dtype])
+        _close(lse, _lse_want(q, k, scale), 1e-5)
+        _close(o[:, 7], v.float().mean(dim=1), FLASH_TOL[dtype])    # the uniform rows
+        _close(lse[:, 7], torch.full((4,), math.log(Nk), device=dev), 1e-6)
 
 
 def test_tscd_use_flash_runs_k4_forward_and_backward(dev):

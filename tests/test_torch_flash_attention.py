@@ -184,3 +184,69 @@ def test_tscd_use_flash_matches_jax_outputs_and_gradients(tscd_setup, remat):
     for n, g in got.items():
         np.testing.assert_allclose(g.numpy(), want_grads[n].numpy(), rtol=2e-3, atol=2e-5,
                                    err_msg=n)
+
+
+# The forward kernel's plan (`flash_plan`, `fwd_smem_bytes`) at every geometry K4 runs at:
+# the train step's six (each launched twice a step), the 512 x 512 forward's three, and
+# the edges of the key tile, of one query row and of the grid's bh limit.
+STEP_GEOMETRIES = [(8, 6400, 100), (16, 1600, 100), (40, 400, 100), (8, 576, 9), (16, 144, 9),
+                   (40, 36, 9)]
+EVAL_GEOMETRIES = [(8, 16384, 256), (16, 4096, 256), (40, 1024, 256)]
+EDGE_GEOMETRIES = [(3, 1, nk) for nk in (1, 8, 9, 128, 129, 257)] + [(65535, 17, 100),
+                                                                     (65535, 1, 257)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("shape", STEP_GEOMETRIES + EVAL_GEOMETRIES + EDGE_GEOMETRIES)
+def test_forward_plan_fits_a_block(shape, D, dtype):
+    BH, Nq, Nk = shape
+    tiles = BH * -(-Nq // 16)
+    for per_sm in (None, 1, 3):
+        warps, blocks = TA.flash_plan(BH, Nq, Nk, D, dtype, per_sm)
+        smem, slots = TA.fwd_smem_bytes(Nk, D, dtype == torch.bfloat16, warps)
+        assert 1 <= warps <= TA.FWD_MAX_WARPS and 1 <= blocks <= tiles
+        assert smem <= TA.SMEM_LIMIT == 227 * 1024
+        assert slots * TA.fwd_key_tile(Nk) >= min(Nk, 2 * TA.fwd_key_tile(Nk))
+        if per_sm:  # no more blocks than the card holds at once
+            assert blocks <= per_sm * TA.H100_SMS
+        assert TA.check_plan((warps, blocks), Nk, D, dtype) == (warps, blocks)
+    # every plan the card might be given fits too
+    for warps in range(1, TA.FWD_MAX_WARPS + 1):
+        assert TA.fwd_smem_bytes(Nk, D, dtype == torch.bfloat16, warps)[0] <= TA.SMEM_LIMIT
+
+
+def test_forward_plan_fills_the_card_at_the_train_step():
+    """Every geometry of the step gives each SM work (or each query tile its own warp),
+    where the parent kernel launched 40 blocks at (40, 36, 9)."""
+    for BH, Nq, Nk in STEP_GEOMETRIES:
+        tiles = BH * -(-Nq // 16)
+        warps, blocks = TA.flash_plan(BH, Nq, Nk, 64, torch.float32, 2)
+        assert blocks * warps >= min(tiles, TA.H100_SMS), (BH, Nq, Nk)
+        assert blocks >= min(TA.H100_SMS, -(-tiles // warps)), (BH, Nq, Nk)
+
+
+@pytest.mark.parametrize("Nk,tile", [(1, 16), (8, 16), (9, 16), (16, 16), (17, 32), (100, 112),
+                                     (104, 112), (128, 128), (129, 128), (256, 128),
+                                     (257, 128), (1024, 128)])
+def test_forward_key_tile_depends_on_nk_alone(Nk, tile):
+    """So every plan, dtype and head width at one Nk sums the keys in the same tiles."""
+    assert TA.fwd_key_tile(Nk) == tile
+    nkt = -(-Nk // tile)
+    for D in (32, 64):
+        for bf16 in (False, True):
+            for warps in (1, 4, 8):
+                smem, slots = TA.fwd_smem_bytes(Nk, D, bf16, warps)
+                assert slots == nkt or (slots == 2 and nkt > 2)   # resident, or streamed
+
+
+@pytest.mark.parametrize("plan", [(0, 4), (9, 4), (4, 0), (4, -1), (1, 2, 3), (4,), "ab", None])
+def test_flash_attention_refuses_an_invalid_plan(plan):
+    q = torch.zeros(2, 20, 64)
+    k = torch.zeros(2, 9, 64)
+    if plan is None:   # no plan: the plain version on CPU tensors
+        assert TA.flash_attention(q, k, k, 0.125, plan=plan).shape == q.shape
+        return
+    with pytest.raises(ValueError, match="plan"):
+        TA.flash_attention(q, k, k, 0.125, plan=plan)
+    assert TA.flash_attention(q, k, k, 0.125, plan=(4, 1)).shape == q.shape
