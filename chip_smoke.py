@@ -26,14 +26,16 @@ the PRE_SR variant of K1 (K1').
 3. kernel vs plain: each K1 kernel, and the whole block, against its plain
    PyTorch version on the same inputs, at the four MiT-B1 stage geometries of
    the 512 x 512 forward, with each kernel's bound and, where one PyTorch call
-   computes the same function, that call's time (`attention`, `sr_conv`,
-   `linear` and their library calls by replaying a CUDA graph, so that the host's
-   time to launch does not count; `attention` split into the launches that export
-   and those that do not; `linear` a line a stage for its five launches);
+   computes the same function, that call's time (all five kernels and their
+   library calls by replaying a CUDA graph, so that the host's time to launch does
+   not count; `attention` split into the launches that export and those that do
+   not; `linear` a line a stage for its five launches, `dwconv_gelu` one a stage
+   with its library call in f32 and bf16);
    `attention` around the largest key count of its one-pass form, `sr_conv` at
    every number of K slices, `linear` at the edges of its tiles and with every
-   tile its plan can choose, each twice for equal bits, and what the wrappers
-   refuse; the same comparison, untimed,
+   tile its plan can choose, `dwconv_gelu` on grids of 1 to 15 rows and columns
+   at hid 4 to 2048, each twice for equal bits, and what the wrappers
+   refuse; `dwconv_gelu` at every plan at every geometry; the same comparison, untimed,
    at the twenty-four geometries of the CAM forwards (batch 16 at 320, 160
    and 480 pixels a side in the pseudo-label call and the train step, and at
    96, 48 and 144 in the train step's 0.3-scale set); then K2 in its three modes and K3 at 18
@@ -60,7 +62,10 @@ the PRE_SR variant of K1 (K1').
    warm-up switch; a checkpoint saved and restored gives the same next step;
 7b. K5 / K6 / K1' vs plain: K5 and its two pieces at the predict path's shape
    (4, 16384, 32), hid 128, and at two small odd planes (one below the dilations,
-   one non-square); K6 at (1444, 49, 32), 2 heads, at one window and at 1443
+   one non-square); `mlp_fc1` at the TTA's batch of 2 and at its edges (M of 1 to
+   8517 rows, cin 16 to 256), every plan and a rerun for equal bits, the blocks an
+   SM holds against its plan's estimate, and what it refuses; K6 at (1444, 49, 32),
+   2 heads, at one window and at 1443
    (fewer windows than, and a count not divided by, a step of four), at
    another window size, at windows whose gate matrix is all negative (head widths
    16 and 9), each launched twice for equal bits; the K1 block with ``h`` and ``xs`` handed in at the three sr > 1
@@ -68,9 +73,9 @@ the PRE_SR variant of K1 (K1').
    each K5 kernel and of K6, probabilities against the same model with both
    flags off) and the headline forward with ``pre_sr=True`` against
    ``pre_sr=False``, with its launch counts;
-8. timing: CUDA-event times of each kernel (K4 and K6 and their library calls by
-   CUDA-graph replay), of the whole forward, of the whole pseudo-label call and of the train
-   step, kernel path against plain path; the
+8. timing: times of each kernel (K4, K5 and K6 and their library calls by
+   CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
+   whole pseudo-label call and of the train step, kernel path against plain path; the
    RSSFormer predict four ways (both flags on, each alone, both off) and the
    headline forward with and without ``pre_sr``.
 
@@ -381,6 +386,18 @@ def k1_flops(name: str, a: tuple, kw: dict) -> tuple[float, float]:
     raise KeyError(name)
 
 
+def dwconv_plans(tmb) -> list[tuple[int, int]]:
+    """Every run of columns of the depthwise conv kernel, walking 1, 2, 3, 8 and 16
+    rows."""
+    return [(c, r) for c in tmb.DWCONV_COLUMNS for r in (1, 2, 3, 8, 16)]
+
+
+def fc1_plans(tm, cin: int) -> list[tuple[int, int]]:
+    """Every warp count of the fc1 kernel that fits at this width, walking 1, 2 and 3
+    steps a block."""
+    return [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3) if tm.fc1_fits(cin, w)]
+
+
 def pseudo_batch(torch, gen, device):
     """A training batch as the SCD loader gives it: normalised images whose
     denormalised values look like rand * 255, 1-3 present classes per image,
@@ -431,6 +448,10 @@ class Phases:
         # and those that do not (the only ones the library call covers)
         self.attn_split = {k: {"launches": 0, "ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
                            for k in ("no_export", "export")}
+        # `dwconv_gelu`: every plan and a rerun gave equal bits at every geometry so far;
+        # the bf16 library call a headline forward
+        self.dwconv_plans_same = True
+        self.dwconv_library_bf16_ms = 0.0
         # the one stream every CUDA graph is captured on: cuBLAS keeps a workspace of its
         # own for each stream it has run on, which would stay allocated for the whole run
         self.capture_stream = None
@@ -551,6 +572,11 @@ class Phases:
         if name == "linear":
             x, w, bias = a[0].to(bf16), a[1], a[2].to(bf16)
             return lambda: F.linear(x, w, bias)
+        if name == "ln_stats":  # the mean and the variance, without the reciprocal root
+            x = a[0]
+            return lambda: torch.var_mean(x, -1, correction=0)
+        if name == "dwconv_gelu":
+            return self._dwconv_library(a, kw, torch.float32)
         if name == "sr_conv":
             x, stats, ln_w, ln_b, w_flat, bias = a
             B, _, C = x.shape
@@ -572,6 +598,17 @@ class Phases:
             return lambda: F.scaled_dot_product_attention(qh, kh, vh)
         return None
 
+    def _dwconv_library(self, a, kw, dtype):
+        """`F.conv2d(groups=hid, padding=1)` with its bias, without the GELU, on the
+        same plane viewed as channels-last NCHW (no copy), in `dtype`."""
+        torch = self.torch
+        import torch.nn.functional as F
+        f, w, bias = a
+        B, _, hid = f.shape
+        x = f.to(dtype).reshape(B, kw["H"], kw["W"], hid).permute(0, 3, 1, 2)
+        w, bias = w.to(dtype), bias.to(dtype)
+        return lambda: F.conv2d(x, w, bias, padding=1, groups=hid)
+
     def kernels_vs_plain(self, tmb) -> None:
         """Each piece of K1 against its plain version on the inputs the kernel
         path gives it, then the whole block: at every stage geometry of the
@@ -582,9 +619,13 @@ class Phases:
         for k in PIECE_TOL:
             self.piece_err[k] = 0.0
             self.piece_ms[k] = self.piece_plain_ms[k] = 0.0
-        self.piece_library_ms.update(ln_stats=None, dwconv_gelu=None, linear=0.0,
+        self.piece_library_ms.update(ln_stats=0.0, dwconv_gelu=0.0, linear=0.0,
                                      sr_conv=0.0, attention=0.0)
         self.library_covers.update(
+            ln_stats="torch.var_mean over the features, f32: mean and variance of every row, "
+                     "without the reciprocal square root",
+            dwconv_gelu="F.conv2d on the f32 plane viewed channels-last, groups=hid, padding 1, "
+                        "with the bias: every launch, without the GELU",
             linear="F.linear on bf16: the product and the bias of every launch, "
                    "without the LayerNorm prologue and the residual",
             sr_conv="F.conv2d on bf16, stride sr, on the normalised tokens: every launch, "
@@ -608,6 +649,9 @@ class Phases:
                 worst = max(self._block_vs_plain(tmb, gen, 2 * BATCH, *stage, timed=False)
                             for stage in cam_stages(side))
                 log(f"  K1 at {side} x {side}: largest error {worst:.3f} of its tolerance")
+        self.check(self.dwconv_plans_same,
+                   f"dwconv_gelu: a rerun and every plan {dwconv_plans(tmb)} give equal bits at "
+                   f"the headline's four and the CAM forwards' twenty-four geometries")
 
     def _redesigned_at_their_edges(self, tmb, gen) -> None:
         """`attention` around the largest key count of its one-pass form, with and
@@ -712,12 +756,50 @@ class Phases:
         self.check(same, f"linear: a second run and every tile {list(tmb.LINEAR_TILES)} "
                          f"walking 1 and 2 M tiles a block give equal bits")
 
+        bad = lib.k1_gelu_as_mismatches()
+        self.check(bad == 0, f"gelu_as (a refined reciprocal in place of the division, the "
+                             f"sign copied) differs from the formula with sign(x) and the IEEE "
+                             f"division on {bad} of the 2^32 f32 inputs")
+        # `dwconv_gelu`: grids of 1, 2, 3, 5 and 15 rows and columns, hid 4, 32, 96 and
+        # 2048, batch 16; every plan and a rerun
+        worst, same, n = 0.0, True, 0
+        sides = (1, 2, 3, 5, 15)
+        for hid in (4, 32, 96, 2048):
+            w, b = rand(hid, 1, 3, 3, scale=0.3), rand(hid)
+            for H in sides:
+                for W in sides:
+                    f = rand(16, H * W, hid)
+                    got = tmb.dwconv_gelu(f, w, b, H=H, W=W)
+                    runs = [tmb.dwconv_gelu(f, w, b, H=H, W=W)]
+                    runs += [tmb.dwconv_gelu(f, w, b, H=H, W=W, plan=pl)
+                             for pl in dwconv_plans(tmb)]
+                    torch.cuda.synchronize()
+                    err, mag = max_err(got, tmb.dwconv_gelu_reference(f, w, b, H=H, W=W))
+                    worst = max(worst, err / (PIECE_TOL["dwconv_gelu"] * max(1.0, mag)))
+                    same = same and all(torch.equal(got, r) for r in runs)
+                    self.piece_err["dwconv_gelu"] = max(self.piece_err["dwconv_gelu"], err)
+                    n += 1
+        self.check(worst <= 1.0, f"dwconv_gelu at H, W in {sides}, hid 4, 32, 96, 2048, batch 16 "
+                                 f"({n} cases): largest error {worst:.3f} of its tolerance")
+        self.check(same, f"dwconv_gelu: a second run and every plan {dwconv_plans(tmb)} give "
+                         f"equal bits at the edges")
+
         def raises(exc, fn) -> bool:
             try:
                 fn()
             except exc:
                 return True
             return False
+
+        f, w, b = rand(2, 12, 36), rand(36, 1, 3, 3), rand(36)
+        odd = rand(2 * 12 * 36 + 1)[1:].view(2, 12, 36)   # contiguous, 4 bytes off
+        self.check(raises(ValueError, lambda: tmb.dwconv_gelu(f[..., :34].contiguous(), w[:34],
+                                                              b[:34], H=3, W=4))
+                   and raises(ValueError, lambda: tmb.dwconv_gelu(odd, w, b, H=3, W=4))
+                   and raises(ValueError, lambda: tmb.dwconv_gelu(f, w, b, H=3, W=4, plan=(3, 4)))
+                   and bool(torch.isfinite(tmb.dwconv_gelu(f, w, b, H=3, W=4)).all()),
+                   "dwconv_gelu refuses hid % 4 != 0, data not 16-byte aligned and a column run "
+                   "the kernel lacks, and goes on working")
 
         q, kv = rand(1, 8, 96), rand(1, 4, 192)
         x = rand(1, 16, 48)
@@ -770,6 +852,14 @@ class Phases:
                                f"(max |plain| {mag:.3e}, tol {tol:.3e})")
                     self.piece_err[name] = max(self.piece_err[name], err)
                     worst = max(worst, err / tol)
+                if name == "dwconv_gelu":   # every plan, and a second run: equal bits
+                    runs = [getattr(tmb, name)(*a, **kw)]
+                    runs += [getattr(tmb, name)(*a, plan=pl, **kw) for pl in dwconv_plans(tmb)]
+                    same = all(torch.equal(got, r) for r in runs)
+                    self.dwconv_plans_same = self.dwconv_plans_same and same
+                    if not same:
+                        self.check(False, f"dwconv_gelu @ {at}: a rerun or a plan of "
+                                          f"{dwconv_plans(tmb)} gives other bits")
                 flops, peak = k1_flops(name, a, kw)
                 if peak == PEAK_BF16:
                     block_flops += flops
@@ -811,25 +901,31 @@ class Phases:
         t_bytes = 1e3 * nbytes(x, p, got) / PEAK_BYTES
         t_ops = 1e3 * block_flops / PEAK_BF16
         self.block_bound[0 if t_bytes >= t_ops else 1] += DEPTH * max(t_bytes, t_ops)
-        # device time of every piece over its calls in one block, x DEPTH blocks
-        # (`attention`, `sr_conv`, `linear` and their library calls by graph replay: some
-        # of their launches take less time on the device than the host takes to launch them)
+        # device time of every piece over its calls in one block, x DEPTH blocks; the
+        # kernels and their library calls by graph replay: some of their launches take
+        # less time on the device than the host takes to launch them
         lin = []  # the five `linear` launches of the block: (kernel, bound, library) ms
         for name, a, kw_, bound in calls:
-            redesigned = name in ("attention", "sr_conv", "linear")
-            timer = self.graph_ms if redesigned else self.time_ms
-            k_ms = timer(lambda: getattr(tmb, name)(*a, **kw_), iters=10)
+            k_ms = self.graph_ms(lambda: getattr(tmb, name)(*a, **kw_))
             p_ms = self.time_ms(lambda: getattr(tmb, name + "_reference")(*a, **kw_),
                                 iters=10)
             self.piece_ms[name] += DEPTH * k_ms
             self.piece_plain_ms[name] += DEPTH * p_ms
             lib_fn = self._library_call(name, a, kw_)
-            lib_ms = None if lib_fn is None else timer(lib_fn, iters=10)
+            lib_ms = None if lib_fn is None else self.graph_ms(lib_fn)
             if lib_ms is not None:
                 self.piece_library_ms[name] += DEPTH * lib_ms
             if name == "linear":
                 lin.append((k_ms, bound, lib_ms))
-            if not redesigned or name == "linear":
+            if name in ("ln_stats", "linear"):
+                continue
+            if name == "dwconv_gelu":
+                bf16_ms = self.graph_ms(self._dwconv_library(a, kw_, torch.bfloat16))
+                self.dwconv_library_bf16_ms += DEPTH * bf16_ms
+                log(f"  dwconv_gelu @ stage N={N} hid={4 * C}, plan (columns, rows) "
+                    f"{tmb.dwconv_plan(B, hw, hw, 4 * C)}, a launch: kernel {k_ms:.4f} ms, bound "
+                    f"{bound:.4f} ms, library call {lib_ms:.4f} ms (bf16 {bf16_ms:.4f} ms), "
+                    f"plain {p_ms:.4f} ms")
                 continue
             exporting = name == "attention" and export
             if name == "attention":
@@ -1518,6 +1614,62 @@ class Phases:
                 self.piece_err[key] = max(self.piece_err[key], err)
             if H == side:
                 self.mlp_inputs = (mod, x, p, f1, rest, hp, out, h)
+        self._fc1_at_its_edges(tm, gen)
+
+    def _fc1_at_its_edges(self, tm, gen) -> None:
+        """`mlp_fc1` at the TTA's batch of 2 and at its edges: M of one row, of a tile less
+        or more one, and not a multiple of any plan's step; cin 16, 32, 64 and 256; every
+        plan and a rerun for equal bits; the blocks an SM holds against the plan's estimate."""
+        torch = self.torch
+        from representationlearning_tpu_torch.ops import _build
+        bf16, hid = torch.bfloat16, 4 * RSS_DIM
+
+        def rand(*shape, scale=1.0, shift=0.0):
+            return (scale * torch.randn(shape, generator=gen) + shift).to(self.dev)
+
+        lib = _build.load_library("rssformer")
+        side = IMAGE // 4
+        warps = {cin: tm.fc1_plan(2 * side * side, cin)[0] for cin in (16, 32, 64, 256)}
+        held = {cin: lib.k5_fc1_blocks_per_sm(cin, w) for cin, w in warps.items()}
+        want_held = {cin: tm.fc1_blocks_per_sm(cin, w) for cin, w in warps.items()}
+        self.check(held == want_held, f"mlp_fc1: blocks an SM holds of the plan's {warps} warps "
+                                      f"at cin 16, 32, 64, 256: {held}, the plan's estimate "
+                                      f"{want_held}")
+        cases = [(2 * side * side, RSS_DIM)]   # the TTA's batch of 2
+        cases += [(M, cin) for cin in (16, 32, 64, 256) for M in (1, 15, 17, 1000, 8517)]
+        worst, same = 0.0, True
+        for M, cin in cases:
+            x = rand(1, M, cin)
+            f1 = (rand(hid, cin, scale=cin ** -0.5).to(bf16), rand(hid, scale=0.1),
+                  rand(hid, scale=0.2, shift=1.0), rand(hid, scale=0.1))
+            with torch.no_grad():
+                got = tm.mlp_fc1(x, *f1)
+                runs = [tm.mlp_fc1(x, *f1)]
+                runs += [tm.mlp_fc1(x, *f1, plan=pl) for pl in fc1_plans(tm, cin)]
+                torch.cuda.synchronize()
+                err, mag = max_err(got, tm.mlp_fc1_reference(x, *f1))
+            worst = max(worst, err / (K5_TOL["mlp_fc1"] * max(1.0, mag)))
+            same = same and all(torch.equal(got, r) for r in runs)
+            self.piece_err["mlp_fc1"] = max(self.piece_err["mlp_fc1"], err)
+        self.check(worst <= 1.0, f"mlp_fc1 at M = {2 * side * side} (cin {RSS_DIM}) and M = 1, 15, "
+                                 f"17, 1000, 8517 at cin 16, 32, 64, 256: largest error "
+                                 f"{worst:.3f} of its tolerance")
+        self.check(same, "mlp_fc1: a second run and every plan (1, 2, 4, 8 warps walking 1, 2, 3 "
+                         "steps a block) give equal bits")
+        odd = rand(16 * 32 + 1)[1:].view(1, 16, 32)   # contiguous, 4 bytes off
+        f1 = (rand(hid, 32).to(bf16), rand(hid), rand(hid), rand(hid))
+
+        def raises(fn) -> bool:
+            try:
+                fn()
+            except ValueError:
+                return True
+            return False
+
+        self.check(raises(lambda: tm.mlp_fc1(odd, *f1))
+                   and raises(lambda: tm.mlp_fc1(odd.clone(), *f1, plan=(9, 1)))
+                   and raises(lambda: tm.mlp_fc1(odd.clone(), *f1, plan=(4, 0))),
+                   "mlp_fc1 refuses data not 16-byte aligned, 9 warps and no step a block")
 
     def isa_vs_plain(self, ti) -> None:
         """K6 against its plain version on the same inputs."""
@@ -1902,8 +2054,8 @@ class Phases:
         torch = self.torch
         import torch.nn.functional as F
         bf16 = torch.bfloat16
-        log(f"== timing of K5, K6 and the RSSFormer predict (CUDA events; K6 and its library "
-            f"call by CUDA-graph replay; {card})")
+        log(f"== timing of K5, K6 and the RSSFormer predict (the kernels and their library "
+            f"calls by CUDA-graph replay, the rest by CUDA events; {card})")
         mod, xm, p, f1, rest, hp, out, h = self.mlp_inputs
         H = W = IMAGE // 4
         M, hid, cout = xm.shape[0] * xm.shape[1], 4 * RSS_DIM, RSS_DIM
@@ -1914,10 +2066,10 @@ class Phases:
                    "mlp_taps": (lambda: tm.mlp_taps(hp, *rest, H=H, W=W),
                                 lambda: tm.mlp_taps_reference(hp, *rest, H=H, W=W), None)}
             for name, (kern, plain, lib) in fns.items():
-                self.piece_ms[name] = RSS_BLOCKS * self.time_ms(kern, iters=20)
+                self.piece_ms[name] = RSS_BLOCKS * self.graph_ms(kern)
                 self.piece_plain_ms[name] = RSS_BLOCKS * self.time_ms(plain, iters=3)
                 self.piece_library_ms[name] = None if lib is None else \
-                    RSS_BLOCKS * self.time_ms(lib, iters=20)
+                    RSS_BLOCKS * self.graph_ms(lib)
             whole = self.time_ms(lambda: tm.fused_mlp_dwbn(xm, p, H=H, W=W, dtype=bf16), iters=20)
             mod.fused = False
             unfused = self.time_ms(lambda: mod(xm, H, W), iters=20)
@@ -2097,6 +2249,8 @@ def main() -> int:
             entry["launches_pseudo_label"] = ph.launches_pseudo[k]
         if k in ph.launches_train:
             entry["launches_train_step"] = ph.launches_train[k]
+        if k == "dwconv_gelu":   # the library call on bf16, beside the f32 one
+            entry["library_ms_bf16"] = ph.dwconv_library_bf16_ms
         if k == "mlp_taps":  # the block as one function, and the module K5 stands in for
             entry["max_abs_err_whole_block"] = ph.piece_err["mlp_whole"]
             entry["unfused_module_ms"] = ph.unfused_mlp_ms
@@ -2112,8 +2266,9 @@ def main() -> int:
             entry["bound_ms_f32_fma"] = ph.flash_fwd_fma_bound
             entry["ms_512_forward"] = ph.flash_eval_ms[""]
             entry["library_ms_512_forward"] = ph.flash_eval_ms["library"]
-        if k in ("attention", "sr_conv", "linear", "isa_core", "flash_fwd", "flash_bwd"):
-            entry["timed_by"] = "CUDA graph replay (kernel and library call)"
+        entry["timed_by"] = ("CUDA events around a loop" if k in ("affinity", "varm_propagate",
+                                                                  "mit_block_presr")
+                             else "CUDA graph replay (kernel and library call)")
         if k == "attention":  # the library call covers the launches that export nothing
             for which, part in ph.attn_split.items():
                 entry.update({f"{key}_{which}": part[key] or None

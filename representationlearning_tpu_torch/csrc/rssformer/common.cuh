@@ -22,27 +22,46 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Abramowitz-Stegun 7.1.26 erf, term for term the `_erf` of the TPU kernels
-// (representationlearning_tpu/ops/pallas/mit_block.py:47-59).
-__device__ __forceinline__ float erf_as(float x) {
+// ---- GELU with the Abramowitz-Stegun 7.1.26 erf, term for term the `_erf` and
+// `_gelu` of the TPU kernels (representationlearning_tpu/ops/pallas/mit_block.py:47-59,
+// mlp_dwbn.py:49-50): gelu(v) = 0.5 v (1 + erf(v / sqrt 2)), erf(x) = sign(x) (1 -
+// poly(t) exp(-x^2)), t = 1 / (1 + p |x|). Written so that the compiler can overlap one
+// GELU with the next: t is the approximate reciprocal refined by one Newton step, with
+// no branch to a slow path as the IEEE division has, on |x| clamped to 21.5 (beyond,
+// exp(-x^2) is 0 and t does not count; the clamp also keeps y = inf out); the sign is
+// copied from x, which differs from sign(x) only at x = 0, where 0.5 v is 0. Bit for bit
+// the formula with sign(x) and the IEEE division, on every one of the 2^32 f32 inputs
+// (`k1_gelu_as_mismatches` in csrc/mit_block/dwconv_gelu.cu counts those that differ: 0).
+// The same text stands in csrc/mit_block/common.cuh and csrc/rssformer/common.cuh.
+__device__ __forceinline__ float rcp_newton(float y) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  const float e = fmaf(-y, r, 1.0f);
+  return fmaf(r, e, r);
+}
+
+__device__ __forceinline__ float erf_as_abs(float ax) {   // |erf(x)| for ax = |x|
   const float a1 = 0.254829592f, a2 = -0.284496736f, a3 = 1.421413741f,
               a4 = -1.453152027f, a5 = 1.061405429f, p = 0.3275911f;
-  const float s = (x > 0.f) ? 1.f : ((x < 0.f) ? -1.f : 0.f);
-  const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + p * ax);
+  const float t = rcp_newton(1.0f + p * fminf(ax, 21.5f));
   const float poly = t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))));
-  return s * (1.0f - poly * expf(-ax * ax));
+  return 1.0f - poly * expf(-ax * ax);
 }
+
+__device__ __forceinline__ float gelu_as(float v) {
+  const float x = v * 0.70710677f;
+  return 0.5f * v * (1.0f + copysignf(erf_as_abs(fabsf(x)), x));
+}
+// ---- end of the GELU
 
 // gelu((v + bias) * scale + shift) with the affine rounded step by step (no fused
 // multiply-add), as the plain version computes it, so that both round the same
 // f32 value to the same bf16 operand of the next product.
 __device__ __forceinline__ float bias_bn_gelu(float v, float bias, float scale, float shift) {
-  const float u = __fadd_rn(__fmul_rn(__fadd_rn(v, bias), scale), shift);
-  return 0.5f * u * (1.0f + erf_as(u * 0.70710678118654752f));
+  return gelu_as(__fadd_rn(__fmul_rn(__fadd_rn(v, bias), scale), shift));
 }
 
-// ---- copies (K5, K6) and warp-level tensor-core pieces (K6), as K1 has them
+// ---- copies and warp-level tensor-core pieces (K5, K6), as K1 has them
 // (csrc/mit_block/common.cuh)
 // mma.sync m16n8k16, bf16 operands, f32 sums. With g = lane / 4, t = lane % 4:
 //   A (16 x 16, row major): a0 = (row g, k 2t..2t+1), a1 = (row g + 8, same k),
@@ -60,6 +79,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8, and receives of matrix i the pair (row g, columns 2t..2t+1).
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 // 16 bytes (or 4) from device memory to shared memory without passing through

@@ -13,15 +13,33 @@
 //   tile with a halo of 12 would compute fc1 several times over. So `fc1_kernel`
 //   writes the hidden plane once, already rounded to bf16 (the TPU kernel rounds it
 //   to bf16 at each of its 19 uses: the same rounding, done once), 16.8 MB that
-//   stay in the 50 MB L2. `taps_kernel` then is an implicit GEMM: a block owns 128
-//   consecutive tokens and all 128 hidden features, and walks 19 taps x 2 chunks
-//   of K = 64. Each A row is the hidden vector of the token shifted by the tap, or
-//   zeros where that lies outside the plane (`cp.async` with a source size of 0:
-//   no padded copy). A and B tiles are double-buffered with `cp.async`; eight warps
-//   multiply with WMMA (bf16 mma.sync, f32 accumulators, 32 x 64 a warp). The
-//   epilogue adds the bias, applies bn2 and GELU, leaves the tile in shared memory
-//   as bf16, multiplies it by fc2's weight from shared memory and applies bn3 and
-//   GELU, so the second hidden plane never reaches device memory.
+//   stay in the 50 MB L2.
+//
+//   `fc1_kernel` alone is bound by bytes (x f32 in, h bf16 out: 25.2 MB a launch at
+//   the predict shape, 7.5 us), but its GELU costs as much in instructions (about
+//   30 an element over 8.4 M elements: 8 us of the card's issue slots at best).
+//   Persistent blocks (grid from the wrapper's `fc1_plan`) walk 16-row tiles, one a
+//   warp a step; each warp streams its x tiles through a `cp.async` ring of its
+//   own, so loads overlap the products and the epilogue with no block barrier; w1
+//   is copied to shared memory once a block and read by `ldmatrix` (its fragments
+//   held in registers for the whole walk capped the warps an SM holds and were
+//   slower, PERF.md). A fragments are built from f32 with round-to-nearest bf16
+//   conversion, as the plain version's `.to(bf16)`; `mma.sync` m16n8k16 with f32
+//   sums; a warp finishes its 16 rows in two halves of 64 features: the epilogue
+//   works on the accumulator registers (bias, bn1, a branch-free GELU, bf16 pairs),
+//   stages the half rows in shared memory and writes them as whole 128-byte pieces
+//   with 16-byte stores. Every plan computes each output by the same instructions:
+//   equal bits.
+//
+//   `taps_kernel` is an implicit GEMM: a block owns 128 consecutive tokens and all
+//   128 hidden features, and walks 19 taps x 2 chunks of K = 64. Each A row is the
+//   hidden vector of the token shifted by the tap, or zeros where that lies outside
+//   the plane (`cp.async` with a source size of 0: no padded copy). A and B tiles
+//   are double-buffered with `cp.async`; eight warps multiply with WMMA (bf16
+//   mma.sync, f32 accumulators, 32 x 64 a warp). The epilogue adds the bias,
+//   applies bn2 and GELU, leaves the tile in shared memory as bf16, multiplies it by
+//   fc2's weight from shared memory and applies bn3 and GELU, so the second hidden
+//   plane never reaches device memory.
 #include <mma.h>
 
 #include "common.cuh"
@@ -105,57 +123,159 @@ __device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
   return *reinterpret_cast<const uint4*>(h);
 }
 
-// h[M, 128] (bf16) = gelu(bn1(x[M, cin] @ w1[128, cin]^T + b1)); cin % 16 == 0.
-__global__ void __launch_bounds__(kThreads)
-fc1_kernel(const float* __restrict__ x, const bf16* __restrict__ w1,
-           const float* __restrict__ b1, const float* __restrict__ s1,
-           const float* __restrict__ t1, bf16* __restrict__ hout, int M, int cin) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ld = cin + 8;
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + kBM * ld;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* scratch = reinterpret_cast<float*>(smem + 2 * kBM * ld * sizeof(bf16))
-      + warp * 16 * kLdS;
-  const int m0 = blockIdx.x * kBM;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+// ---- fc1: h[M, 128] (bf16) = gelu(bn1(x[M, cin] @ w1[128, cin]^T + b1)) ----
+//
+// A persistent grid: the wrapper's `fc1_plan` gives the warps a block and the steps
+// `per` it walks; a step of a block is warps x 16 consecutive rows, one m16 tile a
+// warp, and the blocks take consecutive runs of steps. Each warp streams its own
+// tiles of x through a ring of two slots by `cp.async` (no block barrier in the
+// walk), so the next tile loads while this one is multiplied and written. w1 and the
+// three vectors come to shared memory once a block. A warp finishes its tile in two
+// halves of 64 features: 32 accumulators a lane in place of 64 leave the compiler
+// registers to overlap more GELUs (measured faster, PERF.md).
+constexpr int kFc1Rows = 16;               // rows of x a warp takes a step
+constexpr int kFc1MaxWarps = 8;
+constexpr int kFc1Half = kHid / 2;         // features a warp finishes at a time
+constexpr int kFc1Pitch = kFc1Half / 2 + 4;  // 32-bit pitch of a warp's staged half rows
+constexpr int kFc1Stages = 2;
+constexpr int kSmemLimit = 232448;         // dynamic shared memory a block may have
 
-  const int per4 = cin / 4;
-  for (int idx = tid; idx < kBM * per4; idx += kThreads) {
-    const int r = idx / per4, c = (idx - r * per4) * 4;
-    const int gm = m0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gm < M) v = *reinterpret_cast<const float4*>(x + (size_t)gm * cin + c);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(As + r * ld + c);
-    dst[0] = __floats2bfloat162_rn(v.x, v.y);
-    dst[1] = __floats2bfloat162_rn(v.z, v.w);
+struct Fc1Args {
+  const float* x;
+  const bf16* w1;
+  const float* b1;
+  const float* s1;
+  const float* t1;
+  bf16* h;
+  int M, cin, per;
+};
+
+// bytes of dynamic shared memory: b1, s1, t1; each warp's ring of f32 x tiles (pitch
+// cin + 8) and its staged half rows; w1 in bf16 (pitch cin + 8)
+inline int fc1_smem(int cin, int warps) {
+  return 3 * kHid * 4 +
+         warps * (kFc1Stages * kFc1Rows * (cin + 8) * 4 + kFc1Rows * kFc1Pitch * 4) +
+         kHid * (cin + 8) * 2;
+}
+
+__global__ void __launch_bounds__(32 * kFc1MaxWarps, 2) fc1_kernel(const Fc1Args p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int cin = p.cin, ks = cin / 16, xp = cin + 8, q4 = cin / 4;
+  float* vec = reinterpret_cast<float*>(smem);                              // b1, s1, t1
+  const int per_warp = kFc1Stages * kFc1Rows * xp + kFc1Rows * kFc1Pitch;    // in 4 bytes
+  float* ring = vec + 3 * kHid + warp * per_warp;
+  uint32_t* staged = reinterpret_cast<uint32_t*>(ring + kFc1Stages * kFc1Rows * xp);
+  bf16* ws = reinterpret_cast<bf16*>(vec + 3 * kHid + warps * per_warp);
+
+  for (int i = threadIdx.x; i < kHid * cin / 8; i += blockDim.x) {
+    const int n = i / (cin / 8), c = (i - n * (cin / 8)) * 8;
+    cp_async16(ws + n * xp + c, p.w1 + (size_t)n * cin + c);
   }
-  const int per8 = cin / 8;
-  for (int idx = tid; idx < kHid * per8; idx += kThreads) {
-    const int n = idx / per8, c = (idx - n * per8) * 8;
-    *reinterpret_cast<uint4*>(Bs + n * ld + c) =
-        *reinterpret_cast<const uint4*>(w1 + (size_t)n * cin + c);
+  for (int i = threadIdx.x; i < 3 * kHid / 4; i += blockDim.x) {
+    const float* v = i < kHid / 4 ? p.b1 : (i < kHid / 2 ? p.s1 : p.t1);
+    cp_async16(vec + 4 * i, v + 4 * (i % (kHid / 4)));
   }
+  cp_async_commit();
+
+  // the warp's i-th tile: rows [16 tile, 16 tile + 16) with
+  // tile = (blockIdx.x * per + i) * warps + warp; rows past M read as zeros
+  const int tiles = (p.M + kFc1Rows - 1) / kFc1Rows;
+  auto tile_of = [&](int i) { return (blockIdx.x * p.per + i) * warps + warp; };
+  auto load = [&](int i) {
+    const int tile = tile_of(i);
+    if (i < p.per && tile < tiles) {
+      float* dst = ring + (i % kFc1Stages) * kFc1Rows * xp;
+      const int row0 = tile * kFc1Rows;
+      for (int q = lane; q < kFc1Rows * q4; q += 32) {
+        const int r = q / q4, c = (q - r * q4) * 4;
+        const bool ok = row0 + r < p.M;
+        cp_async16(dst + r * xp + c, ok ? p.x + (size_t)(row0 + r) * cin + c : p.x, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();   // an empty group past the walk keeps the count of groups uniform
+  };
+  load(0);
+  cp_async_wait<1>();   // w1 and the vectors
   __syncthreads();
 
-  AccFrag acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  for (int kk = 0; kk < cin; kk += 16) warp_mma(acc, As, ld, Bs, ld, wm, wn, kk);
+  // ldmatrix.x4 of w1 rows [n0, n0 + 16) x k [k0, k0 + 16): b0, b1 of n tiles n0 / 8
+  // and n0 / 8 + 1
+  const bf16* wl = ws + ((lane / 16) * 8 + lane % 8) * xp + ((lane / 8) % 2) * 8;
 
-  const int rr = lane >> 1, cc = (lane & 1) * 8;
+  for (int i = 0; i < p.per; ++i) {
+    load(i + 1);   // into the slot this warp emptied a step ago
+    cp_async_wait<1>();
+    __syncwarp();
+    const int tile = tile_of(i);
+    if (tile >= tiles) break;   // the grid's last steps may lie past M
+    const float* a = ring + (i % kFc1Stages) * kFc1Rows * xp + g * xp + 2 * t;
+    const int row0 = tile * kFc1Rows;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int half = 0; half < 2; ++half) {
+      float acc[8][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v[8];
-      const int col0 = wn + j * 16;
-      frag_epilogue(acc[i][j], scratch, lane, b1, s1, t1, col0, v);
-      const int gm = m0 + wm + i * 16 + rr;
-      if (gm < M) *reinterpret_cast<uint4*>(hout + (size_t)gm * kHid + col0 + cc) = pack8(v);
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      for (int k = 0; k < ks; ++k) {
+        // A from f32, rounded to nearest bf16 as the plain version's .to(bf16)
+        const float* ak = a + 16 * k;
+        const float2 v0 = *reinterpret_cast<const float2*>(ak);
+        const float2 v1 = *reinterpret_cast<const float2*>(ak + 8 * xp);
+        const float2 v2 = *reinterpret_cast<const float2*>(ak + 8);
+        const float2 v3 = *reinterpret_cast<const float2*>(ak + 8 * xp + 8);
+        const uint32_t af[4] = {pack_bf16(v0.x, v0.y), pack_bf16(v1.x, v1.y),
+                                pack_bf16(v2.x, v2.y), pack_bf16(v3.x, v3.y)};
+#pragma unroll
+        for (int j = 0; j < 8; j += 2) {
+          uint32_t r[4];
+          ldsm_x4(r, wl + (kFc1Half * half + 8 * j) * xp + 16 * k);
+          mma_bf16(acc[j], af, r[0], r[1]);
+          mma_bf16(acc[j + 1], af, r[2], r[3]);
+        }
+      }
+      // epilogue from the accumulators: (acc + b1) s1 + t1, GELU, bf16 pairs staged
+      // as half rows; then they leave as whole 128-byte pieces with 16-byte stores
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = kFc1Half * half + 8 * j + 2 * t;
+        const float2 b = *reinterpret_cast<const float2*>(vec + col);
+        const float2 s = *reinterpret_cast<const float2*>(vec + kHid + col);
+        const float2 sh = *reinterpret_cast<const float2*>(vec + 2 * kHid + col);
+        staged[g * kFc1Pitch + 4 * j + t] = pack_bf16(bias_bn_gelu(acc[j][0], b.x, s.x, sh.x),
+                                                      bias_bn_gelu(acc[j][1], b.y, s.y, sh.y));
+        staged[(g + 8) * kFc1Pitch + 4 * j + t] =
+            pack_bf16(bias_bn_gelu(acc[j][2], b.x, s.x, sh.x),
+                      bias_bn_gelu(acc[j][3], b.y, s.y, sh.y));
+      }
+      __syncwarp();
+#pragma unroll
+      for (int k = 0; k < kFc1Rows / 4; ++k) {   // 8 pieces of 16 bytes a half row, 4 rows a pass
+        const int r = 4 * k + lane / 8, c = lane % 8;
+        if (row0 + r < p.M)
+          *reinterpret_cast<uint4*>(p.h + (size_t)(row0 + r) * kHid + kFc1Half * half + 8 * c) =
+              *reinterpret_cast<const uint4*>(staged + r * kFc1Pitch + 4 * c);
+      }
+      __syncwarp();
     }
+  }
+  cp_async_wait<0>();
+}
+
+// lets the kernel take `smem` bytes of dynamic shared memory: once per process and
+// size (a larger grant covers every smaller one)
+inline cudaError_t fc1_prepare(int smem) {
+  static int granted = 48 * 1024;
+  if (smem <= granted) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(fc1_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) granted = smem;
+  return err;
+}
+
+inline bool fc1_takes(int cin, int warps) {
+  return cin >= 16 && cin <= 256 && cin % 16 == 0 && warps >= 1 && warps <= kFc1MaxWarps &&
+         fc1_smem(cin, warps) <= kSmemLimit;
 }
 
 // out[M, cout] = gelu(bn3(gelu(bn2(sum_t shift_t(h) @ taps[t]^T + dwb)) @ w2^T + b2)),
@@ -279,16 +399,35 @@ taps_kernel(const bf16* __restrict__ h, const bf16* __restrict__ taps,
 
 }  // namespace rss
 
+// h (M, 128) bf16 from x (M, cin) f32 and w1 (128, cin) bf16; all 16-byte aligned.
+// `warps` and `per` (steps a block walks) come from the wrapper's plan.
 extern "C" int k5_mlp_fc1(const void* x, const void* w1, const void* b1, const void* s1,
-                          const void* t1, void* h, int M, int cin, void* stream) {
-  const int smem = 2 * rss::kBM * (cin + 8) * (int)sizeof(rss::bf16) + rss::kScratchBytes;
-  cudaError_t err = cudaFuncSetAttribute(rss::fc1_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                          const void* t1, void* h, int M, int cin, int warps, int per,
+                          void* stream) {
+  using namespace rss;
+  if (M < 1 || per < 1 || !fc1_takes(cin, warps)) return (int)cudaErrorInvalidValue;
+  const Fc1Args p{(const float*)x, (const bf16*)w1, (const float*)b1, (const float*)s1,
+                  (const float*)t1, (bf16*)h, M, cin, per};
+  const int steps = ((M + kFc1Rows - 1) / kFc1Rows + warps - 1) / warps;
+  const int smem = fc1_smem(cin, warps);
+  const cudaError_t err = fc1_prepare(smem);
   if (err != cudaSuccess) return (int)err;
-  rss::fc1_kernel<<<(M + rss::kBM - 1) / rss::kBM, rss::kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const rss::bf16*)w1, (const float*)b1, (const float*)s1,
-      (const float*)t1, (rss::bf16*)h, M, cin);
+  fc1_kernel<<<(steps + per - 1) / per, 32 * warps, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Blocks of fc1 with that many warps one SM holds at once, as the card reports it;
+// -1 for a width or warp count the kernel does not take.
+extern "C" int k5_fc1_blocks_per_sm(int cin, int warps) {
+  using namespace rss;
+  if (!fc1_takes(cin, warps)) return -1;
+  const int smem = fc1_smem(cin, warps);
+  int n = -1;
+  if (fc1_prepare(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fc1_kernel, 32 * warps, smem) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }
 
 extern "C" int k5_mlp_taps(const void* h, const void* taps, const void* dwb, const void* s2,

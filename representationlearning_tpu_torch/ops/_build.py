@@ -39,7 +39,9 @@ SIGNATURES = {
         # q, kv, bf16 workspace, out, logits, B, N, Nk, C, nh, scale, stream
         "k1_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
         "k1_attention_one_pass_keys": (),
-        "k1_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # f, w, bias, out, B, H, W, hid, columns a thread, rows a thread, stream
+        "k1_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "k1_gelu_as_mismatches": (),   # a check of the tests: returns a count
     },
     "refine": {
         # imgs, out, B, H, W, dilations (host), n_dil, mode, scale, w2, pos (host), stream
@@ -56,8 +58,9 @@ SIGNATURES = {
                          _P),
     },
     "rssformer": {
-        # x, w1, b1, scale1, shift1, h, M, Cin, stream
-        "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+        # x, w1, b1, scale1, shift1, h, M, Cin, warps, steps a block, stream
+        "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        "k5_fc1_blocks_per_sm": (_I, _I),   # Cin, warps
         # h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, out, B, H, W, Cout, stream
         "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         # q, k, v, out, NW, T, C, nh, round_bf16, windows, warps, stages, blocks, stream

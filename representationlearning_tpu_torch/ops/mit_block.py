@@ -16,7 +16,9 @@ block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
                   split along K by `sr_conv_plan`, the slices added in order
     attention     per-head softmax(q k^T * scale) v, optional raw-logit export;
                   one pass over the keys up to ATTN_ONE_PASS_KEYS, two beyond
-    dwconv_gelu   3x3 depthwise conv + bias + exact (A&S erf) GELU
+    dwconv_gelu   3x3 depthwise conv + bias + exact (A&S erf) GELU, a thread
+                  walking a run of rows over 4 channels x a run of columns
+                  chosen by `dwconv_plan`
 
 Intermediates between kernels stay f32; matmul operands are rounded to bf16 and
 accumulate in f32, LayerNorm, softmax and GELU run in f32 -- the numerics of the
@@ -140,6 +142,44 @@ def sr_conv_slices(K: int, slices: int) -> list[tuple[int, int]]:
     per = math.ceil(steps / slices)
     return [(s * per * SR_K_STEP, min(steps, (s + 1) * per) * SR_K_STEP)
             for s in range(slices)]
+
+
+# The depthwise conv kernel (csrc/mit_block/dwconv_gelu.cu): a thread owns 4 channels
+# x a run of DWCONV_COLUMNS columns (the kernel's instantiations) and walks a run of
+# rows; blocks of DWCONV_THREADS threads.
+DWCONV_COLUMNS = (1, 2, 4)
+DWCONV_THREADS = 128
+DWCONV_ROWS = 3
+
+
+def _dwconv_width(hid: int) -> None:
+    if hid % 4:
+        raise ValueError(f"dwconv_gelu: hid={hid} is not a multiple of 4 (a thread "
+                         "owns one float4 of channels)")
+
+
+def dwconv_plan(B: int, H: int, W: int, hid: int) -> tuple[int, int]:
+    """(columns, rows) of the depthwise conv kernel: the run of columns a thread owns
+    and the run of rows it walks. Two columns (one on a grid one column wide) and
+    three rows: of 1, 2 and 4 columns walking 1, 2, 3, 8 and 16 rows, the fastest at
+    each of the headline forward's four geometries on the H100 (4 columns hold 40
+    more registers a thread, and an SM three blocks in place of four; PERF.md). A
+    function of the shapes only; every plan computes each output by the same
+    instructions, so all give the same bits."""
+    _dwconv_width(hid)
+    return (2 if W >= 2 else 1), DWCONV_ROWS
+
+
+def check_dwconv_plan(plan) -> tuple[int, int]:
+    """The plan as (columns, rows), or ValueError if the kernel does not take it."""
+    try:
+        cols, rows = (int(v) for v in plan)
+    except (TypeError, ValueError):
+        raise ValueError(f"dwconv_gelu: plan {plan!r} is not (columns, rows)") from None
+    if cols not in DWCONV_COLUMNS or rows < 1:
+        raise ValueError(f"dwconv_gelu: plan {plan!r} is not one the kernel takes: columns "
+                         f"one of {DWCONV_COLUMNS}, rows at least 1")
+    return cols, rows
 
 
 # ------------------------------------------------------------------ plain math
@@ -396,20 +436,29 @@ def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False):
     return out, logits
 
 
-def dwconv_gelu(f, w, bias, *, H, W):
-    if not f.is_cuda:
-        return dwconv_gelu_reference(f, w, bias, H=H, W=W)
+def dwconv_gelu(f, w, bias, *, H, W, plan=None):
+    """`plan`: a (columns, rows) other than `dwconv_plan`'s, for tests and tuning; it
+    is checked on any device, every plan gives the same bits on the card, and it
+    changes nothing on the CPU."""
     B, N, hid = f.shape
     if N != H * W:
         raise ValueError(f"dwconv_gelu: N={N} but H*W={H * W}")
+    _dwconv_width(hid)
+    if plan is not None:
+        plan = check_dwconv_plan(plan)
+    if not f.is_cuda:
+        return dwconv_gelu_reference(f, w, bias, H=H, W=W)
     _check(f, "f", f.device)
     _check(w, "w", f.device, (hid, 1, 3, 3))
     _check(bias, "bias", f.device, (hid,))
+    for t, name in ((f, "f"), (w, "w"), (bias, "bias")):
+        _aligned(t, name)
     out = torch.empty_like(f)
     if f.numel():
+        cols, rows = dwconv_plan(B, H, W, hid) if plan is None else plan
         _launch("k1_dwconv_gelu", f.data_ptr(), w.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), B, H, W, hid)
-        LAUNCHES["dwconv_gelu"] += 1
+                out.data_ptr(), B, H, W, hid, cols, rows)
+        LAUNCHES["dwconv_gelu"] += 1   # one a call, whatever plan it runs
     return out
 
 

@@ -17,7 +17,8 @@ is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cu``):
 
     mlp_fc1    x -> gelu(bn1(x W1 + b1)), written to device memory in bf16: the
                TPU kernel rounds h to bf16 at each of its 19 uses, so storing
-               the rounded plane is the same rounding, done once
+               the rounded plane is the same rounding, done once; persistent
+               blocks walk 16-row tiles a warp, their count from `fc1_plan`
     mlp_taps   a 19-tap implicit GEMM over tiles of 128 tokens (taps outside the
                plane read as zero, no padded copy), bias + bn2 + GELU, then fc2
                from shared memory + bn3 + GELU
@@ -34,15 +35,72 @@ layouts (OIHW): ``fc1_weight`` (hid, Cin, 1, 1), ``dw1_weight`` (hid, hid, 1, 1)
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Mapping
 
 import torch
 
 from . import _build
-from .mit_block import _check, gelu_as, mm
+from .mit_block import _aligned, _check, gelu_as, mm
 
 DILATIONS = (6, 12)  # of dw6 and dw12 (`ffn_block.py`); the kernel has them built in
 HID = 128            # the hidden width the CUDA kernels are compiled for
+
+# The fc1 kernel (csrc/rssformer/mlp_dwbn.cu): a warp takes FC1_ROWS rows of x a step,
+# a block FC1_WARPS warps (at most FC1_MAX_WARPS), each warp with a ring of FC1_STAGES
+# slots of its x tiles.
+FC1_ROWS, FC1_WARPS, FC1_MAX_WARPS, FC1_STAGES = 16, 8, 8, 2
+FC1_SMS = 132
+SMEM_LIMIT = 227 * 1024       # dynamic shared memory a block may ask for on sm_90
+SMEM_PER_SM = 228 * 1024      # shared memory of an SM, 1 KB of it reserved a block
+FC1_WARPS_PER_SM = 16         # the registers of an SM hold 16 warps of the kernel
+
+
+def fc1_smem_bytes(cin: int, warps: int) -> int:
+    """b1, s1, t1 in f32; a ring of f32 x tiles (pitch cin + 8) and 16 staged bf16
+    half rows (pitch 144 bytes) a warp; w1 in bf16 (pitch cin + 8)."""
+    return 3 * HID * 4 + warps * (FC1_STAGES * FC1_ROWS * (cin + 8) * 4 + FC1_ROWS * 144) \
+        + HID * (cin + 8) * 2
+
+
+def fc1_fits(cin: int, warps: int) -> bool:
+    """Whether a block of `warps` warps at this width fits in shared memory."""
+    return 1 <= warps <= FC1_MAX_WARPS and fc1_smem_bytes(cin, warps) <= SMEM_LIMIT
+
+
+def fc1_blocks_per_sm(cin: int, warps: int) -> int:
+    """Blocks of the fc1 kernel an SM holds at once, by its shared memory and its
+    registers (`chip_smoke.py` checks the estimate against the card's own count)."""
+    smem = fc1_smem_bytes(cin, warps)
+    return max(1, min(SMEM_PER_SM // (smem + 1024), FC1_WARPS_PER_SM // warps))
+
+
+@functools.lru_cache(maxsize=256)
+def fc1_plan(M: int, cin: int) -> tuple[int, int]:
+    """(warps, per) of the fc1 kernel for M tokens of cin features: the warps a block
+    (FC1_WARPS, fewer where shared memory cannot hold their rings) and the steps a
+    block walks, a step being one 16-row tile a warp, so that the grid is about one
+    wave of the blocks the card holds at once. A function of the shapes only; every
+    plan computes each output by the same instructions, so all give the same bits."""
+    _widths(HID, cin=cin)
+    warps = FC1_WARPS
+    while warps > 1 and not fc1_fits(cin, warps):
+        warps //= 2
+    steps = math.ceil(math.ceil(M / FC1_ROWS) / warps)
+    resident = fc1_blocks_per_sm(cin, warps) * FC1_SMS
+    return warps, max(1, math.ceil(steps / resident))
+
+
+def check_fc1_plan(plan, cin: int) -> tuple[int, int]:
+    """The plan as (warps, per), or ValueError if the kernel does not take it."""
+    try:
+        warps, per = (int(v) for v in plan)
+    except (TypeError, ValueError):
+        raise ValueError(f"mlp_fc1: plan {plan!r} is not (warps, per)") from None
+    if not (per >= 1 and fc1_fits(cin, warps)):
+        raise ValueError(f"mlp_fc1: plan {plan!r} is not one the kernel takes at cin={cin}")
+    return warps, per
 
 # launches of each kernel since the last reset; the wrappers add one per launch
 LAUNCHES = {"mlp_fc1": 0, "mlp_taps": 0}
@@ -130,7 +188,12 @@ def _launch(fn: str, *args) -> None:
     _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
 
 
-def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16):
+def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16, plan=None):
+    """`plan`: a (warps, per) other than `fc1_plan`'s, for tests and tuning; it is
+    checked on any device, every plan gives the same bits on the card, and it
+    changes nothing on the CPU."""
+    if plan is not None:
+        plan = check_fc1_plan(plan, x.shape[-1])
     if not x.is_cuda:
         return mlp_fc1_reference(x, w1, b1, scale, shift, dtype=dtype)
     _compute_dtype(dtype)
@@ -142,11 +205,14 @@ def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16):
     _check(w1, "w1", dev, (hid, cin), torch.bfloat16)
     for name, t in (("b1", b1), ("scale", scale), ("shift", shift)):
         _check(t, name, dev, (hid,))
+    for t, name in ((x, "x"), (w1, "w1"), (b1, "b1"), (scale, "scale"), (shift, "shift")):
+        _aligned(t, name)
     h = torch.empty((B, N, hid), device=dev, dtype=torch.bfloat16)
     if B * N:
+        warps, per = fc1_plan(B * N, cin) if plan is None else plan
         _launch("k5_mlp_fc1", x.data_ptr(), w1.data_ptr(), b1.data_ptr(), scale.data_ptr(),
-                shift.data_ptr(), h.data_ptr(), B * N, cin)
-        LAUNCHES["mlp_fc1"] += 1
+                shift.data_ptr(), h.data_ptr(), B * N, cin, warps, per)
+        LAUNCHES["mlp_fc1"] += 1   # one a call, whatever plan it runs
     return h
 
 

@@ -221,6 +221,53 @@ def test_dwconv_gelu(dev, H, W, hid):
            TOL["dwconv_gelu"])
 
 
+def _dwconv_plans():
+    """Every run of columns the kernel has, walking 1, 2, 3, 8 and 16 rows."""
+    return [(c, r) for c in tmb.DWCONV_COLUMNS for r in (1, 2, 3, 8, 16)]
+
+
+@pytest.mark.parametrize("hid", [4, 32, 96, 2048])
+@pytest.mark.parametrize("H,W", [(1, 1), (1, 15), (2, 3), (3, 3), (5, 2), (5, 5), (15, 1),
+                                 (15, 15)])
+def test_dwconv_gelu_at_the_edges_every_plan_gives_equal_bits(dev, H, W, hid):
+    """Grids of 1, 2, 3, 5 and 15 rows and columns (every tap padding on some side,
+    column runs longer than the grid), batch 16: within the plain version's
+    tolerance, and a rerun and every plan give the same bits (each output is computed
+    by the same instructions whatever the plan); one launch a call."""
+    g = torch.Generator().manual_seed(H * 16 + W + hid)
+    f = _rand(g, 16, H * W, hid, dev=dev)
+    w, b = _rand(g, hid, 1, 3, 3, dev=dev, scale=0.3), _rand(g, hid, dev=dev)
+    tmb.reset_launches()
+    got = tmb.dwconv_gelu(f, w, b, H=H, W=W)
+    _close(got, tmb.dwconv_gelu_reference(f, w, b, H=H, W=W), TOL["dwconv_gelu"])
+    assert torch.equal(got, tmb.dwconv_gelu(f, w, b, H=H, W=W))
+    for plan in _dwconv_plans():
+        assert torch.equal(got, tmb.dwconv_gelu(f, w, b, H=H, W=W, plan=plan)), plan
+    assert tmb.LAUNCHES["dwconv_gelu"] == 2 + len(_dwconv_plans())
+
+
+def test_gelu_as_is_the_formula_with_the_division_on_every_input(dev):
+    """The kernels' GELU with the A&S erf, whose 1 / (1 + p|x|) is a refined approximate
+    reciprocal and whose sign is copied from x, gives the bits of the same formula
+    written with sign(x) and the IEEE division on every one of the 2^32 f32 inputs."""
+    from representationlearning_tpu_torch.ops import _build
+    assert _build.load_library("mit_block").k1_gelu_as_mismatches() == 0
+
+
+def test_dwconv_gelu_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    f, w, b = _rand(g, 2, 12, 36, dev=dev), _rand(g, 36, 1, 3, 3, dev=dev), _rand(g, 36, dev=dev)
+    odd = _rand(g, 2 * 12 * 36 + 1, dev=dev)[1:].view(2, 12, 36)   # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        tmb.dwconv_gelu(odd, w, b, H=3, W=4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tmb.dwconv_gelu(f[..., :34].contiguous(), w[:34].contiguous(), b[:34].contiguous(),
+                        H=3, W=4)
+    with pytest.raises(ValueError, match="plan"):
+        tmb.dwconv_gelu(f, w, b, H=3, W=4, plan=(3, 2))
+    assert torch.isfinite(tmb.dwconv_gelu(f, w, b, H=3, W=4)).all()   # and goes on working
+
+
 @pytest.mark.parametrize("hw,C,sr,nh,export", [(19, 64, 8, 1, False), (13, 128, 4, 2, False),
                                                (8, 512, 1, 8, True), (4, 64, 8, 1, False)])
 def test_fused_block_matches_plain(dev, hw, C, sr, nh, export):
@@ -560,6 +607,45 @@ def test_fused_mlp_dwbn_matches_plain(dev, B, H, W, cin, cout):
         _close(a, b, 1e-2)
         far = ((a - b).abs() > 1e-3 * max(1.0, b.abs().max().item())).float().mean().item()
         assert far <= 1e-3, far
+
+
+def _fc1_plans(cin):
+    return [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3) if TM.fc1_fits(cin, w)]
+
+
+@pytest.mark.parametrize("cin", [16, 32, 64, 256])
+@pytest.mark.parametrize("M", [1, 17, 1000, 8517])
+def test_mlp_fc1_every_plan_gives_equal_bits(dev, cin, M):
+    """fc1 at widths of one to sixteen k steps (at 256 only four warps fit a block) and
+    token counts that no tile or step divides:
+    within one bf16 spacing of the plain version, and a rerun and every plan give the
+    same bits; one launch a call."""
+    g = torch.Generator().manual_seed(M + cin)
+    x = _rand(g, 1, M, cin, dev=dev)
+    f1 = (_rand(g, 128, cin, dev=dev, scale=cin ** -0.5).to(BF16),
+          _rand(g, 128, dev=dev, scale=0.1),
+          _rand(g, 128, dev=dev, scale=0.2, shift=1.0), _rand(g, 128, dev=dev, scale=0.1))
+    TM.reset_launches()
+    with torch.no_grad():
+        h = TM.mlp_fc1(x, *f1)
+        _close(h, TM.mlp_fc1_reference(x, *f1), 2.0 ** -7)
+        assert torch.equal(h, TM.mlp_fc1(x, *f1))
+        for plan in _fc1_plans(cin):
+            assert torch.equal(h, TM.mlp_fc1(x, *f1, plan=plan)), plan
+    assert TM.LAUNCHES["mlp_fc1"] == 2 + len(_fc1_plans(cin))
+
+
+def test_mlp_fc1_refuses_what_it_does_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    f1 = (_rand(g, 128, 32, dev=dev).to(BF16), _rand(g, 128, dev=dev), _rand(g, 128, dev=dev),
+          _rand(g, 128, dev=dev))
+    odd = _rand(g, 16 * 32 + 1, dev=dev)[1:].view(1, 16, 32)   # contiguous, 4 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        TM.mlp_fc1(odd, *f1)
+    for plan in ((9, 1), (4, 0)):
+        with pytest.raises(ValueError, match="plan"):
+            TM.mlp_fc1(odd.clone(), *f1, plan=plan)
+    assert torch.isfinite(TM.mlp_fc1(odd.clone(), *f1).float()).all()
 
 
 def test_fused_mlp_dwbn_refuses_what_it_does_not_take(dev):

@@ -116,10 +116,12 @@ def test_fused_block_bf16_matches_jax_bf16(hw, C, sr, nh, export):
 
 
 @pytest.mark.parametrize("piece", ["ln_stats", "linear", "sr_conv", "attention",
-                                   "dwconv_gelu"])
+                                   "dwconv_gelu", "dwconv_gelu/plan"])
 def test_wrappers_on_cpu_are_the_plain_versions(piece):
     """Each kernel wrapper, given CPU tensors, returns its plain version's result
-    bit for bit and launches nothing."""
+    bit for bit and launches nothing; `piece/plan` with a plan other than the
+    wrapper's own."""
+    piece, _, with_plan = piece.partition("/")
     g = torch.Generator().manual_seed(0)
     B, H, W, C, sr, nh = 2, 8, 8, 64, 2, 2
     N = H * W
@@ -137,8 +139,9 @@ def test_wrappers_on_cpu_are_the_plain_versions(piece):
         "dwconv_gelu": ((x, torch.randn(C, 1, 3, 3, generator=g), torch.randn(C, generator=g)),
                         dict(H=H, W=W)),
     }[piece]
+    plan = {"dwconv_gelu": {"plan": (1, 3)}}[piece] if with_plan else {}
     tmb.reset_launches()
-    got = getattr(tmb, piece)(*args[0], **args[1])
+    got = getattr(tmb, piece)(*args[0], **args[1], **plan)
     want = getattr(tmb, piece + "_reference")(*args[0], **args[1])
     for a, b in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
@@ -363,3 +366,102 @@ def test_linear_with_a_plan_on_cpu_is_the_plain_version(tile, per, ln, res):
     if res:
         want = want + jnp.asarray(r)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
+
+
+# `dwconv_gelu`'s plan at every launch geometry of the headline forward (batch 8 at
+# 512) and of the CAM forwards (batch 16 at 320, 160, 480 and 0.3 of 320: grids
+# down to 3 x 3), and at the edges of the kernel's runs: grids of 1 to 15 rows and
+# columns, hid 4 to 2048
+_DW_STAGES = [(64, 4), (128, 8), (320, 16), (512, 16)]   # C, pixels a token a side
+
+
+def _dwconv_geometries():
+    geos = {(B, side // f, side // f, 4 * C)
+            for B, side in [(8, 512)] + [(16, s) for s in (320, 160, 480, 96, 48, 144)]
+            for C, f in _DW_STAGES}
+    geos |= {(16, H, W, hid) for H, W in ((1, 1), (1, 15), (2, 3), (5, 2), (15, 15), (3, 5))
+             for hid in (4, 32, 96, 2048)}
+    return sorted(geos)
+
+
+DWCONV_GEOMETRIES = _dwconv_geometries()
+
+
+@pytest.mark.parametrize("B,H,W,hid", DWCONV_GEOMETRIES)
+def test_dwconv_plan_covers_every_token_and_channel_once(B, H, W, hid):
+    """The plan is a function of (B, H, W, hid) alone and names a run of columns the
+    kernel is instantiated for. Laid out as the kernel lays out its grid (threads of
+    a block along channel groups, then column runs; blocks along row runs and
+    images), it writes every column and channel group of a row exactly once and every
+    row exactly once, within the grid's limits."""
+    cols, rows = tmb.dwconv_plan(B, H, W, hid)
+    assert (cols, rows) == tmb.dwconv_plan(B, H, W, hid)
+    assert tmb.check_dwconv_plan((cols, rows)) == (cols, rows)
+    assert cols in tmb.DWCONV_COLUMNS and cols <= W and rows == tmb.DWCONV_ROWS
+    G, runs = hid // 4, -(-W // cols)
+    t = np.arange(-(-G * runs // tmb.DWCONV_THREADS) * tmb.DWCONV_THREADS)
+    t = t[t < G * runs]
+    xr, c4 = t // G, t % G
+    cover = np.zeros((W, G), np.int64)
+    for j in range(cols):
+        x = xr * cols + j
+        np.add.at(cover, (x[x < W], c4[x < W]), 1)
+    assert (cover == 1).all()
+    ycover = np.zeros(H, np.int64)
+    for by in range(-(-H // rows)):
+        ycover[by * rows: by * rows + rows] += 1
+    assert (ycover == 1).all() and -(-H // rows) <= 65535 and B <= 65535
+
+
+def test_dwconv_gelu_refuses_what_the_kernel_does_not_take_on_the_cpu_too():
+    """hid % 4 != 0 (a thread owns a float4 of channels) and a plan the kernel does not
+    take raise on CPU tensors as on the card."""
+    g = torch.Generator().manual_seed(0)
+    f, w, b = torch.randn(2, 12, 36, generator=g), torch.randn(36, 1, 3, 3), torch.randn(36)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tmb.dwconv_gelu(f[..., :34].contiguous(), w[:34], b[:34], H=3, W=4)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tmb.dwconv_plan(2, 3, 4, 34)
+    for plan in ((3, 4), (4, 0), (2,), "ab"):
+        with pytest.raises(ValueError, match="plan"):
+            tmb.dwconv_gelu(f, w, b, H=3, W=4, plan=plan)
+    assert torch.equal(tmb.dwconv_gelu(f, w, b, H=3, W=4, plan=(4, 1)),
+                       tmb.dwconv_gelu_reference(f, w, b, H=3, W=4))
+
+
+def _jax_dwconv_gelu(f, w, b, H, W):
+    """The TPU kernel's depthwise conv and GELU (`_block_math`'s nine shifted
+    multiply-adds, then `_erf`) on one image of (H * W, hid) f32."""
+    hid = f.shape[-1]
+    fi = jnp.asarray(f).reshape(H, W, hid)
+    dw = jnp.asarray(w).reshape(hid, 3, 3).transpose(1, 2, 0)
+    acc = jnp.zeros((H, W, hid), jnp.float32)
+    for ky in range(3):
+        for kx in range(3):
+            dy, dx = ky - 1, kx - 1
+            src = fi[max(0, dy): H + min(0, dy), max(0, dx): W + min(0, dx)]
+            pad = ((max(0, -dy), max(0, dy)), (max(0, -dx), max(0, dx)), (0, 0))
+            acc = acc + jnp.pad(src * dw[ky, kx], pad)
+    v = (acc + jnp.asarray(b)).reshape(H * W, hid)
+    return np.asarray(0.5 * v * (1.0 + jmb._erf(v * (2.0 ** -0.5))))
+
+
+@pytest.mark.parametrize("cols", tmb.DWCONV_COLUMNS)
+@pytest.mark.parametrize("rows", [1, 3, 16])
+def test_dwconv_gelu_with_a_plan_on_cpu_is_the_plain_version(cols, rows):
+    """On CPU tensors `dwconv_gelu(..., plan=)` runs `dwconv_gelu_reference` whatever
+    the plan, launches nothing, and is held to the TPU kernel's math (the same f32
+    multiply-adds in the same order; only `exp` may differ in the last bit)."""
+    rng = np.random.default_rng(10 * cols + rows)
+    B, H, W, hid = 2, 5, 7, 8
+    f = rng.standard_normal((B, H * W, hid)).astype(np.float32)
+    w = (rng.standard_normal((hid, 1, 3, 3)) * 0.3).astype(np.float32)
+    b = rng.standard_normal(hid).astype(np.float32)
+    ft, wt, bt = (torch.from_numpy(a) for a in (f, w, b))
+    tmb.reset_launches()
+    got = tmb.dwconv_gelu(ft, wt, bt, H=H, W=W, plan=(cols, rows))
+    assert torch.equal(got, tmb.dwconv_gelu_reference(ft, wt, bt, H=H, W=W))
+    assert sum(tmb.LAUNCHES.values()) == 0
+    for i in range(B):
+        np.testing.assert_allclose(got[i].numpy(), _jax_dwconv_gelu(f[i], w, b, H, W),
+                                   atol=2e-6, rtol=0)

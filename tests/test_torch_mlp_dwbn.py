@@ -139,3 +139,99 @@ def test_fold_bn_affine_matches_jax_and_batch_norm():
                                           training=False, eps=1e-5)
     np.testing.assert_allclose((x * g[:, None, None] + s[:, None, None]).numpy(),
                                want.numpy(), atol=1e-5)
+
+
+# `mlp_fc1`'s plan at the RSSFormer predict (4 x 128 x 128 tokens of hrnetv2_w32's 32
+# features), the TTA's batch of 2, and the kernel's edges: token counts of one row, of
+# a tile less or more one and no multiple of any step, every width up to 256
+FC1_GEOMETRIES = sorted({(4 * 128 * 128, 32), (2 * 128 * 128, 32)}
+                        | {(M, cin) for M in (1, 15, 17, 1000, 8517)
+                           for cin in (16, 32, 48, 64, 128, 192, 256)})
+
+
+@pytest.mark.parametrize("M,cin", FC1_GEOMETRIES)
+def test_fc1_plan_covers_every_token_once(M, cin):
+    """The plan is a function of (M, cin) alone and fits the kernel's shared memory.
+    Laid out as the kernel walks it (block b, step i, warp w take the 16-row tile
+    (b per + i) warps + w), it covers every tile of rows exactly once, and all 128
+    features of each; the grid is one wave of the blocks an SM holds, with the fewest
+    steps a block that allow it."""
+    warps, per = tm.fc1_plan(M, cin)
+    assert (warps, per) == tm.fc1_plan(M, cin)
+    assert tm.check_fc1_plan((warps, per), cin) == (warps, per)
+    assert 1 <= warps <= tm.FC1_MAX_WARPS and tm.fc1_fits(cin, warps)
+    assert tm.fc1_smem_bytes(cin, warps) <= tm.SMEM_LIMIT
+    tiles = -(-M // tm.FC1_ROWS)
+    steps = -(-tiles // warps)
+    blocks = -(-steps // per)
+    b, i, w = np.meshgrid(np.arange(blocks), np.arange(per), np.arange(warps), indexing="ij")
+    tile = ((b * per + i) * warps + w).ravel()
+    assert (np.bincount(tile[tile < tiles], minlength=tiles) == 1).all()
+    assert tiles * tm.FC1_ROWS >= M > (tiles - 1) * tm.FC1_ROWS
+    resident = tm.fc1_blocks_per_sm(cin, warps) * tm.FC1_SMS
+    assert blocks <= resident and (per == 1 or -(-steps // (per - 1)) > resident)
+
+
+@pytest.mark.parametrize("plan", [None, (1, 1), (2, 3), (4, 2), (8, 1)])
+def test_fc1_with_a_plan_on_cpu_is_the_plain_version(plan):
+    """On CPU tensors `mlp_fc1(..., plan=)` runs `mlp_fc1_reference` whatever the plan,
+    launches nothing, and is held to the TPU kernel's fc1 + bn1 + GELU (`_mlp_math`'s
+    first lines): f32 operands, the same math summed in another order."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, 37, 32)).astype(np.float32)
+    w1 = (rng.standard_normal((128, 32)) * 0.2).astype(np.float32)
+    b1, t1 = (rng.standard_normal(128).astype(np.float32) * 0.1 for _ in range(2))
+    s1 = (rng.standard_normal(128) * 0.2 + 1.0).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, w1, b1, s1, t1)]
+    tm.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        got = tm.mlp_fc1(*args, dtype=dtype, plan=plan)
+        assert torch.equal(got, tm.mlp_fc1_reference(*args, dtype=dtype))
+    assert sum(tm.LAUNCHES.values()) == 0
+    want = jm._gelu((jm._mm(jnp.asarray(x), jnp.asarray(w1.T), jnp.float32) + b1) * s1 + t1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL, rtol=0)
+
+
+def test_fc1_refuses_a_plan_the_kernel_does_not_take_on_the_cpu_too():
+    """Warps outside 1..8, no step a block, a ring that no shared memory holds (8 warps
+    at cin 256), and what is no pair raise on CPU tensors as on the card."""
+    x, w1 = torch.zeros(1, 16, 256), torch.zeros(128, 256)
+    v = torch.zeros(128)
+    for plan in ((0, 1), (9, 1), (4, 0), (8, 1), (4,), "ab"):
+        with pytest.raises(ValueError, match="plan"):
+            tm.mlp_fc1(x, w1, v, v, v, plan=plan)
+    assert tm.mlp_fc1(x, w1, v, v, v, plan=(4, 1)).shape == (1, 16, 128)
+
+
+@pytest.mark.parametrize("piece", ["mlp_fc1", "mlp_taps", "mlp_fc1/plan"])
+def test_wrappers_on_cpu_are_the_plain_versions(piece):
+    """Each K5 wrapper, given CPU tensors, returns its plain version's result bit for
+    bit and launches nothing; `mlp_fc1/plan` with a plan other than its own."""
+    piece, _, with_plan = piece.partition("/")
+    g = torch.Generator().manual_seed(0)
+    H, W, cin, hid, cout = 6, 5, 16, 128, 16
+
+    def r(*s):
+        return torch.randn(s, generator=g)
+
+    args = {"mlp_fc1": ((r(2, H * W, cin), r(hid, cin), r(hid), r(hid), r(hid)), {}),
+            "mlp_taps": ((r(2, H * W, hid), r(19, hid, hid), r(hid), r(hid), r(hid),
+                          r(cout, hid), r(cout), r(cout), r(cout)), dict(H=H, W=W))}[piece]
+    plan = {"plan": (2, 3)} if with_plan else {}
+    tm.reset_launches()
+    got = getattr(tm, piece)(*args[0], **args[1], **plan)
+    assert torch.equal(got, getattr(tm, piece + "_reference")(*args[0], **args[1]))
+    assert sum(tm.LAUNCHES.values()) == 0
+
+
+def test_the_two_kernel_families_share_one_gelu():
+    """K1 and K5 build their GELU from the same text (between the GELU markers of
+    csrc/mit_block/common.cuh and csrc/rssformer/common.cuh); the card test that holds it
+    to the formula with the IEEE division on every input runs K1's copy."""
+    from representationlearning_tpu_torch.ops import _build
+
+    def gelu_text(lib):
+        s = (_build.CSRC / lib / "common.cuh").read_text()
+        return s[s.index("// ---- GELU with"): s.index("// ---- end of the GELU")]
+
+    assert gelu_text("mit_block") == gelu_text("rssformer")
