@@ -64,7 +64,9 @@ the PRE_SR variant of K1 (K1').
    (4, 16384, 32), hid 128, and at two small odd planes (one below the dilations,
    one non-square); `mlp_fc1` at the TTA's batch of 2 and at its edges (M of 1 to
    8517 rows, cin 16 to 256), every plan and a rerun for equal bits, the blocks an
-   SM holds against its plan's estimate, and what it refuses; K6 at (1444, 49, 32),
+   SM holds against its plan's estimate, and what it refuses; `mlp_taps` the same
+   way at the TTA's planes (batch 2, 64 to 224 a side), at 3 x 13 x 29 (no tile
+   divides it) and one token, every tile and a few block counts; K6 at (1444, 49, 32),
    2 heads, at one window and at 1443
    (fewer windows than, and a count not divided by, a step of four), at
    another window size, at windows whose gate matrix is all negative (head widths
@@ -396,6 +398,15 @@ def fc1_plans(tm, cin: int) -> list[tuple[int, int]]:
     """Every warp count of the fc1 kernel that fits at this width, walking 1, 2 and 3
     steps a block."""
     return [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3) if tm.fc1_fits(cin, w)]
+
+
+def taps_plans(tm, B: int, H: int, W: int) -> list[tuple[int, int]]:
+    """Every tile of the taps kernel, with one block, three, and one wave of the blocks
+    the card holds (or one a tile where there are fewer tiles)."""
+    M = B * H * W
+    return [(tile, blocks) for tile in tm.TAPS_TILES
+            for blocks in sorted({1, 3, max(1, min(-(-M // tile),
+                                                    tm.taps_blocks_per_sm(tile) * tm.TAPS_SMS))})]
 
 
 def pseudo_batch(torch, gen, device):
@@ -1615,6 +1626,7 @@ class Phases:
             if H == side:
                 self.mlp_inputs = (mod, x, p, f1, rest, hp, out, h)
         self._fc1_at_its_edges(tm, gen)
+        self._taps_at_its_edges(tm, gen, rest)
 
     def _fc1_at_its_edges(self, tm, gen) -> None:
         """`mlp_fc1` at the TTA's batch of 2 and at its edges: M of one row, of a tile less
@@ -1670,6 +1682,61 @@ class Phases:
                    and raises(lambda: tm.mlp_fc1(odd.clone(), *f1, plan=(9, 1)))
                    and raises(lambda: tm.mlp_fc1(odd.clone(), *f1, plan=(4, 0))),
                    "mlp_fc1 refuses data not 16-byte aligned, 9 warps and no step a block")
+
+    def _taps_at_its_edges(self, tm, gen, rest) -> None:
+        """`mlp_taps` at the TTA's planes (batch 2, 64 to 224 a side), at planes whose
+        token count no tile divides, and at one token; every plan and a rerun for equal
+        bits; the blocks an SM holds against the plan's estimate; what it refuses."""
+        torch = self.torch
+        from representationlearning_tpu_torch.ops import _build
+        bf16, hid = torch.bfloat16, 4 * RSS_DIM
+
+        lib = _build.load_library("rssformer")
+        held = {t: lib.k5_taps_blocks_per_sm(t) for t in tm.TAPS_TILES}
+        want_held = {t: tm.taps_blocks_per_sm(t) for t in held}
+        self.check(held == want_held, f"mlp_taps: blocks an SM holds of each tile: "
+                                      f"{held}, the plan's estimate {want_held}")
+        cases = [(2, s, s) for s in (64, 96, 160, 192, 224)] + [(3, 13, 29), (1, 1, 1)]
+        worst, far_worst, same = 0.0, 0.0, True
+        for B, H, W in cases:
+            hp = (torch.randn(B, H * W, hid, generator=gen) * 0.5).to(self.dev, bf16)
+            with torch.no_grad():
+                got = tm.mlp_taps(hp, *rest, H=H, W=W)
+                runs = [tm.mlp_taps(hp, *rest, H=H, W=W)]
+                runs += [tm.mlp_taps(hp, *rest, H=H, W=W, plan=pl)
+                         for pl in taps_plans(tm, B, H, W)]
+                torch.cuda.synchronize()
+                want = tm.mlp_taps_reference(hp, *rest, H=H, W=W)
+            err, mag = max_err(got, want)
+            scale = max(1.0, mag)
+            far = ((got - want).abs() > K5_NEAR * scale).float().mean().item()
+            ok = bool(torch.isfinite(got).all())
+            worst = max(worst, err / (K5_TOL["mlp_taps"] * scale) if ok else float("inf"))
+            far_worst = max(far_worst, far)
+            same = same and all(torch.equal(got, r) for r in runs)
+            self.piece_err["mlp_taps"] = max(self.piece_err["mlp_taps"], err)
+            log(f"  mlp_taps @ B={B} {H}x{W}: max abs err {err:.3e} (max |plain| {mag:.3e}), "
+                f"{100.0 * far:.4f}% beyond {K5_NEAR * scale:.1e}, "
+                f"plan {tm.taps_plan(B, H, W, RSS_DIM)}")
+        self.check(worst <= 1.0 and far_worst <= K5_FAR_SHARE,
+                   f"mlp_taps at the TTA planes (batch 2, 64-224 a side), 3 x 13 x 29 and 1 x 1: "
+                   f"largest error {worst:.3f} of its tolerance, at most "
+                   f"{100.0 * far_worst:.4f}% of the entries beyond {K5_NEAR:.0e} of the largest")
+        self.check(same, "mlp_taps: a second run and every plan (tiles 128 and 256, 1, 3 and a "
+                         "wave of blocks) give equal bits")
+        odd = torch.zeros(16 * hid + 1, device=self.dev, dtype=bf16)[1:].view(1, 16, hid)
+
+        def raises(fn) -> bool:
+            try:
+                fn()
+            except ValueError:
+                return True
+            return False
+
+        self.check(raises(lambda: tm.mlp_taps(odd, *rest, H=4, W=4))
+                   and raises(lambda: tm.mlp_taps(odd.clone(), *rest, H=4, W=4, plan=(64, 1)))
+                   and raises(lambda: tm.mlp_taps(odd.clone(), *rest, H=4, W=4, plan=(128, 0))),
+                   "mlp_taps refuses data not 16-byte aligned, a 64-token tile and no block")
 
     def isa_vs_plain(self, ti) -> None:
         """K6 against its plain version on the same inputs."""

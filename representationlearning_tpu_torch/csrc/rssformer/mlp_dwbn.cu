@@ -31,40 +31,34 @@
 //   with 16-byte stores. Every plan computes each output by the same instructions:
 //   equal bits.
 //
-//   `taps_kernel` is an implicit GEMM: a block owns 128 consecutive tokens and all
-//   128 hidden features, and walks 19 taps x 2 chunks of K = 64. Each A row is the
-//   hidden vector of the token shifted by the tap, or zeros where that lies outside
-//   the plane (`cp.async` with a source size of 0: no padded copy). A and B tiles
-//   are double-buffered with `cp.async`; eight warps multiply with WMMA (bf16
-//   mma.sync, f32 accumulators, 32 x 64 a warp). The epilogue adds the bias,
-//   applies bn2 and GELU, leaves the tile in shared memory as bf16, multiplies it by
-//   fc2's weight from shared memory and applies bn3 and GELU, so the second hidden
-//   plane never reaches device memory.
-#include <mma.h>
-
+//   `taps_kernel` is an implicit GEMM bound by its products (37.8 GFLOP of in-plane
+//   taps a launch at the predict shape, 38 us at the card's peak); behind them come
+//   the copies into shared memory: each tile of tokens reads all 19 tap matrices (B)
+//   and its own rows once a tap (A). Persistent blocks (grid from the wrapper's
+//   `taps_plan`) walk tiles of 128 or 256 consecutive tokens, all 128 hidden features
+//   a tile (a larger tile reads B half as often); eight warps own 16 or 32 rows each
+//   and all 128 features of them. The K steps, tap then chunk of 64, run through a
+//   `cp.async` ring of 3-4 stages with one barrier a step; a step's copies go in four
+//   parts amid the products of the step before the one they feed, and the ring runs
+//   on across the tiles of a block, so the next tile's first steps load while this
+//   one's epilogue runs. A row of A is the row of h the tap shifts to, zeros outside
+//   [0, M) (`cp.async` with a source size of 0: no padded copy); the rows that lie
+//   outside the plane are masked out of the A fragments, from one mask of in-plane
+//   taps a fragment row, made once a tile. Products are `ldmatrix` + `mma.sync`
+//   m16n8k16 with f32 sums, the next K slice's fragments loading while this one's
+//   products run. The epilogue works on the accumulator registers: bias + bn2 + GELU
+//   rounded to bf16 pairs, which are, as they stand, the A fragments of fc2 (adjacent
+//   n8 tiles make one k16 fragment); fc2's weight and the six vectors wait in shared
+//   memory, bn3 + GELU apply to fc2's accumulators, and a swap between lane pairs
+//   makes whole 16-byte pieces of the f32 output. The second hidden plane never
+//   leaves the registers. Every plan computes each output by the same instructions in
+//   the same order: equal bits.
 #include "common.cuh"
 
 namespace rss {
 
-namespace wmma = nvcuda::wmma;
-
 constexpr int kHid = 128;            // hidden width both kernels are built for
-constexpr int kBM = 128;             // tokens a block
-constexpr int kBK = 64;              // K step of the tap GEMM
-constexpr int kLd = kBK + 8;         // bf16 row pitch of the A/B stages (144 bytes)
-constexpr int kLdH = kHid + 8;       // bf16 row pitch of the hidden tile and of fc2's weight
-constexpr int kLdS = 20;             // f32 row pitch of a warp's 16 x 16 scratch
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kTaps = 19;
-constexpr int kChunks = kHid / kBK;
-constexpr int kIters = kTaps * kChunks;
-constexpr int kStageElems = kBM * kLd;                       // one A (or B) stage
-constexpr int kPipeBytes = 4 * kStageElems * (int)sizeof(bf16);  // 2 x (A + B)
-constexpr int kScratchBytes = kWarps * 16 * kLdS * (int)sizeof(float);
-
-static_assert(kBM * kLdH * 2 * (int)sizeof(bf16) <= kPipeBytes,
-              "the hidden tile and fc2's weight reuse the pipeline stages");
 
 // (dy, dx) of tap t in the order of `_mlp_math`: the 1x1, then d = 6 and d = 12
 // over (ky, kx).
@@ -78,49 +72,6 @@ __device__ __forceinline__ void tap_offset(int tap, int& dy, int& dx) {
   const int k = t < 9 ? t : t - 9;
   dy = (k / 3 - 1) * d;
   dx = (k % 3 - 1) * d;
-}
-
-using AccFrag = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-using AFrag = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using BFrag = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-
-// One K step of a warp's 32 x 64 tile: a rows [wm, wm + 32), b features [wn, wn + 64).
-__device__ __forceinline__ void warp_mma(AccFrag (&acc)[2][4], const bf16* a, int lda,
-                                         const bf16* b, int ldb, int wm, int wn, int kk) {
-  AFrag af[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(af[i], a + (wm + i * 16) * lda + kk, lda);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    BFrag bfr;
-    wmma::load_matrix_sync(bfr, b + (wn + j * 16) * ldb + kk, ldb);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-  }
-}
-
-// A 16 x 16 accumulator through the warp's scratch: lane l then holds the eight
-// values of row l / 2, columns (l % 2) * 8 .. + 8, after bias, BN affine and GELU.
-__device__ __forceinline__ void frag_epilogue(const AccFrag& acc, float* scratch, int lane,
-                                              const float* bias, const float* scale,
-                                              const float* shift, int col0, float (&v)[8]) {
-  wmma::store_matrix_sync(scratch, acc, kLdS, wmma::mem_row_major);
-  __syncwarp();
-  const int rr = lane >> 1, cc = (lane & 1) * 8;
-#pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    const int c = col0 + cc + e;
-    v[e] = bias_bn_gelu(scratch[rr * kLdS + cc + e], __ldg(bias + c), __ldg(scale + c),
-                        __ldg(shift + c));
-  }
-  __syncwarp();
-}
-
-__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
-  __align__(16) __nv_bfloat162 h[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
-  return *reinterpret_cast<const uint4*>(h);
 }
 
 // ---- fc1: h[M, 128] (bf16) = gelu(bn1(x[M, cin] @ w1[128, cin]^T + b1)) ----
@@ -278,123 +229,295 @@ inline bool fc1_takes(int cin, int warps) {
          fc1_smem(cin, warps) <= kSmemLimit;
 }
 
-// out[M, cout] = gelu(bn3(gelu(bn2(sum_t shift_t(h) @ taps[t]^T + dwb)) @ w2^T + b2)),
-// M = B * N tokens on (H, W) grids; h (M, 128) bf16; taps (19, 128, 128) bf16 as
-// (out, in); w2 (cout, 128) bf16; cout % 16 == 0, cout <= 128.
-__global__ void __launch_bounds__(kThreads, 2)
-taps_kernel(const bf16* __restrict__ h, const bf16* __restrict__ taps,
-            const float* __restrict__ dwb, const float* __restrict__ s2,
-            const float* __restrict__ t2, const bf16* __restrict__ w2,
-            const float* __restrict__ b2, const float* __restrict__ s3,
-            const float* __restrict__ t3, float* __restrict__ out, int M, int N, int H,
-            int W, int cout) {
+// ---- taps: out[M, cout] = gelu(bn3(gelu(bn2(sum_t shift_t(h) @ taps[t]^T + dwb)) @ w2^T + b2))
+//
+// M = B * N tokens on (H, W) grids; h (M, 128) bf16; taps (19, 128, 128) bf16 as (out,
+// in); w2 (cout, 128) bf16; cout % 16 == 0, cout <= 128. The wrapper's `taps_plan`
+// gives the tile (16 MI rows a warp, eight warps; the ring's stages follow from it)
+// and the blocks; block b takes the tiles b, b + blocks, b + 2 blocks, ...
+constexpr int kTapsWarps = 8;
+constexpr int kTapsThreads = 32 * kTapsWarps;
+constexpr int kTapsBK = 64;                     // K step: a tap's chunk of 64 features
+constexpr int kTapsLd = kTapsBK + 8;            // bf16 row pitch of the stages (144 bytes)
+constexpr int kTapsSteps = kTaps * (kHid / kTapsBK);
+
+struct TapsArgs {
+  const bf16* h;
+  const bf16* taps;
+  const float* dwb;
+  const float* s2;
+  const float* t2;
+  const bf16* w2;
+  const float* b2;
+  const float* s3;
+  const float* t3;
+  float* out;
+  int M, N, H, W, cout, tiles;
+};
+
+constexpr int kTapsLdW = kHid + 8;             // bf16 row pitch of fc2's weight (272 bytes)
+// fc2's weight (up to 128 rows) and the six vectors of bn2 and bn3, in f32
+constexpr int kTapsConstBytes = kHid * kTapsLdW * 2 + 6 * kHid * 4;
+
+// slots of the ring at a tile: four of a 128-token tile; three of a 256-token tile
+// (four do not fit beside the epilogue's constants)
+constexpr int taps_stages(int tile) { return tile == 128 ? 4 : 3; }
+
+// bytes of dynamic shared memory: the ring's slots of A (tile rows) and B (128 rows),
+// then the epilogue's constants
+inline int taps_smem(int tile) {
+  return taps_stages(tile) * (tile + kHid) * kTapsLd * 2 + kTapsConstBytes;
+}
+
+template <int MI, int STAGES>
+__global__ void __launch_bounds__(kTapsThreads, 1) taps_kernel(const TapsArgs p) {
+  constexpr int BM = 16 * MI * kTapsWarps;       // tokens a tile
+  constexpr int RA = BM / 32;                    // A rows a thread copies a step
+  constexpr int RB = kHid / 32;                  // B rows a thread copies a step
+  constexpr int kA = BM * kTapsLd, kB = kHid * kTapsLd;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);        // [2][kBM][kLd]
-  bf16* Bs = As + 2 * kStageElems;                 // [2][kHid][kLd]
+  bf16* As = reinterpret_cast<bf16*>(smem);      // [STAGES][BM][kTapsLd]
+  bf16* Bs = As + STAGES * kA;                   // [STAGES][kHid][kTapsLd]
+  bf16* w2s = Bs + STAGES * kB;                  // [cout][kTapsLdW]
+  float* vec = reinterpret_cast<float*>(w2s + kHid * kTapsLdW);  // dwb s2 t2, then b2 s3 t3
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  float* scratch = reinterpret_cast<float*>(smem + kPipeBytes) + warp * 16 * kLdS;
-  const int m0 = blockIdx.x * kBM;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 64;
+  const int g = lane / 4, t = lane % 4;
+  const int c8 = (tid % 8) * 8, r0 = tid / 8;    // this thread copies rows r0 + 32 i, piece c8
 
-  // the four A rows (and B rows) this thread copies in every stage, 16 bytes each
-  const int c8 = (tid & 7) * 8;
-  int ry[4], rx[4], rtok[4];
-  bool rok[4];
+  // ---- the copies: step f of the block's walk is tap (f % 38) / 2, chunk f % 2 of the
+  // block's (f / 38)-th tile. A row of A is the token shifted by the tap as it lies in
+  // device memory, zeros outside [0, M); what lies outside the plane is masked out of the
+  // fragments below. A step's copies go in four parts, one amid the products of each K
+  // slice of the step being multiplied, so that the tensor cores never wait for a
+  // warp's whole share of copies.
+  const int my_tiles = (int)blockIdx.x < p.tiles ? (p.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_tiles * kTapsSteps;
+  int f = 0, f_slot = 0, f_it = 0, f_m0 = blockIdx.x * BM, f_row = 0;
+  const bf16* f_a = p.h;      // A source of row r0 of step f
+  const bf16* f_b = p.taps;   // B source of row r0 of step f
+  auto fetch_part = [&](int q) {
+    if (f < total) {
+      if (q == 0) {
+        int dy, dx;
+        tap_offset(f_it / 2, dy, dx);
+        const int k0 = (f_it % 2) * kTapsBK + c8;
+        f_row = f_m0 + r0 + dy * p.W + dx;
+        f_a = p.h + (ptrdiff_t)f_row * kHid + k0;   // read only for rows inside [0, M)
+        f_b = p.taps + ((size_t)(f_it / 2) * kHid + r0) * kHid + k0;
+      }
+      bf16* a = As + f_slot * kA + r0 * kTapsLd + c8;
+      bf16* b = Bs + f_slot * kB + r0 * kTapsLd + c8;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + (tid >> 3) + 32 * i;
-    rok[i] = gm < M;
-    const int n = gm % N;
-    ry[i] = n / W;
-    rx[i] = n - ry[i] * W;
-    rtok[i] = gm;
-  }
-
-  auto load = [&](int stage, int it) {
-    const int tap = it / kChunks, k0 = (it - tap * kChunks) * kBK;
-    int dy, dx;
-    tap_offset(tap, dy, dx);
-    bf16* a = As + stage * kStageElems;
-    bf16* b = Bs + stage * kStageElems;
+      for (int i = q * RA / 4; i < (q + 1) * RA / 4; ++i) {
+        const bool ok = (unsigned)(f_row + 32 * i) < (unsigned)p.M;
+        cp_async16(a + 32 * i * kTapsLd, ok ? f_a + 32 * i * kHid : p.h, ok ? 16 : 0);
+      }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (tid >> 3) + 32 * i;
-      const int yy = ry[i] + dy, xx = rx[i] + dx;
-      const bool ok = rok[i] && yy >= 0 && yy < H && xx >= 0 && xx < W;
-      const bf16* src = ok ? h + (size_t)(rtok[i] + dy * W + dx) * kHid + k0 + c8 : h;
-      cp_async16(a + r * kLd + c8, src, ok ? 16 : 0);   // 0 bytes read: the row is zeros
+      for (int i = q * RB / 4; i < (q + 1) * RB / 4; ++i)
+        cp_async16(b + 32 * i * kTapsLd, f_b + 32 * i * kHid);
+      if (q == 3 && ++f_it == kTapsSteps) {
+        f_it = 0;
+        f_m0 += gridDim.x * BM;
+      }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = (tid >> 3) + 32 * i;
-      cp_async16(b + n * kLd + c8, taps + ((size_t)tap * kHid + n) * kHid + k0 + c8, 16);
+    if (q == 3) {
+      cp_async_commit();   // an empty group past the walk keeps the count of groups uniform
+      ++f;
+      f_slot = f_slot + 1 == STAGES ? 0 : f_slot + 1;
     }
-    cp_async_commit();
   };
 
-  AccFrag acc[2][4];
+  float acc[MI][16][4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int j = 0; j < 16; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
 
-  load(0, 0);
-  for (int it = 0; it < kIters; ++it) {
-    if (it + 1 < kIters) {
-      load((it + 1) & 1, it + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  // ---- the epilogue of the tile at m0, from the accumulators of this warp's rows
+  // wm + 16 i + g and + 8
+  const int wm = warp * 16 * MI;
+  auto epilogue = [&](int m0) {
+    // bias + bn2 + GELU, rounded to bf16: n8 tiles 2u and 2u + 1 are fc2's A fragment
+    // of hidden features 16u .. 16u + 15
+    uint32_t ha[MI][8][4];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 bb = *reinterpret_cast<const float2*>(vec + col);
+      const float2 ss = *reinterpret_cast<const float2*>(vec + kHid + col);
+      const float2 sh = *reinterpret_cast<const float2*>(vec + 2 * kHid + col);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        ha[i][j / 2][2 * (j % 2)] = pack_bf16(bias_bn_gelu(acc[i][j][0], bb.x, ss.x, sh.x),
+                                              bias_bn_gelu(acc[i][j][1], bb.y, ss.y, sh.y));
+        ha[i][j / 2][2 * (j % 2) + 1] = pack_bf16(bias_bn_gelu(acc[i][j][2], bb.x, ss.x, sh.x),
+                                                  bias_bn_gelu(acc[i][j][3], bb.y, ss.y, sh.y));
+        acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+      }
     }
+    // fc2, 16 output features at a time, its weight from shared memory
+    for (int n0 = 0; n0 < p.cout; n0 += 16) {
+      float o[MI][2][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) o[i][h2][0] = o[i][h2][1] = o[i][h2][2] = o[i][h2][3] = 0.f;
+      const bf16* wl = w2s + (n0 + (lane & 7) + (lane >> 4) * 8) * kTapsLdW + ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        uint32_t wb[4];   // outputs n0 .. + 7 (k 0-7, 8-15), then n0 + 8 .. + 15
+        ldsm_x4(wb, wl + 16 * u);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma_bf16(o[i][0], ha[i][u], wb[0], wb[1]);
+          mma_bf16(o[i][1], ha[i][u], wb[2], wb[3]);
+        }
+      }
+      // bn3 + GELU; lanes t and t ^ 1 swap pairs, so that an even t holds columns
+      // 2t .. 2t + 3 of row g and an odd t columns 2t - 2 .. 2t + 1 of row g + 8
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int col = n0 + 8 * h2 + 2 * t;
+        const float2 bb = *reinterpret_cast<const float2*>(vec + 3 * kHid + col);
+        const float2 ss = *reinterpret_cast<const float2*>(vec + 4 * kHid + col);
+        const float2 sh = *reinterpret_cast<const float2*>(vec + 5 * kHid + col);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const float v0 = bias_bn_gelu(o[i][h2][0], bb.x, ss.x, sh.x);
+          const float v1 = bias_bn_gelu(o[i][h2][1], bb.y, ss.y, sh.y);
+          const float v2 = bias_bn_gelu(o[i][h2][2], bb.x, ss.x, sh.x);
+          const float v3 = bias_bn_gelu(o[i][h2][3], bb.y, ss.y, sh.y);
+          const bool odd = t & 1;
+          const float s0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+          const float s1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+          const int row = m0 + wm + 16 * i + g + (odd ? 8 : 0);
+          if (row < p.M)
+            *reinterpret_cast<float4*>(p.out + (size_t)row * p.cout + col - (odd ? 2 : 0)) =
+                odd ? make_float4(s0, s1, v2, v3) : make_float4(v0, v1, s0, s1);
+        }
+      }
+    }
+  };
+
+  // ---- the products: the fragments of the next K slice (the next step's first, at a
+  // step's last slice) load from shared memory while this slice's products run. Bit tap
+  // of `in_plane[i][h]` is set where this lane's row 16 i + g + 8 h of the tile reads
+  // inside the plane at that tap; the A fragments of the other rows are zeroed.
+  uint32_t in_plane[MI][2];
+  auto plane_masks = [&](int m0) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = (m0 + wm + 16 * i + g + 8 * h) % p.N, y = n / p.W, x = n - y * p.W;
+        uint32_t m = 0;
+#pragma unroll
+        for (int tap = 0; tap < kTaps; ++tap) {
+          int dy, dx;
+          tap_offset(tap, dy, dx);
+          m |= (uint32_t)(y + dy >= 0 && y + dy < p.H && x + dx >= 0 && x + dx < p.W) << tap;
+        }
+        in_plane[i][h] = m;
+      }
+  };
+  uint32_t af[2][MI][4], bfr[2][8][4];
+  auto load_frags = [&](int buf, int slot, int kk, int tap) {
+    const bf16* A = As + slot * kA + kk;
+    const bf16* Bt = Bs + slot * kB + kk;
+#pragma unroll
+    for (int i = 0; i < MI; ++i) {
+      ldsm_x4(af[buf][i], A + (wm + 16 * i + (lane & 15)) * kTapsLd + (lane >> 4) * 8);
+      const uint32_t keep_g = 0u - ((in_plane[i][0] >> tap) & 1u);   // row g
+      const uint32_t keep_g8 = 0u - ((in_plane[i][1] >> tap) & 1u);  // row g + 8
+      af[buf][i][0] &= keep_g;
+      af[buf][i][1] &= keep_g8;
+      af[buf][i][2] &= keep_g;
+      af[buf][i][3] &= keep_g8;
+    }
+#pragma unroll
+    for (int j2 = 0; j2 < 8; ++j2)   // features 16 j2 .. + 7 (k 0-7, 8-15), then + 8 .. + 15
+      ldsm_x4(bfr[buf][j2],
+              Bt + (16 * j2 + (lane & 7) + (lane >> 4) * 8) * kTapsLd + ((lane >> 3) & 1) * 8);
+  };
+
+  // the epilogue's constants travel with step 0's copies
+  for (int i = tid; i < p.cout * (kHid / 8); i += kTapsThreads) {
+    const int n = i / (kHid / 8), c = (i % (kHid / 8)) * 8;
+    cp_async16(w2s + n * kTapsLdW + c, p.w2 + (size_t)n * kHid + c);
+  }
+  for (int i = tid; i < 6 * kHid / 4; i += kTapsThreads) {
+    const int v = i / (kHid / 4), c = (i % (kHid / 4)) * 4;
+    const float* src = v == 0 ? p.dwb : v == 1 ? p.s2 : v == 2 ? p.t2
+                     : v == 3 ? p.b2 : v == 4 ? p.s3 : p.t3;
+    if (v < 3 || c < p.cout) cp_async16(vec + v * kHid + c, src + c);
+  }
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) fetch_part(q);
+  if (total > 0) {
+    cp_async_wait<STAGES - 2>();   // step 0
     __syncthreads();
-    const bf16* a = As + (it & 1) * kStageElems;
-    const bf16* b = Bs + (it & 1) * kStageElems;
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) warp_mma(acc, a, kLd, b, kLd, wm, wn, kk);
-    __syncthreads();
+    plane_masks(blockIdx.x * BM);
+    load_frags(0, 0, 0, 0);
   }
+  int slot = 0;   // of the step being multiplied, s in the notes below
+  for (int k = 0, m0 = blockIdx.x * BM; k < my_tiles; ++k, m0 += gridDim.x * BM) {
+    for (int st = 0; st < kTapsSteps; ++st) {
+      const int next = slot + 1 == STAGES ? 0 : slot + 1;
+#pragma unroll
+      for (int kk = 0; kk < kTapsBK / 16; ++kk) {
+        const int cur = kk % 2;
+        if (kk + 1 < kTapsBK / 16) {
+          load_frags(cur ^ 1, slot, 16 * (kk + 1), st / 2);
+        } else {
+          // step s + 1: this thread's copies have landed (all but the STAGES - 3 groups
+          // committed after its), then every thread's
+          cp_async_wait<STAGES - 3>();
+          __syncthreads();   // also: every warp has left step s - 1's slot (its last
+                             // fragments were loaded at slice 2 of step s - 1)
+          if (st + 1 < kTapsSteps) load_frags(0, next, 0, (st + 1) / 2);
+        }
+#pragma unroll
+        for (int j2 = 0; j2 < 8; ++j2) {
+          // a part of step s + STAGES - 1's copies, into the slot of step s - 1
+          if (j2 == 4) fetch_part(kk);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            mma_bf16(acc[i][2 * j2], af[cur][i], bfr[cur][j2][0], bfr[cur][j2][1]);
+            mma_bf16(acc[i][2 * j2 + 1], af[cur][i], bfr[cur][j2][2], bfr[cur][j2][3]);
+          }
+        }
+      }
+      slot = next;
+    }
+    epilogue(m0);   // the tile is summed: finish it while the next one loads
+    if (k + 1 < my_tiles) {
+      plane_masks(m0 + gridDim.x * BM);
+      load_frags(0, slot, 0, 0);
+    }
+  }
+  cp_async_wait<0>();
+}
 
-  // the stages are free: the hidden tile and fc2's weight take their place
-  bf16* h2 = reinterpret_cast<bf16*>(smem);
-  bf16* w2s = h2 + kBM * kLdH;
-  for (int idx = tid; idx < cout * (kHid / 8); idx += kThreads) {
-    const int n = idx / (kHid / 8), c = (idx % (kHid / 8)) * 8;
-    *reinterpret_cast<uint4*>(w2s + n * kLdH + c) =
-        *reinterpret_cast<const uint4*>(w2 + (size_t)n * kHid + c);
-  }
-  const int rr = lane >> 1, cc = (lane & 1) * 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v[8];
-      const int col0 = wn + j * 16;
-      frag_epilogue(acc[i][j], scratch, lane, dwb, s2, t2, col0, v);
-      *reinterpret_cast<uint4*>(h2 + (wm + i * 16 + rr) * kLdH + col0 + cc) = pack8(v);
-    }
-  __syncthreads();
+using TapsKernel = void (*)(const TapsArgs);
 
-  // fc2: warp w owns rows [16 w, 16 w + 16) of the tile, 16 output features at a time
-  const int gm = m0 + warp * 16 + rr;
-  for (int nf = 0; nf < cout / 16; ++nf) {
-    AccFrag o;
-    wmma::fill_fragment(o, 0.0f);
-#pragma unroll
-    for (int kk = 0; kk < kHid; kk += 16) {
-      AFrag af;
-      BFrag bfr;
-      wmma::load_matrix_sync(af, h2 + warp * 16 * kLdH + kk, kLdH);
-      wmma::load_matrix_sync(bfr, w2s + nf * 16 * kLdH + kk, kLdH);
-      wmma::mma_sync(o, af, bfr, o);
-    }
-    float v[8];
-    frag_epilogue(o, scratch, lane, b2, s3, t3, nf * 16, v);
-    if (gm < M) {
-      float4* dst = reinterpret_cast<float4*>(out + (size_t)gm * cout + nf * 16 + cc);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
+// the instantiation of a tile, or nullptr for one the kernel does not have
+inline TapsKernel taps_kernel_of(int tile) {
+  return tile == 128   ? taps_kernel<1, taps_stages(128)>
+         : tile == 256 ? taps_kernel<2, taps_stages(256)>
+                       : nullptr;
+}
+
+// lets the instantiation take its dynamic shared memory: once per process and tile
+inline cudaError_t taps_prepare(int tile) {
+  static bool granted[2] = {};
+  bool& done = granted[tile == 256];
+  if (done) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      taps_kernel_of(tile), cudaFuncAttributeMaxDynamicSharedMemorySize, taps_smem(tile));
+  if (err == cudaSuccess) done = true;
+  return err;
 }
 
 }  // namespace rss
@@ -430,19 +553,36 @@ extern "C" int k5_fc1_blocks_per_sm(int cin, int warps) {
   return n;
 }
 
+// out (B * H * W, cout) f32 from h (B * H * W, 128) bf16; every pointer 16-byte
+// aligned. `tile` and `blocks` come from the wrapper's plan.
 extern "C" int k5_mlp_taps(const void* h, const void* taps, const void* dwb, const void* s2,
                            const void* t2, const void* w2, const void* b2, const void* s3,
-                           const void* t3, void* out, int B, int H, int W, int cout,
-                           void* stream) {
-  const int smem = rss::kPipeBytes + rss::kScratchBytes;
-  cudaError_t err = cudaFuncSetAttribute(rss::taps_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
+                           const void* t3, void* out, int B, int H, int W, int cout, int tile,
+                           int blocks, void* stream) {
+  using namespace rss;
+  const TapsKernel kernel = taps_kernel_of(tile);
+  if (B < 1 || H < 1 || W < 1 || cout < 16 || cout > kHid || cout % 16 || blocks < 1 ||
+      kernel == nullptr)
+    return (int)cudaErrorInvalidValue;
   const int N = H * W, M = B * N;
-  rss::taps_kernel<<<(M + rss::kBM - 1) / rss::kBM, rss::kThreads, smem,
-                     (cudaStream_t)stream>>>(
-      (const rss::bf16*)h, (const rss::bf16*)taps, (const float*)dwb, (const float*)s2,
-      (const float*)t2, (const rss::bf16*)w2, (const float*)b2, (const float*)s3,
-      (const float*)t3, (float*)out, M, N, H, W, cout);
+  const TapsArgs p{(const bf16*)h, (const bf16*)taps, (const float*)dwb, (const float*)s2,
+                   (const float*)t2, (const bf16*)w2, (const float*)b2, (const float*)s3,
+                   (const float*)t3, (float*)out, M, N, H, W, cout, (M + tile - 1) / tile};
+  const cudaError_t err = taps_prepare(tile);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, kTapsThreads, taps_smem(tile), (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Blocks of the taps kernel at that tile one SM holds at once, as the card reports it;
+// -1 for a tile the kernel does not have.
+extern "C" int k5_taps_blocks_per_sm(int tile) {
+  using namespace rss;
+  const TapsKernel kernel = taps_kernel_of(tile);
+  int n = -1;
+  if (kernel == nullptr || taps_prepare(tile) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kTapsThreads, taps_smem(tile)) !=
+          cudaSuccess)
+    return -1;
+  return n;
 }

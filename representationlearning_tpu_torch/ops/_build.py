@@ -61,8 +61,10 @@ SIGNATURES = {
         # x, w1, b1, scale1, shift1, h, M, Cin, warps, steps a block, stream
         "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
         "k5_fc1_blocks_per_sm": (_I, _I),   # Cin, warps
-        # h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, out, B, H, W, Cout, stream
-        "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+        # h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, out, B, H, W, Cout,
+        # tile, blocks, stream
+        "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "k5_taps_blocks_per_sm": (_I,),   # tile
         # q, k, v, out, NW, T, C, nh, round_bf16, windows, warps, stages, blocks, stream
         "k6_isa_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "k6_isa_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),  # T, C, nh, bf16, plan

@@ -19,9 +19,10 @@ is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cu``):
                TPU kernel rounds h to bf16 at each of its 19 uses, so storing
                the rounded plane is the same rounding, done once; persistent
                blocks walk 16-row tiles a warp, their count from `fc1_plan`
-    mlp_taps   a 19-tap implicit GEMM over tiles of 128 tokens (taps outside the
-               plane read as zero, no padded copy), bias + bn2 + GELU, then fc2
-               from shared memory + bn3 + GELU
+    mlp_taps   a 19-tap implicit GEMM over tiles of 128 or 256 tokens (taps
+               outside the plane read as zero, no padded copy), bias + bn2 + GELU,
+               then fc2 from the accumulator registers + bn3 + GELU; persistent
+               blocks walk the tiles, their tile and count from `taps_plan`
 
 Each wrapper runs its kernel on a CUDA tensor (compute dtype bf16 and hid = 128
 only; anything else raises) and its plain PyTorch version, ``<name>_reference``,
@@ -101,6 +102,57 @@ def check_fc1_plan(plan, cin: int) -> tuple[int, int]:
     if not (per >= 1 and fc1_fits(cin, warps)):
         raise ValueError(f"mlp_fc1: plan {plan!r} is not one the kernel takes at cin={cin}")
     return warps, per
+
+# The taps kernel: eight warps a block, a tile of TAPS_TILES tokens (16 or 32 rows a
+# warp, all 128 hidden features), a ring of TAPS_STAGES[tile] slots of A and B, each a
+# K step of TAPS_BK features of one tap (four slots of a 256-token tile do not fit
+# beside fc2's weight and the six vectors, which stay in shared memory).
+TAPS_TILES, TAPS_WARPS, TAPS_BK = (128, 256), 8, 64
+TAPS_STAGES = {128: 4, 256: 3}
+TAPS_SMS = FC1_SMS
+TAPS_BLOCKS_BY_REGS = 1   # blocks of eight warps the registers of an SM hold
+
+
+def taps_smem_bytes(tile: int) -> int:
+    """The ring's slots of A (tile rows) and B (128 rows), each row TAPS_BK bf16 features
+    and 8 of padding; fc2's weight (128 rows of 136 bf16) and six f32 vectors."""
+    return TAPS_STAGES[tile] * (tile + HID) * (TAPS_BK + 8) * 2 + HID * (HID + 8) * 2 \
+        + 6 * HID * 4
+
+
+def taps_blocks_per_sm(tile: int) -> int:
+    """Blocks of the taps kernel an SM holds at once, by its shared memory and its
+    registers: a block is built to hold more than 128 registers a thread (its launch
+    bounds ask for one block an SM), so the registers hold one block of eight warps.
+    `chip_smoke.py` checks the estimate against the card's count."""
+    return max(1, min(SMEM_PER_SM // (taps_smem_bytes(tile) + 1024), TAPS_BLOCKS_BY_REGS))
+
+
+@functools.lru_cache(maxsize=256)
+def taps_plan(B: int, H: int, W: int, cout: int) -> tuple[int, int]:
+    """(tile, blocks) of the taps kernel for B planes of H x W tokens: tiles of 256
+    tokens (the tap matrices read half as often as with 128), unless that leaves more
+    than half the SMs without a tile; then 128. Blocks: one wave of the blocks the card
+    holds, or one a tile where there are fewer tiles. A function of the shapes only;
+    every plan computes each output by the same instructions in the same order, so all
+    give the same bits."""
+    _widths(HID, cout=cout)
+    M = B * H * W
+    tile = 256 if math.ceil(M / 256) >= TAPS_SMS // 2 else 128
+    return tile, max(1, min(math.ceil(M / tile), taps_blocks_per_sm(tile) * TAPS_SMS))
+
+
+def check_taps_plan(plan) -> tuple[int, int]:
+    """The plan as (tile, blocks), or ValueError if the kernel does not take it."""
+    try:
+        tile, blocks = (int(v) for v in plan)
+    except (TypeError, ValueError):
+        raise ValueError(f"mlp_taps: plan {plan!r} is not (tile, blocks)") from None
+    if tile not in TAPS_TILES or blocks < 1:
+        raise ValueError(f"mlp_taps: plan {plan!r} is not one the kernel takes (tile in "
+                         f"{TAPS_TILES}, blocks >= 1)")
+    return tile, blocks
+
 
 # launches of each kernel since the last reset; the wrappers add one per launch
 LAUNCHES = {"mlp_fc1": 0, "mlp_taps": 0}
@@ -217,7 +269,12 @@ def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16, plan=None):
 
 
 def mlp_taps(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, *, H, W,
-             dtype=torch.bfloat16):
+             dtype=torch.bfloat16, plan=None):
+    """`plan`: a (tile, blocks) other than `taps_plan`'s, for tests and tuning;
+    it is checked on any device, every plan gives the same bits on the card, and it
+    changes nothing on the CPU."""
+    if plan is not None:
+        plan = check_taps_plan(plan)
     if not h.is_cuda:
         return mlp_taps_reference(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3,
                                   H=H, W=W, dtype=dtype)
@@ -235,12 +292,18 @@ def mlp_taps(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, *, H, W,
         _check(t, name, dev, (hid,))
     for name, t in (("b2", b2), ("scale3", scale3), ("shift3", shift3)):
         _check(t, name, dev, (cout,))
+    named = (("h", h), ("taps", taps), ("dw_bias", dw_bias), ("scale2", scale2),
+             ("shift2", shift2), ("w2", w2), ("b2", b2), ("scale3", scale3), ("shift3", shift3))
+    for name, t in named:
+        _aligned(t, name)
     out = torch.empty((B, N, cout), device=dev, dtype=torch.float32)
     if B * N:
+        tile, blocks = taps_plan(B, H, W, cout) if plan is None else plan
         _launch("k5_mlp_taps", h.data_ptr(), taps.data_ptr(), dw_bias.data_ptr(),
                 scale2.data_ptr(), shift2.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                scale3.data_ptr(), shift3.data_ptr(), out.data_ptr(), B, H, W, cout)
-        LAUNCHES["mlp_taps"] += 1
+                scale3.data_ptr(), shift3.data_ptr(), out.data_ptr(), B, H, W, cout, tile,
+                blocks)
+        LAUNCHES["mlp_taps"] += 1   # one a call, whatever plan it runs
     return out
 
 

@@ -12,7 +12,7 @@ import math
 import pytest
 import torch
 
-from chip_smoke import isa_trap_move
+from chip_smoke import isa_trap_move, taps_plans
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -646,6 +646,67 @@ def test_mlp_fc1_refuses_what_it_does_not_take(dev):
         with pytest.raises(ValueError, match="plan"):
             TM.mlp_fc1(odd.clone(), *f1, plan=plan)
     assert torch.isfinite(TM.mlp_fc1(odd.clone(), *f1).float()).all()
+
+
+def _taps_inputs(g, B, H, W, cout, dev):
+    p = _mlp_params(g, 32, 128, cout, dev)
+    h = TM.mlp_fc1_reference(_rand(g, B, H * W, 32, dev=dev),
+                             p["fc1_weight"].reshape(128, 32).to(BF16), p["fc1_bias"],
+                             p["bn1_scale"], p["bn1_shift"])
+    rest = (TM.tap_weights(p).to(BF16).contiguous(), p["dw_bias"], p["bn2_scale"],
+            p["bn2_shift"], p["fc2_weight"].reshape(cout, 128).to(BF16), p["fc2_bias"],
+            p["bn3_scale"], p["bn3_shift"])
+    return h, rest
+
+
+@pytest.mark.parametrize("B,H,W,cout", [(4, 128, 128, 32), (2, 64, 64, 32), (2, 96, 96, 16),
+                                        (2, 224, 224, 32), (2, 7, 9, 128), (1, 20, 45, 48),
+                                        (1, 1, 1, 16), (3, 13, 29, 32)])
+def test_mlp_taps_every_plan_gives_equal_bits(dev, B, H, W, cout):
+    """taps at the predict shape, TTA planes at batch 2, planes below both dilations,
+    one token, and token counts that no tile divides: within K5's tolerance of the
+    plain version (1e-2 of the largest, all but a thousandth of the entries within
+    1e-3), and a rerun and every plan give the same bits; one launch a call."""
+    g = torch.Generator().manual_seed(B * H * W + cout)
+    h, rest = _taps_inputs(g, B, H, W, cout, dev)
+    plans = taps_plans(TM, B, H, W)
+    TM.reset_launches()
+    with torch.no_grad():
+        out = TM.mlp_taps(h, *rest, H=H, W=W)
+        want = TM.mlp_taps_reference(h, *rest, H=H, W=W)
+        assert bool(torch.isfinite(out).all()) and out.shape == (B, H * W, cout)
+        _close(out, want, 1e-2)
+        far = ((out - want).abs() > 1e-3 * max(1.0, want.abs().max().item())).float().mean()
+        assert far.item() <= 1e-3, far.item()
+        assert torch.equal(out, TM.mlp_taps(h, *rest, H=H, W=W))
+        for plan in plans:
+            assert torch.equal(out, TM.mlp_taps(h, *rest, H=H, W=W, plan=plan)), plan
+    assert TM.LAUNCHES["mlp_taps"] == 2 + len(plans)
+
+
+def test_mlp_taps_blocks_per_sm_matches_the_estimate(dev):
+    from representationlearning_tpu_torch.ops import _build
+
+    lib = _build.load_library("rssformer")
+    for tile in TM.TAPS_TILES:
+        assert lib.k5_taps_blocks_per_sm(tile) == TM.taps_blocks_per_sm(tile), tile
+    assert lib.k5_taps_blocks_per_sm(64) == -1 and lib.k5_taps_blocks_per_sm(512) == -1
+
+
+def test_mlp_taps_refuses_what_it_does_not_take(dev):
+    g = torch.Generator().manual_seed(0)
+    h, rest = _taps_inputs(g, 1, 4, 4, 32, dev)
+    odd = torch.zeros(16 * 128 + 1, device=dev, dtype=BF16)[1:].view(1, 16, 128)  # 2 bytes off
+    with pytest.raises(ValueError, match="aligned"):
+        TM.mlp_taps(odd, *rest, H=4, W=4)
+    for plan in ((64, 1), (512, 1), (128, 0), (256, 3, 1)):
+        with pytest.raises(ValueError, match="plan"):
+            TM.mlp_taps(h, *rest, H=4, W=4, plan=plan)
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        TM.mlp_taps(h, rest[0], *rest[1:4], rest[4][:24], *(v[:24] for v in rest[5:]), H=4, W=4)
+    with pytest.raises(ValueError, match="H\\*W"):
+        TM.mlp_taps(h, *rest, H=3, W=4)
+    assert torch.isfinite(TM.mlp_taps(odd.clone(), *rest, H=4, W=4)).all()
 
 
 def test_fused_mlp_dwbn_refuses_what_it_does_not_take(dev):

@@ -203,7 +203,88 @@ def test_fc1_refuses_a_plan_the_kernel_does_not_take_on_the_cpu_too():
     assert tm.mlp_fc1(x, w1, v, v, v, plan=(4, 1)).shape == (1, 16, 128)
 
 
-@pytest.mark.parametrize("piece", ["mlp_fc1", "mlp_taps", "mlp_fc1/plan"])
+# `mlp_taps`' plan at the RSSFormer predict (4 x 128 x 128 tokens), the TTA's planes at
+# batch 2 (`infer/tta.py::default_tta_config`, scales 0.5-1.75 of 128), a plane below both
+# dilations, a non-square one whose 900 tokens no tile divides, one token; every width of
+# fc2's output
+TAPS_GEOMETRIES = sorted({(4, 128, 128, 32)}
+                         | {(2, s, s, 32) for s in (64, 96, 128, 160, 192, 224)}
+                         | {(B, H, W, cout) for B, H, W in ((2, 7, 9), (1, 20, 45), (1, 1, 1))
+                            for cout in (16, 32, 128)})
+
+
+@pytest.mark.parametrize("B,H,W,cout", TAPS_GEOMETRIES)
+def test_taps_plan_covers_every_token_once(B, H, W, cout):
+    """The plan is a function of the shapes alone and fits the kernel's shared memory.
+    Laid out as the kernel walks it (block b takes the tiles b, b + blocks, ...), it
+    covers every tile of tokens exactly once and every token in exactly one tile; the
+    grid is at most one wave of the blocks the card holds, and no block is idle."""
+    tile, blocks = tm.taps_plan(B, H, W, cout)
+    assert (tile, blocks) == tm.taps_plan(B, H, W, cout)
+    assert tm.check_taps_plan((tile, blocks)) == (tile, blocks)
+    assert tm.taps_smem_bytes(tile) <= tm.SMEM_LIMIT and tm.TAPS_STAGES[tile] >= 3
+    M = B * H * W
+    tiles = -(-M // tile)
+    walk = np.concatenate([np.arange(b, tiles, blocks) for b in range(blocks)])
+    assert (np.bincount(walk, minlength=tiles) == 1).all()
+    tokens = (walk[:, None] * tile + np.arange(tile)[None, :]).ravel()
+    assert (np.bincount(tokens[tokens < M], minlength=M) == 1).all()
+    assert blocks <= tm.taps_blocks_per_sm(tile) * tm.TAPS_SMS and blocks <= tiles
+    # the larger tile wherever it gives at least half the SMs a tile
+    assert tile == (256 if -(-M // 256) >= tm.TAPS_SMS // 2 else 128)
+
+
+@pytest.mark.parametrize("plan", [None, (128, 1), (128, 5), (256, 2), (256, 132)])
+def test_taps_with_a_plan_on_cpu_is_the_plain_version(plan):
+    """On CPU tensors `mlp_taps(..., plan=)` runs `mlp_taps_reference` whatever the plan
+    and launches nothing; after the port's plain fc1 it is the TPU kernel's `_mlp_math`
+    (the JAX reference and the Pallas kernel in interpret mode), f32 operands."""
+    H, W, cin, hid, cout = 13, 15, 16, 128, 16
+    x, jp, tp = _setup(H, W, cin, hid, cout, seed=11)
+    h = tm.mlp_fc1_reference(torch.from_numpy(x), tp["fc1_weight"].reshape(hid, cin),
+                             tp["fc1_bias"], tp["bn1_scale"], tp["bn1_shift"],
+                             dtype=torch.float32)
+    rest = (tm.tap_weights(tp), tp["dw_bias"], tp["bn2_scale"], tp["bn2_shift"],
+            tp["fc2_weight"].reshape(cout, hid), tp["fc2_bias"], tp["bn3_scale"],
+            tp["bn3_shift"])
+    tm.reset_launches()
+    for dtype in (torch.bfloat16, torch.float32):
+        got = tm.mlp_taps(h, *rest, H=H, W=W, dtype=dtype, plan=plan)
+        assert torch.equal(got, tm.mlp_taps_reference(h, *rest, H=H, W=W, dtype=dtype))
+    assert sum(tm.LAUNCHES.values()) == 0
+    want = np.asarray(jm.fused_mlp_dwbn_reference(jnp.asarray(x), jp, H=H, W=W))
+    wantk = np.asarray(jm.fused_mlp_dwbn_pallas(jnp.asarray(x), jp, H=H, W=W, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), wantk, atol=F32_ATOL, rtol=0)
+
+
+def test_taps_refuses_a_plan_the_kernel_does_not_take_on_the_cpu_too():
+    """Tiles other than 128 and 256, no block, and what is no pair raise on CPU tensors
+    as on the card."""
+    g = torch.Generator().manual_seed(0)
+    args = (torch.randn(1, 12, 128, generator=g), torch.randn(19, 128, 128, generator=g),
+            *(torch.randn(128, generator=g) for _ in range(3)),
+            torch.randn(16, 128, generator=g), *(torch.randn(16, generator=g) for _ in range(3)))
+    for plan in ((64, 1), (512, 1), (192, 1), (128, 0), (256, -1), (256, 3, 1), (128,),
+                 "ab", 7):
+        with pytest.raises(ValueError, match="plan"):
+            tm.mlp_taps(*args, H=3, W=4, plan=plan)
+    assert tm.mlp_taps(*args, H=3, W=4, plan=(128, 1)).shape == (1, 12, 16)
+
+
+@pytest.mark.parametrize("tile", [128, 256])
+def test_taps_blocks_per_sm_estimate_fits_the_sm(tile):
+    """The estimate of blocks an SM holds never asks for more shared memory than an SM
+    has (each block also takes 1 KB of it) or more registers than 65,536: eight warps a
+    block at up to 128 registers a thread for two blocks, up to 255 for one."""
+    assert tm.taps_smem_bytes(tile) <= tm.SMEM_LIMIT
+    n = tm.taps_blocks_per_sm(tile)
+    assert n >= 1
+    assert n * (tm.taps_smem_bytes(tile) + 1024) <= tm.SMEM_PER_SM
+    assert n * 32 * tm.TAPS_WARPS * (128 if n > 1 else 255) <= 65536
+
+
+@pytest.mark.parametrize("piece", ["mlp_fc1", "mlp_taps", "mlp_fc1/plan", "mlp_taps/plan"])
 def test_wrappers_on_cpu_are_the_plain_versions(piece):
     """Each K5 wrapper, given CPU tensors, returns its plain version's result bit for
     bit and launches nothing; `mlp_fc1/plan` with a plan other than its own."""
@@ -217,7 +298,7 @@ def test_wrappers_on_cpu_are_the_plain_versions(piece):
     args = {"mlp_fc1": ((r(2, H * W, cin), r(hid, cin), r(hid), r(hid), r(hid)), {}),
             "mlp_taps": ((r(2, H * W, hid), r(19, hid, hid), r(hid), r(hid), r(hid),
                           r(cout, hid), r(cout), r(cout), r(cout)), dict(H=H, W=W))}[piece]
-    plan = {"plan": (2, 3)} if with_plan else {}
+    plan = {"plan": {"mlp_fc1": (2, 3), "mlp_taps": (128, 3)}[piece]} if with_plan else {}
     tm.reset_launches()
     got = getattr(tm, piece)(*args[0], **args[1], **plan)
     assert torch.equal(got, getattr(tm, piece + "_reference")(*args[0], **args[1]))
