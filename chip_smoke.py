@@ -409,6 +409,24 @@ def taps_plans(tm, B: int, H: int, W: int) -> list[tuple[int, int]]:
                                                     tm.taps_blocks_per_sm(tile) * tm.TAPS_SMS))})]
 
 
+def varm_plans(tv, B: int, C: int, H: int, W: int, dilations) -> list[tuple[int, int, int]]:
+    """Every K3 kernel that takes the shapes, with one block, three, and one wave of the
+    blocks the card holds (or one a step where there are fewer steps)."""
+    plans = []
+    for k in sorted(tv.VARM_KERNELS):
+        if tv.varm_takes(H, W, tuple(dilations), *k):
+            smem = tv.varm_geometry(H, W, tuple(dilations), *k)[2]
+            wave = min(tv.varm_units(B, C, H, W, *k), tv.varm_blocks_per_sm(*k, smem) * tv.SMS)
+            plans += [(*k, blocks) for blocks in sorted({1, 3, max(1, wave)})]
+    return plans
+
+
+def affinity_plans(ta, H: int, W: int, dilations, mode: str) -> list[tuple[int, int]]:
+    """Every K2 kernel that takes the shapes."""
+    return [k for k in sorted(ta.AFFINITY_KERNELS)
+            if ta.affinity_takes(H, W, tuple(dilations), mode, *k)]
+
+
 def pseudo_batch(torch, gen, device):
     """A training batch as the SCD loader gives it: normalised images whose
     denormalised values look like rand * 255, 1-3 present classes per image,
@@ -1005,6 +1023,12 @@ class Phases:
                                f"affinity {mode} on the {kind} image, shape {tuple(got.shape)}: "
                                f"max abs err {err:.3e} (tol {AFFINITY_TOL:.0e}), values in "
                                f"[{got.min().item():.4f}, {got.max().item():.4f}]")
+                    # every plan, each run twice, gives the same bits
+                    plans = affinity_plans(ta, S, S, DILATIONS, mode)
+                    bad = [pl for pl in plans for _ in range(2) if not torch.equal(
+                        ta.affinity(img, DILATIONS, mode, w1=0.3, w2=0.01, plan=pl), got)]
+                    self.check(not bad, f"affinity {mode} on the {kind} image: {len(plans)} plans, "
+                                        f"each run twice, equal bits (not: {bad})")
                     if kind == "border" and mode != "par":
                         # deep in the frame every neighbour equals the centre
                         uniform = (1.0 if mode == "pamr" else 1.0 - 0.01) / K
@@ -1028,8 +1052,36 @@ class Phases:
                            f"varm_propagate C = {C}, {VARM_ITERS} iterations: "
                            f"{'equal to the plain version bit for bit' if same else 'NOT equal'}"
                            f", max abs err {err:.3e}")
+                # every plan, each run twice, gives the plain version's bits
+                plans = varm_plans(tv, B, C, S, S, DILATIONS)
+                bad = [pl for pl in plans for _ in range(2) if not torch.equal(
+                    tv.varm_propagate(masks[C], ref, DILATIONS, VARM_ITERS, plan=pl), want)]
+                self.check(not bad, f"varm_propagate C = {C}: {len(plans)} plans, each run twice, "
+                                    f"equal to the plain version bit for bit (plan "
+                                    f"{tv.varm_plan(B, C, S, S, DILATIONS)}; not: {bad})")
                 del got, want
+            self._refine_plans_vs_the_card(ta, tv, S)
         self.refine_inputs = (images["smooth"], ref, masks)
+
+    def _refine_plans_vs_the_card(self, ta, tv, S: int) -> None:
+        """The blocks an SM holds of each K2 and K3 kernel at the refinement's size, as
+        the card reports them, against the plans' estimates."""
+        from representationlearning_tpu_torch.ops import _build
+        lib = _build.load_library("refine")
+        rows = []
+        for k in tv.VARM_KERNELS:
+            smem = tv.varm_geometry(S, S, DILATIONS, *k)[2]
+            rows.append((f"varm_propagate {k}", lib.k3_varm_blocks_per_sm(*k, smem),
+                         tv.varm_blocks_per_sm(*k, smem)))
+        for k in ta.AFFINITY_KERNELS:
+            for mode in ("par", "varm"):
+                smem = ta.affinity_smem_bytes(S, S, DILATIONS, mode, *k)
+                rows.append((f"affinity {mode} {k}",
+                             lib.k2_affinity_blocks_per_sm(ta.MODES[mode], *k, smem),
+                             ta.affinity_blocks_per_sm(*k, mode, smem)))
+        self.check(all(card == est for _, card, est in rows),
+                   "blocks an SM holds, card against the plans' estimate: " +
+                   ", ".join(f"{name} {card}/{est}" for name, card, est in rows))
 
     def time_refine_kernels(self, ta, tv) -> None:
         """Device times of K2 and K3 at the pseudo-label path's shapes, and their
@@ -1042,27 +1094,36 @@ class Phases:
         K = ref.shape[1]
         with torch.no_grad():
             for mode in ("varm", "par", "pamr"):
-                k_ms = self.time_ms(lambda: ta.affinity(img, DILATIONS, mode), iters=20)
+                k_ms = self.graph_ms(lambda: ta.affinity(img, DILATIONS, mode))
                 p_ms = self.time_ms(lambda: ta.affinity_reference(img, DILATIONS, mode), iters=3)
-                log(f"  affinity {mode}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+                log(f"  affinity {mode}: kernel {k_ms:.4f} ms (plan "
+                    f"{ta.affinity_plan(B, H, W, DILATIONS, mode)}), plain {p_ms:.3f} ms")
                 if mode == "varm":  # the pseudo-label path's mode
                     self.piece_ms["affinity"], self.piece_plain_ms["affinity"] = k_ms, p_ms
             # per pixel and tap: mean 3, variance 9, logit 14, softmax 4, and for
             # varm the variation term 21 and its softmax 5
-            self.add_bound("affinity", nbytes(img, ref), 56.0 * B * H * W * K, PEAK_F32)
+            n_bytes, flops = nbytes(img, ref), 56.0 * B * H * W * K
+            self.add_bound("affinity", n_bytes, flops, PEAK_F32)
+            log(f"  affinity bound: {n_bytes / 1e6:.1f} MB a launch = "
+                f"{1e3 * n_bytes / PEAK_BYTES:.4f} ms, {flops / 1e9:.2f} GFLOP = "
+                f"{1e3 * flops / PEAK_F32:.4f} ms")
             for C, m in masks.items():
-                k_ms = self.time_ms(lambda: tv.varm_propagate(m, ref, DILATIONS, VARM_ITERS),
-                                    iters=5)
+                k_ms = self.graph_ms(lambda: tv.varm_propagate(m, ref, DILATIONS, VARM_ITERS),
+                                     iters=3)
                 p_ms = self.time_ms(
                     lambda: tv.varm_propagate_reference(m, ref, DILATIONS, VARM_ITERS), iters=2)
-                log(f"  varm_propagate C = {C}: kernel {k_ms:.3f} ms per call of {VARM_ITERS} "
-                    f"iterations ({k_ms / VARM_ITERS:.3f} ms per iteration), plain {p_ms:.3f} ms")
+                # one multiply and one add per tap, channel, pixel and iteration, unfused:
+                # two f32 instructions at half the 67 TFLOP/s that counts an FMA as two
+                n_bytes, flops = nbytes(m, ref, m), 2.0 * m.numel() * K
+                log(f"  varm_propagate C = {C}: kernel {k_ms:.4f} ms per call of {VARM_ITERS} "
+                    f"iterations ({1e3 * k_ms / VARM_ITERS:.2f} us a launch, plan "
+                    f"{tv.varm_plan(B, C, H, W, DILATIONS)}), plain {p_ms:.3f} ms; a launch: "
+                    f"{n_bytes / 1e6:.1f} MB = {1e6 * n_bytes / PEAK_BYTES:.2f} us, unfused "
+                    f"multiply-add floor {1e6 * flops / (PEAK_F32 / 2):.2f} us")
                 if C == 2 * (MAX_PRESENT + 1):  # the configured path (max_present = 8)
                     self.piece_ms["varm_propagate"] = k_ms
                     self.piece_plain_ms["varm_propagate"] = p_ms
-                    # one multiply and one add per tap, channel, pixel and iteration
-                    self.add_bound("varm_propagate", nbytes(m, ref, m),
-                                   2.0 * m.numel() * K * VARM_ITERS, PEAK_F32)
+                    self.add_bound("varm_propagate", n_bytes, flops * VARM_ITERS, PEAK_F32)
         self.piece_library_ms.update(affinity=None, varm_propagate=None)
 
     # ------------------------------------------------------------- phase 4
@@ -2259,7 +2320,7 @@ def main() -> int:
         state["rss_model"], state["rss_x"] = ph.run_rssformer(tm, ti)
 
     def timing():
-        log(f"== timing of K2 / K3 (CUDA events, {card})")
+        log(f"== timing of K2 / K3 (CUDA graph replay, {card})")
         ph.time_refine_kernels(ta, tv)
         ph.timing(tmb, state["model"], state["blocks"], state["x"], card)
         ph.timing_pseudo(tmb, state["twin"], state["twin_blocks"], state["args"], card)
@@ -2333,8 +2394,7 @@ def main() -> int:
             entry["bound_ms_f32_fma"] = ph.flash_fwd_fma_bound
             entry["ms_512_forward"] = ph.flash_eval_ms[""]
             entry["library_ms_512_forward"] = ph.flash_eval_ms["library"]
-        entry["timed_by"] = ("CUDA events around a loop" if k in ("affinity", "varm_propagate",
-                                                                  "mit_block_presr")
+        entry["timed_by"] = ("CUDA events around a loop" if k == "mit_block_presr"
                              else "CUDA graph replay (kernel and library call)")
         if k == "attention":  # the library call covers the launches that export nothing
             for which, part in ph.attn_split.items():

@@ -44,10 +44,14 @@ SIGNATURES = {
         "k1_gelu_as_mismatches": (),   # a check of the tests: returns a count
     },
     "refine": {
-        # imgs, out, B, H, W, dilations (host), n_dil, mode, scale, w2, pos (host), stream
-        "k2_affinity": (_P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _P),
-        # src, ref, dst, B, C, H, W, dilations (host), n_dil, stream
-        "k3_varm_iter": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _P),
+        # imgs, out, B, H, W, dilations (host), n_dil, mode, scale, w2, pos (host), rows,
+        # held, stream
+        "k2_affinity": (_P, _P, _I, _I, _I, _P, _I, _I, _F, _F, _P, _I, _I, _P),
+        "k2_affinity_blocks_per_sm": (_I, _I, _I, _I),   # mode, rows, held, smem
+        # src, ref, dst, B, C, H, W, dilations (host), n_dil, tile rows, pixels, blocks,
+        # iteration, stream
+        "k3_varm_iter": (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _P),
+        "k3_varm_blocks_per_sm": (_I, _I, _I),   # tile rows, pixels, smem
     },
     "attention": {
         # q, k, v, o, lse, BH, Nq, Nk, D, scale, is_bf16, warps, blocks, stream

@@ -92,3 +92,68 @@ def test_pos_softmax_is_the_jax_constant():
 def test_affinity_refuses_an_unknown_mode():
     with pytest.raises(ValueError, match="mode"):
         TA.affinity(torch.zeros(1, 3, 8, 8), (1,), "nope")
+
+
+# The kernel's plans, checked on the CPU
+D6 = SCD_DILATIONS
+SHAPES = [(8, 160, 160), (8, 256, 256), (2, 13, 37), (2, 33, 40), (2, 9, 9), (1, 1, 1)]
+
+
+@pytest.mark.parametrize("mode", ["par", "pamr", "varm"])
+@pytest.mark.parametrize("B,H,W", SHAPES)
+def test_affinity_plans_cover_every_pixel_once(B, H, W, mode):
+    from chip_smoke import affinity_plans
+
+    plan = TA.affinity_plan(B, H, W, D6, mode)
+    assert plan == TA.affinity_plan(B, H, W, tuple(D6), mode)  # a function of the shapes
+    plans = affinity_plans(TA, H, W, D6, mode)
+    assert plan in plans
+    for plan in plans:
+        # the kernel's grid: block (i, j, b) makes image b's rows [rows * j, rows * (j + 1))
+        # and columns [32 * i, 32 * (i + 1)), within the image
+        gx, gy, gb = -(-W // 32), -(-H // plan[0]), B
+        seen = np.zeros((B, H, W), np.int32)
+        for b in range(gb):
+            for j in range(gy):
+                for i in range(gx):
+                    seen[b, plan[0] * j:plan[0] * (j + 1), 32 * i:32 * (i + 1)] += 1
+        assert (seen == 1).all(), plan
+
+
+@pytest.mark.parametrize("mode", ["par", "varm"])
+def test_affinity_plan_on_a_cpu_tensor_runs_the_plain_version(mode):
+    img = _images("random", (2, 20, 28), seed=5)
+    want = _xla_affinity(jnp.asarray(img), (1, 2, 4), mode, 0.3, 0.01)
+    for plan in ((8, 6), (4, 16)):
+        got = TA.affinity(torch.from_numpy(img.transpose(0, 3, 1, 2).copy()), (1, 2, 4), mode,
+                          w1=0.3, w2=0.01, plan=plan)
+        assert TA.LAUNCHES["affinity"] == 0
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("plan,dil,hw", [((3, 6), D6, 16), ((8, 6), tuple(range(1, 8)), 16),
+                                         ((8, 6), (1, 30), 64), ((8,), D6, 16),
+                                         (None, D6, 16)])
+def test_affinity_refuses_a_plan_the_kernel_does_not_take_on_the_cpu_too(plan, dil, hw):
+    with pytest.raises(ValueError, match="plan"):
+        TA.affinity(torch.zeros(1, 3, hw, hw), dil, "varm", plan=plan or "fast")
+
+
+def test_affinity_sixteen_dilation_kernel_takes_what_the_six_do_not():
+    assert TA.affinity_plan(1, 64, 64, (1, 30), "varm") == (4, 16)
+    assert TA.affinity_plan(1, 16, 16, tuple(range(1, 9)), "par") == (4, 16)
+
+
+@pytest.mark.parametrize("mode", ["par", "varm"])
+@pytest.mark.parametrize("B,H,W", SHAPES)
+def test_affinity_blocks_per_sm_estimate_stays_within_an_sm(B, H, W, mode):
+    for (rows, held), regs in TA.AFFINITY_KERNELS.items():
+        if not TA.affinity_takes(H, W, D6, mode, rows, held):
+            continue
+        smem = TA.affinity_smem_bytes(H, W, D6, mode, rows, held)
+        n = TA.affinity_blocks_per_sm(rows, held, mode, smem)
+        threads = 32 * rows
+        assert n >= 1 and smem <= TA.SMEM_LIMIT
+        assert n * (smem + 1024) <= TA.SMEM_PER_SM, (rows, held)
+        assert n * threads * -(-regs[mode == "varm"] // 8) * 8 <= TA.REGS_PER_SM, (rows, held)
+        assert n * threads <= 2048

@@ -12,7 +12,7 @@ import math
 import pytest
 import torch
 
-from chip_smoke import isa_trap_move, taps_plans
+from chip_smoke import affinity_plans, isa_trap_move, taps_plans, varm_plans
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -355,6 +355,74 @@ def test_varm_propagate_equals_plain(dev, H, W, C, dil, num_iter, layout):
     got = TV.varm_propagate(masks, ref, dil, num_iter)
     assert TV.LAUNCHES["varm_propagate"] == before + num_iter
     assert torch.equal(got, TV.varm_propagate_reference(masks, ref, dil, num_iter))
+
+
+# the pseudo-label call's planes (18 and 42 mask planes at 160^2) and the edges: a
+# plane shorter than the halo, 1 x 1, W not a multiple of 4
+REFINE_PLANES = [(2, 18, 160, 160), (1, 42, 160, 160), (2, 5, 13, 37), (2, 18, 33, 40),
+                 (2, 3, 9, 9), (2, 2, 1, 1)]
+
+
+@pytest.mark.parametrize("B,C,H,W", REFINE_PLANES)
+def test_varm_propagate_every_plan_equals_plain(dev, B, C, H, W):
+    """Every plan, and each plan run twice, equals the plain version bit for bit."""
+    g = torch.Generator().manual_seed(B * C * H * W)
+    masks = torch.rand((B, C, H, W), generator=g).to(dev)
+    ref = TA.affinity_reference(_image(g, B, H, W, dev), SCD_DILATIONS, "varm")
+    want = TV.varm_propagate_reference(masks, ref, SCD_DILATIONS, 3)
+    plans = varm_plans(TV, B, C, H, W, SCD_DILATIONS)
+    assert TV.varm_plan(B, C, H, W, SCD_DILATIONS) in plans
+    for plan in plans:
+        for _ in range(2):
+            before = TV.LAUNCHES["varm_propagate"]
+            got = TV.varm_propagate(masks, ref, SCD_DILATIONS, 3, plan=plan)
+            assert TV.LAUNCHES["varm_propagate"] == before + 3
+            assert torch.equal(got, want), plan
+
+
+@pytest.mark.parametrize("mode", ["par", "pamr", "varm"])
+@pytest.mark.parametrize("B,H,W,dil", [(2, 160, 160, SCD_DILATIONS), (2, 13, 37, SCD_DILATIONS),
+                                       (2, 33, 40, SCD_DILATIONS), (2, 9, 9, SCD_DILATIONS),
+                                       (1, 1, 1, SCD_DILATIONS), (2, 11, 21, tuple(range(1, 17)))])
+def test_affinity_every_plan_gives_equal_bits(dev, B, H, W, dil, mode):
+    """Every plan, and each plan run twice, gives the same bits, within 2e-5 of the
+    plain version."""
+    img = _image(torch.Generator().manual_seed(H * W + 1), B, H, W, dev, border=H > 20)
+    want = TA.affinity_reference(img, dil, mode, w1=0.3, w2=0.01)
+    first = None
+    plans = affinity_plans(TA, H, W, dil, mode)
+    assert TA.affinity_plan(B, H, W, dil, mode) in plans
+    for plan in plans:
+        for _ in range(2):
+            got = TA.affinity(img, dil, mode, w1=0.3, w2=0.01, plan=plan)
+            assert (got - want).abs().max().item() <= 2e-5, plan
+            first = got if first is None else first
+            assert torch.equal(got, first), plan
+
+
+def test_refine_blocks_per_sm_match_the_estimates(dev):
+    from representationlearning_tpu_torch.ops import _build
+
+    lib = _build.load_library("refine")
+    for k in TV.VARM_KERNELS:
+        smem = TV.varm_geometry(160, 160, SCD_DILATIONS, *k)[2]
+        assert lib.k3_varm_blocks_per_sm(*k, smem) == TV.varm_blocks_per_sm(*k, smem), k
+    for (rows, held) in TA.AFFINITY_KERNELS:
+        for mode in ("par", "varm"):
+            smem = TA.affinity_smem_bytes(160, 160, SCD_DILATIONS, mode, rows, held)
+            assert (lib.k2_affinity_blocks_per_sm(TA.MODES[mode], rows, held, smem)
+                    == TA.affinity_blocks_per_sm(rows, held, mode, smem)), (mode, rows, held)
+
+
+def test_refine_kernels_refuse_plans_they_do_not_take(dev):
+    masks = torch.zeros(1, 2, 8, 8, device=dev)
+    ref = torch.zeros(1, 8 * 7, 8, 8, device=dev)
+    with pytest.raises(ValueError, match="plan"):   # two pixels a thread hold six dilations
+        TV.varm_propagate(masks, ref, tuple(range(1, 8)), 1, plan=(32, 2, 4))
+    with pytest.raises(ValueError, match="plan"):
+        TV.varm_propagate(masks, ref[:, :8], (1,), 1, plan=(24, 2, 4))
+    with pytest.raises(ValueError, match="plan"):
+        TA.affinity(torch.zeros(1, 3, 8, 8, device=dev), tuple(range(1, 8)), "varm", plan=(8, 6))
 
 
 def test_refine_runs_both_kernels(dev):

@@ -97,7 +97,8 @@ def test_kernel_build_is_keyed_by_the_sources():
     assert set(_build.SIGNATURES["rssformer"]) == {"k5_mlp_fc1", "k5_fc1_blocks_per_sm",
                                                    "k5_mlp_taps", "k5_taps_blocks_per_sm",
                                                    "k6_isa_core", "k6_isa_blocks_per_sm"}
-    assert set(_build.SIGNATURES["refine"]) == {"k2_affinity", "k3_varm_iter"}
+    assert set(_build.SIGNATURES["refine"]) == {"k2_affinity", "k2_affinity_blocks_per_sm",
+                                                "k3_varm_iter", "k3_varm_blocks_per_sm"}
     assert set(_build.SIGNATURES["attention"]) == {"k4_flash_fwd", "k4_flash_fwd_blocks_per_sm",
                                                    "k4_flash_bwd"}
     ignored = (ROOT / ".gitignore").read_text().split()
