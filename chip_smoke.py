@@ -49,11 +49,14 @@ the PRE_SR variant of K1 (K1').
 6. K4 vs plain: flash attention forward and backward (dq, dk, dv against autograd
    through the plain version, random cotangent; two backward runs give equal
    bits) at the train step's six geometries, the three of the 512 x 512
-   forward, Nk = 1 and one bf16 case; at the train geometries two more forward
+   forward, Nk = 1 and one bf16 case; every backward plan of ``bwd_plans`` at the
+   step's first geometry (twice each, equal bits); at the train geometries two more forward
    runs give o and the row logsumexp with equal bits, the logsumexp within 1e-5
    of ``torch.logsumexp``, and forward and backward, the plain version and the
    library call are timed by CUDA-graph replay (the 512 x 512 geometries'
-   forward too, apart from the step's sums); ``TSCD(use_flash=True)`` in eval against
+   forward too, apart from the step's sums), beside the bounds (both directions as
+   3xTF32 products, and as f32 multiply-adds) and the backward's plan and workspace
+   a launch; ``TSCD(use_flash=True)`` in eval against
    ``use_flash=False`` on the same weights;
 7. train step: a few steps through ``make_scd_train_step``; launch counts of
    every kernel per step; the first step's losses and gradient norms per
@@ -425,6 +428,16 @@ def affinity_plans(ta, H: int, W: int, dilations, mode: str) -> list[tuple[int, 
     """Every K2 kernel that takes the shapes."""
     return [k for k in sorted(ta.AFFINITY_KERNELS)
             if ta.affinity_takes(H, W, tuple(dilations), mode, *k)]
+
+
+def bwd_plans(tf, BH: int, Nq: int, Nk: int, D: int, dtype) -> list[tuple[int, int]]:
+    """K4 backward's plans worth checking: every tile height with one share (no bh cut),
+    two, seven and one tile a share, and `bwd_plan`'s own for an H100."""
+    plans = {tf.bwd_plan(BH, Nq, Nk, D, dtype)}
+    for rows in tf.BWD_ROWS:
+        tiles = -(-Nq // rows)
+        plans |= {(rows, s) for s in (1, 2, 7, tiles) if s <= tiles}
+    return sorted(plans)
 
 
 def pseudo_batch(torch, gen, device):
@@ -1344,7 +1357,8 @@ class Phases:
             self.piece_err[k] = self.piece_ms[k] = self.piece_plain_ms[k] = 0.0
             self.piece_library_ms[k] = 0.0
         self.piece_err["flash_bf16"] = 0.0
-        self.flash_fwd_fma_bound = 0.0
+        self.flash_fwd_fma_bound = self.flash_bwd_fma_bound = 0.0
+        self.flash_bwd_workspace = {}  # bytes of the backward's workspace a launch
         self.flash_eval_ms = {"": 0.0, "library": 0.0}
         self.library_covers.update(
             flash_fwd="F.scaled_dot_product_attention on the same f32 tensors",
@@ -1379,6 +1393,8 @@ class Phases:
                 self.piece_err[key] = max(self.piece_err[key], err)
             self.check(all(torch.equal(a, b) for a, b in zip(grads, again)),
                        f"flash backward @ {at}: two runs on the same inputs give equal bits")
+            if (BH, Nq, Nk) == train[0] and dtype == f32:
+                self._flash_bwd_plans(tf, q, k, v, do, want_grads, scale, at)
             if what == "train step":
                 with torch.no_grad():
                     runs = [tf.flash_forward(q, k, v, scale) for _ in range(2)]
@@ -1430,10 +1446,45 @@ class Phases:
             self.add_bound("flash_fwd", nbytes(q, k, v, out) + lse, 3 * ops, PEAK_TF32,
                            times=DEPTH)
             self.flash_fwd_fma_bound += DEPTH * 1e3 * ops / PEAK_F32
-            # backward: q, k, v, o, do, lse read, dq, dk, dv written; 5 products
-            self.add_bound("flash_bwd", nbytes(q, k, v, out, do, grads) + lse,
-                           10.0 * BH * Nq * Nk * HD, PEAK_F32, times=DEPTH)
+            # backward: q, k, v, o, do, lse read, dq, dk, dv written; 5 products of
+            # 2 BH Nq Nk hd operations, as three TF32 products each (the bound) and as f32
+            # multiply-adds beside it
+            ops = 10.0 * BH * Nq * Nk * HD
+            self.add_bound("flash_bwd", nbytes(q, k, v, out, do, grads) + lse, 3 * ops,
+                           PEAK_TF32, times=DEPTH)
+            self.flash_bwd_fma_bound += DEPTH * 1e3 * ops / PEAK_F32
+            rows, shares = tf.bwd_plan(BH, Nq, Nk, HD, f32, sms=tf._sms(0))
+            plan = tf.bwd_plan(BH, Nq, Nk, HD, f32, tf._bwd_blocks_per_sm(Nk, HD, False, rows),
+                               tf._sms(0))
+            ws = 4 * tf.bwd_workspace_floats(BH, Nq, Nk, HD, plan[1])
+            self.flash_bwd_workspace[f"({BH}, {Nq}, {Nk})"] = ws
+            log(f"  flash_bwd @ ({BH}, {Nq}, {Nk}): plan (rows, shares) {plan}, workspace "
+                f"{ws} bytes a launch")
             del out, want, sdpa, grads, again, want_grads
+
+    def _flash_bwd_plans(self, tf, q, k, v, do, want_grads, scale, at) -> None:
+        """Every backward plan of `bwd_plans` twice: equal bits on a rerun, within the
+        tolerance; the one-share plans (no bh cut) equal to each other at every tile height."""
+        torch = self.torch
+        with torch.no_grad():
+            o, lse = tf.flash_forward(q, k, v, scale)
+            one_share, worst, same = None, 0.0, True
+            plans = bwd_plans(tf, q.shape[0], q.shape[1], k.shape[1], HD, q.dtype)
+            for plan in plans:
+                got = tf.flash_backward(q, k, v, o, lse, do, scale, plan=plan)
+                again = tf.flash_backward(q, k, v, o, lse, do, scale, plan=plan)
+                same &= all(torch.equal(a, b) for a, b in zip(got, again))
+                if plan[1] == 1:
+                    one_share = one_share or got
+                    same &= all(torch.equal(a, b) for a, b in zip(got, one_share))
+                for g, w in zip(got, want_grads):
+                    err, mag = max_err(g, w)
+                    worst = max(worst, err / (FLASH_TOL["bwd"] * max(1.0, mag)))
+            torch.cuda.synchronize()
+        self.check(same, f"flash backward @ {at}: each of {len(plans)} plans {plans} twice gives "
+                         "equal bits, the one-share plans equal at every tile height")
+        self.check(worst <= 1.0, f"flash backward @ {at}: every plan within FLASH_TOL['bwd'] "
+                                 f"(worst {worst:.3f} of it)")
 
     def flash_model(self, tf) -> None:
         """TSCD(use_flash=True) in eval against use_flash=False on the same weights."""
@@ -2389,6 +2440,9 @@ def main() -> int:
             entry["library_front_ms"] = ph.presr_front_ms
             entry["library_front_graph_ms"] = ph.front_graph_ms["library"]
             entry["k1_front_graph_ms"] = ph.front_graph_ms["k1"]
+        if k == "flash_bwd":  # the bound as f32 multiply-adds beside the 3xTF32 one
+            entry["bound_ms_f32_fma"] = ph.flash_bwd_fma_bound
+            entry["workspace_bytes_a_launch"] = ph.flash_bwd_workspace
         if k == "flash_fwd":  # both directions, at its looser tolerance
             entry["max_abs_err_bf16"] = ph.piece_err["flash_bf16"]
             entry["bound_ms_f32_fma"] = ph.flash_fwd_fma_bound

@@ -47,106 +47,14 @@
 //     16-byte stores; `lse` is written once per row.
 //   * No float atomics: each output row is summed by one warp in a fixed order,
 //     whatever the plan, so every plan and every rerun gives the same bits.
-#include <math_constants.h>
-#include <stdint.h>
-
 #include "common.cuh"
 
 namespace k4 {
 
 constexpr int kFwdMaxWarps = 8;
 constexpr int kFwdLongTile = 128;  // keys a tile where Nk > 128
-constexpr int kFwdSmemLimit = 227 * 1024;
 
 // ------------------------------------------------------------ warp-level pieces
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from device memory to shared memory; zeros where `valid` is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x = big + small for the TF32 products. The tensor cores read a TF32 operand from the
-// upper 19 bits of its register and ignore the low 13, so x itself serves as big (x
-// truncated to 11 significant bits), and small = x - trunc(x) is exact, itself truncated
-// to 11 bits where it is read: big + small holds x to within 2^-21 of it. A logical and
-// a subtraction a value, where rounding both halves with `cvt.rna.tf32.f32` (the
-// conversion unit, a quarter of the f32 rate or less) or by Veltkamp's splitting (five
-// operations) made the kernel slower (PERF.md, PR 9): the splits were most of its
-// instructions.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
-  big = __float_as_uint(x);
-  small = __float_as_uint(__fsub_rn(x, __uint_as_float(big & 0xffffe000u)));
-}
-
-// mma.sync m16n8k8, TF32 operands, f32 sums. With g = lane / 4, t = lane % 4:
-//   A: a0 (row g, k t), a1 (row g + 8, k t), a2 (row g, k t + 4), a3 (row g + 8, k t + 4)
-//   B: b0 (k t, n g), b1 (k t + 4, n g);  C: c0, c1 (row g, n 2t, 2t + 1), c2, c3 (row g + 8)
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// a (x) b in 3xTF32: small.big + big.small + big.big
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
-                                           uint32_t bs0, uint32_t bs1) {
-  mma_tf32(c, as, bb0, bb1);
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
-}
-
-// mma.sync m16n8k16, bf16 operands, f32 sums: A a0 (row g, k 2t..2t+1), a1 (row g + 8),
-// a2 (row g, k 2t+8..2t+9), a3 (row g + 8); B b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9);
-// C as above
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// four 8 x 8 bf16 matrices; lane l gives the address of row l % 8 of matrix l / 8 and
-// receives of matrix i the pair (row g, columns 2t..2t+1), or with .trans (rows 2t..2t+1,
-// column g)
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x with one `ex2.approx` (2 ulp); 2^-inf = 0
-__device__ __forceinline__ float exp2_approx(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -177,7 +85,7 @@ inline void fwd_tiles(int Nk, int D, int bf16, int warps, int& bk, int& nkt, int
   const int e = bf16 ? 2 : 4;
   const int q = warps * 2 * 16 * (D + 8) * e;
   const int kv = bk * ((D + 8) + (bf16 ? D + 8 : D + 4)) * e;
-  slots = q + nkt * kv <= kFwdSmemLimit ? nkt : 2;
+  slots = q + nkt * kv <= kSmemLimit ? nkt : 2;
   smem = q + slots * kv;
 }
 
@@ -325,14 +233,6 @@ __device__ __forceinline__ void tile_f32(const float* Q, const float* K, const f
   }
 }
 
-// The A fragments of a warp's 16 bf16 query rows, from its stage
-template <int D>
-__device__ __forceinline__ void q_frags_bf16(uint32_t (&qa)[D / 16][4], const bf16* Q, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qa[kk], Q + ((lane & 7) + ((lane >> 3) & 1) * 8) * (D + 8) + 16 * kk + (lane >> 4) * 8);
-}
-
 // One key tile for one 16-row query tile, bf16 operands
 template <int D, int NT>
 __device__ __forceinline__ void tile_bf16(const uint32_t (&qa)[D / 16][4], const bf16* K,
@@ -422,7 +322,7 @@ __device__ __forceinline__ void key_tile(const FwdArgs& p, const T* Q, const T* 
     tile_f32<D, NT>(Q, K, V, st, nk, p.c, lane);
   } else {
     uint32_t qa[D / 16][4];
-    q_frags_bf16<D>(qa, Q, lane);
+    a_frags_bf16<D>(qa, Q, D + 8, lane);
     tile_bf16<D, NT>(qa, K, V, st, nk, p.c, lane);
   }
 }
@@ -506,7 +406,7 @@ struct FwdKernel {
   // the shared-memory grant, once per instantiation: the largest a block may ask for
   static cudaError_t prepare() {
     static const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmemLimit);
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     return err;
   }
 
@@ -565,10 +465,10 @@ extern "C" int k4_flash_fwd(const void* q, const void* k, const void* v, void* o
         reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) & 15) != 0)
     return (int)cudaErrorMisalignedAddress;
   FwdArgs p{q, k, v, o, (float*)lse, BH, Nq, Nk, (Nq + 15) / 16,
-            scale * 1.4426950408889634f, 0, 0, 0};
+            scale * kLog2e, 0, 0, 0};
   int smem = 0;
   fwd_tiles(Nk, D, is_bf16, warps, p.bk, p.nkt, p.slots, smem);
-  if (smem > kFwdSmemLimit) return (int)cudaErrorInvalidValue;
+  if (smem > kSmemLimit) return (int)cudaErrorInvalidValue;
   return (int)dispatch(D, is_bf16, p.bk, [&](auto kf) {
     return decltype(kf)::launch(p, warps, blocks, smem, (cudaStream_t)stream);
   });
@@ -581,7 +481,7 @@ extern "C" int k4_flash_fwd_blocks_per_sm(int Nk, int D, int is_bf16, int warps)
   if (!fwd_takes(Nk, D, warps)) return -1;
   int bk, nkt, slots, smem;
   fwd_tiles(Nk, D, is_bf16, warps, bk, nkt, slots, smem);
-  if (smem > kFwdSmemLimit) return -1;
+  if (smem > kSmemLimit) return -1;
   int n = -1;
   dispatch(D, is_bf16, bk, [&](auto kf) {
     n = decltype(kf)::blocks_per_sm(warps, smem);

@@ -57,9 +57,11 @@ SIGNATURES = {
         # q, k, v, o, lse, BH, Nq, Nk, D, scale, is_bf16, warps, blocks, stream
         "k4_flash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P),
         "k4_flash_fwd_blocks_per_sm": (_I, _I, _I, _I),  # Nk, D, is_bf16, warps
-        # q, k, v, o, do, lse, dq, dk, dv, ws, BH, Nq, Nk, D, scale, chunk, is_bf16, stream
+        # q, k, v, o, do, lse, dq, dk, dv, ws, BH, Nq, Nk, D, scale, is_bf16, rows, shares,
+        # stream
         "k4_flash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                         _P),
+                         _I, _P),
+        "k4_flash_bwd_blocks_per_sm": (_I, _I, _I, _I),  # Nk, D, is_bf16, rows
     },
     "rssformer": {
         # x, w1, b1, scale1, shift1, h, M, Cin, warps, steps a block, stream

@@ -12,7 +12,7 @@ import math
 import pytest
 import torch
 
-from chip_smoke import affinity_plans, isa_trap_move, taps_plans, varm_plans
+from chip_smoke import affinity_plans, bwd_plans, isa_trap_move, taps_plans, varm_plans
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -575,6 +575,88 @@ def test_flash_forward_near_one_hot_and_equal_scores(dev, dtype, Nk):
         _close(lse, _lse_want(q, k, scale), 1e-5)
         _close(o[:, 7], v.float().mean(dim=1), FLASH_TOL[dtype])    # the uniform rows
         _close(lse[:, 7], torch.full((4,), math.log(Nk), device=dev), 1e-6)
+
+
+# K4 backward against autograd through the plain version: f32 2e-4 (chip_smoke.py's
+# FLASH_TOL["bwd"]: the same products in another order, p from the forward's lse); bf16
+# as the forward, p and ds rounded to bf16 before their products.
+FLASH_BWD_TOL = {torch.float32: 2e-4, BF16: 2e-2}
+
+
+def _bwd_case(dev, dtype, BH, Nq, Nk, D, seed, scale=None, zero_row=None):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (_rand(g, BH, n, D, dev=dev) for n in (Nq, Nk, Nk, Nq))
+    if zero_row is not None:
+        q[:, zero_row] = 0.0   # a row of equal scores: a uniform softmax
+    q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+    scale = D ** -0.5 if scale is None else scale
+    o, lse = TF.flash_forward(q, k, v, scale)
+    want = TF.flash_backward_reference(q, k, v, do, scale)
+    return (q, k, v, o, lse, do, scale), want
+
+
+def _close_grads(got, want, dtype):
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape and bool(torch.isfinite(a.float()).all())
+        _close(a, w, FLASH_BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("BH,Nq,Nk,D", [(8, 576, 9, 64), (3, 70, 9, 64), (2, 577, 100, 64),
+                                        (5, 130, 257, 32), (2, 300, 129, 64), (40, 36, 9, 64)])
+def test_flash_backward_every_plan_gives_equal_bits(dev, dtype, BH, Nq, Nk, D):
+    """Every plan of chip_smoke.bwd_plans (each tile height with one share, two, seven and one
+    tile a share, and bwd_plan's own) within FLASH_BWD_TOL, twice with equal bits; the
+    one-share plans cut no bh and give equal bits at every tile height."""
+    args, want = _bwd_case(dev, dtype, BH, Nq, Nk, D, seed=BH * Nq + Nk)
+    one_share = None
+    for plan in bwd_plans(TF, BH, Nq, Nk, D, dtype):
+        got = TF.flash_backward(*args, plan=plan)
+        again = TF.flash_backward(*args, plan=plan)
+        _close_grads(got, want, dtype)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), plan
+        if plan[1] == 1:
+            one_share = one_share or got
+            assert all(torch.equal(a, b) for a, b in zip(got, one_share)), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("Nk", [1, 9, 16, 100, 128, 129, 300])
+@pytest.mark.parametrize("Nq", [1, 15, 16, 17, 65])
+def test_flash_backward_at_the_edges(dev, dtype, D, Nk, Nq):
+    """dq, dk, dv within FLASH_BWD_TOL of autograd through the plain version, one launch a
+    call, equal bits on a rerun."""
+    args, want = _bwd_case(dev, dtype, 3, Nq, Nk, D, seed=Nq * 1000 + Nk)
+    before = TF.LAUNCHES["flash_bwd"]
+    got = TF.flash_backward(*args)
+    assert TF.LAUNCHES["flash_bwd"] == before + 1
+    _close_grads(got, want, dtype)
+    again = TF.flash_backward(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("Nk", [9, 100, 257])
+def test_flash_backward_near_one_hot_and_equal_scores(dev, dtype, Nk):
+    """Scores scaled by 30 (probabilities down to exp(-hundreds)) and rows of equal scores."""
+    for scale in (30 * 64 ** -0.5, 64 ** -0.5):
+        args, want = _bwd_case(dev, dtype, 4, 100, Nk, 64, seed=Nk, scale=scale, zero_row=7)
+        _close_grads(TF.flash_backward(*args), want, dtype)
+
+
+def test_flash_backward_refuses_what_the_kernel_does_not_take(dev):
+    g = torch.Generator().manual_seed(5)
+    q, k, v, do = (_rand(g, 2, n, 64, dev=dev) for n in (20, 9, 9, 20))
+    o, lse = TF.flash_forward(q, k, v, 0.125)
+    for plan in ((8, 1), (16, 0), (16, 3), (64, 2), (16,), "ab"):
+        with pytest.raises(ValueError, match="plan"):
+            TF.flash_backward(q, k, v, o, lse, do, 0.125, plan=plan)
+    with pytest.raises(ValueError, match="lse"):
+        TF.flash_backward(q, k, v, o, lse[:, :3], do, 0.125)
+    with pytest.raises(TypeError, match="float32"):
+        TF.flash_backward(q, k, v, o, lse.double(), do, 0.125)
+    assert TF.check_bwd_plan((16, 2), 20, 9, 64, torch.float32) == (16, 2)
 
 
 def test_tscd_use_flash_runs_k4_forward_and_backward(dev):

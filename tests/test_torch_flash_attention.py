@@ -105,9 +105,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         with pytest.raises((ValueError, TypeError), match="flash_attention"):
             TA._check(*bad)
     assert TA._check(q, q[:, :3].contiguous(), q[:, :3].contiguous()) == (2, 8, 3, 64)
-    # the backward's chunking depends on the shape only and fills the card
-    assert TA.bwd_chunk(8, 6400) == 1 and TA.bwd_chunk(8, 16384) == 3
-    assert TA.bwd_chunk(1, 1) == 1
+    # the backward's plan depends on the shape (and the card's occupancy) only
+    assert TA.bwd_plan(8, 6400, 100, 64, torch.float32, 1) == (64, 15)
+    assert TA.bwd_plan(1, 1, 1, 64) == (16, 1)
 
 
 def test_sr_attention_flash_branch_rules():
@@ -250,3 +250,87 @@ def test_flash_attention_refuses_an_invalid_plan(plan):
     with pytest.raises(ValueError, match="plan"):
         TA.flash_attention(q, k, k, 0.125, plan=plan)
     assert TA.flash_attention(q, k, k, 0.125, plan=(4, 1)).shape == q.shape
+
+
+# The backward kernel's plan (`bwd_plan`, `bwd_smem_bytes`, `check_bwd_plan`) at the train
+# step's six geometries, the 512 x 512 forward's three, one query and one key, and key
+# counts around the kernel's key tile of 128 (one tile, two, a tile and one key).
+BWD_GEOMETRIES = STEP_GEOMETRIES + EVAL_GEOMETRIES + [(1, 1, 1)] + [
+    (3, 70, nk) for nk in (1, 100, 128, 129, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64])
+@pytest.mark.parametrize("shape", BWD_GEOMETRIES)
+def test_backward_plan_fits_a_block(shape, D, dtype):
+    BH, Nq, Nk = shape
+    bf16 = dtype == torch.bfloat16
+    units = BH * -(-Nk // TA.BWD_KEYS)
+    for per_sm in (None, 1, 2, 3):
+        rows, shares = TA.bwd_plan(BH, Nq, Nk, D, dtype, per_sm)
+        tiles = -(-Nq // rows)
+        assert rows in TA.BWD_ROWS and 1 <= shares <= tiles
+        assert TA.bwd_smem_bytes(Nk, D, bf16, rows) <= TA.SMEM_LIMIT == 227 * 1024
+        cap = (per_sm or TA._bwd_blocks_per_sm_estimate(Nk, D, bf16, rows)) * TA.H100_SMS
+        # one wave: no more blocks than the card holds at once, unless every block has one
+        # (bh, key tile) to itself; and no run longer than one wave needs
+        assert units * shares <= max(cap, units)
+        longest = -(-tiles // shares)
+        assert longest == -(-tiles // max(1, min(tiles, cap // units)))
+        # a function of the shape: the same plan again, and the kernel takes it
+        assert TA.bwd_plan(BH, Nq, Nk, D, dtype, per_sm) == (rows, shares)
+        assert TA.check_bwd_plan((rows, shares), Nq, Nk, D, dtype) == (rows, shares)
+        for bad in ((rows, 0), (rows, tiles + 1), (8, 1), (128, 1), (rows,), "ab"):
+            with pytest.raises(ValueError, match="plan"):
+                TA.check_bwd_plan(bad, Nq, Nk, D, dtype)
+    # every tile height the kernel takes fits
+    for rows in TA.BWD_ROWS:
+        assert TA.bwd_smem_bytes(Nk, D, bf16, rows) <= TA.SMEM_LIMIT
+    floats = TA.bwd_workspace_floats(BH, Nq, Nk, D, 1)
+    assert floats == (BH * -(-Nk // 128) * Nq * D if Nk > 128 else 0)
+
+
+@pytest.mark.parametrize("shape", STEP_GEOMETRIES)
+def test_backward_plan_fills_the_card_at_the_train_step(shape):
+    """f32, hd 64, the occupancy the card reports for the chosen tile (one block an SM at
+    Nk 100): every SM has a block but for the rounding of the runs, and a bh's dk / dv
+    shares stay a few MB where the parent kernel wrote one a 64-row tile (41 MB at
+    (8, 6400, 100))."""
+    BH, Nq, Nk = shape
+    rows, _ = TA.bwd_plan(BH, Nq, Nk, 64, torch.float32)
+    per_sm = 1 if Nk > 64 else TA._bwd_blocks_per_sm_estimate(Nk, 64, False, rows)
+    rows, shares = TA.bwd_plan(BH, Nq, Nk, 64, torch.float32, per_sm)
+    tiles = -(-Nq // rows)
+    longest = -(-tiles // shares)
+    assert BH * shares >= min(TA.H100_SMS, BH * tiles) * longest / (longest + 1)
+    assert 4 * TA.bwd_workspace_floats(BH, Nq, Nk, 64, shares) <= 8e6
+
+
+@pytest.mark.parametrize("shape", TILEABLE + RAGGED)
+def test_flash_backward_on_cpu_matches_jax(shape):
+    """`flash_backward` on CPU tensors (its plain version) against the JAX package's
+    backward: the Pallas kernel interpreted at tileable shapes, `_xla_attention` else."""
+    q, k, v, cot = _inputs(shape, seed=4)
+    scale = shape[3] ** -0.5
+    jfn = functools.partial(JA.flash_attention, interpret=True) \
+        if JA._tileable(shape[1], shape[2], 256, 256) else JA._xla_attention
+    _, wg = _jax(q, k, v, cot, scale, jfn)
+    tq, tk, tv, tc = (torch.from_numpy(a) for a in (q, k, v, cot))
+    o = TA.flash_attention_reference(tq, tk, tv, scale)
+    lse = torch.logsumexp(tq @ tk.transpose(-1, -2) * scale, dim=-1)
+    TA.reset_launches()
+    got = TA.flash_backward(tq, tk, tv, o, lse, tc, scale, plan=(16, 1))
+    assert TA.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}   # CPU tensors: plain version
+    for a, b in zip(got, wg):
+        np.testing.assert_allclose(a.numpy(), b, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+
+
+@pytest.mark.parametrize("plan", [(8, 1), (16, 0), (16, 3), (64, 2), (16, 1, 1), (16,), "ab"])
+def test_flash_backward_refuses_an_invalid_plan(plan):
+    """Checked on any device: Nq = 20 has two 16-row tiles and one of 32 or 64."""
+    q, k = torch.zeros(2, 20, 64), torch.zeros(2, 9, 64)
+    lse = torch.zeros(2, 20)
+    with pytest.raises(ValueError, match="plan"):
+        TA.flash_backward(q, k, k, q, lse, q, 0.125, plan=plan)
+    dq, dk, dv = TA.flash_backward(q, k, k, q, lse, q, 0.125, plan=(16, 2))
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape

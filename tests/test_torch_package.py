@@ -100,7 +100,7 @@ def test_kernel_build_is_keyed_by_the_sources():
     assert set(_build.SIGNATURES["refine"]) == {"k2_affinity", "k2_affinity_blocks_per_sm",
                                                 "k3_varm_iter", "k3_varm_blocks_per_sm"}
     assert set(_build.SIGNATURES["attention"]) == {"k4_flash_fwd", "k4_flash_fwd_blocks_per_sm",
-                                                   "k4_flash_bwd"}
+                                                   "k4_flash_bwd", "k4_flash_bwd_blocks_per_sm"}
     ignored = (ROOT / ".gitignore").read_text().split()
     assert "representationlearning_tpu_torch/_build/" in ignored
 
