@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's four paths and checks them. The first is TSCD / MiT-B1
+Drives the port's five paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -17,8 +17,14 @@ K3), six losses, backward and one AdamW update a step. The fourth is the
 RSSFormer predict (``models/rssformer.py::HRNetFusion``): ``hrnetv2_w32``, 7
 classes, bf16 convolutions, 4 x 3 x 512 x 512, with the FFN of each of its eight
 transformer blocks on K5 (``ops/mlp_dwbn.py``) and their window attention on K6
-(``ops/isa_attention.py``). The headline forward also runs with ``pre_sr=True``,
-the PRE_SR variant of K1 (K1').
+(``ops/isa_attention.py``). The fifth is the RML train step
+(``train/rml.py::make_rml_train_step``) at the configuration of
+``bench.py::bench_rml_train``: the trained ``RMLModel("mit_b1", dtype=bf16)``, its
+bf16 fused CAM twin on the same parameters (K1 in six forwards of 32 a step),
+16 raw 512 x 512 canvases augmented on the card to 320 x 320 crops, PAR
+refinement (K2 in ``par`` mode, K3), the four RML losses, backward and one AdamW
+update a step. The headline forward also runs with ``pre_sr=True``, the PRE_SR
+variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -63,6 +69,12 @@ the PRE_SR variant of K1 (K1').
    parameter group against the same step on the plain path from the same seed
    and masks; frozen and updated parameters; step count and learning rate; the
    warm-up switch; a checkpoint saved and restored gives the same next step;
+7a. RML train step: three steps through ``make_rml_train_step`` on one raw batch;
+   launch counts of every kernel per step (K1 504, K2 1, K3 10, K4 / K5 / K6 0); the
+   first step's losses, refined labels and gradient norms per parameter group
+   against the same step with plain K1, K2 and K3 from the same seed; frozen and
+   updated parameters; step count and learning rate; the warm-up switch; one move
+   of the neck's running statistics a step;
 7b. K5 / K6 / K1' vs plain: K5 and its two pieces at the predict path's shape
    (4, 16384, 32), hid 128, and at two small odd planes (one below the dilations,
    one non-square); `mlp_fc1` at the TTA's batch of 2 and at its edges (M of 1 to
@@ -80,7 +92,8 @@ the PRE_SR variant of K1 (K1').
    ``pre_sr=False``, with its launch counts;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
-   whole pseudo-label call and of the train step, kernel path against plain path; the
+   whole pseudo-label call, of the train step and of the RML train step, kernel path
+   against plain path (with the RML step's peak memory and launches); the
    RSSFormer predict four ways (both flags on, each alone, both off) and the
    headline forward with and without ``pre_sr``.
 
@@ -159,6 +172,16 @@ def flash_shapes(side: int) -> list[tuple[int, int, int]]:
 LR, WEIGHT_DECAY, WARMUP, MAX_ITERS = 6e-5, 0.01, 1500, 20000
 TRAIN_STEPS = 3
 
+# The RML train step (bench.py::bench_rml_train): batch 16 of raw uint8 512 x 512
+# canvases holding a 375 x 500 image, augmented on the card to 320 x 320 crops
+# (scale 0.5-2.0, flip, pad, crop, normalise); CAM scales (0.5, 1, 1.5) on the full
+# and the 0.3-scale input, so K1 runs six [x; flip x] forwards of 32 a step; PAR
+# refinement (K2 in `par` mode, then K3) at 160 x 160 with 2 * (8 + 1) planes
+RML_BATCH, RML_CANVAS, RML_HW, RML_SCALES = 16, 512, (375, 500), (0.5, 1.0, 1.5)
+RML_WARMUP, RML_MAX_ITERS = 10, 1000
+RML_KERNELS = ("ln_stats", "linear", "sr_conv", "attention", "dwconv_gelu", "affinity",
+               "varm_propagate")  # launched in an RML train step; no other kernel is
+
 
 def cam_stages(side: int) -> list[tuple]:
     """The MiT-B1 block geometries of a `cam_only` forward at side x side: the
@@ -232,6 +255,10 @@ FLASH_MODEL_TOL = 2e-4
 # absolute floor for losses near zero.
 STEP_CLS_TOL = 1e-4
 STEP_TOL, STEP_ATOL = 2e-2, 2e-3
+# The RML step: `cls` and `mfml` read the trained model only, plain blocks on both
+# paths, so they agree to f32 rounding (1e-4 of their value); `ciml` and `apml` read
+# the twin's bf16 CAMs and the labels made from them (STEP_TOL, STEP_ATOL).
+RML_EXACT_TOL = 1e-4
 # The same step twice from a restored checkpoint: K1-K4 repeat bit for bit, but
 # `index_add_` in the bilateral grid and the backward of gathers, `grid_sample`
 # and resizes add with atomics in an order that changes from run to run.
@@ -465,6 +492,20 @@ def pseudo_batch(torch, gen, device):
     return x.to(device), cls.to(device), box.to(device)
 
 
+def rml_batch(torch, gen, device):
+    """The raw batch of bench.py::bench_rml_train: uniform uint8 noise on the
+    canvases, every image 375 x 500, and VOC-like labels (1, 2 or 3 present
+    classes with p = 0.7 / 0.2 / 0.1, `bench.py::_voc_like_labels`)."""
+    raw = torch.randint(0, 256, (RML_BATCH, 3, RML_CANVAS, RML_CANVAS), generator=gen,
+                        dtype=torch.uint8)
+    hw = torch.tensor([RML_HW] * RML_BATCH, dtype=torch.int32)
+    cls = torch.zeros((RML_BATCH, NUM_CLASSES - 1))
+    for i in range(RML_BATCH):
+        k = 1 + int(torch.multinomial(torch.tensor([0.7, 0.2, 0.1]), 1, generator=gen))
+        cls[i, torch.randperm(NUM_CLASSES - 1, generator=gen)[:k]] = 1.0
+    return {"raw": raw.to(device), "hw": hw.to(device), "cls_label": cls.to(device)}
+
+
 class Phases:
     def __init__(self, torch, seed: int):
         self.torch = torch
@@ -481,6 +522,7 @@ class Phases:
         self.launches: dict[str, int] = {}          # in the path that owns the kernel
         self.launches_pseudo: dict[str, int] = {}   # K1's, in the pseudo-label call
         self.launches_train: dict[str, int] = {}    # every kernel's, in one train step
+        self.launches_rml: dict[str, int] = {}      # every kernel's, in one RML train step
         self.refine_inputs = None
         # the 8 blocks of a headline forward, each as ONE function: least time
         # [bytes, operations], and the time the five kernels take for them
@@ -1677,6 +1719,158 @@ class Phases:
                        f"path {p_norms[k]:.6e} (tol {STEP_TOL * p_norms[k]:.2e})")
         return t, pl, batch
 
+    # ------------------------------------------------------------- phase 7a (RML)
+    def _rml_trainer(self, gen, cam_iters: int = -1):
+        """Model, fused CAM twin on the same parameters, optimiser state and step
+        function of bench.py::bench_rml_train; the step augments raw canvases on
+        the card."""
+        torch = self.torch
+        from representationlearning_tpu_torch.data.device_transforms import DeviceAugConfig
+        from representationlearning_tpu_torch.models.mit import FusedBlock
+        from representationlearning_tpu_torch.models.rml import RMLModel
+        from representationlearning_tpu_torch.models.tscd import share_parameters
+        from representationlearning_tpu_torch.train import optim
+        from representationlearning_tpu_torch.train import rml as tr
+        from representationlearning_tpu_torch.train.state import TrainState
+
+        model = RMLModel("mit_b1", NUM_CLASSES, dtype=torch.bfloat16, generator=gen)
+        twin = share_parameters(
+            RMLModel("mit_b1", NUM_CLASSES, dtype=torch.bfloat16, fused_blocks=True,
+                     collect_attns="none"), model).eval()
+        cfg = tr.RMLConfig(num_classes=NUM_CLASSES, crop_size=CROP, cam_scales=RML_SCALES,
+                           max_present=MAX_PRESENT, cam_iters=cam_iters)
+        state = TrainState.create(model, optim.make_poly_warmup_adamw(
+            model, LR, WEIGHT_DECAY, RML_WARMUP, RML_MAX_ITERS,
+            param_labels=optim.tscd_param_labels))
+        aug = DeviceAugConfig(crop_size=CROP, scale_range=(0.5, 2.0))
+        return SimpleNamespace(
+            model=model, twin=twin, cfg=cfg, state=state,
+            twin_blocks=[m for m in twin.encoder.modules() if isinstance(m, FusedBlock)],
+            step=tr.make_rml_train_step(model, cfg, cam_model=twin, aug_cfg=aug),
+            labels=optim.tscd_param_labels(n for n, _ in model.named_parameters()))
+
+    def _rml_step(self, t, batch, seed: int, norms: dict | None = None,
+                  labels: dict | None = None):
+        """`_one_step` of the RML trainer; with `labels`, the step's refined labels
+        are kept there under "refined"."""
+        from representationlearning_tpu_torch.train import rml as tr
+
+        if labels is None:
+            return self._one_step(t, batch, seed, norms)
+        inner = tr.rml_losses
+
+        def recording(*a, **kw):
+            losses, aux = inner(*a, **kw)
+            labels["refined"] = aux["refined_label"]
+            return losses, aux
+
+        tr.rml_losses = recording   # the step looks the function up in its module
+        try:
+            return self._one_step(t, batch, seed, norms)
+        finally:
+            tr.rml_losses = inner
+
+    def run_rml_steps(self, mods):
+        torch = self.torch
+        from representationlearning_tpu_torch.train import optim
+
+        tmb = mods[0]
+        log(f"== RML train step: make_rml_train_step, RMLModel(mit_b1) bf16 + bf16 fused CAM "
+            f"twin, {RML_BATCH} raw {RML_CANVAS} x {RML_CANVAS} canvases ({RML_HW[0]} x "
+            f"{RML_HW[1]}) augmented on the card to {CROP} x {CROP}, PAR, AdamW {LR}, "
+            f"warm-up {RML_WARMUP}")
+        gen = torch.Generator().manual_seed(self.seed + 7)
+        batch = rml_batch(torch, gen, self.dev)
+        state_gen = gen.get_state()
+        t = self._rml_trainer(gen)
+        self.check(all(p.is_cuda for p in t.model.parameters())
+                   and all(a is b for a, b in zip(t.twin.parameters(), t.model.parameters())),
+                   "model built on the card; the CAM twin holds the model's own parameters")
+        initial = {n: p.detach().clone() for n, p in t.model.named_parameters()}
+        n_fwd = 2 * len(RML_SCALES)  # CAM forwards of the twin a step, batch 32, 8 blocks each
+        n_sr = sum(DEPTH for _, _, _, sr, _ in STAGES if sr > 1)
+        want = {k: 0 for mod in mods for k in mod.LAUNCHES}
+        want.update(ln_stats=n_fwd * (2 * 8 + n_sr), linear=n_fwd * 5 * 8,
+                    sr_conv=n_fwd * n_sr, attention=n_fwd * 8, dwconv_gelu=n_fwd * 8,
+                    affinity=1, varm_propagate=VARM_ITERS)
+        k1 = sum(want[k] for k in PIECE_TOL)
+        sched = optim.poly_warmup_schedule(LR, RML_WARMUP, RML_MAX_ITERS)
+        first, norms, labels = None, {}, {}
+        for i in range(TRAIN_STEPS):
+            for mod in mods:
+                mod.reset_launches()
+            met = self._rml_step(t, batch, self.seed + 300 + i, *((norms, labels) if i == 0
+                                                                   else (None, None)))
+            counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+            first = first or met
+            if i == 0:
+                self.launches_rml = counts
+            log(f"  step {i + 1}: " + ", ".join(f"{k} {v:.6g}" for k, v in met.items()))
+            self.check(counts == want,
+                       f"step {i + 1} launch counts {counts}: K1 {k1} "
+                       f"({'/'.join(str(want[k]) for k in PIECE_TOL)}), K2 1 (par), "
+                       f"K3 {VARM_ITERS}, K4 / K5 / K6 0")
+            self.check(all(map(lambda v: v == v and abs(v) != float("inf"), met.values())),
+                       f"step {i + 1}: the four losses and the total are finite")
+            lrs = t.state.learning_rates
+            self.check(t.state.step == i + 1 and abs(lrs[0] - sched(i + 1)) <= 1e-12
+                       and abs(lrs[1] - 10 * sched(i + 1)) <= 1e-11,
+                       f"step count {t.state.step}, next learning rates {lrs[0]:.6e} (encoder) "
+                       f"and {lrs[1]:.6e} (heads) as the schedule says")
+        frozen = [n for n in initial if t.labels[n] == "norm"]
+        params = dict(t.model.named_parameters())
+        self.check(all(torch.equal(params[n], initial[n]) for n in frozen),
+                   f"the {len(frozen)} frozen encoder norm tensors are unchanged after "
+                   f"{TRAIN_STEPS} steps")
+        still = [n for n in initial if t.labels[n] != "norm" and torch.equal(params[n], initial[n])]
+        self.check(not still, f"every other parameter tensor ({len(initial) - len(frozen)}) "
+                              f"changed after {TRAIN_STEPS} steps" + (f"; not {still[:4]}"
+                                                                     if still else ""))
+        bn = t.model.neck.fuse_conv[1]
+        self.check(int(bn.num_batches_tracked) == TRAIN_STEPS
+                   and bool((bn.running_var != 1).all()),
+                   "the neck's BatchNorm running statistics moved once a step (the main "
+                   "forward's)")
+
+        # the warm-up switch: within cam_iters only `cls` is in the total
+        gen.set_state(state_gen)
+        w = self._rml_trainer(gen, cam_iters=2000)
+        met = self._rml_step(w, batch, self.seed + 300)
+        self.check(met["total"] == met["cls"] and abs(met["cls"] - first["cls"]) <= 1e-5,
+                   f"cam_iters = 2000: total {met['total']:.6f} = cls {met['cls']:.6f}, the same "
+                   "cls as with all four losses in the total")
+        del w
+
+        # the same first step on the plain path: plain K1, K2, K3, the same decisions
+        # and drop-path masks from the same seed
+        gen.set_state(state_gen)
+        pl = self._rml_trainer(gen)
+        self.check(all(torch.equal(p, initial[n]) for n, p in pl.model.named_parameters()),
+                   "the plain-path model starts from the same weights")
+        use_plain(pl.twin_blocks, tmb, True)
+        use_plain_refine(True)
+        p_norms, p_labels = {}, {}
+        for mod in mods:
+            mod.reset_launches()
+        try:
+            p_met = self._rml_step(pl, batch, self.seed + 300, p_norms, p_labels)
+        finally:
+            use_plain_refine(False)
+        self.check(sum(v for mod in mods for v in mod.LAUNCHES.values()) == 0,
+                   "plain path launched no kernel")
+        for k, v in first.items():
+            tol = RML_EXACT_TOL * abs(p_met[k]) if k in ("cls", "mfml") \
+                else STEP_TOL * abs(p_met[k]) + STEP_ATOL
+            self.check(abs(v - p_met[k]) <= tol,
+                       f"first step, {k}: kernel path {v:.6f}, plain path {p_met[k]:.6f} "
+                       f"(tol {tol:.2e})")
+        self._share("first step, refined labels", labels["refined"], p_labels["refined"])
+        for k, v in norms.items():
+            self.check(abs(v - p_norms[k]) <= STEP_TOL * p_norms[k],
+                       f"first step, gradient norm of group {k}: kernel path {v:.6e}, plain "
+                       f"path {p_norms[k]:.6e} (tol {STEP_TOL * p_norms[k]:.2e})")
+        return t, pl, batch
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -2198,6 +2392,36 @@ class Phases:
                 f"{sum(self.piece_bound[k]):.4f} ms, library call "
                 f"{self.piece_library_ms[k]:.3f} ms)")
 
+    def timing_rml(self, tmb, t, pl, batch, card: str) -> None:
+        """The whole RML train step, augmentation included, kernel path against
+        plain path in turns."""
+        torch = self.torch
+        log(f"== timing of the RML train step (CUDA events, {card})")
+
+        def stepper(tr):
+            return lambda: tr.step(tr.state, batch, torch.Generator().manual_seed(self.seed))
+
+        times = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            plain = which == "plain"
+            use_plain(pl.twin_blocks, tmb, plain)
+            use_plain_refine(plain)
+            try:
+                times[which].append(self.time_ms(stepper(pl if plain else t), iters=3, warmup=1))
+            finally:
+                use_plain_refine(False)
+        for which, ts_ms in times.items():
+            ms = min(ts_ms)
+            log(f"  RML train step, {which} path: {', '.join(f'{v:.2f}' for v in ts_ms)} ms per "
+                f"batch of {RML_BATCH} -> {RML_BATCH * 1000.0 / ms:.1f} images/s (best run)")
+        torch.cuda.reset_peak_memory_stats()
+        stepper(t)()
+        torch.cuda.synchronize()
+        log(f"  peak device memory, kernel path: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"  launches a step: " + ", ".join(f"{k} {self.launches_rml[k]}"
+                                               for k in RML_KERNELS))
+
     def timing_presr(self, tmb, model, blocks, x, card: str) -> None:
         torch = self.torch
         log(f"== timing of the headline forward with and without pre_sr (CUDA events, {card})")
@@ -2367,6 +2591,10 @@ def main() -> int:
         state["trainer"], state["plain_trainer"], state["batch"] = ph.run_train_steps(
             tmb, ta, tv, tf)
 
+    def rml():
+        state["rml"], state["rml_plain"], state["rml_batch"] = ph.run_rml_steps(
+            (tmb, ta, tv, tf, tm, ti))
+
     def rss():
         state["rss_model"], state["rss_x"] = ph.run_rssformer(tm, ti)
 
@@ -2376,6 +2604,7 @@ def main() -> int:
         ph.timing(tmb, state["model"], state["blocks"], state["x"], card)
         ph.timing_pseudo(tmb, state["twin"], state["twin_blocks"], state["args"], card)
         ph.timing_train(tmb, state["trainer"], state["plain_trainer"], state["batch"], card)
+        ph.timing_rml(tmb, state["rml"], state["rml_plain"], state["rml_batch"], card)
         ph.timing_presr(tmb, state["model"], state["blocks"], state["x"], card)
         ph.timing_rss(tm, ti, state["rss_model"], state["rss_x"], card)
 
@@ -2385,6 +2614,7 @@ def main() -> int:
                      ("K4 vs plain", lambda: ph.flash_vs_plain(tf)),
                      ("K4 in the model", lambda: ph.flash_model(tf)),
                      ("train step", train),
+                     ("RML train step", rml),
                      ("K5 vs plain", lambda: ph.mlp_vs_plain(tm)),
                      ("K6 vs plain", lambda: ph.isa_vs_plain(ti)),
                      ("K1' vs plain", lambda: ph.presr_vs_plain(tmb)),
@@ -2405,6 +2635,8 @@ def main() -> int:
                 if ph.launches_pseudo.get(k, 0) == 0]
     missing += [f"{k} (train step)" for k in TRAIN_KERNELS
                 if ph.launches_train.get(k, 0) == 0]
+    missing += [f"{k} (RML train step)" for k in RML_KERNELS
+                if ph.launches_rml.get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -2428,6 +2660,8 @@ def main() -> int:
             entry["launches_pseudo_label"] = ph.launches_pseudo[k]
         if k in ph.launches_train:
             entry["launches_train_step"] = ph.launches_train[k]
+        if k in RML_KERNELS:
+            entry["launches_rml_train_step"] = ph.launches_rml[k]
         if k == "dwconv_gelu":   # the library call on bf16, beside the f32 one
             entry["library_ms_bf16"] = ph.dwconv_library_bf16_ms
         if k == "mlp_taps":  # the block as one function, and the module K5 stands in for

@@ -1,6 +1,8 @@
 """JAX variable tree -> PyTorch state_dict: the exact inverse of
 ``representationlearning_tpu/convert/torch2jax.py::convert_tscd`` and of its MiT
-and SegFormer-head rules, and of ``convert_rssformer`` / ``convert_hrnet``.
+and SegFormer-head rules, of ``convert_rssformer`` / ``convert_hrnet`` and of
+``convert_wetr_attn_aff``; and the JAX ``RMLModel`` (which has no forward
+converter) -> the port's ``RMLModel``.
 
 The input is the ``{"params": ..., "batch_stats": ...}`` tree of nested dicts,
 with numpy (or array-like) leaves. Layout rules, each the transpose of the
@@ -93,6 +95,30 @@ def tscd_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Te
     """JAX ``TSCD`` variables -> the port's ``TSCD`` state_dict (inverse of
     ``convert_tscd``)."""
     return state_dict_from_jax(variables)
+
+
+def _rml_module_name(scopes: tuple[str, ...]) -> str:
+    """flax scopes of the JAX RML modules -> the port's module names: the neck's
+    ``conv`` / ``bn`` are the reference's ``fuse_conv.0`` / ``fuse_conv.1``, and
+    PATM's ``reweight_fc{1,2}`` (WaveBlock's ``mlp_fc{1,2}``) are ``reweight.fc{1,2}``
+    (``mlp.fc{1,2}``)."""
+    if scopes[:1] == ("neck",):
+        return "neck.fuse_conv." + {"conv": "0", "bn": "1"}[scopes[1]]
+    return _module_name(tuple(re.sub(r"^(reweight|mlp)_fc(\d)$", r"\1.fc\2", s)
+                              for s in scopes))
+
+
+def rml_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``RMLModel`` variables (or those of a ``PATM`` / ``WaveBlock``) -> the
+    port's state_dict."""
+    return state_dict_from_jax(variables, _rml_module_name)
+
+
+def wetr_attn_aff_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``WeTrAttnAff`` variables -> the port's ``WeTrAttnAff`` state_dict: the
+    inverse of ``convert_wetr_attn_aff`` (``num_batches_tracked``, which it drops,
+    comes back as 0)."""
+    return state_dict_from_jax(variables, _rml_module_name)
 
 
 _HRNET_SCOPES = (

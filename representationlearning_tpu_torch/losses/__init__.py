@@ -1,1 +1,1 @@
-"""Losses of the port: the SCD / WSSS losses and the dense energy loss."""
+"""Losses of the port: the SCD / WSSS losses, the dense energy loss and the RML MI losses."""

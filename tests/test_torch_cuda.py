@@ -1003,3 +1003,93 @@ def test_fused_flags_launch_nothing_where_the_kernels_are_not_the_function(dev):
         mlp.eval()(x, 6, 5)
         attn.eval()(w, w, w)
     assert TM.LAUNCHES == {"mlp_fc1": 1, "mlp_taps": 1} and TI.LAUNCHES == {"isa_core": 1}
+
+
+# ------------------------------------------------------------------ the RML train step
+def test_par_refine_at_the_rml_step_matches_plain(dev):
+    """PAR at the RML step's refinement: 16 images of 160 x 160 and 2 * (8 + 1) = 18
+    mask planes, K2 in `par` mode then ten launches of K3, against the plain
+    versions on the same card; K3 alone equals its plain version bit for bit."""
+    from representationlearning_tpu_torch.models import refine as TR
+
+    g = torch.Generator().manual_seed(16)
+    imgs = _image(g, 16, 160, 160, dev, border=True)
+    masks = torch.rand((16, 18, 160, 160), generator=g).to(dev)
+    k2, k3 = TA.LAUNCHES["affinity"], TV.LAUNCHES["varm_propagate"]
+    got = TR.par_refine(imgs, masks, dilations=SCD_DILATIONS, num_iter=10)
+    assert (TA.LAUNCHES["affinity"], TV.LAUNCHES["varm_propagate"]) == (k2 + 1, k3 + 10)
+    ref = TA.affinity_reference(imgs, SCD_DILATIONS, "par", w1=0.3, w2=0.01)
+    want = TV.varm_propagate_reference(masks, ref, SCD_DILATIONS, 10)
+    assert got.shape == (16, 18, 160, 160) and bool(torch.isfinite(got).all())
+    _close(got, want, 1e-4)   # K2's 2e-5 on the weights, carried through ten steps
+    assert torch.equal(TV.varm_propagate(masks, ref, SCD_DILATIONS, 10), want)
+
+
+def test_augment_cls_batch_on_the_card_matches_the_cpu(dev):
+    """The classification chain at the RML step's shapes (16 raw 512 x 512 canvases
+    to 320 x 320) on the card against the same decisions on the CPU."""
+    from representationlearning_tpu_torch.data import device_transforms as TD
+
+    g = torch.Generator().manual_seed(3)
+    raw = torch.randint(0, 256, (16, 3, 512, 512), generator=g, dtype=torch.uint8)
+    hw = torch.tensor([[375, 500]] * 8 + [[500, 333]] * 4 + [[120, 90]] * 4, dtype=torch.int32)
+    cfg = TD.DeviceAugConfig(crop_size=320)
+    dec = TD.sample_cls_decisions(16, cfg, g)
+    want_img, want_box = TD.augment_cls_batch(raw, hw, dec, cfg)
+    got_img, got_box = TD.augment_cls_batch(raw.to(dev), hw.to(dev),
+                                            {k: v.to(dev) for k, v in dec.items()}, cfg)
+    assert got_img.is_cuda and got_img.shape == (16, 3, 320, 320)
+    assert (got_img.cpu() - want_img).abs().max().item() <= 1e-4
+    assert torch.equal(got_box.cpu(), want_box)
+
+
+def _rml_step_on_the_card(gen):
+    """`make_rml_train_step` at a small size on the card: mit_b0 in bf16, the fused
+    twin, two raw 160 x 160 canvases augmented to 128 x 128, CAM scales (1, 1.5)."""
+    from representationlearning_tpu_torch.data.device_transforms import DeviceAugConfig
+    from representationlearning_tpu_torch.models.rml import RMLModel
+    from representationlearning_tpu_torch.models.tscd import share_parameters
+    from representationlearning_tpu_torch.train import optim as TO
+    from representationlearning_tpu_torch.train import rml as TRML
+    from representationlearning_tpu_torch.train.state import TrainState
+
+    model = RMLModel("mit_b0", 21, dtype=BF16, generator=gen)
+    twin = share_parameters(RMLModel("mit_b0", 21, dtype=BF16, fused_blocks=True,
+                                     collect_attns="none"), model).eval()
+    cfg = TRML.RMLConfig(crop_size=128, cam_scales=(1.0, 1.5), max_present=4, cam_iters=-1)
+    state = TrainState.create(model, TO.make_poly_warmup_adamw(
+        model, 6e-5, 0.01, 10, 1000, param_labels=TO.tscd_param_labels))
+    step = TRML.make_rml_train_step(model, cfg, cam_model=twin,
+                                    aug_cfg=DeviceAugConfig(crop_size=128))
+    batch = {"raw": torch.randint(0, 256, (2, 3, 160, 160), generator=gen, dtype=torch.uint8),
+             "hw": torch.tensor([[150, 160], [120, 100]], dtype=torch.int32),
+             "cls_label": torch.eye(20)[[2, 9]]}
+    return model, state, step, batch
+
+
+def test_rml_train_step_on_the_card(dev):
+    """Two steps on the card: finite losses, the step count, one move of the neck's
+    running statistics a step, every tensor on the card."""
+    model, state, step, batch = _rml_step_on_the_card(torch.Generator().manual_seed(0))
+    for i in range(2):
+        state, met = step(state, batch, torch.Generator().manual_seed(i))
+        assert set(met) == {"cls", "apml", "mfml", "ciml", "total"}
+        assert all(v.is_cuda and bool(torch.isfinite(v)) for v in met.values())
+    assert state.step == 2 and all(p.is_cuda for p in model.parameters())
+    assert int(model.neck.fuse_conv[1].num_batches_tracked) == 2
+
+
+def test_rml_train_step_launch_counts(dev):
+    """A step launches K1 in the twin's four CAM forwards (scales 1 and 1.5 of the
+    full and the 0.3-scale input), K2 once and K3 ten times, and nothing else."""
+    _, state, step, batch = _rml_step_on_the_card(torch.Generator().manual_seed(1))
+    mods = (tmb, TA, TV, TF, TM, TI)
+    for mod in mods:
+        mod.reset_launches()
+    step(state, batch, torch.Generator().manual_seed(0))
+    counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+    n = 4   # forwards of 2 x 2 images, 8 blocks each, 6 of them with sr > 1
+    assert counts == {"ln_stats": n * (16 + 6), "linear": n * 40, "sr_conv": n * 6,
+                      "attention": n * 8, "dwconv_gelu": n * 8, "affinity": 1,
+                      "varm_propagate": 10, "flash_fwd": 0, "flash_bwd": 0, "mlp_fc1": 0,
+                      "mlp_taps": 0, "isa_core": 0}

@@ -28,7 +28,8 @@ def test_every_module_imports_without_jax():
         "wsss.camutils", "train.scd", "ops.attention", "ops.bilateral", "losses.wsss",
         "losses.energy", "train.optim", "train.state", "train.checkpoints", "ops.mlp_dwbn",
         "ops.isa_attention", "models.rssformer_modules", "models.hrnet", "models.rssformer",
-        "infer.tta", "infer.sliding")} <= set(mods)
+        "infer.tta", "infer.sliding", "losses.mi", "models.wavemlp", "models.rml",
+        "data.device_transforms", "train.rml")} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "

@@ -1,8 +1,12 @@
-"""Device trace of the PyTorch port's SCD train step on one CUDA card.
+"""Device trace of the PyTorch port's SCD train step, or of its RML train step, on
+one CUDA card.
 
 Builds the same trainer and batch as ``chip_smoke.py`` (``make_scd_train_step`` at
 8 x 320 x 320, ``configs/scd_voc.yaml`` with flash attention on: the f32
-``TSCD("mit_b1", use_flash=True)``, its bf16 fused CAM twin, AdamW) and prints:
+``TSCD("mit_b1", use_flash=True)``, its bf16 fused CAM twin, AdamW; with ``--rml``
+``make_rml_train_step`` at ``bench.py::bench_rml_train``'s configuration: 16 raw
+512 x 512 canvases augmented on the card to 320 x 320, ``RMLModel("mit_b1",
+dtype=bf16)`` and its bf16 fused twin, PAR) and prints:
 
 - the card and its power limit;
 - the step's time by CUDA events, mean over a few steps without the profiler;
@@ -12,14 +16,14 @@ Builds the same trainer and batch as ``chip_smoke.py`` (``make_scd_train_step`` 
   launches per step, the kernels that take most of the device time, and every
   hand-written kernel;
 - the device time and the launches of each stage that ``scd_losses`` and the
-  step function name as profiler ranges (main_forward, pseudo_labels,
+  step function name as profiler ranges (augment, main_forward, pseudo_labels,
   small_forward, small_cams, losses, energy_loss, backward, optimizer): every
   kernel counts for the range in which the host launched it, so the slower
   host under the profiler does not stretch a stage.
 
 With ``--out DIR`` the Chrome trace is kept there. Usage, from the root of
-the repository: ``python tools/trace_port_train_step.py [--seed N] [--steps N]
-[--out DIR]``. It needs a CUDA card and imports no JAX.
+the repository: ``python tools/trace_port_train_step.py [--rml] [--seed N]
+[--steps N] [--out DIR]``. It needs a CUDA card and imports no JAX.
 """
 import argparse
 import json
@@ -31,7 +35,7 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-STAGES = ("main_forward", "pseudo_labels", "small_forward", "small_cams", "losses",
+STAGES = ("augment", "main_forward", "pseudo_labels", "small_forward", "small_cams", "losses",
           "energy_loss", "backward", "optimizer")
 
 
@@ -68,6 +72,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rml", action="store_true", help="the RML train step")
     args = ap.parse_args()
 
     import torch
@@ -85,10 +90,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(cs.run_cmd(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]))
     ph = cs.Phases(torch, args.seed)
-    gen = torch.Generator().manual_seed(args.seed + 5)
-    x, cls, box = cs.pseudo_batch(torch, gen, ph.dev)
-    batch = {"image": x, "cls_label": cls, "img_box": box}
-    t = ph._trainer(gen, tmb, use_flash=True)
+    if args.rml:
+        gen = torch.Generator().manual_seed(args.seed + 7)
+        batch, size = cs.rml_batch(torch, gen, ph.dev), cs.RML_BATCH
+        t, what = ph._rml_trainer(gen), "RML train step"
+    else:
+        gen = torch.Generator().manual_seed(args.seed + 5)
+        x, cls, box = cs.pseudo_batch(torch, gen, ph.dev)
+        batch, size = {"image": x, "cls_label": cls, "img_box": box}, cs.BATCH
+        t, what = ph._trainer(gen, tmb, use_flash=True), "train step"
 
     def run(i):
         t.step(t.state, batch, torch.Generator().manual_seed(args.seed + i))
@@ -103,8 +113,8 @@ def main() -> int:
     whole[1].record()
     torch.cuda.synchronize()
     total = whole[0].elapsed_time(whole[1]) / args.steps
-    print(f"train step without the profiler (CUDA events, mean of {args.steps}): "
-          f"{total:.3f} ms, {cs.BATCH * 1000.0 / total:.1f} images/s")
+    print(f"{what} without the profiler (CUDA events, mean of {args.steps}): "
+          f"{total:.3f} ms, {size * 1000.0 / total:.1f} images/s")
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(args.steps):
@@ -148,7 +158,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
-        path = os.path.join(args.out or tmp, "train_step_trace.json")
+        path = os.path.join(args.out or tmp, ("rml_" if args.rml else "") + "train_step_trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)["traceEvents"]
