@@ -95,7 +95,16 @@ variant of K1 (K1').
    whole pseudo-label call, of the train step and of the RML train step, kernel path
    against plain path (with the RML step's peak memory and launches); the
    RSSFormer predict four ways (both flags on, each alone, both off) and the
-   headline forward with and without ``pre_sr``.
+   headline forward with and without ``pre_sr``;
+9. bench: ``representationlearning_tpu_torch/bench.py``'s five ported workloads
+   (the headline, the SCD pseudo labels, the RSSFormer predict and TTA, the RML
+   train step at ``bench.py``'s shapes) measured in this process at a loop of two
+   calls: each line's value finite and positive, idle share in [0, 1), launches,
+   peak memory and FLOPs positive, and the hand-written kernels' launches a call
+   equal to those of phases 4, 7a and 7b (K1 84 a headline forward; K1 504, K2 1,
+   K3 10 an RML step; K5 8 + 8 a predict; none on the other two lines); then
+   ``python -m representationlearning_tpu_torch.bench --one segformer_b1`` in a
+   process of its own, whose last line must be the headline's record.
 
 Run from the root of the repository: ``python3 chip_smoke.py [--seed N]``. Every
 phase prints its results; the line before the last is a JSON object with one
@@ -107,13 +116,13 @@ result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
 import tempfile
 import time
 import traceback
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -311,27 +320,13 @@ def max_err(got, want) -> tuple[float, float]:
     return (g - w).abs().max().item(), w.abs().max().item()
 
 
-def use_plain(blocks, tmb, plain: bool) -> None:
-    """Swap the FusedBlocks' K1 for its plain version, or back to the kernels."""
-    for b in blocks:
-        if plain:
-            b.block_fn = tmb.fused_block_reference
-        else:
-            vars(b).pop("block_fn", None)  # back to the class attribute
+def plain_kernels(*modules, plain: bool = True):
+    """The bench's context manager, which swaps K1 in the FusedBlocks of
+    ``modules`` and K2 and K3 everywhere for their plain versions; nothing where
+    ``plain`` is false."""
+    from representationlearning_tpu_torch.bench import plain_kernels as swap
 
-
-_KERNEL_FNS: dict = {}  # the K2 / K3 wrappers, kept while their plain versions stand in
-
-
-def use_plain_refine(plain: bool) -> None:
-    """Swap K2 and K3 for their plain versions where `models/refine.py` looks
-    them up, or back to the kernels."""
-    from representationlearning_tpu_torch.ops import affinity as ta
-    from representationlearning_tpu_torch.ops import varm as tv
-
-    for mod, name in ((ta, "affinity"), (tv, "varm_propagate")):
-        kernel = _KERNEL_FNS.setdefault(name, getattr(mod, name))
-        setattr(mod, name, getattr(mod, name + "_reference") if plain else kernel)
+    return swap(*modules) if plain else contextlib.nullcontext()
 
 
 def calm(torch, module, gen) -> None:
@@ -620,8 +615,9 @@ class Phases:
         log("== build")
         t0 = time.perf_counter()
         names = sorted(_build.SIGNATURES)
-        with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all at once
-            list(pool.map(_build.load_library, names))
+        _build.build_all()  # one nvcc per source, all at once
+        for name in names:
+            _build.load_library(name)
         log(f"  {', '.join(names)}: {time.perf_counter() - t0:.1f} s")
         for name in names:
             info = _build.build_log[name]
@@ -1224,9 +1220,8 @@ class Phases:
         self.check(all(bool(torch.isfinite(t.float()).all()) for t in outs),
                    "cls, seg, attns, attn_pred all finite")
 
-        use_plain(blocks, tmb, True)
         tmb.reset_launches()
-        with torch.no_grad():
+        with plain_kernels(*blocks), torch.no_grad():
             p_cls, p_seg, _, p_pred = model(x)
         torch.cuda.synchronize()
         self.check(sum(tmb.LAUNCHES.values()) == 0, "plain path launched no kernel")
@@ -1236,7 +1231,6 @@ class Phases:
             self.check(err <= PATH_TOL * mag,
                        f"{k}: kernel path vs plain path max abs err {err:.3e} "
                        f"(max |plain| {mag:.3e}, tol {PATH_TOL * mag:.3e}), rel L2 {rel:.2e}")
-        use_plain(blocks, tmb, False)
         del p_cls, p_seg, p_pred, cls, seg, attns, pred, outs
 
         with torch.no_grad():
@@ -1326,13 +1320,8 @@ class Phases:
                     f"{NUM_CLASSES - 1} classes,", refined, full[2])
 
         # the same call with K1, K2 and K3 swapped for their plain versions
-        use_plain(twin_blocks, tmb, True)
-        use_plain_refine(True)
-        try:
+        with plain_kernels(*twin_blocks):
             (p_cams, p_pseudo, p_refined, p_ref), counts = run(cfg)
-        finally:
-            use_plain(twin_blocks, tmb, False)
-            use_plain_refine(False)
         self.check(sum(counts.values()) == 0, "plain path launched no kernel")
         err, mag = max_err(cams, p_cams)
         self.check(err <= PATH_TOL * mag, f"cams: kernel path vs plain path max abs err "
@@ -1354,12 +1343,9 @@ class Phases:
             got = step(batch)
             torch.cuda.synchronize()
             ran = sum(tmb.LAUNCHES.values())
-            use_plain(blocks, tmb, True)
-            try:
+            with plain_kernels(*blocks):
                 plain = step(batch)
                 torch.cuda.synchronize()
-            finally:
-                use_plain(blocks, tmb, False)
             self.check(ran > 0 and all(tuple(got[k].shape) == (b, IMAGE, IMAGE)
                                        for k in ("seg_pred", "cam_label", "ref_label"))
                        and tuple(got["cls_pred"].shape) == (b, NUM_CLASSES - 1),
@@ -1555,7 +1541,7 @@ class Phases:
                        f"tol {tol:.3e})")
 
     # ------------------------------------------------------------- phase 7
-    def _trainer(self, gen, tmb, *, use_flash: bool, cam_iters: int = -1):
+    def _trainer(self, gen, *, use_flash: bool, cam_iters: int = -1):
         """Model, fused CAM twin on the same parameters, optimiser state and step
         function of the train step's configuration."""
         torch = self.torch
@@ -1618,7 +1604,7 @@ class Phases:
         x, cls, box = pseudo_batch(torch, gen, self.dev)
         batch = {"image": x, "cls_label": cls, "img_box": box}
         state_gen = gen.get_state()
-        t = self._trainer(gen, tmb, use_flash=True)
+        t = self._trainer(gen, use_flash=True)
         self.check(all(p.is_cuda for p in t.model.parameters())
                    and all(a is b for a, b in zip(t.twin.parameters(), t.model.parameters())),
                    "model built on the card; the CAM twin holds the model's own parameters")
@@ -1684,7 +1670,7 @@ class Phases:
 
         # the warm-up switch: within cam_iters only `cls` is in the total
         gen.set_state(state_gen)
-        w = self._trainer(gen, tmb, use_flash=True, cam_iters=2000)
+        w = self._trainer(gen, use_flash=True, cam_iters=2000)
         met = self._one_step(w, batch, self.seed + 100)
         self.check(met["total"] == met["cls"] and abs(met["cls"] - first["cls"]) <= 1e-5,
                    f"cam_iters = 2000: total {met['total']:.6f} = cls {met['cls']:.6f}, the same "
@@ -1693,18 +1679,14 @@ class Phases:
 
         # the same first step on the plain path: no K4, plain K1, K2, K3
         gen.set_state(state_gen)
-        pl = self._trainer(gen, tmb, use_flash=False)
+        pl = self._trainer(gen, use_flash=False)
         self.check(all(torch.equal(p, initial[n]) for n, p in pl.model.named_parameters()),
                    "the plain-path model starts from the same weights")
-        use_plain(pl.twin_blocks, tmb, True)
-        use_plain_refine(True)
         p_norms = {}
         for mod in mods:
             mod.reset_launches()
-        try:
+        with plain_kernels(*pl.twin_blocks):
             p_met = self._one_step(pl, batch, self.seed + 100, p_norms)
-        finally:
-            use_plain_refine(False)
         self.check(sum(v for mod in mods for v in mod.LAUNCHES.values()) == 0,
                    "plain path launched no kernel")
         for k, v in first.items():
@@ -1847,15 +1829,11 @@ class Phases:
         pl = self._rml_trainer(gen)
         self.check(all(torch.equal(p, initial[n]) for n, p in pl.model.named_parameters()),
                    "the plain-path model starts from the same weights")
-        use_plain(pl.twin_blocks, tmb, True)
-        use_plain_refine(True)
         p_norms, p_labels = {}, {}
         for mod in mods:
             mod.reset_launches()
-        try:
+        with plain_kernels(*pl.twin_blocks):
             p_met = self._rml_step(pl, batch, self.seed + 300, p_norms, p_labels)
-        finally:
-            use_plain_refine(False)
         self.check(sum(v for mod in mods for v in mod.LAUNCHES.values()) == 0,
                    "plain path launched no kernel")
         for k, v in first.items():
@@ -2258,7 +2236,7 @@ class Phases:
                        f"(max {mag:.3e}, tol {PATH_TOL * mag:.3e})")
 
     # ------------------------------------------------------------- phase 8
-    def timing(self, tmb, model, blocks, x, card: str) -> None:
+    def timing(self, model, blocks, x, card: str) -> None:
         torch = self.torch
         log(f"== timing of the forward (CUDA events, {card})")
 
@@ -2268,9 +2246,8 @@ class Phases:
 
         times = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            use_plain(blocks, tmb, which == "plain")
-            times[which].append(self.time_ms(forward, iters=3))
-        use_plain(blocks, tmb, False)
+            with plain_kernels(*blocks, plain=which == "plain"):
+                times[which].append(self.time_ms(forward, iters=3))
         for which, ts in times.items():
             ms = min(ts)
             log(f"  forward, {which} path: {', '.join(f'{t:.2f}' for t in ts)} ms per batch "
@@ -2296,7 +2273,7 @@ class Phases:
             f"operations), kernels {self.block_ms:.3f} ms; the per-kernel bounds above "
             f"take the f32 tensors between the five kernels as given")
 
-    def timing_pseudo(self, tmb, twin, twin_blocks, args, card: str) -> None:
+    def timing_pseudo(self, twin, twin_blocks, args, card: str) -> None:
         """The whole pseudo-label call, kernel path against plain path in turns,
         and the kernel path's stages one by one."""
         torch = self.torch
@@ -2312,13 +2289,8 @@ class Phases:
 
         times = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
-            use_plain(twin_blocks, tmb, which == "plain")
-            use_plain_refine(which == "plain")
-            try:
+            with plain_kernels(*twin_blocks, plain=which == "plain"):
                 times[which].append(self.time_ms(call, iters=3, warmup=1))
-            finally:
-                use_plain(twin_blocks, tmb, False)
-                use_plain_refine(False)
         for which, ts_ms in times.items():
             ms = min(ts_ms)
             log(f"  scd_pseudo_labels, {which} path: {', '.join(f'{t:.2f}' for t in ts_ms)} ms "
@@ -2360,7 +2332,7 @@ class Phases:
                 ms = self.time_ms(lambda: twin(cat, cam_only=True), iters=5, warmup=1)
                 log(f"  cam_only forward of {tuple(cat.shape)}: {ms:.3f} ms")
 
-    def timing_train(self, tmb, t, pl, batch, card: str) -> None:
+    def timing_train(self, t, pl, batch, card: str) -> None:
         """The whole train step, kernel path against plain path in turns."""
         torch = self.torch
         log(f"== timing of the train step (CUDA events, {card})")
@@ -2371,12 +2343,8 @@ class Phases:
         times = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             plain = which == "plain"
-            use_plain(pl.twin_blocks, tmb, plain)
-            use_plain_refine(plain)
-            try:
+            with plain_kernels(*pl.twin_blocks, plain=plain):
                 times[which].append(self.time_ms(stepper(pl if plain else t), iters=3, warmup=1))
-            finally:
-                use_plain_refine(False)
         for which, ts_ms in times.items():
             ms = min(ts_ms)
             log(f"  train step, {which} path: {', '.join(f'{v:.2f}' for v in ts_ms)} ms per "
@@ -2392,7 +2360,7 @@ class Phases:
                 f"{sum(self.piece_bound[k]):.4f} ms, library call "
                 f"{self.piece_library_ms[k]:.3f} ms)")
 
-    def timing_rml(self, tmb, t, pl, batch, card: str) -> None:
+    def timing_rml(self, t, pl, batch, card: str) -> None:
         """The whole RML train step, augmentation included, kernel path against
         plain path in turns."""
         torch = self.torch
@@ -2404,12 +2372,8 @@ class Phases:
         times = {"plain": [], "kernel": []}
         for which in ("plain", "kernel", "kernel", "plain"):
             plain = which == "plain"
-            use_plain(pl.twin_blocks, tmb, plain)
-            use_plain_refine(plain)
-            try:
+            with plain_kernels(*pl.twin_blocks, plain=plain):
                 times[which].append(self.time_ms(stepper(pl if plain else t), iters=3, warmup=1))
-            finally:
-                use_plain_refine(False)
         for which, ts_ms in times.items():
             ms = min(ts_ms)
             log(f"  RML train step, {which} path: {', '.join(f'{v:.2f}' for v in ts_ms)} ms per "
@@ -2422,7 +2386,7 @@ class Phases:
         log(f"  launches a step: " + ", ".join(f"{k} {self.launches_rml[k]}"
                                                for k in RML_KERNELS))
 
-    def timing_presr(self, tmb, model, blocks, x, card: str) -> None:
+    def timing_presr(self, model, blocks, x, card: str) -> None:
         torch = self.torch
         log(f"== timing of the headline forward with and without pre_sr (CUDA events, {card})")
 
@@ -2547,6 +2511,85 @@ class Phases:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+    # ------------------------------------------------------------- phase 9 (bench)
+    def run_bench(self) -> None:
+        """The port's bench entry point (``representationlearning_tpu_torch/bench.py``):
+        its five ported workloads measured in this process at a short loop, each line
+        checked and its kernels' launches held to the counts of phases 4, 7a and 7b;
+        then the headline through the module's own command line, in a process of its
+        own."""
+        torch = self.torch
+        from representationlearning_tpu_torch import bench as tb
+
+        log(f"== bench: {PKG}.bench, the {len(tb.PORTED)} ported workloads in this process "
+            "(iters 2, reps 1)")
+        t0 = time.perf_counter()
+        n_sr = sum(DEPTH for _, _, _, sr, _ in STAGES if sr > 1)
+        k1 = {"ln_stats": 2 * 8 + n_sr, "linear": 5 * 8, "sr_conv": n_sr, "attention": 8,
+              "dwconv_gelu": 8}   # a headline forward, as phase 4 counts it
+        n_fwd = 2 * len(RML_SCALES)   # the RML step's CAM forwards, as phase 7a counts them
+        zero = {g: dict.fromkeys(mod.LAUNCHES, 0) for g, mod in tb.KERNEL_GROUPS.items()}
+
+        def want(**groups):
+            return {g: {**zero[g], **groups.get(g, {})} for g in zero}
+
+        expect = {
+            "segformer_b1": want(K1=k1),
+            "rml_train": want(K1={k: n_fwd * v for k, v in k1.items()}, K2={"affinity": 1},
+                              K3={"varm_propagate": VARM_ITERS}),
+            "rssformer_predict": want(K5={"mlp_fc1": RSS_BLOCKS, "mlp_taps": RSS_BLOCKS}),
+            "scd_pseudo_labels": want(), "rssformer_tta_eval": want()}
+        held = {"segformer_b1": {k: self.launches.get(k) for k in k1},   # phase 4
+                "rml_train": self.launches_rml,                            # phase 7a
+                "rssformer_predict": {k: self.launches.get(k) for k in ("mlp_fc1", "mlp_taps")}}
+
+        def launched(groups):
+            return {g: nz for g, c in groups.items()
+                    if (nz := {k: v for k, v in c.items() if v})} or "none"
+
+        for name in tb.PORTED:
+            rec = tb.measure(name, iters=2, reps=1)
+            log(json.dumps(rec))
+            value = rec["value"]
+            self.check(value == value and 0 < value < float("inf") and rec["unit"] != "error",
+                       f"{name}: {value:.2f} {rec['unit']}, finite and positive")
+            self.check(0.0 <= rec["idle_share"] < 1.0 and rec["launches_per_call"] > 0
+                       and rec["peak_mem_gib"] > 0 and rec["flops_per_example_g"] > 0,
+                       f"{name}: idle share {rec['idle_share']:.4f} in [0, 1), "
+                       f"{rec['launches_per_call']:.0f} launches a call, peak "
+                       f"{rec['peak_mem_gib']:.2f} GiB, {rec['flops_per_example_g']:.2f} GFLOP an "
+                       "example")
+            self.check(rec["kernels"] == expect[name],
+                       f"{name}: hand-written kernels a call {launched(rec['kernels'])} "
+                       f"(expected {launched(expect[name])})")
+            if name in held:
+                phase = {k: v for k, v in held[name].items() if v is not None}
+                flat = {k: v for c in rec["kernels"].values() for k, v in c.items()}
+                self.check(bool(phase) and all(flat[k] == v for k, v in phase.items()),
+                           f"{name}: the same counts as the earlier phase's path "
+                           f"({phase or 'that phase counted nothing'})")
+            torch.cuda.empty_cache()
+        log(f"  in-process measurements: {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        cmd = [sys.executable, "-m", f"{PKG}.bench", "--one", "segformer_b1"]
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        try:
+            last = json.loads(lines[-1])
+        except (IndexError, ValueError):
+            last = {}
+        head = tb.BENCHES["segformer_b1"]
+        self.check(r.returncode == 0 and last.get("metric") == head.metric
+                   and last.get("unit") == head.unit and last.get("value", 0) > 0
+                   and last.get("kernels") == expect["segformer_b1"],
+                   f"`{' '.join(cmd[1:])}`: exit {r.returncode}, its last line the headline's "
+                   f"record ({last.get('value', 0):.2f} {last.get('unit')}), "
+                   f"{time.perf_counter() - t0:.1f} s")
+        if r.returncode != 0:
+            log(r.stderr[-3000:])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2601,11 +2644,11 @@ def main() -> int:
     def timing():
         log(f"== timing of K2 / K3 (CUDA graph replay, {card})")
         ph.time_refine_kernels(ta, tv)
-        ph.timing(tmb, state["model"], state["blocks"], state["x"], card)
-        ph.timing_pseudo(tmb, state["twin"], state["twin_blocks"], state["args"], card)
-        ph.timing_train(tmb, state["trainer"], state["plain_trainer"], state["batch"], card)
-        ph.timing_rml(tmb, state["rml"], state["rml_plain"], state["rml_batch"], card)
-        ph.timing_presr(tmb, state["model"], state["blocks"], state["x"], card)
+        ph.timing(state["model"], state["blocks"], state["x"], card)
+        ph.timing_pseudo(state["twin"], state["twin_blocks"], state["args"], card)
+        ph.timing_train(state["trainer"], state["plain_trainer"], state["batch"], card)
+        ph.timing_rml(state["rml"], state["rml_plain"], state["rml_batch"], card)
+        ph.timing_presr(state["model"], state["blocks"], state["x"], card)
         ph.timing_rss(tm, ti, state["rss_model"], state["rss_x"], card)
 
     for name, fn in (("kernel vs plain", lambda: ph.kernels_vs_plain(tmb)),
@@ -2621,7 +2664,8 @@ def main() -> int:
                      ("RSSFormer predict", rss),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
-                     ("timing", timing)):
+                     ("timing", timing),
+                     ("bench", ph.run_bench)):
         try:
             fn()
         except Exception:  # noqa: BLE001 -- report the phase, go on with the next

@@ -28,13 +28,26 @@ IMAGENET_STD = (58.395, 57.12, 57.375)
 
 
 class DeviceAugConfig(NamedTuple):
-    """The knobs of `VOC12ClsDataset` construction that the classification chain
-    reads."""
+    """Knobs mirroring `VOC12ClsDataset` / `VOC12SegDataset` construction: the JAX
+    package's fields, in its order, with its defaults. The classification chain
+    reads `crop_size`, `scale_range`, `crop_tries` and `mean_rgb`; it draws the
+    flip whatever `fliplr` says, as the JAX chain does. The other fields belong to
+    the segmentation half and the photometric distortion, which are not ported."""
 
     crop_size: int = 320
     scale_range: tuple[float, float] | None = (0.5, 2.0)
+    fliplr: bool = True
+    photometric: bool = False
+    cat_max_ratio: float = 0.75
     crop_tries: int = 10
+    num_classes: int = 21
+    ignore_index: int = 255
     mean_rgb: tuple[float, float, float] = (0.0, 0.0, 0.0)   # the crop's fill
+    # photometric parameters (`transforms.py::PhotoMetricDistortion`)
+    brightness_delta: float = 32.0
+    contrast_range: tuple[float, float] = (0.5, 1.5)
+    saturation_range: tuple[float, float] = (0.5, 1.5)
+    hue_delta: int = 18
 
 
 def pad_to_canvas(images, size: int) -> tuple[torch.Tensor, torch.Tensor]:

@@ -18,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -132,17 +133,38 @@ def _compile(name: str, out: Path) -> str:
     return "".join(log)
 
 
+def _built(name: str) -> Path:
+    """The library of ``csrc/<name>/``, compiled first if it is not in the build
+    directory yet; the caller holds ``_locks[name]``."""
+    path = BUILD_DIR / _digest(name) / f"lib{name}.so"
+    if not path.exists():
+        log = path.with_suffix(".ptxas.txt")  # what `-Xptxas -v` said when it was built
+        log.parent.mkdir(parents=True, exist_ok=True)
+        log.write_text(_compile(name, path))
+    return path
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every library that ``load_library`` would load, side by side, and
+    load none of them: a process that must not create a CUDA context (the
+    bench's parent) builds once for the processes it starts."""
+    def build(name: str) -> Path:
+        with _locks[name]:
+            return _built(name)
+
+    names = sorted(SIGNATURES)
+    with ThreadPoolExecutor(len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+
+
 def load_library(name: str = "mit_block") -> ctypes.CDLL:
     """Build (if needed) and load the kernels of ``csrc/<name>/``."""
     with _locks[name]:
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        path = BUILD_DIR / _digest(name) / f"lib{name}.so"
-        log = path.with_suffix(".ptxas.txt")  # what `-Xptxas -v` said when it was built
-        if not path.exists():
-            log.parent.mkdir(parents=True, exist_ok=True)
-            log.write_text(_compile(name, path))
+        path = _built(name)
+        log = path.with_suffix(".ptxas.txt")
         ptxas = log.read_text() if log.exists() else ""
         lib = ctypes.CDLL(str(path))
         for fn, argtypes in SIGNATURES[name].items():

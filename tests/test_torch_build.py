@@ -1,6 +1,7 @@
 """`ops/_build.py::_compile` with `nvcc` stubbed out: one compile per source,
 all started before any is waited for, then one link; a failure of either step
-raises with the command that failed."""
+raises with the command that failed. `build_all` compiles every library once and
+loads none."""
 import subprocess
 from pathlib import Path
 
@@ -100,3 +101,25 @@ def test_signatures_name_sources_that_exist():
         for fn in fns:
             assert f"int {fn}(" in text, f"{fn} is not defined under csrc/{name}/"
     assert set(_build._locks) == set(_build.SIGNATURES)
+
+
+def test_build_all_compiles_every_library_once_and_loads_none(fake, tmp_path, monkeypatch):
+    """What the bench's parent calls before it starts its children: every library
+    lands where `load_library` looks for it, no library is loaded (no CUDA
+    context), and a second call finds them all built."""
+    def refuse(*a, **k):
+        raise AssertionError("a library was loaded")
+
+    f = fake()
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.ctypes, "CDLL", refuse)
+    paths = _build.build_all()
+    assert set(paths) == set(_build.SIGNATURES)
+    for name, path in paths.items():
+        assert path == tmp_path / _build._digest(name) / f"lib{name}.so"
+        assert path.read_bytes() == b"so"
+        ptxas = path.with_suffix(".ptxas.txt").read_text()
+        assert all(src.name in ptxas for src in _build._sources(name))
+    assert len(f.links) == len(_build.SIGNATURES)
+    assert len(f.compiles) == sum(len(_build._sources(n)) for n in _build.SIGNATURES)
+    assert _build.build_all() == paths and len(f.links) == len(_build.SIGNATURES)

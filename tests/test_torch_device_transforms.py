@@ -95,3 +95,36 @@ def test_sampled_decisions_and_their_batch():
     img, box = TD.augment_cls_batch(canvas, hw, a, cfg)
     assert torch.isfinite(img).all() and img.shape == (6, 3, 64, 64)
     assert ((box >= 0) & (box <= 64)).all() and (box[:, 0] <= box[:, 1]).all()
+
+
+def test_device_aug_config_has_the_jax_fields_and_defaults():
+    """The port's config holds the JAX package's fields in its order with its
+    defaults, so the JAX callers' keywords construct it (`bench.py:427-428`,
+    `cli/train_rml.py:114-119`); the classification chain reads only crop_size,
+    scale_range, crop_tries and mean_rgb, so the other fields change no decision
+    and no image."""
+    assert TD.DeviceAugConfig._fields == JD.DeviceAugConfig._fields
+    assert TD.DeviceAugConfig._field_defaults == JD.DeviceAugConfig._field_defaults
+    bench = TD.DeviceAugConfig(crop_size=320, scale_range=(0.5, 2.0), num_classes=21)
+    cli = TD.DeviceAugConfig(crop_size=320, scale_range=(0.5, 2.0), num_classes=21,
+                             ignore_index=255)
+    assert bench == cli == TD.DeviceAugConfig()
+    other = TD.DeviceAugConfig(fliplr=False, photometric=True, cat_max_ratio=0.5,
+                               num_classes=3, ignore_index=0, brightness_delta=8.0,
+                               contrast_range=(0.9, 1.1), saturation_range=(0.9, 1.1),
+                               hue_delta=2)
+    a = TD.sample_cls_decisions(4, TD.DeviceAugConfig(), torch.Generator().manual_seed(5))
+    b = TD.sample_cls_decisions(4, other, torch.Generator().manual_seed(5))
+    assert all(torch.equal(a[k], b[k]) for k in a) and a["crop_u"].shape == (4, 10, 2)
+    rng = np.random.default_rng(6)
+    _, (canvas, hw) = _raw(rng, 4, 512, [(375, 500)] * 4)
+    t_canvas, t_hw = torch.from_numpy(canvas.transpose(0, 3, 1, 2).copy()), torch.from_numpy(hw)
+    img, box = TD.augment_cls_batch(t_canvas, t_hw, a, TD.DeviceAugConfig())
+    img_o, box_o = TD.augment_cls_batch(t_canvas, t_hw, b, other)
+    assert torch.equal(img, img_o) and torch.equal(box, box_o)
+    want_img, want_box = JD.augment_cls_batch(jnp.asarray(canvas), jnp.asarray(hw),
+                                              {k: jnp.asarray(v.numpy()) for k, v in a.items()},
+                                              JD.DeviceAugConfig())
+    np.testing.assert_allclose(img.numpy(), np.asarray(want_img).transpose(0, 3, 1, 2),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(box.numpy(), np.asarray(want_box))

@@ -83,7 +83,6 @@ def main() -> int:
         print("no CUDA device: this script traces the card only", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from representationlearning_tpu_torch.ops import mit_block as tmb
     from representationlearning_tpu_torch.train import scd as ts
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,7 +97,7 @@ def main() -> int:
         gen = torch.Generator().manual_seed(args.seed + 5)
         x, cls, box = cs.pseudo_batch(torch, gen, ph.dev)
         batch, size = {"image": x, "cls_label": cls, "img_box": box}, cs.BATCH
-        t, what = ph._trainer(gen, tmb, use_flash=True), "train step"
+        t, what = ph._trainer(gen, use_flash=True), "train step"
 
     def run(i):
         t.step(t.state, batch, torch.Generator().manual_seed(args.seed + i))
