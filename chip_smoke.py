@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's five paths and checks them. The first is TSCD / MiT-B1
+Drives the port's six paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -23,8 +23,12 @@ transformer blocks on K5 (``ops/mlp_dwbn.py``) and their window attention on K6
 bf16 fused CAM twin on the same parameters (K1 in six forwards of 32 a step),
 16 raw 512 x 512 canvases augmented on the card to 320 x 320 crops, PAR
 refinement (K2 in ``par`` mode, K3), the four RML losses, backward and one AdamW
-update a step. The headline forward also runs with ``pre_sr=True``, the PRE_SR
-variant of K1 (K1').
+update a step. The sixth is the RSSFormer train step
+(``train/rssformer.py::make_rssformer_train_step``) at the configuration of
+``bench.py::bench_rssformer_train``: ``HRNetFusion("hrnetv2_w32", 7, dtype=bf16)``,
+8 x 3 x 512 x 512, the CGFL losses, backward, one SGD update a step; once more
+with its window attention on K6 (``fused_attn``), and ``evaluate`` on K5. The
+headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -90,19 +94,31 @@ variant of K1 (K1').
    each K5 kernel and of K6, probabilities against the same model with both
    flags off) and the headline forward with ``pre_sr=True`` against
    ``pre_sr=False``, with its launch counts;
+7c. RSSFormer train step: three steps through ``make_rssformer_train_step`` on the
+   bench's batch; no hand-written kernel launched; the losses finite, the gradient
+   norm before the clip printed; every BatchNorm's running statistics (f32) moved
+   once a step; ``headaux``, which no loss reaches, moved by weight decay and
+   momentum alone; step count and poly rate; the first step again with
+   ``fused_attn=True`` from the same weights (K6 8 launches, forward only: the
+   backward is the plain version's) against the unfused step, losses and the
+   gradient norm of each parameter group within 2e-2 (+ 2e-3); then ``evaluate``
+   on two batches of 4 with ``fused_mlp=True`` (K5 8 + 8 a forward, the trained
+   weights calmed) against ``fused_mlp=False``: probabilities within 3e-2, classes
+   equal on at least 99% of the pixels whose two best probabilities differ by more
+   than that (trained on random masks, many pixels are near-ties);
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
    against plain path (with the RML step's peak memory and launches); the
    RSSFormer predict four ways (both flags on, each alone, both off) and the
    headline forward with and without ``pre_sr``;
-9. bench: ``representationlearning_tpu_torch/bench.py``'s five ported workloads
-   (the headline, the SCD pseudo labels, the RSSFormer predict and TTA, the RML
-   train step at ``bench.py``'s shapes) measured in this process at a loop of two
-   calls: each line's value finite and positive, idle share in [0, 1), launches,
-   peak memory and FLOPs positive, and the hand-written kernels' launches a call
-   equal to those of phases 4, 7a and 7b (K1 84 a headline forward; K1 504, K2 1,
-   K3 10 an RML step; K5 8 + 8 a predict; none on the other two lines); then
+9. bench: ``representationlearning_tpu_torch/bench.py``'s six ported workloads
+   (the headline, the SCD pseudo labels, the RSSFormer predict, TTA and train step,
+   the RML train step at ``bench.py``'s shapes) measured in this process at a loop
+   of two calls: each line's value finite and positive, idle share in [0, 1),
+   launches, peak memory and FLOPs positive, and the hand-written kernels' launches
+   a call equal to those of phases 4, 7a, 7b and 7c (K1 84 a headline forward; K1
+   504, K2 1, K3 10 an RML step; K5 8 + 8 a predict; none on the other three); then
    ``python -m representationlearning_tpu_torch.bench --one segformer_b1`` in a
    process of its own, whose last line must be the headline's record.
 
@@ -190,6 +206,14 @@ RML_BATCH, RML_CANVAS, RML_HW, RML_SCALES = 16, 512, (375, 500), (0.5, 1.0, 1.5)
 RML_WARMUP, RML_MAX_ITERS = 10, 1000
 RML_KERNELS = ("ln_stats", "linear", "sr_conv", "attention", "dwconv_gelu", "affinity",
                "varm_propagate")  # launched in an RML train step; no other kernel is
+
+# The RSSFormer train step (bench.py::bench_rssformer_train): hrnetv2_w32, 7 classes,
+# bf16 convolutions, 8 x 3 x 512 x 512, masks in [-1, 7) with -1 ignored, SGD with
+# the poly rate and the clip at 35. The step itself launches no hand-written kernel;
+# with fused_attn=True (a flag the JAX model lacks) each of the 8 transformer blocks'
+# window attention runs on K6 under autograd, its backward the plain recomputation.
+# evaluate() reads two batches of 4 with fused_mlp=True: K5 8 + 8 a forward.
+RSS_TRAIN_STEPS, RSS_EVAL_BATCH = 3, 4
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -501,6 +525,18 @@ def rml_batch(torch, gen, device):
     return {"raw": raw.to(device), "hw": hw.to(device), "cls_label": cls.to(device)}
 
 
+def rss_batch(torch, device):
+    """The batch of bench.py::bench_rssformer_train, drawn as it draws it: from
+    numpy's default_rng(0), standard normal images, then masks in [-1, 7)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((BATCH, IMAGE, IMAGE, 3)).astype(np.float32)
+    masks = rng.integers(-1, RSS_CLASSES, (BATCH, IMAGE, IMAGE))
+    return {"image": torch.from_numpy(images.transpose(0, 3, 1, 2).copy()).to(device),
+            "mask": torch.from_numpy(masks).to(device)}
+
+
 class Phases:
     def __init__(self, torch, seed: int):
         self.torch = torch
@@ -518,6 +554,10 @@ class Phases:
         self.launches_pseudo: dict[str, int] = {}   # K1's, in the pseudo-label call
         self.launches_train: dict[str, int] = {}    # every kernel's, in one train step
         self.launches_rml: dict[str, int] = {}      # every kernel's, in one RML train step
+        # every kernel's in one RSSFormer train step with fused_attn, and in evaluate()
+        self.launches_rss_train: dict[str, int] = {}
+        self.launches_rss_eval: dict[str, int] = {}
+        self.launches_rss_step: dict[str, int] = {}   # the bench's step: no fused_attn
         self.refine_inputs = None
         # the 8 blocks of a headline forward, each as ONE function: least time
         # [bytes, operations], and the time the five kernels take for them
@@ -1849,6 +1889,165 @@ class Phases:
                        f"path {p_norms[k]:.6e} (tol {STEP_TOL * p_norms[k]:.2e})")
         return t, pl, batch
 
+    # ------------------------------------------------------------- phase 7c (RSSFormer train)
+    def _rss_trainer(self, initial=None, fused_attn: bool = False):
+        """bench.py::bench_rssformer_train's model (its seed-0 weights, or
+        `initial`), optimiser state and step function; `labels` groups the
+        parameters (stem, layer1, transitions, stages, neck, head, headaux)."""
+        import re
+
+        torch = self.torch
+        from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+        from representationlearning_tpu_torch.train import rssformer as trs
+
+        model = HRNetFusion("hrnetv2_w32", RSS_CLASSES, dtype=torch.bfloat16,
+                            fused_attn=fused_attn, generator=torch.Generator().manual_seed(0))
+        if initial is not None:
+            model.load_state_dict(initial)
+        cfg = trs.RSSFormerTrainConfig()
+
+        def group(name):
+            part = name.split(".")
+            if part[0] != "backbone":
+                return part[0]
+            return part[2] if re.fullmatch(r"layer1|stage\d|transition\d", part[2]) else "stem"
+
+        return SimpleNamespace(
+            model=model, cfg=cfg, state=trs.create_rssformer_state(model, cfg),
+            step=trs.make_rssformer_train_step(model, cfg),
+            labels={n: group(n) for n, _ in model.named_parameters()})
+
+    def run_rss_train(self, mods) -> None:
+        torch = self.torch
+        from representationlearning_tpu_torch.models.layers import BatchNorm2d
+        from representationlearning_tpu_torch.train import optim
+        from representationlearning_tpu_torch.train import rssformer as trs
+
+        tm, ti = mods[4], mods[5]
+        log(f"== RSSFormer train step: make_rssformer_train_step, HRNetFusion(hrnetv2_w32, "
+            f"{RSS_CLASSES} classes, bf16), {BATCH} x 3 x {IMAGE} x {IMAGE}, CGFL losses, SGD "
+            "0.01 poly 0.9, momentum 0.9, weight decay 1e-4, clip 35 (bench.py's configuration)")
+        batch = rss_batch(torch, self.dev)
+        t = self._rss_trainer()
+        self.check(all(v.is_cuda for v in t.model.state_dict().values()),
+                   "model built on the card")
+        initial = {k: v.detach().clone() for k, v in t.model.state_dict().items()}
+        norms = [m for m in t.model.modules() if isinstance(m, BatchNorm2d)]
+        aux = {n: p.detach().clone() for n, p in t.model.headaux.named_parameters()}
+        aux_mom = {n: torch.zeros_like(p) for n, p in aux.items()}
+        sched = optim.poly_schedule(t.cfg.base_lr, t.cfg.max_iters, t.cfg.power)
+        first, first_norms, prev = {}, {}, None
+        for i in range(RSS_TRAIN_STEPS):
+            for mod in mods:
+                mod.reset_launches()
+            t0 = time.perf_counter()
+            met = self._one_step(t, batch, self.seed, first_norms if i == 0 else None)
+            wall = time.perf_counter() - t0
+            counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+            log(f"  step {i + 1} ({wall:.2f} s): " + ", ".join(f"{k} {v:.6g}"
+                                                               for k, v in met.items()))
+            if i == 0:
+                first, self.launches_rss_step = met, counts
+                pre = sum(v * v for v in first_norms.values()) ** 0.5
+                log(f"  gradient norm before the clip, first step: {pre:.6g} (clip "
+                    f"{t.cfg.grad_clip:g}: {'live' if pre > t.cfg.grad_clip else 'not reached'})"
+                    "; by group " + ", ".join(f"{k} {v:.4g}" for k, v in first_norms.items()))
+                self.check(pre == pre and 0 < pre < float("inf"),
+                           "the gradient norm before the clip is finite and positive")
+            self.check(not any(counts.values()),
+                       f"step {i + 1}: no hand-written kernel launched (K1-K6 all 0)")
+            self.check(all(v == v and abs(v) != float("inf") for v in met.values()),
+                       f"step {i + 1}: fc_loss and total finite")
+            stats = [torch.cat([m.running_mean, m.running_var]) for m in norms]
+            self.check(all(int(m.num_batches_tracked) == i + 1 for m in norms)
+                       and all(s.dtype == torch.float32 for s in stats)
+                       and (prev is None or all(not torch.equal(a, b)
+                                                for a, b in zip(stats, prev))),
+                       f"step {i + 1}: the running statistics of all {len(norms)} BatchNorms "
+                       "moved once (f32 in the bf16 model)")
+            prev = stats
+            # headaux gets no gradient: its update is weight decay and momentum alone
+            lr = sched(i)
+            for n, p in aux.items():
+                aux_mom[n] = 0.9 * aux_mom[n] + t.cfg.weight_decay * p
+                aux[n] = p - lr * aux_mom[n]
+            got = dict(t.model.headaux.named_parameters())
+            err = max(((got[n] - aux[n]).abs().max() / aux[n].abs().max()).item() for n in aux)
+            self.check(err <= 1e-6, f"step {i + 1}: headaux moved by weight decay and momentum "
+                                    f"alone (relative err {err:.1e} against p - lr (0.9 m + wd p))")
+            self.check(t.state.step == i + 1
+                       and abs(t.state.learning_rates[0] - sched(i + 1)) <= 1e-15,
+                       f"step count {t.state.step}, next rate {t.state.learning_rates[0]:.9e} "
+                       f"= 0.01 (1 - {i + 1} / 30000)^0.9")
+
+        # the first step again with K6 under autograd: same weights, same batch
+        f = self._rss_trainer(initial, fused_attn=True)
+        f_norms = {}
+        for mod in mods:
+            mod.reset_launches()
+        f_met = self._one_step(f, batch, self.seed, f_norms)
+        counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        self.launches_rss_train = counts
+        want = {k: (RSS_BLOCKS if k == "isa_core" else 0) for k in counts}
+        self.check(counts == want, f"fused_attn step: launch counts {counts}; K6 {RSS_BLOCKS} "
+                                   "(one a transformer block, forward only), all else 0")
+        for k, v in f_met.items():
+            tol = STEP_TOL * abs(first[k]) + STEP_ATOL
+            self.check(abs(v - first[k]) <= tol,
+                       f"fused_attn step, {k}: {v:.6f} against the unfused step's "
+                       f"{first[k]:.6f} (tol {tol:.2e})")
+        for k, v in f_norms.items():
+            tol = STEP_TOL * first_norms[k] + STEP_ATOL
+            self.check(abs(v - first_norms[k]) <= tol,
+                       f"fused_attn step, gradient norm of group {k}: {v:.6e} against "
+                       f"{first_norms[k]:.6e} (tol {tol:.2e})")
+        del f
+
+        # evaluate() on K5: two batches of 4, weights calmed, against fused_mlp=False
+        model = t.model
+        calm(torch, model, torch.Generator().manual_seed(self.seed + 11))
+        halves = [(batch["image"][j:j + RSS_EVAL_BATCH], batch["mask"][j:j + RSS_EVAL_BATCH])
+                  for j in range(0, 2 * RSS_EVAL_BATCH, RSS_EVAL_BATCH)]
+        set_rss_flags(model, True, False)
+        tm.reset_launches()
+        ti.reset_launches()
+        scores = trs.evaluate(model, halves, RSS_CLASSES)
+        counts = {**tm.LAUNCHES, **ti.LAUNCHES}
+        self.launches_rss_eval = counts
+        want = {"mlp_fc1": 2 * RSS_BLOCKS, "mlp_taps": 2 * RSS_BLOCKS, "isa_core": 0}
+        self.check(counts == want, f"evaluate, two batches of {RSS_EVAL_BATCH}: launch counts "
+                                   f"{counts} (K5 8 + 8 a forward)")
+        log(f"  evaluate, fused_mlp=True: pAcc {scores['pAcc']:.4f}, mAcc {scores['mAcc']:.4f}, "
+            f"mIoU {scores['miou']:.4f}")
+        set_rss_flags(model, False, False)
+        tm.reset_launches()
+        plain = trs.evaluate(model, halves, RSS_CLASSES)
+        self.check(sum(tm.LAUNCHES.values()) == 0
+                   and all(abs(scores[k] - plain[k]) <= 1.0 - RSS_SHARE for k in ("pAcc", "mAcc")),
+                   f"evaluate, fused_mlp=False (no K5 launch): pAcc {plain['pAcc']:.4f}, mAcc "
+                   f"{plain['mAcc']:.4f}, within {1.0 - RSS_SHARE:.2f} of K5's")
+        eval_step = trs.make_rssformer_eval_step(model)
+        probs = {}
+        for fused in (True, False):
+            set_rss_flags(model, fused, False)
+            probs[fused] = torch.cat([eval_step(img) for img, _ in halves])
+        err = (probs[True] - probs[False]).abs().max().item()
+        self.check(err <= RSS_TOL, f"evaluate's probabilities, K5 against fused_mlp=False: max "
+                                   f"abs err {err:.3e} (tol {RSS_TOL:.0e})")
+        # trained on random masks, the classes lie close together: a pixel whose two best
+        # probabilities are within the bound above may flip, any other must not
+        top2 = probs[False].topk(2, dim=1).values
+        clear = (top2[:, 0] - top2[:, 1]) > RSS_TOL
+        same = probs[True].argmax(1) == probs[False].argmax(1)
+        share = same[clear].float().mean().item() if bool(clear.any()) else 0.0
+        self.check(bool(clear.any()) and share >= RSS_SHARE,
+                   f"evaluate's classes, K5 against fused_mlp=False: equal on {100.0 * share:.3f}% "
+                   f"of the {100.0 * clear.float().mean().item():.2f}% of pixels whose two best "
+                   f"probabilities differ by more than {RSS_TOL:.0e} (at least "
+                   f"{100.0 * RSS_SHARE:.1f}%); on {100.0 * same.float().mean().item():.3f}% of "
+                   "all pixels")
+        set_rss_flags(model, False, False)
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -2514,8 +2713,8 @@ class Phases:
     # ------------------------------------------------------------- phase 9 (bench)
     def run_bench(self) -> None:
         """The port's bench entry point (``representationlearning_tpu_torch/bench.py``):
-        its five ported workloads measured in this process at a short loop, each line
-        checked and its kernels' launches held to the counts of phases 4, 7a and 7b;
+        its six ported workloads measured in this process at a short loop, each line
+        checked and its kernels' launches held to the counts of phases 4, 7a, 7b and 7c;
         then the headline through the module's own command line, in a process of its
         own."""
         torch = self.torch
@@ -2538,10 +2737,11 @@ class Phases:
             "rml_train": want(K1={k: n_fwd * v for k, v in k1.items()}, K2={"affinity": 1},
                               K3={"varm_propagate": VARM_ITERS}),
             "rssformer_predict": want(K5={"mlp_fc1": RSS_BLOCKS, "mlp_taps": RSS_BLOCKS}),
-            "scd_pseudo_labels": want(), "rssformer_tta_eval": want()}
+            "scd_pseudo_labels": want(), "rssformer_tta_eval": want(), "rssformer_train": want()}
         held = {"segformer_b1": {k: self.launches.get(k) for k in k1},   # phase 4
                 "rml_train": self.launches_rml,                            # phase 7a
-                "rssformer_predict": {k: self.launches.get(k) for k in ("mlp_fc1", "mlp_taps")}}
+                "rssformer_predict": {k: self.launches.get(k) for k in ("mlp_fc1", "mlp_taps")},
+                "rssformer_train": self.launches_rss_step}                 # phase 7c
 
         def launched(groups):
             return {g: nz for g, c in groups.items()
@@ -2641,6 +2841,9 @@ def main() -> int:
     def rss():
         state["rss_model"], state["rss_x"] = ph.run_rssformer(tm, ti)
 
+    def rss_train():
+        ph.run_rss_train((tmb, ta, tv, tf, tm, ti))
+
     def timing():
         log(f"== timing of K2 / K3 (CUDA graph replay, {card})")
         ph.time_refine_kernels(ta, tv)
@@ -2662,6 +2865,7 @@ def main() -> int:
                      ("K6 vs plain", lambda: ph.isa_vs_plain(ti)),
                      ("K1' vs plain", lambda: ph.presr_vs_plain(tmb)),
                      ("RSSFormer predict", rss),
+                     ("RSSFormer train step", rss_train),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),
@@ -2681,6 +2885,10 @@ def main() -> int:
                 if ph.launches_train.get(k, 0) == 0]
     missing += [f"{k} (RML train step)" for k in RML_KERNELS
                 if ph.launches_rml.get(k, 0) == 0]
+    missing += [f"{k} (RSSFormer train step, fused_attn)" for k in ("isa_core",)
+                if ph.launches_rss_train.get(k, 0) == 0]
+    missing += [f"{k} (RSSFormer evaluate)" for k in ("mlp_fc1", "mlp_taps")
+                if ph.launches_rss_eval.get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -2706,6 +2914,10 @@ def main() -> int:
             entry["launches_train_step"] = ph.launches_train[k]
         if k in RML_KERNELS:
             entry["launches_rml_train_step"] = ph.launches_rml[k]
+        if k == "isa_core":
+            entry["launches_rssformer_train_step"] = ph.launches_rss_train[k]
+        if k in ("mlp_fc1", "mlp_taps"):
+            entry["launches_rssformer_evaluate"] = ph.launches_rss_eval[k]
         if k == "dwconv_gelu":   # the library call on bf16, beside the f32 one
             entry["library_ms_bf16"] = ph.dwconv_library_bf16_ms
         if k == "mlp_taps":  # the block as one function, and the module K5 stands in for

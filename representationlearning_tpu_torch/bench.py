@@ -3,7 +3,7 @@
 
 Prints one JSON line per workload, ``{"metric", "value", "unit", ...}``, with the
 headline (512 x 512 SegFormer-B1 tiles/s) printed last so that a last-line parser
-records it. Five workloads run through the port:
+records it. Six workloads run through the port:
 
 - ``segformer_b1``: ``TSCD("mit_b1", bf16, fused_blocks, act_dtype=bf16)``, 8 x 512²,
   ``model(x)[1].mean()``; K1 (84 launches a forward);
@@ -14,10 +14,13 @@ records it. Five workloads run through the port:
 - ``rssformer_tta_eval``: the same model unfused, 2 x 512², six-scale TTA; no kernel;
 - ``rml_train``: the RML train step with on-card augmentation of 16 raw 512² canvases
   to 320² crops, the trained ``RMLModel("mit_b1", bf16)`` and its fused CAM twin;
-  K1 (504 launches a step), K2 in ``par`` mode (1), K3 (10).
+  K1 (504 launches a step), K2 in ``par`` mode (1), K3 (10);
+- ``rssformer_train``: the RSSFormer train step, ``HRNetFusion("hrnetv2_w32", 7,
+  bf16)``, 8 x 512², the CGFL losses, SGD with the poly rate and the clip at 35;
+  no hand-written kernel (K5 is inference only and the JAX model cannot reach K6).
 
-``rssformer_train`` and ``wavecam_cams`` are not ported yet; their lines are the
-root bench's error record, naming the ROADMAP item that ports them.
+``wavecam_cams`` is not ported yet; its line is the root bench's error record,
+naming the ROADMAP item that ports it.
 
 Method. Each workload is built from seed 0 (the models' own initialisation,
 numpy draws of ``default_rng(0)`` as in the root bench), called once (which builds
@@ -75,6 +78,8 @@ from .models.tscd import TSCD, share_parameters
 from .ops import _build, affinity, attention, isa_attention, mit_block, mlp_dwbn, varm
 from .train import optim
 from .train.rml import RMLConfig, make_rml_train_step
+from .train.rssformer import (RSSFormerTrainConfig, create_rssformer_state,
+                              make_rssformer_train_step)
 from .train.state import TrainState
 from .wsss import camutils as CU
 
@@ -86,7 +91,7 @@ NUM_CLASSES = 21
 PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
 # timed calls a loop: inference, TTA, and the train step (the root bench's k_long)
 ITERS = {"segformer_b1": 10, "scd_pseudo_labels": 10, "rssformer_predict": 10,
-         "rssformer_tta_eval": 3, "rml_train": 4}
+         "rssformer_tta_eval": 3, "rml_train": 4, "rssformer_train": 4}
 REPS, WARMUP, TRACED = 3, 2, 2
 # the events of a Chrome trace that occupy the device
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -282,6 +287,30 @@ def build_rml_train(device=None, *, backbone: str = "mit_b1", canvas: int = 512,
                     model=model, inputs={"raw": raw, "cls_label": cls_np}, state=state)
 
 
+def build_rssformer_train(device=None, *, hrnet_type: str = "hrnetv2_w32", side: int = 512,
+                          batch: int = 8, dtype=torch.bfloat16) -> Workload:
+    """The RSSFormer train step (`configs/base/loveda.py`): standard normal images,
+    then masks in [-1, 7) with -1 ignored, as the root bench draws them; one SGD
+    update a call. The FLOP count runs the same step: it has no hand-written
+    kernel."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    x_np, x = _images(rng, batch, side, dev)
+    mask_np = rng.integers(-1, 7, (batch, side, side))
+    model = HRNetFusion(hrnet_type, 7, dtype=dtype, generator=torch.Generator().manual_seed(0),
+                        device=dev)
+    cfg = RSSFormerTrainConfig()
+    state = create_rssformer_state(model, cfg)
+    step = make_rssformer_train_step(model, cfg, device=dev)
+    data = {"image": x, "mask": torch.from_numpy(mask_np).to(dev)}
+
+    def run():
+        return step(state, data)[1]
+
+    return Workload(run, lambda metrics: metrics["total"], batch, run, model=model,
+                    inputs={"x": x_np, "mask": mask_np}, state=state)
+
+
 @dataclass(frozen=True)
 class Bench:
     metric: str
@@ -300,9 +329,7 @@ BENCHES = {
     "scd_pseudo_labels": Bench(
         "scd_pseudo_label_images_per_sec_per_chip", "images/s", build_scd_pseudo_labels),
     "rssformer_train": Bench(
-        "rssformer_w32_512_train_images_per_sec_per_chip", "images/s", None,
-        "not ported yet: the RSSFormer train step (losses/cgfl.py, train/rssformer.py, "
-        "metrics/seg.py) is ROADMAP Queue 1 item 3"),
+        "rssformer_w32_512_train_images_per_sec_per_chip", "images/s", build_rssformer_train),
     "rml_train": Bench("rml_mitb1_320_train_images_per_sec_per_chip", "images/s",
                        build_rml_train),
     "rssformer_tta_eval": Bench(
@@ -327,9 +354,10 @@ BENCH_TOTAL_BUDGET_S = float(os.environ.get("BENCH_TOTAL_BUDGET_S", 1500))
 BENCH_FLOOR_S, MIN_CHILD_S = 90.0, 45.0
 # Caps: at least three times each child's wall time in the first full run on an
 # H100 80GB HBM3 at 700 W (18.7 / 22.4 / 6.3 / 29.6 / 6.4 / 21.3 / 21.8 s in run
-# order, the libraries built by the parent in 42.4 s; PERF.md section 4).
+# order, the libraries built by the parent in 42.4 s; PERF.md section 4);
+# rssformer_train's at the slower of its first two runs, 27.7 / 39.3 s.
 PER_CONFIG_MAX_S = {
-    "segformer_b1": 120, "rml_train": 120, "rssformer_train": 60, "rssformer_tta_eval": 150,
+    "segformer_b1": 120, "rml_train": 120, "rssformer_train": 120, "rssformer_tta_eval": 150,
     "wavecam_cams": 60, "rssformer_predict": 120, "scd_pseudo_labels": 120,
 }
 

@@ -7,8 +7,10 @@ hands on the raw branch-0 feature) + 1x1 classifier head with a x4 bilinear
 upsample (align_corners=True) + an auxiliary linear head on the pooled branch-0
 feature. NCHW in and out. In eval mode the forward returns the softmax
 probabilities (B, classes, H, W). In training mode it returns ``(logit,
-aux_logits)``: the JAX model goes on to the CGFL loss there
-(``losses/cgfl.py``), which the port does not hold yet.
+aux_logits)``. The JAX model applies the CGFL loss inside its training call;
+here the train step applies it (``train/rssformer.py`` with
+``losses/cgfl.py::segmentation_loss_aux``), reading ``loss_config`` and
+``ignore_index`` from the model, which holds them as the JAX model does.
 
 Modules carry the reference's state_dict names (``backbone.hrnet.*``,
 ``neck.fuse_conv.0``, ``head.0``, ``headaux.0``). ``fused_mlp`` runs every
@@ -23,7 +25,7 @@ construction raises where there is none; the CPU is the caller's explicit choice
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +72,7 @@ class _Encoder(nn.Module):
 class HRNetFusion(nn.Module):
     def __init__(self, hrnet_type: str = "hrnetv2_w32", classes: int = 7,
                  upsample_scale: int = 4, with_transformer: bool = True,
+                 loss_config: Mapping | None = None, ignore_index: int = -1,
                  dtype=torch.float32, fused_mlp: bool = False, fused_attn: bool = False,
                  remat_transformer: bool = False, neck_bf16: bool = False,
                  generator: torch.Generator | None = None,
@@ -81,6 +84,8 @@ class HRNetFusion(nn.Module):
                 "is not ported yet")
         widths = HRNET_EXTRA[hrnet_type]["widths"]
         self.upsample_scale = upsample_scale
+        # the CGFL losses the train step applies (None: {"ce": {}}, as in JAX)
+        self.loss_config, self.ignore_index = loss_config, ignore_index
         with resolve_device(device):  # parameters and buffers are created there
             self.backbone = _Encoder(HighResolutionNet(
                 hrnet_type, with_transformer=with_transformer, dtype=dtype,

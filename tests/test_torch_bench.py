@@ -1,10 +1,10 @@
 """The port's bench entry point (`representationlearning_tpu_torch/bench.py`) on the
 CPU: each workload's timed function at a small size against the JAX package on
 the same weights (carried over by `convert/from_jax.py`) and the same numpy
-draws, f32 (the two RSSFormer workloads in `test_torch_bench_rssformer.py`); its
-lines, their keys and error records; and the parent process with `subprocess.run`
-replaced by a fake child. The card's measurements (`measure`) run in
-`chip_smoke.py` phase 9."""
+draws, f32 (the RSSFormer predict and TTA in `test_torch_bench_rssformer.py`, the
+RSSFormer train step in `test_torch_train_rssformer.py`); its lines, their keys
+and error records; and the parent process with `subprocess.run` replaced by a
+fake child. The card's measurements (`measure`) run in `chip_smoke.py` phase 9."""
 import json
 import subprocess
 import sys
@@ -194,8 +194,7 @@ def test_mfu_is_null_for_a_card_outside_the_table():
     assert rec["mfu"] is None and rec["achieved_tflops"] == pytest.approx(24.0)
 
 
-@pytest.mark.parametrize("name,item", [("rssformer_train", "Queue 1 item 3"),
-                                       ("wavecam_cams", "Queue 1 item 4")])
+@pytest.mark.parametrize("name,item", [("wavecam_cams", "Queue 1 item 4")])
 def test_unported_lines_are_error_records(name, item, capsys):
     assert TB.run_one(name) == 1
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -234,7 +233,7 @@ def test_no_tf32_turns_tf32_off_and_restores_the_settings(monkeypatch):
 def test_one_from_the_command_line():
     """`python -m representationlearning_tpu_torch.bench --one NAME` prints its line
     last; an unported workload exits 1 with its error record."""
-    r = subprocess.run([sys.executable, "-m", TB.MODULE, "--one", "rssformer_train"],
+    r = subprocess.run([sys.executable, "-m", TB.MODULE, "--one", "wavecam_cams"],
                        cwd=TB.ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 1
     assert json.loads(r.stdout.strip().splitlines()[-1])["unit"] == "error"
@@ -344,7 +343,8 @@ def test_parent_streams_then_prints_all_seven_headline_last(parent, capsys):
         assert kw["cwd"] == TB.ROOT and kw["capture_output"] and kw["text"]
     assert [c[0][-1] for c in fake.calls] == TB.BENCH_RUN_ORDER
     by_name = {r["metric"]: r for r in lines[7:]}
-    assert by_name["rssformer_w32_512_train_images_per_sec_per_chip"]["unit"] == "error"
+    assert by_name["wavecam_resnet50_cams_per_sec_per_chip"]["unit"] == "error"
+    assert [r["unit"] for r in lines[7:]].count("error") == 1
 
 
 def test_parent_caps_each_child_inside_the_budget(parent, capsys):
@@ -377,12 +377,12 @@ def test_parent_reports_a_timeout_and_a_silent_child(parent, capsys):
 
 
 @pytest.mark.parametrize("failing,rc", [(None, 0), ("rssformer_predict", 1),
-                                        ("rssformer_tta_eval", 1)])
+                                        ("rssformer_tta_eval", 1), ("rssformer_train", 1)])
 def test_parent_fails_when_a_ported_workload_failed(parent, capsys, failing, rc):
     parent(behave={failing: "error"} if failing else {})
     assert TB.main() == rc
     lines = _lines(capsys)[7:]
-    assert sum(r["unit"] == "error" for r in lines) == 2 + (failing is not None)
+    assert sum(r["unit"] == "error" for r in lines) == 1 + (failing is not None)
 
 
 def test_parent_build_failure_fails_every_line(parent, monkeypatch, capsys):

@@ -1093,3 +1093,66 @@ def test_rml_train_step_launch_counts(dev):
                       "attention": n * 8, "dwconv_gelu": n * 8, "affinity": 1,
                       "varm_propagate": 10, "flash_fwd": 0, "flash_bwd": 0, "mlp_fc1": 0,
                       "mlp_taps": 0, "isa_core": 0}
+
+
+def _rssformer_on_the_card(fused_attn=False, fused_mlp=False, initial=None):
+    """`HRNetFusion("hrnetv2_w32", 7, bf16)` on the card (K5 takes w32's hid 128),
+    its optimiser state and train step, and a batch of 2 x 64 x 64 with masks
+    in [-1, 7)."""
+    from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+    from representationlearning_tpu_torch.train import rssformer as TRS
+
+    model = HRNetFusion("hrnetv2_w32", 7, dtype=BF16, fused_attn=fused_attn, fused_mlp=fused_mlp,
+                        generator=torch.Generator().manual_seed(0))
+    if initial is not None:
+        model.load_state_dict(initial)
+    cfg = TRS.RSSFormerTrainConfig()
+    gen = torch.Generator().manual_seed(1)
+    batch = {"image": torch.randn(2, 3, 64, 64, generator=gen),
+             "mask": torch.randint(-1, 7, (2, 64, 64), generator=gen)}
+    state = TRS.create_rssformer_state(model, cfg)
+    return model, state, TRS.make_rssformer_train_step(model, cfg), batch
+
+
+def test_rssformer_train_step_on_the_card(dev):
+    """Two steps: finite losses on the card, no hand-written kernel, the step count,
+    the neck's statistics moved twice; the first step again with `fused_attn` on K6
+    (8 launches, forward only) within 2e-2 of the loss."""
+    model, state, step, batch = _rssformer_on_the_card()
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+    mods = (tmb, TA, TV, TF, TM, TI)
+    losses = []
+    for _ in range(2):
+        for mod in mods:
+            mod.reset_launches()
+        state, met = step(state, batch)
+        assert set(met) == {"fc_loss", "total"}
+        assert all(v.is_cuda and bool(torch.isfinite(v)) for v in met.values())
+        assert not any(v for mod in mods for v in mod.LAUNCHES.values())
+        losses.append(float(met["total"]))
+    assert state.step == 2 and int(model.neck.fuse_conv[1].num_batches_tracked) == 2
+    _, f_state, f_step, _ = _rssformer_on_the_card(fused_attn=True, initial=initial)
+    for mod in mods:
+        mod.reset_launches()
+    _, f_met = f_step(f_state, batch)
+    counts = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+    assert counts == {"isa_core": 8}
+    assert abs(float(f_met["total"]) - losses[0]) <= 2e-2 * abs(losses[0]) + 2e-3
+
+
+def test_rssformer_evaluate_on_k5(dev):
+    """`evaluate` with `fused_mlp=True` runs K5 8 + 8 a forward; its probabilities
+    are within 3e-2 of the convolutions' (`chip_smoke.RSS_TOL`)."""
+    from chip_smoke import RSS_TOL, calm, set_rss_flags
+    from representationlearning_tpu_torch.train import rssformer as TRS
+
+    model, _, _, batch = _rssformer_on_the_card(fused_mlp=True)
+    calm(torch, model, torch.Generator().manual_seed(2))
+    TM.reset_launches()
+    scores = TRS.evaluate(model, [(batch["image"], batch["mask"])], 7)
+    assert TM.LAUNCHES == {"mlp_fc1": 8, "mlp_taps": 8} and 0.0 <= scores["pAcc"] <= 1.0
+    step = TRS.make_rssformer_eval_step(model)
+    fused = step(batch["image"].to(dev))
+    set_rss_flags(model, False, False)
+    plain = step(batch["image"].to(dev))
+    assert (fused - plain).abs().max().item() <= RSS_TOL

@@ -1,12 +1,14 @@
-"""Device trace of the PyTorch port's SCD train step, or of its RML train step, on
-one CUDA card.
+"""Device trace of the PyTorch port's SCD train step, or of its RML or RSSFormer
+train step, on one CUDA card.
 
 Builds the same trainer and batch as ``chip_smoke.py`` (``make_scd_train_step`` at
 8 x 320 x 320, ``configs/scd_voc.yaml`` with flash attention on: the f32
 ``TSCD("mit_b1", use_flash=True)``, its bf16 fused CAM twin, AdamW; with ``--rml``
 ``make_rml_train_step`` at ``bench.py::bench_rml_train``'s configuration: 16 raw
 512 x 512 canvases augmented on the card to 320 x 320, ``RMLModel("mit_b1",
-dtype=bf16)`` and its bf16 fused twin, PAR) and prints:
+dtype=bf16)`` and its bf16 fused twin, PAR; with ``--rssformer``
+``make_rssformer_train_step`` at ``bench.py::bench_rssformer_train``'s configuration:
+``HRNetFusion("hrnetv2_w32", 7, dtype=bf16)``, 8 x 512 x 512, SGD) and prints:
 
 - the card and its power limit;
 - the step's time by CUDA events, mean over a few steps without the profiler;
@@ -17,12 +19,12 @@ dtype=bf16)`` and its bf16 fused twin, PAR) and prints:
   hand-written kernel;
 - the device time and the launches of each stage that ``scd_losses`` and the
   step function name as profiler ranges (augment, main_forward, pseudo_labels,
-  small_forward, small_cams, losses, energy_loss, backward, optimizer): every
+  small_forward, small_cams, losses, energy_loss, forward, backward, optimizer): every
   kernel counts for the range in which the host launched it, so the slower
   host under the profiler does not stretch a stage.
 
 With ``--out DIR`` the Chrome trace is kept there. Usage, from the root of
-the repository: ``python tools/trace_port_train_step.py [--rml] [--seed N]
+the repository: ``python tools/trace_port_train_step.py [--rml | --rssformer] [--seed N]
 [--steps N] [--out DIR]``. It needs a CUDA card and imports no JAX.
 """
 import argparse
@@ -36,7 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 STAGES = ("augment", "main_forward", "pseudo_labels", "small_forward", "small_cams", "losses",
-          "energy_loss", "backward", "optimizer")
+          "energy_loss", "forward", "backward", "optimizer")
 
 
 def stage_report(trace: list[dict], n: int, total: float) -> None:
@@ -73,6 +75,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None)
     ap.add_argument("--rml", action="store_true", help="the RML train step")
+    ap.add_argument("--rssformer", action="store_true", help="the RSSFormer train step")
     args = ap.parse_args()
 
     import torch
@@ -93,6 +96,9 @@ def main() -> int:
         gen = torch.Generator().manual_seed(args.seed + 7)
         batch, size = cs.rml_batch(torch, gen, ph.dev), cs.RML_BATCH
         t, what = ph._rml_trainer(gen), "RML train step"
+    elif args.rssformer:
+        batch, size = cs.rss_batch(torch, ph.dev), cs.BATCH
+        t, what = ph._rss_trainer(), "RSSFormer train step"
     else:
         gen = torch.Generator().manual_seed(args.seed + 5)
         x, cls, box = cs.pseudo_batch(torch, gen, ph.dev)
@@ -157,7 +163,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
-        path = os.path.join(args.out or tmp, ("rml_" if args.rml else "") + "train_step_trace.json")
+        prefix = "rml_" if args.rml else "rssformer_" if args.rssformer else ""
+        path = os.path.join(args.out or tmp, prefix + "train_step_trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
             trace = json.load(f)["traceEvents"]
