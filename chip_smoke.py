@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's six paths and checks them. The first is TSCD / MiT-B1
+Drives the port's seven paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -27,8 +27,12 @@ update a step. The sixth is the RSSFormer train step
 (``train/rssformer.py::make_rssformer_train_step``) at the configuration of
 ``bench.py::bench_rssformer_train``: ``HRNetFusion("hrnetv2_w32", 7, dtype=bf16)``,
 8 x 3 x 512 x 512, the CGFL losses, backward, one SGD update a step; once more
-with its window attention on K6 (``fused_attn``), and ``evaluate`` on K5. The
-headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
+with its window attention on K6 (``fused_attn``), and ``evaluate`` on K5. The seventh
+is WaveCAM's pseudo-label inference (``wsss/wavecam_infer.py``), which has no
+hand-written kernel: the ResNet-50 ``Net(n_classes=20, bf16)`` CAM pair of
+``bench.py::bench_wavecam_cams``, then ``make_cam``, ``cam_to_ir_label`` and
+``make_sem_seg_labels`` on one VOC-sized image. The headline forward also runs with
+``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -106,19 +110,31 @@ headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
    weights calmed) against ``fused_mlp=False``: probabilities within 3e-2, classes
    equal on at least 99% of the pixels whose two best probabilities differ by more
    than that (trained on random masks, many pixels are near-ties);
+7d. WaveCAM: the bench's cam pair (8 x 512² and their flips, batch 16) in bf16, its
+   time, CAMs/s and peak memory, against the same call in f32 within 2e-2 of the
+   largest magnitude (weights calmed); the three stages on one 375 x 500 image with
+   1-3 present classes at ``WaveCAMConfig``'s defaults (scales 1, 0.5, 1.5, 2; the CRF
+   grid at 0.35 / 0.1; IRN, radius 5, beta 10, eight squarings; background 0.28),
+   each stage's time and peak memory, the transition matrix's size and the walk's
+   rate; every column of the transition matrix sums to 1 within 1e-3, the labels lie
+   in the keys, everything is on the card, no hand-written kernel is launched; the
+   CRF label pass with the host lattice (``method="native"``) against the grid on at
+   least 99% of the pixels; the whole chain at 64 x 96 on the card against the CPU
+   in f32 (labels equal on at least 99.5%, the pseudo labels off near-ties);
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
    against plain path (with the RML step's peak memory and launches); the
    RSSFormer predict four ways (both flags on, each alone, both off) and the
    headline forward with and without ``pre_sr``;
-9. bench: ``representationlearning_tpu_torch/bench.py``'s six ported workloads
+9. bench: ``representationlearning_tpu_torch/bench.py``'s seven workloads
    (the headline, the SCD pseudo labels, the RSSFormer predict, TTA and train step,
-   the RML train step at ``bench.py``'s shapes) measured in this process at a loop
+   the RML train step, the WaveCAM CAM pair at ``bench.py``'s shapes) measured in this
+   process at a loop
    of two calls: each line's value finite and positive, idle share in [0, 1),
    launches, peak memory and FLOPs positive, and the hand-written kernels' launches
    a call equal to those of phases 4, 7a, 7b and 7c (K1 84 a headline forward; K1
-   504, K2 1, K3 10 an RML step; K5 8 + 8 a predict; none on the other three); then
+   504, K2 1, K3 10 an RML step; K5 8 + 8 a predict; none on the other four); then
    ``python -m representationlearning_tpu_torch.bench --one segformer_b1`` in a
    process of its own, whose last line must be the headline's record.
 
@@ -214,6 +230,23 @@ RML_KERNELS = ("ln_stats", "linear", "sr_conv", "attention", "dwconv_gelu", "aff
 # window attention runs on K6 under autograd, its backward the plain recomputation.
 # evaluate() reads two batches of 4 with fused_mlp=True: K5 8 + 8 a forward.
 RSS_TRAIN_STEPS, RSS_EVAL_BATCH = 3, 4
+
+# WaveCAM (phase 7d). The bench's configuration (bench.py::bench_wavecam_cams): the
+# ResNet-50 Net(n_classes=20, bf16), one cam over 8 x 512 x 512 images and their
+# flips. The pseudo-label stages on one VOC-sized image with WaveCAMConfig's
+# defaults: cam_scales, conf_fg_thres / conf_bg_thres (CRF method grid), rw_radius,
+# beta, exp_times, sem_seg_bg_thres. The same chain at CHAIN_HW on the card and on
+# the CPU.
+WAVECAM_BATCH, WAVECAM_SIDE, WAVECAM_CLASSES = 8, 512, 20
+VOC_HW, WAVECAM_SCALES = (375, 500), (1.0, 0.5, 1.5, 2.0)
+CONF_FG, CONF_BG, SEM_BG = 0.35, 0.1, 0.28
+RW_RADIUS, RW_BETA, RW_EXP = 5, 10.0, 8
+CHAIN_HW = (64, 96)
+WAVECAM_TOL = 2e-2     # bf16 CAMs against f32, of the largest magnitude (the headline's bound)
+COLUMN_TOL = 1e-3      # every column of the transition matrix sums to 1
+CRF_AGREE = 0.99       # grid against the host lattice (tests/test_indexing_crf.py's bound)
+CHAIN_SHARE = 0.995    # card against CPU labels, off near-ties
+NEAR_TIE = 1e-3        # two best scores this close: a near-tie
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -535,6 +568,42 @@ def rss_batch(torch, device):
     masks = rng.integers(-1, RSS_CLASSES, (BATCH, IMAGE, IMAGE))
     return {"image": torch.from_numpy(images.transpose(0, 3, 1, 2).copy()).to(device),
             "mask": torch.from_numpy(masks).to(device)}
+
+
+def voc_image(torch, gen, H: int, W: int, n_discs: int):
+    """A VOC-like image: smooth colour fields, one disc of flat colour per present
+    class, mild noise. Returns (image (3, H, W) in [0, 255], the same normalised,
+    the discs' centres)."""
+    import torch.nn.functional as F
+    mean = torch.tensor([123.675, 116.28, 103.53])[:, None, None]
+    std = torch.tensor([58.395, 57.12, 57.375])[:, None, None]
+    coarse = torch.rand((1, 3, 4, 6), generator=gen)
+    img = F.interpolate(coarse, size=(H, W), mode="bilinear", align_corners=False)[0] * 160 + 40
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    r, centres = min(H, W) // 5, []
+    for _ in range(n_discs):
+        cy = int(torch.randint(r, H - r, (1,), generator=gen))
+        cx = int(torch.randint(r, W - r, (1,), generator=gen))
+        img[:, (yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = torch.rand((3, 1), generator=gen) * 255
+        centres.append((cy, cx))
+    img = (img + 6 * torch.randn(img.shape, generator=gen)).clamp(0, 255)
+    return img, (img - mean) / std, centres
+
+
+def structured_classifier(torch, net, im, classes, centres) -> None:
+    """A random classifier's CAMs are negative everywhere (the features are ReLU'd),
+    so every pseudo label would be background. Each present class's weight becomes
+    the feature at its disc's centre, less the image's mean feature and made
+    orthogonal to it: its CAM is centred at 0 and high where the image looks like
+    its disc."""
+    with torch.no_grad():
+        f = net.features(im[None])[0]                 # (2048, h, w)
+        m = f.mean(dim=(1, 2))
+        for c, (y, x) in zip(classes, centres):
+            w = f[:, min(y // net.stride, f.shape[1] - 1), min(x // net.stride, f.shape[2] - 1)]
+            w = w - m
+            w = w - (w @ m) / (m @ m) * m
+            net.classifier.weight[c, :, 0, 0] = w / w.norm()
 
 
 class Phases:
@@ -2048,6 +2117,191 @@ class Phases:
                    "all pixels")
         set_rss_flags(model, False, False)
 
+    # ------------------------------------------------------------- phase 7d (WaveCAM)
+    def run_wavecam(self) -> None:
+        """WaveCAM's pseudo-label inference path: the bench's CAM configuration in
+        bf16 against f32; the three stages on one VOC-sized image, each timed; the
+        CRF pass with the host lattice against the grid; the whole chain at
+        CHAIN_HW on the card against the CPU. No hand-written kernel runs here."""
+        torch = self.torch
+        from representationlearning_tpu_torch import bench as tb
+        from representationlearning_tpu_torch.models.irn import IRNNet
+        from representationlearning_tpu_torch.models.resnet import Net
+        from representationlearning_tpu_torch.ops.crf import crf_inference_label
+        from representationlearning_tpu_torch.wsss import wavecam_infer as TW
+        from representationlearning_tpu_torch.wsss.indexing import propagate_to_edge
+
+        dev, gen = self.dev, torch.Generator().manual_seed(self.seed + 7)
+        B = WAVECAM_BATCH
+        log(f"== WaveCAM: bench.py::bench_wavecam_cams, Net(n_classes={WAVECAM_CLASSES}, "
+            f"bf16), one cam over {B} x {WAVECAM_SIDE}² and their flips (batch {2 * B}); "
+            "weights calmed (chip_smoke.py::calm: FrozenBatchNorm scales around 0.5, noise "
+            "on every statistic and bias), without which sixteen bottlenecks bring the bf16 "
+            "error within a few tenths of the bound")
+        w = tb.build_wavecam_cams(dev, side=WAVECAM_SIDE, batch=B)
+        calm(torch, w.model, gen)
+        tb.reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        cams = w.run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: v for c in tb.kernel_launches().values() for k, v in c.items() if v}
+        ms = self.time_ms(w.run, 5)
+        log(f"  {ms:.3f} ms a call (CUDA events, mean of 5), {B * 1e3 / ms:.2f} CAMs/s, peak "
+            f"{peak / 2**30:.2f} GiB")
+        self.check(not launched, f"cam pair: hand-written kernels launched {launched or 'none'}")
+        f32 = Net(n_classes=WAVECAM_CLASSES, device=dev).eval()
+        f32.load_state_dict(w.model.state_dict())
+        x = torch.from_numpy(w.inputs["x"].transpose(0, 3, 1, 2).copy()).to(dev)
+        with torch.no_grad():
+            cc = f32.cam(torch.cat([x, x.flip(-1)]))
+            want = torch.relu(cc[:B]) + torch.relu(cc[B:]).flip(-1)
+        err, top = max_err(cams, want)
+        self.check(cams.shape == (B, WAVECAM_CLASSES, WAVECAM_SIDE // 16, WAVECAM_SIDE // 16)
+                   and cams.dtype == torch.float32 and cams.is_cuda
+                   and bool(torch.isfinite(cams).all()),
+                   f"bf16 CAMs {tuple(cams.shape)} f32, finite, on the card")
+        self.check(err <= WAVECAM_TOL * top,
+                   f"bf16 CAMs against the same call in f32: max abs err {err:.3e} of "
+                   f"{top:.3e} ({err / top:.2e}, tol {WAVECAM_TOL:.0e})")
+        del w, f32, x, cams, cc, want
+        torch.cuda.empty_cache()
+
+        H, W = VOC_HW
+        n = 1 + int(torch.randint(3, (1,), generator=gen))
+        classes = torch.randperm(WAVECAM_CLASSES, generator=gen)[:n].tolist()
+        img, im, centres = voc_image(torch, gen, H, W, n)
+        img, im = img.to(dev), im.to(dev)
+        onehot = torch.zeros(WAVECAM_CLASSES)
+        onehot[classes] = 1.0
+        net = Net(16, WAVECAM_CLASSES, generator=torch.Generator().manual_seed(self.seed),
+                  device=dev).eval()
+        irn = IRNNet(generator=torch.Generator().manual_seed(self.seed + 1), device=dev).eval()
+        calm(torch, net, gen)
+        calm(torch, irn, gen)
+        structured_classifier(torch, net, im, classes, centres)
+        log(f"== WaveCAM pseudo-label stages on one {H} x {W} image, classes {classes}: make_cam "
+            f"Net(stride=16) f32 at scales {WAVECAM_SCALES}; cam_to_ir_label (CRF grid, "
+            f"{CONF_FG} / {CONF_BG}); make_sem_seg_labels (IRN, radius {RW_RADIUS}, beta "
+            f"{RW_BETA}, exp_times {RW_EXP}, background {SEM_BG}); weights calmed, each present "
+            "class's classifier weight the centred feature of its disc "
+            "(chip_smoke.py::structured_classifier); the second of two runs timed")
+
+        def run_chain():
+            times, out = {}, {}
+
+            def stage(name, fn):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                r = fn()
+                torch.cuda.synchronize()
+                times[name] = (1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated())
+                return r
+
+            d = stage("make_cam", lambda: TW.make_cam(net, im, onehot, WAVECAM_SCALES))
+            conf = stage("cam_to_ir_label", lambda: TW.cam_to_ir_label(img, d, CONF_FG, CONF_BG))
+            sem = stage("make_sem_seg_labels", lambda: TW.make_sem_seg_labels(
+                irn, im, d, RW_RADIUS, RW_BETA, RW_EXP, SEM_BG, out=out))
+            cams = torch.as_tensor(d["cam"], device=dev)
+            stage("random walk alone", lambda: propagate_to_edge(cams, out["edge"], RW_RADIUS,
+                                                                 RW_BETA, RW_EXP))
+            return d, conf, sem, out, times
+
+        tb.reset_kernel_launches()
+        run_chain()
+        d, conf, sem, out, times = run_chain()
+        launched = {k: v for c in tb.kernel_launches().values() for k, v in c.items() if v}
+        N = out["trans"].shape[0]
+        for name, (t, mem) in times.items():
+            log(f"  {name}: {t:.1f} ms, peak {mem / 2**30:.2f} GiB")
+        walk = 2.0 * N ** 3 * RW_EXP
+        log(f"  transition matrix {N} x {N} f32, {out['trans'].numel() * 4 / 1e6:.0f} MB; "
+            f"{RW_EXP} squarings {walk / 1e12:.1f} TFLOP, "
+            f"{walk / times['random walk alone'][0] / 1e9:.1f} TFLOP/s in the walk alone")
+        self.wavecam_stage_ms = {k: t for k, (t, _) in times.items()}
+        keys = [0] + (d["keys"] + 1).tolist()
+        cols = (out["trans"].sum(0) - 1).abs().max().item()
+        self.check(cols <= COLUMN_TOL, f"every column of the transition matrix sums to 1 within "
+                   f"{cols:.2e} (tol {COLUMN_TOL:.0e})")
+        ir_vals, sem_vals = torch.unique(conf).tolist(), torch.unique(sem).tolist()
+        log(f"  IR label classes {ir_vals}, pseudo label classes {sem_vals}; keys {keys}")
+        self.check(set(ir_vals) <= set(keys) | {255} and set(sem_vals) <= set(keys),
+                   "the labels lie in the keys (the IR label also 255, unsure)")
+        self.check(all(t.is_cuda for t in (conf, sem, out["trans"], out["edge"], out["scores"])),
+                   "the labels, edges, scores and transition matrix are on the card")
+        self.check(not launched, f"the stages launch no hand-written kernel "
+                   f"({launched or 'none'})")
+
+        cams = torch.as_tensor(d["high_res"], device=dev)
+        padded = torch.cat([torch.full((1, H, W), CONF_FG, device=dev), cams])
+        labels = {}
+        for method in ("grid", "native"):
+            t0 = time.perf_counter()
+            labels[method] = crf_inference_label(img, padded.argmax(0), n_labels=len(keys),
+                                                 method=method)
+            torch.cuda.synchronize()
+            log(f"  CRF label pass, {method}: {1e3 * (time.perf_counter() - t0):.1f} ms")
+        agree = (labels["grid"] == labels["native"]).float().mean().item()
+        self.check(agree >= CRF_AGREE, f"CRF label pass, grid against the host lattice: equal "
+                   f"on {100 * agree:.3f}% of the pixels (at least {100 * CRF_AGREE:.0f}%)")
+        del out, net, irn, d, conf, sem, cams, padded, labels
+        torch.cuda.empty_cache()
+        self._wavecam_chain_vs_cpu()
+
+    def _wavecam_chain_vs_cpu(self) -> None:
+        """The whole chain at CHAIN_HW on the card and on the CPU in f32 from the
+        same weights: the CAM dicts close, the IR labels equal on CHAIN_SHARE of
+        the pixels, the pseudo labels on CHAIN_SHARE of those off near-ties."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.irn import IRNNet
+        from representationlearning_tpu_torch.models.resnet import Net
+        from representationlearning_tpu_torch.wsss import wavecam_infer as TW
+
+        gen = torch.Generator().manual_seed(self.seed + 8)
+        H, W = CHAIN_HW
+        img, im, centres = voc_image(torch, gen, H, W, 2)
+        classes = torch.randperm(WAVECAM_CLASSES, generator=gen)[:2].tolist()
+        onehot = torch.zeros(WAVECAM_CLASSES)
+        onehot[classes] = 1.0
+        cpu = torch.device("cpu")
+        nets = {cpu: Net(16, WAVECAM_CLASSES, generator=torch.Generator().manual_seed(3),
+                         device=cpu).eval()}
+        irns = {cpu: IRNNet(generator=torch.Generator().manual_seed(4), device=cpu).eval()}
+        calm(torch, nets[cpu], gen)
+        calm(torch, irns[cpu], gen)
+        structured_classifier(torch, nets[cpu], im, classes, centres)
+        nets[self.dev] = Net(16, WAVECAM_CLASSES, device=self.dev).eval()
+        nets[self.dev].load_state_dict(nets[cpu].state_dict())
+        irns[self.dev] = IRNNet(device=self.dev).eval()
+        irns[self.dev].load_state_dict(irns[cpu].state_dict())
+        res = {}
+        for dev in (self.dev, cpu):
+            out = {}
+            d = TW.make_cam(nets[dev], im.to(dev), onehot, WAVECAM_SCALES)
+            conf = TW.cam_to_ir_label(img.to(dev), d, CONF_FG, CONF_BG)
+            sem = TW.make_sem_seg_labels(irns[dev], im.to(dev), d, RW_RADIUS, RW_BETA, RW_EXP,
+                                         SEM_BG, out=out)
+            res[dev.type] = (d, conf.cpu(), sem.cpu(), out["scores"].cpu())
+        (dc, cc, sc, _), (dh, ch, sh, scores) = res["cuda"], res["cpu"]
+        cam_err = max(float(abs(dc[k] - dh[k]).max()) for k in ("cam", "high_res"))
+        top2 = scores.topk(2, dim=0).values
+        clear = (top2[0] - top2[1]) > NEAR_TIE
+        ir_share = (cc == ch).float().mean().item()
+        sem_share = (sc == sh)[clear].float().mean().item()
+        log(f"== WaveCAM chain at {H} x {W} on the card against the CPU (f32, the same weights): "
+            f"CAM dicts max abs err {cam_err:.2e}; IR label classes {torch.unique(ch).tolist()}, "
+            f"pseudo label classes {torch.unique(sh).tolist()}")
+        self.check(list(dc["keys"]) == list(dh["keys"]) and cam_err <= 1e-3,
+                   f"CAM dicts: the same keys, max abs err {cam_err:.2e} of 1 (tol 1e-3)")
+        self.check(ir_share >= CHAIN_SHARE, f"IR labels equal on {100 * ir_share:.3f}% of all "
+                   f"pixels (at least {100 * CHAIN_SHARE:.1f}%)")
+        self.check(sem_share >= CHAIN_SHARE,
+                   f"pseudo labels equal on {100 * sem_share:.3f}% of the "
+                   f"{100 * clear.float().mean().item():.2f}% of pixels off near-ties "
+                   f"(two best scores more than {NEAR_TIE:.0e} apart; at least "
+                   f"{100 * CHAIN_SHARE:.1f}%)")
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -2713,7 +2967,7 @@ class Phases:
     # ------------------------------------------------------------- phase 9 (bench)
     def run_bench(self) -> None:
         """The port's bench entry point (``representationlearning_tpu_torch/bench.py``):
-        its six ported workloads measured in this process at a short loop, each line
+        its seven workloads measured in this process at a short loop, each line
         checked and its kernels' launches held to the counts of phases 4, 7a, 7b and 7c;
         then the headline through the module's own command line, in a process of its
         own."""
@@ -2737,7 +2991,8 @@ class Phases:
             "rml_train": want(K1={k: n_fwd * v for k, v in k1.items()}, K2={"affinity": 1},
                               K3={"varm_propagate": VARM_ITERS}),
             "rssformer_predict": want(K5={"mlp_fc1": RSS_BLOCKS, "mlp_taps": RSS_BLOCKS}),
-            "scd_pseudo_labels": want(), "rssformer_tta_eval": want(), "rssformer_train": want()}
+            "scd_pseudo_labels": want(), "rssformer_tta_eval": want(), "rssformer_train": want(),
+            "wavecam_cams": want()}
         held = {"segformer_b1": {k: self.launches.get(k) for k in k1},   # phase 4
                 "rml_train": self.launches_rml,                            # phase 7a
                 "rssformer_predict": {k: self.launches.get(k) for k in ("mlp_fc1", "mlp_taps")},
@@ -2866,6 +3121,7 @@ def main() -> int:
                      ("K1' vs plain", lambda: ph.presr_vs_plain(tmb)),
                      ("RSSFormer predict", rss),
                      ("RSSFormer train step", rss_train),
+                     ("WaveCAM", ph.run_wavecam),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),

@@ -3,7 +3,7 @@
 
 Prints one JSON line per workload, ``{"metric", "value", "unit", ...}``, with the
 headline (512 x 512 SegFormer-B1 tiles/s) printed last so that a last-line parser
-records it. Six workloads run through the port:
+records it. All seven run through the port:
 
 - ``segformer_b1``: ``TSCD("mit_b1", bf16, fused_blocks, act_dtype=bf16)``, 8 x 512²,
   ``model(x)[1].mean()``; K1 (84 launches a forward);
@@ -17,10 +17,10 @@ records it. Six workloads run through the port:
   K1 (504 launches a step), K2 in ``par`` mode (1), K3 (10);
 - ``rssformer_train``: the RSSFormer train step, ``HRNetFusion("hrnetv2_w32", 7,
   bf16)``, 8 x 512², the CGFL losses, SGD with the poly rate and the clip at 35;
-  no hand-written kernel (K5 is inference only and the JAX model cannot reach K6).
-
-``wavecam_cams`` is not ported yet; its line is the root bench's error record,
-naming the ROADMAP item that ports it.
+  no hand-written kernel (K5 is inference only and the JAX model cannot reach K6);
+- ``wavecam_cams``: WaveCAM's ResNet-50 ``Net(n_classes=20, bf16)``, one ``cam``
+  over the 16 images of 8 x 512² and their flips, ReLU, flip sums; no hand-written
+  kernel (the JAX package has none for it).
 
 Method. Each workload is built from seed 0 (the models' own initialisation,
 numpy draws of ``default_rng(0)`` as in the root bench), called once (which builds
@@ -72,6 +72,7 @@ from ._device import resolve_device
 from .data.device_transforms import DeviceAugConfig
 from .infer.tta import default_tta_config, tta
 from .models.mit import FusedBlock
+from .models.resnet import Net
 from .models.rml import RMLModel
 from .models.rssformer import HRNetFusion
 from .models.tscd import TSCD, share_parameters
@@ -91,7 +92,7 @@ NUM_CLASSES = 21
 PEAK_BF16 = {"NVIDIA H100 80GB HBM3": 989e12}
 # timed calls a loop: inference, TTA, and the train step (the root bench's k_long)
 ITERS = {"segformer_b1": 10, "scd_pseudo_labels": 10, "rssformer_predict": 10,
-         "rssformer_tta_eval": 3, "rml_train": 4, "rssformer_train": 4}
+         "rssformer_tta_eval": 3, "rml_train": 4, "rssformer_train": 4, "wavecam_cams": 10}
 REPS, WARMUP, TRACED = 3, 2, 2
 # the events of a Chrome trace that occupy the device
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -311,6 +312,25 @@ def build_rssformer_train(device=None, *, hrnet_type: str = "hrnetv2_w32", side:
                     inputs={"x": x_np, "mask": mask_np}, state=state)
 
 
+def build_wavecam_cams(device=None, *, side: int = 512, batch: int = 8,
+                       dtype=torch.bfloat16) -> Workload:
+    """WaveCAM CAM generation, the per-scale unit of ``make_cam``: one ``cam`` of
+    the ResNet-50 ``Net`` over [x; flip(x)] (one batch of 2 x ``batch``), ReLU, the
+    first half plus the flipped second half."""
+    dev = resolve_device(device)
+    x_np, x = _images(np.random.default_rng(0), batch, side, dev)
+    model = Net(n_classes=20, dtype=dtype, generator=torch.Generator().manual_seed(0),
+                device=dev).eval()
+
+    @torch.no_grad()
+    def run():
+        cc = model.cam(torch.cat([x, x.flip(-1)]))
+        return torch.relu(cc[:batch]) + torch.relu(cc[batch:]).flip(-1)
+
+    return Workload(run, lambda cam: cam.mean().float(), batch, run, model=model,
+                    inputs={"x": x_np})
+
+
 @dataclass(frozen=True)
 class Bench:
     metric: str
@@ -320,10 +340,8 @@ class Bench:
 
 
 BENCHES = {
-    "wavecam_cams": Bench(
-        "wavecam_resnet50_cams_per_sec_per_chip", "CAMs/s", None,
-        "not ported yet: WaveCAM's ResNet-50 CAM network (models/resnet.py) is ROADMAP "
-        "Queue 1 item 4"),
+    "wavecam_cams": Bench("wavecam_resnet50_cams_per_sec_per_chip", "CAMs/s",
+                          build_wavecam_cams),
     "rssformer_predict": Bench(
         "rssformer_w32_512_predict_tiles_per_sec_per_chip", "tiles/s", build_rssformer_predict),
     "scd_pseudo_labels": Bench(
@@ -355,10 +373,11 @@ BENCH_FLOOR_S, MIN_CHILD_S = 90.0, 45.0
 # Caps: at least three times each child's wall time in the first full run on an
 # H100 80GB HBM3 at 700 W (18.7 / 22.4 / 6.3 / 29.6 / 6.4 / 21.3 / 21.8 s in run
 # order, the libraries built by the parent in 42.4 s; PERF.md section 4);
-# rssformer_train's at the slower of its first two runs, 27.7 / 39.3 s.
+# rssformer_train's at the slower of its first two runs, 27.7 / 39.3 s; wavecam_cams's at
+# its first, 20.5 s (PERF.md section 6).
 PER_CONFIG_MAX_S = {
     "segformer_b1": 120, "rml_train": 120, "rssformer_train": 120, "rssformer_tta_eval": 150,
-    "wavecam_cams": 60, "rssformer_predict": 120, "scd_pseudo_labels": 120,
+    "wavecam_cams": 90, "rssformer_predict": 120, "scd_pseudo_labels": 120,
 }
 
 

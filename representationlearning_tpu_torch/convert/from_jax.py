@@ -174,3 +174,63 @@ def named_tree_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     or ``optimizer.state[p]["exp_avg"]``. BatchNorm statistics go through
     ``state_dict_from_jax({"batch_stats": ...})``."""
     return state_dict_from_jax({"params": tree})
+
+
+_RESNET_SCOPES = ((r"layer(\d)_(\d+)", r"layer\1.\2"), (r"downsample_conv", "downsample.0"),
+                  (r"downsample_bn", "downsample.1"))
+
+
+def _resnet_module_name(scopes: tuple[str, ...]) -> str:
+    """flax scopes of the JAX ``ResNet50Backbone`` / ``Net`` -> the reference's
+    module names (``layer2_0/downsample_bn`` -> ``layer2.0.downsample.1``), the
+    inverse of ``_resnet50_mapper``."""
+    out = []
+    for s in scopes:
+        for pat, rep in _RESNET_SCOPES:
+            if re.fullmatch(pat, s):
+                s = re.sub(pat, rep, s)
+                break
+        out.append(s)
+    return ".".join(out)
+
+
+def wavecam_net_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX WaveCAM ``Net`` variables -> the port's ``Net`` state_dict: the inverse
+    of ``convert_wavecam_net`` (``num_batches_tracked``, which it drops, comes
+    back as 0)."""
+    return state_dict_from_jax(variables, _resnet_module_name)
+
+
+def resnet50_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``ResNet50Backbone`` variables -> the port's ``ResNet50Backbone``
+    state_dict (torchvision's names without a prefix): the inverse of
+    ``convert_resnet50``."""
+    return state_dict_from_jax(variables, _resnet_module_name)
+
+
+_IRN_HEAD_SCOPES = {"Conv_0": "0", "GroupNorm_0": "1"}
+
+
+def _irn_module_name(scopes: tuple[str, ...]) -> str:
+    """flax scopes of the JAX ``IRNNet`` -> the port's names, those of IRN's
+    published ``resnet50_irn.py``: ``fc_edge1/Conv_0`` -> ``fc_edge1.0``,
+    ``GroupNorm_0`` -> ``.1``, ``fc_dp7a`` -> ``fc_dp7.{0,1}``, ``fc_dp7b`` ->
+    ``fc_dp7.3``; the backbone as ``_resnet_module_name``."""
+    if scopes[0] == "resnet50":
+        return _resnet_module_name(scopes)
+    if scopes == ("fc_dp7b",):
+        return "fc_dp7.3"
+    head = "fc_dp7" if scopes[0] == "fc_dp7a" else scopes[0]
+    return ".".join((head,) + tuple(_IRN_HEAD_SCOPES[s] for s in scopes[1:]))
+
+
+def irn_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``IRNNet`` variables -> the port's ``IRNNet`` state_dict. The JAX
+    package has no IRN converter to invert; the displacement field's running
+    mean, ``batch_stats/dp_running_mean``, is ``mean_shift.running_mean``."""
+    stats = dict(variables.get("batch_stats", {}))
+    dp_mean = stats.pop("dp_running_mean")
+    sd = state_dict_from_jax({"params": variables["params"], "batch_stats": stats},
+                             _irn_module_name)
+    sd["mean_shift.running_mean"] = torch.from_numpy(np.array(dp_mean))
+    return sd

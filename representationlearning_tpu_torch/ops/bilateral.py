@@ -28,7 +28,12 @@ import math
 
 import torch
 
+from ..native import bilateral_filter_batch_native
+
 PAD = 2  # blur radius, in grid cells
+# amplitude of the standard permutohedral lattice (d=5, [1,2,1] blur, alpha) relative
+# to the exact Gaussian transform sum_j exp(-|fi-fj|^2/2) vj (the JAX package's figure)
+LATTICE_GAIN_5D = 24.5
 
 
 def _features(image: torch.Tensor, sigma_rgb: float, sigma_xy: float) -> torch.Tensor:
@@ -138,12 +143,15 @@ def bilateral_filter_batch(images: torch.Tensor, inputs: torch.Tensor, sigma_rgb
 
     method="grid": the bilateral grid (the exact Gaussian sum's amplitude).
     method="brute": the exact O(N^2) transform (tests).
-    method="native": the JAX package's host C++ permutohedral lattice
-    (``representationlearning_tpu/native/``) is not ported yet."""
+    method="native": the host C++ permutohedral lattice (``native/``), the
+    reference's own amplitude (the exact sum x ``LATTICE_GAIN_5D``): NCHW to NHWC
+    numpy on the host and the result back on the inputs' device, as the JAX
+    package's ``pure_callback`` does."""
     if method == "native":
-        raise NotImplementedError(
-            "method='native' is the host C++ permutohedral lattice of "
-            "representationlearning_tpu/native/, which is not ported yet; use 'grid'")
+        out = bilateral_filter_batch_native(
+            images.detach().float().permute(0, 2, 3, 1).cpu().numpy(),
+            inputs.detach().float().permute(0, 2, 3, 1).cpu().numpy(), sigma_rgb, sigma_xy)
+        return torch.from_numpy(out).permute(0, 3, 1, 2).contiguous().to(inputs.device)
     if method == "grid":
         return _filter_grid(images, inputs, sigma_rgb, sigma_xy, 255.0)
     if method == "brute":

@@ -11,8 +11,6 @@ package, and the caller places it.
 
 Model contract: ``cam_fn(inputs) -> (cam (B, C_fg, h, w), attn_pred or None)`` is
 the ``cam_only`` forward of a TSCD-style model.
-
-Not ported yet: ``cam_to_fg_bg_label`` (it needs the CRF of ``ops/crf.py``).
 """
 from __future__ import annotations
 
@@ -21,6 +19,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ..ops.crf import crf_inference_label
 from ..ops.image import flip_lr, minmax_normalize_cam, resize_bilinear, resize_nearest
 
 
@@ -230,3 +229,38 @@ def cams_to_label_resized(cam_label: torch.Tensor, mask: torch.Tensor | None = N
     if mask is not None:
         lab = lab.masked_fill(mask[None] == 0, ignore_index)
     return lab
+
+
+def cam_to_fg_bg_label(images_norm: torch.Tensor, cams: torch.Tensor, cls_label: torch.Tensor,
+                       bg_thre: float = 0.3, fg_thre: float = 0.6,
+                       mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375),
+                       crf_method: str = "grid") -> torch.Tensor:
+    """CRF-refined confident fg / bg labels (`camutils.py:39-83`): per image, the
+    present classes' CAMs (resized to the image) padded with a low (``bg_thre``)
+    and a high (``fg_thre``) background plane, each argmax refined by
+    ``crf_inference_label``; the high pass's classes, with 1 where it says
+    background and 0 where both passes do. images_norm (B, 3, H, W), cams (B, C_fg,
+    h, w), cls_label (B, C_fg) -> (B, H, W) f32. A host loop over the images, as
+    in the JAX package; the CRF runs on the inputs' device."""
+    B, _, H, W = images_norm.shape
+    dev = images_norm.device
+    m = torch.tensor(mean, dtype=torch.float32, device=dev)[:, None, None]
+    s = torch.tensor(std, dtype=torch.float32, device=dev)[:, None, None]
+    imgs = images_norm.float() * s + m
+    cams = resize_bilinear(cams.float(), (H, W), align_corners=False)
+    out = torch.ones((B, H, W), dtype=torch.float32, device=dev)
+    for i in range(B):
+        keys = torch.cat([torch.ones(1, device=dev), cls_label[i].float()]).nonzero()[:, 0]
+        valid = cams[i][keys[1:] - 1]
+        passes = []
+        for thre in (bg_thre, fg_thre):
+            padded = torch.cat([torch.full((1, H, W), thre, device=dev), valid])
+            lab = crf_inference_label(imgs[i], padded.argmax(0), n_labels=max(len(keys), 2),
+                                      method=crf_method)
+            passes.append(keys[lab])
+        lt_m, ht_m = passes
+        o = ht_m.float()
+        o[ht_m == 0] = 1.0
+        o[(ht_m + lt_m) == 0] = 0.0
+        out[i] = o
+    return out

@@ -80,9 +80,14 @@ def test_grid_approximates_the_exact_transform():
 
 
 def test_native_names_what_is_missing_and_unknown_methods_raise():
+    """`native` is the port's own build of the host lattice (it raised before the
+    lattice was ported): the JAX package's native result on the same arrays; an
+    unknown method raises."""
     img, x = _data(5, N=1)
-    with pytest.raises(NotImplementedError, match="native"):
-        TB.bilateral_filter_batch(_chw(img), _chw(x), 15.0, 5.0, method="native")
+    want = np.asarray(JB.bilateral_filter_batch(jnp.asarray(img), jnp.asarray(x), 15.0, 5.0,
+                                                method="native"))
+    got = TB.bilateral_filter_batch(_chw(img), _chw(x), 15.0, 5.0, method="native")
+    np.testing.assert_allclose(got.numpy().transpose(0, 2, 3, 1), want, rtol=1e-6, atol=1e-6)
     with pytest.raises(ValueError, match="unknown bilateral method"):
         TB.bilateral_filter_batch(_chw(img), _chw(x), 15.0, 5.0, method="lattice")
     # the train step's grid: 160 x 160 at sigma_xy 50, sigma_rgb 15

@@ -1156,3 +1156,79 @@ def test_rssformer_evaluate_on_k5(dev):
     set_rss_flags(model, False, False)
     plain = step(batch["image"].to(dev))
     assert (fused - plain).abs().max().item() <= RSS_TOL
+
+
+def _calm_resnet(net, seed):
+    """FrozenBatchNorm scales around 0.5 and noise on every statistic, so that
+    sixteen bottlenecks keep the stream of order 1 at random weights."""
+    from representationlearning_tpu_torch.models.resnet import FrozenBatchNorm
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, FrozenBatchNorm):
+                m.weight.mul_(0.5).add_(_rand(g, *m.weight.shape, dev=m.weight.device, scale=0.05))
+                m.bias.add_(_rand(g, *m.bias.shape, dev=m.bias.device, scale=0.1))
+                m.running_mean.add_(_rand(g, *m.running_mean.shape, dev=m.bias.device,
+                                          scale=0.1))
+    return net
+
+
+def test_wavecam_net_bf16_matches_f32(dev):
+    """The bench's `Net(dtype=bf16)` against the same weights in f32: the CAMs of a
+    flip pair within 2e-2 of their largest magnitude, f32 out of both."""
+    from representationlearning_tpu_torch.models.resnet import Net
+
+    net = _calm_resnet(Net(16, 20, dtype=BF16, generator=torch.Generator().manual_seed(0),
+                           device=dev), 1).eval()
+    f32 = Net(16, 20, device=dev).eval()
+    f32.load_state_dict(net.state_dict())
+    x = _rand(torch.Generator().manual_seed(2), 2, 3, 96, 128, dev=dev)
+    with torch.no_grad():
+        got, want = net.cam(torch.cat([x, x.flip(-1)])), f32.cam(torch.cat([x, x.flip(-1)]))
+    assert got.dtype == want.dtype == torch.float32 and got.shape == (4, 20, 6, 8)
+    assert (got - want).abs().max().item() <= 2e-2 * want.abs().max().item()
+
+
+def test_transition_matrix_columns_sum_to_one(dev):
+    """`propagate_to_edge` on the card: every column of the transition matrix sums
+    to 1 within 1e-3, and the walk equals the CPU's within 1e-4 of its largest."""
+    from representationlearning_tpu_torch.wsss.indexing import propagate_to_edge
+
+    g = torch.Generator().manual_seed(3)
+    x, edge = torch.rand(3, 24, 32, generator=g), torch.rand(24, 32, generator=g) ** 4
+    out = {}
+    got = propagate_to_edge(x.to(dev), edge.to(dev), 5, 10.0, 8, out=out)
+    assert out["trans"].device.type == "cuda" and out["trans"].shape == (768, 768)
+    assert (out["trans"].sum(0) - 1).abs().max().item() < 1e-3
+    want = propagate_to_edge(x, edge, 5, 10.0, 8)
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def test_crf_label_grid_vs_native_on_the_card(dev):
+    """The CRF label pass with the bilateral grid on the card agrees with the host
+    lattice on more than 99% of the pixels, and with the grid on the CPU on more
+    than 99.5%."""
+    import numpy as np
+
+    from representationlearning_tpu_torch.ops.crf import crf_inference_label
+
+    rng = np.random.default_rng(0)
+    H, W = 64, 96
+    img = np.zeros((3, H, W), np.float32)
+    lab = np.zeros((H, W), np.int64)
+    yy, xx = np.mgrid[0:H, 0:W]
+    for c in range(1, 4):
+        cy, cx, r = rng.integers(10, H - 10), rng.integers(10, W - 10), rng.integers(8, 20)
+        m = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+        lab[m] = c
+        img[:, m] = (rng.random(3) * 200 + 30)[:, None]
+    img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.float32)
+    noisy = torch.from_numpy(np.where(rng.random((H, W)) < 0.08, rng.integers(0, 4, (H, W)), lab))
+    im = torch.from_numpy(img)
+    grid = crf_inference_label(im.to(dev), noisy.to(dev), n_labels=4, method="grid")
+    native = crf_inference_label(im.to(dev), noisy.to(dev), n_labels=4, method="native")
+    assert grid.device.type == native.device.type == "cuda"
+    assert (grid == native).float().mean().item() > 0.99
+    cpu = crf_inference_label(im, noisy, n_labels=4, method="grid")
+    assert (grid.cpu() == cpu).float().mean().item() > 0.995
