@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's seven paths and checks them. The first is TSCD / MiT-B1
+Drives the port's eight paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -31,8 +31,11 @@ with its window attention on K6 (``fused_attn``), and ``evaluate`` on K5. The se
 is WaveCAM's pseudo-label inference (``wsss/wavecam_infer.py``), which has no
 hand-written kernel: the ResNet-50 ``Net(n_classes=20, bf16)`` CAM pair of
 ``bench.py::bench_wavecam_cams``, then ``make_cam``, ``cam_to_ir_label`` and
-``make_sem_seg_labels`` on one VOC-sized image. The headline forward also runs with
-``pre_sr=True``, the PRE_SR variant of K1 (K1').
+``make_sem_seg_labels`` on one VOC-sized image. The eighth is DRFL's training,
+evaluation and command line (``train/drfl.py``, ``infer/drfl_eval.py``,
+``cli/train_drfl.py``; ``configs/drfl.yaml``), which has no hand-written kernel
+either: ``Softnet(3, 12)`` at 256² on the synthetic source. The headline forward
+also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -121,6 +124,18 @@ hand-written kernel: the ResNet-50 ``Net(n_classes=20, bf16)`` CAM pair of
    CRF label pass with the host lattice (``method="native"``) against the grid on at
    least 99% of the pixels; the whole chain at 64 x 96 on the card against the CPU
    in f32 (labels equal on at least 99.5%, the pseudo labels off near-ties);
+7e. DRFL: ``Softnet(3, 12)`` at 256² (250.7 M parameters, f32) on the synthetic source
+   at 256²; three steps of ``make_drfl_train_step`` at batch 1 (the yaml's) and three at
+   8, each set's losses finite, every BatchNorm's running statistics moved, no
+   parameter moved by more than the rate at the first step; then five steps timed (the
+   median by CUDA events), a two-step trace (launches, idle share), peak memory and
+   GFLOP an image (``FlopCounterMode``); the eval forward at batch 8 timed, then
+   ``evaluate_drfl`` and ``threshold_sweep``; at 64² with one ViT layer the card
+   against the CPU on the same weights and host-drawn dropout masks, the eval outputs,
+   one step's losses and each module's gradient norm: in f64 equal within 1e-8, in f32
+   within 1e-4 (outputs) and 1e-3, or ten times the CPU's own f32 error against its f64
+   run where that is larger; ``cli/train_drfl.py``'s train and test --sweep on the card
+   into a temporary directory; no hand-written kernel launched in the phase;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
@@ -150,6 +165,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -247,6 +264,27 @@ COLUMN_TOL = 1e-3      # every column of the transition matrix sums to 1
 CRF_AGREE = 0.99       # grid against the host lattice (tests/test_indexing_crf.py's bound)
 CHAIN_SHARE = 0.995    # card against CPU labels, off near-ties
 NEAR_TIE = 1e-3        # two best scores this close: a near-tie
+
+# DRFL (phase 7e; configs/drfl.yaml, no hand-written kernel). Softnet(3, 12) at 256²,
+# the synthetic source at 256² (8 samples); three checked steps, then the timed ones,
+# at the yaml's batch of 1 and at 8. The card against the CPU at 64² with one ViT
+# layer on the same weights and the same host-drawn dropout masks, with the CPU in
+# f64 as the reference. At 64² the bottom GroupNorms of both UNets normalise 2 x 2
+# values a channel, which makes the f32 computation ill-conditioned: on the CPU the
+# port and JAX, both f32, differ in module gradient norms by up to 1.7e-3
+# (tests/test_torch_train_drfl.py). So each group (eval outputs, losses, module
+# gradient norms) is held to its tolerance or to DRFL_ROUNDING times the CPU's own
+# largest f32 error against f64 in the group, in the same run, whichever is larger:
+# the card may differ from the CPU by what f32 rounding in another order gives.
+# The card also runs the same in f64, where it must equal the CPU's f64 run to
+# DRFL_F64_TOL: that holds the function, whatever the conditioning.
+DRFL_SIDE, DRFL_LAYERS, DRFL_N, DRFL_BATCHES = 256, 12, 8, (1, 8)
+DRFL_STEPS, DRFL_TIMED, DRFL_SMALL = 3, 5, 64
+DRFL_EVAL_TOL = 1e-4   # eval outputs, card against CPU, of each output's largest entry
+DRFL_LOSS_TOL = 1e-3   # the step's three losses, relative
+DRFL_NORM_TOL = 1e-3   # the gradient norm of each top-level module, relative
+DRFL_ROUNDING = 10     # times the CPU's f32 error against its f64 run
+DRFL_F64_TOL = 1e-8    # the card in f64 against the CPU in f64, relative
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -606,6 +644,123 @@ def structured_classifier(torch, net, im, classes, centres) -> None:
             net.classifier.weight[c, :, 0, 0] = w / w.norm()
 
 
+def drfl_card_vs_cpu(torch, dev, seed: int) -> dict:
+    """DRFL at DRFL_SMALL², one ViT layer, batch 2 of the synthetic source: the
+    eval forward's five outputs and one train step (its three losses and each
+    top-level module's gradient norm) on ``dev`` and on the CPU in f32, and on
+    the CPU in f64 as the reference, all from the same weights, the dropout masks
+    drawn once on the host (the f64 run draws them in its order of calls, the
+    others replay them); and on ``dev`` in f64, which must give the reference to
+    f64 rounding. The f32 steps go through ``make_drfl_train_step``, the f64 ones
+    through ``drfl_losses`` and a backward. Returns {"eval": {output: {"card_cpu":
+    max |card - cpu|, "top": max |f64|, run: max |run - f64|}}, "losses": {run:
+    {name: value}}, "norms": {run: {module: norm}}} over the runs "f64", "cpu",
+    "card" and "card64"."""
+    from representationlearning_tpu_torch.data.medical import DRFLPairedDataset, collate_drfl
+    from representationlearning_tpu_torch.models import dcl
+    from representationlearning_tpu_torch.train import drfl as TT
+
+    cpu = torch.device("cpu")
+    side = DRFL_SMALL
+    ds = DRFLPairedDataset(crop_size=side, synthetic_n=2, synthetic_size=side)
+    batch = collate_drfl([ds[0], ds[1]])
+    base = dcl.Softnet(3, 1, side, generator=torch.Generator().manual_seed(seed), device=cpu)
+    runs = {"f64": (cpu, torch.float64), "cpu": (cpu, torch.float32), "card": (dev, torch.float32),
+            "card64": (dev, torch.float64)}
+    models = {}
+    for name, (d, dtype) in runs.items():
+        models[name] = dcl.Softnet(3, 1, side, device=d).to(dtype)
+        models[name].load_state_dict(base.state_dict())
+    masks, gen = [], torch.Generator().manual_seed(seed + 1)
+    plain = dcl.dropout
+
+    def draw(x, rate, training, generator=None):
+        if rate == 0.0 or not training:
+            return x
+        masks.append(torch.rand(x.shape, generator=gen) >= rate)
+        return torch.where(masks[-1].to(x.device), x / (1.0 - rate), torch.zeros_like(x))
+
+    def replay(x, rate, training, generator=None):
+        if rate == 0.0 or not training:
+            return x
+        return torch.where(next(left).to(x.device), x / (1.0 - rate), torch.zeros_like(x))
+
+    outs, losses, norms = {}, {}, {}
+    try:
+        for name, (d, dtype) in runs.items():
+            m = models[name]
+            b = {k: v.to(dtype) for k, v in TT.drfl_batch(batch, d).items()}
+            with torch.no_grad():
+                outs[name] = [o.cpu().double() for o in m.eval()(b["A"])]
+            left = iter(masks)
+            dcl.dropout = draw if name == "f64" else replay
+            sums = norms[name] = {}
+
+            def record(m=m, sums=sums):
+                for n, p in m.named_parameters():
+                    top = n.split(".")[0]
+                    sums[top] = sums.get(top, 0.0) + float(p.grad.double().pow(2).sum())
+
+            if dtype == torch.float64:   # make_drfl_train_step's batch is f32
+                m.train()
+                total, parts = TT.drfl_losses(m, b)
+                total.backward()
+                record()
+                metrics = {**parts, "total": total}
+            else:
+                state = TT.create_drfl_state(m, TT.DRFLConfig(), 1)
+                state.tx.optimizer.register_step_pre_hook(lambda *a, r=record: r())
+                _, metrics = TT.make_drfl_train_step(m, device=d)(state, batch)
+            losses[name] = {k: float(v.detach()) for k, v in metrics.items()}
+    finally:
+        dcl.dropout = plain
+    res = {"eval": {}, "losses": losses,
+           "norms": {n: {k: v ** 0.5 for k, v in sums.items()} for n, sums in norms.items()}}
+    for i, name in enumerate(("out", "out2", "bin", "d5_a", "d5sr_a")):
+        o = {n: outs[n][i] for n in runs}
+        res["eval"][name] = {"card_cpu": float((o["card"] - o["cpu"]).abs().max()),
+                             "top": float(o["f64"].abs().max()),
+                             **{n: float((o[n] - o["f64"]).abs().max()) for n in runs}}
+    return res
+
+
+def drfl_agreement(res: dict) -> list[tuple[bool, str]]:
+    """``drfl_card_vs_cpu``'s result held to its bounds, as (ok, message): in f64
+    the card equals the CPU to DRFL_F64_TOL (the same function); in f32 the eval
+    outputs, the losses and the module gradient norms, card against CPU, within
+    their tolerance or DRFL_ROUNDING times the CPU's own f32 error (the largest
+    of the group's, against the f64 run), whichever is larger."""
+    checks = []
+    scale = max(e["cpu"] / e["top"] for e in res["eval"].values())
+    for name, e in res["eval"].items():
+        bound = max(DRFL_EVAL_TOL, DRFL_ROUNDING * scale) * e["top"]
+        checks.append((e["card_cpu"] <= bound and e["card64"] <= DRFL_F64_TOL * e["top"],
+                       f"{DRFL_SMALL}², eval {name} (largest {e['top']:.3e}): f32 card against the "
+                       f"CPU {e['card_cpu']:.3e} (bound {bound:.3e}); against the CPU's f64 run: "
+                       f"card {e['card']:.3e}, CPU {e['cpu']:.3e}, card in f64 {e['card64']:.3e} "
+                       f"(tol {DRFL_F64_TOL:.0e} of the largest)"))
+    for what, tol in (("losses", DRFL_LOSS_TOL), ("norms", DRFL_NORM_TOL)):
+        v = res[what]
+
+        def rel(run, k):
+            return abs(v[run][k] / v["f64"][k] - 1.0)
+
+        scale = max(rel("cpu", k) for k in v["f64"])
+        bound = max(tol, DRFL_ROUNDING * scale)
+        card_cpu = {k: abs(v["card"][k] / v["cpu"][k] - 1.0) for k in v["f64"]}
+        worst = max(card_cpu, key=card_cpu.get)
+        rel64 = max(rel("card64", k) for k in v["f64"])
+        checks.append((max(card_cpu.values()) <= bound and rel64 <= DRFL_F64_TOL
+                       and len(card_cpu) == (4 if what == "losses" else 15),
+                       f"{DRFL_SMALL}², one step's {what} ({len(card_cpu)}), card against the CPU, "
+                       f"the same masks: worst {worst} {card_cpu[worst]:.2e} relative in f32 "
+                       f"(bound {bound:.2e}: tol {tol:.0e}, or {DRFL_ROUNDING} x the CPU's largest "
+                       f"error against f64, {scale:.2e}; the card's largest "
+                       f"{max(rel('card', k) for k in v['f64']):.2e}); in f64 the card within "
+                       f"{rel64:.2e} (tol {DRFL_F64_TOL:.0e})"))
+    return checks
+
+
 class Phases:
     def __init__(self, torch, seed: int):
         self.torch = torch
@@ -671,6 +826,22 @@ class Phases:
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / iters
+
+    def event_median_ms(self, fn, iters: int, warmup: int = 2) -> float:
+        """Median device time of fn() over iters calls, each between two CUDA
+        events, after warm-up."""
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(iters)]
+        torch.cuda.synchronize()
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in events)
 
     def graph_ms(self, fn, iters: int = 10, reps: int = 3) -> float:
         """Mean device time of fn(): `iters` calls captured in one CUDA graph, replayed
@@ -2302,6 +2473,125 @@ class Phases:
                    f"(two best scores more than {NEAR_TIE:.0e} apart; at least "
                    f"{100 * CHAIN_SHARE:.1f}%)")
 
+    # ------------------------------------------------------------- phase 7e (DRFL)
+    def run_drfl(self, card: str) -> None:
+        """DRFL's training, evaluation and command line (configs/drfl.yaml), which
+        has no hand-written kernel: Softnet(3, DRFL_LAYERS) at DRFL_SIDE² on the
+        synthetic source, steps at each of DRFL_BATCHES checked and timed, then
+        ``evaluate_drfl`` and ``threshold_sweep``; the card against the CPU at
+        DRFL_SMALL²; ``cli/train_drfl.py``'s train and test --sweep on the card."""
+        torch = self.torch
+        from representationlearning_tpu_torch import bench as tb
+        from representationlearning_tpu_torch.cli.train_drfl import main as drfl_main
+        from representationlearning_tpu_torch.data.medical import DRFLPairedDataset, collate_drfl
+        from representationlearning_tpu_torch.infer import drfl_eval as TE
+        from representationlearning_tpu_torch.models.dcl import Softnet
+        from representationlearning_tpu_torch.train import drfl as TT
+
+        tb.reset_kernel_launches()
+        t_phase = time.perf_counter()
+        dev = self.dev
+        model = Softnet(3, DRFL_LAYERS, DRFL_SIDE,
+                        generator=torch.Generator().manual_seed(self.seed + 9), device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        ds = DRFLPairedDataset(crop_size=DRFL_SIDE, synthetic_size=DRFL_SIDE, synthetic_n=DRFL_N)
+        samples = [ds[i] for i in range(len(ds))]
+        cfg = TT.DRFLConfig()
+        log(f"== DRFL: Softnet(3, {DRFL_LAYERS}) at {DRFL_SIDE}², {n_params:,} parameters, f32, "
+            f"TF32 off; the synthetic source at {DRFL_SIDE}² ({DRFL_N} samples); Adam "
+            f"(0.5, 0.999) at lr {cfg.lr}; {DRFL_STEPS} checked steps, then {DRFL_TIMED} timed "
+            f"(CUDA events, median) at batch {' and '.join(map(str, DRFL_BATCHES))}; {card}")
+        step = TT.make_drfl_train_step(model)   # the card by default
+        for B in DRFL_BATCHES:
+            batch = collate_drfl(samples[:B])
+            state = TT.create_drfl_state(model, cfg, len(samples) // B)
+            stats0 = {k: b.clone() for k, b in model.named_buffers() if "running" in k}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = []
+            for i in range(DRFL_STEPS):
+                before = [p.detach().clone() for p in model.parameters()] if i == 0 else None
+                _, metrics = step(state, batch, torch.Generator().manual_seed(i))
+                losses.append({k: float(v) for k, v in metrics.items()})
+                if before is not None:
+                    moved = [(p.detach() - q).abs() for p, q in zip(model.parameters(), before)]
+                    top = max(float(d.max()) for d in moved)
+                    excess = max(float((d - cfg.lr - 2.4e-7 * q.abs()).max())
+                                 for d, q in zip(moved, before))
+                    del before, moved
+            stale = [k for k, b in model.named_buffers() if "running" in k
+                     and torch.equal(b, stats0[k])]
+            self.check(all(all(map(math.isfinite, m.values())) for m in losses),
+                       f"batch {B}: {DRFL_STEPS} steps' losses finite: " + "; ".join(
+                           f"total {m['total']:.4f} (L1 {m['G_L1']:.4f}, G_bin {m['G_bin']:.4f}, "
+                           f"bin {m['bin']:.4f})" for m in losses))
+            self.check(not stale, f"batch {B}: every BatchNorm's running statistics moved "
+                       f"({len(stats0)} buffers; unmoved: {stale[:3] or 'none'})")
+            self.check(excess <= 1e-3 * cfg.lr and top >= 0.5 * cfg.lr,
+                       f"batch {B}: the first step moved no parameter by more than the rate "
+                       f"(largest move {top:.4e}, lr {cfg.lr:.1e}: Adam's first step is "
+                       "lr * g / (|g| + eps))")
+
+            def one_step():
+                step(state, batch, torch.Generator().manual_seed(7))
+
+            ms = self.event_median_ms(one_step, DRFL_TIMED)
+            peak = torch.cuda.max_memory_allocated()
+            busy, launches = tb.trace_calls(one_step, 2)
+            flops = tb.count_flops(one_step)
+            log(f"  batch {B}: {ms:.3f} ms a step, {B * 1e3 / ms:.2f} images/s; {launches:.0f} "
+                f"launches a step, device busy {busy:.3f} ms, idle share {1 - busy / ms:.4f}; "
+                f"peak {peak / 2**30:.2f} GiB; {flops / B / 1e9:.2f} GFLOP an image "
+                f"({flops / B / 1e9 * B * 1e3 / ms / 1e3:.2f} TFLOP/s); {card}")
+            del state
+            torch.cuda.empty_cache()
+
+        B = max(DRFL_BATCHES)
+        batches = [collate_drfl(samples[i:i + B]) for i in range(0, len(samples) - B + 1, B)]
+        x = TT.drfl_batch(batches[0], dev)["A"]
+        model.eval()
+
+        def forward():
+            with torch.no_grad():
+                model(x)
+
+        ms = self.event_median_ms(forward, DRFL_TIMED)
+        log(f"  eval forward, batch {B}: {ms:.3f} ms, {B * 1e3 / ms:.2f} images/s; {card}")
+        scores = TE.evaluate_drfl(model, batches, cfg.threshold)
+        sweep = TE.threshold_sweep(model, batches)
+        log(f"  evaluate_drfl at {cfg.threshold}: {scores}; threshold_sweep: best "
+            f"{sweep['best_threshold']}, {sweep['best']}")
+        self.check(all(0.0 <= v <= 1.0 for v in scores.values())
+                   and all(0.0 <= r["dice"] <= 1.0 for r in sweep["all"].values())
+                   and len(sweep["all"]) == 20, "evaluate_drfl and the 20-threshold sweep: "
+                   "every score in [0, 1]")
+        del model, x
+        torch.cuda.empty_cache()
+
+        res = drfl_card_vs_cpu(torch, dev, self.seed + 10)
+        log(f"  {DRFL_SMALL}² card / CPU / CPU f64: losses {res['losses']}; module gradient "
+            f"norms {res['norms']}")
+        for ok, msg in drfl_agreement(res):
+            self.check(ok, msg)
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            common = ["--config", str(ROOT / "configs" / "drfl.yaml"), "crop_size=64",
+                      "synthetic_size=64", "synthetic_n=2", "batch_size=2", "epochs=1",
+                      "num_vit_layers=1", f"output={tmp}"]
+            history = drfl_main(["train"] + common)
+            res = drfl_main(["test", "--sweep"] + common)
+            files = sorted(p.name for p in Path(tmp).glob("net_*.pt"))
+        self.check(len(history) == 1 and math.isfinite(history[0]["loss"])
+                   and files == ["net_best.pt", "net_latest.pt"] and "best_threshold" in res,
+                   f"cli.train_drfl train, then test --sweep, on the card by default: loss "
+                   f"{history[0]['loss']:.4f}, best threshold {res.get('best_threshold')}, "
+                   f"{files}, {time.perf_counter() - t0:.1f} s")
+        launched = {k: v for c in tb.kernel_launches().values() for k, v in c.items() if v}
+        self.check(not launched, f"DRFL's path launched no hand-written kernel "
+                   f"({launched or 'none'})")
+        log(f"  phase 7e: {time.perf_counter() - t_phase:.1f} s")
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -3122,6 +3412,7 @@ def main() -> int:
                      ("RSSFormer predict", rss),
                      ("RSSFormer train step", rss_train),
                      ("WaveCAM", ph.run_wavecam),
+                     ("DRFL", lambda: ph.run_drfl(card)),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),

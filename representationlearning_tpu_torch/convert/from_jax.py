@@ -1,8 +1,9 @@
 """JAX variable tree -> PyTorch state_dict: the exact inverse of
 ``representationlearning_tpu/convert/torch2jax.py::convert_tscd`` and of its MiT
 and SegFormer-head rules, of ``convert_rssformer`` / ``convert_hrnet`` and of
-``convert_wetr_attn_aff``; and the JAX ``RMLModel`` (which has no forward
-converter) -> the port's ``RMLModel``.
+``convert_wetr_attn_aff``; and the JAX models without a forward converter
+(``RMLModel``, ``IRNNet``, DRFL's ``Softnet`` and ``PixelDiscriminator``) -> the
+port's.
 
 The input is the ``{"params": ..., "batch_stats": ...}`` tree of nested dicts,
 with numpy (or array-like) leaves. Layout rules, each the transpose of the
@@ -234,3 +235,42 @@ def irn_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Ten
                              _irn_module_name)
     sd["mean_shift.running_mean"] = torch.from_numpy(np.array(dp_mean))
     return sd
+
+
+def _dcl_conv_transpose(scopes: tuple[str, ...]) -> bool:
+    """The flax scopes of DCL's ``ConvTranspose`` modules: each ``DecodeLayer``'s
+    ``up_conv`` and each ``EndLayer``'s ``conv``."""
+    return scopes[-1:] == ("up_conv",) or scopes[-2:] in (("end", "conv"), ("end2", "conv"))
+
+
+def dcl_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``Softnet`` variables -> the port's ``Softnet`` state_dict. The port
+    names its modules after JAX's scopes, so a name is the scope path joined by
+    dots; the layouts are ``state_dict_from_jax``'s, and besides: a transposed
+    convolution's kernel (kh, kw, in, out) -> ``nn.ConvTranspose2d``'s weight
+    (in, out, kh, kw) flipped in both spatial axes, ``prelu_alpha`` ->
+    ``prelu.weight``, the position embeddings as they are. Strict: an unknown
+    collection or leaf raises, and every leaf lands on a key (load the result
+    with ``strict=True`` to hold it to the model's keys)."""
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown:
+        raise KeyError(f"unexpected collections {sorted(unknown)}")
+    sd = state_dict_from_jax({"batch_stats": variables.get("batch_stats", {})}, ".".join)
+    for path, w in _flatten(variables.get("params", {})):
+        w, leaf = np.asarray(w), path[-1]
+        if leaf == "prelu_alpha":
+            name = "prelu.weight"
+        elif leaf in ("position_embeddings", "position_embeddings2"):
+            name = leaf
+        elif leaf == "kernel" and _dcl_conv_transpose(path[:-1]):
+            name, w = "weight", w.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        else:
+            name, w = _param(leaf, w)
+        sd[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(w))   # a writable copy
+    return sd
+
+
+def pixel_discriminator_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``PixelDiscriminator`` variables -> the port's state_dict (the same
+    names: ``conv1``, ``conv2``, ``bn``, ``conv3``)."""
+    return state_dict_from_jax(variables, ".".join)

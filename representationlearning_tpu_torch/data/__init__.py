@@ -1,1 +1,2 @@
-"""On-device data augmentation: the classification chain of the RML trainer."""
+"""Data: the on-device augmentation of the RML trainer (the classification chain) and
+DRFL's paired medical dataset."""

@@ -1,1 +1,2 @@
-"""Inference helpers: test-time augmentation and sliding-window prediction."""
+"""Inference helpers: test-time augmentation, sliding-window prediction and DRFL's
+evaluation."""

@@ -35,10 +35,8 @@ from torch import nn
 from .._device import resolve_device
 from ..ops.image import flip_lr, resize_bilinear
 from ..wsss.indexing import PathIndex, edge_to_affinity
-from .layers import init_weights, lecun_normal_init
+from .layers import GN_EPS, init_weights, lecun_normal_init
 from .resnet import ResNet50Backbone, resnet50_config
-
-GN_EPS = 1e-6   # flax nn.GroupNorm's epsilon
 
 # name: (in, out, groups, upsample) of each conv -> GroupNorm -> (upsample) -> ReLU
 EDGE = {"fc_edge1": (64, 32, 4, 1), "fc_edge2": (256, 32, 4, 1), "fc_edge3": (512, 32, 4, 2),

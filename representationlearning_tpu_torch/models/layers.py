@@ -13,6 +13,8 @@ import math
 import torch
 from torch import nn
 
+GN_EPS = 1e-6   # flax nn.GroupNorm's epsilon (torch's nn.GroupNorm defaults to 1e-5)
+
 
 def _draw(t: torch.Tensor, fill) -> torch.Tensor:
     """Fill `t` in place with what `fill` draws into a CPU tensor of its shape."""
@@ -145,15 +147,16 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype=None) -> torch.Tensor:
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's conventions: statistics and output in f32
-    whatever the input's dtype, and in training the running average takes the
-    biased batch variance (torch's own update takes the unbiased one), at torch
-    momentum 0.1 = flax momentum 0.9. ``track_stats = False`` (see
-    ``bn_stats_frozen``) leaves the running statistics alone."""
+    for an input in f32 or narrower (in f64 for f64), and in training the
+    running average takes the biased batch variance (torch's own update takes
+    the unbiased one), at torch momentum 0.1 = flax momentum 0.9. ``track_stats
+    = False`` (see ``bn_stats_frozen``) leaves the running statistics alone."""
 
     track_stats = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
+        if x.dtype != torch.float64:
+            x = x.float()
         if not self.training:
             return nn.functional.batch_norm(x, self.running_mean, self.running_var,
                                             self.weight, self.bias, False, 0.0, self.eps)

@@ -1,2 +1,2 @@
-"""Trainers: the SCD trainer (train step, validation step), the RML train step, optimisers,
-state, checkpoints."""
+"""Trainers: the SCD trainer (train step, validation step), the RML, RSSFormer and DRFL
+train steps, optimisers, state, checkpoints."""

@@ -12,7 +12,8 @@ import math
 import pytest
 import torch
 
-from chip_smoke import affinity_plans, bwd_plans, isa_trap_move, taps_plans, varm_plans
+from chip_smoke import (affinity_plans, bwd_plans, drfl_agreement, drfl_card_vs_cpu,
+                        isa_trap_move, taps_plans, varm_plans)
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -1232,3 +1233,12 @@ def test_crf_label_grid_vs_native_on_the_card(dev):
     assert (grid == native).float().mean().item() > 0.99
     cpu = crf_inference_label(im, noisy, n_labels=4, method="grid")
     assert (grid.cpu() == cpu).float().mean().item() > 0.995
+
+
+def test_drfl_card_against_cpu(dev):
+    """DRFL at 64², one ViT layer, the same weights and host-drawn dropout masks:
+    the eval forward's five outputs, one train step's three losses and each
+    top-level module's gradient norm, card against CPU, within their bounds
+    (chip_smoke.py phase 7e(b), ``drfl_agreement``)."""
+    failed = [msg for ok, msg in drfl_agreement(drfl_card_vs_cpu(torch, dev, 3)) if not ok]
+    assert not failed, failed

@@ -31,7 +31,9 @@ def test_every_module_imports_without_jax():
         "infer.tta", "infer.sliding", "losses.mi", "models.wavemlp", "models.rml",
         "data.device_transforms", "train.rml", "bench", "losses.cgfl", "losses.discriminative",
         "metrics.seg", "train.rssformer", "models.resnet", "models.irn", "wsss.msf",
-        "wsss.indexing", "wsss.wavecam_infer", "ops.crf", "native")} <= set(mods)
+        "wsss.indexing", "wsss.wavecam_infer", "ops.crf", "native", "core.config",
+        "core.registry", "core.logging", "cli.train_drfl", "models.dcl", "losses.dice",
+        "train.drfl", "infer.drfl_eval", "data.medical")} <= set(mods)
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "
@@ -67,6 +69,35 @@ def test_tscd_builds_on_the_card_unless_asked_for_the_cpu():
     assert all(p.device.type == "cpu" for p in a.parameters())
     assert all(torch.equal(u, w) for u, w in zip(a.state_dict().values(),
                                                  b.state_dict().values()))
+
+
+def test_drfl_entry_points_run_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    """DRFL's models, train step, epoch loop and command line take the card by
+    default and raise where there is none, before anything is written; the
+    seed alone fixes the weights."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from representationlearning_tpu_torch.cli.train_drfl import main
+    from representationlearning_tpu_torch.models.dcl import PixelDiscriminator, Softnet
+    from representationlearning_tpu_torch.train.drfl import (
+        DRFLConfig, make_drfl_train_step, train_drfl)
+
+    for build in (lambda: Softnet(3, 1, 64), lambda: PixelDiscriminator(4, 8)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    a, b = (Softnet(3, 1, 64, generator=torch.Generator().manual_seed(2), device=d)
+            for d in ("cpu", torch.device("cpu")))
+    assert all(p.device.type == "cpu" for p in a.parameters())
+    assert all(torch.equal(u, w) for u, w in zip(a.state_dict().values(),
+                                                 b.state_dict().values()))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_drfl_train_step(a)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_drfl(a, list, list, DRFLConfig(), 1, str(tmp_path / "wd"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "--config", "configs/drfl.yaml", "crop_size=64", "num_vit_layers=1",
+              "epochs=1", f"output={tmp_path / 'cli'}"])
+    assert not any(tmp_path.iterdir())
 
 
 def test_cpu_refine_never_touches_the_kernel_loader(monkeypatch):

@@ -1,5 +1,5 @@
-"""Device trace of the PyTorch port's SCD train step, or of its RML or RSSFormer
-train step, on one CUDA card.
+"""Device trace of the PyTorch port's SCD train step, or of its RML, RSSFormer or
+DRFL train step, on one CUDA card.
 
 Builds the same trainer and batch as ``chip_smoke.py`` (``make_scd_train_step`` at
 8 x 320 x 320, ``configs/scd_voc.yaml`` with flash attention on: the f32
@@ -8,7 +8,9 @@ Builds the same trainer and batch as ``chip_smoke.py`` (``make_scd_train_step`` 
 512 x 512 canvases augmented on the card to 320 x 320, ``RMLModel("mit_b1",
 dtype=bf16)`` and its bf16 fused twin, PAR; with ``--rssformer``
 ``make_rssformer_train_step`` at ``bench.py::bench_rssformer_train``'s configuration:
-``HRNetFusion("hrnetv2_w32", 7, dtype=bf16)``, 8 x 512 x 512, SGD) and prints:
+``HRNetFusion("hrnetv2_w32", 7, dtype=bf16)``, 8 x 512 x 512, SGD; with ``--drfl B``
+``make_drfl_train_step`` at ``chip_smoke.py`` phase 7e's configuration: the f32
+``Softnet(3, 12)`` at 256², batch B of the synthetic source, Adam) and prints:
 
 - the card and its power limit;
 - the step's time by CUDA events, mean over a few steps without the profiler;
@@ -24,8 +26,8 @@ dtype=bf16)`` and its bf16 fused twin, PAR; with ``--rssformer``
   host under the profiler does not stretch a stage.
 
 With ``--out DIR`` the Chrome trace is kept there. Usage, from the root of
-the repository: ``python tools/trace_port_train_step.py [--rml | --rssformer] [--seed N]
-[--steps N] [--out DIR]``. It needs a CUDA card and imports no JAX.
+the repository: ``python tools/trace_port_train_step.py [--rml | --rssformer | --drfl B]
+[--seed N] [--steps N] [--out DIR]``. It needs a CUDA card and imports no JAX.
 """
 import argparse
 import json
@@ -33,6 +35,7 @@ import os
 import sys
 import tempfile
 from collections import defaultdict
+from types import SimpleNamespace
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -76,6 +79,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--rml", action="store_true", help="the RML train step")
     ap.add_argument("--rssformer", action="store_true", help="the RSSFormer train step")
+    ap.add_argument("--drfl", type=int, default=None, metavar="B",
+                    help="the DRFL train step at batch B")
     args = ap.parse_args()
 
     import torch
@@ -99,6 +104,19 @@ def main() -> int:
     elif args.rssformer:
         batch, size = cs.rss_batch(torch, ph.dev), cs.BATCH
         t, what = ph._rss_trainer(), "RSSFormer train step"
+    elif args.drfl:
+        from representationlearning_tpu_torch.data.medical import DRFLPairedDataset, collate_drfl
+        from representationlearning_tpu_torch.models.dcl import Softnet
+        from representationlearning_tpu_torch.train import drfl as td
+
+        model = Softnet(3, cs.DRFL_LAYERS, cs.DRFL_SIDE,
+                        generator=torch.Generator().manual_seed(args.seed + 9), device=ph.dev)
+        ds = DRFLPairedDataset(crop_size=cs.DRFL_SIDE, synthetic_size=cs.DRFL_SIDE,
+                               synthetic_n=args.drfl)
+        batch, size = collate_drfl([ds[i] for i in range(args.drfl)]), args.drfl
+        t = SimpleNamespace(step=td.make_drfl_train_step(model),
+                            state=td.create_drfl_state(model, td.DRFLConfig(), 1))
+        what = f"DRFL train step, batch {args.drfl}"
     else:
         gen = torch.Generator().manual_seed(args.seed + 5)
         x, cls, box = cs.pseudo_batch(torch, gen, ph.dev)
@@ -163,7 +181,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
-        prefix = "rml_" if args.rml else "rssformer_" if args.rssformer else ""
+        prefix = "rml_" if args.rml else "rssformer_" if args.rssformer else \
+            f"drfl{args.drfl}_" if args.drfl else ""
         path = os.path.join(args.out or tmp, prefix + "train_step_trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
