@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's eight paths and checks them. The first is TSCD / MiT-B1
+Drives the port's nine paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -34,8 +34,12 @@ hand-written kernel: the ResNet-50 ``Net(n_classes=20, bf16)`` CAM pair of
 ``make_sem_seg_labels`` on one VOC-sized image. The eighth is DRFL's training,
 evaluation and command line (``train/drfl.py``, ``infer/drfl_eval.py``,
 ``cli/train_drfl.py``; ``configs/drfl.yaml``), which has no hand-written kernel
-either: ``Softnet(3, 12)`` at 256² on the synthetic source. The headline forward
-also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
+either: ``Softnet(3, 12)`` at 256² on the synthetic source. The ninth is the SCD and
+RML command lines (``cli/train_scd.py``, ``cli/train_rml.py``) run from
+``configs/scd_voc.yaml``, ``scd_coco.yaml`` and ``rml_voc.yaml`` as a user runs them,
+with the on-card augmentation and cut iteration counts: K1 in the fused twins, K2
+and K3 in the refinement, K1's exporting form in the SCD validation. The headline
+forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -136,6 +140,22 @@ also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
    within 1e-4 (outputs) and 1e-3, or ten times the CPU's own f32 error against its f64
    run where that is larger; ``cli/train_drfl.py``'s train and test --sweep on the card
    into a temporary directory; no hand-written kernel launched in the phase;
+7f. WSSS command lines: ``cli.train_scd.main`` on ``configs/scd_voc.yaml`` (MiT-B1,
+   320² crops, batch 2, 16 synthetic 96 x 128 images on 512² canvases augmented on the
+   card): six steps, each step's losses finite (total = cls within the warm-up, above
+   it after), K1 (its five kernels), K2 and K3 launched on every step with the same
+   counts and no other kernel, two validations with three mIoUs in [0, 1] through
+   the exporting twin, ``scalars.csv``'s train/ and val/ tags and the four PNGs,
+   then a rerun that resumes from step 6 and ends at 7; ``configs/scd_coco.yaml``
+   for two steps (81 classes: K3's masks printed, 2 x 81 channels an image) and a
+   validation at 81 classes; ``cli.train_rml.main`` on ``configs/rml_voc.yaml`` for
+   four steps (K2 in ``par`` mode); in the first step and the first validation of
+   each run, every call of K1 (each piece and the whole block), K2 and K3 at a
+   geometry not met before held against its plain version on the same inputs (the
+   exporting K1 on the validation's non-square token grids, K3 at COCO's 2 x 81
+   planes among them); then both CLIs again for 20 steps after the warm-up: the
+   median ms a step through the command line (loader included) with its spread, the
+   step alone by CUDA events, and the seconds a validation image;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
@@ -285,6 +305,16 @@ DRFL_LOSS_TOL = 1e-3   # the step's three losses, relative
 DRFL_NORM_TOL = 1e-3   # the gradient norm of each top-level module, relative
 DRFL_ROUNDING = 10     # times the CPU's f32 error against its f64 run
 DRFL_F64_TOL = 1e-8    # the card in f64 against the CPU in f64, relative
+
+# The WSSS command lines (phase 7f): cli/train_scd.py on configs/scd_voc.yaml (then a
+# resume) and configs/scd_coco.yaml, cli/train_rml.py on configs/rml_voc.yaml, as the
+# yamls give them (MiT-B1, 320² crops, batch 2) with on-card augmentation of WSSS_N
+# synthetic 96 x 128 images on 512² canvases; iteration counts cut
+WSSS_N, WSSS_SCD_STEPS, WSSS_SCD_EVAL, WSSS_CAM_ITERS = 16, 6, 3, 2
+WSSS_COCO_STEPS, WSSS_RML_STEPS, WSSS_RML_CAM_ITERS = 2, 4, 1
+# the figures: each CLI again, fresh, for this many steps after its warm-up, the yamls'
+# log_iters, one validation at the end; the step alone as often
+WSSS_TIMED = 20
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -782,6 +812,9 @@ class Phases:
         self.launches_rss_train: dict[str, int] = {}
         self.launches_rss_eval: dict[str, int] = {}
         self.launches_rss_step: dict[str, int] = {}   # the bench's step: no fused_attn
+        self.launches_wsss: dict[str, int] = {}   # every kernel's, in a step of cli.train_scd
+        self.plain_runs = 0   # phase 7f's comparisons with a plain version so far
+        self.holding = False  # phase 7f: compare each new geometry's call with its plain version
         self.refine_inputs = None
         # the 8 blocks of a headline forward, each as ONE function: least time
         # [bytes, operations], and the time the five kernels take for them
@@ -2592,6 +2625,344 @@ class Phases:
                    f"({launched or 'none'})")
         log(f"  phase 7e: {time.perf_counter() - t_phase:.1f} s")
 
+    # ------------------------------------------------------------- phase 7f (WSSS CLIs)
+    def _cli_run(self, module, argv: list[str], mods, factory: str) -> SimpleNamespace:
+        """``module.main(argv)`` on the card, with its train step and its
+        ``validate`` (where it has one) instrumented: every kernel's launches a
+        step (the counts set to 0 just before each step and read just after), the
+        step's losses, the wall clock at its end; each validation's scores, time,
+        class count and launches."""
+        torch = self.torch
+        rec = SimpleNamespace(steps=[], vals=[], t0=time.perf_counter())
+        make, validate = getattr(module, factory), getattr(module, "validate", None)
+
+        def counts():
+            return {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+
+        def reset():
+            for mod in mods:
+                mod.reset_launches()
+
+        def instrumented(*a, **kw):
+            step = make(*a, **kw)
+
+            def run(state, batch, generator=None):
+                reset()
+                rec.last = (step, state, batch)
+                held, self.holding = self.plain_runs, not rec.steps
+                state, metrics = step(state, batch, generator)
+                torch.cuda.synchronize()
+                self.holding = False
+                rec.steps.append({"end": time.perf_counter(), "launches": counts(),
+                                  "losses": {k: float(v) for k, v in metrics.items()},
+                                  "held": self.plain_runs != held})
+                return state, metrics
+            return run
+
+        def timed_validate(val_ds, eval_fn, cfg, *a, **kw):
+            reset()
+            held, self.holding = self.plain_runs, not rec.vals
+            t0 = time.perf_counter()
+            scores = validate(val_ds, eval_fn, cfg, *a, **kw)
+            torch.cuda.synchronize()
+            self.holding = False
+            rec.vals.append({"start": t0, "s": time.perf_counter() - t0,
+                             "images": min(len(val_ds), 64), "classes": cfg.num_classes,
+                             "scores": scores, "launches": counts(),
+                             "held": self.plain_runs != held})
+            return scores
+
+        setattr(module, factory, instrumented)
+        if validate is not None:
+            module.validate = timed_validate
+        try:
+            rec.state = module.main(argv)   # the card: no device named
+        finally:
+            setattr(module, factory, make)
+            if validate is not None:
+                module.validate = validate
+        return rec
+
+    def _cli_steps(self, what: str, rec, cam_iters: int, start: int = 0) -> float:
+        """Check every step's losses and launches (K1's five kernels, K2 and K3 on
+        every step, the same counts each step, no other kernel) and return the
+        median ms a step after the warm-up, end to end through the CLI (loader,
+        step, logging), over steps with no validation before them and no
+        comparison with a plain version in them."""
+        k1 = tuple(PIECE_TOL)
+        for i, s in enumerate(rec.steps):
+            n = start + i + 1   # the step count before it is n - 1: warm-up while <= cam_iters
+            m, warm = s["losses"], n - 1 <= cam_iters
+            self.check(all(map(math.isfinite, m.values())) and (
+                m["total"] == m["cls"] if warm else m["total"] > m["cls"]),
+                f"{what}, step {n}: losses finite, total {m['total']:.6f} "
+                f"{'=' if warm else '>'} cls {m['cls']:.6f} "
+                f"({'within' if warm else 'after'} the warm-up, cam_iters {cam_iters})")
+        first = rec.steps[0]["launches"]
+        on = set(k1) | {"affinity", "varm_propagate"}
+        self.check(all(first.get(k, 0) > 0 for k in on)
+                   and all(v == 0 for k, v in first.items() if k not in on)
+                   and all(s["launches"] == first for s in rec.steps),
+                   f"{what}: every step launched K1 ({'/'.join(str(first[k]) for k in k1)}), "
+                   f"K2 {first['affinity']} and K3 {first['varm_propagate']}, the same each "
+                   f"step, K4 / K5 / K6 never ({len(rec.steps)} steps)")
+        gaps = [b["end"] - a["end"] for a, b, n in
+                zip(rec.steps, rec.steps[1:], range(start + 2, start + len(rec.steps) + 1))
+                if n - 1 > cam_iters and not b["held"]
+                and not any(a["end"] < v["start"] < b["end"] for v in rec.vals)]
+        ms = statistics.median(gaps) * 1e3 if gaps else float("nan")
+        spread = (f"; {len(gaps)} steps, min {min(gaps) * 1e3:.1f}, quartiles "
+                  f"{' / '.join(f'{q * 1e3:.1f}' for q in statistics.quantiles(gaps, n=4))}, "
+                  f"max {max(gaps) * 1e3:.1f} ms") if len(gaps) >= 4 else ""
+        log(f"  {what}: start-up to the first step's end {rec.steps[0]['end'] - rec.t0:.1f} s; "
+            f"{', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms a step after the warm-up with no "
+            f"validation before it; median {ms:.1f} ms{spread}")
+        return ms
+
+    def _cli_step_alone(self, what: str, rec) -> None:
+        """The CLI's own step function on its last batch, after the run, outside the
+        loop: its time (CUDA events, median of WSSS_TIMED), launches and device-busy
+        time a step from a two-step trace."""
+        from representationlearning_tpu_torch import bench as tb
+
+        step, state, batch = rec.last
+
+        def again():
+            step(state, batch, self.torch.Generator().manual_seed(0))
+
+        ms = self.event_median_ms(again, WSSS_TIMED)
+        busy, launches = tb.trace_calls(again, 2)
+        log(f"  {what}, the step alone: {ms:.1f} ms (CUDA events, median of {WSSS_TIMED}), "
+            f"{launches:.0f} launches, device busy {busy:.1f} ms, idle share {1 - busy / ms:.4f}")
+
+    def _cli_vals(self, what: str, rec, classes: int, want: int) -> float:
+        ok = len(rec.vals) == want
+        for v in rec.vals:
+            mious = [v["scores"][k]["miou"] for k in ("seg", "cam", "ref")]
+            ok &= (v["classes"] == classes and len(v["scores"]["seg"]["iou"]) == classes
+                   and all(0.0 <= x <= 1.0 for x in mious)
+                   and v["launches"]["attention"] > 0 and v["launches"]["flash_fwd"] == 0)
+            log(f"  {what}, validation: seg / cam / ref mIoU "
+                f"{' / '.join(f'{x:.4f}' for x in mious)}, {v['images']} images in "
+                f"{v['s']:.3f} s{' (with the comparisons)' if v['held'] else ''}, K1 attention "
+                f"{v['launches']['attention']}")
+        self.check(ok, f"{what}: {want} validation(s) at {classes} classes, each with three "
+                       "mIoUs in [0, 1], through K1 (the exporting twin)")
+        clean = [v["s"] / v["images"] for v in rec.vals if not v["held"]]
+        return statistics.median(clean) if clean else float("nan")
+
+    @contextlib.contextmanager
+    def _held_to_plain(self, mods, held: dict):
+        """Phase 7f's kernels as the command lines call them, each held against its
+        plain version on the same inputs at the first call of every geometry it
+        meets while ``self.holding`` (the first step and the first validation of
+        each run: a run gives the same geometries every step and every validation
+        image); the plain versions launch nothing, so no count moves. K1's five
+        pieces at PIECE_TOL (the exported logits at LOGIT_TOL) and the whole block at
+        PATH_TOL, K2 at AFFINITY_TOL, K3 at VARM_TOL. ``held`` maps each kernel to
+        {geometry: largest error as a share of its tolerance}."""
+        torch = self.torch
+        tmb, ta, tv = mods[:3]
+        from representationlearning_tpu_torch.models.mit import FusedBlock
+
+        def shape(v):
+            if torch.is_tensor(v):
+                return tuple(v.shape), str(v.dtype).removeprefix("torch.")
+            return len(v) if isinstance(v, dict) else v
+
+        def geometry(a, kw):
+            return tuple(map(shape, a)) + tuple(sorted((k, shape(v)) for k, v in kw.items()))
+
+        def held_at_first_call(kernel, kernel_fn, plain_fn, tol_of):
+            def run(*a, **kw):
+                got = kernel_fn(*a, **kw)
+                if not self.holding:
+                    return got
+                at = geometry(a, kw)
+                if at in held.setdefault(kernel, {}):
+                    return got
+                with torch.no_grad():
+                    want = plain_fn(*a, **kw)
+                self.plain_runs += 1
+                worst = 0.0
+                got_t = got if isinstance(got, tuple) else (got,)
+                want_t = want if isinstance(want, tuple) else (want,)
+                for i, (g, w) in enumerate(zip(got_t, want_t)):
+                    if g is None and w is None:
+                        continue
+                    err, mag = max_err(g, w) if g.numel() else (0.0, 0.0)
+                    tol = tol_of(i, mag)
+                    if not (bool(torch.isfinite(g.float()).all()) and err <= tol):
+                        self.check(False, f"{kernel} @ {at}, output {i}: max abs err {err:.3e} "
+                                          f"(max |plain| {mag:.3e}, tol {tol:.3e})")
+                    worst = max(worst, err / tol)
+                held[kernel][at] = worst
+                return got
+            return run
+
+        pieces = {n: getattr(tmb.DISPATCH, n) for n in PIECE_TOL}
+        block = FusedBlock.__dict__["block_fn"]
+        refine = (ta.affinity, tv.varm_propagate)
+        for n, fn in pieces.items():
+            setattr(tmb.DISPATCH, n, held_at_first_call(
+                n, fn, getattr(tmb, n + "_reference"),
+                lambda i, mag, n=n: (LOGIT_TOL if i == 1 else PIECE_TOL[n]) * max(1.0, mag)))
+        FusedBlock.block_fn = staticmethod(held_at_first_call(
+            "block", tmb.fused_block, tmb.fused_block_reference, lambda i, mag: PATH_TOL * mag))
+        ta.affinity = held_at_first_call("affinity", ta.affinity, ta.affinity_reference,
+                                         lambda i, mag: AFFINITY_TOL)
+        tv.varm_propagate = held_at_first_call("varm_propagate", tv.varm_propagate,
+                                               tv.varm_propagate_reference,
+                                               lambda i, mag: VARM_TOL)
+        try:
+            yield held
+        finally:
+            for n, fn in pieces.items():
+                setattr(tmb.DISPATCH, n, fn)
+            FusedBlock.block_fn = block
+            ta.affinity, tv.varm_propagate = refine
+
+    def _held_summary(self, held: dict) -> None:
+        """One line a kernel: the geometries phase 7f held against the plain version
+        and the largest error as a share of its tolerance; the exporting blocks' token
+        grids and the refinement's shapes named."""
+        for kernel, seen in held.items():
+            worst = max(seen.values(), default=0.0)
+            self.check(bool(seen) and worst <= 1.0,
+                       f"7f {kernel}: {len(seen)} geometries held against the plain version "
+                       f"at their first call, largest error {worst:.3f} of its tolerance")
+        blocks = held.get("block", {})
+        # a block's geometry: ((B, N, C), dtype), p, then H, W, dtype, export, nh, sr by name
+        grids = sorted({(dict(at[2:])["H"], dict(at[2:])["W"], at[0][0][0], at[0][0][2],
+                         dict(at[2:])["export"]) for at in blocks})
+        log(f"  7f K1 blocks held (H, W, B, C, export): {grids}")
+        self.check(any(e and h != w for h, w, _, _, e in grids),
+                   "7f: the exporting K1 held on a non-square token grid (validation)")
+        log(f"  7f affinity held at (shape, mode) "
+            f"{sorted((at[0][0], at[2]) for at in held.get('affinity', {}))}, varm_propagate "
+            f"at {sorted(at[0][0] for at in held.get('varm_propagate', {}))}")
+        self.check(any(at[0][0][1] == 2 * 81 for at in held.get("varm_propagate", {})),
+                   "7f: K3 held at COCO's 2 x 81 planes")
+
+    def run_wsss_cli(self, mods, card: str) -> None:
+        """``cli/train_scd.py`` on configs/scd_voc.yaml and configs/scd_coco.yaml and
+        ``cli/train_rml.py`` on configs/rml_voc.yaml, as a user runs them: the yamls'
+        MiT-B1 at 320² crops, on-card augmentation of the synthetic source, iteration
+        counts cut, in a temporary directory."""
+        torch = self.torch
+        from representationlearning_tpu_torch.cli import train_rml, train_scd
+
+        tv = mods[2]
+        t_phase = time.perf_counter()
+        log(f"== WSSS command lines: cli.train_scd (configs/scd_voc.yaml, scd_coco.yaml) "
+            f"and cli.train_rml (configs/rml_voc.yaml), MiT-B1, 320² crops from 512² "
+            f"canvases augmented on the card, {WSSS_N} synthetic images (96 x 128); {card}")
+        self.check(train_scd.twin_dtype(self.dev) == torch.bfloat16,
+                   "the fused twins compute in bf16 on the card (K1's compute type)")
+        held: dict = {}
+        with tempfile.TemporaryDirectory() as tmp, self._held_to_plain(mods, held):
+            tmp = Path(tmp)
+            common = ["dataset.device_augment=true", f"dataset.synthetic_n={WSSS_N}",
+                      "train.log_iters=1"]
+            # (a) SCD on VOC, then a resume
+            wd = tmp / "scd_voc"
+            argv = ["--config", str(ROOT / "configs" / "scd_voc.yaml"), *common,
+                    f"train.cam_iters={WSSS_CAM_ITERS}", f"train.eval_iters={WSSS_SCD_EVAL}",
+                    f"work_dir.dir={wd}"]
+            rec = self._cli_run(train_scd, argv + [f"train.max_iters={WSSS_SCD_STEPS}"], mods,
+                                "make_scd_train_step")
+            self.check(rec.state.step == WSSS_SCD_STEPS and len(rec.steps) == WSSS_SCD_STEPS,
+                       f"(a) SCD on VOC: the state reached step {rec.state.step}")
+            scd_ms = self._cli_steps("(a) SCD on VOC", rec, WSSS_CAM_ITERS)
+            self.launches_wsss = rec.steps[0]["launches"]
+            val_s = self._cli_vals("(a) SCD on VOC", rec, NUM_CLASSES, 2)
+            rows = [line.split(",") for line in
+                    (wd / "events" / "scalars.csv").read_text().splitlines()[1:]]
+            tags = {t for _, t, _ in rows}
+            pngs = sorted(p.name for p in (wd / "events" / "images").glob("*.png"))
+            want_pngs = sorted(f"val_{k}_{s:07d}.png" for k in ("cam_overlay", "seg_pred")
+                               for s in (WSSS_SCD_EVAL, WSSS_SCD_STEPS))
+            self.check(any(t.startswith("train/") for t in tags)
+                       and {"val/seg_miou", "val/cam_miou", "val/ref_miou"} <= tags
+                       and all(math.isfinite(float(v)) for _, t, v in rows
+                               if t.startswith("train/")) and pngs == want_pngs,
+                       f"(a) scalars.csv: {len(rows)} rows, tags {sorted(tags)}; PNGs {pngs}")
+            resumed = self._cli_run(train_scd, argv + [f"train.max_iters={WSSS_SCD_STEPS + 1}"],
+                                    mods, "make_scd_train_step")
+            self.check(resumed.state.step == WSSS_SCD_STEPS + 1 and len(resumed.steps) == 1
+                       and f"resumed from step {WSSS_SCD_STEPS}" in (wd / "train.log").read_text(),
+                       f"(a) rerun with train.max_iters={WSSS_SCD_STEPS + 1}: resumed from step "
+                       f"{WSSS_SCD_STEPS}, ended at {resumed.state.step}")
+            self._cli_steps("(a) SCD on VOC, resumed", resumed, WSSS_CAM_ITERS, WSSS_SCD_STEPS)
+            del rec, resumed
+
+            # (b) SCD on COCO: 81 classes, no max_present
+            planes = []
+            propagate = tv.varm_propagate
+
+            def recording(masks, *a, **kw):
+                planes.append(tuple(masks.shape))
+                return propagate(masks, *a, **kw)
+
+            tv.varm_propagate = recording
+            try:
+                coco = self._cli_run(train_scd, [
+                    "--config", str(ROOT / "configs" / "scd_coco.yaml"), *common,
+                    f"train.max_iters={WSSS_COCO_STEPS}", "train.cam_iters=-1",
+                    f"train.eval_iters={WSSS_COCO_STEPS}", f"work_dir.dir={tmp / 'scd_coco'}"],
+                    mods, "make_scd_train_step")
+            finally:
+                tv.varm_propagate = propagate
+            self.check(coco.state.step == WSSS_COCO_STEPS, f"(b) SCD on COCO: the state reached "
+                       f"step {coco.state.step}")
+            self._cli_steps("(b) SCD on COCO", coco, -1)
+            log(f"  (b) K3's masks a refine (B, C, H, W): {sorted(set(planes))}, "
+                f"{planes[0][0] * planes[0][1] if planes else 0} planes")
+            self.check(bool(planes) and all(p[1] == 2 * 81 for p in planes),
+                       "(b) K3 refined all 81 channels twice (both thresholds) an image: "
+                       "COCO has no max_present")
+            self._cli_vals("(b) SCD on COCO", coco, 81, 1)
+
+            # (c) RML on VOC
+            rml = self._cli_run(train_rml, [
+                "--config", str(ROOT / "configs" / "rml_voc.yaml"), *common,
+                f"train.max_iters={WSSS_RML_STEPS}", f"train.cam_iters={WSSS_RML_CAM_ITERS}",
+                f"work_dir={tmp / 'rml_voc'}"], mods, "make_rml_train_step")
+            self.check(rml.state.step == WSSS_RML_STEPS
+                       and (tmp / "rml_voc" / "checkpoints" / f"step_{WSSS_RML_STEPS}"
+                            / "state.pt").is_file(),
+                       f"(c) RML on VOC: the state reached step {rml.state.step}, checkpoint "
+                       "written")
+            self._cli_steps("(c) RML on VOC (K2 in par mode)", rml, WSSS_RML_CAM_ITERS)
+            del rml
+
+            # the figures: (a) and (c) again, WSSS_TIMED steps after the warm-up each
+            timed = {}
+            for what, module, factory, cam, argv in (
+                    ("SCD on VOC", train_scd, "make_scd_train_step", WSSS_CAM_ITERS,
+                     ["--config", str(ROOT / "configs" / "scd_voc.yaml"),
+                      f"work_dir.dir={tmp / 'scd_timed'}"]),
+                    ("RML on VOC", train_rml, "make_rml_train_step", WSSS_RML_CAM_ITERS,
+                     ["--config", str(ROOT / "configs" / "rml_voc.yaml"),
+                      f"work_dir={tmp / 'rml_timed'}"])):
+                steps = cam + 1 + WSSS_TIMED
+                rec = self._cli_run(module, argv + [
+                    "dataset.device_augment=true", f"dataset.synthetic_n={WSSS_N}",
+                    f"train.cam_iters={cam}", f"train.max_iters={steps}",
+                    f"train.eval_iters={steps}"], mods, factory)
+                self.check(rec.state.step == steps, f"{what}, timed: the state reached step "
+                                                    f"{rec.state.step} of {steps}")
+                timed[what] = self._cli_steps(f"{what}, timed (log_iters as the yaml)", rec, cam)
+                self._cli_step_alone(f"{what}, timed", rec)
+                del rec
+            scd_ms, rml_ms = timed["SCD on VOC"], timed["RML on VOC"]
+        self._held_summary(held)
+        log(f"  phase 7f figures ({card}): SCD on VOC {scd_ms:.1f} ms a step "
+            f"(batch 2, median of {WSSS_TIMED}, through the CLI with the loader), RML on VOC "
+            f"{rml_ms:.1f} ms a step, validation {val_s:.4f} s an image (96 x 128, three CAM "
+            f"scales and flips)")
+        log(f"  phase 7f: {time.perf_counter() - t_phase:.1f} s")
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -3413,6 +3784,8 @@ def main() -> int:
                      ("RSSFormer train step", rss_train),
                      ("WaveCAM", ph.run_wavecam),
                      ("DRFL", lambda: ph.run_drfl(card)),
+                     ("WSSS command lines",
+                      lambda: ph.run_wsss_cli((tmb, ta, tv, tf, tm, ti), card)),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),
@@ -3436,6 +3809,8 @@ def main() -> int:
                 if ph.launches_rss_train.get(k, 0) == 0]
     missing += [f"{k} (RSSFormer evaluate)" for k in ("mlp_fc1", "mlp_taps")
                 if ph.launches_rss_eval.get(k, 0) == 0]
+    missing += [f"{k} (SCD command line)" for k in RML_KERNELS
+                if ph.launches_wsss.get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))

@@ -1,2 +1,3 @@
-"""Data: the on-device augmentation of the RML trainer (the classification chain) and
-DRFL's paired medical dataset."""
+"""Data: the VOC / COCO datasets and the host augmentation chain of the WSSS
+trainers (numpy), the threaded loader and device prefetch, the on-device
+augmentation (the classification chain), and DRFL's paired medical dataset."""

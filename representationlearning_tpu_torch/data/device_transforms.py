@@ -165,3 +165,14 @@ def augment_cls_batch(images: torch.Tensor, hw: torch.Tensor, decisions: dict,
     out = _warp_one(images.float(), hw[:, 0], hw[:, 1], sh, sw, pad, off, decisions["flip"],
                     crop, cfg.mean_rgb, nearest=False)
     return normalize_img_j(out), _img_box(pad, off, sh, sw, crop)
+
+
+def augment_raw_batch(batch: dict, cfg: DeviceAugConfig,
+                      generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+    """A train step's raw batch dict(raw (B, 3, S, S) uint8, hw (B, 2), cls_label)
+    on its device as the batch the losses take, dict(image, img_box, cls_label):
+    the decisions drawn from ``generator`` (a CPU one), then the chain."""
+    raw = batch["raw"]
+    dec = sample_cls_decisions(raw.shape[0], cfg, generator, raw.device)
+    image, box = augment_cls_batch(raw, batch["hw"], dec, cfg)
+    return {"image": image, "img_box": box, "cls_label": batch["cls_label"]}

@@ -78,7 +78,11 @@ class SRAttention(nn.Module):
         nh = self.num_heads
         hd = C // nh
         q = self.q(x).reshape(B, N, nh, hd).transpose(1, 2)
-        if self.sr_ratio > 1:
+        if self.sr_ratio > 1 and min(H, W) < self.sr_ratio:
+            # a map smaller than one sr x sr window reduces to no key token, as the
+            # JAX package's VALID conv gives (B, 0, 0, C); the output is then proj's bias
+            xs = x.new_zeros((B, 0, C))
+        elif self.sr_ratio > 1:
             xs = self.sr(x.transpose(1, 2).reshape(B, C, H, W))
             xs = self.norm(xs.flatten(2).transpose(1, 2))
         else:

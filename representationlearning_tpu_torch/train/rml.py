@@ -24,7 +24,7 @@ import torch
 from torch.profiler import record_function
 
 from .._device import resolve_device
-from ..data.device_transforms import DeviceAugConfig, augment_cls_batch, sample_cls_decisions
+from ..data.device_transforms import DeviceAugConfig, augment_raw_batch
 from ..losses import mi as MI
 from ..losses import wsss as LW
 from ..models.layers import bn_stats_frozen
@@ -163,9 +163,7 @@ def make_rml_train_step(model, cfg: RMLConfig, cam_model=None,
         batch = {k: v.to(device) for k, v in batch.items()}
         if aug_cfg is not None:
             with record_function("augment"):
-                dec = sample_cls_decisions(batch["raw"].shape[0], aug_cfg, generator, device)
-                image, box = augment_cls_batch(batch["raw"], batch["hw"], dec, aug_cfg)
-            batch = {"image": image, "img_box": box, "cls_label": batch["cls_label"]}
+                batch = augment_raw_batch(batch, aug_cfg, generator)
         losses, _ = rml_losses(model, batch, cfg, attn_mask, generator=generator,
                                cam_model=cam_model)
         total = rml_total_loss(losses, state.step, cfg)

@@ -8,7 +8,8 @@
 - ``scd_losses`` / ``scd_total_loss``: the main forward, a second forward at 0.3
   scale, the CAMs of both through the CAM model, the labels, and the six losses
   with the warm-up switch;
-- ``make_scd_train_step``: forward, backward and one optimiser update per call;
+- ``make_scd_train_step``: (on-device augmentation,) forward, backward and one
+  optimiser update per call;
 - ``make_scd_eval_step``: the validation forward.
 
 Per iteration (SURVEY.md 3.1): forward -> multi-scale flip CAM (+ 0.3x forward
@@ -24,6 +25,7 @@ import torch
 from torch.profiler import record_function
 
 from .._device import resolve_device
+from ..data.device_transforms import DeviceAugConfig, augment_raw_batch
 from ..losses import wsss as LW
 from ..losses.energy import get_energy_loss
 from ..models.layers import bn_stats_frozen
@@ -204,22 +206,31 @@ def scd_total_loss(losses: dict, step: int, cfg: SCDConfig) -> torch.Tensor:
 
 
 def make_scd_train_step(model, cfg: SCDConfig, cam_model=None,
-                        device: torch.device | str | None = None):
+                        device: torch.device | str | None = None,
+                        aug_cfg: DeviceAugConfig | None = None):
     """One SCD training iteration as a function ``train_step(state, batch,
     generator=None) -> (state, metrics)``.
 
     ``model`` is the trained TSCD (``collect_attns="last2"``), ``state`` a
     ``TrainState`` over it; ``cam_model`` as in ``scd_losses``. The batch is moved
     to ``device``, the card unless the caller names another (it raises where
-    there is none). The state is updated in place and returned; metrics holds
-    the six losses and their ``total``, detached. Beside the stages of ``scd_losses`` the
-    profiler sees the ranges backward and optimizer."""
+    there is none). Without ``aug_cfg`` the batch is dict(image normalised,
+    cls_label, img_box); with it, the raw batch dict(raw (B, 3, S, S) uint8,
+    hw (B, 2), cls_label), augmented there first by the classification chain
+    (``data/device_transforms.py``, decisions drawn from ``generator`` before the
+    drop-path masks), as the JAX package's `cli/train_scd.py:171-190` fuses the
+    two. The state is updated in place and returned; metrics holds the six
+    losses and their ``total``, detached. Beside the stages of ``scd_losses`` the
+    profiler sees the ranges augment, backward and optimizer."""
     device = resolve_device(device)
     attn_mask = _attn_mask(cfg, device)
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None):
         model.train()
         batch = {k: v.to(device) for k, v in batch.items()}
+        if aug_cfg is not None:
+            with record_function("augment"):
+                batch = augment_raw_batch(batch, aug_cfg, generator)
         losses, _ = scd_losses(model, batch, cfg, attn_mask, generator=generator,
                                cam_model=cam_model)
         total = scd_total_loss(losses, state.step, cfg)

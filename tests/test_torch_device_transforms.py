@@ -97,6 +97,21 @@ def test_sampled_decisions_and_their_batch():
     assert ((box >= 0) & (box <= 64)).all() and (box[:, 0] <= box[:, 1]).all()
 
 
+def test_augment_raw_batch_is_the_sampled_chain():
+    """The train steps' raw batch -> the losses' batch: decisions from the
+    generator, then the chain; cls_label passed through."""
+    cfg = TD.DeviceAugConfig(crop_size=48, scale_range=(0.7, 1.4))
+    canvas, hw = TD.pad_to_canvas([np.random.default_rng(i).integers(0, 256, (40 + i, 56, 3))
+                                   .astype(np.uint8) for i in range(3)], 64)
+    cls = torch.eye(20)[:3]
+    got = TD.augment_raw_batch({"raw": canvas, "hw": hw, "cls_label": cls}, cfg,
+                               torch.Generator().manual_seed(4))
+    dec = TD.sample_cls_decisions(3, cfg, torch.Generator().manual_seed(4))
+    img, box = TD.augment_cls_batch(canvas, hw, dec, cfg)
+    assert set(got) == {"image", "img_box", "cls_label"} and got["cls_label"] is cls
+    assert torch.equal(got["image"], img) and torch.equal(got["img_box"], box)
+
+
 def test_device_aug_config_has_the_jax_fields_and_defaults():
     """The port's config holds the JAX package's fields in its order with its
     defaults, so the JAX callers' keywords construct it (`bench.py:427-428`,

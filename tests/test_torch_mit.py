@@ -121,3 +121,49 @@ def test_use_flash_block_matches_the_jax_block(stage):
         got, attn = tb(torch.from_numpy(x), 16, 16)
     assert none is None and attn is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("hw,C,sr,nh,export", [(3, 64, 8, 1, False), (7, 64, 8, 1, True),
+                                               (3, 128, 4, 2, False), (1, 320, 2, 5, True)])
+def test_sr_attention_on_a_map_smaller_than_one_window_matches_jax(hw, C, sr, nh, export):
+    """A map smaller than one sr x sr window (the small CAM forwards of a short
+    crop): JAX's VALID conv leaves no key token, so the output is proj's bias and
+    the exported map is empty; the port gives the same."""
+    x = _tokens(hw + C + sr, 2, hw, C)
+    jm = jmit.SRAttention(C, nh, sr, export_attn=export)
+    v = jm.init(jax.random.PRNGKey(2), jnp.asarray(x), hw, hw)
+    want, want_a = jm.apply(v, jnp.asarray(x), hw, hw)
+    tm = tmit.SRAttention(C, nh, sr, export_attn=export).eval()
+    tm.load_state_dict(state_dict_from_jax(v))
+    with torch.no_grad():
+        got, a = tm(torch.from_numpy(x), hw, hw)
+    assert got.shape == want.shape == (2, hw * hw, C)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.broadcast_to(tm.proj.bias.detach().numpy(),
+                                                            got.shape), atol=ATOL)
+    if export:
+        assert a.shape == want_a.shape == (2, nh, 0, 0)
+    else:
+        assert a is None and want_a is None
+
+
+@pytest.mark.parametrize("mode", ["last2", "none"])
+def test_mix_vision_transformer_mit_b0_below_the_reduction_windows_matches_jax(mode):
+    """The mit_b0 encoder on a 24 x 20 image: stage 1's 6 x 5 grid lies below its 8 x 8
+    reduction window and stage 2's 3 x 3 below its 4 x 4; features and the exported
+    maps against JAX's."""
+    tm = tmit.make_mit("mit_b0", collect_attns=mode).eval()
+    init_weights(tm, torch.Generator().manual_seed(3))
+    v = convert_mit(state_dict_to_numpy(tm.state_dict()))
+    x = np.random.default_rng(6).standard_normal((2, 24, 20, 3)).astype(np.float32)
+    feats, attns = jmit.make_mit("mit_b0", collect_attns=mode).apply(v, jnp.asarray(x))
+    with torch.no_grad():
+        tfeats, tattns = tm(torch.from_numpy(x.transpose(0, 3, 1, 2).copy()))
+    assert [tuple(f.shape[2:]) for f in tfeats[:2]] == [(6, 5), (3, 3)]
+    assert len(tattns) == len(attns)
+    for jf, tf in zip(feats, tfeats):
+        np.testing.assert_allclose(tf.numpy().transpose(0, 2, 3, 1), np.asarray(jf),
+                                   atol=ATOL_DEEP)
+    for ja, ta in zip(attns, tattns):
+        assert ta.shape == ja.shape
+        np.testing.assert_allclose(ta.numpy(), np.asarray(ja), atol=ATOL_DEEP)

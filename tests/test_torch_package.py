@@ -33,11 +33,15 @@ def test_every_module_imports_without_jax():
         "metrics.seg", "train.rssformer", "models.resnet", "models.irn", "wsss.msf",
         "wsss.indexing", "wsss.wavecam_infer", "ops.crf", "native", "core.config",
         "core.registry", "core.logging", "cli.train_drfl", "models.dcl", "losses.dice",
-        "train.drfl", "infer.drfl_eval", "data.medical")} <= set(mods)
+        "train.drfl", "infer.drfl_eval", "data.medical", "data.transforms", "data.voc",
+        "data.coco", "data.prefetch", "convert.coco2voc", "utils.events", "utils.visualize",
+        "cli.train_scd", "cli.train_rml")} <= set(mods)
+    # nor Pillow or OpenCV at load: the card's machine has neither
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "
-            "'flax', 'representationlearning_tpu.')) or k == 'representationlearning_tpu')\n"
+            "'flax', 'representationlearning_tpu.', 'PIL.', 'cv2.')) "
+            "or k in ('representationlearning_tpu', 'PIL', 'cv2'))\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT, timeout=120)
 
@@ -97,6 +101,23 @@ def test_drfl_entry_points_run_on_the_card_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["train", "--config", "configs/drfl.yaml", "crop_size=64", "num_vit_layers=1",
               "epochs=1", f"output={tmp_path / 'cli'}"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_wsss_command_lines_run_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    """The SCD and RML command lines, and `device_prefetch`, take the card by
+    default and raise where there is none, before anything is written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from representationlearning_tpu_torch.cli import train_rml, train_scd
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_scd.main(["--config", "configs/scd_voc.yaml", "backbone.config=mit_b0",
+                        "dataset.device_augment=true", "train.max_iters=1",
+                        f"work_dir.dir={tmp_path / 'scd'}"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_rml.main(["--config", "configs/rml_voc.yaml", "backbone.config=mit_b0",
+                        "train.max_iters=1", f"work_dir={tmp_path / 'rml'}"])
     assert not any(tmp_path.iterdir())
 
 

@@ -10,7 +10,11 @@ dtype=bf16)`` and its bf16 fused twin, PAR; with ``--rssformer``
 ``make_rssformer_train_step`` at ``bench.py::bench_rssformer_train``'s configuration:
 ``HRNetFusion("hrnetv2_w32", 7, dtype=bf16)``, 8 x 512 x 512, SGD; with ``--drfl B``
 ``make_drfl_train_step`` at ``chip_smoke.py`` phase 7e's configuration: the f32
-``Softnet(3, 12)`` at 256², batch B of the synthetic source, Adam) and prints:
+``Softnet(3, 12)`` at 256², batch B of the synthetic source, Adam; with ``--cli scd``
+or ``--cli rml`` the step that ``cli/train_scd.py`` or ``cli/train_rml.py`` builds from
+``configs/scd_voc.yaml`` or ``configs/rml_voc.yaml`` with ``dataset.device_augment=true``
+and no warm-up, taken on its last batch after two steps of the command line, as
+``chip_smoke.py`` phase 7f takes it: batch 2, the f32 model, its bf16 twins) and prints:
 
 - the card and its power limit;
 - the step's time by CUDA events, mean over a few steps without the profiler;
@@ -26,8 +30,8 @@ dtype=bf16)`` and its bf16 fused twin, PAR; with ``--rssformer``
   host under the profiler does not stretch a stage.
 
 With ``--out DIR`` the Chrome trace is kept there. Usage, from the root of
-the repository: ``python tools/trace_port_train_step.py [--rml | --rssformer | --drfl B]
-[--seed N] [--steps N] [--out DIR]``. It needs a CUDA card and imports no JAX.
+the repository: ``python tools/trace_port_train_step.py [--rml | --rssformer | --drfl B |
+--cli scd|rml] [--seed N] [--steps N] [--out DIR]``. It needs a CUDA card and imports no JAX.
 """
 import argparse
 import json
@@ -81,6 +85,8 @@ def main() -> int:
     ap.add_argument("--rssformer", action="store_true", help="the RSSFormer train step")
     ap.add_argument("--drfl", type=int, default=None, metavar="B",
                     help="the DRFL train step at batch B")
+    ap.add_argument("--cli", choices=("scd", "rml"), default=None,
+                    help="the step of cli/train_scd.py or cli/train_rml.py (phase 7f)")
     args = ap.parse_args()
 
     import torch
@@ -117,6 +123,21 @@ def main() -> int:
         t = SimpleNamespace(step=td.make_drfl_train_step(model),
                             state=td.create_drfl_state(model, td.DRFLConfig(), 1))
         what = f"DRFL train step, batch {args.drfl}"
+    elif args.cli:
+        from representationlearning_tpu_torch.cli import train_rml, train_scd
+        from representationlearning_tpu_torch.ops import (affinity, attention, isa_attention,
+                                                          mit_block, mlp_dwbn, varm)
+
+        mods = (mit_block, affinity, varm, attention, mlp_dwbn, isa_attention)
+        with tempfile.TemporaryDirectory() as tmp:
+            rec = ph._cli_run(train_scd if args.cli == "scd" else train_rml, [
+                "--config", f"configs/{args.cli}_voc.yaml", "dataset.device_augment=true",
+                "train.max_iters=2", "train.cam_iters=-1", "train.eval_iters=1000",
+                f"work_dir.dir={tmp}" if args.cli == "scd" else f"work_dir={tmp}"],
+                mods, f"make_{args.cli}_train_step")
+        step, state, batch = rec.last
+        t, size = SimpleNamespace(step=step, state=state), len(batch["cls_label"])
+        what = f"cli/train_{args.cli}.py's train step, batch {size}"
     else:
         gen = torch.Generator().manual_seed(args.seed + 5)
         x, cls, box = cs.pseudo_batch(torch, gen, ph.dev)
@@ -182,7 +203,7 @@ def main() -> int:
         if args.out:
             os.makedirs(args.out, exist_ok=True)
         prefix = "rml_" if args.rml else "rssformer_" if args.rssformer else \
-            f"drfl{args.drfl}_" if args.drfl else ""
+            f"drfl{args.drfl}_" if args.drfl else f"cli_{args.cli}_" if args.cli else ""
         path = os.path.join(args.out or tmp, prefix + "train_step_trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
