@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's nine paths and checks them. The first is TSCD / MiT-B1
+Drives the port's ten paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -38,8 +38,11 @@ either: ``Softnet(3, 12)`` at 256² on the synthetic source. The ninth is the SC
 RML command lines (``cli/train_scd.py``, ``cli/train_rml.py``) run from
 ``configs/scd_voc.yaml``, ``scd_coco.yaml`` and ``rml_voc.yaml`` as a user runs them,
 with the on-card augmentation and cut iteration counts: K1 in the fused twins, K2
-and K3 in the refinement, K1's exporting form in the SCD validation. The headline
-forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
+and K3 in the refinement, K1's exporting form in the SCD validation. The tenth is
+the RSSFormer command line (``cli/rssformer.py``) from ``configs/rssformer_loveda.yaml``:
+``train`` at ``hrnetv2_w32``, 8 x 512² crops made by the LoveDA chain on the card (no
+kernel), then ``eval --tta`` and ``predict`` with K5 under ``model.fused_mlp=True``.
+The headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -156,6 +159,22 @@ forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
    planes among them); then both CLIs again for 20 steps after the warm-up: the
    median ms a step through the command line (loader included) with its spread, the
    step alone by CUDA events, and the seconds a validation image;
+7g. RSSFormer command line: the LoveDA chain (``augment_loveda_batch``) on 8 of LoveDA's
+   1024² images on the card against the CPU on the same decisions (every flip / rot90
+   op, half through ShiftScaleRotate): images within 1e-4, masks equal but where a
+   nearest tap's source coordinate lies within 1e-4 of a half (counted); then
+   ``cli.rssformer.main`` on configs/rssformer_loveda.yaml as it is (the f32
+   ``hrnetv2_w32``, 8 x 512², SGD) with ``data.device_augment=true``: eight steps, each
+   step's losses finite and no hand-written kernel launched, checkpoints at 4 and 8, a
+   rerun that resumes at 8 and ends at 9; the checkpoint calmed as in 7c, then ``eval
+   --tta`` and ``predict`` with ``model.fused_mlp=True`` (bf16 compute; K5 8 + 8 a
+   forward over 16 images at six scales and at one, nothing else launched; each of K5's
+   six new token grids held against the plain version at its first call) against the
+   same commands at ``fused_mlp=False`` in bf16 (no launch): scores within 1e-2,
+   probabilities within 3e-2, classes equal on at least 99% of the pixels that are not
+   near-ties, one palette PNG an image equal to its argmax; the figures: ms a step
+   through the CLI and the step alone, its launches and idle share, seconds an ``eval
+   --tta`` image and a ``predict`` image;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
@@ -184,6 +203,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import math
 import statistics
@@ -192,6 +212,7 @@ import sys
 import tempfile
 import time
 import traceback
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -315,6 +336,18 @@ WSSS_COCO_STEPS, WSSS_RML_STEPS, WSSS_RML_CAM_ITERS = 2, 4, 1
 # the figures: each CLI again, fresh, for this many steps after its warm-up, the yamls'
 # log_iters, one validation at the end; the step alone as often
 WSSS_TIMED = 20
+
+# The RSSFormer command line (phase 7g): cli/rssformer.py on configs/rssformer_loveda.yaml as
+# it is (hrnetv2_w32, 7 classes, 512² crops, batch 8, the f32 model, SGD poly 0.9, clip 35),
+# data.device_augment=true on the synthetic source (16 images of 128² on the default 1024²
+# canvases); cut: RSS_CLI_STEPS steps with a checkpoint every RSS_CLI_SAVE, then a resume for
+# one more; then eval --tta and predict with model.fused_mlp=True (bf16 compute, K5) and at
+# fused_mlp=False in bf16. The LoveDA chain on the card against the CPU on LoveDA's 1024²
+# images: images within LOVEDA_IMG_TOL; masks equal but where a nearest tap's source
+# coordinate lies within LOVEDA_NEAR_HALF of a half (the last bit of sin and cos decides).
+RSS_CLI_STEPS, RSS_CLI_SAVE, RSS_CLI_ALONE = 8, 4, 5
+RSS_CLI_BATCH, RSS_CLI_CANVAS, RSS_CLI_IMAGES = 8, 1024, 16
+LOVEDA_IMG_TOL, LOVEDA_NEAR_HALF = 1e-4, 1e-4
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -791,6 +824,21 @@ def drfl_agreement(res: dict) -> list[tuple[bool, str]]:
     return checks
 
 
+def read_palette_png(torch, path) -> "torch.Tensor":
+    """The (H, W) uint8 indices of an 8-bit palette PNG whose rows carry filter 0
+    (``utils/events.py::write_png_palette``), read with zlib alone."""
+    data, pos, chunks = Path(path).read_bytes(), 8, {}
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        chunks[data[pos + 4:pos + 8]] = chunks.get(data[pos + 4:pos + 8], b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h = (int.from_bytes(chunks[b"IHDR"][i:i + 4], "big") for i in (0, 4))
+    if chunks[b"IHDR"][8:10] != bytes([8, 3]) or b"PLTE" not in chunks:
+        raise ValueError(f"{path}: not an 8-bit palette PNG")
+    rows = torch.frombuffer(bytearray(zlib.decompress(chunks[b"IDAT"])), dtype=torch.uint8)
+    return rows.view(h, w + 1)[:, 1:]
+
+
 class Phases:
     def __init__(self, torch, seed: int):
         self.torch = torch
@@ -813,6 +861,9 @@ class Phases:
         self.launches_rss_eval: dict[str, int] = {}
         self.launches_rss_step: dict[str, int] = {}   # the bench's step: no fused_attn
         self.launches_wsss: dict[str, int] = {}   # every kernel's, in a step of cli.train_scd
+        # every kernel's in a step of cli.rssformer train, and in its eval --tta and predict
+        self.launches_rss_cli_step: dict[str, int] = {}
+        self.launches_rss_cli: dict[str, dict[str, int]] = {}
         self.plain_runs = 0   # phase 7f's comparisons with a plain version so far
         self.holding = False  # phase 7f: compare each new geometry's call with its plain version
         self.refine_inputs = None
@@ -2719,10 +2770,10 @@ class Phases:
             f"validation before it; median {ms:.1f} ms{spread}")
         return ms
 
-    def _cli_step_alone(self, what: str, rec) -> None:
+    def _cli_step_alone(self, what: str, rec, reps: int = WSSS_TIMED) -> tuple[float, float]:
         """The CLI's own step function on its last batch, after the run, outside the
-        loop: its time (CUDA events, median of WSSS_TIMED), launches and device-busy
-        time a step from a two-step trace."""
+        loop: its time (CUDA events, median of ``reps``), launches and device-busy
+        time a step from a two-step trace. Returns (ms, idle share)."""
         from representationlearning_tpu_torch import bench as tb
 
         step, state, batch = rec.last
@@ -2730,10 +2781,11 @@ class Phases:
         def again():
             step(state, batch, self.torch.Generator().manual_seed(0))
 
-        ms = self.event_median_ms(again, WSSS_TIMED)
+        ms = self.event_median_ms(again, reps)
         busy, launches = tb.trace_calls(again, 2)
-        log(f"  {what}, the step alone: {ms:.1f} ms (CUDA events, median of {WSSS_TIMED}), "
+        log(f"  {what}, the step alone: {ms:.1f} ms (CUDA events, median of {reps}), "
             f"{launches:.0f} launches, device busy {busy:.1f} ms, idle share {1 - busy / ms:.4f}")
+        return ms, 1 - busy / ms
 
     def _cli_vals(self, what: str, rec, classes: int, want: int) -> float:
         ok = len(rec.vals) == want
@@ -2751,54 +2803,59 @@ class Phases:
         clean = [v["s"] / v["images"] for v in rec.vals if not v["held"]]
         return statistics.median(clean) if clean else float("nan")
 
-    @contextlib.contextmanager
-    def _held_to_plain(self, mods, held: dict):
-        """Phase 7f's kernels as the command lines call them, each held against its
-        plain version on the same inputs at the first call of every geometry it
-        meets while ``self.holding`` (the first step and the first validation of
-        each run: a run gives the same geometries every step and every validation
-        image); the plain versions launch nothing, so no count moves. K1's five
-        pieces at PIECE_TOL (the exported logits at LOGIT_TOL) and the whole block at
-        PATH_TOL, K2 at AFFINITY_TOL, K3 at VARM_TOL. ``held`` maps each kernel to
-        {geometry: largest error as a share of its tolerance}."""
+    def _held_at_first_call(self, held: dict, kernel: str, kernel_fn, plain_fn, tol_of):
+        """``kernel_fn`` as a function that, while ``self.holding``, also runs
+        ``plain_fn`` on the same inputs at the first call of every geometry it
+        meets and checks each output within ``tol_of(output index, max |plain|)``;
+        ``held[kernel]`` maps each geometry to its largest error as a share of its
+        tolerance. The plain versions launch nothing, so no count moves."""
         torch = self.torch
-        tmb, ta, tv = mods[:3]
-        from representationlearning_tpu_torch.models.mit import FusedBlock
 
         def shape(v):
             if torch.is_tensor(v):
                 return tuple(v.shape), str(v.dtype).removeprefix("torch.")
             return len(v) if isinstance(v, dict) else v
 
-        def geometry(a, kw):
-            return tuple(map(shape, a)) + tuple(sorted((k, shape(v)) for k, v in kw.items()))
+        def run(*a, **kw):
+            got = kernel_fn(*a, **kw)
+            if not self.holding:
+                return got
+            at = tuple(map(shape, a)) + tuple(sorted((k, shape(v)) for k, v in kw.items()))
+            if at in held.setdefault(kernel, {}):
+                return got
+            with torch.no_grad():
+                want = plain_fn(*a, **kw)
+            self.plain_runs += 1
+            worst = 0.0
+            got_t = got if isinstance(got, tuple) else (got,)
+            want_t = want if isinstance(want, tuple) else (want,)
+            for i, (g, w) in enumerate(zip(got_t, want_t)):
+                if g is None and w is None:
+                    continue
+                err, mag = max_err(g, w) if g.numel() else (0.0, 0.0)
+                tol = tol_of(i, mag)
+                if not (bool(torch.isfinite(g.float()).all()) and err <= tol):
+                    self.check(False, f"{kernel} @ {at}, output {i}: max abs err {err:.3e} "
+                                      f"(max |plain| {mag:.3e}, tol {tol:.3e})")
+                worst = max(worst, err / tol)
+            held[kernel][at] = worst
+            return got
+        return run
+
+    @contextlib.contextmanager
+    def _held_to_plain(self, mods, held: dict):
+        """Phase 7f's kernels as the command lines call them, each held against its
+        plain version on the same inputs at the first call of every geometry it
+        meets while ``self.holding`` (the first step and the first validation of
+        each run: a run gives the same geometries every step and every validation
+        image). K1's five pieces at PIECE_TOL (the exported logits at LOGIT_TOL) and
+        the whole block at PATH_TOL, K2 at AFFINITY_TOL, K3 at VARM_TOL. ``held``
+        maps each kernel to {geometry: largest error as a share of its tolerance}."""
+        tmb, ta, tv = mods[:3]
+        from representationlearning_tpu_torch.models.mit import FusedBlock
 
         def held_at_first_call(kernel, kernel_fn, plain_fn, tol_of):
-            def run(*a, **kw):
-                got = kernel_fn(*a, **kw)
-                if not self.holding:
-                    return got
-                at = geometry(a, kw)
-                if at in held.setdefault(kernel, {}):
-                    return got
-                with torch.no_grad():
-                    want = plain_fn(*a, **kw)
-                self.plain_runs += 1
-                worst = 0.0
-                got_t = got if isinstance(got, tuple) else (got,)
-                want_t = want if isinstance(want, tuple) else (want,)
-                for i, (g, w) in enumerate(zip(got_t, want_t)):
-                    if g is None and w is None:
-                        continue
-                    err, mag = max_err(g, w) if g.numel() else (0.0, 0.0)
-                    tol = tol_of(i, mag)
-                    if not (bool(torch.isfinite(g.float()).all()) and err <= tol):
-                        self.check(False, f"{kernel} @ {at}, output {i}: max abs err {err:.3e} "
-                                          f"(max |plain| {mag:.3e}, tol {tol:.3e})")
-                    worst = max(worst, err / tol)
-                held[kernel][at] = worst
-                return got
-            return run
+            return self._held_at_first_call(held, kernel, kernel_fn, plain_fn, tol_of)
 
         pieces = {n: getattr(tmb.DISPATCH, n) for n in PIECE_TOL}
         block = FusedBlock.__dict__["block_fn"]
@@ -2962,6 +3019,243 @@ class Phases:
             f"{rml_ms:.1f} ms a step, validation {val_s:.4f} s an image (96 x 128, three CAM "
             f"scales and flips)")
         log(f"  phase 7f: {time.perf_counter() - t_phase:.1f} s")
+
+    # ------------------------------------------------------------- phase 7g (RSSFormer CLI)
+    def _loveda_chain_vs_cpu(self) -> None:
+        """The LoveDA chain (``augment_loveda_batch``) on the card against the same
+        chain on the CPU, on the same decisions and canvases: LoveDA's 1024² images
+        on the CLI's canvas, crop 512, every flip / rot90 op, half of the batch
+        through ShiftScaleRotate."""
+        torch = self.torch
+        from representationlearning_tpu_torch.data import device_transforms as TD
+        from representationlearning_tpu_torch.data.loveda import LoveDADataset
+
+        cfg = TD.LoveDAAugConfig()
+        ds = LoveDADataset(raw=True, canvas_size=RSS_CLI_CANVAS, synthetic_n=RSS_CLI_BATCH,
+                           synthetic_size=(RSS_CLI_CANVAS, RSS_CLI_CANVAS))
+        samples = [ds[i] for i in range(RSS_CLI_BATCH)]
+        raw, hw, masks = (torch.stack([s[j] for s in samples]) for j in (1, 2, 3))
+        dec = TD.sample_loveda_decisions(RSS_CLI_BATCH, cfg,
+                                         torch.Generator().manual_seed(self.seed + 21))
+        dec["fr_on"][:6] = True
+        dec["op"][:] = torch.tensor([0, 1, 2, 2, 2, 0, 1, 2], dtype=torch.int32)
+        dec["rot_k"][:] = torch.tensor([1, 1, 1, 2, 3, 2, 3, 1], dtype=torch.int32)
+        dec["ssr_on"][:] = torch.arange(RSS_CLI_BATCH) % 2 == 0
+        want_img, want_mask = TD.augment_loveda_batch(raw, hw, masks, dec, cfg)
+        on_card = [t.to(self.dev) for t in (raw, hw, masks)]
+        card_dec = {k: v.to(self.dev) for k, v in dec.items()}
+
+        def chain():
+            return TD.augment_loveda_batch(*on_card, card_dec, cfg)
+
+        got_img, got_mask = chain()
+        self.check(got_img.is_cuda and got_mask.is_cuda, "the LoveDA chain ran on the card")
+        err = (got_img.cpu() - want_img).abs().max().item()
+        sx, sy = TD._affine_source_coords(cfg.crop_size, cfg.crop_size, dec["angle"],
+                                          dec["ssr_scale"], dec["shift"])
+        near = torch.zeros_like(sx, dtype=torch.bool)
+        for c in (sx, sy):
+            near |= ((c - torch.floor(c)) - 0.5).abs() < LOVEDA_NEAR_HALF
+        near &= dec["ssr_on"][:, None, None]
+        differ = got_mask.cpu() != want_mask
+        ms = self.event_median_ms(chain, 10)
+        log(f"  (b) the LoveDA chain, {RSS_CLI_BATCH} x {RSS_CLI_CANVAS}² canvases -> "
+            f"{cfg.crop_size}² crops: {ms:.3f} ms on the card (CUDA events, median of 10); "
+            f"{int(near.sum())} mask pixels with a nearest tap's source coordinate within "
+            f"{LOVEDA_NEAR_HALF:g} of a half, {int(differ[near].sum())} of them differ")
+        self.check(err <= LOVEDA_IMG_TOL, f"(b) the LoveDA chain, card against CPU: images max "
+                                          f"abs err {err:.3e} (tol {LOVEDA_IMG_TOL:.0e})")
+        self.check(not bool(differ[~near].any()),
+                   f"(b) masks equal but near a half: {int(differ[~near].sum())} of "
+                   f"{int((~near).sum())} other pixels differ")
+
+    @contextlib.contextmanager
+    def _k5_held_to_plain(self, tm, held: dict):
+        """K5's two kernels as the RSSFormer CLI calls them, each held against its
+        plain version at the first call of every geometry while ``self.holding``,
+        at K5_TOL of max(1, max |plain|)."""
+        kernels = (tm.mlp_fc1, tm.mlp_taps)
+        tm.mlp_fc1 = self._held_at_first_call(held, "mlp_fc1", tm.mlp_fc1, tm.mlp_fc1_reference,
+                                              lambda i, mag: K5_TOL["mlp_fc1"] * max(1.0, mag))
+        tm.mlp_taps = self._held_at_first_call(held, "mlp_taps", tm.mlp_taps,
+                                               tm.mlp_taps_reference,
+                                               lambda i, mag: K5_TOL["mlp_taps"] * max(1.0, mag))
+        try:
+            yield held
+        finally:
+            tm.mlp_fc1, tm.mlp_taps = kernels
+
+    def _rss_cli_infer(self, rc, trs, argv: list[str], mods, bf16: bool | None = None):
+        """One ``eval`` or ``predict`` of the RSSFormer CLI on the card: its forwards
+        counted (and their probabilities kept for ``predict``), its launches, its
+        wall time. ``bf16`` overrides the CLI's compute dtype (the unfused runs in
+        K5's dtype)."""
+        torch = self.torch
+        rec = SimpleNamespace(forwards=0, probs=[])
+        makers = (rc.make_rssformer_eval_step, trs.make_rssformer_eval_step, rc.compute_dtype)
+
+        def counting(model):
+            fwd = makers[0](model)
+
+            def run(image):
+                probs = fwd(image)
+                rec.forwards += 1
+                if argv[0] == "predict":
+                    rec.probs.append(probs.float().cpu())
+                return probs
+            return run
+
+        rc.make_rssformer_eval_step = trs.make_rssformer_eval_step = counting
+        if bf16 is not None:
+            rc.compute_dtype = lambda *a, **k: torch.bfloat16 if bf16 else torch.float32
+        for mod in mods:
+            mod.reset_launches()
+        try:
+            t0 = time.perf_counter()
+            rec.out = rc.main(argv)
+            torch.cuda.synchronize()
+            rec.s = time.perf_counter() - t0
+        finally:
+            rc.make_rssformer_eval_step, trs.make_rssformer_eval_step, rc.compute_dtype = makers
+        rec.launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
+        return rec
+
+    def run_rss_cli(self, mods, card: str) -> None:
+        """``cli/rssformer.py`` on configs/rssformer_loveda.yaml as a user runs it:
+        ``train`` at the yaml's hrnetv2_w32, 8 x 512² crops, with the LoveDA chain
+        on the card, a resume; then ``eval --tta`` and ``predict`` with
+        ``model.fused_mlp=True`` (K5, bf16 compute) against the same commands
+        without it in bf16."""
+        torch = self.torch
+        from representationlearning_tpu_torch.cli import rssformer as rc
+        from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+        from representationlearning_tpu_torch.train import checkpoints as CK
+        from representationlearning_tpu_torch.train import rssformer as trs
+
+        tm = mods[4]
+        t_phase = time.perf_counter()
+        log(f"== RSSFormer command line: cli.rssformer train / eval --tta / predict "
+            f"(configs/rssformer_loveda.yaml: hrnetv2_w32, 7 classes, {RSS_CLI_BATCH} x 512² "
+            f"crops, the f32 model), the LoveDA chain on the card, 16 synthetic 128² images "
+            f"on {RSS_CLI_CANVAS}² canvases; {card}")
+        self._loveda_chain_vs_cpu()
+        yaml = str(ROOT / "configs" / "rssformer_loveda.yaml")
+        with tempfile.TemporaryDirectory() as tmp:
+            wd = Path(tmp) / "work"
+            argv = ["train", "--config", yaml, "data.device_augment=true",
+                    "train.log_interval_step=1", f"train.eval_interval={RSS_CLI_SAVE}",
+                    f"work_dir={wd}"]
+            # (a) train, then a resume
+            rec = self._cli_run(rc, argv + [f"train.num_iters={RSS_CLI_STEPS}"], mods,
+                                "make_rssformer_train_step")
+            saved = sorted(p.name for p in (wd / "checkpoints").iterdir())
+            self.check(rec.state.step == RSS_CLI_STEPS == len(rec.steps)
+                       and saved == [f"step_{n}" for n in range(RSS_CLI_SAVE, RSS_CLI_STEPS + 1,
+                                                                 RSS_CLI_SAVE)]
+                       and next(rec.state.model.parameters()).dtype == torch.float32,
+                       f"(a) train: the f32 model reached step {rec.state.step}, checkpoints "
+                       f"{saved}")
+            for i, st in enumerate(rec.steps):
+                m = st["losses"]
+                self.check(all(map(math.isfinite, m.values())) and not any(st["launches"].values()),
+                           f"(a) step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+                           + "; no hand-written kernel launched (K1-K6 all 0)")
+            self.launches_rss_cli_step = rec.steps[0]["launches"]
+            gaps = [b["end"] - a["end"] for n, (a, b) in enumerate(zip(rec.steps, rec.steps[1:]),
+                                                                   start=1)
+                    if n > 1 and n % RSS_CLI_SAVE]   # not the first, none after a save
+            cli_ms = statistics.median(gaps) * 1e3
+            log(f"  (a) start-up to the first step's end {rec.steps[0]['end'] - rec.t0:.1f} s; "
+                f"{', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms a step (no save before it); "
+                f"median {cli_ms:.1f} ms")
+            alone_ms, idle = self._cli_step_alone("(a) train", rec, RSS_CLI_ALONE)
+            del rec
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                resumed = self._cli_run(rc, argv + [f"train.num_iters={RSS_CLI_STEPS + 1}"],
+                                        mods, "make_rssformer_train_step")
+            log("  " + buf.getvalue().strip().replace("\n", "\n  "))
+            self.check(resumed.state.step == RSS_CLI_STEPS + 1 and len(resumed.steps) == 1
+                       and f"resumed at step {RSS_CLI_STEPS}" in buf.getvalue(),
+                       f"(a) rerun with train.num_iters={RSS_CLI_STEPS + 1}: resumed at step "
+                       f"{RSS_CLI_STEPS}, ended at {resumed.state.step}")
+            del resumed
+
+            # (c) eval --tta and predict with K5, from the checkpoint calmed as phase 7c's
+            model = HRNetFusion("hrnetv2_w32", RSS_CLASSES, generator=torch.Generator())
+            state = trs.create_rssformer_state(model, trs.RSSFormerTrainConfig())
+            CK.restore(str(wd / "checkpoints"), state)
+            calm(torch, model, torch.Generator().manual_seed(self.seed + 22))
+            calmed = Path(tmp) / "calmed"
+            CK.save(str(calmed), state.step, state)
+            del model, state
+            common = ["--config", yaml, f"work_dir={wd}", "--ckpt_dir", str(calmed)]
+            ds_n = RSS_CLI_IMAGES   # the yaml's synthetic source
+            held: dict = {}
+            runs = {}
+            with self._k5_held_to_plain(tm, held):
+                for fused in (True, False):
+                    flag = f"model.fused_mlp={fused}"   # a Python literal: "false" is a truthy string
+                    self.holding = fused
+                    try:
+                        runs[fused] = (
+                            self._rss_cli_infer(rc, trs, ["eval", "--tta", *common, flag], mods,
+                                                None if fused else True),
+                            self._rss_cli_infer(rc, trs, ["predict", *common, flag, "--out_dir",
+                                                          str(Path(tmp) / f"pred_{fused}")],
+                                                mods, None if fused else True))
+                    finally:
+                        self.holding = False
+            (ev, pr), (ev0, pr0) = runs[True], runs[False]
+            for what, r, n in (("eval --tta", ev, ds_n * 6), ("predict", pr, ds_n)):
+                want = {k: 0 for k in r.launches}
+                want.update(mlp_fc1=RSS_BLOCKS * n, mlp_taps=RSS_BLOCKS * n)
+                self.check(r.forwards == n and r.launches == want,
+                           f"(c) {what} with model.fused_mlp=True: {r.forwards} forwards, launches "
+                           f"{ {k: v for k, v in r.launches.items() if v} } (K5 8 + 8 a forward, "
+                           "nothing else)")
+            self.launches_rss_cli = {"eval_tta": ev.launches, "predict": pr.launches}
+            self.check(not any(ev0.launches.values()) and not any(pr0.launches.values()),
+                       "(c) the same commands at model.fused_mlp=False launched nothing")
+            for k, seen in held.items():
+                worst = max(seen.values(), default=0.0)
+                tokens = sorted({at[0][0][1] for at in seen})
+                self.check(len(seen) == 6 and worst <= 1.0,
+                           f"(c) {k}: {len(seen)} geometries (tokens {tokens}) held against the "
+                           f"plain version at their first call, largest error {worst:.3f} of "
+                           "its tolerance")
+            scores, plain = ev.out, ev0.out
+            log(f"  (c) eval --tta: K5 pAcc {scores['pAcc']:.4f} mAcc {scores['mAcc']:.4f} mIoU "
+                f"{scores['miou']:.4f}; fused_mlp=False (bf16) pAcc {plain['pAcc']:.4f} mAcc "
+                f"{plain['mAcc']:.4f} mIoU {plain['miou']:.4f}")
+            self.check(all(abs(scores[k] - plain[k]) <= 1.0 - RSS_SHARE for k in ("pAcc", "mAcc")),
+                       f"(c) eval --tta, K5 against fused_mlp=False: pAcc and mAcc within "
+                       f"{1.0 - RSS_SHARE:.2f}")
+            probs, probs0 = torch.stack(pr.probs), torch.stack(pr0.probs)
+            err = (probs - probs0).abs().max().item()
+            self.check(err <= RSS_TOL, f"(c) predict's probabilities, K5 against fused_mlp=False "
+                                       f"in bf16: max abs err {err:.3e} (tol {RSS_TOL:.0e})")
+            top2 = probs0.topk(2, dim=2).values
+            clear = (top2[:, :, 0] - top2[:, :, 1]) > RSS_TOL
+            same = probs.argmax(2) == probs0.argmax(2)
+            share = same[clear].float().mean().item() if bool(clear.any()) else 0.0
+            self.check(bool(clear.any()) and share >= RSS_SHARE,
+                       f"(c) predict's classes, K5 against fused_mlp=False: equal on "
+                       f"{100.0 * share:.3f}% of the {100.0 * clear.float().mean().item():.2f}% "
+                       f"of pixels that are not near-ties (at least {100.0 * RSS_SHARE:.1f}%)")
+            pngs = sorted(Path(pr.out).glob("*.png"))
+            index = [read_palette_png(torch, p) for p in pngs]
+            self.check(len(pngs) == ds_n and all(
+                torch.equal(ix, p[0].argmax(0).to(torch.uint8)) for ix, p in zip(index, pr.probs)),
+                f"(c) predict wrote {len(pngs)} palette PNGs, each the argmax of its forward")
+        log(f"  phase 7g figures ({card}): train {cli_ms:.1f} ms a step through the CLI (batch "
+            f"{RSS_CLI_BATCH} x 512², f32, LoveDA chain on the card; median of {len(gaps)}), the "
+            f"step alone {alone_ms:.1f} ms, idle share {idle:.4f}; with K5: eval --tta "
+            f"{ev.s / ds_n:.3f} s an image (6 scales, {ev.s:.2f} s for {ds_n}), predict "
+            f"{pr.s / ds_n:.3f} s an image ({pr.s:.2f} s); unfused in bf16: eval --tta "
+            f"{ev0.s / ds_n:.3f} s, predict {pr0.s / ds_n:.3f} s an image; whole commands with "
+            "the model build, the checkpoint load and, with K5, the 12 first-call holds")
+        log(f"  phase 7g: {time.perf_counter() - t_phase:.1f} s")
 
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
@@ -3786,6 +4080,8 @@ def main() -> int:
                      ("DRFL", lambda: ph.run_drfl(card)),
                      ("WSSS command lines",
                       lambda: ph.run_wsss_cli((tmb, ta, tv, tf, tm, ti), card)),
+                     ("RSSFormer command line",
+                      lambda: ph.run_rss_cli((tmb, ta, tv, tf, tm, ti), card)),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),
@@ -3811,6 +4107,9 @@ def main() -> int:
                 if ph.launches_rss_eval.get(k, 0) == 0]
     missing += [f"{k} (SCD command line)" for k in RML_KERNELS
                 if ph.launches_wsss.get(k, 0) == 0]
+    missing += [f"{k} (RSSFormer command line, {cmd})" for k in ("mlp_fc1", "mlp_taps")
+                for cmd in ("eval_tta", "predict")
+                if ph.launches_rss_cli.get(cmd, {}).get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -3840,6 +4139,8 @@ def main() -> int:
             entry["launches_rssformer_train_step"] = ph.launches_rss_train[k]
         if k in ("mlp_fc1", "mlp_taps"):
             entry["launches_rssformer_evaluate"] = ph.launches_rss_eval[k]
+            entry["launches_rssformer_cli_eval_tta"] = ph.launches_rss_cli["eval_tta"][k]
+            entry["launches_rssformer_cli_predict"] = ph.launches_rss_cli["predict"][k]
         if k == "dwconv_gelu":   # the library call on bf16, beside the f32 one
             entry["library_ms_bf16"] = ph.dwconv_library_bf16_ms
         if k == "mlp_taps":  # the block as one function, and the module K5 stands in for

@@ -37,19 +37,40 @@ def _png_chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+def _write_png(path: str, rows: np.ndarray, colour_type: int, *chunks: bytes) -> None:
+    """(H, W * channels) uint8 rows as an 8-bit PNG of ``colour_type``: one IHDR,
+    the ``chunks`` given, one IDAT of the rows, each behind filter byte 0 (none),
+    one IEND."""
+    h, n = rows.shape
+    width = n // (3 if colour_type == 2 else 1)
+    data = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    ihdr = struct.pack(">IIBBBBB", width, h, 8, colour_type, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr) + b"".join(chunks)
+                + _png_chunk(b"IDAT", zlib.compress(data.tobytes(), 6))
+                + _png_chunk(b"IEND", b""))
+
+
 def write_png_rgb(path: str, arr: np.ndarray) -> None:
-    """An (H, W, 3) uint8 array as an 8-bit truecolour PNG: one IHDR, one IDAT
-    of the rows, each behind filter byte 0 (none), one IEND."""
+    """An (H, W, 3) uint8 array as an 8-bit truecolour PNG (colour type 2)."""
     arr = np.ascontiguousarray(arr, dtype=np.uint8)
     h, w, c = arr.shape
     if c != 3:
         raise ValueError(f"write_png_rgb takes (H, W, 3), got {arr.shape}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # depth 8, colour type 2 (RGB)
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
-                + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _png_chunk(b"IEND", b""))
+    _write_png(path, arr.reshape(h, w * 3), 2)
+
+
+def write_png_palette(path: str, index: np.ndarray, palette: np.ndarray) -> None:
+    """An (H, W) uint8 index array as an 8-bit palette PNG (colour type 3) whose
+    PLTE chunk holds ``palette``'s first 256 (r, g, b) entries."""
+    index = np.ascontiguousarray(index, dtype=np.uint8)
+    if index.ndim != 2:
+        raise ValueError(f"write_png_palette takes (H, W), got {index.shape}")
+    pal = np.asarray(palette, np.uint8).reshape(-1)[: 256 * 3]
+    pal = pal[: len(pal) - len(pal) % 3]
+    if not len(pal):
+        raise ValueError("write_png_palette needs at least one palette entry")
+    _write_png(path, index, 3, _png_chunk(b"PLTE", pal.tobytes()))
 
 
 class MetricsWriter:

@@ -2,14 +2,15 @@
 ``representationlearning_tpu/utils/visualize.py``. Parity with
 `SCD-AAAI2023/utils/imutils.py` (VOC bit-twiddled colormap, CAM-jet overlays,
 attention grids, label colormaps) and `RSSFormer-TIP2023/module/viz.py` (palette PNG
-writer), matplotlib/torchvision-free. Pillow is imported only where a resize or a
-palette file needs it.
+writer), matplotlib/torchvision-free. Pillow is imported only where a resize needs it;
+the palette PNG is written with `zlib` (`utils/events.py`).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ..data.transforms import denormalize_img
+from .events import write_png_palette
 
 
 def colormap(N: int = 256, normalized: bool = False) -> np.ndarray:
@@ -99,10 +100,8 @@ def attention_grid(attn: np.ndarray, query_pix: int, size=(112, 112)) -> np.ndar
 
 
 def save_palette_png(label: np.ndarray, path: str, palette=None) -> None:
-    """Palette PNG writer (`RSSFormer module/viz.py:6-24`, WaveCAM's pseudo-label PNGs)."""
-    from PIL import Image
-
-    img = Image.fromarray(np.asarray(label).astype(np.uint8), mode="P")
-    pal = (palette if palette is not None else colormap()).astype(np.uint8).reshape(-1)
-    img.putpalette(list(pal[: 256 * 3]))
-    img.save(path)
+    """Palette PNG writer (`RSSFormer module/viz.py:6-24`, WaveCAM's pseudo-label
+    PNGs): the labels as uint8 indices, ``palette`` (default the VOC colormap) as
+    the PLTE chunk, written with ``zlib`` (no Pillow)."""
+    pal = palette if palette is not None else colormap()
+    write_png_palette(path, np.asarray(label).astype(np.uint8), pal)

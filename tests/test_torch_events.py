@@ -6,6 +6,8 @@ file; the threaded loader's order and errors; `device_prefetch`'s order and
 device (tolerance: none)."""
 import itertools
 import os
+import sys
+import zlib
 
 import numpy as np
 import pytest
@@ -71,6 +73,57 @@ def test_save_palette_png(tmp_path):
         t, j = Image.open(tmp_path / "t.png"), Image.open(tmp_path / "j.png")
         assert t.mode == j.mode == "P" and t.getpalette() == j.getpalette()
         _same(np.asarray(t), np.asarray(j))
+
+
+def _read_palette_png(path):
+    """(indices (H, W), palette (n, 3)) of an 8-bit palette PNG written with
+    filter 0, read with zlib alone."""
+    data = open(path, "rb").read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        kind = data[pos + 4:pos + 8]
+        chunks[kind] = chunks.get(kind, b"") + data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h = int.from_bytes(chunks[b"IHDR"][:4], "big"), int.from_bytes(chunks[b"IHDR"][4:8], "big")
+    assert chunks[b"IHDR"][8:10] == bytes([8, 3])   # depth 8, colour type 3
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8).reshape(h, w + 1)
+    assert (rows[:, 0] == 0).all()
+    return rows[:, 1:], np.frombuffer(chunks[b"PLTE"], np.uint8).reshape(-1, 3)
+
+
+@pytest.mark.parametrize("palette", ["default", "random", "short"])
+def test_save_palette_png_without_pillow(tmp_path, monkeypatch, palette):
+    """With Pillow hidden the palette PNG is written all the same; read back with
+    zlib it holds the labels as indices and the palette as given, and Pillow (where
+    installed) reads the JAX package's file of the same labels as the same."""
+    label = np.random.default_rng(6).choice([0, 3, 6, 255], (13, 17))
+    pal = {"default": None, "random": np.random.default_rng(7).integers(0, 256, (256, 3)),
+           "short": np.array([[255, 255, 255], [255, 0, 0], [0, 0, 255]])}[palette]
+    with monkeypatch.context() as m:
+        m.setitem(sys.modules, "PIL", None)
+        m.setitem(sys.modules, "PIL.Image", None)
+        TV.save_palette_png(label, str(tmp_path / "t.png"), pal)
+    index, got_pal = _read_palette_png(tmp_path / "t.png")
+    want_pal = TV.colormap() if pal is None else np.asarray(pal, np.uint8)
+    np.testing.assert_array_equal(index, label.astype(np.uint8))
+    np.testing.assert_array_equal(got_pal, want_pal)
+    if palette != "short":   # Pillow pads a short palette of the JAX file itself
+        JV.save_palette_png(label, str(tmp_path / "j.png"), pal)
+        j = Image.open(tmp_path / "j.png")
+        np.testing.assert_array_equal(np.asarray(j), index)
+        assert j.getpalette() == got_pal.reshape(-1).tolist()
+    t = Image.open(tmp_path / "t.png")
+    assert t.mode == "P" and t.getpalette()[:len(got_pal) * 3] == got_pal.reshape(-1).tolist()
+
+
+def test_palette_png_writer_refuses_other_layouts(tmp_path):
+    with pytest.raises(ValueError, match="takes"):
+        TE.write_png_palette(str(tmp_path / "x.png"), np.zeros((4, 4, 3), np.uint8),
+                             TV.colormap())
+    with pytest.raises(ValueError, match="palette entry"):
+        TE.write_png_palette(str(tmp_path / "x.png"), np.zeros((4, 4), np.uint8), [])
 
 
 def _log_both(tmp_path, fn):

@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax():
         "core.registry", "core.logging", "cli.train_drfl", "models.dcl", "losses.dice",
         "train.drfl", "infer.drfl_eval", "data.medical", "data.transforms", "data.voc",
         "data.coco", "data.prefetch", "convert.coco2voc", "utils.events", "utils.visualize",
-        "cli.train_scd", "cli.train_rml")} <= set(mods)
+        "cli.train_scd", "cli.train_rml", "data.loveda", "cli.rssformer")} <= set(mods)
     # nor Pillow or OpenCV at load: the card's machine has neither
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -118,6 +118,21 @@ def test_wsss_command_lines_run_on_the_card_unless_asked_for_the_cpu(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_rml.main(["--config", "configs/rml_voc.yaml", "backbone.config=mit_b0",
                         "train.max_iters=1", f"work_dir={tmp_path / 'rml'}"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_rssformer_command_line_runs_on_the_card_unless_asked_for_the_cpu(tmp_path):
+    """Each command of the RSSFormer command line takes the card by default and
+    raises where there is none, before anything is written."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from representationlearning_tpu_torch.cli import rssformer
+
+    for cmd in (["train"], ["eval", "--tta"], ["predict", "--out_dir", str(tmp_path / "p")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            rssformer.main(cmd + ["--config", "configs/rssformer_loveda.yaml",
+                                  "model.hrnet_type=hrnetv2_w18", "train.num_iters=1",
+                                  f"work_dir={tmp_path / 'wd'}"])
     assert not any(tmp_path.iterdir())
 
 
