@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's ten paths and checks them. The first is TSCD / MiT-B1
+Drives the port's eleven paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -42,7 +42,10 @@ and K3 in the refinement, K1's exporting form in the SCD validation. The tenth i
 the RSSFormer command line (``cli/rssformer.py``) from ``configs/rssformer_loveda.yaml``:
 ``train`` at ``hrnetv2_w32``, 8 x 512² crops made by the LoveDA chain on the card (no
 kernel), then ``eval --tta`` and ``predict`` with K5 under ``model.fused_mlp=True``.
-The headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
+The eleventh is WaveCAM's training half and command line (``cli/run_wavecam.py``,
+``wsss/wavecam_pipeline.py``, ``models/wavecam.py``), which has no hand-written
+kernel: the nine stages at ``WaveCAMConfig``'s defaults, the f32 ResNet-50 at
+16 x 512² crops. The headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -175,6 +178,19 @@ The headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K
    near-ties, one palette PNG an image equal to its argmax; the figures: ms a step
    through the CLI and the step alone, its launches and idle share, seconds an ``eval
    --tta`` image and a ``predict`` image;
+7h. WaveCAM's training half and command line: ``cli.run_wavecam.main`` with all nine
+   gates at ``WaveCAMConfig``'s defaults (the f32 ResNet-50 ``Net`` at stride 16, 20
+   classes, 16 x 512² crops, scales 1, 0.5, 1.5, 2, the grid CRF, IRN at 512², radius
+   10, beta 10, eight squarings) on the synthetic source (16 images of 64²), cut to one
+   CAM epoch, one IRN epoch and IRN batch 16 (one IRN step), train_cam's initial
+   ``Net`` calmed: 16 CAM dicts, IR labels and pseudo labels written, every loss
+   finite (1, 5 and 1 steps), both mIoUs in [0, 1], make_wavecam's dicts unlike
+   make_cam's, ``dp_running_mean`` set, no hand-written kernel launched; the first
+   step of each trainer at 128², batch 2, card against CPU on the same weights and
+   batch (losses 1e-4 relative, each top-level module's gradient norm 1e-3, the
+   predictor's BatchNorm statistics 1e-4, make_wavecam's dict of one image 1e-4 of
+   its largest); each trainer's step at 16 x 512² timed (CUDA events), traced
+   (launches, idle share) with its peak memory, and the seconds of each stage;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
@@ -206,6 +222,7 @@ import contextlib
 import io
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -348,6 +365,21 @@ WSSS_TIMED = 20
 RSS_CLI_STEPS, RSS_CLI_SAVE, RSS_CLI_ALONE = 8, 4, 5
 RSS_CLI_BATCH, RSS_CLI_CANVAS, RSS_CLI_IMAGES = 8, 1024, 16
 LOVEDA_IMG_TOL, LOVEDA_NEAR_HALF = 1e-4, 1e-4
+
+# WaveCAM's training half and command line (phase 7h): cli/run_wavecam.py with its nine
+# gates at WaveCAMConfig's defaults (the f32 ResNet-50 Net at stride 16, 20 classes, 512²
+# crops, batch 16, scales 1, 0.5, 1.5, 2, the grid CRF, IRN crop 512, radius 10, beta 10,
+# eight squarings) on the default synthetic source (16 images of 64²); cut: one CAM epoch,
+# one IRN epoch, and IRN batch 16, so that train_irn takes one step on the 16 images
+# (train_wavecam keeps its five epochs, which the CLI does not expose)
+WC_ARGS = ["--cam_epochs", "1", "--irn_num_epoches", "1", "--irn_batch_size", "16"]
+WC_FIGURES = {"irn_batch_size": 16}   # the timed steps: 16 x 512² each (IRN's cut batch)
+WC_SMALL, WC_SMALL_BATCH = 128, 2   # the first steps, card against CPU
+WC_LOSS_TOL = 1e-4        # a first step's loss, card against CPU, relative
+WC_NORM_TOL = 1e-3        # the gradient norm of each top-level module, relative
+WC_STATS_TOL = 1e-4       # the predictor's BatchNorm running statistics, of the largest
+WC_CAM_TOL = 1e-4         # make_wavecam's CAM dict of one image, of its largest entry
+WC_TIMED, WC_TRACED = 3, 2   # steps timed (CUDA events, median) and traced
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -3257,6 +3289,249 @@ class Phases:
             "the model build, the checkpoint load and, with K5, the 12 first-call holds")
         log(f"  phase 7g: {time.perf_counter() - t_phase:.1f} s")
 
+    # ------------------------------------------------------------- phase 7h (WaveCAM training)
+    def run_wavecam_train(self, card: str) -> None:
+        """WaveCAM's training half and ``cli/run_wavecam.py``: (a) the command line
+        with its nine gates as a user runs it, at full width; (b) the first steps of
+        the three trainers and make_wavecam's dict, card against CPU; (c) each
+        trainer's step at 16 x 512², timed and traced. No hand-written kernel runs
+        here."""
+        torch = self.torch
+        from representationlearning_tpu_torch import bench as tb
+        from representationlearning_tpu_torch.cli import run_wavecam as rw
+        from representationlearning_tpu_torch.wsss import wavecam_pipeline as wp
+
+        t_phase = time.perf_counter()
+        net_cls = wp.Net
+
+        def calmed(*a, **kw):
+            """train_cam's initial Net (the one built from the seed), calmed: at
+            ResNet-50's own random initialisation, without the reference's ImageNet
+            weights, the stream grows through sixteen bottlenecks, train_wavecam's
+            first loss at 512² is of order 1e7 and the next ones are NaN."""
+            net = net_cls(*a, **kw)
+            if kw.get("generator") is not None:
+                calm(torch, net, torch.Generator().manual_seed(self.seed + 11))
+            return net
+
+        wp.Net = calmed
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                work = Path(tmp)
+                tb.reset_kernel_launches()
+                self._wavecam_cli(rw, wp, work, card)
+                self._wavecam_card_vs_cpu(wp, work)
+                self._wavecam_step_figures(wp, work, card)
+                launched = {k: v for c in tb.kernel_launches().values() for k, v in c.items()
+                            if v}
+                self.check(not launched, f"(a-c) WaveCAM's training and command line launched "
+                           f"no hand-written kernel ({launched or 'none'})")
+        finally:
+            wp.Net = net_cls
+        log(f"  phase 7h: {time.perf_counter() - t_phase:.1f} s")
+
+    def _wavecam_cli(self, rw, wp, work: Path, card: str) -> None:
+        import numpy as np
+
+        torch = self.torch
+        argv = ["--work_dir", str(work)] + WC_ARGS + [f"--{s}_pass" for s in rw.STAGES]
+        log(f"== WaveCAM command line: python -m representationlearning_tpu_torch.cli.run_wavecam "
+            f"{' '.join(argv[2:])} (WaveCAMConfig's defaults: f32 ResNet-50 Net at stride 16, 20 "
+            f"classes, 16 x 512² crops, scales 1/0.5/1.5/2, grid CRF, IRN at 512², radius 10, "
+            f"beta 10, eight squarings; 16 synthetic 64² images; cut: CAM and IRN epochs 1, IRN "
+            f"batch 16); train_cam's initial Net calmed (chip_smoke.py::calm); {card}")
+        pipe_cls = wp.WaveCAMPipeline
+        times, losses, stage = {}, {}, [None]
+        stages = {"train_cam": "train_cam", "train_wavecam": "train_wavecam",
+                  "make_cam": None, "eval_cam": "eval_cam", "cam_to_ir_label": "cam_to_ir_label",
+                  "train_irn": "train_irn", "make_sem_seg_labels": "make_sem_seg",
+                  "eval_sem_seg": "eval_sem_seg"}
+        originals = {m: getattr(pipe_cls, m) for m in stages}
+        update = wp.sgd_update
+
+        def timed(method, key):
+            def run(self_, *a, **kw):
+                name = key or ("make_wavecam" if kw.get("use_wave_weight") else "make_cam")
+                stage[0] = name
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = originals[method](self_, *a, **kw)
+                torch.cuda.synchronize()
+                times[name] = time.perf_counter() - t0
+                if name == "make_cam":   # make_wavecam writes over these
+                    shutil.copytree(self_.cfg.dir("cam"), work / "cam_plain")
+                return out
+            return run
+
+        def recording(tx, loss):
+            losses.setdefault(stage[0], []).append(float(loss.detach()))
+            update(tx, loss)
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            for m, key in stages.items():
+                setattr(pipe_cls, m, timed(m, key))
+            wp.sgd_update = recording
+            results = rw.main(argv)
+        finally:
+            for m, f in originals.items():
+                setattr(pipe_cls, m, f)
+            wp.sgd_update = update
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        log("  seconds a stage: " + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+            + f"; {wall:.1f} s in all, peak {peak / 2**30:.2f} GiB")
+        log("  losses: " + "; ".join(f"{k} " + ", ".join(f"{v:.4f}" for v in vs)
+                                     for k, vs in losses.items()))
+        n = wp.WaveCAMConfig().synthetic_n
+        counts = {sub: len(list((work / sub).glob("*.npy"))) for sub in ("cam", "ir_label",
+                                                                          "sem_seg")}
+        self.check(list(results) == rw.STAGES and counts == {k: n for k in counts},
+                   f"(a) all nine stages ran; CAM dicts, IR labels and pseudo labels written: "
+                   f"{counts} (want {n} each)")
+        want_steps = {"train_cam": 1, "train_wavecam": 5, "train_irn": 1}
+        self.check({k: len(losses.get(k, [])) for k in want_steps} == want_steps
+                   and all(math.isfinite(v) for vs in losses.values() for v in vs),
+                   f"(a) every loss finite, steps {({k: len(v) for k, v in losses.items()})} "
+                   f"(want {want_steps})")
+        self.check(all(0.0 <= results[k] <= 1.0 for k in ("eval_cam", "eval_sem_seg")),
+                   f"(a) mIoU in [0, 1]: eval_cam {results['eval_cam']:.4f}, eval_sem_seg "
+                   f"{results['eval_sem_seg']:.4f}")
+        differ = 0
+        for f in sorted((work / "cam").glob("*.npy")):
+            a = np.load(work / "cam_plain" / f.name, allow_pickle=True).item()
+            b = np.load(f, allow_pickle=True).item()
+            differ += not np.array_equal(a["high_res"], b["high_res"])
+        self.check(differ > 0, f"(a) make_wavecam's CAM dicts differ from make_cam's on "
+                   f"{differ} of {counts['cam']} images")
+        labels = [np.load(f) for f in sorted((work / "sem_seg").glob("*.npy"))]
+        self.check(all(lab.dtype == np.uint8 for lab in labels), "(a) pseudo labels uint8")
+        dp = np.load(work / "weights" / "irn.npy", allow_pickle=True).item()[
+            "mean_shift.running_mean"]
+        self.check(bool(np.isfinite(dp).all() and np.abs(dp).max() > 0),
+                   f"(a) irn.npy's dp_running_mean set by the calibration: {dp.tolist()}")
+        self.wavecam_cli = {"stage_s": times, "wall_s": wall, "peak": peak}
+
+    def _wavecam_card_vs_cpu(self, wp, work: Path) -> None:
+        """The first step of each trainer at WC_SMALL², batch WC_SMALL_BATCH, and
+        make_wavecam's dict of one image with the stepped weights, on the card and on
+        the CPU from the same weights (the seeds; cam.npy and the IR labels of (a))."""
+        import numpy as np
+
+        torch = self.torch
+        from representationlearning_tpu_torch.data import transforms as T
+        from representationlearning_tpu_torch.data.voc import cls_onehot_from_mask
+        from representationlearning_tpu_torch.wsss import wavecam_infer as TW
+
+        def norms(module, prefix=""):
+            sums = {}
+            for name, p in module.named_parameters():
+                top = prefix + name.split(".")[0]
+                sums[top] = sums.get(top, 0.0) + float(p.grad.double().pow(2).sum())
+            return {k: v ** 0.5 for k, v in sums.items()}
+
+        cfg = wp.WaveCAMConfig(work_dir=str(work), crop_size=WC_SMALL,
+                               cam_batch_size=WC_SMALL_BATCH, irn_crop_size=WC_SMALL,
+                               irn_batch_size=WC_SMALL_BATCH)
+        res = {}
+        for run, dev in (("card", self.dev), ("cpu", torch.device("cpu"))):
+            pipe = wp.WaveCAMPipeline(cfg, device=dev)
+            r = res[run] = {"loss": {}, "norm": {}}
+            _, img, label = next(pipe._batches(WC_SMALL, WC_SMALL_BATCH, 1))
+            net, tx = pipe.build_cam()
+            r["loss"]["train_cam"] = float(wp.cam_step(net, tx, *pipe.tensors(img, label)))
+            r["norm"].update(norms(net, "train_cam: "))
+            net, pred, tx = pipe.build_wavecam()
+            loss, _ = wp.wavecam_step(net, pred, tx, *pipe.tensors(img, label))
+            r["loss"]["train_wavecam"] = float(loss)
+            r["norm"].update(norms(net, "train_wavecam: net."))
+            r["norm"].update(norms(pred, "train_wavecam: pred."))
+            r["stats"] = {k: b.cpu() for k, b in pred.named_buffers() if "running" in k}
+            _, im, mask = pipe.source.get(0)
+            r["dict"] = TW.make_cam(
+                net.eval(), pipe.tensors(T.normalize_img(im.astype(np.float32)))[0],
+                cls_onehot_from_mask(mask, cfg.n_classes + 1), cfg.cam_scales,
+                reweight=pred.classifier.detach()[:, :, None, None])
+            model, head, labeler, tx = pipe.build_irn()
+            samples = pipe.irn_samples(WC_SMALL // 4, labeler)[:WC_SMALL_BATCH]
+            r["loss"]["train_irn"] = float(wp.irn_step(model, head, tx, *pipe.irn_batch(samples)))
+            r["norm"].update(norms(model, "train_irn: "))
+            del net, pred, model, tx
+        card, cpu = res["card"], res["cpu"]
+
+        def rel(a, b):
+            return abs(a - b) / abs(b) if b else abs(a)
+
+        log(f"== WaveCAM's first steps at {WC_SMALL}², batch {WC_SMALL_BATCH}, f32, card against "
+            f"the CPU on the same weights and batch: losses card {card['loss']} / CPU "
+            f"{cpu['loss']}")
+        worst = max(cpu["loss"], key=lambda k: rel(card["loss"][k], cpu["loss"][k]))
+        err = rel(card["loss"][worst], cpu["loss"][worst])
+        self.check(err <= WC_LOSS_TOL and all(map(math.isfinite, cpu["loss"].values())),
+                   f"(b) the three first steps' losses: worst {worst} {err:.2e} relative "
+                   f"(tol {WC_LOSS_TOL:.0e})")
+        worst = max(cpu["norm"], key=lambda k: rel(card["norm"][k], cpu["norm"][k]))
+        err = rel(card["norm"][worst], cpu["norm"][worst])
+        frozen = cpu["norm"]["train_irn: resnet50"]
+        self.check(err <= WC_NORM_TOL and set(card["norm"]) == set(cpu["norm"]) and frozen == 0,
+                   f"(b) gradient norm of each of the {len(cpu['norm'])} top-level modules: worst "
+                   f"{worst} {err:.2e} relative (tol {WC_NORM_TOL:.0e}); IRN's frozen backbone "
+                   f"{frozen}")
+        err = max(float((card["stats"][k] - v).abs().max() / v.abs().max())
+                  for k, v in cpu["stats"].items())
+        self.check(err <= WC_STATS_TOL, f"(b) the predictor's BatchNorm running statistics after "
+                   f"the step: {err:.2e} of the largest (tol {WC_STATS_TOL:.0e})")
+        dc, dh = card["dict"], cpu["dict"]
+        err = max(float(np.abs(dc[k] - dh[k]).max() / max(np.abs(dh[k]).max(), 1e-30))
+                  for k in ("cam", "high_res"))
+        self.check(list(dc["keys"]) == list(dh["keys"]) and err <= WC_CAM_TOL,
+                   f"(b) make_wavecam's CAM dict of one image (keys {list(dh['keys'])}): "
+                   f"{err:.2e} of the largest (tol {WC_CAM_TOL:.0e})")
+
+    def _wavecam_step_figures(self, wp, work: Path, card: str) -> None:
+        """Each trainer's step at the defaults (16 x 512²): ms (CUDA events, median
+        of WC_TIMED after one), launches and idle share a step (a WC_TRACED-step
+        ``torch.profiler`` trace), peak memory."""
+        torch = self.torch
+        from representationlearning_tpu_torch import bench as tb
+
+        pipe = wp.WaveCAMPipeline(wp.WaveCAMConfig(work_dir=str(work), **WC_FIGURES))
+        cfg = pipe.cfg
+        _, img, label = next(pipe._batches(cfg.crop_size, cfg.cam_batch_size, 1))
+        batch = pipe.tensors(img, label)
+
+        def figures(name, step, images):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = self.event_median_ms(step, WC_TIMED, warmup=1)
+            peak = torch.cuda.max_memory_allocated()
+            busy, launches = tb.trace_calls(step, WC_TRACED)
+            log(f"  {name}: {ms:.2f} ms a step ({images * 1e3 / ms:.1f} images/s), {launches:.0f} "
+                f"launches a step, device busy {busy:.2f} ms, idle share {1 - busy / ms:.4f}, "
+                f"peak {peak / 2**30:.2f} GiB; {card}")
+            self.wavecam_steps[name] = (ms, launches, 1 - busy / ms, peak)
+
+        self.wavecam_steps = {}
+        log(f"== WaveCAM trainers' steps at {cfg.cam_batch_size} x {cfg.crop_size}² (IRN "
+            f"{cfg.irn_batch_size} x {cfg.irn_crop_size}²), f32, TF32 off, on the synthetic "
+            f"batches the stages draw")
+        net, tx = pipe.build_cam()
+        figures("train_cam", lambda: wp.cam_step(net, tx, *batch), cfg.cam_batch_size)
+        del net, tx
+        net, pred, tx = pipe.build_wavecam()
+        figures("train_wavecam", lambda: wp.wavecam_step(net, pred, tx, *batch),
+                cfg.cam_batch_size)
+        del net, pred, tx, batch
+        model, head, labeler, tx = pipe.build_irn()
+        samples = pipe.irn_samples(cfg.irn_crop_size // 4, labeler)[:cfg.irn_batch_size]
+        self.check(len(samples) == cfg.irn_batch_size,
+                   f"(c) train_irn timed on {len(samples)} crops (want {cfg.irn_batch_size})")
+        irn_batch = pipe.irn_batch(samples)
+        figures("train_irn", lambda: wp.irn_step(model, head, tx, *irn_batch), len(samples))
+        del model, tx, irn_batch
+        torch.cuda.empty_cache()
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -4082,6 +4357,7 @@ def main() -> int:
                       lambda: ph.run_wsss_cli((tmb, ta, tv, tf, tm, ti), card)),
                      ("RSSFormer command line",
                       lambda: ph.run_rss_cli((tmb, ta, tv, tf, tm, ti), card)),
+                     ("WaveCAM command line", lambda: ph.run_wavecam_train(card)),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),

@@ -2,8 +2,8 @@
 ``representationlearning_tpu/convert/torch2jax.py::convert_tscd`` and of its MiT
 and SegFormer-head rules, of ``convert_rssformer`` / ``convert_hrnet`` and of
 ``convert_wetr_attn_aff``; and the JAX models without a forward converter
-(``RMLModel``, ``IRNNet``, DRFL's ``Softnet`` and ``PixelDiscriminator``) -> the
-port's.
+(``RMLModel``, ``IRNNet``, WaveCAM's ``ClassPredictorWavecam``, DRFL's ``Softnet``
+and ``PixelDiscriminator``) -> the port's.
 
 The input is the ``{"params": ..., "batch_stats": ...}`` tree of nested dicts,
 with numpy (or array-like) leaves. Layout rules, each the transpose of the
@@ -207,6 +207,19 @@ def resnet50_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torc
     state_dict (torchvision's names without a prefix): the inverse of
     ``convert_resnet50``."""
     return state_dict_from_jax(variables, _resnet_module_name)
+
+
+def wavecam_predictor_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``ClassPredictorWavecam`` variables -> the port's state_dict. The port
+    names its modules after JAX's scopes (``wave/theta_R_bn`` -> ``wave.theta_R_bn``);
+    ``classifier_kernel`` (F, C) becomes ``classifier`` (C, F), its transpose. No
+    reference checkpoint was at hand to check these names against."""
+    params = dict(variables["params"])
+    kernel = np.asarray(params.pop("classifier_kernel"))
+    sd = state_dict_from_jax({"params": params,
+                              "batch_stats": variables.get("batch_stats", {})}, ".".join)
+    sd["classifier"] = torch.from_numpy(np.array(kernel.T))
+    return sd
 
 
 _IRN_HEAD_SCOPES = {"Conv_0": "0", "GroupNorm_0": "1"}

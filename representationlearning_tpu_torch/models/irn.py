@@ -2,8 +2,9 @@
 ``representationlearning_tpu/models/irn.py`` (parity with
 `WaveCAM-TMM2023/net/resnet50_irn.py`).
 
-A ResNet-50 backbone at stride 16 (``models/resnet.py``), detached stage by
-stage as the JAX package's ``stop_gradient`` does (`resnet50_irn.py:115-119`); a
+A ResNet-50 backbone at stride 16 (``models/resnet.py``), frozen (run under
+``torch.no_grad``) as the JAX package's ``stop_gradient`` freezes it
+(`resnet50_irn.py:115-119`): its parameters get no gradient; a
 five-level edge branch (1x1 conv -> GroupNorm -> bilinear upsample -> ReLU, fused
 by a 1x1 conv to one edge channel) and a seven-level displacement branch ending
 in a two-channel field with its running mean subtracted on request (MeanShift).
@@ -88,8 +89,10 @@ class IRNNet(nn.Module):
 
     def forward(self, x: torch.Tensor, apply_mean_shift: bool = False):
         # stem (64, s4), layer1 (256, s4), layer2 (512, s8), layer3 (1024, s16),
-        # layer4 (2048, s16); the backbone is frozen
-        x1, x2, x3, x4, x5 = [f.detach() for f in self.resnet50(x)]
+        # layer4 (2048, s16); the backbone is frozen, and keeps no activations for
+        # a backward
+        with torch.no_grad():
+            x1, x2, x3, x4, x5 = self.resnet50(x)
         h2, w2 = x1.shape[-2:]
 
         e = [_conv_gn(self.fc_edge1, x1), _conv_gn(self.fc_edge2, x2)]

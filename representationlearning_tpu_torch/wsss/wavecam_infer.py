@@ -33,10 +33,12 @@ from .msf import finalize_cam_dict, msf_cam_single
 
 @torch.no_grad()
 def make_cam(net: Net, image: torch.Tensor, cls_onehot,
-             scales: Sequence[float] = (1.0, 0.5, 1.5, 2.0)) -> dict:
+             scales: Sequence[float] = (1.0, 0.5, 1.5, 2.0),
+             reweight: torch.Tensor | None = None) -> dict:
     """One image's CAM dict {"keys", "cam" (k, H/4, W/4), "high_res" (k, H, W)} from
-    the ``Net``'s CAMs at ``scales``."""
-    strided, high = msf_cam_single(net.cam, image, scales)
+    the ``Net``'s CAMs at ``scales``; with ``reweight`` (``make_wavecam``), those of
+    the classifier's weight times it (``Net.cam(reweight=)``)."""
+    strided, high = msf_cam_single(lambda pair: net.cam(pair, reweight=reweight), image, scales)
     return finalize_cam_dict(strided, high, cls_onehot)
 
 

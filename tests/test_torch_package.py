@@ -35,7 +35,8 @@ def test_every_module_imports_without_jax():
         "core.registry", "core.logging", "cli.train_drfl", "models.dcl", "losses.dice",
         "train.drfl", "infer.drfl_eval", "data.medical", "data.transforms", "data.voc",
         "data.coco", "data.prefetch", "convert.coco2voc", "utils.events", "utils.visualize",
-        "cli.train_scd", "cli.train_rml", "data.loveda", "cli.rssformer")} <= set(mods)
+        "cli.train_scd", "cli.train_rml", "data.loveda", "cli.rssformer", "models.wavecam",
+        "wsss.wavecam_pipeline", "cli.run_wavecam")} <= set(mods)
     # nor Pillow or OpenCV at load: the card's machine has neither
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
