@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's eleven paths and checks them. The first is TSCD / MiT-B1
+Drives the port's twelve paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -45,7 +45,10 @@ kernel), then ``eval --tta`` and ``predict`` with K5 under ``model.fused_mlp=Tru
 The eleventh is WaveCAM's training half and command line (``cli/run_wavecam.py``,
 ``wsss/wavecam_pipeline.py``, ``models/wavecam.py``), which has no hand-written
 kernel: the nine stages at ``WaveCAMConfig``'s defaults, the f32 ResNet-50 at
-16 x 512² crops. The headline forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
+16 x 512² crops. The twelfth is the HRFormer backbone (``models/hrt.py``) through the
+RSSFormer command line at ``model.hrnet_type=hrt_small``, with ``WeTrBaseline`` on K1, the
+ASFF variants (``models/asff.py``) and ``cli/convert_checkpoint.py``. The headline forward
+also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -191,6 +194,29 @@ kernel: the nine stages at ``WaveCAMConfig``'s defaults, the f32 ResNet-50 at
    predictor's BatchNorm statistics 1e-4, make_wavecam's dict of one image 1e-4 of
    its largest); each trainer's step at 16 x 512² timed (CUDA events), traced
    (launches, idle share) with its peak memory, and the seconds of each stage;
+7i. HRFormer, ASFF and the converter: (a) ``cli.rssformer.main`` on
+   configs/rssformer_loveda.yaml as it is but ``model.hrnet_type=hrt_small`` (the f32
+   ``HighResolutionTransformerNet``, 7 classes, 8 x 512², SGD) with
+   ``data.device_augment=true``: four steps, each step's losses finite and no
+   hand-written kernel launched, a checkpoint at 4, a rerun that resumes at 4 and ends at
+   5, then ``eval --tta`` (scores in [0, 1]) and ``predict`` (one palette PNG an image,
+   equal to its argmax), no kernel; (b) ``HRNetFusion("hrt_small", 7)`` at 2 x 128², f32,
+   on the card against the CPU from the same calmed weights, batch and drop-path
+   generator: eval probabilities within 1e-4, the first training forward and backward's
+   losses within 1e-4 relative, the gradient norm of each module of the net within 1e-3,
+   the running statistics within 1e-4 of max(their largest, 1e-3); (c)
+   ``WeTrBaseline("mit_b1", fused_blocks=True, bf16)`` at 8 x 512², every block on K1
+   (84 launches a forward, 22/40/6/8/8), each K1 geometry held against its plain version
+   at its first call, ``cls_logits``, ``seg`` and the ``cam_only`` CAM against
+   ``fused_blocks=False`` in bf16 within 2e-2 of each output's largest magnitude, and the
+   ms of a forward both ways; (d) ``rsNetFusion`` and ``HRNetFusion2`` at ``hrnetv2_w32``,
+   f32: an eval forward at 4 x 512², the CGFL loss and a backward at 2 x 512², the card
+   against the CPU at 128² within 1e-4; (e) ``cli.convert_checkpoint --family rssformer
+   --arch hrt_small`` on a DDP checkpoint (``module.`` names, the dead ``norm2``,
+   ``num_batches_tracked``) of a seeded model, loaded strictly on the card, whose eval
+   output equals the source model's bit for bit; the figures: ms a step through the CLI
+   and alone, launches, idle share and peak GiB, seconds an ``eval --tta`` and a
+   ``predict`` image, WeTrBaseline's ms a forward on K1 and with plain blocks;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
@@ -380,6 +406,27 @@ WC_NORM_TOL = 1e-3        # the gradient norm of each top-level module, relative
 WC_STATS_TOL = 1e-4       # the predictor's BatchNorm running statistics, of the largest
 WC_CAM_TOL = 1e-4         # make_wavecam's CAM dict of one image, of its largest entry
 WC_TIMED, WC_TRACED = 3, 2   # steps timed (CUDA events, median) and traced
+
+# The HRFormer backbone, the ASFF variants and the converter (phase 7i). (a) cli/rssformer.py
+# on configs/rssformer_loveda.yaml as it is but model.hrnet_type=hrt_small (the f32 model, 7
+# classes, 8 x 512² crops, SGD; data.device_augment=true on the yaml's 16 synthetic images);
+# cut: HRT_CLI_STEPS steps with a checkpoint at the last, then a resume for one more; eval
+# --tta and predict from that checkpoint. (b) HRNetFusion("hrt_small", 7) at HRT_SMALL²,
+# batch 2, f32, card against CPU on the same weights, batch and drop-path generator (the
+# train-mode schedule is live). (c) WeTrBaseline("mit_b1", fused_blocks=True, bf16) on K1
+# at WETR_BATCH x 512² against fused_blocks=False in bf16 (PATH_TOL). (d) rsNetFusion and
+# HRNetFusion2 at hrnetv2_w32, f32: an eval forward at ASFF_EVAL_BATCH x 512², a loss and
+# backward at ASFF_TRAIN_BATCH x 512², card against CPU at HRT_SMALL². (e) the converter on a
+# DDP-prefixed hrt_small checkpoint, loaded on the card.
+HRT_CLI_STEPS, HRT_CLI_ALONE, HRT_TRACED = 4, 5, 2
+HRT_SMALL, HRT_SMALL_BATCH = 128, 2
+HRT_EVAL_TOL = 1e-4    # eval probabilities, card against CPU
+HRT_LOSS_TOL = 1e-4    # the first step's losses, relative
+HRT_NORM_TOL = 1e-3    # the gradient norm of each module of the net, relative
+HRT_STATS_TOL = 1e-4   # running statistics, of max(their largest entry, 1e-3)
+WETR_BATCH, WETR_TIMED = 8, 10
+ASFF_EVAL_BATCH, ASFF_TRAIN_BATCH = 4, 2
+ASFF_TOL = 1e-4        # probabilities, card against CPU
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -896,6 +943,7 @@ class Phases:
         # every kernel's in a step of cli.rssformer train, and in its eval --tta and predict
         self.launches_rss_cli_step: dict[str, int] = {}
         self.launches_rss_cli: dict[str, dict[str, int]] = {}
+        self.launches_wetr: dict[str, int] = {}   # K1's, in one WeTrBaseline forward
         self.plain_runs = 0   # phase 7f's comparisons with a plain version so far
         self.holding = False  # phase 7f: compare each new geometry's call with its plain version
         self.refine_inputs = None
@@ -3532,6 +3580,368 @@ class Phases:
         del model, tx, irn_batch
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------------------- phase 7i (HRFormer, ASFF)
+    def run_hrt(self, mods, card: str) -> None:
+        """The HRFormer backbone through ``cli/rssformer.py`` at full width, the card
+        against the CPU, ``WeTrBaseline`` on K1, the ASFF variants and
+        ``cli/convert_checkpoint.py`` on the card. Each part reports its own failure
+        and the next one runs."""
+        torch = self.torch
+        t_phase = time.perf_counter()
+        self.hrt_figures = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, part in (("(a) the RSSFormer CLI with hrt_small",
+                                lambda: self._hrt_cli(mods, Path(tmp), card)),
+                               ("(b) hrt_small card against CPU", self._hrt_card_vs_cpu),
+                               ("(c) WeTrBaseline on K1", lambda: self._wetr_on_k1(mods, card)),
+                               ("(d) rsNetFusion and HRNetFusion2", lambda: self._asff_models(mods)),
+                               ("(e) cli.convert_checkpoint",
+                                lambda: self._convert_on_card(mods, Path(tmp)))):
+                try:
+                    part()
+                except Exception:  # noqa: BLE001 -- report the part, go on with the next
+                    traceback.print_exc()
+                    self.failures.append(f"phase 7i {name} raised")
+                torch.cuda.empty_cache()
+        f = self.hrt_figures
+        if "cli_ms" in f:
+            log(f"  phase 7i figures ({card}): hrt_small train {f['cli_ms']:.1f} ms a step "
+                f"through the CLI (8 x 512², f32, the LoveDA chain on the card), the step alone "
+                f"{f['alone_ms']:.1f} ms (CUDA events), {f['launches']:.0f} launches, idle share "
+                f"{f['idle']:.4f}, peak {f['peak'] / 2**30:.2f} GiB; eval --tta {f['eval_s']:.3f} "
+                f"s an image, predict {f['predict_s']:.3f} s an image")
+        if "wetr_ms" in f:
+            log(f"  phase 7i figures ({card}): WeTrBaseline(mit_b1, bf16) {WETR_BATCH} x 512² "
+                f"{f['wetr_ms']:.3f} ms a forward on K1, {f['wetr_plain_ms']:.3f} ms with "
+                "fused_blocks=False")
+        log(f"  phase 7i: {time.perf_counter() - t_phase:.1f} s")
+
+    def _no_launch(self, mods, what: str, fn):
+        """fn() with every kernel's count set to 0 before it; checks that it
+        launched no hand-written kernel, and returns its result."""
+        for mod in mods:
+            mod.reset_launches()
+        out = fn()
+        self.torch.cuda.synchronize()
+        launched = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+        self.check(not launched, f"{what}: no hand-written kernel launched "
+                                 f"({launched or 'K1-K6 all 0'})")
+        return out
+
+    def _hrt_cli(self, mods, tmp: Path, card: str) -> None:
+        torch = self.torch
+        from representationlearning_tpu_torch import bench as tb
+        from representationlearning_tpu_torch.cli import rssformer as rc
+        from representationlearning_tpu_torch.train import rssformer as trs
+
+        yaml = str(ROOT / "configs" / "rssformer_loveda.yaml")
+        wd = tmp / "hrt_work"
+        log(f"== HRFormer: cli.rssformer train / eval --tta / predict with "
+            f"model.hrnet_type=hrt_small (configs/rssformer_loveda.yaml: 7 classes, "
+            f"{RSS_CLI_BATCH} x 512² crops, the f32 model, SGD), the LoveDA chain on the card, "
+            f"16 synthetic 128² images on {RSS_CLI_CANVAS}² canvases; cut: {HRT_CLI_STEPS} "
+            f"steps and a resume; {card}")
+        argv = ["train", "--config", yaml, "model.hrnet_type=hrt_small",
+                "data.device_augment=true", "train.log_interval_step=1",
+                f"train.eval_interval={HRT_CLI_STEPS}", f"work_dir={wd}"]
+        torch.cuda.reset_peak_memory_stats()
+        rec = self._cli_run(rc, argv + [f"train.num_iters={HRT_CLI_STEPS}"], mods,
+                            "make_rssformer_train_step")
+        saved = sorted(p.name for p in (wd / "checkpoints").iterdir())
+        net = rec.state.model.backbone.hrnet
+        self.check(rec.state.step == HRT_CLI_STEPS == len(rec.steps)
+                   and saved == [f"step_{HRT_CLI_STEPS}"]
+                   and type(net).__name__ == "HighResolutionTransformerNet"
+                   and all(p.dtype == torch.float32 and p.is_cuda
+                           for p in rec.state.model.parameters()),
+                   f"(a) train: the f32 {type(net).__name__} on the card reached step "
+                   f"{rec.state.step}, checkpoints {saved}")
+        for i, st in enumerate(rec.steps):
+            m = st["losses"]
+            self.check(all(map(math.isfinite, m.values())) and not any(st["launches"].values()),
+                       f"(a) step {i + 1}: " + ", ".join(f"{k} {v:.4f}" for k, v in m.items())
+                       + "; no hand-written kernel launched (K1-K6 all 0)")
+        gaps = [b["end"] - a["end"] for a, b in zip(rec.steps[1:], rec.steps[2:])]
+        f = self.hrt_figures
+        f["cli_ms"] = statistics.median(gaps) * 1e3
+        log(f"  (a) start-up to the first step's end {rec.steps[0]['end'] - rec.t0:.1f} s; "
+            f"{', '.join(f'{g * 1e3:.1f}' for g in gaps)} ms a step after the first; median "
+            f"{f['cli_ms']:.1f} ms; peak through the CLI "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        step, state, batch = rec.last
+
+        def again():
+            step(state, batch, torch.Generator().manual_seed(0))
+
+        torch.cuda.reset_peak_memory_stats()
+        f["alone_ms"] = self.event_median_ms(again, HRT_CLI_ALONE)
+        f["peak"] = torch.cuda.max_memory_allocated()
+        busy, f["launches"] = tb.trace_calls(again, HRT_TRACED)
+        f["idle"] = 1 - busy / f["alone_ms"]
+        log(f"  (a) the step alone: {f['alone_ms']:.1f} ms (CUDA events, median of "
+            f"{HRT_CLI_ALONE}), {f['launches']:.0f} launches, device busy {busy:.1f} ms, idle "
+            f"share {f['idle']:.4f}, peak {f['peak'] / 2**30:.2f} GiB")
+        del rec, step, state, batch, net
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            resumed = self._cli_run(rc, argv + [f"train.num_iters={HRT_CLI_STEPS + 1}"], mods,
+                                    "make_rssformer_train_step")
+        log("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        self.check(resumed.state.step == HRT_CLI_STEPS + 1 and len(resumed.steps) == 1
+                   and f"resumed at step {HRT_CLI_STEPS}" in buf.getvalue()
+                   and all(map(math.isfinite, resumed.steps[0]["losses"].values())),
+                   f"(a) rerun with train.num_iters={HRT_CLI_STEPS + 1}: resumed at step "
+                   f"{HRT_CLI_STEPS}, ended at {resumed.state.step}")
+        del resumed
+
+        common = ["--config", yaml, "model.hrnet_type=hrt_small", f"work_dir={wd}"]
+        ev = self._rss_cli_infer(rc, trs, ["eval", "--tta", *common], mods)
+        pr = self._rss_cli_infer(rc, trs, ["predict", *common, "--out_dir", str(tmp / "pred")],
+                                 mods)
+        n = RSS_CLI_IMAGES
+        scores = ev.out
+        self.check(ev.forwards == 6 * n and pr.forwards == n
+                   and all(0.0 <= scores[k] <= 1.0 for k in ("miou", "pAcc", "mAcc")),
+                   f"(a) eval --tta from step {HRT_CLI_STEPS + 1}: {ev.forwards} forwards, pAcc "
+                   f"{scores['pAcc']:.4f} mAcc {scores['mAcc']:.4f} mIoU {scores['miou']:.4f}; "
+                   f"predict {pr.forwards} forwards")
+        self.check(not any(ev.launches.values()) and not any(pr.launches.values()),
+                   "(a) eval --tta and predict launched no hand-written kernel (K1-K6 all 0)")
+        pngs = sorted(Path(pr.out).glob("*.png"))
+        self.check(len(pngs) == n and all(
+            torch.equal(read_palette_png(torch, p), q[0].argmax(0).to(torch.uint8))
+            for p, q in zip(pngs, pr.probs)),
+            f"(a) predict wrote {len(pngs)} palette PNGs, each the argmax of its forward")
+        f["eval_s"], f["predict_s"] = ev.s / n, pr.s / n
+
+    def _hrt_card_vs_cpu(self) -> None:
+        """HRNetFusion("hrt_small") at HRT_SMALL², f32, on the card and on the CPU from
+        the same weights (seeded, calmed), batch and drop-path generator: eval
+        probabilities, then one training forward and backward: the CGFL losses, the
+        gradient norm of each module of the net and of the neck and heads, the running
+        statistics."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+        from representationlearning_tpu_torch.train import rssformer as trs
+
+        gen = torch.Generator().manual_seed(self.seed + 23)
+        x = torch.randn(HRT_SMALL_BATCH, 3, HRT_SMALL, HRT_SMALL, generator=gen)
+        y = torch.randint(-1, RSS_CLASSES, (HRT_SMALL_BATCH, HRT_SMALL, HRT_SMALL), generator=gen)
+        res = {}
+        for run, dev in (("card", self.dev), ("cpu", torch.device("cpu"))):
+            m = HRNetFusion("hrt_small", RSS_CLASSES,
+                            generator=torch.Generator().manual_seed(self.seed + 24), device=dev)
+            calm(torch, m, torch.Generator().manual_seed(self.seed + 25))
+            with torch.no_grad():
+                probs = m.eval()(x.to(dev)).cpu()
+            losses = trs.rssformer_losses(m.train(), {"image": x.to(dev), "mask": y.to(dev)},
+                                          torch.Generator().manual_seed(self.seed + 26))
+            sum(losses.values()).backward()
+            sums = {}
+            for k, p in m.named_parameters():
+                top = k.split(".")[2] if k.startswith("backbone.") else k.split(".")[0]
+                g = 0.0 if p.grad is None else float(p.grad.double().square().sum())
+                sums[top] = sums.get(top, 0.0) + g
+            res[run] = dict(probs=probs, losses={k: float(v.detach()) for k, v in losses.items()},
+                            norms={k: v ** 0.5 for k, v in sums.items()},
+                            stats={k: b.cpu() for k, b in m.named_buffers() if "running" in k})
+            del m, losses
+        card, cpu = res["card"], res["cpu"]
+
+        def rel(a, b):
+            return abs(a - b) / abs(b) if b else abs(a)
+
+        err = float((card["probs"] - cpu["probs"]).abs().max())
+        log(f"== hrt_small card against the CPU at {HRT_SMALL_BATCH} x {HRT_SMALL}², f32, TF32 "
+            f"off, the same weights, batch and drop-path generator")
+        self.check(err <= HRT_EVAL_TOL, f"(b) eval probabilities: max abs err {err:.3e} (tol "
+                                        f"{HRT_EVAL_TOL:.0e})")
+        worst = max(cpu["losses"], key=lambda k: rel(card["losses"][k], cpu["losses"][k]))
+        err = rel(card["losses"][worst], cpu["losses"][worst])
+        self.check(err <= HRT_LOSS_TOL and all(map(math.isfinite, cpu["losses"].values())),
+                   f"(b) first train step's losses card {card['losses']} / CPU {cpu['losses']}: "
+                   f"worst {worst} {err:.2e} relative (tol {HRT_LOSS_TOL:.0e})")
+        worst = max(cpu["norms"], key=lambda k: rel(card["norms"][k], cpu["norms"][k]))
+        err = rel(card["norms"][worst], cpu["norms"][worst])
+        self.check(err <= HRT_NORM_TOL and set(card["norms"]) == set(cpu["norms"])
+                   and cpu["norms"]["headaux"] == 0.0,
+                   f"(b) gradient norm of each of the {len(cpu['norms'])} modules: worst {worst} "
+                   f"{err:.2e} relative (tol {HRT_NORM_TOL:.0e}); headaux, which no loss reaches, 0")
+        worst, err = max(((k, float((card["stats"][k] - v).abs().max())
+                           / max(float(v.abs().max()), 1e-3)) for k, v in cpu["stats"].items()),
+                         key=lambda kv: kv[1])
+        self.check(err <= HRT_STATS_TOL, f"(b) running statistics after the step: worst {worst} "
+                                         f"{err:.2e} of max(its largest, 1e-3) (tol "
+                                         f"{HRT_STATS_TOL:.0e})")
+
+    def _wetr_on_k1(self, mods, card: str) -> None:
+        """WeTrBaseline(mit_b1, fused_blocks=True, bf16) at WETR_BATCH x 512²: every
+        block on K1, each new K1 geometry held against its plain version at its first
+        call, the launches of one forward, both return forms against the same
+        weights with fused_blocks=False."""
+        torch = self.torch
+        tmb = mods[0]
+        from representationlearning_tpu_torch.models.mit import FusedBlock
+        from representationlearning_tpu_torch.models.tscd import WeTrBaseline
+
+        log(f"== WeTrBaseline(mit_b1, 21 classes, fused_blocks=True, bf16), {WETR_BATCH} x 3 x "
+            f"{IMAGE}², against fused_blocks=False in bf16 on the same weights")
+        gen = torch.Generator().manual_seed(self.seed + 27)
+        model = WeTrBaseline("mit_b1", NUM_CLASSES, fused_blocks=True, dtype=torch.bfloat16,
+                             generator=gen).eval()
+        blocks = [m for m in model.encoder.modules() if isinstance(m, FusedBlock)]
+        plain = WeTrBaseline("mit_b1", NUM_CLASSES, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(0)).eval()
+        plain.load_state_dict(model.state_dict())
+        self.check(len(blocks) == 8 and all(t.is_cuda for t in model.state_dict().values()),
+                   f"(c) {len(blocks)} of the 8 encoder blocks are FusedBlocks, on the card")
+        x = torch.randn(WETR_BATCH, 3, IMAGE, IMAGE, generator=gen).to(self.dev)
+        held: dict = {}
+        with self._held_to_plain(mods, held), torch.no_grad():
+            for mod in mods:
+                mod.reset_launches()
+            self.holding = True
+            try:
+                cls, seg = model(x)
+                torch.cuda.synchronize()
+            finally:
+                self.holding = False
+            self.launches_wetr = {k: v for k, v in tmb.LAUNCHES.items()}
+            others = {k: v for mod in mods[1:] for k, v in mod.LAUNCHES.items() if v}
+            cam = model(x, cam_only=True)
+        n_sr = sum(DEPTH for _, _, _, sr, _ in STAGES if sr > 1)
+        want = {"ln_stats": 2 * 8 + n_sr, "linear": 5 * 8, "sr_conv": n_sr, "attention": 8,
+                "dwconv_gelu": 8}
+        self.check(self.launches_wetr == want and not others,
+                   f"(c) K1 launches in one forward {self.launches_wetr} (the headline's 84: "
+                   f"{'/'.join(str(v) for v in want.values())}), no other kernel")
+        for kernel, seen in held.items():
+            worst = max(seen.values(), default=0.0)
+            self.check(bool(seen) and worst <= 1.0,
+                       f"(c) {kernel}: {len(seen)} geometries held against the plain version at "
+                       f"their first call, largest error {worst:.3f} of its tolerance")
+        self.check(len(held.get("block", {})) == 4, f"(c) the whole block held at the "
+                   f"{len(held.get('block', {}))} stage geometries (want 4)")
+        with torch.no_grad():
+            for mod in mods:
+                mod.reset_launches()
+            p_cls, p_seg = plain(x)
+            p_cam = plain(x, cam_only=True)
+            torch.cuda.synchronize()
+        self.check(not any(v for mod in mods for v in mod.LAUNCHES.values()),
+                   "(c) fused_blocks=False launched no kernel")
+        h4 = IMAGE // 16
+        for k, g, w, shape in (("cls_logits", cls, p_cls, (WETR_BATCH, NUM_CLASSES - 1)),
+                               ("seg", seg, p_seg, (WETR_BATCH, NUM_CLASSES, IMAGE // 4, IMAGE // 4)),
+                               ("cam", cam, p_cam, (WETR_BATCH, NUM_CLASSES - 1, h4, h4))):
+            err, mag = max_err(g, w)
+            self.check(tuple(g.shape) == shape and bool(torch.isfinite(g.float()).all())
+                       and err <= PATH_TOL * mag,
+                       f"(c) {k} {tuple(g.shape)}: K1 against fused_blocks=False max abs err "
+                       f"{err:.3e} (max |plain| {mag:.3e}, tol {PATH_TOL * mag:.3e})")
+        del cls, seg, cam, p_cls, p_seg, p_cam
+        with torch.no_grad():
+            f = self.hrt_figures
+            f["wetr_ms"] = self.time_ms(lambda: model(x), WETR_TIMED)
+            f["wetr_plain_ms"] = self.time_ms(lambda: plain(x), WETR_TIMED)
+        log(f"  (c) {f['wetr_ms']:.3f} ms a forward on K1, {f['wetr_plain_ms']:.3f} ms with "
+            f"fused_blocks=False (CUDA events around {WETR_TIMED} forwards; {card})")
+
+    def _asff_models(self, mods) -> None:
+        """rsNetFusion and HRNetFusion2 at hrnetv2_w32, f32: an eval forward, a loss and
+        a backward at 512², and the card against the CPU at HRT_SMALL²."""
+        torch = self.torch
+        from representationlearning_tpu_torch.losses.cgfl import segmentation_loss
+        from representationlearning_tpu_torch.models.asff import HRNetFusion2, RsNetFusion
+
+        gen = torch.Generator().manual_seed(self.seed + 28)
+        for cls in (RsNetFusion, HRNetFusion2):
+            name = cls.__name__
+            log(f"== {name}(hrnetv2_w32, 7 classes), f32")
+
+            def build(dev):
+                m = cls("hrnetv2_w32", RSS_CLASSES, generator=torch.Generator().manual_seed(
+                    self.seed + 29), device=dev)
+                calm(torch, m, torch.Generator().manual_seed(self.seed + 30))
+                return m
+
+            m = build(self.dev)
+            x = torch.randn(ASFF_EVAL_BATCH, 3, IMAGE, IMAGE, generator=gen).to(self.dev)
+            with torch.no_grad():
+                probs = self._no_launch(mods, f"(d) {name} eval", lambda: m.eval()(x))
+            self.check(tuple(probs.shape) == (ASFF_EVAL_BATCH, RSS_CLASSES, IMAGE, IMAGE)
+                       and bool(torch.isfinite(probs).all())
+                       and float((probs.sum(1) - 1).abs().max()) < 1e-4,
+                       f"(d) {name} eval forward at {ASFF_EVAL_BATCH} x {IMAGE}²: probabilities "
+                       f"{tuple(probs.shape)}, finite, summing to 1")
+            del probs, x
+            x = torch.randn(ASFF_TRAIN_BATCH, 3, IMAGE, IMAGE, generator=gen).to(self.dev)
+            y = torch.randint(-1, RSS_CLASSES, (ASFF_TRAIN_BATCH, IMAGE, IMAGE),
+                              generator=gen).to(self.dev)
+
+            def train_step():
+                losses = segmentation_loss(m.train()(x), y, m.loss_config or {"ce": {}},
+                                           m.ignore_index)
+                sum(losses.values()).backward()
+                return losses
+
+            losses = self._no_launch(mods, f"(d) {name} loss and backward", train_step)
+            losses = {k: float(v.detach()) for k, v in losses.items()}
+            self.check(all(map(math.isfinite, losses.values()))
+                       and all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                               for p in m.parameters()),
+                       f"(d) {name} at {ASFF_TRAIN_BATCH} x {IMAGE}²: losses "
+                       f"{ {k: round(v, 4) for k, v in losses.items()} }, every gradient "
+                       "finite")
+            del m, x, y, losses
+            xs = torch.randn(ASFF_TRAIN_BATCH, 3, HRT_SMALL, HRT_SMALL, generator=gen)
+            with torch.no_grad():
+                card = build(self.dev).eval()(xs.to(self.dev)).cpu()
+                cpu = build(torch.device("cpu")).eval()(xs)
+            err = float((card - cpu).abs().max())
+            self.check(err <= ASFF_TOL, f"(d) {name} at {HRT_SMALL}², card against CPU: "
+                                        f"probabilities max abs err {err:.3e} (tol {ASFF_TOL:.0e})")
+
+    def _convert_on_card(self, mods, tmp: Path) -> None:
+        """A DDP checkpoint of a seeded hrt_small HRNetFusion (``module.`` names, a
+        ``"state_dict"`` entry, the dead ``norm2`` and ``num_batches_tracked``)
+        through ``cli.convert_checkpoint``, loaded strictly on the card: its eval
+        output equals the source model's."""
+        torch = self.torch
+        from representationlearning_tpu_torch.cli import convert_checkpoint as cc
+        from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+
+        log("== cli.convert_checkpoint --family rssformer --arch hrt_small on a DDP checkpoint")
+        src = HRNetFusion("hrt_small", RSS_CLASSES,
+                          generator=torch.Generator().manual_seed(self.seed + 31))
+        calm(torch, src, torch.Generator().manual_seed(self.seed + 32))
+        sd = {}
+        for k, v in src.state_dict().items():
+            sd["module." + k] = v.cpu() + 3 if k.endswith("num_batches_tracked") else v.cpu()
+            if k.endswith("norm1.weight"):   # the reference's dead norm2 beside each norm1
+                sd["module." + k.replace("norm1", "norm2")] = torch.ones_like(v.cpu())
+                sd["module." + k.replace("norm1.weight", "norm2.bias")] = torch.zeros_like(v.cpu())
+        torch.save({"state_dict": sd}, tmp / "hrt_ref.pth")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cc.main(["--family", "rssformer", "--arch", "hrt_small", "--src",
+                     str(tmp / "hrt_ref.pth"), "--dst", str(tmp / "hrt.pt"), "--report"])
+        log("  " + buf.getvalue().strip().replace("\n", "\n  "))
+        model = HRNetFusion("hrt_small", RSS_CLASSES, generator=torch.Generator())
+        model.load_state_dict(torch.load(tmp / "hrt.pt", map_location=self.dev,
+                                         weights_only=True), strict=True)
+        x = torch.randn(2, 3, IMAGE, IMAGE, generator=torch.Generator().manual_seed(self.seed + 33))
+        with torch.no_grad():
+            want, got = self._no_launch(mods, "(e) the converted and the source model's eval",
+                                        lambda: (src.eval()(x.to(self.dev)),
+                                                 model.eval()(x.to(self.dev))))
+        n_norm2 = sum(".norm2." in k for k in sd)
+        n_blocks = sum(k.endswith("norm1.weight") for k in src.state_dict())
+        self.check(torch.equal(got, want) and n_norm2 == 2 * n_blocks == 2 * 44,
+                   f"(e) {len(sd)} entries ({n_norm2} dead norm2, 'module.' names) converted and "
+                   f"loaded strictly on the card: eval output equal to the source model's bits "
+                   f"(max abs err {float((got - want).abs().max()):.1e})")
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -4358,6 +4768,8 @@ def main() -> int:
                      ("RSSFormer command line",
                       lambda: ph.run_rss_cli((tmb, ta, tv, tf, tm, ti), card)),
                      ("WaveCAM command line", lambda: ph.run_wavecam_train(card)),
+                     ("HRFormer, ASFF, converter",
+                      lambda: ph.run_hrt((tmb, ta, tv, tf, tm, ti), card)),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),
@@ -4386,6 +4798,8 @@ def main() -> int:
     missing += [f"{k} (RSSFormer command line, {cmd})" for k in ("mlp_fc1", "mlp_taps")
                 for cmd in ("eval_tta", "predict")
                 if ph.launches_rss_cli.get(cmd, {}).get(k, 0) == 0]
+    missing += [f"{k} (WeTrBaseline forward)" for k in PIECE_TOL
+                if ph.launches_wetr.get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -4411,6 +4825,8 @@ def main() -> int:
             entry["launches_train_step"] = ph.launches_train[k]
         if k in RML_KERNELS:
             entry["launches_rml_train_step"] = ph.launches_rml[k]
+        if k in PIECE_TOL:
+            entry["launches_wetr_baseline_forward"] = ph.launches_wetr[k]
         if k == "isa_core":
             entry["launches_rssformer_train_step"] = ph.launches_rss_train[k]
         if k in ("mlp_fc1", "mlp_taps"):

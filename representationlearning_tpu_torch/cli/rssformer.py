@@ -11,7 +11,9 @@ Usage:
 The commands, config, overrides, loop, logs and checkpoint layout are the JAX
 package's. It runs on one device, the card unless ``main(..., device=)`` names
 another (the tests pass "cpu"). The model is built from ``cfg.seed`` and trained
-in f32. ``model.fused_mlp`` puts every transformer block's FFN on kernel K5 in
+in f32; step ``it`` draws from ``cfg.seed + it`` (the drop path of an HRFormer
+backbone, ``model.hrnet_type=hrt_*``), as the JAX CLI's step key does.
+``model.fused_mlp`` puts every transformer block's FFN on kernel K5 in
 ``eval`` and ``predict`` (training never reaches it); K5's CUDA kernels take bf16
 operands with f32 sums only (as the TPU's default precision does for the JAX
 package's f32 model), so with ``model.fused_mlp`` on the card those two commands
@@ -129,7 +131,7 @@ def cmd_train(cfg, device: torch.device):
             _, imgs, masks = collate_loveda(samples)
             batch = {"image": torch.from_numpy(imgs).permute(0, 3, 1, 2).contiguous(),
                      "mask": torch.from_numpy(masks)}
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, batch, torch.Generator().manual_seed(cfg.seed + it))
         meter.add(**{k: float(v) for k, v in metrics.items()})
         if (it + 1) % cfg.train.log_interval_step == 0:
             log.info("iter %d/%d %s", it + 1, cfg.train.num_iters,

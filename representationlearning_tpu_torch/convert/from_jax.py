@@ -1,9 +1,10 @@
 """JAX variable tree -> PyTorch state_dict: the exact inverse of
 ``representationlearning_tpu/convert/torch2jax.py::convert_tscd`` and of its MiT
-and SegFormer-head rules, of ``convert_rssformer`` / ``convert_hrnet`` and of
-``convert_wetr_attn_aff``; and the JAX models without a forward converter
-(``RMLModel``, ``IRNNet``, WaveCAM's ``ClassPredictorWavecam``, DRFL's ``Softnet``
-and ``PixelDiscriminator``) -> the port's.
+and SegFormer-head rules (``WeTrBaseline`` too), of ``convert_rssformer`` /
+``convert_hrnet`` / ``convert_hrt`` and of ``convert_wetr_attn_aff``; and the JAX
+models without a forward converter (``RMLModel``, ``IRNNet``, WaveCAM's
+``ClassPredictorWavecam``, DRFL's ``Softnet`` and ``PixelDiscriminator``, the ASFF
+variants ``RsNetFusion`` and ``HRNetFusion2``) -> the port's.
 
 The input is the ``{"params": ..., "batch_stats": ...}`` tree of nested dicts,
 with numpy (or array-like) leaves. Layout rules, each the transpose of the
@@ -130,28 +131,37 @@ _HRNET_SCOPES = (
     (r"t(\d)_conv", r"\1.0"), (r"t(\d)_bn", r"\1.1"),
     (r"t(\d)_conv(\d)", r"\1.\2.0"), (r"t(\d)_bn(\d)", r"\1.\2.1"),
 )
-_FUSE_LEAVES = ((r"conv", "0"), (r"bn", "1"), (r"conv(\d)", r"\1.0"), (r"bn(\d)", r"\1.1"))
+_FUSE_LEAVES = ((r"conv", "0"), (r"bn", "1"), (r"conv(\d)", r"\1.0"), (r"bn(\d)", r"\1.1"),
+                # HRTFuseDown's depthwise-separable steps
+                (r"dw(\d)", r"\1.0"), (r"dwbn(\d)", r"\1.1"), (r"pw(\d)", r"\1.2"),
+                (r"pwbn(\d)", r"\1.3"))
+
+
+def _hrnet_module_name(prefix: str, scopes: tuple[str, ...]) -> str:
+    """flax scopes inside a JAX ``HighResolutionNet`` or
+    ``HighResolutionTransformerNet`` -> the reference's module name under
+    ``prefix``: the inverse of the rules of ``convert_hrnet`` and ``convert_hrt``."""
+    out = [prefix]
+    for i, s in enumerate(scopes):
+        m = re.fullmatch(r"fuse(\d)_(\d)", s)
+        if m:
+            out.append(f"fuse_layers.{m.group(1)}.{m.group(2)}")
+            continue
+        rules = _FUSE_LEAVES if i and re.fullmatch(r"fuse\d_\d", scopes[i - 1]) else _HRNET_SCOPES
+        for pat, rep in rules:
+            if re.fullmatch(pat, s):
+                s = re.sub(pat, rep, s)
+                break
+        out.append(s)
+    return ".".join(out)
 
 
 def _rssformer_module_name(scopes: tuple[str, ...]) -> str:
     """flax scopes of the JAX ``HRNetFusion`` -> the reference's module name, the
-    inverse of the rules of ``convert_rssformer`` and ``convert_hrnet``."""
+    inverse of the rules of ``convert_rssformer`` with ``convert_hrnet`` or
+    ``convert_hrt``."""
     if scopes[0] == "backbone":
-        out = ["backbone.hrnet"]
-        for i, s in enumerate(scopes[1:], start=1):
-            rules = _HRNET_SCOPES
-            m = re.fullmatch(r"fuse(\d)_(\d)", s)
-            if m:
-                out.append(f"fuse_layers.{m.group(1)}.{m.group(2)}")
-                continue
-            if re.fullmatch(r"fuse\d_\d", scopes[i - 1]):
-                rules = _FUSE_LEAVES
-            for pat, rep in rules:
-                if re.fullmatch(pat, s):
-                    s = re.sub(pat, rep, s)
-                    break
-            out.append(s)
-        return ".".join(out)
+        return _hrnet_module_name("backbone.hrnet", scopes[1:])
     if scopes[0] == "neck":
         return "neck.fuse_conv." + {"conv": "0", "bn": "1"}[scopes[1]]
     if scopes == ("head_conv",):
@@ -162,9 +172,39 @@ def _rssformer_module_name(scopes: tuple[str, ...]) -> str:
 
 
 def rssformer_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX ``HRNetFusion`` variables (an HRNetV2 backbone) -> the port's
-    ``HRNetFusion`` state_dict: the inverse of ``convert_rssformer``."""
+    """JAX ``HRNetFusion`` variables, with an HRNetV2 or an HRFormer (``hrt_*``)
+    backbone -> the port's ``HRNetFusion`` state_dict: the inverse of
+    ``convert_rssformer``, and for the HRFormer of its neck and heads' rules with
+    ``convert_hrt``."""
     return state_dict_from_jax(variables, _rssformer_module_name)
+
+
+def _hrnet_head_module_name(scopes: tuple[str, ...]) -> str:
+    """flax scopes of the JAX ``RsNetFusion`` / ``HRNetFusion2`` -> the port's
+    names: the HRNet's reference names under ``backbone``, the rest the scopes
+    joined by dots."""
+    if scopes[0] == "backbone":
+        return _hrnet_module_name("backbone", scopes[1:])
+    return ".".join(scopes)
+
+
+def rsnet_fusion_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``RsNetFusion`` variables -> the port's ``RsNetFusion`` state_dict. The
+    JAX package has no converter for it to invert."""
+    return state_dict_from_jax(variables, _hrnet_head_module_name)
+
+
+def hrnet_fusion2_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``HRNetFusion2`` variables -> the port's ``HRNetFusion2`` state_dict. The
+    JAX package has no converter for it to invert."""
+    return state_dict_from_jax(variables, _hrnet_head_module_name)
+
+
+def wetr_baseline_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``WeTrBaseline`` variables -> the port's ``WeTrBaseline`` state_dict: the
+    inverse of ``convert/torch2jax.py``'s MiT and SegFormer-head rules with the
+    classifier's (``convert_tscd`` without ``attn_proj``)."""
+    return state_dict_from_jax(variables)
 
 
 def named_tree_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..core.registry import MODELS
 from ..ops.image import flip_lr, resize_bilinear
 from ..wsss.indexing import PathIndex, edge_to_affinity
 from .layers import GN_EPS, init_weights, lecun_normal_init
@@ -63,6 +64,7 @@ def _conv_gn(seq: nn.Sequential, x: torch.Tensor, upsample: int = 1) -> torch.Te
     return torch.relu(x)
 
 
+@MODELS.register("irn")
 class IRNNet(nn.Module):
     """Returns (edge_out (B, 1, h, w) logits at stride 4, dp_out (B, 2, h, w))."""
 

@@ -195,3 +195,36 @@ class AttnProj(nn.Module):
             out = term if out is None else out + term
             ofs += nh
         return out + self.bias[0].float()
+
+
+class ConvBNReLU(nn.Module):
+    """mmcv's ConvModule (`segformer_head.py:53-58`): a conv without bias, padding
+    k // 2, the flax-convention ``BatchNorm2d`` (eps 1e-5, torch momentum 0.1),
+    then ReLU where ``use_relu``. Names ``conv``, ``bn``. The JAX module's
+    ``axis_name`` (BatchNorm statistics across replicas) belongs to the
+    multi-device part, which is not ported: the statistics are this device's."""
+
+    def __init__(self, in_ch: int, features: int, kernel_size=(1, 1), use_relu: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.use_relu = use_relu
+        self.conv = nn.Conv2d(in_ch, features, (kh, kw), padding=(kh // 2, kw // 2), bias=False)
+        self.bn = BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        fan_out_conv_init(self.conv.weight, generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.bn(self.conv(x))
+        return torch.relu(x) if self.use_relu else x
+
+
+class TorchLinear(nn.Linear):
+    """``nn.Linear`` drawn as the JAX ``TorchLinear``: trunc-normal(0.02) weight,
+    zero bias."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 generator: torch.Generator | None = None):
+        super().__init__(in_features, features, bias=use_bias)
+        trunc_normal_init(self.weight, generator=generator)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)

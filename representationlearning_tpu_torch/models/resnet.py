@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..core.registry import MODELS
 from ..ops.image import adaptive_avg_pool_11, adaptive_max_pool_11
 from .layers import conv2d, init_weights, lecun_normal_init
 
@@ -120,6 +121,7 @@ class ResNet50Backbone(nn.Module):
         return feats
 
 
+@MODELS.register("wavecam_net")
 class Net(nn.Module):
     """The WaveCAM multilabel classifier and its CAM paths (`resnet50_cam.py:9-147`)."""
 

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..core.registry import MODELS
 from ..ops.image import adaptive_avg_pool_11, adaptive_max_pool_11, resize_bilinear
 from .layers import AttnProj, BatchNorm2d, init_weights
 from .mit import MIT_CONFIGS, MixVisionTransformer
@@ -48,6 +49,7 @@ def _pool(x: torch.Tensor, pooling: str) -> torch.Tensor:
     return adaptive_max_pool_11(x) if pooling == "gmp" else adaptive_avg_pool_11(x)
 
 
+@MODELS.register("RML")
 class RMLModel(nn.Module):
     """MiT encoder + ``SimpleFusionNeck`` seg output + affinity head (``AttnProj``
     over the last two exported attention maps -> sigmoid) + CAM classifier (1x1,
@@ -100,6 +102,7 @@ class RMLModel(nn.Module):
         return cls_logits, seg, attns, attn_pred
 
 
+@MODELS.register("rml_class_predictor")
 class ClassPredictor(nn.Module):
     """`Class_Predictor` (`RML_model.py:129-157`): masked per-class cross-entropy
     over class features, the loss over the batch size, the accuracy over the count
@@ -125,6 +128,7 @@ class ClassPredictor(nn.Module):
         return per_sample.sum() / B, correct / mask.sum().clamp(min=1.0)
 
 
+@MODELS.register("wetr_attn_aff")
 class WeTrAttnAff(nn.Module):
     """The WeTr attention-affinity research zoo reduced to two axes; see the JAX
     package's ``WeTrAttnAff`` for the table of reference classes.

@@ -19,6 +19,15 @@ on kernel K6. ``fused_attn`` is the one name here that the JAX package lacks:
 there the K6 kernel is reachable through ``Mhca(fused=True)`` only, which no
 model sets; the flag carries that choice from the model down to ``Mhca``.
 
+``hrnet_type`` names an HRNetV2 width (``hrnetv2_w18`` ... ``w48``) or an
+HRFormer variant (``hrt_small``, ``hrt_base``, ``hrt_base_win13``,
+``hrt_base_win15``: ``models/hrt.py``, the reference's swap of the encoder's
+import at `hrnet_encoder.py:7-8`), under the same ``backbone.hrnet.`` prefix. The
+HRFormer has no MlpDWBN, no fusion transformer and no remat: ``fused_mlp``,
+``fused_attn`` and ``remat_transformer`` raise with it, and ``with_transformer``
+does not apply to it. In training its drop path draws its masks from the
+``generator`` of ``forward`` (a CPU ``torch.Generator``; None is the global one).
+
 The model is built on the card: ``device=None`` means ``torch.device("cuda")`` and
 construction raises where there is none; the CPU is the caller's explicit choice
 (``device="cpu"``). The initial weights depend on the generator only.
@@ -32,8 +41,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from .._device import resolve_device
+from ..core.registry import MODELS
 from ..ops.image import adaptive_avg_pool_11, resize_bilinear
 from .hrnet import HRNET_EXTRA, HighResolutionNet
+from .hrt import HRT_CONFIGS, HighResolutionTransformerNet
 from .layers import BatchNorm2d, conv2d, init_weights
 
 
@@ -65,10 +76,13 @@ class _Encoder(nn.Module):
         super().__init__()
         self.hrnet = hrnet
 
-    def forward(self, x):
-        return self.hrnet(x)
+    def forward(self, x, generator: torch.Generator | None = None):
+        if isinstance(self.hrnet, HighResolutionTransformerNet):
+            return self.hrnet(x, generator)
+        return self.hrnet(x)   # draws nothing: its transformer blocks' drop path is 0
 
 
+@MODELS.register("RSSFormer")
 class HRNetFusion(nn.Module):
     def __init__(self, hrnet_type: str = "hrnetv2_w32", classes: int = 7,
                  upsample_scale: int = 4, with_transformer: bool = True,
@@ -78,26 +92,34 @@ class HRNetFusion(nn.Module):
                  generator: torch.Generator | None = None,
                  device: torch.device | str | None = None):
         super().__init__()
-        if hrnet_type.startswith("hrt_"):
-            raise NotImplementedError(
-                f"{hrnet_type}: the HRFormer backbone (models/hrt.py of the JAX package) "
-                "is not ported yet")
-        widths = HRNET_EXTRA[hrnet_type]["widths"]
+        hrt = hrnet_type in HRT_CONFIGS
+        if hrt:
+            flags = [n for n, on in (("fused_mlp", fused_mlp), ("fused_attn", fused_attn),
+                                     ("remat_transformer", remat_transformer)) if on]
+            if flags:
+                raise ValueError(f"{', '.join(flags)}: the HRT backbone ({hrnet_type}) has no "
+                                 "MlpDWBN, fusion transformer or remat to apply it to")
+            widths = HRT_CONFIGS[hrnet_type]["channels"]
+        else:
+            widths = HRNET_EXTRA[hrnet_type]["widths"]
         self.upsample_scale = upsample_scale
         # the CGFL losses the train step applies (None: {"ce": {}}, as in JAX)
         self.loss_config, self.ignore_index = loss_config, ignore_index
         with resolve_device(device):  # parameters and buffers are created there
-            self.backbone = _Encoder(HighResolutionNet(
-                hrnet_type, with_transformer=with_transformer, dtype=dtype,
-                fused_mlp=fused_mlp, fused_attn=fused_attn,
-                remat_transformer=remat_transformer))
+            if hrt:
+                net = HighResolutionTransformerNet(hrnet_type, dtype)
+            else:
+                net = HighResolutionNet(hrnet_type, with_transformer=with_transformer,
+                                        dtype=dtype, fused_mlp=fused_mlp, fused_attn=fused_attn,
+                                        remat_transformer=remat_transformer)
+            self.backbone = _Encoder(net)
             self.neck = SimpleFusion8(sum(widths), torch.bfloat16 if neck_bf16 else None)
             self.head = nn.Sequential(nn.Conv2d(sum(widths), classes, 1))
             self.headaux = nn.Sequential(nn.Linear(widths[0], classes))
         init_weights(self, generator)
 
-    def forward(self, x: torch.Tensor):
-        feats = self.backbone(x)
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None):
+        feats = self.backbone(x, generator)
         fused, f0 = self.neck(feats)
         aux_logits = self.headaux(adaptive_avg_pool_11(f0).flatten(1))
         logit = self.head(fused)

@@ -17,6 +17,11 @@ backbone uses) with the reference's module names
 - ``GeneralTransformerBlock``: pre-LN attention + MlpDWBN with drop-path
   residuals on tokens; takes and returns NCHW maps.
 
+The reference's other attention and FFN blocks, which no model of either
+package uses yet (their names follow the JAX package's scopes, checked against
+no reference checkpoint): ``DALMultiheadAttention``, ``Mlp``, ``MlpDW``,
+``MultiheadAttention2``, ``MlpLight``, ``MlpConvBN`` and ``dilated_conv``.
+
 Maps are NCHW; tokens are (B, N, C) with N = H * W row-major; the window helpers
 work on (B, H, W, C) as in the JAX package. ``dtype`` is the operand type of the
 attention products and of the FFN's convolutions; LayerNorm, BatchNorm, softmax
@@ -31,7 +36,7 @@ from torch import nn
 from ..ops.isa_attention import isa_attention_core
 from ..ops.mit_block import mm
 from ..ops.mlp_dwbn import fold_bn_affine, fused_mlp_dwbn
-from .layers import BatchNorm2d, DropPath, conv2d
+from .layers import BatchNorm2d, DropPath, conv2d, dropout, trunc_normal_init
 
 
 class SpatialAttention(nn.Module):
@@ -235,3 +240,157 @@ class GeneralTransformerBlock(nn.Module):
         m = self.mlp(self.norm2(xt), H, W)
         xt = xt + self.drop_path(m, generator=generator)
         return xt.transpose(1, 2).reshape(B, C, H, W)
+
+
+class DALMultiheadAttention(nn.Module):
+    """DAL self-attention (`DAL.py:14-343`, `multihead_isa_attention.py` MHA_): a
+    joint in-projection, the optional ``residual_attn`` logits added before the
+    softmax, and the optional Swin relative-position bias over a window_size x
+    window_size grid (`multihead_isa_attention.py:28-52`), indexed
+    (rel0 + ws - 1)(2 ws - 1) + (rel1 + ws - 1). The products are f32: the JAX
+    module declares a ``dtype`` it never reads, and the port takes none."""
+
+    def __init__(self, embed_dim: int, num_heads: int, rpe: bool = False,
+                 window_size: int = 7):
+        super().__init__()
+        self.num_heads, self.rpe, self.window_size = num_heads, rpe, window_size
+        self.in_proj = nn.Linear(embed_dim, 3 * embed_dim)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+        if rpe:
+            self.relative_position_bias_table = nn.Parameter(
+                torch.empty((2 * window_size - 1) ** 2, num_heads))
+            trunc_normal_init(self.relative_position_bias_table)
+
+    def _position_bias(self) -> torch.Tensor:
+        """(nh, S, S) with S = ws * ws."""
+        ws = self.window_size
+        i = torch.arange(ws, device=self.relative_position_bias_table.device)
+        coords = torch.stack(torch.meshgrid(i, i, indexing="ij")).reshape(2, -1)
+        rel = coords[:, :, None] - coords[:, None, :]
+        idx = (rel[0] + ws - 1) * (2 * ws - 1) + (rel[1] + ws - 1)
+        S = ws * ws
+        return self.relative_position_bias_table[idx.reshape(-1)].reshape(S, S, -1).permute(2, 0, 1)
+
+    def forward(self, x: torch.Tensor, residual_attn: torch.Tensor | None = None):
+        """x (B, S, C) -> (out (B, S, C), logits (B, nh, S, S) before the softmax)."""
+        B, S, C = x.shape
+        nh = self.num_heads
+        hd = C // nh
+        q, k, v = self.in_proj(x).reshape(B, S, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        logits = (q @ k.transpose(-1, -2)) * hd ** -0.5
+        if self.rpe:
+            if S != self.window_size ** 2:
+                raise ValueError(f"rpe needs window tokens: {S} != {self.window_size}^2")
+            logits = logits + self._position_bias()[None]
+        if residual_attn is not None:
+            logits = logits + residual_attn
+        out = torch.softmax(logits, dim=-1) @ v
+        return self.out_proj(out.transpose(1, 2).reshape(B, S, C)), logits
+
+
+class Mlp(nn.Module):
+    """The token MLP (`ffn_block.py:6-29`): fc1 -> exact GELU -> dropout -> fc2 ->
+    dropout."""
+
+    def __init__(self, in_features: int, hidden: int, out: int, drop: float = 0.0):
+        super().__init__()
+        self.drop = drop
+        self.fc1 = nn.Linear(in_features, hidden)
+        self.fc2 = nn.Linear(hidden, out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = dropout(F.gelu(self.fc1(x)), self.drop, self.training)
+        return dropout(self.fc2(x), self.drop, self.training)
+
+
+class MlpDW(nn.Module):
+    """1x1 conv -> GELU -> 3x3 depthwise conv -> GELU -> 1x1 conv on tokens
+    (`ffn_block.py:52-103`)."""
+
+    def __init__(self, in_features: int, hidden: int, out: int):
+        super().__init__()
+        self.fc1 = nn.Conv2d(in_features, hidden, 1)
+        self.dw3x3 = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
+        self.fc2 = nn.Conv2d(hidden, out, 1)
+
+    def forward(self, x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+        """x (B, N, C) tokens, N = H * W row-major -> (B, N, out)."""
+        B, N, C = x.shape
+        h = x.transpose(1, 2).reshape(B, C, H, W)
+        h = F.gelu(self.dw3x3(F.gelu(self.fc1(h))))
+        return self.fc2(h).flatten(2).transpose(1, 2)
+
+
+class MultiheadAttention2(nn.Module):
+    """`DAL.py:344-675`: separate q / k / v projections, q scaled by hd^-0.5 before
+    the product, the optional pre-softmax ``residual_attn`` (broadcastable to (B,
+    nh, S, T)), dropout on the probabilities; ``Mhca`` without the channel gate.
+    ``dtype`` is the operand type of the two products (f32 sums)."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 use_bias: bool = True, dtype=torch.float32):
+        super().__init__()
+        self.num_heads, self.dropout, self.dtype = num_heads, dropout, dtype
+        self.q_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
+        self.k_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
+        self.v_proj = nn.Linear(embed_dim, embed_dim, bias=use_bias)
+        self.out_proj = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, query, key, value, residual_attn: torch.Tensor | None = None):
+        """query (B, S, C), key and value (B, T, C) -> (B, S, C)."""
+        B, S, C = query.shape
+        nh = self.num_heads
+        hd = C // nh
+        q = (self.q_proj(query) * hd ** -0.5).reshape(B, S, nh, hd).transpose(1, 2)
+        k = self.k_proj(key).reshape(B, -1, nh, hd).transpose(1, 2)
+        v = self.v_proj(value).reshape(B, -1, nh, hd).transpose(1, 2)
+        logits = mm(q, k.transpose(-1, -2), self.dtype)
+        if residual_attn is not None:
+            logits = logits + residual_attn
+        attn = dropout(torch.softmax(logits, dim=-1), self.dropout, self.training)
+        out = mm(attn, v, self.dtype).transpose(1, 2).reshape(B, S, C)
+        return self.out_proj(out)
+
+
+class MlpLight(nn.Module):
+    """`ffn_block.py:32-50`: one Linear, exact GELU, dropout, on tokens."""
+
+    def __init__(self, dim: int, dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.fc1 = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(F.gelu(self.fc1(x)), self.dropout, self.training)
+
+
+class MlpConvBN(nn.Module):
+    """`ffn_block.py:295-338`: two 1x1 Conv1d + BatchNorm1d blocks over the
+    channels of (B, N, C) tokens (a Conv1d of width 1 is a Linear; the
+    BatchNorm's statistics run over B and N, with flax's momentum and biased
+    variance through ``BatchNorm2d``), GELU between them, dropout after each."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.fc1 = nn.Linear(in_features, hidden_features)
+        self.bn1 = BatchNorm2d(hidden_features, eps=1e-5, momentum=0.1)
+        self.fc2 = nn.Linear(hidden_features, out_features)
+        self.bn2 = BatchNorm2d(out_features, eps=1e-5, momentum=0.1)
+
+    @staticmethod
+    def _bn(bn: BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+        B, N, C = x.shape
+        return bn(x.reshape(B * N, C, 1, 1)).reshape(B, N, C)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = dropout(F.gelu(self._bn(self.bn1, self.fc1(x))), self.dropout, self.training)
+        return dropout(self._bn(self.bn2, self.fc2(h)), self.dropout, self.training)
+
+
+def dilated_conv(ch_in: int, ch_out: int, k: int, d: int = 1, stride: int = 1) -> nn.Conv2d:
+    """`ffn_block.py:105-128` DilatedConv: a conv without bias at dilation d,
+    padding ((k - 1) // 2) * d."""
+    return nn.Conv2d(ch_in, ch_out, k, stride, padding=((k - 1) // 2) * d, dilation=d,
+                     bias=False)

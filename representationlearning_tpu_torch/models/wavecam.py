@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from .._device import resolve_device
+from ..core.registry import MODELS
 from ..ops.image import adaptive_avg_pool_11, resize_bilinear
 from .layers import BatchNorm2d, lecun_normal_init
 
@@ -80,6 +81,7 @@ class WaveModeling(nn.Module):
         return torch.cat([h * pair[:, :, 0], w * pair[:, :, 1]], dim=1)
 
 
+@MODELS.register("wavecam_class_predictor")
 class ClassPredictorWavecam(nn.Module):
     """``Class_Predictor_wavecam``: (loss, acc) of the per-class re-classification
     of the class features plus the wave-modulated CAM."""

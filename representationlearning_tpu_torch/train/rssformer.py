@@ -54,11 +54,12 @@ def create_rssformer_state(model, cfg: RSSFormerTrainConfig) -> TrainState:
         grad_clip_norm=cfg.grad_clip))
 
 
-def rssformer_losses(model, batch) -> dict:
+def rssformer_losses(model, batch, generator: torch.Generator | None = None) -> dict:
     """The training forward of ``model`` (an ``HRNetFusion``, in the mode it is
-    in) and its CGFL loss dict: ``segmentation_loss_aux`` with the model's
-    ``loss_config`` (None: {"ce": {}}) and ``ignore_index``."""
-    logit, aux_logits = model(batch["image"])
+    in; ``generator`` draws the HRFormer backbone's drop-path masks) and its CGFL
+    loss dict: ``segmentation_loss_aux`` with the model's ``loss_config`` (None:
+    {"ce": {}}) and ``ignore_index``."""
+    logit, aux_logits = model(batch["image"], generator)
     return segmentation_loss_aux(logit, batch["mask"], aux_logits,
                                  model.loss_config or {"ce": {}}, model.ignore_index)
 
@@ -70,17 +71,18 @@ def make_rssformer_train_step(model, cfg: RSSFormerTrainConfig,
     losses and their sum, backward, one update. ``state`` is a ``TrainState``
     over ``model`` (``create_rssformer_state``); it is updated in place and
     returned. The batch is moved to ``device``, the card unless the caller
-    names another (it raises where there is none). ``generator`` is accepted
-    for the trainers' common signature; the RSSFormer stack draws nothing
-    (dropout and drop path are 0). metrics holds the losses and ``total``,
-    detached. The profiler sees forward, backward and optimizer."""
+    names another (it raises where there is none). ``generator`` (a CPU
+    ``torch.Generator``; None is the global one) draws the drop-path masks of an
+    HRFormer backbone (``hrt_*``); the HRNetV2 stack draws nothing (its dropout
+    and drop path are 0). metrics holds the losses and ``total``, detached. The
+    profiler sees forward, backward and optimizer."""
     device = resolve_device(device)
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None):
         model.train()
         batch = {k: v.to(device) for k, v in batch.items()}
         with record_function("forward"):
-            losses = rssformer_losses(model, batch)
+            losses = rssformer_losses(model, batch, generator)
             total = sum(losses.values())
         with record_function("backward"):
             total.backward()

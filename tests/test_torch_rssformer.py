@@ -147,8 +147,11 @@ def test_device_rule_and_seeded_weights():
                         generator=torch.Generator().manual_seed(5)) for _ in range(2))
     assert all(torch.equal(u, w) for u, w in zip(a.state_dict().values(),
                                                  b.state_dict().values()))
-    with pytest.raises(NotImplementedError, match="models/hrt.py"):
-        HRNetFusion("hrt_small", 7, device="cpu")
+    a, b = (HRNetFusion("hrt_small", 7, device="cpu",
+                        generator=torch.Generator().manual_seed(5)) for _ in range(2))
+    assert all(torch.equal(u, w) for u, w in zip(a.state_dict().values(),
+                                                 b.state_dict().values()))
+    assert type(a.backbone.hrnet).__name__ == "HighResolutionTransformerNet"
 
 
 def test_cpu_forward_never_touches_the_kernel_loader(setup, monkeypatch):
