@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's twelve paths and checks them. The first is TSCD / MiT-B1
+Drives the port's thirteen paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -47,8 +47,11 @@ The eleventh is WaveCAM's training half and command line (``cli/run_wavecam.py``
 kernel: the nine stages at ``WaveCAMConfig``'s defaults, the f32 ResNet-50 at
 16 x 512² crops. The twelfth is the HRFormer backbone (``models/hrt.py``) through the
 RSSFormer command line at ``model.hrnet_type=hrt_small``, with ``WeTrBaseline`` on K1, the
-ASFF variants (``models/asff.py``) and ``cli/convert_checkpoint.py``. The headline forward
-also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
+ASFF variants (``models/asff.py``) and ``cli/convert_checkpoint.py``. The thirteenth is the
+RSSFormer baseline zoo (``models/baselines.py``, ``models/smp_zoo.py``), which has no
+hand-written kernel: each of its fourteen models trained and evaluated through
+``train/rssformer.py``. The headline forward also runs with ``pre_sr=True``, the PRE_SR
+variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -217,6 +220,24 @@ also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
    output equals the source model's bit for bit; the figures: ms a step through the CLI
    and alone, launches, idle share and peak GiB, seconds an ``eval --tta`` and a
    ``predict`` image, WeTrBaseline's ms a forward on K1 and with plain blocks;
+7j. the baseline zoo: (a) each of the fourteen models (FarSegV1, SemanticFPN, PSPNet,
+   FCN8s, AnyUNet, FactSeg, SemanticFPNDecouple, UNetPP, LinkNet, DeepLabV3,
+   DeepLabV3Plus, MANet, PAN, trans) built by ``MODELS.build(name, classes=7)`` at its JAX
+   defaults (``trans`` at ``hrnetv2_w48``), f32, three steps of ``make_rssformer_train_step``
+   at ``RSSFormerTrainConfig()`` on ``rss_batch`` (8 x 512²): losses finite, every trained
+   BatchNorm's running statistics moved once a step, the frozen ResNet-50 ones not, no
+   hand-written kernel; the step timed (median of three, CUDA events) and traced (launches,
+   idle share), peak GiB; ``evaluate`` on two batches of 4 x 512² (scores in [0, 1],
+   probabilities summing to 1 within 1e-4, SemanticFPNDecouple's sigmoids in [0, 1]) and
+   its seconds an image; (b) each at 2 x 128², f32, on the card against the CPU from the
+   same calmed weights, batch and host-drawn dropout masks: eval probabilities within 1e-4,
+   the training forward's losses within 1e-4 relative, each top-level module's gradient
+   norm within 1e-3 and the running statistics within 1e-4 of max(their largest, 1e-3),
+   these two in f64 on both sides where f32 misses (the pooled branches' BatchNorms over
+   two images make the f32 gradients rounding noise); (c)
+   ``utils/affine.py::apply_affine`` on the card against the CPU within 1e-5,
+   ``utils/profiling.py::trace`` around one AnyUNet step (a trace file with kernel events),
+   ``device_memory_stats`` naming the card;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
@@ -245,6 +266,8 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
+import inspect
 import io
 import json
 import math
@@ -428,6 +451,23 @@ WETR_BATCH, WETR_TIMED = 8, 10
 ASFF_EVAL_BATCH, ASFF_TRAIN_BATCH = 4, 2
 ASFF_TOL = 1e-4        # probabilities, card against CPU
 
+# The baseline zoo (phase 7j): (a) each of the fourteen models of models/baselines.py and
+# models/smp_zoo.py at its JAX defaults (trans at hrnetv2_w48, AnyUNet base 32, depth 4), f32,
+# ZOO_STEPS steps of make_rssformer_train_step on rss_batch (8 x 512²), then ZOO_TIMED timed and
+# ZOO_TRACED traced, and evaluate on ZOO_EVAL_BATCHES batches of ZOO_EVAL_BATCH x 512²; cut:
+# the number of steps only. (b) each at ZOO_SMALL_BATCH x ZOO_SMALL², card against CPU on the
+# same calmed weights, batch and dropout masks. (c) the utilities on the card.
+ZOO_STEPS, ZOO_TIMED, ZOO_TRACED = 3, 3, 2
+ZOO_EVAL_BATCHES, ZOO_EVAL_BATCH = 2, 4
+ZOO_SMALL, ZOO_SMALL_BATCH = 128, 2
+ZOO_EVAL_TOL = 1e-4     # eval probabilities, card against CPU
+ZOO_LOSS_TOL = 1e-4     # the training forward's losses, relative
+ZOO_NORM_TOL = 1e-3     # the gradient norm of each top-level module, relative
+ZOO_STATS_TOL = 1e-4    # running statistics, of max(their largest entry, 1e-3)
+ZOO_F32_K = 16.0        # where f32 misses: the card's worst f32 error against the CPU's f64
+ZOO_F32_FLOOR = 1e-5    # run, at most this many times the CPU's own worst f32 error (or floor)
+ZOO_AFFINE_TOL = 1e-5   # apply_affine, card against CPU
+
 
 def cam_stages(side: int) -> list[tuple]:
     """The MiT-B1 block geometries of a `cam_only` forward at side x side: the
@@ -577,6 +617,8 @@ def calm(torch, module, gen) -> None:
     def noise(t, scale):
         return (scale * torch.randn(t.shape, generator=gen)).to(t.device)
 
+    head = getattr(module, "head", None)
+
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, nn.BatchNorm2d):
@@ -588,8 +630,8 @@ def calm(torch, module, gen) -> None:
                 m.weight.add_(noise(m.weight, 0.1))
             if getattr(m, "bias", None) is not None:
                 m.bias.add_(noise(m.bias, 0.1))
-        if hasattr(module, "head"):
-            module.head[0].weight.mul_(0.1)
+        if isinstance(head, nn.Sequential):   # HRNetFusion's; the zoo's heads stay
+            head[0].weight.mul_(0.1)
 
 
 def set_rss_flags(model, fused_mlp: bool, fused_attn: bool) -> None:
@@ -3942,6 +3984,287 @@ class Phases:
                    f"loaded strictly on the card: eval output equal to the source model's bits "
                    f"(max abs err {float((got - want).abs().max()):.1e})")
 
+    # ------------------------------------------------------------- phase 7j (the baseline zoo)
+    def run_zoo(self, mods, card: str) -> None:
+        """The RSSFormer baseline zoo (``models/baselines.py``, ``models/smp_zoo.py``),
+        which has no hand-written kernel: (a) each of the fourteen models at full width
+        through ``make_rssformer_train_step`` and ``evaluate``; (b) each on the card
+        against the CPU at ZOO_SMALL²; (c) ``utils/affine.py`` and ``utils/profiling.py``
+        on the card. Each model and part reports its own failure and the next one runs."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.smp_zoo import ZOO_MODELS
+
+        t_phase = time.perf_counter()
+        self.zoo_figures = {}
+        batch = rss_batch(torch, self.dev)
+        for name in ZOO_MODELS:
+            for part, fn in (("(a) full width", lambda: self._zoo_full_width(mods, name, batch)),
+                             ("(b) card against CPU", lambda: self._zoo_card_vs_cpu(name))):
+                try:
+                    fn()
+                except Exception:  # noqa: BLE001 -- report the model, go on with the next
+                    traceback.print_exc()
+                    self.failures.append(f"phase 7j {part} {name} raised")
+                torch.cuda.empty_cache()
+        try:
+            self._zoo_utilities(mods, batch)
+        except Exception:  # noqa: BLE001
+            traceback.print_exc()
+            self.failures.append("phase 7j (c) the utilities raised")
+        del batch
+        torch.cuda.empty_cache()
+        log(f"  phase 7j figures ({card}; f32, TF32 off, {BATCH} x {IMAGE}² a step, evaluate on "
+            f"{ZOO_EVAL_BATCHES} x {ZOO_EVAL_BATCH} x {IMAGE}²):")
+        for name, f in self.zoo_figures.items():
+            log(f"    {name:20s} {f['params'] / 1e6:7.2f} M parameters, {f['ms']:9.2f} ms a step, "
+                f"{f['launches']:6.0f} launches a step, idle share {f['idle']:.4f}, peak "
+                f"{f['peak'] / 2**30:6.2f} GiB, evaluate {f['eval_s']:.4f} s an image")
+        log("  phase 7j figures as JSON: " + json.dumps(self.zoo_figures))
+        log(f"  phase 7j: {time.perf_counter() - t_phase:.1f} s")
+
+    def _zoo_build(self, name: str, dev, seed: int):
+        from representationlearning_tpu_torch.core.registry import MODELS
+        from representationlearning_tpu_torch.models import smp_zoo  # noqa: F401 (registers)
+
+        # FactSeg and SemanticFPNDecouple have losses of their own and no loss_config
+        kw = {"loss_config": {"ce": {}}} if "loss_config" in inspect.signature(
+            MODELS.get(name)).parameters else {}
+        return MODELS.build(name, classes=RSS_CLASSES, **kw,
+                            generator=self.torch.Generator().manual_seed(seed), device=dev)
+
+    def _zoo_full_width(self, mods, name: str, batch) -> None:
+        """``name`` at its JAX defaults, f32: ZOO_STEPS steps of
+        ``make_rssformer_train_step`` at ``RSSFormerTrainConfig()`` on the bench's
+        8 x 512² batch (losses finite, every trained BatchNorm2d's statistics moved once
+        a step, the frozen ResNet ones not, no hand-written kernel), the step timed and
+        traced, then ``evaluate`` on ZOO_EVAL_BATCHES batches of ZOO_EVAL_BATCH."""
+        torch = self.torch
+        from representationlearning_tpu_torch import bench as tb
+        from representationlearning_tpu_torch.models.layers import BatchNorm2d
+        from representationlearning_tpu_torch.models.resnet import FrozenBatchNorm
+        from representationlearning_tpu_torch.train import rssformer as trs
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        model = self._zoo_build(name, None, self.seed + 40)
+        n_params = sum(p.numel() for p in model.parameters())
+        cfg = trs.RSSFormerTrainConfig()
+        state = trs.create_rssformer_state(model, cfg)
+        step_fn = trs.make_rssformer_train_step(model, cfg)
+        gen = torch.Generator().manual_seed(self.seed + 41)
+        trained = {n: m for n, m in model.named_modules() if isinstance(m, BatchNorm2d)}
+        frozen = {n: m for n, m in model.named_modules() if isinstance(m, FrozenBatchNorm)}
+        frozen_before = {n: m.running_mean.clone() for n, m in frozen.items()}
+        ok_losses, ok_moved, losses = True, True, {}
+        for i in range(ZOO_STEPS):
+            before = {n: m.running_mean.clone() for n, m in trained.items()}
+            _, met = self._no_launch(mods, f"(a) {name} step {i + 1}",
+                                     lambda: step_fn(state, batch, gen))
+            losses = {k: float(v) for k, v in met.items()}
+            ok_losses &= all(map(math.isfinite, losses.values()))
+            ok_moved &= all(int(m.num_batches_tracked) == i + 1
+                            and not torch.equal(m.running_mean, before[n])
+                            for n, m in trained.items())
+        self.check(ok_losses and ok_moved and bool(trained)
+                   and all(torch.equal(m.running_mean, frozen_before[n])
+                           for n, m in frozen.items()),
+                   f"(a) {name} ({n_params / 1e6:.2f} M parameters) {ZOO_STEPS} steps at "
+                   f"{BATCH} x {IMAGE}²: losses finite (last {losses}), the statistics of all "
+                   f"{len(trained)} trained BatchNorms moved once a step, the {len(frozen)} "
+                   f"frozen ones not")
+        ms = self.event_median_ms(lambda: step_fn(state, batch, gen), ZOO_TIMED, warmup=0)
+        busy, launches = tb.trace_calls(lambda: step_fn(state, batch, gen), ZOO_TRACED)
+        peak = torch.cuda.max_memory_allocated()
+        del state, step_fn
+        gen = torch.Generator().manual_seed(self.seed + 42)
+        evals = [(torch.randn(ZOO_EVAL_BATCH, 3, IMAGE, IMAGE, generator=gen),
+                  torch.randint(0, RSS_CLASSES, (ZOO_EVAL_BATCH, IMAGE, IMAGE), generator=gen))
+                 for _ in range(ZOO_EVAL_BATCHES)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = self._no_launch(mods, f"(a) {name} evaluate",
+                                 lambda: trs.evaluate(model, evals, RSS_CLASSES))
+        eval_s = (time.perf_counter() - t0) / (ZOO_EVAL_BATCH * ZOO_EVAL_BATCHES)
+        with torch.no_grad():
+            probs = model.eval()(evals[0][0].to(self.dev))
+        sig = name == "SemanticFPNDecouple"
+        in_unit = bool(torch.isfinite(probs).all()) and 0.0 <= float(probs.min()) \
+            and float(probs.max()) <= 1.0
+        sums = float((probs.sum(1) - 1).abs().max())
+        channels = RSS_CLASSES - 1 if sig else RSS_CLASSES
+        self.check(all(0.0 <= scores[k] <= 1.0 for k in ("pAcc", "mAcc", "miou")) and in_unit
+                   and tuple(probs.shape) == (ZOO_EVAL_BATCH, channels, IMAGE, IMAGE)
+                   and (sig or sums <= 1e-4),
+                   f"(a) {name} evaluate on {ZOO_EVAL_BATCHES} x {ZOO_EVAL_BATCH} x {IMAGE}²: "
+                   f"pAcc {scores['pAcc']:.4f} mAcc {scores['mAcc']:.4f} mIoU "
+                   f"{scores['miou']:.4f} in [0, 1]; outputs {tuple(probs.shape)} in [0, 1]"
+                   + (" (sigmoids)" if sig else f", summing to 1 within {sums:.1e}"))
+        self.zoo_figures[name] = dict(params=n_params, ms=ms, launches=launches,
+                                      idle=1 - busy / ms, peak=peak, eval_s=eval_s,
+                                      losses=losses)
+        log(f"  (a) {name}: {ms:.2f} ms a step (median of {ZOO_TIMED}, CUDA events), "
+            f"{launches:.0f} launches a step and idle share {1 - busy / ms:.4f} "
+            f"({ZOO_TRACED}-step trace), peak {peak / 2**30:.2f} GiB, evaluate "
+            f"{eval_s:.4f} s an image")
+        del model, probs, evals
+
+    def _zoo_card_vs_cpu(self, name: str) -> None:
+        """``name`` at ZOO_SMALL_BATCH x ZOO_SMALL², f32, on the card and on the CPU from
+        the same seeded, calmed weights, batch and dropout masks (drawn on the host):
+        eval probabilities, the training forward's loss dict, each top-level module's
+        gradient norm and the running statistics. Where the gradient norms or the
+        statistics miss their bounds in f32, both sides run again in f64, where they must
+        meet the same bounds, and the card's f32 run is held against the CPU's f64 run:
+        its worst module's gradient error, as a vector, and its worst statistic's error at
+        most ZOO_F32_K times the CPU's own in f32. In f32 the forward's rounding flips some
+        ReLU and max-pool decisions, more where a BatchNorm normalises channels of a large
+        mean and a small spread (or of two values, PAN's pooled branches), and each flip
+        moves the gradient: so two f32 runs can differ by more than ZOO_NORM_TOL."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models import baselines
+
+        cpu = torch.device("cpu")
+        base = self._zoo_build(name, cpu, self.seed + 43)
+        calm(torch, base, torch.Generator().manual_seed(self.seed + 44))
+        gen = torch.Generator().manual_seed(self.seed + 45)
+        x = torch.randn(ZOO_SMALL_BATCH, 3, ZOO_SMALL, ZOO_SMALL, generator=gen)
+        y = torch.randint(-1, RSS_CLASSES, (ZOO_SMALL_BATCH, ZOO_SMALL, ZOO_SMALL), generator=gen)
+        masks, plain = [], baselines.dropout
+
+        def draw(t, rate, training, generator=None):
+            if rate == 0.0 or not training:
+                return t
+            masks.append(torch.rand(t.shape, generator=gen) >= rate)
+            return torch.where(masks[-1].to(t.device), t / (1.0 - rate), torch.zeros_like(t))
+
+        def replay(t, rate, training, generator=None):
+            if rate == 0.0 or not training:
+                return t
+            return torch.where(next(left).to(t.device), t / (1.0 - rate), torch.zeros_like(t))
+
+        def rel(a, b):
+            return abs(a - b) / abs(b) if b else abs(a)
+
+        def worst_norm(got, want):
+            k = max(want["norms"], key=lambda k: rel(got["norms"][k], want["norms"][k]))
+            return k, rel(got["norms"][k], want["norms"][k])
+
+        def stat_errs(got, want):
+            return {k: float((got["stats"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-3)
+                    for k, v in want["stats"].items()}
+
+        def grad_errs(got, want):   # each module's |g - g_want| / |g_want|, as vectors
+            return {k: float((got["grads"][k] - w).norm()) / (float(w.norm()) or 1.0)
+                    for k, w in want["grads"].items()}
+
+        res = {}
+        try:
+            for run, dev, dtype in (("cpu", cpu, torch.float32), ("card", self.dev, torch.float32),
+                                    ("cpu64", cpu, torch.float64),
+                                    ("card64", self.dev, torch.float64)):
+                if run == "cpu64" and worst_norm(res["card"], res["cpu"])[1] <= ZOO_NORM_TOL \
+                        and max(stat_errs(res["card"], res["cpu"]).values()) <= ZOO_STATS_TOL:
+                    break
+                m = copy.deepcopy(base).to(dev, dtype)
+                with torch.no_grad():
+                    probs = m.eval()(x.to(dev, dtype)).cpu().double()
+                left = iter(masks)
+                baselines.dropout = draw if run == "cpu" else replay
+                losses = m.train()(x.to(dev, dtype), y.to(dev))
+                sum(losses.values()).backward()
+                grads = {}
+                for k, p in m.named_parameters():
+                    g = (torch.zeros_like(p) if p.grad is None else p.grad).detach().double()
+                    grads.setdefault(k.split(".")[0], []).append(g.flatten().cpu())
+                grads = {k: torch.cat(v) for k, v in grads.items()}
+                res[run] = dict(probs=probs,
+                                losses={k: float(v.detach()) for k, v in losses.items()},
+                                grads=grads, norms={k: float(g.norm()) for k, g in grads.items()},
+                                stats={k: b.cpu().double() for k, b in m.named_buffers()
+                                       if "running" in k})
+                del m, losses
+        finally:
+            baselines.dropout = plain
+        card, cpu32 = res["card"], res["cpu"]
+        err = float((card["probs"] - cpu32["probs"]).abs().max())
+        worst_l = max(cpu32["losses"], key=lambda k: rel(card["losses"][k], cpu32["losses"][k]))
+        err_l = rel(card["losses"][worst_l], cpu32["losses"][worst_l])
+        (worst_n, err_n), stats = worst_norm(card, cpu32), stat_errs(card, cpu32)
+        worst_s = max(stats, key=stats.get)
+        ok = err_n <= ZOO_NORM_TOL and stats[worst_s] <= ZOO_STATS_TOL
+        held = (f"statistics worst {worst_s} {stats[worst_s]:.2e} (tol {ZOO_STATS_TOL:.0e}); "
+                f"gradient norms of {len(cpu32['norms'])} modules worst {worst_n} {err_n:.2e} (tol "
+                f"{ZOO_NORM_TOL:.0e})")
+        if "card64" in res:   # f32 missed: f64 on both sides, and the f32 card against f64
+            (worst_n, err_n), stats = (worst_norm(res["card64"], res["cpu64"]),
+                                       stat_errs(res["card64"], res["cpu64"]))
+            worst_s = max(stats, key=stats.get)
+            g_card, g_cpu = grad_errs(card, res["cpu64"]), grad_errs(cpu32, res["cpu64"])
+            s_card, s_cpu = stat_errs(card, res["cpu64"]), stat_errs(cpu32, res["cpu64"])
+            worst = {w: max(e, key=e.get) for w, e in
+                     (("g_card", g_card), ("g_cpu", g_cpu), ("s_card", s_card), ("s_cpu", s_cpu))}
+            ratio_g = g_card[worst["g_card"]] / max(g_cpu[worst["g_cpu"]], ZOO_F32_FLOOR)
+            ratio_s = s_card[worst["s_card"]] / max(s_cpu[worst["s_cpu"]], ZOO_F32_FLOOR)
+            ok = (err_n <= ZOO_NORM_TOL and stats[worst_s] <= ZOO_STATS_TOL
+                  and ratio_g <= ZOO_F32_K and ratio_s <= ZOO_F32_K)
+            held = (f"in f32 {held}; so in f64: statistics worst {worst_s} {stats[worst_s]:.2e}, "
+                    f"gradient norms worst {worst_n} {err_n:.2e}; the f32 card's worst error "
+                    f"against the f64 CPU over the f32 CPU's (floor {ZOO_F32_FLOOR:.0e}; tol "
+                    f"{ZOO_F32_K:g}): gradients, as vectors, {worst['g_card']} "
+                    f"{g_card[worst['g_card']]:.2e} / {worst['g_cpu']} {g_cpu[worst['g_cpu']]:.2e}"
+                    f" = {ratio_g:.2f}, statistics {worst['s_card']} {s_card[worst['s_card']]:.2e}"
+                    f" / {worst['s_cpu']} {s_cpu[worst['s_cpu']]:.2e} = {ratio_s:.2f}; each "
+                    f"module's gradient error card / CPU: "
+                    + ", ".join(f"{k} {g_card[k]:.2e} / {g_cpu[k]:.2e}" for k in g_card))
+        self.check(ok and err <= ZOO_EVAL_TOL and err_l <= ZOO_LOSS_TOL
+                   and set(card["norms"]) == set(cpu32["norms"])
+                   and all(map(math.isfinite, cpu32["losses"].values())),
+                   f"(b) {name} at {ZOO_SMALL_BATCH} x {ZOO_SMALL}², card against CPU: eval "
+                   f"{err:.2e} (tol {ZOO_EVAL_TOL:.0e}); losses {cpu32['losses']} worst "
+                   f"{err_l:.2e} relative (tol {ZOO_LOSS_TOL:.0e}); {len(masks)} dropout masks; "
+                   + held)
+
+    def _zoo_utilities(self, mods, batch) -> None:
+        """``apply_affine`` on the card against the CPU, ``profiling.trace`` around one
+        AnyUNet step, ``device_memory_stats``."""
+        torch = self.torch
+        import numpy as np
+        from representationlearning_tpu_torch.train import rssformer as trs
+        from representationlearning_tpu_torch.utils import affine, profiling
+
+        aug = affine.AffineAugmentation(patch_ratio=0.9)
+        x = torch.randn(4, 3, 96, 80, generator=torch.Generator().manual_seed(self.seed + 46))
+        for what, M in (("identity", np.eye(2, 3)), ("sampled", aug.sample(
+                np.random.default_rng(self.seed)))):
+            got = affine.apply_affine(x.to(self.dev), M)
+            err = float((got.cpu() - affine.apply_affine(x, M)).abs().max())
+            self.check(got.is_cuda and err <= ZOO_AFFINE_TOL,
+                       f"(c) apply_affine at a {what} M on the card against the CPU: max abs err "
+                       f"{err:.1e} (tol {ZOO_AFFINE_TOL:.0e})")
+        model = self._zoo_build("AnyUNet", None, self.seed + 47)
+        cfg = trs.RSSFormerTrainConfig()
+        state, step = trs.create_rssformer_state(model, cfg), trs.make_rssformer_train_step(model,
+                                                                                          cfg)
+        step(state, batch)
+        with tempfile.TemporaryDirectory() as tmp:
+            with profiling.trace(tmp) as prof:
+                step(state, batch)
+                torch.cuda.synchronize()
+            files = [p for p in Path(tmp).iterdir() if p.name.endswith(".pt.trace.json")]
+            size = sum(p.stat().st_size for p in files)
+            events = json.loads(files[0].read_text())["traceEvents"] if files else []
+        kernels = sum(e.get("cat") == "kernel" for e in events)
+        self.check(len(files) == 1 and size > 0 and kernels > 0,
+                   f"(c) profiling.trace around one AnyUNet step wrote {len(files)} trace file(s), "
+                   f"{size} bytes, {kernels} kernel events; "
+                   f"{len(prof.key_averages())} operator rows")
+        stats = profiling.device_memory_stats()
+        self.check(list(stats) == ["cuda:0"] and stats["cuda:0"].get("allocated_bytes.all.peak", 0)
+                   > 0, f"(c) device_memory_stats() names {list(stats)}, peak allocated "
+                        f"{stats.get('cuda:0', {}).get('allocated_bytes.all.peak', 0) / 2**30:.2f} "
+                        f"GiB")
+        del model, state, step
+
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
@@ -4770,6 +5093,7 @@ def main() -> int:
                      ("WaveCAM command line", lambda: ph.run_wavecam_train(card)),
                      ("HRFormer, ASFF, converter",
                       lambda: ph.run_hrt((tmb, ta, tv, tf, tm, ti), card)),
+                     ("baseline zoo", lambda: ph.run_zoo((tmb, ta, tv, tf, tm, ti), card)),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),

@@ -16,7 +16,8 @@ reference checkpoint into JAX variables, this one does the two jobs that leaves:
   model and its ``state_dict`` saved.
 - A JAX variables ``.npy`` (``--from-jax``) goes through ``convert/from_jax.py``
   into the port's ``state_dict`` (for ``train_wavecam``'s ``{"net", "pred"}`` file,
-  a dict of the two), which is saved.
+  a dict of the two), which is saved. The baseline zoo's families are its
+  registry names, ``FarSegV1`` ... ``trans``.
 
 The JAX converter needs no widths; the port loads by building the model, so a
 family with several widths takes ``--arch`` (default the JAX package's default
@@ -46,6 +47,7 @@ from ..models.hrt import HRT_CONFIGS
 from ..models.mit import MIT_CONFIGS, MixVisionTransformer
 from ..models.resnet import Net, ResNet50Backbone
 from ..models.rssformer import HRNetFusion
+from ..models.smp_zoo import ZOO_MODELS
 from ..models.tscd import TSCD
 
 NBT = r".*num_batches_tracked"
@@ -113,6 +115,7 @@ FROM_JAX = {
     "irn": FJ.irn_state_dict_from_jax,
     "dcl": FJ.dcl_state_dict_from_jax,
     "pixel_discriminator": FJ.pixel_discriminator_state_dict_from_jax,
+    **{name: FJ.zoo_state_dict_from_jax for name in ZOO_MODELS},   # the baseline zoo
 }
 
 

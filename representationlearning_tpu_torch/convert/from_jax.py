@@ -4,7 +4,8 @@ and SegFormer-head rules (``WeTrBaseline`` too), of ``convert_rssformer`` /
 ``convert_hrnet`` / ``convert_hrt`` and of ``convert_wetr_attn_aff``; and the JAX
 models without a forward converter (``RMLModel``, ``IRNNet``, WaveCAM's
 ``ClassPredictorWavecam``, DRFL's ``Softnet`` and ``PixelDiscriminator``, the ASFF
-variants ``RsNetFusion`` and ``HRNetFusion2``) -> the port's.
+variants ``RsNetFusion`` and ``HRNetFusion2``, the fourteen models of the baseline
+zoo) -> the port's.
 
 The input is the ``{"params": ..., "batch_stats": ...}`` tree of nested dicts,
 with numpy (or array-like) leaves. Layout rules, each the transpose of the
@@ -13,6 +14,7 @@ forward rule, so a round trip is bit for bit:
 - Dense kernel (in, out)         -> Linear weight (out, in)
 - Conv kernel HWIO               -> Conv2d weight OIHW (depthwise (3,3,1,C) -> (C,1,3,3))
 - LayerNorm/BatchNorm ``scale``  -> ``weight``
+- PReLU ``negative_slope`` ()    -> ``nn.PReLU(1)``'s ``weight`` (1,)
 - batch_stats ``mean``/``var``   -> ``running_mean``/``running_var``, plus
   ``num_batches_tracked`` = 0, which the forward converter drops
 - scopes: ``block{s}_{b}`` -> ``block{s}.{b}``, ``dwconv/Conv_0`` -> ``dwconv.dwconv``,
@@ -61,6 +63,8 @@ def _param(leaf: str, w: np.ndarray) -> tuple[str, np.ndarray]:
         return "weight", w
     if leaf == "bias":
         return "bias", w
+    if leaf == "negative_slope":   # flax nn.PReLU's scalar -> nn.PReLU(1)'s weight
+        return "weight", w.reshape(1)
     raise KeyError(f"unknown param leaf {leaf!r}")
 
 
@@ -327,3 +331,25 @@ def pixel_discriminator_state_dict_from_jax(variables: Mapping[str, Any]) -> dic
     """JAX ``PixelDiscriminator`` variables -> the port's state_dict (the same
     names: ``conv1``, ``conv2``, ``bn``, ``conv3``)."""
     return state_dict_from_jax(variables, ".".join)
+
+
+def _zoo_module_name(scopes: tuple[str, ...]) -> str:
+    """flax scopes of a JAX baseline-zoo model -> the port's names: the
+    ResNet-50 encoder (``resnet`` in ``models/baselines.py``, ``encoder`` in
+    ``models/smp_zoo.py``) with the reference names of ``convert_resnet50``,
+    ``trans``'s HRNet (``backbone``) with those of ``convert_hrnet``, the rest
+    the scopes joined by dots."""
+    if scopes[0] in ("resnet", "encoder"):
+        return f"{scopes[0]}.{_resnet_module_name(scopes[1:])}"
+    if scopes[0] == "backbone":
+        return _hrnet_module_name("backbone", scopes[1:])
+    return ".".join(scopes)
+
+
+def zoo_state_dict_from_jax(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX variables of any of the baseline zoo's fourteen models
+    (``models/smp_zoo.py::ZOO_MODELS``) -> the port model's state_dict. The JAX
+    package has no converter for them to invert. Load the result with
+    ``strict=True``: a PAN whose JAX variables were made at an input too small
+    for all three levels of its FPA pyramid lacks the deeper levels' weights."""
+    return state_dict_from_jax(variables, _zoo_module_name)

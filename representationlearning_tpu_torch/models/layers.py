@@ -137,9 +137,10 @@ def conv2d(conv: nn.Conv2d, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """``conv(x)`` as the JAX package's ``TorchConv(dtype=...)`` computes it:
     with a dtype, input, weight and bias are cast to it and the result comes out
     in it (bf16 for the tensor cores, f32 sums inside); None is the plain f32
-    conv. The parameters stay f32."""
+    conv (f64 for an f64 input, in a model made f64 by ``.double()``). The
+    parameters stay f32."""
     if dtype is None or dtype == torch.float32:
-        return conv(x.float())
+        return conv(x if x.dtype == torch.float64 else x.float())
     bias = None if conv.bias is None else conv.bias.to(dtype)
     return nn.functional.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride,
                                 conv.padding, conv.dilation, conv.groups)

@@ -43,13 +43,15 @@ from .layers import conv2d, init_weights, lecun_normal_init
 
 
 class FrozenBatchNorm(nn.BatchNorm2d):
-    """BatchNorm with frozen running statistics: inference mode always, f32 out.
-    ``weight`` / ``bias`` are parameters, the statistics buffers; eps 1e-5."""
+    """BatchNorm with frozen running statistics: inference mode always, f32 out
+    (f64 for an f64 input). ``weight`` / ``bias`` are parameters, the statistics
+    buffers; eps 1e-5."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         inv = torch.rsqrt(self.running_var + self.eps)
         shape = (-1, 1, 1)
-        return ((x.float() - self.running_mean.view(shape)) * inv.view(shape)
+        x = x if x.dtype == torch.float64 else x.float()
+        return ((x - self.running_mean.view(shape)) * inv.view(shape)
                 * self.weight.view(shape) + self.bias.view(shape))
 
 

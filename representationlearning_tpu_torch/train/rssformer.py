@@ -30,6 +30,8 @@ from .._device import resolve_device
 from ..infer.tta import tta
 from ..losses.cgfl import segmentation_loss_aux
 from ..metrics.seg import SegMetricAccumulator
+from ..models.baselines import ZooModel
+from ..models.rssformer import HRNetFusion
 from .optim import make_sgd, poly_schedule
 from .state import TrainState
 
@@ -55,10 +57,18 @@ def create_rssformer_state(model, cfg: RSSFormerTrainConfig) -> TrainState:
 
 
 def rssformer_losses(model, batch, generator: torch.Generator | None = None) -> dict:
-    """The training forward of ``model`` (an ``HRNetFusion``, in the mode it is
-    in; ``generator`` draws the HRFormer backbone's drop-path masks) and its CGFL
-    loss dict: ``segmentation_loss_aux`` with the model's ``loss_config`` (None:
-    {"ce": {}}) and ``ignore_index``."""
+    """The training forward of ``model``, in the mode it is in, and its loss
+    dict. An ``HRNetFusion`` (``generator`` draws the HRFormer backbone's
+    drop-path masks) gives its logits and aux logits to ``segmentation_loss_aux``
+    with the model's ``loss_config`` (None: {"ce": {}}) and ``ignore_index``; a
+    baseline-zoo model (``models/{baselines,smp_zoo}.py``) returns its own loss
+    dict from ``model(image, mask, generator)`` (``generator`` draws the dropout
+    masks of ``PSPNet`` and ``FCN8s``). Any other model raises a TypeError."""
+    if isinstance(model, ZooModel):
+        return model(batch["image"], batch["mask"], generator)
+    if not isinstance(model, HRNetFusion):
+        raise TypeError(f"the RSSFormer trainer takes an HRNetFusion or a baseline-zoo "
+                        f"model, not {type(model).__name__}")
     logit, aux_logits = model(batch["image"], generator)
     return segmentation_loss_aux(logit, batch["mask"], aux_logits,
                                  model.loss_config or {"ce": {}}, model.ignore_index)
@@ -71,11 +81,13 @@ def make_rssformer_train_step(model, cfg: RSSFormerTrainConfig,
     losses and their sum, backward, one update. ``state`` is a ``TrainState``
     over ``model`` (``create_rssformer_state``); it is updated in place and
     returned. The batch is moved to ``device``, the card unless the caller
-    names another (it raises where there is none). ``generator`` (a CPU
-    ``torch.Generator``; None is the global one) draws the drop-path masks of an
-    HRFormer backbone (``hrt_*``); the HRNetV2 stack draws nothing (its dropout
-    and drop path are 0). metrics holds the losses and ``total``, detached. The
-    profiler sees forward, backward and optimizer."""
+    names another (it raises where there is none). ``model`` is an
+    ``HRNetFusion`` or a baseline-zoo model (``rssformer_losses``).
+    ``generator`` (a CPU ``torch.Generator``; None is the global one) draws the
+    drop-path masks of an HRFormer backbone (``hrt_*``) and the zoo's dropout
+    masks; the HRNetV2 stack draws nothing (its dropout and drop path are 0).
+    metrics holds the losses and ``total``, detached. The profiler sees
+    forward, backward and optimizer."""
     device = resolve_device(device)
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None):

@@ -39,6 +39,15 @@ from representationlearning_tpu_torch.models.wavecam import ClassPredictorWaveca
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _files_not_kept(tmp_path):
+    """The checkpoints a test writes (up to 0.7 GB) go when it ends."""
+    yield
+    for f in tmp_path.iterdir():
+        if f.is_file():
+            f.unlink()
+
+
 def _g():
     return torch.Generator().manual_seed(3)
 

@@ -100,17 +100,16 @@ ZOO = {"UNetPP", "LinkNet", "DeepLabV3", "DeepLabV3Plus", "MANet", "PAN", "trans
 
 
 def test_models_registered_under_jax_names():
-    """Every model of the JAX registry but the baseline zoo's fourteen, which are
-    not ported yet, under its JAX name."""
+    """Every model of the JAX registry, the baseline zoo's fourteen included,
+    under its JAX name."""
     import importlib
 
     for pkg in ("representationlearning_tpu", "representationlearning_tpu_torch"):
-        for m in ("dcl", "rssformer", "rml", "wavecam", "irn", "tscd", "asff", "resnet"):
+        for m in ("dcl", "rssformer", "rml", "wavecam", "irn", "tscd", "asff", "resnet",
+                  "smp_zoo", "baselines"):
             importlib.import_module(f"{pkg}.models.{m}")
-    for m in ("smp_zoo", "baselines"):
-        importlib.import_module(f"representationlearning_tpu.models.{m}")
     assert len(JR.MODELS.keys()) == 27 and ZOO <= set(JR.MODELS.keys())
-    assert set(TR.MODELS.keys()) == set(JR.MODELS.keys()) - ZOO
+    assert set(TR.MODELS.keys()) == set(JR.MODELS.keys())
     from representationlearning_tpu_torch.models.asff import HRNetFusion2, RsNetFusion
     from representationlearning_tpu_torch.models.rssformer import HRNetFusion
     from representationlearning_tpu_torch.models.tscd import TSCD, WeTrBaseline
@@ -118,6 +117,9 @@ def test_models_registered_under_jax_names():
     assert [TR.MODELS.get(n) for n in ("TSCD", "WeTrBaseline", "RSSFormer", "rsNetFusion",
                                        "HRNetFusion2")] == [TSCD, WeTrBaseline, HRNetFusion,
                                                             RsNetFusion, HRNetFusion2]
+    # each zoo model in the module of the same name as its JAX counterpart's
+    assert {n: TR.MODELS.get(n).__module__.rsplit(".", 1)[1] for n in ZOO} == {
+        n: JR.MODELS.get(n).__module__.rsplit(".", 1)[1] for n in ZOO}
 
 
 def test_logger_matches_jax(tmp_path):

@@ -37,7 +37,8 @@ def test_every_module_imports_without_jax():
         "data.coco", "data.prefetch", "convert.coco2voc", "utils.events", "utils.visualize",
         "cli.train_scd", "cli.train_rml", "data.loveda", "cli.rssformer", "models.wavecam",
         "wsss.wavecam_pipeline", "cli.run_wavecam", "models.hrt", "models.asff",
-        "cli.convert_checkpoint")} <= set(mods)
+        "cli.convert_checkpoint", "models.baselines", "models.smp_zoo", "utils.affine",
+        "utils.profiling")} <= set(mods)
     # nor Pillow or OpenCV at load: the card's machine has neither
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
