@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card.
 
-Drives the port's thirteen paths and checks them. The first is TSCD / MiT-B1
+Drives the port's fourteen paths and checks them. The first is TSCD / MiT-B1
 segmentation inference at 512 x 512, batch 8, bf16 compute and a bf16 residual
 stream, with every encoder block on kernel K1
 (``representationlearning_tpu_torch/ops/mit_block.py``). The second is the SCD
@@ -50,8 +50,11 @@ RSSFormer command line at ``model.hrnet_type=hrt_small``, with ``WeTrBaseline`` 
 ASFF variants (``models/asff.py``) and ``cli/convert_checkpoint.py``. The thirteenth is the
 RSSFormer baseline zoo (``models/baselines.py``, ``models/smp_zoo.py``), which has no
 hand-written kernel: each of its fourteen models trained and evaluated through
-``train/rssformer.py``. The headline forward also runs with ``pre_sr=True``, the PRE_SR
-variant of K1 (K1').
+``train/rssformer.py``. The fourteenth is several ranks (``parallel/``): the SCD, RML and
+RSSFormer command lines data parallel over two gloo ranks that share the one card (NCCL
+refuses two ranks on one GPU), each against one rank on the global batch, K1, K2 and K3 in
+each rank's SCD and RML steps, and the row-sharded sliding window on K5 and K6. The headline
+forward also runs with ``pre_sr=True``, the PRE_SR variant of K1 (K1').
 
 1. environment: torch, CUDA, nvcc, the card and its power limit;
 2. build: compiles the CUDA sources under ``representationlearning_tpu_torch/csrc``,
@@ -238,6 +241,23 @@ variant of K1 (K1').
    ``utils/affine.py::apply_affine`` on the card against the CPU within 1e-5,
    ``utils/profiling.py::trace`` around one AnyUNet step (a trace file with kernel events),
    ``device_memory_stats`` naming the card;
+7k. multi-device: two gloo ranks spawned on the card (``parallel/launch.py``; they load the
+   kernels the build made): (a) ``psum_tree``, ``allreduce_grads``, ``sync_batch_stats``,
+   ``halo_exchange_1d`` and ``all_gather`` on CUDA tensors against the values they must give;
+   (b) ``cli.train_scd`` on configs/scd_voc.yaml (MiT-B1, 320² crops on the card, DP_SCD_STEPS
+   steps, the warm-up to DP_CAM_ITERS, a checkpoint and a validation every DP_SCD_EVAL) at 2 x
+   ``samples_per_gpu`` 2, then as one rank at 4 in this process: K1 504, K2 1, K3 10 launches a
+   step a rank, each new kernel geometry held against its plain version at its first call, the
+   ranks' global losses against one rank's (cls within DP_CLS_RTOL on the warm-up steps, all
+   within DP_CAM_LOSS_RTOL), the first step's refined labels on at least DP_LABEL_SHARE of the
+   pixels, the split validation's mIoUs within DP_MIOU_TOL, the weights after the warm-up; (c)
+   ``cli.train_rml`` on configs/rml_voc.yaml the same way; (d) ``cli.rssformer train`` on
+   configs/rssformer_loveda.yaml, 8 x 512² as 2 x 4: the first step's losses and each parameter
+   group's gradient norm against one rank, no kernel; (e) ``sharded_sliding_window_predict`` of
+   the calmed ``HRNetFusion("hrnetv2_w32", bf16, fused_mlp, fused_attn)`` over a 1024² tile,
+   window 512, stride 256, against ``sliding_window_predict`` on the same padding (K5 and K6
+   launched on each rank); each step alone timed (two ranks sharing a card measure
+   correctness, not scaling); then a one-rank NCCL group: an all-reduce and a mesh over it;
 8. timing: times of each kernel (K4, K5 and K6 and their library calls by
    CUDA-graph replay, K2 and K3 by CUDA events), of the whole forward, of the
    whole pseudo-label call, of the train step and of the RML train step, kernel path
@@ -258,7 +278,8 @@ variant of K1 (K1').
 Run from the root of the repository: ``python3 chip_smoke.py [--seed N]``. Every
 phase prints its results; the line before the last is a JSON object with one
 entry per kernel (K1's five, K2, K3, K4 forward and backward, K5's two, K6 and the
-K1' block), and the last line is ``{"ok": true, ...}``. Without a CUDA
+K1' block; K1-K3 with their launches in a rank's data-parallel SCD step, K5 and K6 with
+theirs in a rank's part of the sharded sliding window), and the last line is ``{"ok": true, ...}``. Without a CUDA
 card, or without the package beside the script, it exits non-zero and prints no
 result.
 """
@@ -467,6 +488,46 @@ ZOO_STATS_TOL = 1e-4    # running statistics, of max(their largest entry, 1e-3)
 ZOO_F32_K = 16.0        # where f32 misses: the card's worst f32 error against the CPU's f64
 ZOO_F32_FLOOR = 1e-5    # run, at most this many times the CPU's own worst f32 error (or floor)
 ZOO_AFFINE_TOL = 1e-5   # apply_affine, card against CPU
+
+# Multi-device (phase 7k): DP_WORLD gloo ranks share the one card (NCCL refuses two ranks
+# on one GPU, so their times measure correctness, not scaling), each against one rank on the
+# global batch in this process. (b) cli/train_scd.py on configs/scd_voc.yaml as it is, with
+# dataset.device_augment=true on WSSS_N synthetic images, at DP_WORLD x samples_per_gpu 2
+# against 1 x 4; cut: DP_SCD_STEPS steps, the warm-up to DP_CAM_ITERS, a checkpoint and a
+# validation every DP_SCD_EVAL. (c) cli/train_rml.py on configs/rml_voc.yaml the same way,
+# DP_RML_STEPS steps. (d) cli/rssformer.py train on configs/rssformer_loveda.yaml (8 x 512² as
+# DP_WORLD x 4), DP_RSS_STEPS steps. (e) sharded_sliding_window_predict over a LoveDA-sized
+# DP_SLIDE_SIDE² tile, window DP_SLIDE_WINDOW, stride DP_SLIDE_STRIDE, on the RSSFormer
+# predict's model, calmed, against sliding_window_predict on the same padding.
+DP_WORLD = 2
+DP_SCD_STEPS, DP_SCD_EVAL, DP_CAM_ITERS, DP_RML_STEPS, DP_RSS_STEPS = 4, 2, 1, 3, 3
+DP_TIMED = 5   # the step alone, CUDA events, after the run
+DP_SLIDE_SIDE, DP_SLIDE_WINDOW, DP_SLIDE_STRIDE = 1024, 512, 256
+DP_RANK_TIMEOUT = 400.0   # each collective of the ranks' group, and their results
+# The classification loss comes from the f32 model alone: before any update through the
+# CAM-derived losses (the first DP_CAM_ITERS + 2 steps) n ranks and one differ by f32
+# summation order only (cuDNN's algorithms for batch 2 and 4, the all-reduces).
+DP_CLS_RTOL = 1e-4
+# The other losses read labels made from the bf16 twins' CAMs, whose K1 plans and cuDNN
+# algorithms may change with the batch: labels agree on at least DP_LABEL_SHARE of the
+# pixels (a label within a bf16 spacing of a threshold may flip), and a mean over pixels
+# moves by at most the share that flipped (1.4e-3) times twice the largest per-pixel loss
+# over the mean (below 10 at random weights), so within DP_CAM_LOSS_RTOL.
+DP_LABEL_SHARE = 0.9986
+DP_CAM_LOSS_RTOL = 3e-2
+# The weights after the warm-up's cls-only steps: as tests/test_torch_dp_steps.py, f32
+# rounding for most tensors, and AdamW's sign-sized first updates where a gradient is noise.
+DP_WEIGHT_MEDIAN_TOL = 1e-6
+DP_MIOU_TOL = 1e-2   # validation mIoUs (the eval twin in bf16 on weights that differ in f32)
+# RSSFormer at random weights is chaotic (tests/test_torch_train_rssformer.py's rules): the
+# first step's losses within DP_RSS_LOSS_RTOL and each parameter group's gradient norm
+# (summed over the ranks, before the clip) within DP_RSS_GROUP_RTOL of one rank's; after an
+# update that differs in f32 rounding the trajectories part, so the later steps are held
+# only to be finite and the same on every rank.
+DP_RSS_LOSS_RTOL, DP_RSS_GROUP_RTOL = 2e-4, 1e-2
+# The sharded sliding window against one device: bf16 probabilities of windows run in other
+# batches (6 and 9 against 15), and index_add_'s atomics add in no fixed order (7c's bound).
+DP_SLIDE_TOL = 3e-2
 
 
 def cam_stages(side: int) -> list[tuple]:
@@ -960,6 +1021,105 @@ def read_palette_png(torch, path) -> "torch.Tensor":
     return rows.view(h, w + 1)[:, 1:]
 
 
+def dp_wsss_argv(yaml: str, work_key: str, wd: Path, per_rank: int, steps: int) -> list[str]:
+    """Phase 7k's WSSS command line: the yaml as it is, on-card augmentation of WSSS_N
+    synthetic images, the iteration counts cut, ``per_rank`` samples a rank."""
+    return ["--config", str(ROOT / "configs" / yaml), "dataset.device_augment=true",
+            f"dataset.synthetic_n={WSSS_N}", "train.log_iters=1", f"train.cam_iters={DP_CAM_ITERS}",
+            f"train.max_iters={steps}", f"train.eval_iters={DP_SCD_EVAL}",
+            f"train.samples_per_gpu={per_rank}", f"{work_key}={wd}"]
+
+
+def dp_rss_argv(wd: Path) -> list[str]:
+    """Phase 7k's RSSFormer command line: configs/rssformer_loveda.yaml's global batch of
+    8 x 512² with the LoveDA chain on the card, DP_RSS_STEPS steps."""
+    return ["train", "--config", str(ROOT / "configs" / "rssformer_loveda.yaml"),
+            "data.device_augment=true", "train.log_interval_step=1",
+            f"train.eval_interval={DP_RSS_STEPS}", f"train.num_iters={DP_RSS_STEPS}",
+            f"work_dir={wd}"]
+
+
+def rss_group(name: str) -> str:
+    """An HRNetFusion parameter's group: stem, layer1, each transition and stage, neck,
+    head, headaux (tests/test_torch_train_rssformer.py's)."""
+    import re
+
+    part = name.split(".")
+    if part[0] != "backbone":
+        return part[0]
+    return part[2] if re.fullmatch(r"layer1|stage\d|transition\d", part[2]) else "stem"
+
+
+def _union_us(spans) -> float:
+    """µs covered by the union of (start, end) spans."""
+    total, hi = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > hi:
+            total += b - max(a, hi)
+            hi = b
+    return total
+
+
+def step_breakdown(torch, fn) -> dict:
+    """Where one call of ``fn`` (a train step) spends its time, from a
+    ``torch.profiler`` trace (CPU and CUDA): its wall ms under the profiler; the
+    device's busy ms (the union of its kernels, copies and fills); the gloo
+    all-reduces (``c10d::allreduce_`` calls, and the union of the ``gloo:all_reduce``
+    spans in ms: the host waits on each, a CUDA tensor's copy to the host first
+    waiting for the kernels before it); and the ms of the step's forward, backward
+    and optimizer ranges."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from representationlearning_tpu_torch.bench import device_busy
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    busy_us, n_dev = device_busy(events)
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == "gloo:all_reduce" and "dur" in e]
+    ranges = {name: sum(e["dur"] for e in events if e.get("cat") == "user_annotation"
+                        and e.get("name") == name) / 1e3
+              for name in ("forward", "backward", "optimizer")}
+    return {"wall_ms": wall, "device_busy_ms": busy_us / 1e3, "device_events": n_dev,
+            "allreduces": sum(e.get("name") == "c10d::allreduce_" for e in events),
+            "allreduce_ms": _union_us(spans) / 1e3, **{f"{k}_ms": v for k, v in ranges.items()}}
+
+
+def dp_rank(rank: int, world: int, seed: int, tmp: str) -> dict:
+    """Phase 7k on one of the gloo ranks that share the card (the target of
+    ``parallel/launch.py::spawn_ranks``): what it printed, its failed checks and its
+    results. The kernels were built by the parent; the rank loads them."""
+    import torch
+
+    from representationlearning_tpu_torch.ops import affinity as ta
+    from representationlearning_tpu_torch.ops import attention as tf
+    from representationlearning_tpu_torch.ops import isa_attention as ti
+    from representationlearning_tpu_torch.ops import mit_block as tmb
+    from representationlearning_tpu_torch.ops import mlp_dwbn as tm
+    from representationlearning_tpu_torch.ops import varm as tv
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ph = Phases(torch, seed)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            out = ph.dp_rank_work(rank, world, (tmb, ta, tv, tf, tm, ti), Path(tmp))
+        except Exception:  # noqa: BLE001 -- reported to the parent as a failed check
+            traceback.print_exc(file=buf)
+            ph.failures.append("raised")
+            out = {}
+    return {**out, "log": buf.getvalue(), "failures": ph.failures}
+
+
 class Phases:
     def __init__(self, torch, seed: int):
         self.torch = torch
@@ -986,6 +1146,9 @@ class Phases:
         self.launches_rss_cli_step: dict[str, int] = {}
         self.launches_rss_cli: dict[str, dict[str, int]] = {}
         self.launches_wetr: dict[str, int] = {}   # K1's, in one WeTrBaseline forward
+        # phase 7k: every kernel's in a data-parallel SCD step of one rank, and K5 / K6's in
+        # one rank's part of the sharded sliding window
+        self.launches_dp: dict[str, dict[str, int]] = {}
         self.plain_runs = 0   # phase 7f's comparisons with a plain version so far
         self.holding = False  # phase 7f: compare each new geometry's call with its plain version
         self.refine_inputs = None
@@ -4266,6 +4429,347 @@ class Phases:
         del model, state, step
 
     # ------------------------------------------------------------- phase 7b (K5, K6, K1')
+    # ------------------------------------------------------------- phase 7k (multi-device)
+    def _dp_collectives(self, rank: int, world: int) -> None:
+        """(a) The collectives on CUDA tensors over the ranks' gloo group, against the
+        values they must give."""
+        torch = self.torch
+        import torch.distributed as dist
+
+        from representationlearning_tpu_torch.parallel import collectives as C
+        from representationlearning_tpu_torch.parallel import mesh as M
+
+        g, dev = dist.group.WORLD, self.dev
+        tot = world * (world + 1) // 2
+        base = torch.arange(1.0, 7.0, device=dev)
+        tree = C.psum_tree({"w": (rank + 1) * base.view(2, 3),
+                            "b": [(rank + 1) * base[:2].double()]}, g)
+        p = torch.nn.Parameter(torch.zeros(3, device=dev))
+        p.grad = torch.full((3,), rank + 1.0, device=dev)
+        with C.data_parallel(M.make_mesh(world, 1)):
+            C.allreduce_grads([p])
+        self.check(tree["w"].is_cuda and torch.equal(tree["w"], tot * base.view(2, 3))
+                   and torch.equal(tree["b"][0], tot * base[:2].double())
+                   and torch.equal(p.grad, torch.full_like(p.grad, float(tot))),
+                   f"(a) psum_tree (an f32 and an f64 buffer) and allreduce_grads on the card: "
+                   f"the sum over {world} ranks")
+        x = (3.0 * torch.randn((8 * world, 5), generator=torch.Generator().manual_seed(self.seed))
+             + 1.5).to(dev)
+        part = x.view(world, 8, 5)[rank]
+        m, v = C.sync_batch_stats(part.mean(0), part.var(0, unbiased=False), g)
+        err = max(float((m - x.mean(0)).abs().max()),
+                  float((v - x.var(0, unbiased=False)).abs().max()))
+        self.check(err <= 1e-5, f"(a) sync_batch_stats on the card: the global mean and variance "
+                                f"within 1e-5 ({err:.2e})")
+        slab = torch.arange(4.0 * world, device=dev).view(world, 4, 1)[rank]
+        ext = C.halo_exchange_1d(slab, 1, 0, g)[:, 0].tolist()
+        want = ([4.0 * rank - 1 if rank else 0.0] + slab[:, 0].tolist()
+                + [4.0 * rank + 4 if rank < world - 1 else 0.0])
+        got = torch.stack(C.all_gather(torch.full((2,), float(rank), device=dev), g))
+        self.check(ext == want and got.is_cuda
+                   and torch.equal(got, torch.arange(world, device=dev).float()[:, None].expand(-1, 2)),
+                   f"(a) halo_exchange_1d {ext} (zeros at the edge ranks) and all_gather on the "
+                   f"card, through host memory under {dist.get_backend(g)}")
+
+    def _dp_cli(self, module, factory: str, argv: list[str], mods, capture=None,
+                groups: bool = False) -> dict:
+        """``module.main(argv)`` through ``_cli_run`` (launches and losses a step,
+        validations); the first step's refined labels where ``capture`` names the
+        losses function that returns them; with ``groups`` the gradient norm of each
+        RSSFormer parameter group at the first update (summed over the ranks, before
+        the clip); then the step alone on its last batch, by CUDA events."""
+        torch = self.torch
+        from representationlearning_tpu_torch.train.state import TrainState
+
+        labels, norms = [], []
+        patches = []
+        if groups:
+            apply = TrainState.apply_gradients
+
+            def recording(state):
+                if not norms:
+                    sq = {}
+                    for n, q in state.model.named_parameters():
+                        sq[rss_group(n)] = (sq.get(rss_group(n), 0.0)
+                                            + q.grad.double().square().sum().item())
+                    norms.append({k: v ** 0.5 for k, v in sq.items()})
+                return apply(state)
+            patches.append((TrainState, "apply_gradients", recording))
+        if capture is not None:
+            owner, name = capture
+            losses_fn = getattr(owner, name)
+
+            def rec_losses(*a, **kw):
+                out = losses_fn(*a, **kw)
+                if not labels:
+                    labels.append(out[1]["refined_label"].cpu())
+                return out
+            patches.append((owner, name, rec_losses))
+        saved = [(o, n, getattr(o, n)) for o, n, _ in patches]
+        for o, n, f in patches:
+            setattr(o, n, f)
+        try:
+            rec = self._cli_run(module, argv, mods, factory)
+        finally:
+            for o, n, f in saved:
+                setattr(o, n, f)
+        step, state, batch = rec.last
+        ms = self.event_median_ms(lambda: step(state, batch, torch.Generator().manual_seed(0)),
+                                  DP_TIMED)
+        trace = step_breakdown(torch, lambda: step(state, batch, torch.Generator().manual_seed(0)))
+        return {"steps": [{"losses": st["losses"], "launches": st["launches"]} for st in rec.steps],
+                "vals": [{k: v["scores"][k]["miou"] for k in ("seg", "cam", "ref")}
+                         for v in rec.vals],
+                "labels": labels[0] if labels else None, "norms": norms[0] if norms else None,
+                "ms": ms, "trace": trace, "step": rec.state.step}
+
+    def _dp_sliding(self, mods, world: int) -> dict:
+        """(e) The RSSFormer predict's model, calmed, over a DP_SLIDE_SIDE² tile: sharded
+        over ``world`` ranks' model axis, or (world 1) sliding_window_predict on the same
+        padding. The output (on the host), its seconds and K5 / K6's launches."""
+        torch = self.torch
+        from representationlearning_tpu_torch.infer import sliding as S
+        from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+        from representationlearning_tpu_torch.parallel import mesh as M
+
+        tm, ti = mods[4], mods[5]
+        model = HRNetFusion("hrnetv2_w32", RSS_CLASSES, dtype=torch.bfloat16, fused_mlp=True,
+                            fused_attn=True, generator=torch.Generator().manual_seed(self.seed),
+                            device=self.dev)
+        calm(torch, model, torch.Generator().manual_seed(self.seed + 1))
+        model.eval()
+        image = torch.randn((3, DP_SLIDE_SIDE, DP_SLIDE_SIDE),
+                            generator=torch.Generator().manual_seed(self.seed + 2)).to(self.dev)
+        tm.reset_launches()
+        ti.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if world > 1:
+                out = S.sharded_sliding_window_predict(model, image, M.make_mesh(1, world),
+                                                       DP_SLIDE_WINDOW, DP_SLIDE_STRIDE, RSS_CLASSES)
+            else:
+                padded, (H, W) = S.pad_for_sliding(image, DP_SLIDE_WINDOW, DP_SLIDE_STRIDE,
+                                                   row_multiple=DP_WORLD)
+                out = S.sliding_window_predict(model, padded, DP_SLIDE_WINDOW, DP_SLIDE_STRIDE,
+                                               RSS_CLASSES)[:, :H, :W]
+        torch.cuda.synchronize()
+        return {"out": out.cpu(), "s": time.perf_counter() - t0,
+                "launches": {**tm.LAUNCHES, **ti.LAUNCHES}}
+
+    def dp_rank_work(self, rank: int, world: int, mods, tmp: Path) -> dict:
+        """One rank's part of phase 7k: (a) the collectives, (b) the SCD and (c) the RML
+        command lines, each kernel geometry held against its plain version at its first
+        call, (d) the RSSFormer command line, (e) the sharded sliding window."""
+        from representationlearning_tpu_torch.cli import rssformer as rc
+        from representationlearning_tpu_torch.cli import train_rml, train_scd
+        from representationlearning_tpu_torch.train import rml as tr_rml
+        from representationlearning_tpu_torch.train import scd as tr_scd
+
+        self._dp_collectives(rank, world)
+        held: dict = {}
+        out = {}
+        with self._held_to_plain(mods, held):
+            out["scd"] = self._dp_cli(train_scd, "make_scd_train_step",
+                                      dp_wsss_argv("scd_voc.yaml", "work_dir.dir", tmp / "scd2", 2,
+                                                   DP_SCD_STEPS), mods, (tr_scd, "scd_losses"))
+            out["rml"] = self._dp_cli(train_rml, "make_rml_train_step",
+                                      dp_wsss_argv("rml_voc.yaml", "work_dir", tmp / "rml2", 2,
+                                                   DP_RML_STEPS), mods, (tr_rml, "rml_losses"))
+        out["held"] = {k: (len(v), max(v.values(), default=0.0)) for k, v in held.items()}
+        out["rss"] = self._dp_cli(rc, "make_rssformer_train_step", dp_rss_argv(tmp / "rss2"), mods,
+                                  groups=True)
+        out["slide"] = self._dp_sliding(mods, world)
+        return out
+
+    def _dp_wsss_vs_one(self, what: str, two: list[dict], one: dict, wd2: Path, wd1: Path,
+                        lr_top: float) -> None:
+        """(b) / (c): each rank's launches a step, the global losses, the first step's
+        labels, the validations and the weights after the warm-up against one rank."""
+        torch = self.torch
+        k1 = tuple(PIECE_TOL)
+        for r, res in enumerate(two):
+            for i, st in enumerate(res["steps"]):
+                n = st["launches"]
+                self.check(sum(n[k] for k in k1) == 504 and n["affinity"] == 1
+                           and n["varm_propagate"] == 10
+                           and all(v == 0 for k, v in n.items()
+                                   if k not in k1 + ("affinity", "varm_propagate")),
+                           f"{what}, rank {r}, step {i + 1}: K1 {sum(n[k] for k in k1)} "
+                           f"({'/'.join(str(n[k]) for k in k1)}), K2 {n['affinity']}, "
+                           f"K3 {n['varm_propagate']}, nothing else")
+        self.check([st["launches"] for st in one["steps"]] == [st["launches"] for st in two[0]["steps"]],
+                   f"{what}: one rank on the global batch launched the same kernels a step")
+        for i, (st, want) in enumerate(zip(two[0]["steps"], one["steps"])):
+            got, want = st["losses"], want["losses"]
+            rel = {k: abs(got[k] - w) / max(abs(w), 1e-12) for k, w in want.items()}
+            cls_ok = i >= DP_CAM_ITERS + 2 or rel["cls"] <= DP_CLS_RTOL
+            self.check(all(r["steps"][i]["losses"] == got for r in two) and cls_ok
+                       and all(v <= DP_CAM_LOSS_RTOL for v in rel.values()),
+                       f"{what}, step {i + 1}: the ranks report the same global losses; against "
+                       f"one rank relative " + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+                       + f" (cls {DP_CLS_RTOL:g} to step {DP_CAM_ITERS + 2}, all {DP_CAM_LOSS_RTOL:g})")
+        labels = torch.cat([r["labels"] for r in two])
+        share = float((labels == one["labels"]).float().mean())
+        self.check(labels.shape == one["labels"].shape and share >= DP_LABEL_SHARE,
+                   f"{what}: the first step's refined labels of the ranks, joined, equal one "
+                   f"rank's on {100 * share:.3f}% of the pixels (at least {100 * DP_LABEL_SHARE:.2f}%)")
+        for v2, v1 in zip(two[0]["vals"], one["vals"]):
+            self.check(all(abs(v2[k] - v1[k]) <= DP_MIOU_TOL for k in v1)
+                       and all(r["vals"] == two[0]["vals"] for r in two),
+                       f"{what}, validation split over the ranks: mIoU "
+                       + ", ".join(f"{k} {v2[k]:.4f} / {v1[k]:.4f}" for k in v1)
+                       + f" (within {DP_MIOU_TOL})")
+        path = f"checkpoints/step_{DP_SCD_EVAL}/state.pt"
+        a = torch.load(wd2 / path, map_location="cpu", weights_only=True)["model"]
+        b = torch.load(wd1 / path, map_location="cpu", weights_only=True)["model"]
+        errs = sorted(float((a[n].float() - b[n].float()).abs().max()) for n in b
+                      if b[n].is_floating_point())
+        med, worst = errs[len(errs) // 2], errs[-1]
+        self.check(med <= DP_WEIGHT_MEDIAN_TOL and worst <= 2 * DP_SCD_EVAL * lr_top,
+                   f"{what}: the weights after {DP_SCD_EVAL} warm-up steps (rank 0's checkpoint "
+                   f"against one rank's): median tensor {med:.1e} (at most "
+                   f"{DP_WEIGHT_MEDIAN_TOL:g}), worst {worst:.1e} (AdamW's sign-sized first "
+                   f"steps where a gradient is noise: at most {2 * DP_SCD_EVAL * lr_top:.1e})")
+
+    def _dp_nccl(self) -> None:
+        """A one-rank NCCL group on the card: one all-reduce and the mesh over it."""
+        torch = self.torch
+        import torch.distributed as dist
+
+        from representationlearning_tpu_torch.parallel import collectives as C
+        from representationlearning_tpu_torch.parallel import mesh as M
+
+        with tempfile.TemporaryDirectory() as t:
+            dist.init_process_group("nccl", store=dist.FileStore(str(Path(t) / "store"), 1),
+                                    rank=0, world_size=1)
+            try:
+                x = torch.full((4,), 3.0, device=self.dev)
+                dist.all_reduce(x)
+                tree = C.psum_tree({"g": torch.ones(3, device=self.dev)}, dist.group.WORLD)
+                torch.cuda.synchronize()
+                mesh = M.make_mesh()
+                ok = (dist.get_backend() == "nccl" and torch.equal(x, torch.full_like(x, 3.0))
+                      and torch.equal(tree["g"], torch.ones(3, device=self.dev))
+                      and mesh.shape == {M.DATA_AXIS: 1, M.MODEL_AXIS: 1}
+                      and M.init_distributed() is True)
+            finally:
+                dist.destroy_process_group()
+        self.check(ok, "(a) a one-rank NCCL group on the card: all_reduce and psum_tree, "
+                       "make_mesh over it, init_distributed takes the group that exists")
+
+    def run_dp(self, mods, card: str) -> None:
+        """Phase 7k: DP_WORLD gloo ranks on the one card against one rank on the global
+        batch, and a one-rank NCCL group."""
+        torch = self.torch
+        from representationlearning_tpu_torch.cli import rssformer as rc
+        from representationlearning_tpu_torch.cli import train_rml, train_scd
+        from representationlearning_tpu_torch.parallel.launch import spawn_ranks
+        from representationlearning_tpu_torch.train import rml as tr_rml
+        from representationlearning_tpu_torch.train import scd as tr_scd
+
+        t_phase = time.perf_counter()
+        log(f"== multi-device: {DP_WORLD} gloo ranks sharing the one card (NCCL refuses two ranks "
+            f"on one GPU: their times measure correctness, not scaling), each against one rank "
+            f"on the global batch; the SCD and RML command lines (configs/scd_voc.yaml, "
+            f"rml_voc.yaml: MiT-B1, 320² crops, {DP_WORLD} x 2 against 1 x 4), the RSSFormer "
+            f"command line (configs/rssformer_loveda.yaml: hrnetv2_w32, 8 x 512² as "
+            f"{DP_WORLD} x 4), the sharded sliding window over a {DP_SLIDE_SIDE}² tile; {card}")
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = Path(tmp)
+            t0 = time.perf_counter()
+            two = spawn_ranks(dp_rank, DP_WORLD, (self.seed, str(tmp)), timeout=DP_RANK_TIMEOUT)
+            log(f"  the {DP_WORLD} ranks: {time.perf_counter() - t0:.1f} s (start-up included)")
+            for r, res in enumerate(two):
+                log(f"  -- rank {r}:")
+                log("\n".join("  " + line for line in res["log"].rstrip().splitlines()))
+                self.failures += [f"7k rank {r}: {f}" for f in res["failures"]]
+            if any(res["failures"] for res in two):
+                return
+            for r, res in enumerate(two):
+                for kernel, (n, worst) in res["held"].items():
+                    self.check(n > 0 and worst <= 1.0,
+                               f"rank {r}: {kernel} held against its plain version at {n} "
+                               f"geometries, largest error {worst:.3f} of its tolerance")
+            held: dict = {}
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf), self._held_to_plain(mods, held):
+                one_scd = self._dp_cli(train_scd, "make_scd_train_step",
+                                       dp_wsss_argv("scd_voc.yaml", "work_dir.dir", tmp / "scd1", 4,
+                                                    DP_SCD_STEPS), mods, (tr_scd, "scd_losses"))
+                one_rml = self._dp_cli(train_rml, "make_rml_train_step",
+                                       dp_wsss_argv("rml_voc.yaml", "work_dir", tmp / "rml1", 4,
+                                                    DP_RML_STEPS), mods, (tr_rml, "rml_losses"))
+            with contextlib.redirect_stdout(buf):
+                one_rss = self._dp_cli(rc, "make_rssformer_train_step", dp_rss_argv(tmp / "rss1"),
+                                       mods, groups=True)
+            one_slide = self._dp_sliding(mods, 1)
+            for kernel, seen in held.items():
+                worst = max(seen.values(), default=0.0)
+                self.check(bool(seen) and worst <= 1.0,
+                           f"one rank: {kernel} held against its plain version at {len(seen)} "
+                           f"geometries, largest error {worst:.3f} of its tolerance")
+            self._dp_wsss_vs_one("(b) SCD", [r["scd"] for r in two], one_scd, tmp / "scd2",
+                                 tmp / "scd1", 10 * 6e-5)
+            self._dp_wsss_vs_one("(c) RML", [r["rml"] for r in two], one_rml, tmp / "rml2",
+                                 tmp / "rml1", 10 * 6e-5)
+            # (d) RSSFormer
+            got, want = [r["rss"] for r in two], one_rss
+            for i, want_st in enumerate(want["steps"]):
+                mine = got[0]["steps"][i]["losses"]
+                rel = {k: abs(mine[k] - w) / max(abs(w), 1e-12)
+                       for k, w in want_st["losses"].items()}
+                self.check(all(g["steps"][i]["losses"] == mine for g in got)
+                           and all(map(math.isfinite, mine.values()))
+                           and (i > 0 or all(v <= DP_RSS_LOSS_RTOL for v in rel.values()))
+                           and not any(v for g in got for v in g["steps"][i]["launches"].values()),
+                           f"(d) RSSFormer, step {i + 1}: the ranks report the same finite global "
+                           f"losses; against one rank relative "
+                           + ", ".join(f"{k} {v:.1e}" for k, v in rel.items())
+                           + (f" (at most {DP_RSS_LOSS_RTOL:g})" if i == 0 else " (not held)")
+                           + "; no hand-written kernel")
+            gn, wn = got[0]["norms"], want["norms"]
+            self.check(set(gn) == set(wn) and all(abs(gn[k] - w) <= DP_RSS_GROUP_RTOL * w + 1e-12
+                                                  for k, w in wn.items()),
+                       "(d) RSSFormer, the first update's gradient norm a group (summed over the "
+                       "ranks, before the clip) against one rank's: "
+                       + ", ".join(f"{k} {gn.get(k, float('nan')):.4g} / {w:.4g}"
+                                   for k, w in wn.items()) + f" (within {DP_RSS_GROUP_RTOL:g})")
+            # (e) the sliding window
+            err = max(float((r["slide"]["out"] - one_slide["out"]).abs().max()) for r in two)
+            launched = [{k: r["slide"]["launches"].get(k, 0) for k in ("mlp_fc1", "mlp_taps", "isa_core")}
+                        for r in two]
+            self.check(all(r["slide"]["out"].shape == (RSS_CLASSES, DP_SLIDE_SIDE, DP_SLIDE_SIDE)
+                           for r in two) and err <= DP_SLIDE_TOL
+                       and all(torch.equal(r["slide"]["out"], two[0]["slide"]["out"]) for r in two)
+                       and all(min(n.values()) > 0 for n in launched),
+                       f"(e) sharded_sliding_window_predict over {DP_WORLD} ranks, "
+                       f"{DP_SLIDE_SIDE}² tile, window {DP_SLIDE_WINDOW}, stride {DP_SLIDE_STRIDE}: "
+                       f"every rank gathers the same map, within {err:.2e} of one device on the "
+                       f"same padding (at most {DP_SLIDE_TOL:g}); K5 / K6 launches a rank {launched}")
+            self.launches_dp = {"scd_step": two[0]["scd"]["steps"][0]["launches"],
+                                "sliding": launched[0]}
+            figures = {"card": card, "scd_ms_a_step": [r["scd"]["ms"] for r in two],
+                       "scd_ms_one_rank": one_scd["ms"],
+                       "rml_ms_a_step": [r["rml"]["ms"] for r in two], "rml_ms_one_rank": one_rml["ms"],
+                       "rss_ms_a_step": [r["rss"]["ms"] for r in two], "rss_ms_one_rank": one_rss["ms"],
+                       "sliding_s": [r["slide"]["s"] for r in two], "sliding_s_one": one_slide["s"]}
+            log(f"  phase 7k figures as JSON ({DP_WORLD} ranks sharing one card: correctness, not "
+                f"scaling; the step alone, CUDA events, median of {DP_TIMED}): {json.dumps(figures)}")
+            traces = {f"{what}_rank{r}": res[what]["trace"] for r, res in enumerate(two)
+                      for what in ("scd", "rml", "rss")}
+            traces.update(scd_one_rank=one_scd["trace"], rml_one_rank=one_rml["trace"],
+                          rss_one_rank=one_rss["trace"])
+            for name, t in traces.items():
+                self.check(t["device_events"] > 0, f"{name}: the step's trace holds "
+                                                   f"{t['device_events']} device events")
+            log(f"  phase 7k step traces as JSON (one step each under torch.profiler: wall, device "
+                f"busy, gloo all-reduces and their host spans, the step's ranges; ms): "
+                f"{json.dumps(traces)}")
+        self._dp_nccl()
+        log(f"  phase 7k: {time.perf_counter() - t_phase:.1f} s")
+
     def _err_check(self, what: str, got, want, tol: float, far_share: float | None = None) -> float:
         """max |got - want| against tol * max(1, max |want|); with `far_share`,
         also the share of entries beyond K5_NEAR of that magnitude."""
@@ -5094,6 +5598,7 @@ def main() -> int:
                      ("HRFormer, ASFF, converter",
                       lambda: ph.run_hrt((tmb, ta, tv, tf, tm, ti), card)),
                      ("baseline zoo", lambda: ph.run_zoo((tmb, ta, tv, tf, tm, ti), card)),
+                     ("multi-device", lambda: ph.run_dp((tmb, ta, tv, tf, tm, ti), card)),
                      ("K1' in the model", lambda: ph.run_presr(tmb, state["model"],
                                                               state["blocks"], state["x"])),
                      ("timing", timing),
@@ -5124,6 +5629,10 @@ def main() -> int:
                 if ph.launches_rss_cli.get(cmd, {}).get(k, 0) == 0]
     missing += [f"{k} (WeTrBaseline forward)" for k in PIECE_TOL
                 if ph.launches_wetr.get(k, 0) == 0]
+    missing += [f"{k} (data-parallel SCD step, a rank)" for k in RML_KERNELS
+                if ph.launches_dp.get("scd_step", {}).get(k, 0) == 0]
+    missing += [f"{k} (sharded sliding window, a rank)" for k in ("mlp_fc1", "mlp_taps", "isa_core")
+                if ph.launches_dp.get("sliding", {}).get(k, 0) == 0]
     if missing:
         ph.failures.append(f"kernels never launched on their path: {missing}")
     leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
@@ -5151,6 +5660,10 @@ def main() -> int:
             entry["launches_rml_train_step"] = ph.launches_rml[k]
         if k in PIECE_TOL:
             entry["launches_wetr_baseline_forward"] = ph.launches_wetr[k]
+        if k in RML_KERNELS:
+            entry["launches_dp_scd_step_a_rank"] = ph.launches_dp["scd_step"][k]
+        if k in ("mlp_fc1", "mlp_taps", "isa_core"):
+            entry["launches_dp_sliding_window_a_rank"] = ph.launches_dp["sliding"][k]
         if k == "isa_core":
             entry["launches_rssformer_train_step"] = ph.launches_rss_train[k]
         if k in ("mlp_fc1", "mlp_taps"):

@@ -9,9 +9,18 @@ Usage:
     python -m representationlearning_tpu_torch.cli.rssformer predict --config ... --ckpt_dir ... --out_dir viz
 
 The commands, config, overrides, loop, logs and checkpoint layout are the JAX
-package's. It runs on one device, the card unless ``main(..., device=)`` names
-another (the tests pass "cpu"). The model is built from ``cfg.seed`` and trained
-in f32; step ``it`` draws from ``cfg.seed + it`` (the drop path of an HRFormer
+package's. A rank runs on the card unless ``main(..., device=)`` names another
+device (the tests pass "cpu"). With several ranks (``python -m
+torch.distributed.run --nproc-per-node N -m representationlearning_tpu_torch.cli.rssformer
+train ...``, NCCL, one card a rank; or a default process group that exists
+already) ``train`` is data parallel: ``data.batch_size`` is the global batch and
+must divide evenly over the ranks (the JAX CLI instead takes the largest divisor
+of the batch that the devices allow as its data axis), every rank draws the same
+indices and augmentation decisions from the seed and takes its rows, and the step
+is the single-rank step on the global batch (``train/rssformer.py``); ``eval``
+splits the images over the ranks and sums their histograms; ``predict`` runs on
+rank 0. Rank 0 alone writes checkpoints, logs and PNGs. The model is built from
+``cfg.seed`` and trained in f32; step ``it`` draws from ``cfg.seed + it`` (the drop path of an HRFormer
 backbone, ``model.hrnet_type=hrt_*``), as the JAX CLI's step key does.
 ``model.fused_mlp`` puts every transformer block's FFN on kernel K5 in
 ``eval`` and ``predict`` (training never reaches it); K5's CUDA kernels take bf16
@@ -31,7 +40,6 @@ import os
 import numpy as np
 import torch
 
-from .._device import resolve_device
 from ..core.config import Config, load_yaml
 from ..core.logging import AverageMeter, setup_logger
 from ..data.device_transforms import (LoveDAAugConfig, augment_loveda_batch,
@@ -39,6 +47,7 @@ from ..data.device_transforms import (LoveDAAugConfig, augment_loveda_batch,
 from ..data.loveda import LoveDADataset, collate_loveda
 from ..infer.tta import default_tta_config
 from ..models.rssformer import HRNetFusion
+from ..parallel import mesh as M
 from ..train import checkpoints as CK
 from ..train.rssformer import (RSSFormerTrainConfig, create_rssformer_state, evaluate,
                                make_rssformer_eval_step, make_rssformer_train_step)
@@ -97,7 +106,14 @@ def _nchw(img: np.ndarray) -> torch.Tensor:
 
 
 def cmd_train(cfg, device: torch.device):
-    log = setup_logger("rssformer")
+    mesh = M.make_mesh()
+    main_rank, world = M.process_rank()[0] == 0, mesh.shape[M.DATA_AXIS]
+    log = setup_logger("rssformer", is_main=main_rank)
+    if cfg.data.batch_size % world:
+        raise ValueError(f"data.batch_size {cfg.data.batch_size} does not divide over {world} "
+                         "ranks: it is the global batch, split evenly (the JAX CLI would take the "
+                         "largest divisor of the batch as its data axis)")
+    rows = M.batch_rows(cfg.data.batch_size, mesh)
     model, tcfg = _build(cfg, device)
     crop = cfg.data.crop_size
     state = create_rssformer_state(model, tcfg)
@@ -105,8 +121,9 @@ def cmd_train(cfg, device: torch.device):
     if CK.latest_step(ckpt_dir) is not None:
         state = CK.restore(ckpt_dir, state)
         log.info("resumed at step %d", int(state.step))
+    M.replicate(mesh, model)
 
-    step_fn = make_rssformer_train_step(model, tcfg, device=device)
+    step_fn = make_rssformer_train_step(model, tcfg, device=device, data_group=mesh)
     device_aug = bool(cfg.data.get("device_augment", False))
     ds = LoveDADataset(image_dir=cfg.data.image_dir, mask_dir=cfg.data.mask_dir,
                        training=True, crop_size=crop, seed=cfg.seed,
@@ -118,13 +135,14 @@ def cmd_train(cfg, device: torch.device):
     meter = AverageMeter()
     rng = np.random.default_rng(cfg.seed)
     for it in range(int(state.step), cfg.train.num_iters):
-        idxs = rng.integers(0, len(ds), cfg.data.batch_size)
-        samples = [ds[int(i)] for i in idxs]
+        idxs = rng.integers(0, len(ds), cfg.data.batch_size)   # the global batch's
+        samples = [ds[int(i)] for i in idxs[rows]]
         if device_aug:
             raw, hw, mask_raw = (torch.stack([s[j] for s in samples]).to(device)
                                  for j in (1, 2, 3))
-            dec = sample_loveda_decisions(len(samples), aug_cfg,
+            dec = sample_loveda_decisions(cfg.data.batch_size, aug_cfg,
                                           torch.Generator().manual_seed(cfg.seed + it), device)
+            dec = {k: v[rows] for k, v in dec.items()}
             image, mask = augment_loveda_batch(raw, hw, mask_raw, dec, aug_cfg)
             batch = {"image": image, "mask": mask}
         else:
@@ -136,7 +154,8 @@ def cmd_train(cfg, device: torch.device):
         if (it + 1) % cfg.train.log_interval_step == 0:
             log.info("iter %d/%d %s", it + 1, cfg.train.num_iters,
                      " ".join(f"{k}={v:.4f}" for k, v in meter.pop().items()))
-        if (it + 1) % cfg.train.eval_interval == 0 or it + 1 == cfg.train.num_iters:
+        if main_rank and ((it + 1) % cfg.train.eval_interval == 0
+                          or it + 1 == cfg.train.num_iters):
             CK.save(ckpt_dir, it + 1, state)
     return state
 
@@ -159,18 +178,22 @@ def _eval_dataset(cfg) -> LoveDADataset:
 
 
 def cmd_eval(cfg, args, device: torch.device):
-    log = setup_logger("rssformer-eval")
+    mesh = M.make_mesh()
+    log = setup_logger("rssformer-eval", is_main=M.process_rank()[0] == 0)
     model, _ = _restore_for_eval(cfg, args, device)
     ds = _eval_dataset(cfg)
     batches = ((_nchw(img), torch.from_numpy(mask[None])) for _, img, mask in
-               (ds[i] for i in range(len(ds))))
+               (ds[int(i)] for i in M.process_local_slice(np.arange(len(ds)))))
     tta_cfg = default_tta_config() if args.tta else None
-    scores = evaluate(model, batches, cfg.model.classes, tta_cfg, device=device)
+    scores = evaluate(model, batches, cfg.model.classes, tta_cfg, device=device,
+                      group=mesh.data_group)
     log.info("eval: miou=%.4f pAcc=%.4f", scores["miou"], scores["pAcc"])
     return scores
 
 
 def cmd_predict(cfg, args, device: torch.device):
+    if M.process_rank()[0] != 0:   # rank 0 writes the PNGs
+        return args.out_dir
     model, _ = _restore_for_eval(cfg, args, device)
     ds = _eval_dataset(cfg)
     os.makedirs(args.out_dir, exist_ok=True)
@@ -199,7 +222,8 @@ def main(argv=None, device: torch.device | str | None = None):
     if args.config:
         cfg.merge(load_yaml(args.config))
     cfg.apply_overrides(args.overrides)
-    device = resolve_device(device)
+    device = M.rank_device(device)
+    M.init_distributed(device=device)
 
     if args.command == "train":
         return cmd_train(cfg, device)

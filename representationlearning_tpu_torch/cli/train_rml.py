@@ -8,8 +8,9 @@ Usage:
         [key.sub=value ...]
 
 The config, overrides, loop, log and checkpoint layout are the JAX package's
-(``work_dir`` is a plain directory name here, as there). One device, the card
-unless ``main(..., device=)`` names another; the fused CAM twin computes in bf16 on
+(``work_dir`` is a plain directory name here, as there). Ranks, devices and the
+data-parallel loop as in ``cli/train_scd.py`` (``torch.distributed.run`` for
+several; rank 0 writes); the fused CAM twin computes in bf16 on
 the card and in f32 on the CPU, as in ``cli/train_scd.py``.
 """
 from __future__ import annotations
@@ -18,19 +19,19 @@ import os
 
 import torch
 
-from .._device import resolve_device
 from ..core.config import Config
-from ..core.logging import AverageMeter, Timer, setup_logger
+from ..core.logging import AverageMeter, Timer
 from ..data.prefetch import ThreadedLoader
 from ..data.voc import BatchLoader
 from ..models.rml import RMLModel
 from ..models.tscd import share_parameters
+from ..parallel import mesh as M
 from ..train import checkpoints as CK
 from ..train.optim import make_poly_warmup_adamw, tscd_param_labels
 from ..train.rml import RMLConfig, make_rml_train_step
 from ..train.state import TrainState
 from .train_scd import (check_max_present, make_aug_cfg, make_wsss_datasets, parse_config,
-                        to_step_batch, twin_dtype)
+                        rank_setup, to_step_batch, twin_dtype)
 
 
 def default_config() -> Config:
@@ -70,10 +71,7 @@ def build_models(cfg, device: torch.device):
 
 def main(argv=None, device: torch.device | str | None = None):
     cfg = parse_config(argv, default_config())
-    device = resolve_device(device)
-
-    os.makedirs(cfg.work_dir, exist_ok=True)
-    log = setup_logger("rml", os.path.join(cfg.work_dir, "train.log"))
+    device, mesh, main_rank, log = rank_setup(cfg.work_dir, "rml", device)
 
     rml_cfg = RMLConfig(
         num_classes=cfg.dataset.num_classes, crop_size=cfg.dataset.crop_size,
@@ -84,7 +82,7 @@ def main(argv=None, device: torch.device | str | None = None):
     )
     model, cam_twin = build_models(cfg, device)
 
-    global_batch = cfg.train.samples_per_gpu   # one device
+    global_batch = cfg.train.samples_per_gpu * mesh.shape[M.DATA_AXIS]
     aug_cfg = make_aug_cfg(cfg)
     device_aug = aug_cfg is not None
     # shared dataset selection (`dataset.name` voc|coco) with the SCD CLI
@@ -101,11 +99,12 @@ def main(argv=None, device: torch.device | str | None = None):
     if CK.latest_step(ckpt_dir) is not None:
         state = CK.restore(ckpt_dir, state)
         log.info("resumed from step %d", int(state.step))
+    M.replicate(mesh, model)
 
     step_fn = make_rml_train_step(model, rml_cfg, cam_model=cam_twin, device=device,
-                                  aug_cfg=aug_cfg)
-    loader = iter(ThreadedLoader(BatchLoader(ds, global_batch, seed=cfg.seed),
-                                 depth=4))
+                                  aug_cfg=aug_cfg, data_group=mesh)
+    loader = iter(ThreadedLoader(BatchLoader(ds, global_batch, seed=cfg.seed,
+                                             shard=M.process_rank()), depth=4))
     meter = AverageMeter()
     timer = Timer(cfg.train.max_iters)
     start = int(state.step)
@@ -118,7 +117,8 @@ def main(argv=None, device: torch.device | str | None = None):
             log.info("iter %d/%d %s eta %.0fs", n_iter + 1, cfg.train.max_iters,
                      " ".join(f"{k}={v:.4f}" for k, v in meter.pop().items()),
                      timer.eta(n_iter + 1 - start))
-        if (n_iter + 1) % cfg.train.eval_iters == 0 or n_iter + 1 == cfg.train.max_iters:
+        if main_rank and ((n_iter + 1) % cfg.train.eval_iters == 0
+                          or n_iter + 1 == cfg.train.max_iters):
             CK.save(ckpt_dir, n_iter + 1, state)
     return state
 

@@ -6,10 +6,19 @@ overrides, seeding, logging, periodic validation + checkpointing).
 Usage:
     python -m representationlearning_tpu_torch.cli.train_scd --config configs/scd_voc.yaml \\
         [key.sub=value ...]
+    python -m torch.distributed.run --nproc-per-node N \\
+        -m representationlearning_tpu_torch.cli.train_scd --config ...
 
 The config, overrides, loop, logs, events and checkpoint layout are the JAX
-package's. It runs on one device, the card unless ``main(..., device=)`` names
-another (the tests pass "cpu"). The trained TSCD is f32; its two fused twins on
+package's. A rank runs on the card unless ``main(..., device=)`` names another
+device (the tests pass "cpu"): in a single process ``cuda``, under torchrun
+``cuda:LOCAL_RANK`` with NCCL. With several ranks (the default process group, or
+one ``init_distributed`` joins from torchrun's environment) training is data
+parallel as in the JAX CLI: the global batch is ``train.samples_per_gpu`` times
+the world size, each rank loads its rows of it, the step is the single-rank step
+on the global batch (``train/scd.py``), validation is split over the ranks and
+its histograms summed, and rank 0 alone writes the log, events, checkpoints and
+images. Every rank resumes from the same checkpoint. The trained TSCD is f32; its two fused twins on
 the same parameters (the validation model, which exports the stage-4 attention,
 and the CAM model of the train step) run kernel K1, whose CUDA kernels take bf16
 operands with f32 accumulation only (as the TPU's default precision does for the
@@ -25,8 +34,8 @@ import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .._device import resolve_device
 from ..core.config import Config, load_yaml
 from ..core.logging import AverageMeter, Timer, setup_logger
 from ..data.device_transforms import DeviceAugConfig
@@ -34,6 +43,7 @@ from ..data.prefetch import ThreadedLoader
 from ..data.voc import BatchLoader, VOC12ClsDataset, VOC12ClsRawDataset, VOC12SegDataset
 from ..metrics.seg import SegMetricAccumulator
 from ..models.tscd import TSCD, share_parameters
+from ..parallel import mesh as M
 from ..train import checkpoints as CK
 from ..train.optim import make_poly_warmup_adamw, tscd_param_labels
 from ..train.scd import SCDConfig, make_scd_eval_step, make_scd_train_step
@@ -174,15 +184,36 @@ def build_models(cfg, device: torch.device):
     return model, model_eval, cam_twin
 
 
+class NoWriter:
+    """The events writer of a rank other than 0: every call does nothing."""
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
+
+
+def rank_setup(work_dir: str, name: str, device):
+    """This rank's device, the data-parallel mesh over the default group (joined
+    from torchrun's environment where there is none yet; one rank in a single
+    process), whether this rank writes, and its logger (rank 0's writes
+    ``work_dir/train.log``)."""
+    device = M.rank_device(device)
+    M.init_distributed(device=device)
+    mesh = M.make_mesh()
+    main_rank = M.process_rank()[0] == 0
+    if main_rank:
+        os.makedirs(work_dir, exist_ok=True)
+    log = setup_logger(name, os.path.join(work_dir, "train.log") if main_rank else None,
+                       is_main=main_rank)
+    return device, mesh, main_rank, log
+
+
 def main(argv=None, device: torch.device | str | None = None):
     cfg = parse_config(argv)
-    device = resolve_device(device)
-
-    os.makedirs(cfg.work_dir.dir, exist_ok=True)
-    log = setup_logger("scd", os.path.join(cfg.work_dir.dir, "train.log"))
+    device, mesh, main_rank, log = rank_setup(cfg.work_dir.dir, "scd", device)
     log.info("config: %s", cfg.to_dict())
     np.random.seed(cfg.seed)
-    global_batch = cfg.train.samples_per_gpu   # one device
+    world = mesh.shape[M.DATA_AXIS]
+    global_batch = cfg.train.samples_per_gpu * world
 
     scd_cfg = SCDConfig(
         num_classes=cfg.dataset.num_classes, crop_size=cfg.dataset.crop_size,
@@ -211,20 +242,21 @@ def main(argv=None, device: torch.device | str | None = None):
     if CK.latest_step(ckpt_dir) is not None:
         state = CK.restore(ckpt_dir, state)
         log.info("resumed from step %d", int(state.step))
+    M.replicate(mesh, model)
 
     step_fn = make_scd_train_step(model, scd_cfg, cam_model=cam_twin, device=device,
-                                  aug_cfg=aug_cfg)
+                                  aug_cfg=aug_cfg, data_group=mesh)
     eval_fn = make_scd_eval_step(model_eval, scd_cfg, device=device)
 
     # scalar/image sink, the reference's TB writer (`dist_train_voc.py:250,393-413`)
-    writer = MetricsWriter(os.path.join(cfg.work_dir.dir, "events"))
+    writer = MetricsWriter(os.path.join(cfg.work_dir.dir, "events")) if main_rank else NoWriter()
     meter = AverageMeter()
     timer = Timer(cfg.train.max_iters)
     # background batch preparation overlaps host augmentation with the device
     # step (`DataLoader(num_workers=10)` analog, `dist_train_voc.py:229`); the
     # loader starts at epoch 0 on a resume too, as in the JAX package
-    loader = iter(ThreadedLoader(BatchLoader(train_ds, global_batch, seed=cfg.seed),
-                                 depth=4))
+    loader = iter(ThreadedLoader(BatchLoader(train_ds, global_batch, seed=cfg.seed,
+                                             shard=M.process_rank()), depth=4))
     start = int(state.step)
     for n_iter in range(start, cfg.train.max_iters):
         batch = to_step_batch(next(loader), device_aug)
@@ -240,15 +272,17 @@ def main(argv=None, device: torch.device | str | None = None):
             writer.add_scalars(means, n_iter + 1, prefix="train/")
             writer.flush()
         if (n_iter + 1) % cfg.train.eval_iters == 0 or n_iter + 1 == cfg.train.max_iters:
-            CK.save(ckpt_dir, n_iter + 1, state)
-            scores = validate(val_ds, eval_fn, scd_cfg)
+            if main_rank:
+                CK.save(ckpt_dir, n_iter + 1, state)
+            scores = validate(val_ds, eval_fn, scd_cfg, group=mesh.data_group, device=device)
             log.info("validate @%d: seg_miou=%.4f cam_miou=%.4f ref_miou=%.4f",
                      n_iter + 1, scores["seg"]["miou"], scores["cam"]["miou"],
                      scores["ref"]["miou"])
             writer.add_scalar("val/seg_miou", scores["seg"]["miou"], n_iter + 1)
             writer.add_scalar("val/cam_miou", scores["cam"]["miou"], n_iter + 1)
             writer.add_scalar("val/ref_miou", scores["ref"]["miou"], n_iter + 1)
-            _write_val_images(writer, val_ds, eval_fn, n_iter + 1)
+            if main_rank:
+                _write_val_images(writer, val_ds, eval_fn, n_iter + 1)
             writer.flush()
     writer.close()
     return state
@@ -280,22 +314,29 @@ def _write_val_images(writer, val_ds, eval_fn, step, n_images: int = 4):
     writer.add_image("val/seg_pred", make_grid(pred_rgb), step)
 
 
-def validate(val_ds, eval_fn, scd_cfg, max_samples: int = 64):
+def validate(val_ds, eval_fn, scd_cfg, max_samples: int = 64, group=None, device=None):
     """Three score streams like the reference validate (`dist_train_voc.py:122-147`):
     seg preds, CAM pseudo labels, and affinity-propagated ref labels. ``eval_fn``
-    is ``make_scd_eval_step`` of the validation twin, which holds the weights."""
+    is ``make_scd_eval_step`` of the validation twin, which holds the weights.
+    With ``group`` each of its ranks takes its rank-strided share of the samples
+    and the histograms are summed over the ranks (exact), so every rank returns
+    the scores of one rank over all of them; ``device`` holds the zeros of a rank
+    with no sample."""
     seg_acc = SegMetricAccumulator(scd_cfg.num_classes)
     cam_acc = SegMetricAccumulator(scd_cfg.num_classes)
     ref_acc = SegMetricAccumulator(scd_cfg.num_classes)
-    for i in range(min(len(val_ds), max_samples)):
+    samples = np.arange(min(len(val_ds), max_samples))
+    if group is not None:
+        samples = samples[dist.get_rank(group)::dist.get_world_size(group)]
+    for i in samples.tolist():
         _, img, label, cls_label = val_ds[i]
         out = eval_fn(_eval_batch(img, cls_label))
         label = torch.from_numpy(np.asarray(label, np.int64))[None]
         seg_acc.update(label, out["seg_pred"])
         cam_acc.update(label, out["cam_label"])
         ref_acc.update(label, out["ref_label"])
-    return {"seg": seg_acc.compute(), "cam": cam_acc.compute(),
-            "ref": ref_acc.compute()}
+    return {k: acc.compute(group, device)
+            for k, acc in (("seg", seg_acc), ("cam", cam_acc), ("ref", ref_acc))}
 
 
 if __name__ == "__main__":

@@ -27,6 +27,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..parallel import collectives as C
+
 # `data/transforms.py` of the JAX package
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
 IMAGENET_STD = (58.395, 57.12, 57.375)
@@ -334,9 +336,12 @@ def augment_raw_batch(batch: dict, cfg: DeviceAugConfig,
                       generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
     """A train step's raw batch dict(raw (B, 3, S, S) uint8, hw (B, 2), cls_label)
     on its device as the batch the losses take, dict(image, img_box, cls_label):
-    the decisions drawn from ``generator`` (a CPU one), then the chain."""
+    the decisions drawn from ``generator`` (a CPU one), then the chain. Under a
+    data group (``parallel/collectives.py``) the decisions of the global batch are
+    drawn and this rank takes its rows."""
     raw = batch["raw"]
-    dec = sample_cls_decisions(raw.shape[0], cfg, generator, raw.device)
+    total, rows = C.global_rows(raw.shape[0])
+    dec = {k: v[rows] for k, v in sample_cls_decisions(total, cfg, generator, raw.device).items()}
     image, box = augment_cls_batch(raw, batch["hw"], dec, cfg)
     return {"image": image, "img_box": box, "cls_label": batch["cls_label"]}
 

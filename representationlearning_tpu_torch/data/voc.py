@@ -246,14 +246,21 @@ class VOC12SegDataset:
 
 class BatchLoader:
     """Minimal epoch-reshuffling batch iterator (replaces DataLoader+DistributedSampler;
-    one device: the command lines move each batch there). Collates fixed-size
+    a rank's command line moves its batch to its device). Collates fixed-size
     samples into numpy batches; infinite when `loop=True` with per-epoch reshuffle
-    (the reference reseeds its sampler on exhaustion, `dist_train_voc.py:298-303`)."""
+    (the reference reseeds its sampler on exhaustion, `dist_train_voc.py:298-303`).
+    ``batch_size`` is the global batch; with ``shard=(rank, world)`` every rank
+    draws the same order from the seed and loads only its contiguous rows of each
+    batch, so the ranks' batches are the one-rank batch split."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
-                 loop: bool = True, drop_last: bool = True):
+                 loop: bool = True, drop_last: bool = True, shard: tuple[int, int] = (0, 1)):
+        rank, world = shard
+        if batch_size % world:
+            raise ValueError(f"global batch {batch_size} not divisible by {world} ranks")
         self.ds = dataset
         self.bs = batch_size
+        self.rows = slice(rank * batch_size // world, (rank + 1) * batch_size // world)
         self.shuffle = shuffle
         self.seed = seed
         self.loop = loop
@@ -266,7 +273,7 @@ class BatchLoader:
             if self.shuffle:
                 np.random.default_rng(self.seed + epoch).shuffle(order)
             for i in range(0, len(order) - (self.bs - 1 if self.drop_last else 0), self.bs):
-                idxs = order[i : i + self.bs]
+                idxs = order[i : i + self.bs][self.rows]
                 samples = [self.ds[int(j)] for j in idxs]
                 yield tuple(
                     np.stack([s[k] for s in samples])

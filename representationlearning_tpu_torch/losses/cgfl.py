@@ -15,6 +15,11 @@ gamma, and with it the aux head, gets none from these losses.
 
 Maps are NCHW: ``y_pred`` (B, C, H, W) logits, ``y_true`` (B, H, W) integer
 labels with ``ignore_index`` (and anything outside [0, C)) ignored.
+
+Under a data group (``parallel/collectives.py``) each loss is this rank's share of
+the loss of the global batch: the batch size B, the valid counts and the detached
+sums of the focal losses all-reduced; dice per sample, over the global count; the
+Tversky sums all-reduced with their gradient, the loss divided among the ranks.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives as PC
 from .wsss import cross_entropy_ignore, select_class
 
 
@@ -47,7 +53,9 @@ def softmax_focalloss(y_pred: torch.Tensor, y_true: torch.Tensor, gamma,
     mod = (1.0 - p) * (1.0 - g / 7.0)
     valid = _valid(y_true, C, ignore_index)
     mod = select_class(mod, _safe(y_true, valid)).detach()
-    return (ce * mod).sum() / (valid.sum() + B)
+    # ce (under a data group this rank's share of the global mean CE) is a
+    # scalar: it scales the global sum of the detached factor
+    return ce * PC.global_sum(mod.sum()) / (PC.global_sum(valid.sum()) + PC.global_batch(B))
 
 
 def softmax_focalloss_pow(y_pred: torch.Tensor, y_true: torch.Tensor, gamma: float = 2.0,
@@ -64,8 +72,10 @@ def softmax_focalloss_pow(y_pred: torch.Tensor, y_true: torch.Tensor, gamma: flo
     mod = torch.where(valid, mod, torch.zeros_like(mod)).detach()
     scale = 1.0
     if normalize:
-        scale = (nll.sum() / (nll * mod).sum().clamp(min=1e-12)).detach()
-    return scale * (nll * mod).sum() / (valid.sum() + y_pred.shape[0])
+        scale = (PC.global_sum(nll.sum().detach())
+                 / PC.global_sum((nll * mod).sum().detach()).clamp(min=1e-12))
+    return scale * (nll * mod).sum() / (PC.global_sum(valid.sum())
+                                         + PC.global_batch(y_pred.shape[0]))
 
 
 def mctrans_aux_l1(cls_score: torch.Tensor, label_map: torch.Tensor,
@@ -76,7 +86,7 @@ def mctrans_aux_l1(cls_score: torch.Tensor, label_map: torch.Tensor,
     (the binary background map in ``segmentation_loss_aux``, so only classes 0
     and 1 can be members: the reference's behaviour). Returns (a zero-weighted
     scalar loss, l1 (B,))."""
-    B = cls_score.shape[0]
+    B = PC.global_batch(cls_score.shape[0])
     classes = torch.arange(n_classes, dtype=torch.float32, device=label_map.device)
     member = (label_map.float().flatten(1)[:, :, None] == classes).any(dim=1)
     l1 = 1.0 / (1.0 + torch.exp((cls_score - member.to(cls_score.dtype)).abs()))
@@ -91,7 +101,7 @@ def binary_cross_entropy_with_logits_ignore(logit: torch.Tensor, target: torch.T
     t = torch.where(mask, target, torch.zeros_like(target))
     per = logit.clamp(min=0) - logit * t + torch.log1p(torch.exp(-logit.abs()))
     per = torch.where(mask, per, torch.zeros_like(per))
-    return per.sum() / mask.sum().clamp(min=1)
+    return per.sum() / PC.global_sum(mask.sum()).clamp(min=1)
 
 
 def tversky_loss_with_logits(logit: torch.Tensor, target: torch.Tensor, alpha: float = 0.5,
@@ -100,10 +110,10 @@ def tversky_loss_with_logits(logit: torch.Tensor, target: torch.Tensor, alpha: f
     mask = (target != ignore_index).to(logit.dtype)
     t = torch.where(mask.bool(), target, torch.zeros_like(target))
     p = torch.sigmoid(logit) * mask
-    tp = (p * t).sum()
-    fp = (p * (1 - t)).sum()
-    fn = ((1 - p) * t * mask).sum()
-    return 1.0 - (tp + smooth) / (tp + alpha * fn + beta * fp + smooth)
+    tp = PC.global_sum((p * t).sum())
+    fp = PC.global_sum((p * (1 - t)).sum())
+    fn = PC.global_sum(((1 - p) * t * mask).sum())
+    return PC.share(1.0 - (tp + smooth) / (tp + alpha * fn + beta * fp + smooth))
 
 
 def dice_loss_with_logits(y_pred: torch.Tensor, y_true: torch.Tensor, ignore_index: int = -1,
@@ -117,7 +127,7 @@ def dice_loss_with_logits(y_pred: torch.Tensor, y_true: torch.Tensor, ignore_ind
     inter = (p * onehot).sum(dim=(2, 3))
     denom = p.sum(dim=(2, 3)) + onehot.sum(dim=(2, 3))
     dice = (2 * inter + smooth) / (denom + smooth)
-    return 1.0 - dice.mean()
+    return PC.share(1.0) - PC.share_of_mean(dice)
 
 
 def _background_target(y_true: torch.Tensor, ignore_index: int) -> torch.Tensor:

@@ -9,7 +9,8 @@ Pipeline (`get_energy_loss` + `DenseEnergyLoss.forward`):
   bilinear) -> Gate = clamp(ROI - max_cls(prob), 0) with unlabeled pixels forced
   to 1 -> S = prob * ROI; AS = bilateral(S) * Gate; loss = -w * dot(S, AS) / N
 
-Maps are NCHW; rois (N, H, W); the gate (N, 1, H, W).
+Maps are NCHW; rois (N, H, W); the gate (N, 1, H, W). Under a data group
+(``parallel/collectives.py``) N is the global batch: the loss is this rank's share.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from ..ops.bilateral import bilateral_filter_batch
 from ..ops.image import resize_bilinear, resize_nearest
+from ..parallel import collectives as C
 
 
 class _DenseEnergy(torch.autograd.Function):
@@ -26,7 +28,7 @@ class _DenseEnergy(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, images, segmentations, rois, gate, sigma_rgb, sigma_xy, method):
-        N = segmentations.shape[0]
+        N = C.global_batch(segmentations.shape[0])
         S = segmentations * rois[:, None]
         AS = bilateral_filter_batch(images, S, sigma_rgb, sigma_xy, method=method)
         AS = AS * gate

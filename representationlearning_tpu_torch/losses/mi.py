@@ -10,12 +10,17 @@ Two quirks of the reference are reproduced on purpose:
   gives the +-1 sign-agreement matrix a * b / max(|a| * |b|, 1e-8) of the pooled
   class vectors. The formula is written out: ``F.cosine_similarity`` clamps its
   eps differently.
+
+Every term is a mean over rows that belong to one sample each (per-row softmaxes,
+per-sample class matrices), so under a data group (``parallel/collectives.py``)
+each loss is this rank's sum over the global count: its share.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.image import resize_bilinear
+from ..parallel import collectives as C
 
 
 def torch_kl_div_mean(inp: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -24,7 +29,7 @@ def torch_kl_div_mean(inp: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     pos = target > 0
     logt = torch.where(pos, torch.log(torch.where(pos, target, torch.ones_like(target))),
                        torch.zeros_like(target))
-    return (target * logt - target * inp).mean()
+    return C.share_of_mean(target * logt - target * inp)
 
 
 def feat_feat_mi_estimation(F1: torch.Tensor, F2: torch.Tensor,
@@ -62,9 +67,9 @@ def ciml_loss(cams_full: torch.Tensor, cams_small: torch.Tensor) -> torch.Tensor
     class vectors. ``[:, 1:]`` drops the first of the 20 CAM channels, class 1, as
     the reference does. cams_full is already on cams_small's grid; both NCHW."""
     c1, c2 = cams_full[:, 1:], cams_small[:, 1:]
-    cam_l1 = (c1 - c2).abs().mean()
+    cam_l1 = C.share_of_mean((c1 - c2).abs())
     a, b = c1.mean(dim=(2, 3)), c2.mean(dim=(2, 3))   # adaptive_avg_pool2d -> (B, C - 1)
-    return 0.1 * (_sign_cosine_matrix(a, a) + _sign_cosine_matrix(b, b)).mean() + cam_l1
+    return 0.1 * C.share_of_mean(_sign_cosine_matrix(a, a) + _sign_cosine_matrix(b, b)) + cam_l1
 
 
 def mfml_loss(segs1: torch.Tensor, segs2: torch.Tensor) -> torch.Tensor:
@@ -72,7 +77,7 @@ def mfml_loss(segs1: torch.Tensor, segs2: torch.Tensor) -> torch.Tensor:
     between the seg maps at the two scales (both on the small grid, NCHW),
     channel 0 dropped."""
     s1, s2 = segs1[:, 1:], segs2[:, 1:]
-    return 100.0 * feat_feat_mi_estimation(s1, s2) + (s1 - s2).abs().mean()
+    return 100.0 * feat_feat_mi_estimation(s1, s2) + C.share_of_mean((s1 - s2).abs())
 
 
 def apml_mi_terms(attn_pred1: torch.Tensor, attn_pred2: torch.Tensor,

@@ -3,7 +3,10 @@
 `scripts/dist_train_voc.py:340-353`).
 
 Every loss is a function of (predictions, targets), differentiable by autograd,
-and runs where its inputs live. Maps are NCHW: the class axis is 1.
+and runs where its inputs live. Maps are NCHW: the class axis is 1. Under a data
+group (``parallel/collectives.py``) each returns this rank's share of the loss of
+the global batch: means over the global count, counts all-reduced, the
+correlation loss's recentring and coordinates global.
 """
 from __future__ import annotations
 
@@ -13,13 +16,14 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.image import grid_sample_bilinear
+from ..parallel import collectives as C
 
 
 def multilabel_soft_margin_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """``F.multilabel_soft_margin_loss``: the mean over classes, then over the
     batch, of -[y log sigmoid(x) + (1 - y) log sigmoid(-x)]."""
     per_class = -(targets * F.logsigmoid(logits) + (1.0 - targets) * F.logsigmoid(-logits))
-    return per_class.mean()
+    return C.share_of_mean(per_class)
 
 
 def aux_loss(inputs: torch.Tensor,
@@ -30,8 +34,8 @@ def aux_loss(inputs: torch.Tensor,
     pos_count, neg_count)."""
     pos = (targets == 1).to(inputs.dtype)
     neg = (targets == 0).to(inputs.dtype)
-    pos_count = pos.sum() + 1.0
-    neg_count = neg.sum() + 1.0
+    pos_count = C.global_sum(pos.sum()) + 1.0
+    neg_count = C.global_sum(neg.sum()) + 1.0
     pos_loss = (pos * (1.0 - inputs)).sum() / pos_count
     neg_loss = (neg * inputs).sum() / neg_count
     return 0.5 * pos_loss + 0.5 * neg_loss, pos_count, neg_count
@@ -53,7 +57,7 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     safe = torch.where(valid, labels, torch.zeros_like(labels))
     nll = -select_class(F.log_softmax(logits, dim=1), safe)
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    n = valid.sum()
+    n = C.global_sum(valid.sum())
     return torch.where(n > 0, nll.sum() / n.clamp(min=1), nll.new_zeros(()))
 
 
@@ -81,11 +85,14 @@ def tensor_correlation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def sample_coords(batch: int, n_samples: int, generator: torch.Generator | None = None,
                   device=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The two coordinate sets of ``contrastive_corr_loss``: uniform in [-1, 1),
-    (B, n, n, 2) each, drawn on the CPU from ``generator`` and moved to ``device``."""
-    shape = (batch, n_samples, n_samples, 2)
+    (B, n, n, 2) each, drawn on the CPU from ``generator`` and moved to ``device``
+    (under a data group those of the global batch are drawn, this rank's rows
+    kept)."""
+    total, rows = C.global_rows(batch)
+    shape = (total, n_samples, n_samples, 2)
     c1 = torch.rand(shape, generator=generator) * 2.0 - 1.0
     c2 = torch.rand(shape, generator=generator) * 2.0 - 1.0
-    return c1.to(device), c2.to(device)
+    return c1[rows].to(device), c2[rows].to(device)
 
 
 def contrastive_corr_loss(feats: torch.Tensor, feats_pos: torch.Tensor, code: torch.Tensor,
@@ -99,8 +106,8 @@ def contrastive_corr_loss(feats: torch.Tensor, feats_pos: torch.Tensor, code: to
     (feats are the CAMs, code the seg logits in the SCD trainer, `:329`).
 
     The coordinates come from ``coords`` (two (B, n, n, 2) tensors in [-1, 1], as
-    ``jax.random.uniform`` or ``sample_coords`` gives them) or are drawn from
-    ``generator``."""
+    ``jax.random.uniform`` or ``sample_coords`` gives them; this rank's rows under
+    a data group) or are drawn from ``generator``."""
     if coords is None:
         coords = sample_coords(feats.shape[0], n_samples, generator, feats.device)
     # torch: sample(t, coords.permute(0, 2, 1, 3)) -- transposed before grid_sample
@@ -114,16 +121,16 @@ def contrastive_corr_loss(feats: torch.Tensor, feats_pos: torch.Tensor, code: to
 
     with torch.no_grad():
         fd = tensor_correlation(_norm(f1), _norm(f2))
-        old_mean = fd.mean()
+        old_mean = C.global_mean(fd)
         fd = fd - fd.mean(dim=(3, 4), keepdim=True)
-        fd = fd - fd.mean() + old_mean
+        fd = fd - C.global_mean(fd) + old_mean
 
     cd = tensor_correlation(_norm(cd1), _norm(cd2))
-    return (-cd.clamp(min=0.0) * fd).mean()
+    return C.share_of_mean(-cd.clamp(min=0.0) * fd)
 
 
 def equivariance_loss(cams_scaled: torch.Tensor, cams_small: torch.Tensor) -> torch.Tensor:
     """loss_er: L1 between the full-scale CAMs resized to 0.3x and the CAMs
     computed at 0.3x, foreground channels only (`dist_train_voc.py:324` slices
     [:, 1:]; callers pass foreground-only stacks)."""
-    return (cams_scaled - cams_small).abs().mean()
+    return C.share_of_mean((cams_scaled - cams_small).abs())

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_reduce_sum
+
 
 def confusion_matrix(label_true: torch.Tensor, label_pred: torch.Tensor,
                      num_classes: int) -> torch.Tensor:
@@ -107,7 +109,11 @@ def iou_score(pred, target, threshold: int = 150) -> float:
 
 class SegMetricAccumulator:
     """A streaming confusion histogram: ``update`` counts a batch on its device
-    (int64, no copy to the host), ``compute`` gives the scores."""
+    (int64, no copy to the host), ``compute`` gives the scores. ``compute(group)``
+    sums the histograms of the ranks of ``group`` first (an int64 all-reduce,
+    exact), so ranks that each count their share of the samples score what one
+    rank counting all of them does; ``device`` is where a rank that counted
+    nothing holds its zeros."""
 
     def __init__(self, num_classes: int):
         self.num_classes = num_classes
@@ -119,7 +125,12 @@ class SegMetricAccumulator:
         h = confusion_matrix(label_true, label_pred, self.num_classes)
         self.hist = h if self.hist is None else self.hist + h.to(self.hist.device)
 
-    def compute(self) -> dict:
-        hist = self.hist if self.hist is not None else \
-            np.zeros((self.num_classes, self.num_classes))
+    def compute(self, group=None, device=None) -> dict:
+        hist = self.hist
+        if group is not None:
+            if hist is None:
+                hist = torch.zeros((self.num_classes,) * 2, dtype=torch.int64, device=device)
+            hist = all_reduce_sum(hist, group)
+        if hist is None:
+            hist = np.zeros((self.num_classes, self.num_classes))
         return scores_from_hist(hist)

@@ -13,6 +13,9 @@ import math
 import torch
 from torch import nn
 
+from ..parallel import collectives as C
+from ..parallel.mesh import DATA_AXIS
+
 GN_EPS = 1e-6   # flax nn.GroupNorm's epsilon (torch's nn.GroupNorm defaults to 1e-5)
 
 
@@ -79,7 +82,8 @@ class DropPath(nn.Module):
     ``torch.Generator``; None is the global one) and then moved to x's device,
     so a seed gives the same masks on the card and on the CPU. A caller that
     runs the branch twice (gradient checkpointing) draws once with ``draw`` and
-    passes ``mask``."""
+    passes ``mask``. Under a data group (``parallel/collectives.py``) the mask of
+    the global batch is drawn and this rank takes its rows."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -90,7 +94,8 @@ class DropPath(nn.Module):
         the identity."""
         if self.rate == 0.0 or not self.training:
             return None
-        return (torch.rand((batch,), generator=generator) < 1.0 - self.rate).to(device)
+        total, rows = C.global_rows(batch)
+        return (torch.rand((total,), generator=generator) < 1.0 - self.rate)[rows].to(device)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -107,14 +112,16 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     """Elementwise dropout, as flax's ``nn.Dropout``. Without a generator it is
     ``F.dropout``. With one (a CPU generator) the mask is drawn on x's device by
     a generator seeded from it, so the same seed gives the same mask on the same
-    device without a mask-sized copy from the host."""
+    device without a mask-sized copy from the host. Under a data group the mask
+    of the global batch (x's leading axis) is drawn and this rank takes its rows."""
     if rate == 0.0 or not training:
         return x
     if generator is None:
         return nn.functional.dropout(x, rate, training=True)
     seed = int(torch.randint(2 ** 62, (1,), generator=generator))
     dev_gen = torch.Generator(device=x.device).manual_seed(seed)
-    mask = torch.rand(x.shape, generator=dev_gen, device=x.device) >= rate
+    total, rows = C.global_rows(x.shape[0])
+    mask = torch.rand((total,) + x.shape[1:], generator=dev_gen, device=x.device)[rows] >= rate
     return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -151,9 +158,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     for an input in f32 or narrower (in f64 for f64), and in training the
     running average takes the biased batch variance (torch's own update takes
     the unbiased one), at torch momentum 0.1 = flax momentum 0.9. ``track_stats
-    = False`` (see ``bn_stats_frozen``) leaves the running statistics alone."""
+    = False`` (see ``bn_stats_frozen``) leaves the running statistics alone.
+
+    ``axis_name`` (flax's): where it names the data axis and a data group is
+    active (``parallel/collectives.py::data_parallel``), the training statistics
+    are those of the global batch (SyncBN, ``collectives.sync_batch_norm``: one
+    all-reduce forward and one backward), so n ranks normalise as one rank does
+    on the global batch; None
+    keeps this rank's statistics. Without a group the statistics are this
+    device's."""
 
     track_stats = True
+    axis_name: str | None = DATA_AXIS
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype != torch.float64:
@@ -161,6 +177,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return nn.functional.batch_norm(x, self.running_mean, self.running_var,
                                             self.weight, self.bias, False, 0.0, self.eps)
+        if self.axis_name == DATA_AXIS and C.active_data_group() is not None:
+            return self._synced(x)
         if self.track_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
@@ -169,6 +187,15 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked += 1
         return nn.functional.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                                         self.eps)
+
+    def _synced(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = C.sync_batch_norm(x, self.weight, self.bias, self.eps)
+        if self.track_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+        return y
 
 
 class AttnProj(nn.Module):
@@ -201,17 +228,20 @@ class AttnProj(nn.Module):
 class ConvBNReLU(nn.Module):
     """mmcv's ConvModule (`segformer_head.py:53-58`): a conv without bias, padding
     k // 2, the flax-convention ``BatchNorm2d`` (eps 1e-5, torch momentum 0.1),
-    then ReLU where ``use_relu``. Names ``conv``, ``bn``. The JAX module's
-    ``axis_name`` (BatchNorm statistics across replicas) belongs to the
-    multi-device part, which is not ported: the statistics are this device's."""
+    then ReLU where ``use_relu``. Names ``conv``, ``bn``. ``axis_name`` is the
+    BatchNorm's (statistics across the ranks of the active data group in
+    training). Its default is the data axis where the JAX module's is None: under
+    the JAX package's ``jit`` every batch reduction is global already, and here the
+    data group makes it so."""
 
     def __init__(self, in_ch: int, features: int, kernel_size=(1, 1), use_relu: bool = True,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, axis_name: str | None = DATA_AXIS):
         super().__init__()
         kh, kw = kernel_size
         self.use_relu = use_relu
         self.conv = nn.Conv2d(in_ch, features, (kh, kw), padding=(kh // 2, kw // 2), bias=False)
         self.bn = BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        self.bn.axis_name = axis_name
         fan_out_conv_init(self.conv.weight, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

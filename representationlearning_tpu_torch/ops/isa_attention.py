@@ -137,9 +137,10 @@ def isa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, nh: int,
         raise RuntimeError(f"k6_isa_core: plan {(windows, warps, stages)} fits no SM")
     blocks = min(math.ceil(NW / windows), per_sm * _sms(q.device.index or 0))
     lib = _build.load_library("rssformer")
-    _build.check(lib.k6_isa_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 NW, T, C, nh, bf16, windows, warps, stages, blocks,
-                                 torch.cuda.current_stream().cuda_stream), "k6_isa_core")
+    with torch.cuda.device(q.device):
+        _build.check(lib.k6_isa_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                     NW, T, C, nh, bf16, windows, warps, stages, blocks,
+                                     torch.cuda.current_stream().cuda_stream), "k6_isa_core")
     LAUNCHES["isa_core"] += 1
     return out
 

@@ -318,9 +318,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(fn: str, *args) -> None:
+def _launch(fn: str, device: torch.device, *args) -> None:
+    """``fn`` on ``device``'s current stream, with ``device`` current (a rank's
+    card need not be the process's current device)."""
     lib = _build.load_library("mit_block")
-    _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
+    with torch.cuda.device(device):
+        _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
 
 
 def ln_stats(x: torch.Tensor) -> torch.Tensor:
@@ -331,7 +334,7 @@ def ln_stats(x: torch.Tensor) -> torch.Tensor:
     out = torch.empty(x.shape[:-1] + (2,), device=x.device, dtype=torch.float32)
     rows = x.numel() // C if C else 0
     if rows:
-        _launch("k1_ln_stats", x.data_ptr(), out.data_ptr(), rows, C)
+        _launch("k1_ln_stats", x.device, x.data_ptr(), out.data_ptr(), rows, C)
         LAUNCHES["ln_stats"] += 1
     return out
 
@@ -373,7 +376,7 @@ def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
     if M:
         tile, per = linear_plan(M, Nout, K) if plan is None else plan
         tile_id = LINEAR_TILES.index(tuple(tile)) if tuple(tile) in LINEAR_TILES else -1
-        _launch("k1_linear", a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(stats),
+        _launch("k1_linear", dev, a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(stats),
                 _ptr(ln_w), _ptr(ln_b), _ptr(residual), out.data_ptr(), M, Nout, K,
                 tile_id, per)
         LAUNCHES["linear"] += 1   # one a call, whatever plan it runs
@@ -405,7 +408,7 @@ def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat1
         # the slices' partial results; the kernel's second step adds them in order
         ws = (torch.empty((slices, B * Nk, C), device=dev, dtype=torch.float32)
               if slices > 1 else None)
-        _launch("k1_sr_conv", x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
+        _launch("k1_sr_conv", dev, x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
                 ln_b.data_ptr(), w_flat.data_ptr(), bias.data_ptr(), _ptr(ws),
                 out.data_ptr(), B, H, W, C, sr, tile, slices)
         LAUNCHES["sr_conv"] += 1   # one a call, whatever number of device kernels it takes
@@ -430,7 +433,7 @@ def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False):
     if B * N:
         # k and v rounded to bf16 once, head by head, by the kernel's first step
         kvb = torch.empty((B * Nk * 2 * C,), device=q.device, dtype=torch.bfloat16)
-        _launch("k1_attention", q.data_ptr(), kv.data_ptr(), kvb.data_ptr(), out.data_ptr(),
+        _launch("k1_attention", q.device, q.data_ptr(), kv.data_ptr(), kvb.data_ptr(), out.data_ptr(),
                 _ptr(logits), B, N, Nk, C, nh, float(C // nh) ** -0.5)
         LAUNCHES["attention"] += 1
     return out, logits
@@ -456,7 +459,7 @@ def dwconv_gelu(f, w, bias, *, H, W, plan=None):
     out = torch.empty_like(f)
     if f.numel():
         cols, rows = dwconv_plan(B, H, W, hid) if plan is None else plan
-        _launch("k1_dwconv_gelu", f.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        _launch("k1_dwconv_gelu", f.device, f.data_ptr(), w.data_ptr(), bias.data_ptr(),
                 out.data_ptr(), B, H, W, hid, cols, rows)
         LAUNCHES["dwconv_gelu"] += 1   # one a call, whatever plan it runs
     return out

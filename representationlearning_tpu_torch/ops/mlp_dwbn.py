@@ -235,9 +235,12 @@ def _widths(hid: int, cin: int | None = None, cout: int | None = None) -> None:
             f"mlp_taps takes an output width that is a multiple of 16 up to 128, got {cout}")
 
 
-def _launch(fn: str, *args) -> None:
+def _launch(fn: str, device: torch.device, *args) -> None:
+    """``fn`` on ``device``'s current stream, with ``device`` current (a rank's
+    card need not be the process's current device)."""
     lib = _build.load_library("rssformer")
-    _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
+    with torch.cuda.device(device):
+        _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
 
 
 def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16, plan=None):
@@ -262,7 +265,7 @@ def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16, plan=None):
     h = torch.empty((B, N, hid), device=dev, dtype=torch.bfloat16)
     if B * N:
         warps, per = fc1_plan(B * N, cin) if plan is None else plan
-        _launch("k5_mlp_fc1", x.data_ptr(), w1.data_ptr(), b1.data_ptr(), scale.data_ptr(),
+        _launch("k5_mlp_fc1", dev, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), scale.data_ptr(),
                 shift.data_ptr(), h.data_ptr(), B * N, cin, warps, per)
         LAUNCHES["mlp_fc1"] += 1   # one a call, whatever plan it runs
     return h
@@ -299,7 +302,7 @@ def mlp_taps(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, *, H, W,
     out = torch.empty((B, N, cout), device=dev, dtype=torch.float32)
     if B * N:
         tile, blocks = taps_plan(B, H, W, cout) if plan is None else plan
-        _launch("k5_mlp_taps", h.data_ptr(), taps.data_ptr(), dw_bias.data_ptr(),
+        _launch("k5_mlp_taps", dev, h.data_ptr(), taps.data_ptr(), dw_bias.data_ptr(),
                 scale2.data_ptr(), shift2.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                 scale3.data_ptr(), shift3.data_ptr(), out.data_ptr(), B, H, W, cout, tile,
                 blocks)

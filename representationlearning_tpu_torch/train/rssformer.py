@@ -32,6 +32,7 @@ from ..losses.cgfl import segmentation_loss_aux
 from ..metrics.seg import SegMetricAccumulator
 from ..models.baselines import ZooModel
 from ..models.rssformer import HRNetFusion
+from ..parallel import collectives as C
 from .optim import make_sgd, poly_schedule
 from .state import TrainState
 
@@ -75,7 +76,7 @@ def rssformer_losses(model, batch, generator: torch.Generator | None = None) -> 
 
 
 def make_rssformer_train_step(model, cfg: RSSFormerTrainConfig,
-                              device: torch.device | str | None = None):
+                              device: torch.device | str | None = None, data_group=None):
     """One training iteration as a function ``train_step(state, batch,
     generator=None) -> (state, metrics)``: forward in training mode, the CGFL
     losses and their sum, backward, one update. ``state`` is a ``TrainState``
@@ -87,25 +88,38 @@ def make_rssformer_train_step(model, cfg: RSSFormerTrainConfig,
     drop-path masks of an HRFormer backbone (``hrt_*``) and the zoo's dropout
     masks; the HRNetV2 stack draws nothing (its dropout and drop path are 0).
     metrics holds the losses and ``total``, detached. The profiler sees
-    forward, backward and optimizer."""
+    forward, backward and optimizer.
+
+    With ``data_group`` (a ``parallel.mesh.Mesh``; None, or a data axis of one
+    rank, is the single-device step) the step is one rank's part of the data-parallel step on the
+    global batch: every BatchNorm and CGFL reduction is global, the drop-path
+    masks are the global batch's, the gradients are summed over the ranks before
+    the clip (which so sees the global norm), and metrics holds the global losses.
+    The zoo models compute their own losses, which are not made global: with a
+    data group they are refused."""
     device = resolve_device(device)
+    if C.as_data_group(data_group) is not None and isinstance(model, ZooModel):
+        raise ValueError(f"{type(model).__name__}: the baseline zoo's own losses are "
+                         "per-rank means; the data-parallel step takes an HRNetFusion")
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None):
         model.train()
         batch = {k: v.to(device) for k, v in batch.items()}
-        with record_function("forward"):
-            losses = rssformer_losses(model, batch, generator)
-            total = sum(losses.values())
-        with record_function("backward"):
-            total.backward()
-        with record_function("optimizer"):
-            for p in state.tx.params:   # optax decays a parameter without gradient too
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            state.apply_gradients()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total"] = total.detach()
-        return state, metrics
+        with C.data_parallel(data_group):
+            with record_function("forward"):
+                losses = rssformer_losses(model, batch, generator)
+                total = sum(losses.values())
+            with record_function("backward"):
+                total.backward()
+            with record_function("optimizer"):
+                for p in state.tx.params:   # optax decays a parameter without gradient too
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                C.allreduce_grads(state.tx.params)
+                state.apply_gradients()
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["total"] = total.detach()
+            return state, C.reduce_metrics(metrics)
 
     return train_step
 
@@ -123,12 +137,14 @@ def make_rssformer_eval_step(model):
 
 
 def evaluate(model, batches: Iterable, num_classes: int, tta_transforms=None,
-             device: torch.device | str | None = None) -> dict:
+             device: torch.device | str | None = None, group=None) -> dict:
     """PixelMetric-style evaluation (`train.py:14-56` ``evaluate_cls_fn``),
     optionally with TTA (`eval.py:58-65`, ``infer/tta.py``): ``batches`` yields
     (image (B, 3, H, W), mask (B, H, W)); the argmax of the (averaged)
     probabilities is counted against the mask on ``device`` (the card unless
-    the caller names another). Returns ``scores_from_hist``'s dict."""
+    the caller names another). Returns ``scores_from_hist``'s dict; with ``group``
+    (a process group whose ranks each give their share of the images) the
+    histograms are summed over its ranks first."""
     device = resolve_device(device)
     eval_step = make_rssformer_eval_step(model)
     acc = SegMetricAccumulator(num_classes)
@@ -136,4 +152,4 @@ def evaluate(model, batches: Iterable, num_classes: int, tta_transforms=None,
         image = torch.as_tensor(image).to(device)
         probs = tta(eval_step, image, tta_transforms) if tta_transforms else eval_step(image)
         acc.update(torch.as_tensor(mask).to(device), probs.argmax(1))
-    return acc.compute()
+    return acc.compute(group, device)

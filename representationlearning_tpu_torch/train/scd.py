@@ -31,6 +31,7 @@ from ..losses.energy import get_energy_loss
 from ..models.layers import bn_stats_frozen
 from ..models.refine import varm_refine
 from ..ops.image import resize_bilinear
+from ..parallel import collectives as C
 from ..wsss import camutils as CU
 from .state import TrainState
 
@@ -207,7 +208,7 @@ def scd_total_loss(losses: dict, step: int, cfg: SCDConfig) -> torch.Tensor:
 
 def make_scd_train_step(model, cfg: SCDConfig, cam_model=None,
                         device: torch.device | str | None = None,
-                        aug_cfg: DeviceAugConfig | None = None):
+                        aug_cfg: DeviceAugConfig | None = None, data_group=None):
     """One SCD training iteration as a function ``train_step(state, batch,
     generator=None) -> (state, metrics)``.
 
@@ -221,26 +222,37 @@ def make_scd_train_step(model, cfg: SCDConfig, cam_model=None,
     drop-path masks), as the JAX package's `cli/train_scd.py:171-190` fuses the
     two. The state is updated in place and returned; metrics holds the six
     losses and their ``total``, detached. Beside the stages of ``scd_losses`` the
-    profiler sees the ranges augment, backward and optimizer."""
+    profiler sees the ranges augment, backward and optimizer.
+
+    With ``data_group`` (a ``parallel.mesh.Mesh``; None, or a data axis of one
+    rank, is the single-device step) the step is one rank's part of the data-parallel step: the
+    batch holds this rank's rows of the global batch, the augmentation decisions
+    and the drop-path and dropout masks are drawn for the global batch and sliced,
+    every BatchNorm and loss reduction is global, the gradients are summed over
+    the ranks before the update, and metrics holds the global losses. n ranks so
+    give the single-rank step on the global batch, to f32 summation order. The
+    CAM twin and the refinement run on this rank's rows."""
     device = resolve_device(device)
     attn_mask = _attn_mask(cfg, device)
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None):
         model.train()
         batch = {k: v.to(device) for k, v in batch.items()}
-        if aug_cfg is not None:
-            with record_function("augment"):
-                batch = augment_raw_batch(batch, aug_cfg, generator)
-        losses, _ = scd_losses(model, batch, cfg, attn_mask, generator=generator,
-                               cam_model=cam_model)
-        total = scd_total_loss(losses, state.step, cfg)
-        with record_function("backward"):
-            total.backward()
-        with record_function("optimizer"):
-            state.apply_gradients()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total"] = total.detach()
-        return state, metrics
+        with C.data_parallel(data_group):
+            if aug_cfg is not None:
+                with record_function("augment"):
+                    batch = augment_raw_batch(batch, aug_cfg, generator)
+            losses, _ = scd_losses(model, batch, cfg, attn_mask, generator=generator,
+                                   cam_model=cam_model)
+            total = scd_total_loss(losses, state.step, cfg)
+            with record_function("backward"):
+                total.backward()
+            with record_function("optimizer"):
+                C.allreduce_grads(state.tx.params)
+                state.apply_gradients()
+            metrics = {k: v.detach() for k, v in losses.items()}
+            metrics["total"] = total.detach()
+            return state, C.reduce_metrics(metrics)
 
     return train_step
 

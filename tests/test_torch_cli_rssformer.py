@@ -204,8 +204,8 @@ def test_resume_continues_from_the_saved_step(tmp_path, monkeypatch, capsys):
     seen = []
     make = TC.make_rssformer_train_step
 
-    def recording(model, cfg, device=None):
-        step = make(model, cfg, device)
+    def recording(model, cfg, device=None, **kw):
+        step = make(model, cfg, device, **kw)
 
         def run(state, batch, generator=None):
             seen.append((state.step, all(torch.equal(v, saved[k])
@@ -259,8 +259,8 @@ def test_refusals(tmp_path, monkeypatch):
     seen = {}
     make, jmake = TC.make_rssformer_train_step, JC.make_rssformer_train_step
 
-    def recording(model, cfg, device=None):
-        step = make(model, cfg, device)
+    def recording(model, cfg, device=None, **kw):
+        step = make(model, cfg, device, **kw)
 
         def run(state, batch, generator=None):
             seen["before"] = {k: v.clone() for k, v in model.state_dict().items()}

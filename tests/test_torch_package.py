@@ -38,7 +38,8 @@ def test_every_module_imports_without_jax():
         "cli.train_scd", "cli.train_rml", "data.loveda", "cli.rssformer", "models.wavecam",
         "wsss.wavecam_pipeline", "cli.run_wavecam", "models.hrt", "models.asff",
         "cli.convert_checkpoint", "models.baselines", "models.smp_zoo", "utils.affine",
-        "utils.profiling")} <= set(mods)
+        "utils.profiling", "parallel.mesh", "parallel.collectives", "parallel.launch",
+        "parallel.dryrun")} <= set(mods)
     # nor Pillow or OpenCV at load: the card's machine has neither
     code = ("import sys, importlib\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
