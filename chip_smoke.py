@@ -420,6 +420,13 @@ DRFL_F64_TOL = 1e-8    # the card in f64 against the CPU in f64, relative
 # synthetic 96 x 128 images on 512² canvases; iteration counts cut
 WSSS_N, WSSS_SCD_STEPS, WSSS_SCD_EVAL, WSSS_CAM_ITERS = 16, 6, 3, 2
 WSSS_COCO_STEPS, WSSS_RML_STEPS, WSSS_RML_CAM_ITERS = 2, 4, 1
+# The kernel path against the plain path in 7f, both f32 (the twins compute in f32 on
+# every device, as JAX builds them): the refined labels of each run's first step (the
+# CAMs of the twin through K1, refined through K2 / K3, against the same CAMs and
+# refinement through the plain versions), and its first validation's three mIoUs. Only
+# f32 sums taken in another order differ, so a label flips only where two scores tie
+# to about 1e-6.
+WSSS_PATH_SHARE, WSSS_PATH_MIOU = 0.9999, 1e-3
 # the figures: each CLI again, fresh, for this many steps after its warm-up, the yamls'
 # log_iters, one validation at the end; the step alone as often
 WSSS_TIMED = 20
@@ -428,12 +435,15 @@ WSSS_TIMED = 20
 # it is (hrnetv2_w32, 7 classes, 512² crops, batch 8, the f32 model, SGD poly 0.9, clip 35),
 # data.device_augment=true on the synthetic source (16 images of 128² on the default 1024²
 # canvases); cut: RSS_CLI_STEPS steps with a checkpoint every RSS_CLI_SAVE, then a resume for
-# one more; then eval --tta and predict with model.fused_mlp=True (bf16 compute, K5) and at
-# fused_mlp=False in bf16. The LoveDA chain on the card against the CPU on LoveDA's 1024²
+# one more; then eval --tta and predict with model.fused_mlp=True (K5) and at fused_mlp=False,
+# both in f32 as JAX builds them. The LoveDA chain on the card against the CPU on LoveDA's 1024²
 # images: images within LOVEDA_IMG_TOL; masks equal but where a nearest tap's source
 # coordinate lies within LOVEDA_NEAR_HALF of a half (the last bit of sin and cos decides).
 RSS_CLI_STEPS, RSS_CLI_SAVE, RSS_CLI_ALONE = 8, 4, 5
 RSS_CLI_BATCH, RSS_CLI_CANVAS, RSS_CLI_IMAGES = 8, 1024, 16
+# its predict's probabilities, K5 against fused_mlp=False, both f32 (3xTF32 products against
+# cuDNN's f32 convolutions, TF32 off): f32 sums in another order through eight blocks
+RSS_F32_TOL = 1e-3
 LOVEDA_IMG_TOL, LOVEDA_NEAR_HALF = 1e-4, 1e-4
 
 # WaveCAM's training half and command line (phase 7h): cli/run_wavecam.py with its nine
@@ -626,6 +636,9 @@ RESUME_PARAM_TOL = 5e-7
 # move by about 2e-4 and fewer by more: 1e-2 of the largest magnitude bounds the
 # worst, and all but a thousandth of the entries lie within 1e-3 of it.
 K5_TOL = {"mlp_fc1": 2.0 ** -7, "mlp_taps": 1e-2, "whole": 1e-2}
+# K5 with f32 operands (3xTF32 products, f32 to about 2^-21 of each) against the plain
+# version's f32 products: f32 sums of up to 19 x 192 terms in another order
+K5_F32_TOL = 1e-4
 K5_NEAR, K5_FAR_SHARE = 1e-3, 1e-3
 # K6: f32 sums of at most 100 products in another order, `expf` against
 # `torch.exp`; with bf16 operands a probability next to a rounding boundary may
@@ -637,6 +650,15 @@ K6_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 # two differ by a few bf16 spacings of the hidden values through eight blocks
 # (1e-2 on the CPU at hrnetv2_w18); the classes agree on at least 99% of pixels.
 RSS_TOL, RSS_SHARE = 3e-2, 0.99
+# Phase 7l, f32 operands (3xTF32 products, f32 to about 2^-21 of each product) against the
+# plain versions' f32 products, TF32 off: the f32 sums over K <= 4096 in another order (the
+# pieces that always computed in f32 keep PIECE_TOL); the f32 TSCD end to end at the
+# port's f32 CPU bound (tests/test_parity_torch_e2e.py:21), of the largest magnitude; the
+# f32 HRNetFusion probabilities against both flags off (cuDNN f32 convolutions).
+F32_PIECE_TOL = {**PIECE_TOL, "linear": 1e-4, "sr_conv": 1e-4, "attention": 1e-4,
+                 "logits": LOGIT_TOL}
+TSCD_F32_TOL = 2e-4
+HRNET_F32_TOL = 1e-3
 
 
 def log(msg: str = "") -> None:
@@ -1151,6 +1173,14 @@ class Phases:
         self.launches_dp: dict[str, dict[str, int]] = {}
         self.plain_runs = 0   # phase 7f's comparisons with a plain version so far
         self.holding = False  # phase 7f: compare each new geometry's call with its plain version
+        self.plain_path = None   # phase 7f: a context in which K1-K3 run their plain versions
+        # phase 7l: each K1 / K5 piece with f32 operands {ms, bound [bytes, operations], lib,
+        # err}; K5's figures at each width; K1's launches in the f32 TSCD forward, K5's and
+        # K6's in an f32 HRNetFusion forward
+        self.f32: dict[str, dict] = {}
+        self.k5_widths: dict[str, dict] = {}
+        self.launches_f32: dict[str, int] = {}
+        self.launches_hrnet_f32: dict[str, int] = {}
         self.refine_inputs = None
         # the 8 blocks of a headline forward, each as ONE function: least time
         # [bytes, operations], and the time the five kernels take for them
@@ -1291,15 +1321,15 @@ class Phases:
                     t.add_(0.1 * torch.randn(t.shape, generator=gen))
         return {k: v.detach().to(self.dev) for k, v in blk.kernel_params().items()}
 
-    def _library_call(self, name, a, kw):
+    def _library_call(self, name, a, kw, dtype=None):
         """One PyTorch call that computes what a K1 kernel call computes, on the
-        same inputs cast to bf16 beforehand; None where there is none. A yardstick
-        only: nothing in the port calls these."""
+        same inputs cast to `dtype` (bf16 unless given) beforehand; None where there
+        is none. A yardstick only: nothing in the port calls these."""
         torch = self.torch
         import torch.nn.functional as F
-        bf16 = torch.bfloat16
+        dt = dtype or torch.bfloat16
         if name == "linear":
-            x, w, bias = a[0].to(bf16), a[1], a[2].to(bf16)
+            x, w, bias = a[0].to(dt), a[1], a[2].to(dt)
             return lambda: F.linear(x, w, bias)
         if name == "ln_stats":  # the mean and the variance, without the reciprocal root
             x = a[0]
@@ -1310,10 +1340,10 @@ class Phases:
             x, stats, ln_w, ln_b, w_flat, bias = a
             B, _, C = x.shape
             H, W, sr = kw["H"], kw["W"], kw["sr"]
-            h = ((x - stats[..., 0:1]) * stats[..., 1:2] * ln_w + ln_b).to(bf16)
+            h = ((x - stats[..., 0:1]) * stats[..., 1:2] * ln_w + ln_b).to(dt)
             h = h.reshape(B, H, W, C).permute(0, 3, 1, 2).contiguous()
             w = w_flat.reshape(C, sr, sr, C).permute(0, 3, 1, 2).contiguous()
-            bias = bias.to(bf16)
+            bias = bias.to(dt)
             return lambda: F.conv2d(h, w, bias, stride=sr)
         if name == "attention" and not kw.get("export") and a[1].shape[1]:
             q, kv = a
@@ -1321,7 +1351,7 @@ class Phases:
             nh = kw["nh"]
 
             def heads(t):  # (B, n, C) -> (B, nh, n, hd)
-                return t.to(bf16).reshape(B, -1, nh, C // nh).transpose(1, 2).contiguous()
+                return t.to(dt).reshape(B, -1, nh, C // nh).transpose(1, 2).contiguous()
 
             qh, kh, vh = heads(q), heads(kv[..., :C]), heads(kv[..., C:])
             return lambda: F.scaled_dot_product_attention(qh, kh, vh)
@@ -1445,12 +1475,13 @@ class Phases:
         self.check(same, "sr_conv: two runs give equal bits at every number of slices")
 
         lib = _build.load_library("mit_block")
-        held = [[lib.k1_linear_blocks_per_sm(t, ln) for ln in (0, 1)]
-                for t in range(len(tmb.LINEAR_TILES))]
-        self.check(all(h == [n, n] for h, n in zip(held, tmb.LINEAR_BLOCKS_PER_SM)),
-                   f"linear: blocks an SM holds of each tile {list(tmb.LINEAR_TILES)}, without "
-                   f"and with the LayerNorm prologue, {held}, are the plan's "
-                   f"{list(tmb.LINEAR_BLOCKS_PER_SM)}")
+        for f32, want_held in ((0, tmb.LINEAR_BLOCKS_PER_SM), (1, tmb.LINEAR_BLOCKS_PER_SM_F32)):
+            held = [[lib.k1_linear_blocks_per_sm(t, ln, f32) for ln in (0, 1)]
+                    for t in range(len(tmb.LINEAR_TILES))]
+            self.check(all(h == [n, n] for h, n in zip(held, want_held)),
+                       f"linear ({'f32' if f32 else 'bf16'} operands): blocks an SM holds of each "
+                       f"tile {list(tmb.LINEAR_TILES)}, without and with the LayerNorm prologue, "
+                       f"{held}, are the plan's {list(want_held)}")
         # `linear`: M of one row and of one tile of rows less or more one, Nout that no
         # column tile divides, K of one, two and 64 steps, LayerNorm and residual each on
         # and off; every tile the plan can choose, one and two M tiles a block
@@ -3001,10 +3032,16 @@ class Phases:
             t0 = time.perf_counter()
             scores = validate(val_ds, eval_fn, cfg, *a, **kw)
             torch.cuda.synchronize()
+            launches, plain = counts(), None
+            if self.holding and self.plain_path is not None:   # the same, on the plain path
+                self.holding = False
+                with self.plain_path():
+                    plain = validate(val_ds, eval_fn, cfg, *a, **kw)
+                self.plain_runs += 1
             self.holding = False
             rec.vals.append({"start": t0, "s": time.perf_counter() - t0,
                              "images": min(len(val_ds), 64), "classes": cfg.num_classes,
-                             "scores": scores, "launches": counts(),
+                             "scores": scores, "plain_scores": plain, "launches": launches,
                              "held": self.plain_runs != held})
             return scores
 
@@ -3164,6 +3201,74 @@ class Phases:
             FusedBlock.block_fn = block
             ta.affinity, tv.varm_propagate = refine
 
+    @contextlib.contextmanager
+    def _plain_path(self, mods):
+        """K1 in every FusedBlock, K2 and K3 swapped for their plain versions."""
+        tmb, ta, tv = mods[:3]
+        from representationlearning_tpu_torch.models.mit import FusedBlock
+
+        saved = (FusedBlock.__dict__["block_fn"], ta.affinity, tv.varm_propagate)
+        FusedBlock.block_fn = staticmethod(tmb.fused_block_reference)
+        ta.affinity, tv.varm_propagate = ta.affinity_reference, tv.varm_propagate_reference
+        try:
+            yield
+        finally:
+            FusedBlock.block_fn, ta.affinity, tv.varm_propagate = saved
+
+    @contextlib.contextmanager
+    def _paths_compared(self, mods, shares: list):
+        """While ``self.holding`` (a run's first step), the step's multi-scale CAMs are
+        made a second time on the plain path and refined there too: ``shares`` gets
+        the share of refined labels on which the two paths agree. ``self.plain_path``
+        lets the first validation of a run do the same (``_cli_run``)."""
+        torch = self.torch
+        from representationlearning_tpu_torch.wsss import camutils as CU
+
+        cams_fn, refine_fn = CU.multi_scale_cam_with_ref_mat, CU.refine_cams_with_bkg_v2
+        pending = {}
+
+        def cams(cam_fn, images, *a, **kw):   # also reached through CU.multi_scale_cam
+            got = cams_fn(cam_fn, images, *a, **kw)
+            if self.holding:
+                with self._plain_path(mods), torch.no_grad():
+                    pending["cams"] = cams_fn(cam_fn, images, *a, **kw)[0]
+                self.plain_runs += 1
+            return got
+
+        def refine(rf, images, cams_, *a, **kw):
+            got = refine_fn(rf, images, cams_, *a, **kw)
+            plain_cams = pending.pop("cams", None)
+            if plain_cams is not None and plain_cams.shape == cams_.shape:
+                with self._plain_path(mods), torch.no_grad():
+                    want = refine_fn(rf, images, plain_cams, *a, **kw)
+                shares.append((got == want).float().mean().item())
+            return got
+
+        CU.multi_scale_cam_with_ref_mat, CU.refine_cams_with_bkg_v2 = cams, refine
+        self.plain_path = lambda: self._plain_path(mods)
+        try:
+            yield shares
+        finally:
+            CU.multi_scale_cam_with_ref_mat, CU.refine_cams_with_bkg_v2 = cams_fn, refine_fn
+            self.plain_path = None
+
+    def _paths_summary(self, what: str, shares: list, rec) -> None:
+        """The refined labels and validation mIoUs of the kernel path against the plain
+        path (``_paths_compared``), at WSSS_PATH_SHARE and WSSS_PATH_MIOU."""
+        self.check(bool(shares) and min(shares) >= WSSS_PATH_SHARE,
+                   f"{what}: refined labels of the first step, kernel path against plain path "
+                   f"(f32): equal on {' / '.join(f'{100.0 * x:.4f}' for x in shares)}% "
+                   f"(at least {100.0 * WSSS_PATH_SHARE:.2f}%)")
+        del shares[:]
+        for v in rec.vals:
+            if v["plain_scores"] is None:
+                continue
+            d = max(abs(v["scores"][k]["miou"] - v["plain_scores"][k]["miou"])
+                    for k in ("seg", "cam", "ref"))
+            self.check(d <= WSSS_PATH_MIOU, f"{what}: validation mIoUs (seg, cam, ref), kernel "
+                                            f"path against plain path: within {d:.2e} "
+                                            f"(tol {WSSS_PATH_MIOU:.0e})")
+
     def _held_summary(self, held: dict) -> None:
         """One line a kernel: the geometries phase 7f held against the plain version
         and the largest error as a share of its tolerance; the exporting blocks' token
@@ -3178,6 +3283,9 @@ class Phases:
         grids = sorted({(dict(at[2:])["H"], dict(at[2:])["W"], at[0][0][0], at[0][0][2],
                          dict(at[2:])["export"]) for at in blocks})
         log(f"  7f K1 blocks held (H, W, B, C, export): {grids}")
+        dtypes = {str(dict(at[2:])["dtype"]) for at in blocks}
+        self.check(dtypes == {"torch.float32"}, f"7f: every K1 block the twins ran computed in "
+                                                f"{sorted(dtypes)} (float32, as JAX builds them)")
         self.check(any(e and h != w for h, w, _, _, e in grids),
                    "7f: the exporting K1 held on a non-square token grid (validation)")
         log(f"  7f affinity held at (shape, mode) "
@@ -3188,21 +3296,22 @@ class Phases:
 
     def run_wsss_cli(self, mods, card: str) -> None:
         """``cli/train_scd.py`` on configs/scd_voc.yaml and configs/scd_coco.yaml and
-        ``cli/train_rml.py`` on configs/rml_voc.yaml, as a user runs them: the yamls'
-        MiT-B1 at 320² crops, on-card augmentation of the synthetic source, iteration
-        counts cut, in a temporary directory."""
+        ``cli/train_rml.py`` on configs/rml_voc.yaml and configs/rml_coco.yaml, as a user
+        runs them: the yamls' MiT-B1 at 320² crops, on-card augmentation of the synthetic
+        source, iteration counts cut, in a temporary directory; the fused twins in f32,
+        their first step's refined labels and first validation held to the plain path."""
         torch = self.torch
         from representationlearning_tpu_torch.cli import train_rml, train_scd
 
         tv = mods[2]
         t_phase = time.perf_counter()
         log(f"== WSSS command lines: cli.train_scd (configs/scd_voc.yaml, scd_coco.yaml) "
-            f"and cli.train_rml (configs/rml_voc.yaml), MiT-B1, 320² crops from 512² "
+            f"and cli.train_rml (configs/rml_voc.yaml, rml_coco.yaml), MiT-B1, f32 twins, 320² crops from 512² "
             f"canvases augmented on the card, {WSSS_N} synthetic images (96 x 128); {card}")
-        self.check(train_scd.twin_dtype(self.dev) == torch.bfloat16,
-                   "the fused twins compute in bf16 on the card (K1's compute type)")
         held: dict = {}
-        with tempfile.TemporaryDirectory() as tmp, self._held_to_plain(mods, held):
+        shares: list = []
+        with tempfile.TemporaryDirectory() as tmp, self._held_to_plain(mods, held), \
+                self._paths_compared(mods, shares):
             tmp = Path(tmp)
             common = ["dataset.device_augment=true", f"dataset.synthetic_n={WSSS_N}",
                       "train.log_iters=1"]
@@ -3218,6 +3327,7 @@ class Phases:
             scd_ms = self._cli_steps("(a) SCD on VOC", rec, WSSS_CAM_ITERS)
             self.launches_wsss = rec.steps[0]["launches"]
             val_s = self._cli_vals("(a) SCD on VOC", rec, NUM_CLASSES, 2)
+            self._paths_summary("(a) SCD on VOC", shares, rec)
             rows = [line.split(",") for line in
                     (wd / "events" / "scalars.csv").read_text().splitlines()[1:]]
             tags = {t for _, t, _ in rows}
@@ -3258,6 +3368,7 @@ class Phases:
             self.check(coco.state.step == WSSS_COCO_STEPS, f"(b) SCD on COCO: the state reached "
                        f"step {coco.state.step}")
             self._cli_steps("(b) SCD on COCO", coco, -1)
+            self._paths_summary("(b) SCD on COCO", shares, coco)
             log(f"  (b) K3's masks a refine (B, C, H, W): {sorted(set(planes))}, "
                 f"{planes[0][0] * planes[0][1] if planes else 0} planes")
             self.check(bool(planes) and all(p[1] == 2 * 81 for p in planes),
@@ -3276,6 +3387,18 @@ class Phases:
                        f"(c) RML on VOC: the state reached step {rml.state.step}, checkpoint "
                        "written")
             self._cli_steps("(c) RML on VOC (K2 in par mode)", rml, WSSS_RML_CAM_ITERS)
+            self._paths_summary("(c) RML on VOC", shares, rml)
+            del rml
+
+            # (d) RML on COCO: 81 classes
+            rml = self._cli_run(train_rml, [
+                "--config", str(ROOT / "configs" / "rml_coco.yaml"), *common,
+                f"train.max_iters={WSSS_COCO_STEPS}", "train.cam_iters=-1",
+                f"work_dir={tmp / 'rml_coco'}"], mods, "make_rml_train_step")
+            self.check(rml.state.step == WSSS_COCO_STEPS, f"(d) RML on COCO: the state reached "
+                                                          f"step {rml.state.step}")
+            self._cli_steps("(d) RML on COCO", rml, -1)
+            self._paths_summary("(d) RML on COCO", shares, rml)
             del rml
 
             # the figures: (a) and (c) again, WSSS_TIMED steps after the warm-up each
@@ -3295,6 +3418,7 @@ class Phases:
                 self.check(rec.state.step == steps, f"{what}, timed: the state reached step "
                                                     f"{rec.state.step} of {steps}")
                 timed[what] = self._cli_steps(f"{what}, timed (log_iters as the yaml)", rec, cam)
+                self._paths_summary(f"{what}, timed", shares, rec)
                 self._cli_step_alone(f"{what}, timed", rec)
                 del rec
             scd_ms, rml_ms = timed["SCD on VOC"], timed["RML on VOC"]
@@ -3356,28 +3480,36 @@ class Phases:
 
     @contextlib.contextmanager
     def _k5_held_to_plain(self, tm, held: dict):
-        """K5's two kernels as the RSSFormer CLI calls them, each held against its
-        plain version at the first call of every geometry while ``self.holding``,
-        at K5_TOL of max(1, max |plain|)."""
+        """K5's two kernels as the RSSFormer CLI calls them (f32), each held against its
+        plain version at the first call of every geometry while ``self.holding``, at
+        K5_F32_TOL of max(1, max |plain|); the plain taps read the hidden plane at its
+        own width (the kernel's comes padded to `padded_hid`)."""
+        torch = self.torch
         kernels = (tm.mlp_fc1, tm.mlp_taps)
-        tm.mlp_fc1 = self._held_at_first_call(held, "mlp_fc1", tm.mlp_fc1, tm.mlp_fc1_reference,
-                                              lambda i, mag: K5_TOL["mlp_fc1"] * max(1.0, mag))
-        tm.mlp_taps = self._held_at_first_call(held, "mlp_taps", tm.mlp_taps,
-                                               tm.mlp_taps_reference,
-                                               lambda i, mag: K5_TOL["mlp_taps"] * max(1.0, mag))
+
+        def fc1_plain(x, w1, *a, **kw):   # at the kernel's padded width
+            h = tm.mlp_fc1_reference(x, w1, *a, **kw)
+            return torch.nn.functional.pad(h, (0, tm.padded_hid(w1.shape[0]) - h.shape[-1]))
+
+        def taps_plain(h, taps, *a, **kw):
+            return tm.mlp_taps_reference(h[..., :taps.shape[1]], taps, *a, **kw)
+
+        tm.mlp_fc1 = self._held_at_first_call(held, "mlp_fc1", tm.mlp_fc1, fc1_plain,
+                                              lambda i, mag: K5_F32_TOL * max(1.0, mag))
+        tm.mlp_taps = self._held_at_first_call(held, "mlp_taps", tm.mlp_taps, taps_plain,
+                                               lambda i, mag: K5_F32_TOL * max(1.0, mag))
         try:
             yield held
         finally:
             tm.mlp_fc1, tm.mlp_taps = kernels
 
-    def _rss_cli_infer(self, rc, trs, argv: list[str], mods, bf16: bool | None = None):
+    def _rss_cli_infer(self, rc, trs, argv: list[str], mods):
         """One ``eval`` or ``predict`` of the RSSFormer CLI on the card: its forwards
         counted (and their probabilities kept for ``predict``), its launches, its
-        wall time. ``bf16`` overrides the CLI's compute dtype (the unfused runs in
-        K5's dtype)."""
+        wall time."""
         torch = self.torch
         rec = SimpleNamespace(forwards=0, probs=[])
-        makers = (rc.make_rssformer_eval_step, trs.make_rssformer_eval_step, rc.compute_dtype)
+        makers = (rc.make_rssformer_eval_step, trs.make_rssformer_eval_step)
 
         def counting(model):
             fwd = makers[0](model)
@@ -3391,8 +3523,6 @@ class Phases:
             return run
 
         rc.make_rssformer_eval_step = trs.make_rssformer_eval_step = counting
-        if bf16 is not None:
-            rc.compute_dtype = lambda *a, **k: torch.bfloat16 if bf16 else torch.float32
         for mod in mods:
             mod.reset_launches()
         try:
@@ -3401,7 +3531,7 @@ class Phases:
             torch.cuda.synchronize()
             rec.s = time.perf_counter() - t0
         finally:
-            rc.make_rssformer_eval_step, trs.make_rssformer_eval_step, rc.compute_dtype = makers
+            rc.make_rssformer_eval_step, trs.make_rssformer_eval_step = makers
         rec.launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()}
         return rec
 
@@ -3409,8 +3539,8 @@ class Phases:
         """``cli/rssformer.py`` on configs/rssformer_loveda.yaml as a user runs it:
         ``train`` at the yaml's hrnetv2_w32, 8 x 512² crops, with the LoveDA chain
         on the card, a resume; then ``eval --tta`` and ``predict`` with
-        ``model.fused_mlp=True`` (K5, bf16 compute) against the same commands
-        without it in bf16."""
+        ``model.fused_mlp=True`` (K5, f32 as JAX builds the model) against the same
+        commands without it."""
         torch = self.torch
         from representationlearning_tpu_torch.cli import rssformer as rc
         from representationlearning_tpu_torch.models.rssformer import HRNetFusion
@@ -3484,11 +3614,10 @@ class Phases:
                     self.holding = fused
                     try:
                         runs[fused] = (
-                            self._rss_cli_infer(rc, trs, ["eval", "--tta", *common, flag], mods,
-                                                None if fused else True),
+                            self._rss_cli_infer(rc, trs, ["eval", "--tta", *common, flag], mods),
                             self._rss_cli_infer(rc, trs, ["predict", *common, flag, "--out_dir",
                                                           str(Path(tmp) / f"pred_{fused}")],
-                                                mods, None if fused else True))
+                                                mods))
                     finally:
                         self.holding = False
             (ev, pr), (ev0, pr0) = runs[True], runs[False]
@@ -3511,17 +3640,18 @@ class Phases:
                            "its tolerance")
             scores, plain = ev.out, ev0.out
             log(f"  (c) eval --tta: K5 pAcc {scores['pAcc']:.4f} mAcc {scores['mAcc']:.4f} mIoU "
-                f"{scores['miou']:.4f}; fused_mlp=False (bf16) pAcc {plain['pAcc']:.4f} mAcc "
+                f"{scores['miou']:.4f}; fused_mlp=False pAcc {plain['pAcc']:.4f} mAcc "
                 f"{plain['mAcc']:.4f} mIoU {plain['miou']:.4f}")
             self.check(all(abs(scores[k] - plain[k]) <= 1.0 - RSS_SHARE for k in ("pAcc", "mAcc")),
                        f"(c) eval --tta, K5 against fused_mlp=False: pAcc and mAcc within "
                        f"{1.0 - RSS_SHARE:.2f}")
             probs, probs0 = torch.stack(pr.probs), torch.stack(pr0.probs)
             err = (probs - probs0).abs().max().item()
-            self.check(err <= RSS_TOL, f"(c) predict's probabilities, K5 against fused_mlp=False "
-                                       f"in bf16: max abs err {err:.3e} (tol {RSS_TOL:.0e})")
+            self.check(err <= RSS_F32_TOL, f"(c) predict's probabilities, K5 against "
+                                           f"fused_mlp=False, f32: max abs err {err:.3e} (tol "
+                                           f"{RSS_F32_TOL:.0e})")
             top2 = probs0.topk(2, dim=2).values
-            clear = (top2[:, :, 0] - top2[:, :, 1]) > RSS_TOL
+            clear = (top2[:, :, 0] - top2[:, :, 1]) > RSS_F32_TOL
             same = probs.argmax(2) == probs0.argmax(2)
             share = same[clear].float().mean().item() if bool(clear.any()) else 0.0
             self.check(bool(clear.any()) and share >= RSS_SHARE,
@@ -3537,7 +3667,7 @@ class Phases:
             f"{RSS_CLI_BATCH} x 512², f32, LoveDA chain on the card; median of {len(gaps)}), the "
             f"step alone {alone_ms:.1f} ms, idle share {idle:.4f}; with K5: eval --tta "
             f"{ev.s / ds_n:.3f} s an image (6 scales, {ev.s:.2f} s for {ds_n}), predict "
-            f"{pr.s / ds_n:.3f} s an image ({pr.s:.2f} s); unfused in bf16: eval --tta "
+            f"{pr.s / ds_n:.3f} s an image ({pr.s:.2f} s); unfused: eval --tta "
             f"{ev0.s / ds_n:.3f} s, predict {pr0.s / ds_n:.3f} s an image; whole commands with "
             "the model build, the checkpoint load and, with K5, the 12 first-call holds")
         log(f"  phase 7g: {time.perf_counter() - t_phase:.1f} s")
@@ -4846,7 +4976,7 @@ class Phases:
         lib = _build.load_library("rssformer")
         side = IMAGE // 4
         warps = {cin: tm.fc1_plan(2 * side * side, cin)[0] for cin in (16, 32, 64, 256)}
-        held = {cin: lib.k5_fc1_blocks_per_sm(cin, w) for cin, w in warps.items()}
+        held = {cin: lib.k5_fc1_blocks_per_sm(cin, cin, hid, 0, w) for cin, w in warps.items()}
         want_held = {cin: tm.fc1_blocks_per_sm(cin, w) for cin, w in warps.items()}
         self.check(held == want_held, f"mlp_fc1: blocks an SM holds of the plan's {warps} warps "
                                       f"at cin 16, 32, 64, 256: {held}, the plan's estimate "
@@ -4896,7 +5026,7 @@ class Phases:
         bf16, hid = torch.bfloat16, 4 * RSS_DIM
 
         lib = _build.load_library("rssformer")
-        held = {t: lib.k5_taps_blocks_per_sm(t) for t in tm.TAPS_TILES}
+        held = {t: lib.k5_taps_blocks_per_sm(hid, 0, t) for t in tm.TAPS_TILES}
         want_held = {t: tm.taps_blocks_per_sm(t) for t in held}
         self.check(held == want_held, f"mlp_taps: blocks an SM holds of each tile: "
                                       f"{held}, the plan's estimate {want_held}")
@@ -5431,6 +5561,408 @@ class Phases:
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
 
+    # ------------------------------------------------------------- phase 7l (f32, K5 widths)
+    def run_f32(self, mods, card: str) -> None:
+        """K1's f32 operand path and K5 in f32 and at every HRNetV2 width: each new kernel
+        geometry against its plain version at the same dtype (TF32 off), then the models
+        that run them, TSCD(dtype=f32, fused_blocks=True) at the headline's 8 x 512² and
+        HRNetFusion(w18 / w40 / w48, fused_mlp, fused_attn) in f32 at 8 x 512²."""
+        torch = self.torch
+        tmb, tm, ti = mods[0], mods[4], mods[5]
+        t_phase = time.perf_counter()
+        log(f"== f32 and K5 widths (phase 7l): K1 linear / sr_conv / attention with f32 operands "
+            f"(3xTF32 mma.sync), K5 at hid 72 / 128 / 160 / 192 in f32 and bf16; {card}")
+        gen = torch.Generator().manual_seed(self.seed + 31)
+        self.f32 = {k: {"ms": 0.0, "bound": [0.0, 0.0], "lib": 0.0, "err": 0.0}
+                    for k in (*PIECE_TOL, "mlp_fc1", "mlp_taps")}
+        self.f32_same = True
+        log(f"  K1 at the headline's four stage geometries (B = {BATCH}, {IMAGE}², f32 tokens "
+            f"and operands), each piece against its plain version, a rerun and every plan of "
+            f"`linear` for equal bits, timed by graph replay with its f32 library call")
+        for stage in STAGES:
+            self._k1_f32_block(tmb, gen, BATCH, *stage)
+        self._k1_f32_edges(tmb, gen)
+        self.check(self.f32_same, "K1 with f32 operands: a rerun, and every `linear` plan, give "
+                                  "equal bits at every geometry of the phase")
+        for k in PIECE_TOL:
+            e = self.f32[k]
+            ratio = e["ms"] / self.piece_ms[k] if self.piece_ms.get(k) else float("nan")
+            log(f"  {k} a headline forward in f32: kernel {e['ms']:.4f} ms, bound "
+                f"{sum(e['bound']):.4f} ms ({'bytes' if e['bound'][0] >= e['bound'][1] else 'operations'}), "
+                f"library call {e['lib']:.4f} ms, largest error {e['err']:.3e}; f32 / bf16 "
+                f"kernel time {ratio:.2f}")
+        self._tscd_f32(tmb)
+        self._k5_widths(tm, gen)
+        self._hrnet_widths(tm, ti)
+        log(f"  phase 7l: {time.perf_counter() - t_phase:.1f} s")
+
+    def _k1_f32_block(self, tmb, gen, B, hw, C, nh, sr, export) -> None:
+        """One block geometry with f32 operands: each kernel call of the block against its
+        plain version in f32 at F32_PIECE_TOL, a rerun (and for `linear` every plan) for
+        equal bits; each call's kernel time, its f32 library call and its f32 bound (3xTF32
+        products at PEAK_TF32, or bytes), DEPTH blocks a stage."""
+        torch = self.torch
+        f32 = torch.float32
+        N = hw * hw
+        x = torch.randn(B, N, C, generator=gen).to(self.dev)
+        p = self._block_params(C, nh, sr, export, gen)
+        calls = []
+
+        def recording(name):
+            def run(*a, **kw):
+                fn = getattr(tmb, name)
+                got = fn(*a, **kw)
+                runs = [fn(*a, **kw)]
+                if name == "linear":
+                    runs += [fn(*a, plan=(tile, per), **kw)
+                             for tile in tmb.LINEAR_TILES for per in (1, 2)]
+                want = getattr(tmb, name + "_reference")(*a, **kw)
+                torch.cuda.synchronize()
+                got_t = got if isinstance(got, tuple) else (got,)
+                want_t = want if isinstance(want, tuple) else (want,)
+                for i, (g, w) in enumerate(zip(got_t, want_t)):
+                    if g is None:
+                        continue
+                    err, mag = max_err(g, w)
+                    tol = F32_PIECE_TOL[name if i == 0 else "logits"] * max(1.0, mag)
+                    self.check(bool(torch.isfinite(g).all()) and err <= tol,
+                               f"{name}{' logits' if i else ''} f32 @ B={B} N={N} C={C}: max abs "
+                               f"err {err:.3e} (max |plain| {mag:.3e}, tol {tol:.3e})")
+                    self.f32[name]["err"] = max(self.f32[name]["err"], err if i == 0 else 0.0)
+                    for r in runs:
+                        self.f32_same &= torch.equal(g, (r if isinstance(r, tuple) else (r,))[i])
+                calls.append((name, a, kw, got))
+                return got
+            return run
+
+        ops = SimpleNamespace(**{n: recording(n) for n in PIECE_TOL})
+        with torch.no_grad():
+            tmb._block(x, p, ops=ops, H=hw, W=hw, sr=sr, nh=nh, dtype=f32, export=export)
+            for name, a, kw, got in calls:
+                k_ms = self.graph_ms(lambda: getattr(tmb, name)(*a, **kw))
+                lib_fn = self._library_call(name, a, kw, f32)
+                lib_ms = None if lib_fn is None else self.graph_ms(lib_fn)
+                flops, peak = k1_flops(name, a, kw)
+                if peak == PEAK_BF16:   # the products: three TF32 products each
+                    flops, peak = 3.0 * flops, PEAK_TF32
+                t_bytes, t_ops = 1e3 * nbytes(a, kw, got) / PEAK_BYTES, 1e3 * flops / peak
+                e = self.f32[name]
+                e["ms"] += DEPTH * k_ms
+                e["bound"][0 if t_bytes >= t_ops else 1] += DEPTH * max(t_bytes, t_ops)
+                e["lib"] += DEPTH * (lib_ms or 0.0)
+                if name in ("linear", "sr_conv", "attention"):
+                    log(f"  {name} f32 @ N={N} C={C}{', exporting' if export and name == 'attention' else ''}"
+                        f", a launch: kernel {k_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms, "
+                        f"library call {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+
+    def _k1_f32_edges(self, tmb, gen) -> None:
+        """K1's three product kernels with f32 operands at PR 7's edges of `linear` (M of
+        one row and of a tile less or more one, Nout 96 / 640 / 1280, K 32 / 64 / 2048,
+        LayerNorm and residual on and off, every plan), `sr_conv` at every number of K
+        slices and both tiles, `attention` at the one-pass bound and one either side."""
+        torch = self.torch
+        f32 = torch.float32
+
+        def rand(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=gen)).to(self.dev)
+
+        def held(name, got, want, i=0):
+            err, mag = max_err(got, want)
+            self.f32[name]["err"] = max(self.f32[name]["err"], err if i == 0 else 0.0)
+            return err / (F32_PIECE_TOL[name if i == 0 else "logits"] * max(1.0, mag))
+
+        worst, n = 0.0, 0
+        rows = sorted({r for r, _ in tmb.LINEAR_TILES})
+        ms = sorted({1} | {r + d for r in rows for d in (-1, 1)})
+        with torch.no_grad():
+            for M in ms:
+                for Nout in (96, 640, 1280):
+                    for K in (32, 64, 2048):
+                        a, w = rand(M, K), rand(Nout, K, scale=0.05)
+                        for ln in (False, True):
+                            for res in (False, True):
+                                kw = dict(bias=rand(Nout), dtype=f32)
+                                if ln:
+                                    kw.update(stats=tmb.ln_stats_reference(a), ln_w=rand(K) + 1.0,
+                                              ln_b=rand(K, scale=0.1))
+                                if res:
+                                    kw["residual"] = rand(M, Nout)
+                                got = tmb.linear(a, w, **kw)
+                                runs = [tmb.linear(a, w, **kw)]
+                                runs += [tmb.linear(a, w, plan=(tile, per), **kw)
+                                         for tile in tmb.LINEAR_TILES for per in (1, 2)]
+                                torch.cuda.synchronize()
+                                worst = max(worst, held("linear", got, tmb.linear_reference(a, w, **kw)))
+                                self.f32_same &= all(torch.equal(got, r) for r in runs)
+                                n += 1
+            self.check(worst <= 1.0, f"linear f32 at M = {ms}, Nout = 96, 640, 1280, K = 32, 64, "
+                                     f"2048, LayerNorm and residual on and off ({n} cases, every "
+                                     f"plan): largest error {worst:.3f} of its tolerance")
+            worst, tried = 0.0, []
+            for H, C, sr in ((16, 64, 8), (9, 320, 2)):
+                x = rand(2, H * H, C)
+                args = (x, tmb.ln_stats_reference(x), rand(C) + 1.0, rand(C, scale=0.1),
+                        rand(C, sr * sr * C, scale=0.05), rand(C))
+                want = tmb.sr_conv_reference(*args, H=H, W=H, sr=sr, dtype=f32)
+                counts = tmb.sr_conv_slice_counts(sr * sr * C)
+                tried.append(counts)
+                for tile in (64, 128):
+                    for slices in counts:
+                        got = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=f32, plan=(tile, slices))
+                        again = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=f32, plan=(tile, slices))
+                        torch.cuda.synchronize()
+                        worst = max(worst, held("sr_conv", got, want))
+                        self.f32_same &= torch.equal(got, again)
+            self.check(worst <= 1.0, f"sr_conv f32 with K cut into {tried[0]} slices (K = 4096) "
+                                     f"and {tried[1]} (K = 1280), tiles 64 and 128: largest error "
+                                     f"{worst:.3f} of its tolerance")
+            worst, bound = 0.0, tmb.ATTN_ONE_PASS_KEYS
+            for Nk in (bound - 1, bound, bound + 1):
+                for (C, nh), N in ((64, 2), 9), ((64, 1), 36), ((128, 2), 36), ((32, 1), 9):
+                    q, kv = rand(2, N, C), rand(2, Nk, 2 * C)
+                    for export in (False, True):
+                        got = tmb.attention(q, kv, nh=nh, dtype=f32, export=export)
+                        again = tmb.attention(q, kv, nh=nh, dtype=f32, export=export)
+                        torch.cuda.synchronize()
+                        want = tmb.attention_reference(q, kv, nh=nh, dtype=f32, export=export)
+                        for i in (0, 1):
+                            if got[i] is not None:
+                                worst = max(worst, held("attention", got[i], want[i], i))
+                                self.f32_same &= torch.equal(got[i], again[i])
+            self.check(worst <= 1.0, f"attention f32 at Nk = {bound - 1}, {bound}, {bound + 1}, "
+                                     f"head widths 32 and 64, N = 9 and 36, with and without "
+                                     f"export: largest error {worst:.3f} of its tolerance")
+
+    def _tscd_f32(self, tmb) -> None:
+        """TSCD(dtype=f32, fused_blocks=True) at the headline's 8 x 512² against its plain
+        path (the same model, K1 swapped for its plain version) at TSCD_F32_TOL; K1 84."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.mit import FusedBlock
+        from representationlearning_tpu_torch.models.tscd import TSCD
+
+        gen = torch.Generator().manual_seed(self.seed + 32)
+        model = TSCD("mit_b1", NUM_CLASSES, fused_blocks=True, collect_attns="last2",
+                     generator=gen).eval()   # f32, the default
+        blocks = [m for m in model.encoder.modules() if isinstance(m, FusedBlock)]
+        x = torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen).to(self.dev)
+        tmb.reset_launches()
+        with torch.no_grad():
+            out = model(x)
+        torch.cuda.synchronize()
+        counts = dict(tmb.LAUNCHES)
+        n_sr = sum(DEPTH for _, _, _, sr, _ in STAGES if sr > 1)
+        want = {"ln_stats": 2 * 8 + n_sr, "linear": 5 * 8, "sr_conv": n_sr,
+                "attention": 8, "dwconv_gelu": 8}
+        self.check(counts == want and all(b.dtype == torch.float32 for b in blocks),
+                   f"TSCD(dtype=f32, fused_blocks=True) at {BATCH} x {IMAGE}²: K1 launches {counts} "
+                   f"({sum(counts.values())}), as the bf16 headline's")
+        self.launches_f32 = counts
+        with plain_kernels(*blocks), torch.no_grad():
+            plain = model(x)
+        torch.cuda.synchronize()
+        cls, seg, attns, pred = out
+        p_cls, p_seg, p_attns, p_pred = plain
+        for k, g, w in (("cls", cls, p_cls), ("seg", seg, p_seg), ("attn_pred", pred, p_pred),
+                        ("attns[0]", attns[0], p_attns[0]), ("attns[1]", attns[1], p_attns[1])):
+            err, mag = max_err(g, w)
+            self.check(bool(torch.isfinite(g).all()) and err <= TSCD_F32_TOL * mag,
+                       f"f32 TSCD {k}: kernel path against plain path max abs err {err:.3e} "
+                       f"(max |plain| {mag:.3e}, tol {TSCD_F32_TOL * mag:.3e})")
+        del out, plain, cls, seg, attns, pred, p_cls, p_seg, p_attns, p_pred
+
+        def forward(plain_path):
+            with (plain_kernels(*blocks) if plain_path else contextlib.nullcontext()), \
+                    torch.no_grad():
+                model(x)
+
+        ms = [self.time_ms(lambda: forward(False), iters=5),
+              self.time_ms(lambda: forward(True), iters=3), self.time_ms(lambda: forward(False), iters=5)]
+        self.tscd_f32_ms = min(ms[0], ms[2])
+        log(f"  f32 TSCD forward, {BATCH} x {IMAGE}²: kernel path {ms[0]:.2f} / {ms[2]:.2f} ms, "
+            f"plain path {ms[1]:.2f} ms (CUDA events)")
+
+    def _k5_widths(self, tm, gen) -> None:
+        """K5 at HRNetV2's four widths (dim 18 / 32 / 40 / 48, hid = 4 dim) in f32 and bf16:
+        fc1, taps and the whole block against their plain versions at the same dtype, at the
+        branch-0 plane of a 512² input ({BATCH} x 128²), a TTA plane and PR 11's edge planes;
+        a rerun and every plan for equal bits; the blocks an SM holds against the plans'
+        estimates; a launch of each at {BATCH} x 128², timed by graph replay."""
+        torch = self.torch
+        import torch.nn.functional as F
+        from representationlearning_tpu_torch.models.layers import init_weights
+        from representationlearning_tpu_torch.models.rssformer_modules import MlpDWBN
+        from representationlearning_tpu_torch.ops import _build
+
+        f32, bf16 = torch.float32, torch.bfloat16
+        lib = _build.load_library("rssformer")
+        side = IMAGE // 4
+        planes = ((BATCH, side, side), (2, 96, 96), (2, 7, 9), (1, 20, 45), (3, 13, 29),
+                  (1, 1, 1))
+        self.k5_widths = {}
+        for dim in (18, 32, 40, 48):
+            hid, cout = 4 * dim, dim
+            hp = tm.padded_hid(hid)
+            mod = MlpDWBN(dim, hid, cout, fused=True).eval()
+            init_weights(mod, gen)
+            calm(torch, mod, gen)
+            mod.to(self.dev)
+            with torch.no_grad():
+                p = {k: v.detach() for k, v in mod.kernel_params().items()}
+            fig = self.k5_widths[f"w{dim}"] = {}
+            for dtype in (f32, bf16):
+                d = "f32" if dtype == f32 else "bf16"
+                tol = {k: K5_F32_TOL for k in K5_TOL} if dtype == f32 else K5_TOL
+                far = None if dtype == f32 else K5_FAR_SHARE
+                f1 = (p["fc1_weight"].reshape(hid, dim).to(dtype), p["fc1_bias"], p["bn1_scale"],
+                      p["bn1_shift"])
+                rest = (tm.tap_weights(p).to(dtype).contiguous(), p["dw_bias"], p["bn2_scale"],
+                        p["bn2_shift"], p["fc2_weight"].reshape(cout, hid).to(dtype), p["fc2_bias"],
+                        p["bn3_scale"], p["bn3_shift"])
+                f32_flag = int(dtype == f32)
+                warps = tm.fc1_plan(BATCH * side * side, dim, hid, dtype)[0]
+                tiles = tm.taps_tiles(hid)
+                held = ([lib.k5_fc1_blocks_per_sm(dim, -(-dim // 16) * 16, hp, f32_flag, warps)]
+                        + [lib.k5_taps_blocks_per_sm(hp, f32_flag, t) for t in tiles])
+                want_held = ([tm.fc1_blocks_per_sm(dim, warps, hid, dtype)]
+                             + [tm.taps_blocks_per_sm(t, hid, dtype) for t in tiles])
+                self.check(held == want_held, f"K5 {d} dim {dim}: blocks an SM holds of fc1 "
+                                              f"({warps} warps) and of the taps tiles {tiles}: "
+                                              f"{held}, the plans' estimates {want_held}")
+                fc1_pl = [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3)
+                          if tm.fc1_fits(dim, w, hid, dtype)]
+                same, worst = True, {"mlp_fc1": 0.0, "mlp_taps": 0.0, "whole": 0.0}
+                for B, H, W in planes:
+                    M = B * H * W
+                    x = torch.randn(B, H * W, dim, generator=gen).to(self.dev)
+                    taps_pl = [(t, n) for t in tiles for n in sorted(
+                        {1, 3, max(1, min(-(-M // t), tm.taps_blocks_per_sm(t, hid, dtype) * tm.TAPS_SMS))})]
+                    with torch.no_grad():
+                        h = tm.mlp_fc1(x, *f1, dtype=dtype)
+                        runs = [tm.mlp_fc1(x, *f1, dtype=dtype)]
+                        runs += [tm.mlp_fc1(x, *f1, dtype=dtype, plan=pl) for pl in fc1_pl]
+                        out = tm.mlp_taps(h, *rest, H=H, W=W, dtype=dtype)
+                        truns = [tm.mlp_taps(h, *rest, H=H, W=W, dtype=dtype)]
+                        truns += [tm.mlp_taps(h, *rest, H=H, W=W, dtype=dtype, plan=pl)
+                                  for pl in taps_pl]
+                        whole = tm.fused_mlp_dwbn(x, p, H=H, W=W, dtype=dtype)
+                        torch.cuda.synchronize()
+                        want_h = tm.mlp_fc1_reference(x, *f1, dtype=dtype)
+                        want = tm.mlp_taps_reference(h[..., :hid], *rest, H=H, W=W, dtype=dtype)
+                        want_whole = tm.fused_mlp_dwbn_reference(x, p, H=H, W=W, dtype=dtype)
+                    same &= all(torch.equal(h, r) for r in runs) and all(
+                        torch.equal(out, r) for r in truns) and not h[..., hid:].any()
+                    for name, g, w in (("mlp_fc1", h[..., :hid], want_h), ("mlp_taps", out, want),
+                                       ("whole", whole, want_whole)):
+                        err, mag = max_err(g, w)
+                        scale = max(1.0, mag)
+                        ok = bool(torch.isfinite(g.float()).all())
+                        worst[name] = max(worst[name], err / (tol[name] * scale) if ok else float("inf"))
+                        if far is not None and name != "mlp_fc1":
+                            share = ((g.float() - w.float()).abs() > K5_NEAR * scale).float().mean().item()
+                            worst[name] = max(worst[name], share / far)
+                        if dtype == f32 and dim == RSS_DIM and name in self.f32:
+                            self.f32[name]["err"] = max(self.f32[name]["err"], err)
+                self.check(all(v <= 1.0 for v in worst.values()),
+                           f"K5 {d} dim {dim} (hid {hid}, run at {hp}) at planes {list(planes)}: "
+                           f"largest error of fc1 / taps / the whole block "
+                           f"{' / '.join(f'{v:.3f}' for v in worst.values())} of its tolerance"
+                           + ("" if far is None else f" (and of the share beyond {K5_NEAR:.0e})"))
+                self.check(same, f"K5 {d} dim {dim}: a rerun and every plan of fc1 {fc1_pl} and "
+                                 f"of the taps (tiles {tiles}) give equal bits; the padded hidden "
+                                 f"features are 0")
+                # a launch of each at BATCH x 128², the kernel and fc1's library call by replay
+                x = torch.randn(BATCH, side * side, dim, generator=gen).to(self.dev)
+                with torch.no_grad():
+                    h = tm.mlp_fc1(x, *f1, dtype=dtype)
+                    out = tm.mlp_taps(h, *rest, H=side, W=side, dtype=dtype)
+                    fc1_ms = self.graph_ms(lambda: tm.mlp_fc1(x, *f1, dtype=dtype))
+                    taps_ms = self.graph_ms(lambda: tm.mlp_taps(h, *rest, H=side, W=side, dtype=dtype))
+                    xl, bl = x.to(dtype), f1[1].to(dtype)
+                    lib_ms = self.graph_ms(lambda: F.linear(xl, f1[0], bl))
+                M = x.shape[0] * x.shape[1]
+                tap_tokens = BATCH * sum(max(0, side - abs(dy)) * max(0, side - abs(dx))
+                                         for dy, dx in tm.tap_offsets())
+                ops_fc1 = 2.0 * M * dim * hid
+                ops_taps = 2.0 * hid * (hid * tap_tokens + M * cout)
+                rate = PEAK_TF32 / 3.0 if dtype == f32 else PEAK_BF16
+                # x, the weights and vectors read and the hidden plane written at its own
+                # width (fc1); that plane, 19 + 1 weights and six vectors read, the tokens
+                # written (taps); a tap counts only where its source lies in the plane
+                plane = M * hid * (4 if dtype == f32 else 2)
+                b_fc1 = 1e3 * (nbytes(x, f1) + plane) / PEAK_BYTES, 1e3 * ops_fc1 / rate
+                b_taps = 1e3 * (plane + nbytes(rest, out)) / PEAK_BYTES, 1e3 * ops_taps / rate
+                fig.update({f"fc1_ms_{d}": fc1_ms, f"taps_ms_{d}": taps_ms,
+                            f"fc1_bound_ms_{d}": max(b_fc1), f"taps_bound_ms_{d}": max(b_taps),
+                            f"fc1_library_ms_{d}": lib_ms})
+                log(f"  K5 {d} dim {dim} a launch at {BATCH} x {side}²: fc1 {fc1_ms:.4f} ms (bound "
+                    f"{max(b_fc1):.4f}, F.linear {lib_ms:.4f}), taps {taps_ms:.4f} ms (bound "
+                    f"{max(b_taps):.4f}, by {'bytes' if b_taps[0] >= b_taps[1] else 'operations'})")
+                if dtype == f32 and dim == RSS_DIM:   # the kernels line's f32 fields, a predict forward
+                    xs = x[:RSS_BATCH].contiguous()
+                    with torch.no_grad():
+                        hs = tm.mlp_fc1(xs, *f1, dtype=dtype)
+                        outs = tm.mlp_taps(hs, *rest, H=side, W=side, dtype=dtype)
+                        ms_ = (self.graph_ms(lambda: tm.mlp_fc1(xs, *f1, dtype=dtype)),
+                               self.graph_ms(lambda: tm.mlp_taps(hs, *rest, H=side, W=side, dtype=dtype)))
+                        xsl = xs.to(dtype)
+                        lib_s = self.graph_ms(lambda: F.linear(xsl, f1[0], bl))
+                    Ms = xs.shape[0] * xs.shape[1]
+                    sides = {"mlp_fc1": (1e3 * nbytes(xs, f1, hs) / PEAK_BYTES,
+                                         1e3 * 2.0 * Ms * dim * hid / rate),
+                             "mlp_taps": (1e3 * nbytes(hs, rest, outs) / PEAK_BYTES,
+                                          1e3 * ops_taps * RSS_BATCH / BATCH / rate)}
+                    for (name, (tb, to)), k_ms in zip(sides.items(), ms_):
+                        e = self.f32[name]
+                        e["ms"] = RSS_BLOCKS * k_ms
+                        e["bound"][0 if tb >= to else 1] = RSS_BLOCKS * max(tb, to)
+                        e["lib"] = RSS_BLOCKS * lib_s if name == "mlp_fc1" else None
+
+    def _hrnet_widths(self, tm, ti) -> None:
+        """HRNetFusion at hrnetv2_w18, w40 and w48 with fused_mlp and fused_attn (K5 at hid
+        72 / 160 / 192, K6 at head widths 9 / 20 / 24), f32 as JAX builds it, 8 x 512²,
+        calmed as phase 8 calms its model: probabilities against both flags off (cuDNN
+        f32 convolutions, the plain attention core) at HRNET_F32_TOL; K5 8 + 8 and K6 8
+        launches a forward."""
+        torch = self.torch
+        from representationlearning_tpu_torch.models.rssformer import HRNetFusion
+
+        self.hrnet_f32 = {}
+        for w in (18, 40, 48):
+            gen = torch.Generator().manual_seed(self.seed + 40 + w)
+            model = HRNetFusion(f"hrnetv2_w{w}", RSS_CLASSES, fused_mlp=True, fused_attn=True,
+                                generator=gen).eval()
+            calm(torch, model, gen)
+            x = torch.randn(BATCH, 3, IMAGE, IMAGE, generator=gen).to(self.dev)
+
+            def forward(flags):
+                set_rss_flags(model, *flags)
+                tm.reset_launches()
+                ti.reset_launches()
+                with torch.no_grad():
+                    out = model(x)
+                torch.cuda.synchronize()
+                return out, {**tm.LAUNCHES, **ti.LAUNCHES}
+
+            prob, counts = forward((True, True))
+            want = {"mlp_fc1": RSS_BLOCKS, "mlp_taps": RSS_BLOCKS, "isa_core": RSS_BLOCKS}
+            plain, none = forward((False, False))
+            err = (prob - plain).abs().max().item()
+            self.check(counts == want and not any(none.values())
+                       and bool(torch.isfinite(prob).all()) and prob.std().item() > 0.01
+                       and err <= HRNET_F32_TOL,
+                       f"HRNetFusion(hrnetv2_w{w}, f32) at {BATCH} x {IMAGE}², K5 + K6 against "
+                       f"both flags off: launches {counts}, max abs err of the probabilities "
+                       f"{err:.3e} (tol {HRNET_F32_TOL:.0e}), spread {prob.std().item():.3f}")
+            self.launches_hrnet_f32 = counts
+            del prob, plain
+            ms = [self.time_ms(lambda: forward((True, True)), iters=3),
+                  self.time_ms(lambda: forward((False, False)), iters=3)]
+            self.hrnet_f32[f"w{w}"] = {"kernels_ms": ms[0], "plain_ms": ms[1], "max_abs_err": err}
+            log(f"  HRNetFusion(hrnetv2_w{w}, f32) forward of {BATCH} x {IMAGE}²: K5 + K6 "
+                f"{ms[0]:.2f} ms, both flags off {ms[1]:.2f} ms (CUDA events, the launch counts "
+                f"reset inside)")
+            del model, x
+
     # ------------------------------------------------------------- phase 9 (bench)
     def run_bench(self) -> None:
         """The port's bench entry point (``representationlearning_tpu_torch/bench.py``):
@@ -5586,6 +6118,8 @@ def main() -> int:
                      ("K5 vs plain", lambda: ph.mlp_vs_plain(tm)),
                      ("K6 vs plain", lambda: ph.isa_vs_plain(ti)),
                      ("K1' vs plain", lambda: ph.presr_vs_plain(tmb)),
+                     ("f32 and K5 widths (7l)",
+                      lambda: ph.run_f32((tmb, ta, tv, tf, tm, ti), card)),
                      ("RSSFormer predict", rss),
                      ("RSSFormer train step", rss_train),
                      ("WaveCAM", ph.run_wavecam),
@@ -5629,6 +6163,10 @@ def main() -> int:
                 if ph.launches_rss_cli.get(cmd, {}).get(k, 0) == 0]
     missing += [f"{k} (WeTrBaseline forward)" for k in PIECE_TOL
                 if ph.launches_wetr.get(k, 0) == 0]
+    missing += [f"{k} (f32 TSCD forward)" for k in PIECE_TOL
+                if ph.launches_f32.get(k, 0) == 0]
+    missing += [f"{k} (f32 HRNetFusion forward, w48)" for k in ("mlp_fc1", "mlp_taps", "isa_core")
+                if ph.launches_hrnet_f32.get(k, 0) == 0]
     missing += [f"{k} (data-parallel SCD step, a rank)" for k in RML_KERNELS
                 if ph.launches_dp.get("scd_step", {}).get(k, 0) == 0]
     missing += [f"{k} (sharded sliding window, a rank)" for k in ("mlp_fc1", "mlp_taps", "isa_core")
@@ -5698,6 +6236,19 @@ def main() -> int:
                               for key in ("launches", "ms", "bound_ms", "library_ms")})
         if k in ph.library_covers:
             entry["library_covers"] = ph.library_covers[k]
+        if k in ph.f32:   # phase 7l: the same work with f32 operands (3xTF32 products)
+            e = ph.f32[k]
+            entry.update({"ms_f32": e["ms"], "bound_ms_f32": sum(e["bound"]),
+                          "bound_by_f32": "bytes" if e["bound"][0] >= e["bound"][1] else "operations",
+                          "library_ms_f32": e["lib"], "max_abs_err_f32": e["err"]})
+            if k in PIECE_TOL:
+                entry["launches_f32_tscd_forward"] = ph.launches_f32[k]
+        if k in ("mlp_fc1", "mlp_taps"):   # a launch at 8 x 128², each HRNetV2 width
+            piece = k.removeprefix("mlp_")
+            entry["widths"] = {w: {key.removeprefix(piece + "_"): v for key, v in fig.items()
+                                   if key.startswith(piece + "_")}
+                               for w, fig in ph.k5_widths.items()}
+            entry["launches_f32_hrnet_forward"] = ph.launches_hrnet_f32[k]
         kernels.append(entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -75,21 +75,13 @@ def default_config() -> Config:
     })
 
 
-def compute_dtype(cfg, device: torch.device, inference: bool) -> torch.dtype:
-    """The model's compute dtype: bf16 where an inference command runs K5 on the
-    card (K5's CUDA kernels take bf16 only), f32 everywhere else."""
-    fused = inference and device.type == "cuda" and fused_mlp(cfg)
-    return torch.bfloat16 if fused else torch.float32
-
-
 def fused_mlp(cfg) -> bool:
     return bool(cfg.model.get("fused_mlp", False)) and cfg.model.hrnet_type.startswith("hrnetv2")
 
 
-def _build(cfg, device: torch.device, inference: bool = False):
+def _build(cfg, device: torch.device):
     model = HRNetFusion(hrnet_type=cfg.model.hrnet_type, classes=cfg.model.classes,
                         loss_config=cfg.model.loss.to_dict(), fused_mlp=fused_mlp(cfg),
-                        dtype=compute_dtype(cfg, device, inference),
                         generator=torch.Generator().manual_seed(cfg.seed), device=device)
     tcfg = RSSFormerTrainConfig(
         base_lr=cfg.learning_rate.base_lr, power=cfg.learning_rate.power,
@@ -161,10 +153,10 @@ def cmd_train(cfg, device: torch.device):
 
 
 def _restore_for_eval(cfg, args, device: torch.device):
-    """The model from ``cfg.seed`` in its inference compute dtype, with the latest
+    """The model from ``cfg.seed`` (f32 on every device, as JAX builds it), with the latest
     checkpoint of ``--ckpt_dir`` (else the work directory's) loaded strictly into
     it where one exists."""
-    model, tcfg = _build(cfg, device, inference=True)
+    model, tcfg = _build(cfg, device)
     state = create_rssformer_state(model, tcfg)
     ckpt_dir = args.ckpt_dir or os.path.join(cfg.work_dir, "checkpoints")
     if CK.latest_step(ckpt_dir) is not None:

@@ -31,7 +31,7 @@ from ..train.optim import make_poly_warmup_adamw, tscd_param_labels
 from ..train.rml import RMLConfig, make_rml_train_step
 from ..train.state import TrainState
 from .train_scd import (check_max_present, make_aug_cfg, make_wsss_datasets, parse_config,
-                        rank_setup, to_step_batch, twin_dtype)
+                        rank_setup, to_step_batch)
 
 
 def default_config() -> Config:
@@ -60,12 +60,13 @@ def default_config() -> Config:
 
 def build_models(cfg, device: torch.device):
     """The trained ``RMLModel`` from ``cfg.seed`` and its fused CAM twin on the
-    same parameters, in eval mode (``FusedBlock`` refuses training mode)."""
+    same parameters, in eval mode (``FusedBlock`` refuses training mode), computing
+    in f32 on every device as the JAX command line builds it."""
     kw = dict(backbone=cfg.backbone.config, num_classes=cfg.dataset.num_classes,
               strides=tuple(cfg.backbone.stride), device=device)
     model = RMLModel(generator=torch.Generator().manual_seed(cfg.seed), **kw)
-    cam_twin = share_parameters(RMLModel(fused_blocks=True, collect_attns="none",
-                                         dtype=twin_dtype(device), **kw), model).eval()
+    cam_twin = share_parameters(RMLModel(fused_blocks=True, collect_attns="none", **kw),
+                                model).eval()
     return model, cam_twin
 
 

@@ -142,11 +142,6 @@ def parse_config(argv=None, cfg: Config | None = None) -> Config:
     return cfg.apply_overrides(args.overrides)
 
 
-def twin_dtype(device: torch.device) -> torch.dtype:
-    """Compute dtype of the fused twins: K1's CUDA kernels take bf16 only."""
-    return torch.bfloat16 if device.type == "cuda" else torch.float32
-
-
 def make_aug_cfg(cfg) -> DeviceAugConfig | None:
     """The on-device chain's config when ``dataset.device_augment`` is set."""
     if not cfg.dataset.get("device_augment", False):
@@ -173,14 +168,14 @@ def to_step_batch(batch, device_aug: bool) -> dict[str, torch.Tensor]:
 
 def build_models(cfg, device: torch.device):
     """The trained TSCD from ``cfg.seed``, and its validation and CAM twins on
-    the same parameters, in eval mode (``FusedBlock`` refuses training mode)."""
+    the same parameters, in eval mode (``FusedBlock`` refuses training mode); the
+    twins compute in f32 on every device, as the JAX command line builds them."""
     kw = dict(backbone=cfg.backbone.config, num_classes=cfg.dataset.num_classes,
               strides=tuple(cfg.backbone.stride), device=device)
     model = TSCD(generator=torch.Generator().manual_seed(cfg.seed), **kw)
-    dtype = twin_dtype(device)
-    model_eval = share_parameters(TSCD(fused_blocks=True, dtype=dtype, **kw), model).eval()
-    cam_twin = share_parameters(TSCD(fused_blocks=True, collect_attns="none", dtype=dtype,
-                                     **kw), model).eval()
+    model_eval = share_parameters(TSCD(fused_blocks=True, **kw), model).eval()
+    cam_twin = share_parameters(TSCD(fused_blocks=True, collect_attns="none", **kw),
+                                model).eval()
     return model, model_eval, cam_twin
 
 

@@ -1,5 +1,7 @@
 // K1 part 3: spatial-reduction attention, softmax(q k^T * hd^-1/2) v per head,
-// with the optional export of the raw pre-scale logits.
+// with the optional export of the raw pre-scale logits. The operand type T of the
+// two products is a template parameter: bf16, or float as 3xTF32 (`mma_slice` in
+// common.cuh); what follows says bf16, and the f32 form differs where it says so.
 //
 // Replaces: the per-head attention loop of the TPU kernel
 //   representationlearning_tpu/ops/pallas/mit_block.py:146-163 (reached from
@@ -52,6 +54,12 @@
 //     neighbouring lanes for 16-byte stores. All with a streaming hint
 //     (`__stcs`: 268 MB pass the 50 MB L2 and are not read back here). Nk that
 //     is no multiple of 4 falls back to scalar streaming stores.
+//   * In f32 the pre-pass copies k and v head by head unrounded; q k^T reads its
+//     K fragments by the same `ldmatrix` addresses in bytes (a k slice is 8 f32);
+//     q's fragments are f32 elements (d t, d t + 4) of each slice of 8; p v takes
+//     one score tile of 8 keys a k slice, its accumulators as they stand, keys in
+//     the order (2t, 2t + 1) -> (t, t + 4), and V's fragments from shared memory in
+//     the same order. K, V and the rings take twice the bytes (139 KB for 256 keys).
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -66,9 +74,10 @@ constexpr int kOnePassKeys = 256;  // the one-pass form holds at most this many 
 constexpr int kKT = 64;            // keys a tile of the streaming form
 constexpr int kRing = 3;           // stages of its ring
 
-// kv (B, Nk, 2C) f32 -> ws [(b * nh + h) * 2 + i2][Nk][hd] bf16, eight features a thread
-__global__ void kv_to_bf16_kernel(const float* __restrict__ kv, bf16* __restrict__ ws,
-                                  size_t total8, int Nk, int C, int nh, int hd) {
+// kv (B, Nk, 2C) f32 -> ws [(b * nh + h) * 2 + i2][Nk][hd] T, eight features a thread
+template <typename T>
+__global__ void kv_to_heads_kernel(const float* __restrict__ kv, T* __restrict__ ws,
+                                   size_t total8, int Nk, int C, int nh, int hd) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total8) return;
   const int per_row = 2 * C / 8;
@@ -78,39 +87,59 @@ __global__ void kv_to_bf16_kernel(const float* __restrict__ kv, bf16* __restrict
   const size_t b = row / Nk, key = row - b * Nk;
   const float4* src = reinterpret_cast<const float4*>(kv + row * 2 * C + f);
   const float4 lo = src[0], hi = src[1];
-  uint4 o;
-  o.x = pack_bf16(lo.x, lo.y);
-  o.y = pack_bf16(lo.z, lo.w);
-  o.z = pack_bf16(hi.x, hi.y);
-  o.w = pack_bf16(hi.z, hi.w);
-  *reinterpret_cast<uint4*>(ws + (((b * nh + h) * 2 + i2) * Nk + key) * hd + d) = o;
-}
-
-// `rows` rows of HD bf16 from src (row `first` onwards, rows at or beyond
-// `limit` as zeros) into dst with pitch HD + 8, by the whole block
-template <int HD, int THREADS>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int first, int rows,
-                                          int limit, int tid) {
-  constexpr int kChunks = HD / 8;  // 16-byte pieces a row
-  for (int idx = tid; idx < rows * kChunks; idx += THREADS) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    const bool ok = first + r < limit;
-    cp_async16(dst + r * (HD + 8) + c, src + (size_t)(ok ? first + r : 0) * HD + c, ok);
+  T* dst = ws + (((b * nh + h) * 2 + i2) * Nk + key) * hd + d;
+  if constexpr (sizeof(T) == 4) {
+    reinterpret_cast<float4*>(dst)[0] = lo;
+    reinterpret_cast<float4*>(dst)[1] = hi;
+  } else {
+    uint4 o;
+    o.x = pack_bf16(lo.x, lo.y);
+    o.y = pack_bf16(lo.z, lo.w);
+    o.z = pack_bf16(hi.x, hi.y);
+    o.w = pack_bf16(hi.z, hi.w);
+    *reinterpret_cast<uint4*>(dst) = o;
   }
 }
 
-// the A fragments of this lane's two query rows (row0 = tile row g, row0 + 8)
-template <int HD>
-__device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4], const float* qb, int C,
-                                       int row0, int N, int t) {
+// the padding of a row of K or V in shared memory: 16 bytes, in elements
+template <typename T>
+constexpr int kPad = 16 / (int)sizeof(T);
+// 32-byte k slices of a head's features: the products' k steps over d
+template <int HD, typename T>
+constexpr int kDSlices = HD * (int)sizeof(T) / 32;
+
+// `rows` rows of HD elements from src (row `first` onwards, rows at or beyond
+// `limit` as zeros) into dst with pitch HD + kPad, by the whole block
+template <int HD, int THREADS, typename T>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, int first, int rows,
+                                          int limit, int tid) {
+  constexpr int kEl = 16 / (int)sizeof(T), kChunks = HD / kEl;  // 16-byte pieces a row
+  for (int idx = tid; idx < rows * kChunks; idx += THREADS) {
+    const int r = idx / kChunks, c = (idx % kChunks) * kEl;
+    const bool ok = first + r < limit;
+    cp_async16(dst + r * (HD + kPad<T>) + c, src + (size_t)(ok ? first + r : 0) * HD + c, ok);
+  }
+}
+
+// the A fragments of this lane's two query rows (row0 = tile row g, row0 + 8), a k
+// slice each: bf16 pairs (d 2t, 2t + 1 | 2t + 8, 2t + 9) of 16, or f32 (d t | t + 4) of 8
+template <int HD, typename T>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[kDSlices<HD, T>][4], const float* qb,
+                                       int C, int row0, int N, int t) {
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < kDSlices<HD, T>; ++kk) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = row0 + (i & 1) * 8, c = kk * 16 + 2 * t + (i >> 1) * 8;
-      float2 v = make_float2(0.f, 0.f);
-      if (r < N) v = *reinterpret_cast<const float2*>(qb + (size_t)r * C + c);
-      qa[kk][i] = pack_bf16(v.x, v.y);
+      const int r = row0 + (i & 1) * 8;
+      if constexpr (sizeof(T) == 4) {
+        const int c = kk * 8 + t + (i >> 1) * 4;
+        qa[kk][i] = r < N ? __float_as_uint(qb[(size_t)r * C + c]) : 0u;
+      } else {
+        const int c = kk * 16 + 2 * t + (i >> 1) * 8;
+        float2 v = make_float2(0.f, 0.f);
+        if (r < N) v = *reinterpret_cast<const float2*>(qb + (size_t)r * C + c);
+        qa[kk][i] = pack_bf16(v.x, v.y);
+      }
     }
   }
 }
@@ -119,25 +148,28 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[HD / 16][4], const float* 
 // G score tiles at once: all their fragments are loaded first and the products
 // of the G tiles alternate, so that no product waits for the one before it
 // (they add into different accumulators).
-template <int HD, int G>
-__device__ __forceinline__ void qk_tiles(float (*s)[4], const uint32_t (&qa)[HD / 16][4],
-                                         const bf16* krow, int lane) {
-  uint32_t kb[G][HD / 32][4];  // matrices: d 0-7, 8-15 (one k step), 16-23, 24-31 (the next)
+template <int HD, int G, typename T>
+__device__ __forceinline__ void qk_tiles(float (*s)[4], const uint32_t (&qa)[kDSlices<HD, T>][4],
+                                         const T* krow, int lane) {
+  // matrices of 16 bytes: two make a k slice; an x4 takes 64 bytes of d
+  constexpr int kE = 16 / (int)sizeof(T);
+  uint32_t kb[G][kDSlices<HD, T> / 2][4];
 #pragma unroll
   for (int u = 0; u < G; ++u)
 #pragma unroll
-    for (int k2 = 0; k2 < HD / 32; ++k2)
-      ldsm_x4(kb[u][k2], krow + (u * 8 + (lane & 7)) * (HD + 8) + k2 * 32 + (lane >> 3) * 8);
+    for (int k2 = 0; k2 < kDSlices<HD, T> / 2; ++k2)
+      ldsm_x4(kb[u][k2],
+              krow + (u * 8 + (lane & 7)) * (HD + kPad<T>) + k2 * 4 * kE + (lane >> 3) * kE);
 #pragma unroll
   for (int u = 0; u < G; ++u) s[u][0] = s[u][1] = s[u][2] = s[u][3] = 0.f;
 #pragma unroll
-  for (int k = 0; k < HD / 16; ++k)
+  for (int k = 0; k < kDSlices<HD, T>; ++k)
 #pragma unroll
     for (int u = 0; u < G; ++u)
-      mma_bf16(s[u], qa[k], kb[u][k / 2][2 * (k & 1)], kb[u][k / 2][2 * (k & 1) + 1]);
+      mma_slice<T>(s[u], qa[k], kb[u][k / 2][2 * (k & 1)], kb[u][k / 2][2 * (k & 1) + 1]);
 }
 
-// o += p (16 queries x 16 keys, packed in pa) . V(16 keys starting at row `vrow`)
+// bf16: o += p (16 queries x 16 keys, packed in pa) . V(16 keys starting at row `vrow`)
 template <int HD>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 8][4], const uint32_t (&pa)[4],
                                         const bf16* vrow, int lane) {
@@ -148,6 +180,23 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 8][4], const uint32_t (&
     mma_bf16(o[2 * n2], pa, vb[0], vb[1]);
     mma_bf16(o[2 * n2 + 1], pa, vb[2], vb[3]);
   }
+}
+
+// f32: o += p . V over the 8 keys of one score tile, p its accumulators c times the
+// rows' scales (l0 for row g, l1 for row g + 8). The lane holds keys 2t and 2t + 1; as
+// TF32 k indices t and t + 4 they are a0 = c0, a1 = c2, a2 = c1, a3 = c3, and V's
+// fragments follow: b0 = V[key 2t][d g], b1 = V[key 2t + 1][d g].
+template <int HD>
+__device__ __forceinline__ void pv_tile_f32(float (&o)[HD / 8][4], const float (&c)[4],
+                                            float l0, float l1, const float* vrow, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t pa[4] = {__float_as_uint(__fmul_rn(c[0], l0)), __float_as_uint(__fmul_rn(c[2], l1)),
+                          __float_as_uint(__fmul_rn(c[1], l0)), __float_as_uint(__fmul_rn(c[3], l1))};
+  const float* v0 = vrow + (2 * t) * (HD + kPad<float>) + g;
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+    mma_slice<float>(o[n], pa, __float_as_uint(v0[8 * n]),
+                     __float_as_uint(v0[HD + kPad<float> + 8 * n]));
 }
 
 // exp(v - m) as 2^((v - m) log2 e): a subtraction, a multiplication and one
@@ -205,20 +254,20 @@ __device__ __forceinline__ void store_tile(float* dst, size_t ld, const float (&
 
 // ---------------------------------------------------------------- one pass
 // NT: score tiles of 8 keys a warp can hold; the kernel takes Nk <= 8 * NT.
-template <int HD, int NT>
+template <int HD, int NT, typename T>
 __global__ void __launch_bounds__(kAttnThreads)
-attention_onepass_kernel(const float* __restrict__ q, const bf16* __restrict__ kvb,
+attention_onepass_kernel(const float* __restrict__ q, const T* __restrict__ kvb,
                          float* __restrict__ out, float* __restrict__ logits, int N, int Nk,
                          int C, int nh, float scale) {
-  constexpr int kP = HD + 8;
+  constexpr int kP = HD + kPad<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + NT * 8 * kP;
+  T* Ks = reinterpret_cast<T*>(smem);
+  T* Vs = Ks + NT * 8 * kP;
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int nk16 = (Nk + 15) & ~15;  // keys the products walk over; past Nk they are zeros
-  const bf16* kg = kvb + (size_t)(b * nh + h) * 2 * Nk * HD;
+  const T* kg = kvb + (size_t)(b * nh + h) * 2 * Nk * HD;
   load_rows<HD, kAttnThreads>(Ks, kg, 0, nk16, Nk, tid);
   load_rows<HD, kAttnThreads>(Vs, kg + (size_t)Nk * HD, 0, nk16, Nk, tid);
   cp_async_commit();
@@ -232,8 +281,8 @@ attention_onepass_kernel(const float* __restrict__ q, const bf16* __restrict__ k
 
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int q0 = tile * kQT + warp * 16;  // this warp's first query
-    uint32_t qa[HD / 16][4];
-    load_q<HD>(qa, qb, C, q0 + g, N, t);
+    uint32_t qa[kDSlices<HD, T>][4];
+    load_q<HD, T>(qa, qb, C, q0 + g, N, t);
     if (!loaded) {  // the first q loads overlap the copy of K and V
       cp_async_wait<0>();
       __syncthreads();
@@ -244,7 +293,7 @@ attention_onepass_kernel(const float* __restrict__ q, const bf16* __restrict__ k
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; j += 2) {  // nk16 is a multiple of 16: tiles come in pairs
-      if (j * 8 < nk16) qk_tiles<HD, 2>(&s[j], qa, Ks + j * 8 * kP, lane);
+      if (j * 8 < nk16) qk_tiles<HD, 2, T>(&s[j], qa, Ks + j * 8 * kP, lane);
     }
     if (lb != nullptr) {
 #pragma unroll
@@ -290,8 +339,13 @@ attention_onepass_kernel(const float* __restrict__ q, const bf16* __restrict__ k
     float o[HD / 8][4];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    if constexpr (sizeof(T) == 4) {  // normalised in f32, one tile of 8 keys a k slice
 #pragma unroll
-    for (int kk = 0; kk < NT / 2; ++kk) {
+      for (int j = 0; j < NT; ++j)
+        if (j * 8 < nk16) pv_tile_f32<HD>(o, s[j], l0, l1, Vs + j * 8 * kP, lane);
+    }
+#pragma unroll
+    for (int kk = 0; kk < (sizeof(T) == 2 ? NT / 2 : 0); ++kk) {
       if (kk * 16 < nk16) {
         // normalised in f32, then rounded: the accumulator tiles 2kk and 2kk + 1
         // are the A fragment of this step of 16 keys
@@ -300,7 +354,7 @@ attention_onepass_kernel(const float* __restrict__ q, const bf16* __restrict__ k
         pa[1] = pack_bf16(__fmul_rn(s[2 * kk][2], l1), __fmul_rn(s[2 * kk][3], l1));
         pa[2] = pack_bf16(__fmul_rn(s[2 * kk + 1][0], l0), __fmul_rn(s[2 * kk + 1][1], l0));
         pa[3] = pack_bf16(__fmul_rn(s[2 * kk + 1][2], l1), __fmul_rn(s[2 * kk + 1][3], l1));
-        pv_step<HD>(o, pa, Vs + kk * 16 * kP, lane);
+        pv_step<HD>(o, pa, reinterpret_cast<const bf16*>(Vs) + kk * 16 * kP, lane);
       }
     }
 #pragma unroll
@@ -321,51 +375,52 @@ attention_onepass_kernel(const float* __restrict__ q, const bf16* __restrict__ k
 constexpr int kMT = 2;
 
 // s[mt][j] = q[mt] (16 x HD) . K(8 keys at row 8 j of the tile)^T for the whole tile
-template <int HD>
+template <int HD, typename T>
 __device__ __forceinline__ void qk_stream(float (&s)[kMT][kKT / 8][4],
-                                          const uint32_t (&qa)[kMT][HD / 16][4],
-                                          const bf16* Ks, int lane) {
+                                          const uint32_t (&qa)[kMT][kDSlices<HD, T>][4],
+                                          const T* Ks, int lane) {
+  constexpr int kE = 16 / (int)sizeof(T);
 #pragma unroll
   for (int j = 0; j < kKT / 8; j += 2) {
-    uint32_t kb[2][HD / 32][4];
+    uint32_t kb[2][kDSlices<HD, T> / 2][4];
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
-      for (int k2 = 0; k2 < HD / 32; ++k2)
-        ldsm_x4(kb[u][k2],
-                Ks + ((j + u) * 8 + (lane & 7)) * (HD + 8) + k2 * 32 + (lane >> 3) * 8);
+      for (int k2 = 0; k2 < kDSlices<HD, T> / 2; ++k2)
+        ldsm_x4(kb[u][k2], Ks + ((j + u) * 8 + (lane & 7)) * (HD + kPad<T>) + k2 * 4 * kE +
+                               (lane >> 3) * kE);
 #pragma unroll
     for (int u = 0; u < 2; ++u)
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
         s[mt][j + u][0] = s[mt][j + u][1] = s[mt][j + u][2] = s[mt][j + u][3] = 0.f;
 #pragma unroll
-    for (int k = 0; k < HD / 16; ++k)
+    for (int k = 0; k < kDSlices<HD, T>; ++k)
 #pragma unroll
       for (int u = 0; u < 2; ++u)
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
-          mma_bf16(s[mt][j + u], qa[mt][k], kb[u][k / 2][2 * (k & 1)],
-                   kb[u][k / 2][2 * (k & 1) + 1]);
+          mma_slice<T>(s[mt][j + u], qa[mt][k], kb[u][k / 2][2 * (k & 1)],
+                       kb[u][k / 2][2 * (k & 1) + 1]);
   }
 }
 
-template <int HD>
+template <int HD, typename T>
 __global__ void __launch_bounds__(kStreamThreads)
-attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kvb,
+attention_stream_kernel(const float* __restrict__ q, const T* __restrict__ kvb,
                         float* __restrict__ out, float* __restrict__ logits, int N, int Nk,
                         int C, int nh, float scale) {
-  constexpr int kP = HD + 8;
-  constexpr int kTile = kKT * kP;  // bf16 elements of one K or V tile
+  constexpr int kP = HD + kPad<T>;
+  constexpr int kTile = kKT * kP;  // elements of one K or V tile
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);  // [kRing] K tiles, then [kRing] V tiles
-  bf16* vring = ring + kRing * kTile;
+  T* ring = reinterpret_cast<T*>(smem);  // [kRing] K tiles, then [kRing] V tiles
+  T* vring = ring + kRing * kTile;
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kStreamQT + warp * 16 * kMT;  // this warp's first query
-  const bf16* kg = kvb + (size_t)(b * nh + h) * 2 * Nk * HD;
-  const bf16* vg = kg + (size_t)Nk * HD;
+  const T* kg = kvb + (size_t)(b * nh + h) * 2 * Nk * HD;
+  const T* vg = kg + (size_t)Nk * HD;
   float* lb = logits ? logits + (size_t)(b * nh + h) * N * Nk : nullptr;
   const bool vec = (Nk & 3) == 0;
   const int ntiles = (Nk + kKT - 1) / kKT;
@@ -385,7 +440,7 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
   // shared memory (the V tiles of the ring, idle in pass 1) and writes whole
   // rows of 128 bytes (64 at hd 32), 16 bytes a lane, with a streaming hint.
   constexpr int kSW = HD / 2, kSP = kSW + 4;  // staged columns, their f32 pitch
-  static_assert(kStreamThreads / 32 * 16 * kSP * sizeof(float) <= kRing * kTile * sizeof(bf16),
+  static_assert(kStreamThreads / 32 * 16 * kSP * sizeof(float) <= kRing * kTile * sizeof(T),
                 "the warps' staging rows fit the V tiles of the ring");
   auto export_tile = [&](const float (&s)[kKT / 8][4], int row0, int k0) {
     if (lb == nullptr || row0 >= N) return;
@@ -436,10 +491,10 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
 
   fetch(0, false);
   fetch(1, false);
-  uint32_t qa[kMT][HD / 16][4];
+  uint32_t qa[kMT][kDSlices<HD, T>][4];
 #pragma unroll
   for (int mt = 0; mt < kMT; ++mt)
-    load_q<HD>(qa[mt], q + (size_t)b * N * C + h * HD, C, q0 + mt * 16 + g, N, t);
+    load_q<HD, T>(qa[mt], q + (size_t)b * N * C + h * HD, C, q0 + mt * 16 + g, N, t);
 
   // pass 1: raw logits out, running max and sum of each thread's own columns;
   // [mt][0] is the row g of tile mt, [mt][1] the row g + 8
@@ -455,7 +510,7 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
     fetch(tile + 2, false);
     const int k0 = tile * kKT;
     float s[kMT][kKT / 8][4];
-    qk_stream<HD>(s, qa, ring + (tile % kRing) * kTile, lane);
+    qk_stream<HD, T>(s, qa, ring + (tile % kRing) * kTile, lane);
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
       export_tile(s[mt], q0 + mt * 16, k0);
@@ -493,7 +548,8 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
   cp_async_wait<0>();
   __syncthreads();  // the ring is free again
 
-  // pass 2: q k^T again, p = exp(s - max) * (1 / sum) in f32, rounded to bf16, o += p v
+  // pass 2: q k^T again, p = exp(s - max) * (1 / sum) in f32, rounded to bf16 (bf16
+  // only), o += p v
   fetch(0, true);
   fetch(1, true);
   float o[kMT][HD / 8][4];
@@ -507,8 +563,7 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
     fetch(tile + 2, true);
     const int k0 = tile * kKT;
     float s[kMT][kKT / 8][4];
-    qk_stream<HD>(s, qa, ring + (tile % kRing) * kTile, lane);
-    uint32_t pa[kMT][kKT / 16][4];
+    qk_stream<HD, T>(s, qa, ring + (tile % kRing) * kTile, lane);
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
@@ -523,6 +578,19 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
             if (k0 + j * 8 + 2 * t + (i & 1) >= Nk) s[mt][j][i] = 0.f;
         }
       }
+    }
+    const T* Vs = vring + (tile % kRing) * kTile;
+    if constexpr (sizeof(T) == 4) {
+#pragma unroll
+      for (int j = 0; j < kKT / 8; ++j)
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          pv_tile_f32<HD>(o[mt], s[mt][j], 1.0f, 1.0f, Vs + j * 8 * kP, lane);
+      continue;
+    }
+    uint32_t pa[kMT][kKT / 16][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
       for (int kk = 0; kk < kKT / 16; ++kk) {
         pa[mt][kk][0] = pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
@@ -530,14 +598,13 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
         pa[mt][kk][2] = pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
         pa[mt][kk][3] = pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
       }
-    }
-    const bf16* Vs = vring + (tile % kRing) * kTile;
 #pragma unroll
     for (int kk = 0; kk < kKT / 16; ++kk) {
 #pragma unroll
       for (int n2 = 0; n2 < HD / 16; ++n2) {
         uint32_t vb[4];  // transposed: (keys 0-7 | 8-15) x (d n2*16 .. +7 | +8 .. +15)
-        ldsm_x4_trans(vb, Vs + (kk * 16 + (lane & 15)) * kP + n2 * 16 + (lane >> 4) * 8);
+        ldsm_x4_trans(vb, reinterpret_cast<const bf16*>(Vs) + (kk * 16 + (lane & 15)) * kP +
+                              n2 * 16 + (lane >> 4) * 8);
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           mma_bf16(o[mt][2 * n2], pa[mt][kk], vb[0], vb[1]);
@@ -559,9 +626,10 @@ attention_stream_kernel(const float* __restrict__ q, const bf16* __restrict__ kv
 }
 
 // ------------------------------------------------------------------ launch
+template <typename T>
 struct AttnArgs {
   const float* q;
-  const bf16* kvb;
+  const T* kvb;
   float* out;
   float* logits;
   int B, N, Nk, C, nh;
@@ -605,15 +673,15 @@ int prepare(Kernel kernel, int threads, size_t smem, KernelSetup& st, int* slots
 // block reads all keys of its head twice and all values once, from L2: with 64
 // queries a block that traffic (393 MB at stage 4 of the 512 x 512 forward) set
 // the pace, so a block holds as many queries as its registers allow.
-template <int HD>
-int launch_stream(const AttnArgs& a) {
+template <int HD, typename T>
+int launch_stream(const AttnArgs<T>& a) {
   static KernelSetup setup;
-  constexpr size_t kSmem = kRing * 2 * kKT * sizeof(bf16) * (HD + 8);
+  constexpr size_t kSmem = kRing * 2 * kKT * sizeof(T) * (HD + kPad<T>);
   int slots = 0;
-  const int rc = prepare(attention_stream_kernel<HD>, kStreamThreads, kSmem, setup, &slots);
+  const int rc = prepare(attention_stream_kernel<HD, T>, kStreamThreads, kSmem, setup, &slots);
   if (rc != 0) return rc;
   const dim3 grid((a.N + kStreamQT - 1) / kStreamQT, a.nh, a.B);
-  attention_stream_kernel<HD><<<grid, kStreamThreads, kSmem, a.stream>>>(
+  attention_stream_kernel<HD, T><<<grid, kStreamThreads, kSmem, a.stream>>>(
       a.q, a.kvb, a.out, a.logits, a.N, a.Nk, a.C, a.nh, a.scale);
   return (int)cudaGetLastError();
 }
@@ -623,12 +691,12 @@ int launch_stream(const AttnArgs& a) {
 // nothing balances a last, partly filled wave, so `per` is chosen to make
 // waves x (per + the copy, about 0.6 of a tile) smallest, with the blocks that
 // the card holds at once read from the occupancy of this kernel.
-template <int HD, int NT>
-int launch_onepass(const AttnArgs& a) {
+template <int HD, int NT, typename T>
+int launch_onepass(const AttnArgs<T>& a) {
   static KernelSetup setup;
-  constexpr size_t kSmem = 2 * NT * 8 * sizeof(bf16) * (HD + 8);
+  constexpr size_t kSmem = 2 * NT * 8 * sizeof(T) * (HD + kPad<T>);
   int slots = 0;
-  const int rc = prepare(attention_onepass_kernel<HD, NT>, kAttnThreads, kSmem, setup, &slots);
+  const int rc = prepare(attention_onepass_kernel<HD, NT, T>, kAttnThreads, kSmem, setup, &slots);
   if (rc != 0) return rc;
   const int ntiles = (a.N + kQT - 1) / kQT, heads = a.B * a.nh;
   int best_per = 1;
@@ -642,46 +710,55 @@ int launch_onepass(const AttnArgs& a) {
     }
   }
   const dim3 grid((ntiles + best_per - 1) / best_per, a.nh, a.B);
-  attention_onepass_kernel<HD, NT><<<grid, kAttnThreads, kSmem, a.stream>>>(
+  attention_onepass_kernel<HD, NT, T><<<grid, kAttnThreads, kSmem, a.stream>>>(
       a.q, a.kvb, a.out, a.logits, a.N, a.Nk, a.C, a.nh, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_attention(const float* q, const float* kv, bf16* kvb, float* out, float* logits,
+template <int HD, typename T>
+int launch_attention(const float* q, const float* kv, void* kvb, float* out, float* logits,
                      int B, int N, int Nk, int C, int nh, float scale, cudaStream_t stream) {
   const size_t total8 = (size_t)B * Nk * 2 * C / 8;
-  kv_to_bf16_kernel<<<(unsigned)((total8 + 255) / 256), 256, 0, stream>>>(kv, kvb, total8, Nk,
-                                                                         C, nh, HD);
+  T* ws = static_cast<T*>(kvb);
+  kv_to_heads_kernel<T><<<(unsigned)((total8 + 255) / 256), 256, 0, stream>>>(kv, ws, total8,
+                                                                             Nk, C, nh, HD);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const AttnArgs a{q, kvb, out, logits, B, N, Nk, C, nh, scale, stream};
-  if (Nk > kOnePassKeys) return launch_stream<HD>(a);
-  if (Nk <= 64) return launch_onepass<HD, 8>(a);
-  if (Nk <= 128) return launch_onepass<HD, 16>(a);
-  return launch_onepass<HD, 32>(a);
+  const AttnArgs<T> a{q, ws, out, logits, B, N, Nk, C, nh, scale, stream};
+  if (Nk > kOnePassKeys) return launch_stream<HD, T>(a);
+  if (Nk <= 64) return launch_onepass<HD, 8, T>(a);
+  if (Nk <= 128) return launch_onepass<HD, 16, T>(a);
+  return launch_onepass<HD, 32, T>(a);
+}
+
+template <typename T>
+int attention_of(const void* q, const void* kv, void* kvb, void* out, void* logits, int B,
+                 int N, int Nk, int C, int nh, float scale, cudaStream_t st) {
+  const int hd = C / nh;
+  if (hd == 64)
+    return launch_attention<64, T>((const float*)q, (const float*)kv, kvb, (float*)out,
+                                   (float*)logits, B, N, Nk, C, nh, scale, st);
+  if (hd == 32)
+    return launch_attention<32, T>((const float*)q, (const float*)kv, kvb, (float*)out,
+                                   (float*)logits, B, N, Nk, C, nh, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace k1
 
 // out (B, N, C) = per-head softmax(q k^T * scale) v; q (B, N, C), kv (B, Nk, 2C),
 // all f32. logits (B, nh, N, Nk) f32 receives the raw q k^T when not null. kvb is
-// a workspace of B * Nk * 2C bf16. C / nh must be 32 or 64, Nk at least 1 (with no
-// key the output is zero by definition and the wrapper launches nothing). Up to
-// k1_attention_one_pass_keys() keys take the one-pass form, more the streaming form.
+// a workspace of B * Nk * 2C elements of the operand type, bf16, or f32 where `f32`
+// is set. C / nh must be 32 or 64, Nk at least 1 (with no key the output is zero by
+// definition and the wrapper launches nothing). Up to k1_attention_one_pass_keys()
+// keys take the one-pass form, more the streaming form.
 extern "C" int k1_attention(const void* q, const void* kv, void* kvb, void* out, void* logits,
-                            int B, int N, int Nk, int C, int nh, float scale, void* stream) {
+                            int B, int N, int Nk, int C, int nh, float scale, int f32,
+                            void* stream) {
   if (B < 1 || N < 1 || Nk < 1 || nh < 1 || C % nh) return (int)cudaErrorInvalidValue;
-  const int hd = C / nh;
-  if (hd == 64)
-    return k1::launch_attention<64>((const float*)q, (const float*)kv, (k1::bf16*)kvb,
-                                    (float*)out, (float*)logits, B, N, Nk, C, nh, scale,
-                                    (cudaStream_t)stream);
-  if (hd == 32)
-    return k1::launch_attention<32>((const float*)q, (const float*)kv, (k1::bf16*)kvb,
-                                    (float*)out, (float*)logits, B, N, Nk, C, nh, scale,
-                                    (cudaStream_t)stream);
-  return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  return f32 ? k1::attention_of<float>(q, kv, kvb, out, logits, B, N, Nk, C, nh, scale, st)
+             : k1::attention_of<k1::bf16>(q, kv, kvb, out, logits, B, N, Nk, C, nh, scale, st);
 }
 
 extern "C" int k1_attention_one_pass_keys() { return k1::kOnePassKeys; }

@@ -1,6 +1,7 @@
 // K1 part 2: the block's linear layers, out = LN?(a) @ w^T + bias (+ residual), as
-// one pipelined bf16 tensor-core product with a LayerNorm prologue and a
-// bias/residual epilogue. (The sr x sr conv of the block has a kernel of its own,
+// one pipelined tensor-core product with a LayerNorm prologue and a bias/residual
+// epilogue. The operand type T is a template parameter: bf16 (the TPU kernel's
+// bf16 path) or float (its f32 default), the latter as 3xTF32 `mma.sync` m16n8k8. (The sr x sr conv of the block has a kernel of its own,
 // sr_conv.cu.)
 //
 // Replaces: every `_mm` of the TPU kernel's body
@@ -32,7 +33,11 @@
 //     bf16 operands to the product; a row's statistics are loaded a tile ahead and
 //     the LN weight and bias as float4 a step ahead, in registers.
 //   * `ldmatrix` fragments from padded (conflict-free) tiles into `mma.sync`
-//     m16n8k16 with f32 sums. Every output sums its whole K in one block, K step
+//     m16n8k16 with f32 sums (bf16), or into three m16n8k8 TF32 products a k slice
+//     (float: big and small halves of each operand, `mma_slice` in common.cuh). In
+//     float the A step is normalised in place in its ring slot and read from there:
+//     no second A buffer, so the rings of f32 A and f32 weights fit (59, 90 and 180
+//     KB for the three tiles, 3 stages). Every output sums its whole K in one block, K step
 //     after K step: no split of K, no atomics, the same bits from every plan.
 //   * A row-wise epilogue: each warp stages eight rows of its accumulators at a
 //     time in shared memory of its own and writes them as whole rows of 128 or
@@ -44,11 +49,19 @@
 namespace k1 {
 
 constexpr int kLinBK = 32;
-constexpr int kLinPitch = kLinBK + 8;  // bf16 pitch of the A and B tiles (80 bytes)
+// pitch of the A and B tiles, in elements of the operand type: a row of 32 and 16
+// bytes of padding (80 bytes for bf16, 144 for f32), so `ldmatrix` is conflict-free
+template <typename T>
+constexpr int kLinPitch = kLinBK + 16 / (int)sizeof(T);
+// pitch of the f32 A ring: bare in bf16 (converted to the bf16 A buffer), padded in
+// float (read by `ldmatrix` where it lies)
+template <typename T>
+constexpr int kAfPitch = sizeof(T) == 2 ? kLinBK : kLinPitch<float>;
 
+template <typename T>
 struct LinArgs {
   const float* a;
-  const bf16* w;
+  const T* w;
   const float* bias;
   const float* stats;
   const float* lnw;
@@ -58,17 +71,22 @@ struct LinArgs {
   int M, Nout, K, per;
 };
 
-// bytes of dynamic shared memory: the ring of f32 A steps and of bf16 B steps, the bf16
-// A double buffer, and each warp's staging of 8 output rows
-template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
+// bytes of dynamic shared memory: the ring of f32 A steps and of T B steps, the bf16
+// A double buffer (bf16 only), and each warp's staging of 8 output rows
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 constexpr int linear_smem() {
-  return STAGES * BM * kLinBK * 4 + (2 * BM + STAGES * BN) * kLinPitch * 2 +
+  return STAGES * BM * kAfPitch<T> * 4 + STAGES * BN * kLinPitch<T> * (int)sizeof(T) +
+         (sizeof(T) == 2 ? 2 * BM * kLinPitch<T> * 2 : 0) +
          WARPS_M * WARPS_N * 8 * (BN / WARPS_N + 8) * 4;
 }
 
-template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, int MIN_BLOCKS, bool LN>
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, int MIN_BLOCKS,
+          bool LN>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, MIN_BLOCKS)
-linear_kernel(const LinArgs p) {
+linear_kernel(const LinArgs<T> p) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int kAP = kAfPitch<T>, kBP = kLinPitch<T>;
+  constexpr int kSK = kSliceK<T>;                       // k of one slice of the products
   constexpr int kThreads = 32 * WARPS_M * WARPS_N;
   constexpr int kRowsA = kThreads / 8;                  // A rows a pass: 8 threads a row
   constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;  // a warp's outputs
@@ -79,10 +97,10 @@ linear_kernel(const LinArgs p) {
   static_assert(WM % 16 == 0 && WN % 16 == 0 && BM % kRowsA == 0 && STAGES >= 2, "tile");
 
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Af = reinterpret_cast<float*>(smem);                  // [STAGES][BM][kLinBK] f32
-  bf16* As = reinterpret_cast<bf16*>(Af + STAGES * BM * kLinBK);  // [2][BM][kLinPitch]
-  bf16* Bs = As + 2 * BM * kLinPitch;                           // [STAGES][BN][kLinPitch]
-  float* Cs = reinterpret_cast<float*>(Bs + STAGES * BN * kLinPitch);  // [warp][8][kCPitch]
+  float* Af = reinterpret_cast<float*>(smem);                   // [STAGES][BM][kAP] f32
+  T* Bs = reinterpret_cast<T*>(Af + STAGES * BM * kAP);         // [STAGES][BN][kBP]
+  bf16* As = reinterpret_cast<bf16*>(Bs + STAGES * BN * kBP);   // [2][BM][kBP] (bf16 only)
+  float* Cs = reinterpret_cast<float*>(As + (kF32 ? 0 : 2 * BM * kBP));  // [warp][8][kCPitch]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n0 = blockIdx.x * BN;
@@ -92,7 +110,7 @@ linear_kernel(const LinArgs p) {
   const int total = min(p.per, mtiles - first) * ksteps;  // (tile, K step) pairs
   const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
 
-  // ---- a step: 32 columns of A (f32) and of the weights (bf16), one commit group.
+  // ---- a step: 32 columns of A (f32) and of the weights (T), one commit group.
   // This thread copies A rows ar + kRowsA * i, columns kc .. kc + 3, and later
   // normalises exactly those, so it waits for its own copies and for no other.
   const int ar = tid >> 3, kc = (tid & 7) * 4;
@@ -100,19 +118,21 @@ linear_kernel(const LinArgs p) {
   auto fetch = [&]() {  // empty past the end
     if (f_s < total) {
       const int slot = f_s % STAGES;
-      float* da = Af + slot * BM * kLinBK;
+      float* da = Af + slot * BM * kAP;
 #pragma unroll
       for (int i = 0; i < kAIters; ++i) {
         const int r = ar + kRowsA * i, gm = f_m0 + r;
         const bool ok = gm < p.M;
-        cp_async16(da + r * kLinBK + kc, p.a + (size_t)(ok ? gm : 0) * p.K + f_k + kc, ok);
+        cp_async16(da + r * kAP + kc, p.a + (size_t)(ok ? gm : 0) * p.K + f_k + kc, ok);
       }
-      bf16* db = Bs + slot * BN * kLinPitch;
+      T* db = Bs + slot * BN * kBP;
+      constexpr int kPieces = kLinBK * (int)sizeof(T) / 16;  // 16-byte pieces a B row
+      constexpr int kPer = 16 / (int)sizeof(T);              // elements a piece
 #pragma unroll
-      for (int idx = tid; idx < BN * 4; idx += kThreads) {
-        const int r = idx >> 2, c = (idx & 3) * 8;
+      for (int idx = tid; idx < BN * kPieces; idx += kThreads) {
+        const int r = idx / kPieces, c = (idx % kPieces) * kPer;
         const bool ok = n0 + r < p.Nout;
-        cp_async16(db + r * kLinPitch + c, p.w + (size_t)(ok ? n0 + r : 0) * p.K + f_k + c, ok);
+        cp_async16(db + r * kBP + c, p.w + (size_t)(ok ? n0 + r : 0) * p.K + f_k + c, ok);
       }
       f_k += kLinBK;
       if (f_k == p.K) {
@@ -145,8 +165,9 @@ linear_kernel(const LinArgs p) {
     gw_n = __ldg(reinterpret_cast<const float4*>(p.lnw + k + kc));
     gb_n = __ldg(reinterpret_cast<const float4*>(p.lnb + k + kc));
   };
-  // step s of this thread's A pieces: LayerNorm, round to bf16, to the A buffer. A
-  // row past M holds zeros or their image: it reaches only rows that are never written.
+  // step s of this thread's A pieces: LayerNorm, round to bf16, to the A buffer (bf16);
+  // LayerNorm in place in the ring slot (float; nothing to do without LN). A row past
+  // M holds zeros or their image: it reaches only rows that are never written.
   auto convert = [&](int s) {
     if (LN) {
       if (c_k == 0) {  // a new tile
@@ -162,12 +183,26 @@ linear_kernel(const LinArgs p) {
     }
     c_k = c_k + kLinBK == p.K ? 0 : c_k + kLinBK;
     if (LN) load_lnw(c_k);
-    const float* src = Af + (s % STAGES) * BM * kLinBK;
-    bf16* dst = As + (s & 1) * BM * kLinPitch;
+    float* src = Af + (s % STAGES) * BM * kAP;
+    if constexpr (kF32) {
+      if (LN) {
+#pragma unroll
+        for (int i = 0; i < kAIters; ++i) {
+          float4* at = reinterpret_cast<float4*>(src + (ar + kRowsA * i) * kAP + kc);
+          const float4 a = *at;
+          *at = make_float4(ln_apply(a.x, mu[i], rs[i], gw.x, gb.x),
+                            ln_apply(a.y, mu[i], rs[i], gw.y, gb.y),
+                            ln_apply(a.z, mu[i], rs[i], gw.z, gb.z),
+                            ln_apply(a.w, mu[i], rs[i], gw.w, gb.w));
+        }
+      }
+      return;
+    }
+    bf16* dst = As + (s & 1) * BM * kBP;
 #pragma unroll
     for (int i = 0; i < kAIters; ++i) {
       const int r = ar + kRowsA * i;
-      const float4 a = *reinterpret_cast<const float4*>(src + r * kLinBK + kc);
+      const float4 a = *reinterpret_cast<const float4*>(src + r * kAP + kc);
       uint2 v;
       if (LN) {
         v.x = pack_bf16(ln_apply(a.x, mu[i], rs[i], gw.x, gb.x),
@@ -178,7 +213,7 @@ linear_kernel(const LinArgs p) {
         v.x = pack_bf16(a.x, a.y);
         v.y = pack_bf16(a.z, a.w);
       }
-      *reinterpret_cast<uint2*>(dst + r * kLinPitch + kc) = v;
+      *reinterpret_cast<uint2*>(dst + r * kBP + kc) = v;
     }
   };
 
@@ -270,23 +305,25 @@ linear_kernel(const LinArgs p) {
     __syncthreads();  // A of step s is converted and B of step s has landed for every
                       // thread, and every warp is done with step s - 1: its slots are free
     fetch();          // step s + STAGES - 1, in flight during the products below
-    const bf16* A = As + (s & 1) * BM * kLinPitch;
-    const bf16* Bt = Bs + (s % STAGES) * BN * kLinPitch;
+    // A of step s: the bf16 buffer, or the f32 ring slot itself
+    const T* A = kF32 ? reinterpret_cast<const T*>(Af + (s % STAGES) * BM * kAP)
+                      : reinterpret_cast<const T*>(As + (s & 1) * BM * kBP);
+    const T* Bt = Bs + (s % STAGES) * BN * kBP;
 #pragma unroll
-    for (int kk = 0; kk < kLinBK; kk += 16) {
+    for (int kk = 0; kk < kLinBK; kk += kSK) {
       uint32_t af[MI][4];
 #pragma unroll
       for (int i = 0; i < MI; ++i)
-        ldsm_x4(af[i], A + (wm + i * 16 + (lane & 15)) * kLinPitch + kk + (lane >> 4) * 8);
+        ldsm_x4(af[i], A + (wm + i * 16 + (lane & 15)) * kBP + kk + (lane >> 4) * (kSK / 2));
 #pragma unroll
       for (int j2 = 0; j2 < NJ / 2; ++j2) {
-        uint32_t bfr[4];  // output columns 0-7 (k 0-7, 8-15), then columns 8-15
-        ldsm_x4(bfr, Bt + (wn + j2 * 16 + (lane & 7) + (lane >> 4) * 8) * kLinPitch + kk +
-                         ((lane >> 3) & 1) * 8);
+        uint32_t bfr[4];  // output columns 0-7 (first and second half of the slice), then 8-15
+        ldsm_x4(bfr, Bt + (wn + j2 * 16 + (lane & 7) + (lane >> 4) * 8) * kBP + kk +
+                         ((lane >> 3) & 1) * (kSK / 2));
 #pragma unroll
         for (int i = 0; i < MI; ++i) {
-          mma_bf16(acc[i][2 * j2], af[i], bfr[0], bfr[1]);
-          mma_bf16(acc[i][2 * j2 + 1], af[i], bfr[2], bfr[3]);
+          mma_slice<T>(acc[i][2 * j2], af[i], bfr[0], bfr[1]);
+          mma_slice<T>(acc[i][2 * j2 + 1], af[i], bfr[2], bfr[3]);
         }
       }
     }
@@ -302,11 +339,14 @@ linear_kernel(const LinArgs p) {
 // One instantiation: the kernel, its shared memory and its threads. `prepare` lets it
 // take its shared memory (above 48 KB) and asks for the largest carveout, so that
 // MIN_BLOCKS blocks fit on an SM.
-template <int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, int MIN_BLOCKS, bool LN>
+template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, int MIN_BLOCKS,
+          bool LN>
 struct Linear {
-  static constexpr int kSmem = linear_smem<BM, BN, WARPS_M, WARPS_N, STAGES>();
+  static constexpr int kSmem = linear_smem<T, BM, BN, WARPS_M, WARPS_N, STAGES>();
   static constexpr int kThreads = 32 * WARPS_M * WARPS_N;
-  static constexpr auto kernel = linear_kernel<BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, LN>;
+  static constexpr auto kernel =
+      linear_kernel<T, BM, BN, WARPS_M, WARPS_N, STAGES, MIN_BLOCKS, LN>;
+  static_assert(kSmem <= 227 * 1024, "the tile fits a block's shared memory");
 
   static cudaError_t prepare() {
     static const cudaError_t err = [] {
@@ -320,7 +360,7 @@ struct Linear {
     return err;
   }
 
-  static cudaError_t launch(const LinArgs& p, cudaStream_t st) {
+  static cudaError_t launch(const LinArgs<T>& p, cudaStream_t st) {
     const cudaError_t err = prepare();
     if (err != cudaSuccess) return err;
     const int mtiles = (p.M + BM - 1) / BM;
@@ -340,54 +380,75 @@ struct Linear {
   }
 };
 
-// rows, columns, warps (M x N), stages, blocks an SM; shared memory 54, 73, 182 KB
-template <int TILE, bool LN>
+// rows, columns, warps (M x N), stages, blocks an SM. Shared memory: bf16 54, 73, 182
+// KB; float 59, 90, 180 KB (three stages of f32 A and f32 weights each), so the f32
+// 64 x 128 tile holds two blocks an SM in place of three.
+template <int TILE, bool LN, typename T>
 struct LinearTile;
 template <bool LN>
-struct LinearTile<0, LN> : Linear<64, 64, 2, 2, 3, 4, LN> {};    // 4 warps of 32 x 32
+struct LinearTile<0, LN, bf16> : Linear<bf16, 64, 64, 2, 2, 3, 4, LN> {};    // 4 warps of 32 x 32
 template <bool LN>
-struct LinearTile<1, LN> : Linear<64, 128, 2, 2, 3, 3, LN> {};   // 4 warps of 32 x 64
+struct LinearTile<1, LN, bf16> : Linear<bf16, 64, 128, 2, 2, 3, 3, LN> {};   // 4 warps of 32 x 64
 template <bool LN>
-struct LinearTile<2, LN> : Linear<128, 256, 2, 4, 4, 1, LN> {};  // 8 warps of 64 x 64
+struct LinearTile<2, LN, bf16> : Linear<bf16, 128, 256, 2, 4, 4, 1, LN> {};  // 8 warps of 64 x 64
+template <bool LN>
+struct LinearTile<0, LN, float> : Linear<float, 64, 64, 2, 2, 3, 3, LN> {};
+template <bool LN>
+struct LinearTile<1, LN, float> : Linear<float, 64, 128, 2, 2, 3, 2, LN> {};
+template <bool LN>
+struct LinearTile<2, LN, float> : Linear<float, 128, 256, 2, 4, 3, 1, LN> {};
 
-template <int TILE>
-cudaError_t run_linear(const LinArgs& p, cudaStream_t st) {
-  return p.stats != nullptr ? LinearTile<TILE, true>::launch(p, st)
-                            : LinearTile<TILE, false>::launch(p, st);
+template <int TILE, typename T>
+cudaError_t run_linear(const LinArgs<T>& p, cudaStream_t st) {
+  return p.stats != nullptr ? LinearTile<TILE, true, T>::launch(p, st)
+                            : LinearTile<TILE, false, T>::launch(p, st);
+}
+
+template <typename T>
+int linear_of(const void* a, const void* w, const void* bias, const void* stats,
+              const void* lnw, const void* lnb, const void* res, void* out, int M, int Nout,
+              int K, int tile, int per, cudaStream_t st) {
+  const LinArgs<T> p{(const float*)a, (const T*)w,       (const float*)bias,
+                     (const float*)stats, (const float*)lnw, (const float*)lnb,
+                     (const float*)res,   (float*)out,       M, Nout, K, per};
+  switch (tile) {
+    case 0: return (int)run_linear<0, T>(p, st);
+    case 1: return (int)run_linear<1, T>(p, st);
+    case 2: return (int)run_linear<2, T>(p, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int blocks_of(int tile, int ln) {
+  switch (tile) {
+    case 0: return ln ? LinearTile<0, true, T>::blocks_per_sm() : LinearTile<0, false, T>::blocks_per_sm();
+    case 1: return ln ? LinearTile<1, true, T>::blocks_per_sm() : LinearTile<1, false, T>::blocks_per_sm();
+    case 2: return ln ? LinearTile<2, true, T>::blocks_per_sm() : LinearTile<2, false, T>::blocks_per_sm();
+    default: return -1;
+  }
 }
 
 }  // namespace k1
 
 // out[M, Nout] = LN?(a)[M, K] @ w[Nout, K]^T + bias (+ res). LN is applied when
-// `stats` is not null. a, res, out f32; w bf16; K % 32 == 0; a, res, out, bias and
-// the LN weights 16-byte aligned. `tile` (0: 64 x 64, 1: 64 x 128, 2: 128 x 256
-// outputs a block) and `per` (M tiles a block walks) come from the wrapper's plan.
+// `stats` is not null. a, res, out f32; w bf16, or f32 where `f32` is set (the
+// operand type of the products); K % 32 == 0; a, res, out, bias and the LN weights
+// 16-byte aligned. `tile` (0: 64 x 64, 1: 64 x 128, 2: 128 x 256 outputs a block)
+// and `per` (M tiles a block walks) come from the wrapper's plan.
 extern "C" int k1_linear(const void* a, const void* w, const void* bias, const void* stats,
                          const void* lnw, const void* lnb, const void* res, void* out,
-                         int M, int Nout, int K, int tile, int per, void* stream) {
+                         int M, int Nout, int K, int tile, int per, int f32, void* stream) {
   using namespace k1;
   if (M < 1 || Nout < 1 || K < kLinBK || K % kLinBK || per < 1)
     return (int)cudaErrorInvalidValue;
-  const LinArgs p{(const float*)a, (const bf16*)w,     (const float*)bias,
-                  (const float*)stats, (const float*)lnw, (const float*)lnb,
-                  (const float*)res,   (float*)out,       M, Nout, K, per};
   cudaStream_t st = (cudaStream_t)stream;
-  switch (tile) {
-    case 0: return (int)run_linear<0>(p, st);
-    case 1: return (int)run_linear<1>(p, st);
-    case 2: return (int)run_linear<2>(p, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return f32 ? linear_of<float>(a, w, bias, stats, lnw, lnb, res, out, M, Nout, K, tile, per, st)
+             : linear_of<bf16>(a, w, bias, stats, lnw, lnb, res, out, M, Nout, K, tile, per, st);
 }
 
-// Blocks of tile `tile` (with the LayerNorm prologue or without) that one SM holds
-// at once, as the card reports it; -1 for a tile the kernel lacks.
-extern "C" int k1_linear_blocks_per_sm(int tile, int ln) {
-  using namespace k1;
-  switch (tile) {
-    case 0: return ln ? LinearTile<0, true>::blocks_per_sm() : LinearTile<0, false>::blocks_per_sm();
-    case 1: return ln ? LinearTile<1, true>::blocks_per_sm() : LinearTile<1, false>::blocks_per_sm();
-    case 2: return ln ? LinearTile<2, true>::blocks_per_sm() : LinearTile<2, false>::blocks_per_sm();
-    default: return -1;
-  }
+// Blocks of tile `tile` (with the LayerNorm prologue or without, bf16 or f32 operands)
+// that one SM holds at once, as the card reports it; -1 for a tile the kernel lacks.
+extern "C" int k1_linear_blocks_per_sm(int tile, int ln, int f32) {
+  return f32 ? k1::blocks_of<float>(tile, ln) : k1::blocks_of<k1::bf16>(tile, ln);
 }

@@ -1,6 +1,7 @@
 // K1 part 2b: the spatial-reduction conv of the block, the stride-sr sr x sr
-// conv of LN(x) on the token grid, as an implicit-im2col bf16 tensor-core
-// product split along K.
+// conv of LN(x) on the token grid, as an implicit-im2col tensor-core product split
+// along K. The operand type T is a template parameter: bf16, or float as 3xTF32
+// (`mma_slice` in common.cuh), whose tiles (72 KB) live in dynamic shared memory.
 //
 // Replaces: the sr x sr stride-sr patch conv + bias of the TPU kernel
 //   representationlearning_tpu/ops/pallas/mit_block.py:85-135 ("taps"), reached
@@ -40,24 +41,37 @@
 namespace k1 {
 
 constexpr int kSrBM = 64, kSrBK = 32;
-constexpr int kSrPitch = kSrBK + 8;  // bf16 pitch of the A and B tiles (80 bytes)
+// pitch of the A and B tiles in elements: 32 and 16 bytes of padding (80 bytes for
+// bf16, 144 for f32), conflict-free for `ldmatrix`
+template <typename T>
+constexpr int kSrPitch = kSrBK + 16 / (int)sizeof(T);
 constexpr int kSrThreads = 128;      // 2 x 2 warps, a warp owns 32 x BN / 2 outputs
 constexpr int kSrRing = 3;
+
+// bytes of dynamic shared memory: two A tiles and a ring of kSrRing B tiles
+template <typename T, int BN>
+constexpr int sr_smem() {
+  return (2 * kSrBM + kSrRing * BN) * kSrPitch<T> * (int)sizeof(T);
+}
 
 struct SrGeo {
   int C, H, W, sr, Hs, Ws, M, K;
   int steps_per_slice;  // K steps of 32 a slice
 };
 
-template <int BN>
+template <typename T, int BN>
 __global__ void __launch_bounds__(kSrThreads)
 sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
                const float* __restrict__ lnw, const float* __restrict__ lnb,
-               const bf16* __restrict__ Wt, const float* __restrict__ bias,
+               const T* __restrict__ Wt, const float* __restrict__ bias,
                float* __restrict__ dst, SrGeo g) {
   constexpr int kNT = BN / 16;  // 8-column accumulator tiles a warp
-  __shared__ __align__(128) bf16 As[2][kSrBM * kSrPitch];
-  __shared__ __align__(128) bf16 Bs[kSrRing][BN * kSrPitch];
+  constexpr int kP = kSrPitch<T>, kSK = kSliceK<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* As0 = reinterpret_cast<T*>(smem);       // [2][kSrBM * kP]
+  T* Bs0 = As0 + 2 * kSrBM * kP;             // [kSrRing][BN * kP]
+  auto As = [&](int i) { return As0 + i * kSrBM * kP; };
+  auto Bs = [&](int i) { return Bs0 + i * BN * kP; };
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int m0 = blockIdx.x * kSrBM, n0 = blockIdx.y * BN, slice = blockIdx.z;
@@ -119,27 +133,31 @@ sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
       }
     }
   };
-  auto store_a = [&](bf16* dstA) {  // LayerNorm, round to bf16, to shared memory
+  auto store_a = [&](T* dstA) {  // LayerNorm, rounded to T, to shared memory
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      uint2 v = make_uint2(0u, 0u);
-      if (corner[i] >= 0) {
-        v.x = pack_bf16(ln_apply(a[i].x, mu[i], rs[i], gw.x, gb.x),
-                        ln_apply(a[i].y, mu[i], rs[i], gw.y, gb.y));
-        v.y = pack_bf16(ln_apply(a[i].z, mu[i], rs[i], gw.z, gb.z),
+      float4 n = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (corner[i] >= 0)
+        n = make_float4(ln_apply(a[i].x, mu[i], rs[i], gw.x, gb.x),
+                        ln_apply(a[i].y, mu[i], rs[i], gw.y, gb.y),
+                        ln_apply(a[i].z, mu[i], rs[i], gw.z, gb.z),
                         ln_apply(a[i].w, mu[i], rs[i], gw.w, gb.w));
-      }
-      *reinterpret_cast<uint2*>(dstA + ((tid >> 3) + 16 * i) * kSrPitch + kc) = v;
+      T* at = dstA + ((tid >> 3) + 16 * i) * kP + kc;
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float4*>(at) = n;
+      else
+        *reinterpret_cast<uint2*>(at) = make_uint2(pack_bf16(n.x, n.y), pack_bf16(n.z, n.w));
     }
   };
   auto fetch_b = [&](int step) {  // one commit group a call, empty past the end
     if (step < nsteps) {
-      bf16* d = Bs[step % kSrRing];
-      const bf16* src = Wt + (size_t)(first + step) * kSrBK;
-      for (int idx = tid; idx < BN * 4; idx += kSrThreads) {
-        const int r = idx >> 2, c = (idx & 3) * 8;
+      T* d = Bs(step % kSrRing);
+      const T* src = Wt + (size_t)(first + step) * kSrBK;
+      constexpr int kPieces = kSrBK * (int)sizeof(T) / 16, kPer = 16 / (int)sizeof(T);
+      for (int idx = tid; idx < BN * kPieces; idx += kSrThreads) {
+        const int r = idx / kPieces, c = (idx % kPieces) * kPer;
         const bool ok = n0 + r < g.C;
-        cp_async16(d + r * kSrPitch + c, src + (size_t)(ok ? n0 + r : 0) * g.K + c, ok);
+        cp_async16(d + r * kP + c, src + (size_t)(ok ? n0 + r : 0) * g.K + c, ok);
       }
     }
     cp_async_commit();
@@ -154,7 +172,7 @@ sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
   fetch_b(0);
   fetch_b(1);
   load_a();
-  store_a(As[0]);
+  store_a(As(0));
   for (int step = 0; step < nsteps; ++step) {
     const bool more = step + 1 < nsteps;
     if (more) load_a();  // in flight during the products below
@@ -162,27 +180,27 @@ sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
     __syncthreads();  // B of this step has landed, A of this step is stored, and every
                       // warp is done with the step before: its buffers are free
     fetch_b(step + 2);
-    const bf16* A = As[step & 1];
-    const bf16* Bt = Bs[step % kSrRing];
+    const T* A = As(step & 1);
+    const T* Bt = Bs(step % kSrRing);
 #pragma unroll
-    for (int kk = 0; kk < kSrBK; kk += 16) {
+    for (int kk = 0; kk < kSrBK; kk += kSK) {
       uint32_t af[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
-        ldsm_x4(af[i], A + (wm + i * 16 + (lane & 15)) * kSrPitch + kk + (lane >> 4) * 8);
+        ldsm_x4(af[i], A + (wm + i * 16 + (lane & 15)) * kP + kk + (lane >> 4) * (kSK / 2));
 #pragma unroll
       for (int j2 = 0; j2 < kNT / 2; ++j2) {
-        uint32_t bf[4];  // output columns 0-7 (k 0-7, 8-15), then columns 8-15
-        ldsm_x4(bf, Bt + (wn + j2 * 16 + (lane & 7) + (lane >> 4) * 8) * kSrPitch + kk +
-                        ((lane >> 3) & 1) * 8);
+        uint32_t bf[4];  // output columns 0-7 (first and second half of the slice), then 8-15
+        ldsm_x4(bf, Bt + (wn + j2 * 16 + (lane & 7) + (lane >> 4) * 8) * kP + kk +
+                        ((lane >> 3) & 1) * (kSK / 2));
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][2 * j2], af[i], bf[0], bf[1]);
-          mma_bf16(acc[i][2 * j2 + 1], af[i], bf[2], bf[3]);
+          mma_slice<T>(acc[i][2 * j2], af[i], bf[0], bf[1]);
+          mma_slice<T>(acc[i][2 * j2 + 1], af[i], bf[2], bf[3]);
         }
       }
     }
-    if (more) store_a(As[(step + 1) & 1]);
+    if (more) store_a(As((step + 1) & 1));
   }
   cp_async_wait<0>();
 
@@ -226,17 +244,44 @@ __global__ void sr_reduce_kernel(const float* __restrict__ ws, const float* __re
       make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
 }
 
+// lets the instantiation take its dynamic shared memory (above 48 KB for f32), once
+template <typename T, int BN>
+cudaError_t sr_prepare() {
+  static const cudaError_t err = cudaFuncSetAttribute(
+      sr_conv_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, sr_smem<T, BN>());
+  return err;
+}
+
+template <typename T>
+cudaError_t sr_launch(const float* x, const float* stats, const float* lnw, const float* lnb,
+                      const void* w, const float* bias, float* dst, const SrGeo& g, int bn,
+                      dim3 grid, cudaStream_t st) {
+  if (bn == 64) {
+    const cudaError_t err = sr_prepare<T, 64>();
+    if (err != cudaSuccess) return err;
+    sr_conv_kernel<T, 64><<<grid, kSrThreads, sr_smem<T, 64>(), st>>>(
+        x, stats, lnw, lnb, (const T*)w, bias, dst, g);
+  } else {
+    const cudaError_t err = sr_prepare<T, 128>();
+    if (err != cudaSuccess) return err;
+    sr_conv_kernel<T, 128><<<grid, kSrThreads, sr_smem<T, 128>(), st>>>(
+        x, stats, lnw, lnb, (const T*)w, bias, dst, g);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace k1
 
 // out[B * Hs * Ws, C] = im2col(LN(x))[., sr*sr*C] @ w[C, sr*sr*C]^T + bias: the
 // stride-sr sr x sr conv over the (H, W) token grid of x (B, H*W, C), cropped to
-// full windows. w is the OHWI weight flattened to (C, sr*sr*C); C % 32 == 0.
+// full windows. w is the OHWI weight flattened to (C, sr*sr*C), bf16, or f32 where
+// `f32` is set (the operand type of the products); C % 32 == 0.
 // `bn` (64 or 128) is the width of a block's output tile and `slices` the number
 // of K slices, both from the wrapper's plan; with slices > 1, `ws` holds
 // slices * M * C floats.
 extern "C" int k1_sr_conv(const void* x, const void* stats, const void* lnw, const void* lnb,
                           const void* w, const void* bias, void* ws, void* out, int B, int H,
-                          int W, int C, int sr, int bn, int slices, void* stream) {
+                          int W, int C, int sr, int bn, int slices, int f32, void* stream) {
   using namespace k1;
   const int Hs = H / sr, Ws = W / sr;
   const int M = B * Hs * Ws, K = sr * sr * C, steps = K / kSrBK;
@@ -249,15 +294,11 @@ extern "C" int k1_sr_conv(const void* x, const void* stats, const void* lnw, con
   const dim3 grid((M + kSrBM - 1) / kSrBM, (C + bn - 1) / bn, slices);
   float* dst = slices > 1 ? (float*)ws : (float*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  if (bn == 64)
-    sr_conv_kernel<64><<<grid, kSrThreads, 0, st>>>(
-        (const float*)x, (const float*)stats, (const float*)lnw, (const float*)lnb,
-        (const bf16*)w, (const float*)bias, dst, g);
-  else
-    sr_conv_kernel<128><<<grid, kSrThreads, 0, st>>>(
-        (const float*)x, (const float*)stats, (const float*)lnw, (const float*)lnb,
-        (const bf16*)w, (const float*)bias, dst, g);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err =
+      f32 ? sr_launch<float>((const float*)x, (const float*)stats, (const float*)lnw,
+                             (const float*)lnb, w, (const float*)bias, dst, g, bn, grid, st)
+          : sr_launch<bf16>((const float*)x, (const float*)stats, (const float*)lnw,
+                            (const float*)lnb, w, (const float*)bias, dst, g, bn, grid, st);
   if (err != cudaSuccess || slices == 1) return (int)err;
   const size_t total4 = (size_t)M * C / 4;
   sr_reduce_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, st>>>(

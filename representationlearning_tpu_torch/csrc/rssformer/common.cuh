@@ -114,6 +114,58 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// 4 bytes, zeros where `valid` is false
+__device__ __forceinline__ void cp_async4z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// ---- the operand type T of K5's products: bf16, or float as 3xTF32 ----
+// A k slice is 32 bytes of a row: 16 bf16 (one m16n8k16) or 8 f32 (m16n8k8 three
+// times). `ldmatrix` reads either the same way: lane (g, t) receives 4 bytes at byte
+// 4t of row g of each 8 x 16-byte matrix, the bf16 pair (2t, 2t + 1) or the f32
+// element t. So the addresses that give the bf16 A and B fragments of a slice, taken
+// in bytes, give the TF32 ones too: a0 (row g, k t), a1 (row g + 8, k t), a2 (row g,
+// k t + 4), a3 (row g + 8, k t + 4); b0 (k t, n g), b1 (k t + 4, n g). (K1 has the
+// same pieces, csrc/mit_block/common.cuh.)
+template <typename T>
+constexpr int kSliceK = 32 / (int)sizeof(T);  // k of a slice: 16 bf16, 8 f32
+template <typename T>
+constexpr int kPadE = 16 / (int)sizeof(T);    // 16 bytes, in elements
+
+// x = big + small for 3xTF32: the tensor cores read a TF32 operand from the upper 19
+// bits of its register, so x serves as big, and small = x - trunc(x) is exact
+__device__ __forceinline__ uint32_t tf32_small(uint32_t x) {
+  const float v = __uint_as_float(x);
+  return __float_as_uint(__fsub_rn(v, __uint_as_float(x & 0xffffe000u)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b over one k slice: bf16 operands, or f32 operands as small.big + big.small +
+// big.big in TF32
+template <typename T>
+__device__ __forceinline__ void mma_slice(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  if constexpr (sizeof(T) == 2) {
+    mma_bf16(c, a, b0, b1);
+  } else {
+    const uint32_t as[4] = {tf32_small(a[0]), tf32_small(a[1]), tf32_small(a[2]),
+                            tf32_small(a[3])};
+    mma_tf32(c, as, b0, b1);
+    const uint32_t ab[4] = {a[0], a[1], a[2], a[3]};
+    mma_tf32(c, ab, tf32_small(b0), tf32_small(b1));
+    mma_tf32(c, ab, b0, b1);
+  }
+}
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));

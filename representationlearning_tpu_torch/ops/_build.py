@@ -21,6 +21,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -32,13 +34,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "mit_block": {
         "k1_ln_stats": (_P, _P, _I, _I, _P),
-        # a, w, bias, stats, ln_w, ln_b, residual, out, M, Nout, K, tile, per, stream
-        "k1_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "k1_linear_blocks_per_sm": (_I, _I),   # tile, LayerNorm prologue
-        # x, stats, ln_w, ln_b, w, bias, workspace, out, B, H, W, C, sr, tile, slices, stream
-        "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-        # q, kv, bf16 workspace, out, logits, B, N, Nk, C, nh, scale, stream
-        "k1_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+        # a, w, bias, stats, ln_w, ln_b, residual, out, M, Nout, K, tile, per, f32, stream
+        "k1_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "k1_linear_blocks_per_sm": (_I, _I, _I),   # tile, LayerNorm prologue, f32
+        # x, stats, ln_w, ln_b, w, bias, workspace, out, B, H, W, C, sr, tile, slices, f32,
+        # stream
+        "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # q, kv, workspace, out, logits, B, N, Nk, C, nh, scale, f32, stream
+        "k1_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
         "k1_attention_one_pass_keys": (),
         # f, w, bias, out, B, H, W, hid, columns a thread, rows a thread, stream
         "k1_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
@@ -65,13 +68,15 @@ SIGNATURES = {
         "k4_flash_bwd_blocks_per_sm": (_I, _I, _I, _I),  # Nk, D, is_bf16, rows
     },
     "rssformer": {
-        # x, w1, b1, scale1, shift1, h, M, Cin, warps, steps a block, stream
-        "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        "k5_fc1_blocks_per_sm": (_I, _I),   # Cin, warps
+        # x, w1, b1, scale1, shift1, h, M, Cin, padded Cin, padded hid, f32, warps,
+        # steps a block, stream
+        "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+        "k5_fc1_blocks_per_sm": (_I, _I, _I, _I, _I),   # Cin, padded Cin, padded hid, f32, warps
         # h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, out, B, H, W, Cout,
-        # tile, blocks, stream
-        "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        "k5_taps_blocks_per_sm": (_I,),   # tile
+        # padded Cout, padded hid, f32, tile, blocks, stream
+        "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
+        "k5_taps_blocks_per_sm": (_I, _I, _I),   # padded hid, f32, tile
         # q, k, v, out, NW, T, C, nh, round_bf16, windows, warps, stages, blocks, stream
         "k6_isa_core": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
         "k6_isa_blocks_per_sm": (_I, _I, _I, _I, _I, _I, _I),  # T, C, nh, bf16, plan
@@ -174,6 +179,14 @@ def load_library(name: str = "mit_block") -> ctypes.CDLL:
         build_log[name] = {"path": str(path), "ptxas": ptxas}
         _libs[name] = lib
         return lib
+
+
+def compute_dtype(dtype, kernel: str) -> None:
+    """Refuse an operand type of the products that the CUDA kernels lack: K1, K5 and
+    K6 take float32 (3xTF32 products in K1 and K5, f32 multiply-adds in K6) and
+    bfloat16."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"{kernel} takes compute dtype float32 or bfloat16, got {dtype}")
 
 
 def check(err: int, fn: str) -> None:

@@ -118,8 +118,7 @@ def isa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, nh: int,
         raise ValueError(f"isa_core: C={C} is not a multiple of nh={nh}")
     if not q.is_cuda:
         return isa_core_reference(q, k, v, nh=nh, dtype=dtype)
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(f"K6 takes compute dtype float32 or bfloat16, got {dtype}")
+    _build.compute_dtype(dtype, "K6")
     for name, t in (("q", q), ("k", k), ("v", v)):
         _check(t, name, q.device, (NW, T, C))
     out = torch.empty_like(q)

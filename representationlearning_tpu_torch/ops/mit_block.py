@@ -9,7 +9,7 @@ whole image in VMEM; an H100 SM has 227 KB of shared memory, so on the card the
 block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
 
     ln_stats      LayerNorm row statistics (one-pass variance, eps 1e-6)
-    linear        bf16 GEMM, LayerNorm prologue, bias/residual epilogue
+    linear        GEMM, LayerNorm prologue, bias/residual epilogue
                   (q, kv, proj + residual, fc1, fc2 + residual), its output
                   tile and the M tiles a block walks chosen by `linear_plan`
     sr_conv       the stride-sr sr x sr conv as an implicit-im2col GEMM (sr > 1),
@@ -20,10 +20,13 @@ block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
                   walking a run of rows over 4 channels x a run of columns
                   chosen by `dwconv_plan`
 
-Intermediates between kernels stay f32; matmul operands are rounded to bf16 and
-accumulate in f32, LayerNorm, softmax and GELU run in f32 -- the numerics of the
-TPU kernel. Each of the five wrappers below runs its kernel on a CUDA tensor
-(compute dtype bf16 only; anything else raises) and its plain PyTorch version,
+Intermediates between kernels stay f32; matmul operands are rounded to the
+compute dtype (bf16, or f32 as the TPU kernel's default) and accumulate in f32,
+LayerNorm, softmax and GELU run in f32 -- the numerics of the TPU kernel. On the
+card the f32 products of `linear`, `sr_conv` and `attention` are 3xTF32 `mma.sync`
+products (f32 to about 2^-21 of each product), the operand type a template
+parameter of the same kernels. Each of the five wrappers below runs its kernel on a
+CUDA tensor (compute dtype f32 or bf16; anything else raises) and its plain PyTorch version,
 ``<name>_reference``, on a CPU tensor. ``fused_block_reference`` is the same
 composition with the plain versions only; ``fused_block`` is the dispatcher.
 Both take the PRE_SR variant of the TPU kernel (``_kernel_presr``): with ``h =
@@ -63,20 +66,39 @@ ATTN_ONE_PASS_KEYS = 256
 
 # The linear kernel (csrc/mit_block/gemm.cu): a block's output tile, (rows, columns),
 # one of these instantiations (their index is the kernel's tile id), and the blocks of
-# each that an SM holds at once; K walked in steps of LINEAR_K_STEP columns.
+# each that an SM holds at once, with bf16 and with f32 operands; K walked in steps of
+# LINEAR_K_STEP columns through LINEAR_STAGES[dtype] ring slots.
 LINEAR_TILES = ((64, 64), (64, 128), (128, 256))
 LINEAR_BLOCKS_PER_SM = (4, 3, 1)
+LINEAR_BLOCKS_PER_SM_F32 = (3, 2, 1)
+LINEAR_STAGES = {torch.bfloat16: (3, 3, 4), torch.float32: (3, 3, 3)}
+LINEAR_WARPS = ((2, 2), (2, 2), (2, 4))   # warps along M and N
 LINEAR_K_STEP = 32
+SMEM_LIMIT = 227 * 1024       # dynamic shared memory a block may ask for on sm_90
 LINEAR_SMS = 132
 LINEAR_WIDE_MIN_BLOCKS = 96   # the 128 x 256 tile needs about one block an SM
 LINEAR_MAX_PER = 4
 LINEAR_MAX_GROUPS = 65535     # the grid's second dimension
 
 
+def linear_smem_bytes(tile: int, dtype) -> int:
+    """Shared memory of the linear kernel's tile `tile` (an index of LINEAR_TILES) with
+    `dtype` operands, as gemm.cu's `linear_smem` counts it: the ring of f32 A steps
+    (pitch 32, padded to 36 in f32), the ring of weight steps (a row of 32 and 16
+    bytes), the bf16 A double buffer (bf16 only) and each warp's 8 staged rows."""
+    (bm, bn), (wm, wn) = LINEAR_TILES[tile], LINEAR_WARPS[tile]
+    stages, size = LINEAR_STAGES[dtype][tile], torch.finfo(dtype).bits // 8
+    pitch = LINEAR_K_STEP + 16 // size
+    a_pitch = LINEAR_K_STEP if size == 2 else pitch
+    return (stages * bm * a_pitch * 4 + stages * bn * pitch * size
+            + (2 * bm * pitch * 2 if size == 2 else 0) + wm * wn * 8 * (bn // wn + 8) * 4)
+
+
 @functools.lru_cache(maxsize=1024)   # the host's time a launch counts: shapes repeat
 def linear_plan(M: int, Nout: int, K: int) -> tuple[tuple[int, int], int]:
     """(tile, per) of the linear kernel for an (M, K) x (K, Nout) product: the
-    block's output tile and the number of M tiles a block walks. The 128 x 256 tile
+    block's output tile and the number of M tiles a block walks (the same for bf16
+    and f32 operands: every tile fits either). The 128 x 256 tile
     (half the L2 traffic of the others per product) where 256 divides Nout and it
     still gives about one block an SM, its blocks walking up to LINEAR_MAX_PER M
     tiles so that the grid is about one wave; else the 64 x 128 tile where it gives
@@ -126,6 +148,14 @@ def sr_conv_plan(M: int, C: int, K: int) -> tuple[int, int]:
                  SR_MAX_SLICES)
     per = math.ceil(steps / slices)
     return tile, math.ceil(steps / per)     # no slice is empty
+
+
+def sr_conv_smem_bytes(tile: int, dtype) -> int:
+    """Shared memory of the sr conv kernel at output width `tile` (64 or 128) with
+    `dtype` operands: two A tiles and a ring of three B tiles, rows of SR_K_STEP
+    elements and 16 bytes (sr_conv.cu's `sr_smem`)."""
+    size = torch.finfo(dtype).bits // 8
+    return (2 * SR_TILE_M + 3 * tile) * (SR_K_STEP + 16 // size) * size
 
 
 def sr_conv_slice_counts(K: int) -> list[int]:
@@ -308,10 +338,7 @@ def _check(t: torch.Tensor, name: str, device: torch.device, shape=None,
 
 
 def _compute_dtype(dtype) -> None:
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"K1 on CUDA takes compute dtype bfloat16, got {dtype}; the float32 "
-            "CUDA path is not ported yet")
+    _build.compute_dtype(dtype, "K1")
 
 
 def _ptr(t):
@@ -360,7 +387,7 @@ def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
     if a.shape[-1] != K:
         raise ValueError(f"linear: a has {a.shape[-1]} features, w takes {K}")
     M = a.numel() // K
-    _check(w, "w", dev, (Nout, K), torch.bfloat16)
+    _check(w, "w", dev, (Nout, K), dtype)
     _check(bias, "bias", dev, (Nout,))
     if stats is not None:
         _check(stats, "stats", dev, a.shape[:-1] + (2,))
@@ -378,7 +405,7 @@ def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
         tile_id = LINEAR_TILES.index(tuple(tile)) if tuple(tile) in LINEAR_TILES else -1
         _launch("k1_linear", dev, a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(stats),
                 _ptr(ln_w), _ptr(ln_b), _ptr(residual), out.data_ptr(), M, Nout, K,
-                tile_id, per)
+                tile_id, per, int(dtype == torch.float32))
         LAUNCHES["linear"] += 1   # one a call, whatever plan it runs
     return out
 
@@ -399,7 +426,7 @@ def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat1
     _check(stats, "stats", dev, (B, N, 2))
     _check(ln_w, "ln_w", dev, (C,))
     _check(ln_b, "ln_b", dev, (C,))
-    _check(w_flat, "w_flat", dev, (C, sr * sr * C), torch.bfloat16)
+    _check(w_flat, "w_flat", dev, (C, sr * sr * C), dtype)
     _check(bias, "bias", dev, (C,))
     Nk = (H // sr) * (W // sr)
     out = torch.empty((B, Nk, C), device=dev, dtype=torch.float32)
@@ -410,7 +437,7 @@ def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat1
               if slices > 1 else None)
         _launch("k1_sr_conv", dev, x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
                 ln_b.data_ptr(), w_flat.data_ptr(), bias.data_ptr(), _ptr(ws),
-                out.data_ptr(), B, H, W, C, sr, tile, slices)
+                out.data_ptr(), B, H, W, C, sr, tile, slices, int(dtype == torch.float32))
         LAUNCHES["sr_conv"] += 1   # one a call, whatever number of device kernels it takes
     return out
 
@@ -431,10 +458,11 @@ def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False):
         return torch.zeros((B, N, C), device=q.device, dtype=torch.float32), logits
     out = torch.empty((B, N, C), device=q.device, dtype=torch.float32)
     if B * N:
-        # k and v rounded to bf16 once, head by head, by the kernel's first step
-        kvb = torch.empty((B * Nk * 2 * C,), device=q.device, dtype=torch.bfloat16)
+        # k and v in the compute dtype, head by head, by the kernel's first step
+        kvb = torch.empty((B * Nk * 2 * C,), device=q.device, dtype=dtype)
         _launch("k1_attention", q.device, q.data_ptr(), kv.data_ptr(), kvb.data_ptr(), out.data_ptr(),
-                _ptr(logits), B, N, Nk, C, nh, float(C // nh) ** -0.5)
+                _ptr(logits), B, N, Nk, C, nh, float(C // nh) ** -0.5,
+                int(dtype == torch.float32))
         LAUNCHES["attention"] += 1
     return out, logits
 
@@ -545,9 +573,9 @@ def fused_block_reference(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: 
 def fused_block(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int, W: int,
                 sr: int, nh: int, dtype=torch.float32, export: bool = False, h=None,
                 xs=None):
-    """K1 dispatcher: the CUDA kernels for a CUDA tensor (bf16 compute only), the
-    plain version for a CPU tensor. Nothing falls back. `h`, `xs`: the PRE_SR
-    variant (see `_block`, `sr_reduce`)."""
+    """K1 dispatcher: the CUDA kernels for a CUDA tensor (compute dtype f32, the
+    TPU kernel's default, or bf16), the plain version for a CPU tensor. Nothing falls
+    back. `h`, `xs`: the PRE_SR variant (see `_block`, `sr_reduce`)."""
     if x.is_cuda:
         _compute_dtype(dtype)
     return _block(x, p, H=H, W=W, sr=sr, nh=nh, dtype=dtype, export=export, ops=DISPATCH,

@@ -13,21 +13,29 @@ the hidden plane, shifted by the tap offsets and zero outside the plane, with
 
 The TPU kernel keeps a whole image in VMEM (the hidden plane alone is 8.4 MB at
 128 x 128 x 128 f32); an H100 block has 227 KB of shared memory. On the card K5
-is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cu``):
+is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cuh``), templates on the operand type
+(bf16, or f32 as 3xTF32 `mma.sync` products) and on the hidden width:
 
-    mlp_fc1    x -> gelu(bn1(x W1 + b1)), written to device memory in bf16: the
-               TPU kernel rounds h to bf16 at each of its 19 uses, so storing
-               the rounded plane is the same rounding, done once; persistent
-               blocks walk 16-row tiles a warp, their count from `fc1_plan`
+    mlp_fc1    x -> gelu(bn1(x W1 + b1)), written to device memory in the compute
+               dtype: under bf16 the TPU kernel rounds h to bf16 at each of its 19
+               uses, so storing the rounded plane is the same rounding, done once;
+               persistent blocks walk 16-row tiles a warp, their count from `fc1_plan`
     mlp_taps   a 19-tap implicit GEMM over tiles of 128 or 256 tokens (taps
                outside the plane read as zero, no padded copy), bias + bn2 + GELU,
                then fc2 from the accumulator registers + bn3 + GELU; persistent
                blocks walk the tiles, their tile and count from `taps_plan`
 
-Each wrapper runs its kernel on a CUDA tensor (compute dtype bf16 and hid = 128
-only; anything else raises) and its plain PyTorch version, ``<name>_reference``,
-on a CPU tensor. ``fused_mlp_dwbn_reference`` is `_mlp_math` step by step;
-``fused_mlp_dwbn`` is the dispatcher.
+The kernels take a padded hidden width (`padded_hid`: hid rounded up to a multiple
+of 32, at least 96: HRNetV2's hid 72 / 128 / 160 / 192 run at 96 / 128 / 160 / 192)
+and pad the input and output widths to 16 inside; the wrappers pad the weights and
+the BatchNorm vectors with zeros, which changes no output (a padded hidden feature
+is gelu(0) = 0, and its weights are 0). `mlp_fc1` returns the hidden plane at the
+padded width on the card, and `mlp_taps` takes it so.
+
+Each wrapper runs its kernel on a CUDA tensor (compute dtype f32, the TPU kernel's
+default, or bf16; anything else raises) and its plain PyTorch version,
+``<name>_reference``, on a CPU tensor. ``fused_mlp_dwbn_reference`` is `_mlp_math`
+step by step; ``fused_mlp_dwbn`` is the dispatcher.
 
 Layouts: tokens (B, N, C), N = H * W row-major, f32. Weights are torch conv
 layouts (OIHW): ``fc1_weight`` (hid, Cin, 1, 1), ``dw1_weight`` (hid, hid, 1, 1),
@@ -46,7 +54,8 @@ from . import _build
 from .mit_block import _aligned, _check, gelu_as, mm
 
 DILATIONS = (6, 12)  # of dw6 and dw12 (`ffn_block.py`); the kernel has them built in
-HID = 128            # the hidden width the CUDA kernels are compiled for
+HID = 128            # the hidden width of hrnetv2_w32, the default of the functions below
+HIDDEN_WIDTHS = (96, 128, 160, 192)   # the padded hidden widths the kernels are built for
 
 # The fc1 kernel (csrc/rssformer/mlp_dwbn.cu): a warp takes FC1_ROWS rows of x a step,
 # a block FC1_WARPS warps (at most FC1_MAX_WARPS), each warp with a ring of FC1_STAGES
@@ -58,99 +67,152 @@ SMEM_PER_SM = 228 * 1024      # shared memory of an SM, 1 KB of it reserved a bl
 FC1_WARPS_PER_SM = 16         # the registers of an SM hold 16 warps of the kernel
 
 
-def fc1_smem_bytes(cin: int, warps: int) -> int:
-    """b1, s1, t1 in f32; a ring of f32 x tiles (pitch cin + 8) and 16 staged bf16
-    half rows (pitch 144 bytes) a warp; w1 in bf16 (pitch cin + 8)."""
-    return 3 * HID * 4 + warps * (FC1_STAGES * FC1_ROWS * (cin + 8) * 4 + FC1_ROWS * 144) \
-        + HID * (cin + 8) * 2
+def _size(dtype) -> int:
+    return torch.finfo(dtype).bits // 8
 
 
-def fc1_fits(cin: int, warps: int) -> bool:
+def padded_hid(hid: int) -> int:
+    """The hidden width the kernels run `hid` at: rounded up to a multiple of 32, at
+    least 96 (one of HIDDEN_WIDTHS)."""
+    hp = max(HIDDEN_WIDTHS[0], -(-hid // 32) * 32)
+    if hid < 1 or hp not in HIDDEN_WIDTHS:
+        raise NotImplementedError(
+            f"the K5 kernels take a hidden width up to {HIDDEN_WIDTHS[-1]}, got {hid}")
+    return hp
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def fc1_smem_bytes(cin: int, warps: int, hid: int = HID, dtype=torch.bfloat16) -> int:
+    """b1, s1, t1 in f32; a ring of f32 x tiles (pitch cinp + 8 in bf16, cinp + 4 in
+    f32, cinp = cin rounded up to 16) and 16 staged half rows (hp / 2 elements and 16
+    bytes) a warp; w1 in the compute dtype (a row of cinp and 16 bytes)."""
+    hp, cinp, size = padded_hid(hid), _pad16(cin), _size(dtype)
+    xp = cinp + (8 if size == 2 else 4)
+    staged = (hp // 2) * size + 16
+    return 3 * hp * 4 + warps * (FC1_STAGES * FC1_ROWS * xp * 4 + FC1_ROWS * staged) \
+        + hp * (cinp * size + 16)
+
+
+def fc1_fits(cin: int, warps: int, hid: int = HID, dtype=torch.bfloat16) -> bool:
     """Whether a block of `warps` warps at this width fits in shared memory."""
-    return 1 <= warps <= FC1_MAX_WARPS and fc1_smem_bytes(cin, warps) <= SMEM_LIMIT
+    return 1 <= warps <= FC1_MAX_WARPS and fc1_smem_bytes(cin, warps, hid, dtype) <= SMEM_LIMIT
 
 
-def fc1_blocks_per_sm(cin: int, warps: int) -> int:
+def fc1_blocks_per_sm(cin: int, warps: int, hid: int = HID, dtype=torch.bfloat16) -> int:
     """Blocks of the fc1 kernel an SM holds at once, by its shared memory and its
     registers (`chip_smoke.py` checks the estimate against the card's own count)."""
-    smem = fc1_smem_bytes(cin, warps)
+    smem = fc1_smem_bytes(cin, warps, hid, dtype)
     return max(1, min(SMEM_PER_SM // (smem + 1024), FC1_WARPS_PER_SM // warps))
 
 
 @functools.lru_cache(maxsize=256)
-def fc1_plan(M: int, cin: int) -> tuple[int, int]:
+def fc1_plan(M: int, cin: int, hid: int = HID, dtype=torch.bfloat16) -> tuple[int, int]:
     """(warps, per) of the fc1 kernel for M tokens of cin features: the warps a block
     (FC1_WARPS, fewer where shared memory cannot hold their rings) and the steps a
     block walks, a step being one 16-row tile a warp, so that the grid is about one
     wave of the blocks the card holds at once. A function of the shapes only; every
     plan computes each output by the same instructions, so all give the same bits."""
-    _widths(HID, cin=cin)
+    _widths(hid, cin=cin)
     warps = FC1_WARPS
-    while warps > 1 and not fc1_fits(cin, warps):
+    while warps > 1 and not fc1_fits(cin, warps, hid, dtype):
         warps //= 2
     steps = math.ceil(math.ceil(M / FC1_ROWS) / warps)
-    resident = fc1_blocks_per_sm(cin, warps) * FC1_SMS
+    resident = fc1_blocks_per_sm(cin, warps, hid, dtype) * FC1_SMS
     return warps, max(1, math.ceil(steps / resident))
 
 
-def check_fc1_plan(plan, cin: int) -> tuple[int, int]:
+def check_fc1_plan(plan, cin: int, hid: int = HID, dtype=torch.bfloat16) -> tuple[int, int]:
     """The plan as (warps, per), or ValueError if the kernel does not take it."""
     try:
         warps, per = (int(v) for v in plan)
     except (TypeError, ValueError):
         raise ValueError(f"mlp_fc1: plan {plan!r} is not (warps, per)") from None
-    if not (per >= 1 and fc1_fits(cin, warps)):
+    if not (per >= 1 and fc1_fits(cin, warps, hid, dtype)):
         raise ValueError(f"mlp_fc1: plan {plan!r} is not one the kernel takes at cin={cin}")
     return warps, per
 
 # The taps kernel: eight warps a block, a tile of TAPS_TILES tokens (16 or 32 rows a
-# warp, all 128 hidden features), a ring of TAPS_STAGES[tile] slots of A and B, each a
-# K step of TAPS_BK features of one tap (four slots of a 256-token tile do not fit
-# beside fc2's weight and the six vectors, which stay in shared memory).
-TAPS_TILES, TAPS_WARPS, TAPS_BK = (128, 256), 8, 64
-TAPS_STAGES = {128: 4, 256: 3}
+# warp, all hp hidden features; 256 only up to hp 128, where two 16-row tiles of
+# accumulators fit a warp's registers), a ring of `taps_stages` slots of A and B, each
+# a K step of `taps_bk` features of one tap (a row of 128 bytes, or 64 where hp allows
+# no 128), beside fc2's weight (up to `taps_cout_max` rows) and the six vectors, which
+# stay in shared memory.
+TAPS_TILES, TAPS_WARPS = (128, 256), 8
 TAPS_SMS = FC1_SMS
 TAPS_BLOCKS_BY_REGS = 1   # blocks of eight warps the registers of an SM hold
 
 
-def taps_smem_bytes(tile: int) -> int:
-    """The ring's slots of A (tile rows) and B (128 rows), each row TAPS_BK bf16 features
-    and 8 of padding; fc2's weight (128 rows of 136 bf16) and six f32 vectors."""
-    return TAPS_STAGES[tile] * (tile + HID) * (TAPS_BK + 8) * 2 + HID * (HID + 8) * 2 \
-        + 6 * HID * 4
+def taps_tiles(hid: int = HID) -> tuple[int, ...]:
+    return TAPS_TILES if padded_hid(hid) <= 128 else TAPS_TILES[:1]
 
 
-def taps_blocks_per_sm(tile: int) -> int:
+def taps_bk(hid: int = HID, dtype=torch.bfloat16) -> int:
+    """Features of one tap a K step takes (mlp_dwbn.cuh's kTapsBK)."""
+    return 64 if _size(dtype) == 2 and padded_hid(hid) % 64 == 0 else 32
+
+
+def taps_cout_max(hid: int = HID, dtype=torch.bfloat16) -> int:
+    """Output widths (padded to 16) whose fc2 weight shared memory holds."""
+    return 128 if _size(dtype) == 2 and padded_hid(hid) == 128 else 64
+
+
+def _taps_smem(tile: int, hid: int, dtype, stages: int) -> int:
+    hp, size = padded_hid(hid), _size(dtype)
+    return stages * (tile + hp) * (taps_bk(hid, dtype) * size + 16) \
+        + taps_cout_max(hid, dtype) * (hp * size + 16) + 6 * hp * 4
+
+
+def taps_stages(tile: int, hid: int = HID, dtype=torch.bfloat16) -> int:
+    """Slots of the ring: four where they fit beside the epilogue's constants, else
+    three (the kernel needs three)."""
+    return 4 if _taps_smem(tile, hid, dtype, 4) <= SMEM_LIMIT else 3
+
+
+def taps_smem_bytes(tile: int, hid: int = HID, dtype=torch.bfloat16) -> int:
+    """The ring's slots of A (tile rows) and B (hp rows), each row `taps_bk` features
+    and 16 bytes; fc2's weight (`taps_cout_max` rows of hp features and 16 bytes) and
+    six f32 vectors of hp."""
+    return _taps_smem(tile, hid, dtype, taps_stages(tile, hid, dtype))
+
+
+def taps_blocks_per_sm(tile: int, hid: int = HID, dtype=torch.bfloat16) -> int:
     """Blocks of the taps kernel an SM holds at once, by its shared memory and its
     registers: a block is built to hold more than 128 registers a thread (its launch
     bounds ask for one block an SM), so the registers hold one block of eight warps.
     `chip_smoke.py` checks the estimate against the card's count."""
-    return max(1, min(SMEM_PER_SM // (taps_smem_bytes(tile) + 1024), TAPS_BLOCKS_BY_REGS))
+    smem = taps_smem_bytes(tile, hid, dtype)
+    return max(1, min(SMEM_PER_SM // (smem + 1024), TAPS_BLOCKS_BY_REGS))
 
 
 @functools.lru_cache(maxsize=256)
-def taps_plan(B: int, H: int, W: int, cout: int) -> tuple[int, int]:
+def taps_plan(B: int, H: int, W: int, cout: int, hid: int = HID,
+              dtype=torch.bfloat16) -> tuple[int, int]:
     """(tile, blocks) of the taps kernel for B planes of H x W tokens: tiles of 256
-    tokens (the tap matrices read half as often as with 128), unless that leaves more
-    than half the SMs without a tile; then 128. Blocks: one wave of the blocks the card
-    holds, or one a tile where there are fewer tiles. A function of the shapes only;
-    every plan computes each output by the same instructions in the same order, so all
-    give the same bits."""
-    _widths(HID, cout=cout)
+    tokens (the tap matrices read half as often as with 128) where the width has them,
+    unless that leaves more than half the SMs without a tile; then 128. Blocks: one
+    wave of the blocks the card holds, or one a tile where there are fewer tiles. A
+    function of the shapes only; every plan computes each output by the same
+    instructions in the same order, so all give the same bits."""
+    _widths(hid, cout=cout, dtype=dtype)
     M = B * H * W
-    tile = 256 if math.ceil(M / 256) >= TAPS_SMS // 2 else 128
-    return tile, max(1, min(math.ceil(M / tile), taps_blocks_per_sm(tile) * TAPS_SMS))
+    big = 256 in taps_tiles(hid) and math.ceil(M / 256) >= TAPS_SMS // 2
+    tile = 256 if big else 128
+    return tile, max(1, min(math.ceil(M / tile),
+                            taps_blocks_per_sm(tile, hid, dtype) * TAPS_SMS))
 
 
-def check_taps_plan(plan) -> tuple[int, int]:
+def check_taps_plan(plan, hid: int = HID) -> tuple[int, int]:
     """The plan as (tile, blocks), or ValueError if the kernel does not take it."""
     try:
         tile, blocks = (int(v) for v in plan)
     except (TypeError, ValueError):
         raise ValueError(f"mlp_taps: plan {plan!r} is not (tile, blocks)") from None
-    if tile not in TAPS_TILES or blocks < 1:
+    if tile not in taps_tiles(hid) or blocks < 1:
         raise ValueError(f"mlp_taps: plan {plan!r} is not one the kernel takes (tile in "
-                         f"{TAPS_TILES}, blocks >= 1)")
+                         f"{taps_tiles(hid)}, blocks >= 1)")
     return tile, blocks
 
 
@@ -217,22 +279,18 @@ def mlp_taps_reference(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3,
 
 # ------------------------------------------------------------ kernel wrappers
 def _compute_dtype(dtype) -> None:
-    if dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"K5 on CUDA takes compute dtype bfloat16, got {dtype}; the float32 "
-            "CUDA path is not ported yet")
+    _build.compute_dtype(dtype, "K5")
 
 
-def _widths(hid: int, cin: int | None = None, cout: int | None = None) -> None:
-    if hid != HID:
+def _widths(hid: int, cin: int | None = None, cout: int | None = None,
+            dtype=torch.bfloat16) -> None:
+    padded_hid(hid)
+    if cin is not None and not 1 <= cin <= 256:
+        raise NotImplementedError(f"mlp_fc1 takes an input width up to 256, got {cin}")
+    if cout is not None and not 1 <= _pad16(cout) <= taps_cout_max(hid, dtype):
         raise NotImplementedError(
-            f"the K5 kernels are built for hidden width {HID} (hrnetv2_w32), got {hid}")
-    if cin is not None and (cin % 16 or not 16 <= cin <= 256):
-        raise NotImplementedError(
-            f"mlp_fc1 takes an input width that is a multiple of 16 up to 256, got {cin}")
-    if cout is not None and (cout % 16 or not 16 <= cout <= 128):
-        raise NotImplementedError(
-            f"mlp_taps takes an output width that is a multiple of 16 up to 128, got {cout}")
+            f"mlp_taps takes an output width up to {taps_cout_max(hid, dtype)} at hidden "
+            f"width {hid} in {dtype}, got {cout}")
 
 
 def _launch(fn: str, device: torch.device, *args) -> None:
@@ -243,30 +301,45 @@ def _launch(fn: str, device: torch.device, *args) -> None:
         _build.check(getattr(lib, fn)(*args, torch.cuda.current_stream().cuda_stream), fn)
 
 
+def _pad(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """t (f32 or the compute dtype) with zeros appended to each dimension up to
+    `shape`, contiguous; t itself where it already has that shape."""
+    pad = [n - m for m, n in zip(t.shape, shape)][::-1]
+    if not any(pad):
+        return t.contiguous()
+    return torch.nn.functional.pad(t, [v for n in pad for v in (0, n)]).contiguous()
+
+
 def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16, plan=None):
     """`plan`: a (warps, per) other than `fc1_plan`'s, for tests and tuning; it is
     checked on any device, every plan gives the same bits on the card, and it
-    changes nothing on the CPU."""
+    changes nothing on the CPU. On the card the hidden plane comes back at the padded
+    width `padded_hid(hid)`, its padded features 0."""
+    hid = w1.shape[0]
     if plan is not None:
-        plan = check_fc1_plan(plan, x.shape[-1])
+        plan = check_fc1_plan(plan, x.shape[-1], hid, dtype)
     if not x.is_cuda:
         return mlp_fc1_reference(x, w1, b1, scale, shift, dtype=dtype)
     _compute_dtype(dtype)
     B, N, cin = x.shape
-    hid = w1.shape[0]
     _widths(hid, cin=cin)
+    hp, cinp = padded_hid(hid), _pad16(cin)
     dev = x.device
     _check(x, "x", dev)
-    _check(w1, "w1", dev, (hid, cin), torch.bfloat16)
+    _check(w1, "w1", dev, (hid, cin), dtype)
     for name, t in (("b1", b1), ("scale", scale), ("shift", shift)):
         _check(t, name, dev, (hid,))
-    for t, name in ((x, "x"), (w1, "w1"), (b1, "b1"), (scale, "scale"), (shift, "shift")):
+    _aligned(x, "x", 16 if cin % 4 == 0 else 4)
+    w1p = _pad(w1, hp, cinp)
+    b1p, s1p, t1p = (_pad(t, hp) for t in (b1, scale, shift))
+    for t, name in ((w1p, "w1"), (b1p, "b1"), (s1p, "scale"), (t1p, "shift")):
         _aligned(t, name)
-    h = torch.empty((B, N, hid), device=dev, dtype=torch.bfloat16)
+    h = torch.empty((B, N, hp), device=dev, dtype=dtype)
     if B * N:
-        warps, per = fc1_plan(B * N, cin) if plan is None else plan
-        _launch("k5_mlp_fc1", dev, x.data_ptr(), w1.data_ptr(), b1.data_ptr(), scale.data_ptr(),
-                shift.data_ptr(), h.data_ptr(), B * N, cin, warps, per)
+        warps, per = fc1_plan(B * N, cin, hid, dtype) if plan is None else plan
+        _launch("k5_mlp_fc1", dev, x.data_ptr(), w1p.data_ptr(), b1p.data_ptr(),
+                s1p.data_ptr(), t1p.data_ptr(), h.data_ptr(), B * N, cin, cinp, hp,
+                int(dtype == torch.float32), warps, per)
         LAUNCHES["mlp_fc1"] += 1   # one a call, whatever plan it runs
     return h
 
@@ -275,37 +348,40 @@ def mlp_taps(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, *, H, W,
              dtype=torch.bfloat16, plan=None):
     """`plan`: a (tile, blocks) other than `taps_plan`'s, for tests and tuning;
     it is checked on any device, every plan gives the same bits on the card, and it
-    changes nothing on the CPU."""
+    changes nothing on the CPU. On the card h comes at the padded width of `mlp_fc1`
+    (hid itself where that is a padded width, as 128)."""
+    hid = taps.shape[1]
     if plan is not None:
-        plan = check_taps_plan(plan)
+        plan = check_taps_plan(plan, hid)
     if not h.is_cuda:
         return mlp_taps_reference(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3,
                                   H=H, W=W, dtype=dtype)
     _compute_dtype(dtype)
-    B, N, hid = h.shape
+    B, N, _ = h.shape
     cout = w2.shape[0]
-    _widths(hid, cout=cout)
+    _widths(hid, cout=cout, dtype=dtype)
+    hp, coutp = padded_hid(hid), _pad16(cout)
     if N != H * W:
         raise ValueError(f"mlp_taps: N={N} but H*W={H * W}")
     dev = h.device
-    _check(h, "h", dev, dtype=torch.bfloat16)
-    _check(taps, "taps", dev, (19, hid, hid), torch.bfloat16)
-    _check(w2, "w2", dev, (cout, hid), torch.bfloat16)
+    _check(h, "h", dev, (B, N, hp), dtype)
+    _check(taps, "taps", dev, (19, hid, hid), dtype)
+    _check(w2, "w2", dev, (cout, hid), dtype)
     for name, t in (("dw_bias", dw_bias), ("scale2", scale2), ("shift2", shift2)):
         _check(t, name, dev, (hid,))
     for name, t in (("b2", b2), ("scale3", scale3), ("shift3", shift3)):
         _check(t, name, dev, (cout,))
-    named = (("h", h), ("taps", taps), ("dw_bias", dw_bias), ("scale2", scale2),
-             ("shift2", shift2), ("w2", w2), ("b2", b2), ("scale3", scale3), ("shift3", shift3))
-    for name, t in named:
+    padded = (("h", h), ("taps", _pad(taps, 19, hp, hp)), ("dw_bias", _pad(dw_bias, hp)),
+              ("scale2", _pad(scale2, hp)), ("shift2", _pad(shift2, hp)),
+              ("w2", _pad(w2, coutp, hp)), ("b2", _pad(b2, coutp)),
+              ("scale3", _pad(scale3, coutp)), ("shift3", _pad(shift3, coutp)))
+    for name, t in padded:
         _aligned(t, name)
     out = torch.empty((B, N, cout), device=dev, dtype=torch.float32)
     if B * N:
-        tile, blocks = taps_plan(B, H, W, cout) if plan is None else plan
-        _launch("k5_mlp_taps", dev, h.data_ptr(), taps.data_ptr(), dw_bias.data_ptr(),
-                scale2.data_ptr(), shift2.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                scale3.data_ptr(), shift3.data_ptr(), out.data_ptr(), B, H, W, cout, tile,
-                blocks)
+        tile, blocks = taps_plan(B, H, W, cout, hid, dtype) if plan is None else plan
+        _launch("k5_mlp_taps", dev, *(t.data_ptr() for _, t in padded), out.data_ptr(),
+                B, H, W, cout, coutp, hp, int(dtype == torch.float32), tile, blocks)
         LAUNCHES["mlp_taps"] += 1   # one a call, whatever plan it runs
     return out
 
@@ -335,8 +411,9 @@ def fused_mlp_dwbn_reference(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, 
 
 def fused_mlp_dwbn(x: torch.Tensor, p: Mapping[str, torch.Tensor], *, H: int, W: int,
                    dtype=torch.float32) -> torch.Tensor:
-    """K5 dispatcher: the CUDA kernels for a CUDA tensor (bf16 compute, hid 128
-    only), the plain version for a CPU tensor. Nothing falls back."""
+    """K5 dispatcher: the CUDA kernels for a CUDA tensor (compute dtype f32, the TPU
+    kernel's default, or bf16; hidden widths up to 192), the plain version for a CPU
+    tensor. Nothing falls back."""
     if x.is_cuda:
         _compute_dtype(dtype)
     return _mlp(x, p, H=H, W=W, dtype=dtype, fc1=mlp_fc1, taps_fn=mlp_taps)

@@ -221,18 +221,32 @@ def test_resume_continues_from_the_saved_step(tmp_path, monkeypatch, capsys):
     assert sorted(os.listdir(wd / "checkpoints")) == ["step_1", "step_2", "step_3"]
 
 
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_eval_model_is_built_f32_on_every_device(monkeypatch, device, fused):
+    """`train`, `eval` and `predict` build the model at its default f32 whatever the
+    device type and `model.fused_mlp`, as the JAX command line does; K5 then computes
+    in f32 on the card. The constructor is recorded, not run (no card here)."""
+    import inspect
+
+    made = []
+    monkeypatch.setattr(TC, "HRNetFusion", lambda **kw: made.append(kw))
+    cfg = _cfg(TC.default_config, load_yaml, SMALL + [f"model.fused_mlp={fused}"])
+    TC._build(cfg, torch.device(device))
+    assert len(made) == 1 and made[0]["fused_mlp"] is fused and made[0]["device"].type == device
+    assert made[0].get("dtype", torch.float32) == torch.float32
+    assert inspect.signature(HRNetFusion).parameters["dtype"].default == torch.float32
+    assert not hasattr(TC, "compute_dtype")
+
+
 def test_f32_checkpoint_loads_strictly_into_the_bf16_eval_model(weights, tmp_path, monkeypatch):
-    """With `model.fused_mlp` on the card, eval and predict build the model to
-    compute in bf16 and load the f32 trainer's checkpoint into it: every name,
-    shape and type matches (the compute dtype is not a parameter's)."""
+    """The f32 trainer's checkpoint loads strictly into a model that computes in
+    bf16 (the command lines build f32 models; a bf16 one is built here through the
+    constructor): every name, shape and type matches (the compute dtype is not a
+    parameter's)."""
     cfg = _cfg(TC.default_config, load_yaml, SMALL + ["model.fused_mlp=True"])
-    cuda = torch.device("cuda")
-    assert TC.compute_dtype(cfg, cuda, inference=True) == torch.bfloat16
-    assert TC.compute_dtype(cfg, cuda, inference=False) == torch.float32
-    assert TC.compute_dtype(cfg, torch.device("cpu"), inference=True) == torch.float32
-    off = _cfg(TC.default_config, load_yaml, SMALL)
-    assert TC.compute_dtype(off, cuda, inference=True) == torch.float32
-    monkeypatch.setattr(TC, "compute_dtype", lambda *a, **k: torch.bfloat16)
+    monkeypatch.setattr(TC, "HRNetFusion",
+                        lambda **kw: HRNetFusion(dtype=torch.bfloat16, **kw))
     model, state = TC._restore_for_eval(cfg, SimpleNamespace(ckpt_dir=weights.ckpt),
                                         torch.device("cpu"))
     assert model.backbone.hrnet.dtype == torch.bfloat16 and state.step == 5

@@ -110,6 +110,39 @@ def test_first_batches_match_jax(yaml, device_aug):
         _same(t_val[i], j_val[i])
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_twins_are_built_f32_on_every_device(monkeypatch, device):
+    """The fused twins of both command lines compute in f32 whatever the device type,
+    as the JAX command lines build them (`fused_blocks=True` at the model's default
+    dtype): the validation and CAM twins of `cli.train_scd`, the CAM twin of
+    `cli.train_rml`. The constructors are recorded, not run (no card here)."""
+    import inspect
+
+    from representationlearning_tpu_torch.models.rml import RMLModel
+    from representationlearning_tpu_torch.models.tscd import TSCD
+
+    made = []
+
+    class Recorded(torch.nn.Module):
+        def __init__(self, *a, **kw):
+            super().__init__()
+            made.append(kw)
+
+    for mod, name in ((TSCD_CLI, "TSCD"), (TRML, "RMLModel")):
+        monkeypatch.setattr(mod, name, Recorded)
+        monkeypatch.setattr(mod, "share_parameters", lambda twin, model: twin)
+    TSCD_CLI.build_models(TSCD_CLI.parse_config(["backbone.config=mit_b0"]), torch.device(device))
+    TRML.build_models(TRML.parse_config(["backbone.config=mit_b0"], TRML.default_config()),
+                      torch.device(device))
+    twins = [kw for kw in made if kw.get("fused_blocks")]
+    assert len(made) == 5 and len(twins) == 3
+    assert all(kw.get("dtype", torch.float32) == torch.float32 and kw["device"].type == device
+               for kw in twins)
+    for cls in (TSCD, RMLModel):
+        assert inspect.signature(cls).parameters["dtype"].default == torch.float32
+    assert not hasattr(TSCD_CLI, "twin_dtype")
+
+
 def test_validate_matches_jax():
     """The port's `validate` through its validation twin (the trained model's
     parameters loaded from JAX's variables, shared by the twin) against JAX's

@@ -295,8 +295,8 @@ def test_fused_block_matches_plain(dev, hw, C, sr, nh, export):
 
 def test_cuda_path_refuses_what_it_does_not_take(dev):
     x = torch.zeros(1, 16, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tmb.fused_block(x, {}, H=4, W=4, sr=1, nh=1, dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        tmb.fused_block(x, {}, H=4, W=4, sr=1, nh=1, dtype=torch.float16)
     w = torch.zeros(64, 64, device=dev)  # f32 weight: the kernel takes bf16
     with pytest.raises(TypeError):
         tmb.linear(x, w, torch.zeros(64, device=dev))
@@ -836,12 +836,20 @@ def test_mlp_taps_every_plan_gives_equal_bits(dev, B, H, W, cout):
 
 
 def test_mlp_taps_blocks_per_sm_matches_the_estimate(dev):
+    """At every padded hidden width, operand type and tile the kernel has, and -1 for the
+    tiles and widths it lacks."""
     from representationlearning_tpu_torch.ops import _build
 
     lib = _build.load_library("rssformer")
-    for tile in TM.TAPS_TILES:
-        assert lib.k5_taps_blocks_per_sm(tile) == TM.taps_blocks_per_sm(tile), tile
-    assert lib.k5_taps_blocks_per_sm(64) == -1 and lib.k5_taps_blocks_per_sm(512) == -1
+    for hp in TM.HIDDEN_WIDTHS:
+        for dtype in (torch.float32, BF16):
+            f32 = int(dtype == torch.float32)
+            for tile in TM.taps_tiles(hp):
+                assert lib.k5_taps_blocks_per_sm(hp, f32, tile) == \
+                    TM.taps_blocks_per_sm(tile, hp, dtype), (hp, dtype, tile)
+            assert lib.k5_taps_blocks_per_sm(hp, f32, 64) == -1
+            assert lib.k5_taps_blocks_per_sm(hp, f32, 512) == -1
+    assert lib.k5_taps_blocks_per_sm(160, 0, 256) == -1 and lib.k5_taps_blocks_per_sm(64, 0, 128) == -1
 
 
 def test_mlp_taps_refuses_what_it_does_not_take(dev):
@@ -853,8 +861,9 @@ def test_mlp_taps_refuses_what_it_does_not_take(dev):
     for plan in ((64, 1), (512, 1), (128, 0), (256, 3, 1)):
         with pytest.raises(ValueError, match="plan"):
             TM.mlp_taps(h, *rest, H=4, W=4, plan=plan)
-    with pytest.raises(NotImplementedError, match="multiple of 16"):
-        TM.mlp_taps(h, rest[0], *rest[1:4], rest[4][:24], *(v[:24] for v in rest[5:]), H=4, W=4)
+    wide = torch.zeros(144, 128, device=dev, dtype=BF16)
+    with pytest.raises(NotImplementedError, match="output width up to 128"):
+        TM.mlp_taps(h, rest[0], *rest[1:4], wide, *(torch.zeros(144, device=dev),) * 3, H=4, W=4)
     with pytest.raises(ValueError, match="H\\*W"):
         TM.mlp_taps(h, *rest, H=3, W=4)
     assert torch.isfinite(TM.mlp_taps(odd.clone(), *rest, H=4, W=4)).all()
@@ -863,15 +872,142 @@ def test_mlp_taps_refuses_what_it_does_not_take(dev):
 def test_fused_mlp_dwbn_refuses_what_it_does_not_take(dev):
     g = torch.Generator().manual_seed(0)
     x = torch.zeros(1, 16, 32, device=dev)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 128, 32, dev), H=4, W=4, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="hidden width 128"):
-        TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 72, 32, dev), H=4, W=4, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="multiple of 16"):
-        TM.fused_mlp_dwbn(torch.zeros(1, 16, 40, device=dev), _mlp_params(g, 40, 128, 40, dev),
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 128, 32, dev), H=4, W=4, dtype=torch.float16)
+    with pytest.raises(NotImplementedError, match="hidden width up to 192"):
+        TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 256, 32, dev), H=4, W=4, dtype=BF16)
+    with pytest.raises(NotImplementedError, match="input width up to 256"):
+        TM.fused_mlp_dwbn(torch.zeros(1, 16, 272, device=dev), _mlp_params(g, 272, 128, 32, dev),
                           H=4, W=4, dtype=BF16)
     with pytest.raises(ValueError, match="H\\*W"):
         TM.fused_mlp_dwbn(x, _mlp_params(g, 32, 128, 32, dev), H=3, W=4, dtype=BF16)
+
+
+# --------------------------------------------- K1 and K5 with f32 operands, K5's widths
+F32_TOL = 1e-4   # 3xTF32 products (f32 to about 2^-21 of each) against f32 products
+
+
+@pytest.mark.parametrize("M,Nout,K,ln,res", [(100, 96, 64, True, False), (257, 640, 2048, True, True),
+                                             (1, 1280, 32, False, True), (8 * 1024, 320, 1280, False, False)])
+def test_linear_f32_every_plan_gives_equal_bits(dev, M, Nout, K, ln, res):
+    g = torch.Generator().manual_seed(M + Nout + K)
+    a, w = _rand(g, M, K, dev=dev), _rand(g, Nout, K, dev=dev, scale=K ** -0.5)
+    kw = dict(bias=_rand(g, Nout, dev=dev), dtype=torch.float32)
+    if ln:
+        kw.update(stats=tmb.ln_stats_reference(a), ln_w=_rand(g, K, dev=dev, shift=1.0),
+                  ln_b=_rand(g, K, dev=dev, scale=0.1))
+    if res:
+        kw["residual"] = _rand(g, M, Nout, dev=dev)
+    tmb.reset_launches()
+    got = tmb.linear(a, w, **kw)
+    _close(got, tmb.linear_reference(a, w, **kw), F32_TOL)
+    for tile in tmb.LINEAR_TILES:
+        for per in (1, 2):
+            assert torch.equal(got, tmb.linear(a, w, plan=(tile, per), **kw)), (tile, per)
+    assert tmb.LAUNCHES["linear"] == 7
+
+
+@pytest.mark.parametrize("H,C,sr", [(16, 64, 8), (9, 320, 2), (13, 128, 4)])
+def test_sr_conv_f32_at_every_number_of_slices(dev, H, C, sr):
+    g = torch.Generator().manual_seed(H * C)
+    x = _rand(g, 2, H * H, C, dev=dev)
+    args = (x, tmb.ln_stats_reference(x), _rand(g, C, dev=dev, shift=1.0),
+            _rand(g, C, dev=dev, scale=0.1), _rand(g, C, sr * sr * C, dev=dev, scale=0.05),
+            _rand(g, C, dev=dev))
+    want = tmb.sr_conv_reference(*args, H=H, W=H, sr=sr, dtype=torch.float32)
+    for tile in (64, 128):
+        for slices in tmb.sr_conv_slice_counts(sr * sr * C):
+            got = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32, plan=(tile, slices))
+            _close(got, want, F32_TOL)
+            assert torch.equal(got, tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32,
+                                                plan=(tile, slices)))
+
+
+@pytest.mark.parametrize("N,Nk,C,nh", [(70, 50, 64, 1), (64, 255, 128, 2), (33, 257, 160, 5),
+                                       (50, 20, 32, 1), (130, 1024, 512, 8)])
+def test_attention_f32_with_export(dev, N, Nk, C, nh):
+    g = torch.Generator().manual_seed(N + Nk)
+    q, kv = _rand(g, 2, N, C, dev=dev), _rand(g, 2, Nk, 2 * C, dev=dev)
+    got = tmb.attention(q, kv, nh=nh, dtype=torch.float32, export=True)
+    want = tmb.attention_reference(q, kv, nh=nh, dtype=torch.float32, export=True)
+    _close(got[0], want[0], F32_TOL)
+    _close(got[1], want[1], TOL["logits"])
+    again = tmb.attention(q, kv, nh=nh, dtype=torch.float32, export=True)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+
+
+@pytest.mark.parametrize("hw,C,sr,nh,export", [(19, 64, 8, 1, False), (13, 128, 4, 2, False),
+                                               (9, 320, 2, 5, False), (7, 512, 1, 8, True)])
+def test_fused_block_f32_matches_plain(dev, hw, C, sr, nh, export):
+    """The whole block with f32 operands, f32 tokens, against the plain version at the
+    port's f32 end-to-end bound (2e-4 of the largest magnitude)."""
+    from representationlearning_tpu_torch.models.layers import init_weights
+    from representationlearning_tpu_torch.models.mit import FusedBlock
+
+    g = torch.Generator().manual_seed(hw * C)
+    blk = FusedBlock(C, nh, 4.0, sr, export_attn=export).eval()
+    init_weights(blk, g)
+    p = {k: v.detach().to(dev) for k, v in blk.kernel_params().items()}
+    x = _rand(g, 2, hw * hw, C, dev=dev)
+    tmb.reset_launches()
+    with torch.no_grad():
+        got = tmb.fused_block(x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=torch.float32, export=export)
+        want = tmb.fused_block_reference(x, p, H=hw, W=hw, sr=sr, nh=nh, dtype=torch.float32,
+                                         export=export)
+    assert tmb.LAUNCHES["linear"] == 5 and tmb.LAUNCHES["attention"] == 1
+    for a, b in zip(got if export else (got,), want if export else (want,)):
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape
+        _close(a, b, 2e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("dim", [18, 32, 40, 48])
+@pytest.mark.parametrize("B,H,W", [(2, 7, 9), (1, 20, 45), (2, 64, 64), (1, 1, 1)])
+def test_k5_at_hrnet_widths(dev, dim, dtype, B, H, W):
+    """K5 at HRNetV2's dims (hid = 4 dim, run at `padded_hid`), f32 and bf16: fc1 (its
+    padded features 0), taps and the whole block against the plain versions, a rerun and
+    every plan giving equal bits; one launch a wrapper call."""
+    hid = 4 * dim
+    g = torch.Generator().manual_seed(dim * H * W)
+    p = _mlp_params(g, dim, hid, dim, dev)
+    x = _rand(g, B, H * W, dim, dev=dev)
+    f1 = (p["fc1_weight"].reshape(hid, dim).to(dtype), p["fc1_bias"], p["bn1_scale"],
+          p["bn1_shift"])
+    rest = (TM.tap_weights(p).to(dtype).contiguous(), p["dw_bias"], p["bn2_scale"],
+            p["bn2_shift"], p["fc2_weight"].reshape(dim, hid).to(dtype), p["fc2_bias"],
+            p["bn3_scale"], p["bn3_shift"])
+    tol = {"fc1": F32_TOL, "taps": F32_TOL} if dtype == torch.float32 else \
+        {"fc1": 2.0 ** -7, "taps": 1e-2}
+    TM.reset_launches()
+    with torch.no_grad():
+        h = TM.mlp_fc1(x, *f1, dtype=dtype)
+        assert h.shape == (B, H * W, TM.padded_hid(hid)) and not h[..., hid:].any()
+        _close(h[..., :hid], TM.mlp_fc1_reference(x, *f1, dtype=dtype), tol["fc1"])
+        out = TM.mlp_taps(h, *rest, H=H, W=W, dtype=dtype)
+        _close(out, TM.mlp_taps_reference(h[..., :hid], *rest, H=H, W=W, dtype=dtype), tol["taps"])
+        _close(TM.fused_mlp_dwbn(x, p, H=H, W=W, dtype=dtype),
+               TM.fused_mlp_dwbn_reference(x, p, H=H, W=W, dtype=dtype), tol["taps"])
+        assert TM.LAUNCHES == {"mlp_fc1": 2, "mlp_taps": 2}
+        for plan in [(w, per) for w in (1, 2, 4, 8) for per in (1, 3)
+                     if TM.fc1_fits(dim, w, hid, dtype)]:
+            assert torch.equal(h, TM.mlp_fc1(x, *f1, dtype=dtype, plan=plan)), plan
+        for tile in TM.taps_tiles(hid):
+            for blocks in (1, 3, 132):
+                assert torch.equal(out, TM.mlp_taps(h, *rest, H=H, W=W, dtype=dtype,
+                                                    plan=(tile, blocks))), (tile, blocks)
+
+
+def test_k5_fc1_blocks_per_sm_at_hrnet_widths(dev):
+    from representationlearning_tpu_torch.ops import _build
+
+    lib = _build.load_library("rssformer")
+    for dim in (18, 32, 40, 48):
+        for dtype in (torch.float32, BF16):
+            hid, cinp = 4 * dim, -(-dim // 16) * 16
+            warps = TM.fc1_plan(8 * 128 * 128, dim, hid, dtype)[0]
+            assert lib.k5_fc1_blocks_per_sm(dim, cinp, TM.padded_hid(hid),
+                                            int(dtype == torch.float32), warps) == \
+                TM.fc1_blocks_per_sm(dim, warps, hid, dtype), (dim, dtype)
 
 
 # ------------------------------------------------------------------ K6

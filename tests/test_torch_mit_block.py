@@ -336,6 +336,33 @@ def test_linear_plan_picks_a_tile_the_kernel_has(M, Nout, K):
         assert blocks[2] < tmb.LINEAR_WIDE_MIN_BLOCKS
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_and_sr_conv_tiles_fit_shared_memory_with_either_operand_type(dtype):
+    """Every tile of `linear` and of `sr_conv` fits the 227 KB a block may ask for with
+    bf16 and with f32 operands (gemm.cu's `linear_smem`, sr_conv.cu's `sr_smem`), an SM
+    (228 KB, 1 KB a block reserved) holds the blocks of each `linear` tile that the
+    plan counts on, and the plans at the headline's and the CAM forwards' geometries
+    cover every token once with tiles that fit (the plans do not depend on the type)."""
+    per_sm = tmb.LINEAR_BLOCKS_PER_SM_F32 if dtype == torch.float32 else tmb.LINEAR_BLOCKS_PER_SM
+    smem = [tmb.linear_smem_bytes(t, dtype) for t in range(len(tmb.LINEAR_TILES))]
+    if dtype == torch.bfloat16:
+        assert smem == [55296, 74752, 186368]   # 54, 73, 182 KB, as gemm.cu notes
+    for n, b in zip(per_sm, smem):
+        assert b <= tmb.SMEM_LIMIT and n * (b + 1024) <= 228 * 1024
+    assert all(tmb.sr_conv_smem_bytes(t, dtype) <= tmb.SMEM_LIMIT for t in (64, 128))
+    for M, Nout, K in LINEAR_GEOMETRIES:
+        tile, per = tmb.linear_plan(M, Nout, K)
+        rows, _ = tile
+        groups = -(-(-(-M // rows)) // per)
+        assert groups * per * rows >= M > (groups - 1) * per * rows
+    for B, hw, C, sr in SR_GEOMETRIES:
+        M, K = B * (hw // sr) ** 2, sr * sr * C
+        tile, slices = tmb.sr_conv_plan(M, C, K)
+        cuts = tmb.sr_conv_slices(K, slices)
+        assert cuts[0][0] == 0 and cuts[-1][1] == K and tmb.sr_conv_smem_bytes(tile, dtype) \
+            <= tmb.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("tile", tmb.LINEAR_TILES)
 @pytest.mark.parametrize("per", [1, 3])
 @pytest.mark.parametrize("ln,res", [(True, False), (False, True)])

@@ -222,7 +222,7 @@ def test_taps_plan_covers_every_token_once(B, H, W, cout):
     tile, blocks = tm.taps_plan(B, H, W, cout)
     assert (tile, blocks) == tm.taps_plan(B, H, W, cout)
     assert tm.check_taps_plan((tile, blocks)) == (tile, blocks)
-    assert tm.taps_smem_bytes(tile) <= tm.SMEM_LIMIT and tm.TAPS_STAGES[tile] >= 3
+    assert tm.taps_smem_bytes(tile) <= tm.SMEM_LIMIT and tm.taps_stages(tile) >= 3
     M = B * H * W
     tiles = -(-M // tile)
     walk = np.concatenate([np.arange(b, tiles, blocks) for b in range(blocks)])
@@ -316,3 +316,113 @@ def test_the_two_kernel_families_share_one_gelu():
         return s[s.index("// ---- GELU with"): s.index("// ---- end of the GELU")]
 
     assert gelu_text("mit_block") == gelu_text("rssformer")
+
+
+# HRNetV2's transformer block runs K5 at dim 18 / 32 / 40 / 48 (JAX's models/hrnet.py:27-30)
+# with hid = 4 dim (models/rssformer_modules.py:375): the widths the kernels take since
+# they take f32 and every HRNetV2 width
+HRNET_DIMS = (18, 32, 40, 48)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", [18, 40, 48])
+def test_fused_mlp_dwbn_reference_at_hrnet_widths_matches_jax(dim, dtype):
+    """The plain K5 at hid = 4 dim against JAX's reference, at the tolerances above: f32
+    within F32_ATOL, bf16 within 2e-3 of the largest magnitude (the bf16 test's bound)."""
+    H, W = 9, 14
+    x, jp, tp = _setup(H, W, dim, 4 * dim, dim, seed=dim)
+    want = np.asarray(jm.fused_mlp_dwbn_reference(jnp.asarray(x), jp, H=H, W=W,
+                                                  dtype=getattr(jnp, dtype)))
+    got = tm.fused_mlp_dwbn_reference(torch.from_numpy(x), tp, H=H, W=W,
+                                      dtype=getattr(torch, dtype)).numpy()
+    assert got.shape == (2, H * W, dim)
+    atol = F32_ATOL if dtype == "float32" else 2e-3 * np.abs(want).max()
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
+
+
+def test_fused_mlp_dwbn_at_dim_18_matches_the_pallas_kernel():
+    """dim 18, hid 72 on an 8 x 8 plane against the Pallas kernel in interpret mode."""
+    H = W = 8
+    x, jp, tp = _setup(H, W, 18, 72, 18, seed=18)
+    want = np.asarray(jm.fused_mlp_dwbn_pallas(jnp.asarray(x), jp, H=H, W=W, interpret=True))
+    got = tm.fused_mlp_dwbn(torch.from_numpy(x), tp, H=H, W=W)
+    np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", HRNET_DIMS)
+def test_zero_padding_to_the_kernel_widths_changes_no_output(dim, dtype):
+    """The wrappers pad the weights and vectors with zeros to the kernels' widths
+    (`padded_hid`, inputs and outputs to 16): through the plain versions, the padded
+    hidden features are exactly 0 and the output is the unpadded one, but for the
+    order of the sums over the longer rows (the tolerances above)."""
+    dt = getattr(torch, dtype)
+    H, W, hid = 5, 7, 4 * dim
+    hp, cp = tm.padded_hid(hid), -(-dim // 16) * 16
+    assert hp == {18: 96, 32: 128, 40: 160, 48: 192}[dim]
+    x, _, tp = _setup(H, W, dim, hid, dim, seed=dim)
+    xt = torch.from_numpy(x)
+    w1, taps = tp["fc1_weight"].reshape(hid, dim).to(dt), tm.tap_weights(tp).to(dt)
+    w2 = tp["fc2_weight"].reshape(dim, hid).to(dt)
+    v1 = [tp[k] for k in ("fc1_bias", "bn1_scale", "bn1_shift")]
+    v2 = [tp[k] for k in ("dw_bias", "bn2_scale", "bn2_shift")]
+    v3 = [tp[k] for k in ("fc2_bias", "bn3_scale", "bn3_shift")]
+    h = tm.mlp_fc1_reference(xt, w1, *v1, dtype=dt)
+    want = tm.mlp_taps_reference(h, taps, *v2, w2, *v3, H=H, W=W, dtype=dt)
+    hpad = tm.mlp_fc1_reference(torch.nn.functional.pad(xt, (0, -(-dim // 16) * 16 - dim)),
+                                tm._pad(w1, hp, -(-dim // 16) * 16), *(tm._pad(v, hp) for v in v1),
+                                dtype=dt)
+    assert hpad.shape == (2, H * W, hp) and not hpad[..., hid:].any()
+    got = tm.mlp_taps_reference(hpad, tm._pad(taps, 19, hp, hp), *(tm._pad(v, hp) for v in v2),
+                                tm._pad(w2, cp, hp), *(tm._pad(v, cp) for v in v3), H=H, W=W,
+                                dtype=dt)
+    atol = F32_ATOL if dtype == "float32" else 2e-3 * want.abs().max().item()
+    assert not got[..., dim:].any()
+    np.testing.assert_allclose(got[..., :dim].numpy(), want.numpy(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", HRNET_DIMS)
+def test_plans_at_hrnet_widths_fit_and_cover_every_token_once(dim, dtype):
+    """At each HRNetV2 width and compute dtype: fc1's and the taps' plans fit 227 KB, the
+    ring keeps at least three slots, fc2's weight fits, and the plans laid out as the
+    kernels walk them cover every tile of tokens exactly once: the predict's branch-0
+    plane (8 x 128 x 128), the edge planes of the card tests, and one token."""
+    dt, hid = getattr(torch, dtype), 4 * dim
+    for M in (8 * 128 * 128, 2 * 7 * 9, 1):
+        warps, per = tm.fc1_plan(M, dim, hid, dt)
+        assert tm.check_fc1_plan((warps, per), dim, hid, dt) == (warps, per)
+        assert tm.fc1_smem_bytes(dim, warps, hid, dt) <= tm.SMEM_LIMIT
+        tiles = -(-M // tm.FC1_ROWS)
+        blocks = -(-(-(-tiles // warps)) // per)
+        b, i, w = np.meshgrid(np.arange(blocks), np.arange(per), np.arange(warps),
+                              indexing="ij")
+        tile = ((b * per + i) * warps + w).ravel()
+        assert (np.bincount(tile[tile < tiles], minlength=tiles) == 1).all()
+    assert -(-dim // 16) * 16 <= tm.taps_cout_max(hid, dt)
+    for B, H, W in ((8, 128, 128), (2, 7, 9), (1, 20, 45), (1, 1, 1)):
+        tile, blocks = tm.taps_plan(B, H, W, dim, hid, dt)
+        assert tm.check_taps_plan((tile, blocks), hid) == (tile, blocks)
+        assert tm.taps_smem_bytes(tile, hid, dt) <= tm.SMEM_LIMIT
+        assert tm.taps_stages(tile, hid, dt) >= 3
+        assert tm.padded_hid(hid) % tm.taps_bk(hid, dt) == 0
+        M = B * H * W
+        tiles = -(-M // tile)
+        walk = np.concatenate([np.arange(b, tiles, blocks) for b in range(blocks)])
+        assert (np.bincount(walk, minlength=tiles) == 1).all()
+        assert blocks <= tm.taps_blocks_per_sm(tile, hid, dt) * tm.TAPS_SMS
+
+
+def test_compute_dtype_takes_f32_and_bf16_and_refuses_f16():
+    """One check for K1, K5 and K6 (`ops/_build.py::compute_dtype`): float32 and bfloat16
+    pass, float16 raises with the kernel's name."""
+    from representationlearning_tpu_torch.ops import _build
+    from representationlearning_tpu_torch.ops import mit_block as tmb
+
+    for check, name in ((tmb._compute_dtype, "K1"), (tm._compute_dtype, "K5"),
+                        (lambda d: _build.compute_dtype(d, "K6"), "K6")):
+        check(torch.float32)
+        check(torch.bfloat16)
+        with pytest.raises(NotImplementedError, match=f"{name} takes compute dtype float32 or "
+                                                      "bfloat16"):
+            check(torch.float16)

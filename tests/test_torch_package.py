@@ -165,7 +165,7 @@ def test_kernel_build_is_keyed_by_the_sources():
     assert {p.name for p in (_build.CSRC / "attention").glob("*.cu")} == {
         "flash_fwd.cu", "flash_bwd.cu"}
     assert {p.name for p in (_build.CSRC / "rssformer").glob("*.cu")} == {
-        "mlp_dwbn.cu", "isa_attention.cu"}
+        "mlp_dwbn.cu", "mlp_dwbn_f32.cu", "isa_attention.cu"}
     assert len({d, _build._digest("refine"), _build._digest("attention"),
                 _build._digest("rssformer")}) == 4
     assert set(_build.SIGNATURES["rssformer"]) == {"k5_mlp_fc1", "k5_fc1_blocks_per_sm",

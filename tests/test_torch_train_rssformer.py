@@ -3,8 +3,8 @@ port against the JAX trainer (`train/rssformer.py:42-81`), on
 `HRNetFusion("hrnetv2_w18", 7, loss_config={"ce": {}})` at 2 x 64 x 64, f32, with
 the bench's draws (`default_rng(0)`: standard normal images, then masks in
 [-1, 7) with -1 ignored). The JAX step is computed once, in a module-scoped
-fixture (its init jitted: about two and a half minutes on a CPU together), and
-every case reads it: the port's step and the bench's `rssformer_train` workload
+fixture (from the port's seeded weights carried over to JAX), and every case
+reads it: the port's step and the bench's `rssformer_train` workload
 from the same weights, and `evaluate` with TTA on the stepped weights.
 
 At random initialisation the step is chaotic: the gradient's global norm is in
@@ -80,17 +80,22 @@ def _np_tree(tree):
 
 @pytest.fixture(scope="module")
 def jax_step():
-    """JAX's `create_rssformer_state` (init jitted) and one jitted train step on
-    the bench's draws: the batch, the losses, and under the port's names the
-    variables before and after and the momentum."""
+    """JAX's `create_rssformer_state` and one jitted train step on the bench's draws:
+    the batch, the losses, and under the port's names the variables before and after
+    and the momentum. The initial variables are the port's seeded model carried over
+    by `convert_rssformer` (strict), which `create_rssformer_state` reads through
+    `init`: a jit of JAX's own init compiles for longer than the step does."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal((B, SIDE, SIDE, 3)).astype(np.float32)
     mask = rng.integers(-1, CLASSES, (B, SIDE, SIDE))
     model = JHRNetFusion("hrnetv2_w18", CLASSES, loss_config=LOSS_CONFIG)
     cfg = JRS.RSSFormerTrainConfig()
-    # the model with its init jitted: create_rssformer_state reads init and apply
+    seeded = HRNetFusion("hrnetv2_w18", CLASSES, loss_config=LOSS_CONFIG, device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    variables = jax.tree_util.tree_map(jnp.asarray, convert_rssformer(
+        state_dict_to_numpy(seeded.state_dict()), strict=True))
     state = JRS.create_rssformer_state(
-        SimpleNamespace(init=jax.jit(model.init), apply=model.apply), (SIDE, SIDE, 3), cfg)
+        SimpleNamespace(init=lambda *a: variables, apply=model.apply), (SIDE, SIDE, 3), cfg)
     step = JRS.make_rssformer_train_step(model, cfg)
     new, met = step(state, {"image": jnp.asarray(x), "mask": jnp.asarray(mask, jnp.int32)},
                     jax.random.PRNGKey(0))
