@@ -292,6 +292,8 @@ import inspect
 import io
 import json
 import math
+import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -742,6 +744,12 @@ def isa_trap_move(ti, q, k, want, nh: int, dtype) -> tuple[bool, float]:
     return bool((m < 0).all()), moved.abs().max().item()
 
 
+def shape_of(args) -> str:
+    """M x Nout x K of a `linear` call's positional arguments (a, w, ...)."""
+    a, w = args[0], args[1]
+    return f"{a.numel() // a.shape[-1]}x{w.shape[0]}x{w.shape[1]}"
+
+
 def nbytes(*objs) -> int:
     """Bytes of every tensor among objs (tuples, lists and dict values opened)."""
     total = 0
@@ -787,13 +795,28 @@ def fc1_plans(tm, cin: int) -> list[tuple[int, int]]:
     return [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3) if tm.fc1_fits(cin, w)]
 
 
-def taps_plans(tm, B: int, H: int, W: int) -> list[tuple[int, int]]:
-    """Every tile of the taps kernel, with one block, three, and one wave of the blocks
-    the card holds (or one a tile where there are fewer tiles)."""
+def taps_plans(tm, B: int, H: int, W: int, hid: int = 128, dtype=None) -> list[tuple[int, int]]:
+    """Every tile of the taps kernel at this width and operand type (bf16 where none is
+    given), with one block, three, and one wave of the blocks the card holds (or one a
+    tile where there are fewer tiles)."""
+    import torch
+
+    dtype = torch.bfloat16 if dtype is None else dtype
     M = B * H * W
-    return [(tile, blocks) for tile in tm.TAPS_TILES
-            for blocks in sorted({1, 3, max(1, min(-(-M // tile),
-                                                    tm.taps_blocks_per_sm(tile) * tm.TAPS_SMS))})]
+    return [(tile, blocks) for tile in tm.taps_tiles(hid, dtype)
+            for blocks in sorted({1, 3, max(1, min(-(-M // tile), tm.taps_blocks_per_sm(
+                tile, hid, dtype) * tm.TAPS_SMS))})]
+
+
+def linear_plans(tmb, M: int, Nout: int, K: int, dtype) -> list:
+    """Every tile of the linear kernel for this operand type: bf16 walking one and two M
+    tiles a block; f32 with one persistent block, three, and the plan's count."""
+    import torch
+
+    if dtype == torch.float32:
+        n = tmb.linear_plan(M, Nout, K, dtype)[1]
+        return [(tile, b) for tile in tmb.linear_tiles(dtype) for b in sorted({1, 3, n})]
+    return [(tile, per) for tile in tmb.LINEAR_TILES for per in (1, 2)]
 
 
 def varm_plans(tv, B: int, C: int, H: int, W: int, dilations) -> list[tuple[int, int, int]]:
@@ -1476,11 +1499,12 @@ class Phases:
 
         lib = _build.load_library("mit_block")
         for f32, want_held in ((0, tmb.LINEAR_BLOCKS_PER_SM), (1, tmb.LINEAR_BLOCKS_PER_SM_F32)):
+            tiles = tmb.linear_tiles(torch.float32 if f32 else bf16)
             held = [[lib.k1_linear_blocks_per_sm(t, ln, f32) for ln in (0, 1)]
-                    for t in range(len(tmb.LINEAR_TILES))]
+                    for t in range(len(tiles))]
             self.check(all(h == [n, n] for h, n in zip(held, want_held)),
                        f"linear ({'f32' if f32 else 'bf16'} operands): blocks an SM holds of each "
-                       f"tile {list(tmb.LINEAR_TILES)}, without and with the LayerNorm prologue, "
+                       f"tile {list(tiles)}, without and with the LayerNorm prologue, "
                        f"{held}, are the plan's {list(want_held)}")
         # `linear`: M of one row and of one tile of rows less or more one, Nout that no
         # column tile divides, K of one, two and 64 steps, LayerNorm and residual each on
@@ -1566,11 +1590,15 @@ class Phases:
         bad = (x, tmb.ln_stats_reference(x), rand(48), rand(48), rand(48, 192).to(bf16), rand(48))
         w_lin, b_lin, a_lin = rand(96, 64).to(bf16), rand(96), rand(8, 64)
         self.check(raises(ValueError, lambda: tmb.linear(x, rand(96, 48).to(bf16), b_lin))
-                   and raises(RuntimeError, lambda: tmb.linear(a_lin, w_lin, b_lin,
-                                                               plan=((64, 96), 1)))
-                   and raises(RuntimeError, lambda: tmb.linear(a_lin, w_lin, b_lin,
-                                                               plan=((64, 64), 0))),
-                   "linear refuses K % 32 != 0, a tile the kernel lacks and no M tile a block")
+                   and raises(ValueError, lambda: tmb.linear(a_lin, w_lin, b_lin,
+                                                             plan=((64, 96), 1)))
+                   and raises(ValueError, lambda: tmb.linear(a_lin, w_lin, b_lin,
+                                                             plan=((64, 64), 0)))
+                   and raises(ValueError, lambda: tmb.linear(a_lin, w_lin.float(), b_lin,
+                                                             plan=((64, 128), 1),
+                                                             dtype=torch.float32)),
+                   "linear refuses K % 32 != 0, a tile the kernel lacks (bf16 (64, 96); with f32 "
+                   "operands the bf16 kernel's (64, 128)) and no M tile a block")
         self.check(raises(NotImplementedError, lambda: tmb.attention(q, kv, nh=2))
                    and raises(ValueError, lambda: tmb.attention(q, kv[:, :, :96].contiguous(), nh=3))
                    and raises(ValueError, lambda: tmb.sr_conv(*bad, H=4, W=4, sr=2))
@@ -5571,7 +5599,8 @@ class Phases:
         tmb, tm, ti = mods[0], mods[4], mods[5]
         t_phase = time.perf_counter()
         log(f"== f32 and K5 widths (phase 7l): K1 linear / sr_conv / attention with f32 operands "
-            f"(3xTF32 mma.sync), K5 at hid 72 / 128 / 160 / 192 in f32 and bf16; {card}")
+            f"(3xTF32: linear on wgmma, sr_conv and attention on mma.sync), K5 at hid 72 / 128 / "
+            f"160 / 192 in f32 and bf16 (taps on 3xTF32 wgmma); {card}")
         gen = torch.Generator().manual_seed(self.seed + 31)
         self.f32 = {k: {"ms": 0.0, "bound": [0.0, 0.0], "lib": 0.0, "err": 0.0}
                     for k in (*PIECE_TOL, "mlp_fc1", "mlp_taps")}
@@ -5588,9 +5617,10 @@ class Phases:
             e = self.f32[k]
             ratio = e["ms"] / self.piece_ms[k] if self.piece_ms.get(k) else float("nan")
             log(f"  {k} a headline forward in f32: kernel {e['ms']:.4f} ms, bound "
-                f"{sum(e['bound']):.4f} ms ({'bytes' if e['bound'][0] >= e['bound'][1] else 'operations'}), "
-                f"library call {e['lib']:.4f} ms, largest error {e['err']:.3e}; f32 / bf16 "
-                f"kernel time {ratio:.2f}")
+                f"{sum(e['bound']):.4f} ms ({'bytes' if e['bound'][0] >= e['bound'][1] else 'operations'}"
+                f", {sum(e['bound']) / e['ms']:.0%} of it), library call {e['lib']:.4f} ms, largest "
+                f"error {e['err']:.3e}; f32 / bf16 kernel time {ratio:.2f}")
+        self._wgmma_sass()
         self._tscd_f32(tmb)
         self._k5_widths(tm, gen)
         self._hrnet_widths(tm, ti)
@@ -5614,8 +5644,8 @@ class Phases:
                 got = fn(*a, **kw)
                 runs = [fn(*a, **kw)]
                 if name == "linear":
-                    runs += [fn(*a, plan=(tile, per), **kw)
-                             for tile in tmb.LINEAR_TILES for per in (1, 2)]
+                    M, (Nout, K) = a[0].numel() // a[0].shape[-1], a[1].shape
+                    runs += [fn(*a, plan=pl, **kw) for pl in linear_plans(tmb, M, Nout, K, f32)]
                 want = getattr(tmb, name + "_reference")(*a, **kw)
                 torch.cuda.synchronize()
                 got_t = got if isinstance(got, tuple) else (got,)
@@ -5652,8 +5682,41 @@ class Phases:
                 e["lib"] += DEPTH * (lib_ms or 0.0)
                 if name in ("linear", "sr_conv", "attention"):
                     log(f"  {name} f32 @ N={N} C={C}{', exporting' if export and name == 'attention' else ''}"
-                        f", a launch: kernel {k_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms, "
-                        f"library call {'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+                        f"{f' {shape_of(a)}' if name == 'linear' else ''}, a launch: kernel "
+                        f"{k_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+                        f"({max(t_bytes, t_ops) / k_ms:.0%} of it), library call "
+                        f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+
+    def _wgmma_sass(self) -> None:
+        """The SASS of the f32 `linear` and `taps` instantiations (`cuobjdump -sass` on the
+        built libraries): their main products are TF32 `HGMMA`s, and `linear` holds no
+        `HMMA` (the taps' `HMMA` are fc2's 3xTF32 `mma.sync`, 1 / 20 of its products)."""
+        from representationlearning_tpu_torch.ops import _build
+
+        tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+        counts = {}
+        for lib, kernel in (("mit_block", "linear_wg_kernel"), ("rssformer", "taps_wg_kernel")):
+            sass = run_cmd([tool, "-sass", _build.build_log[lib]["path"]])
+            name = None
+            for line in sass.splitlines():
+                m = re.search(r"Function : (\S+)", line)
+                if m:
+                    name = m.group(1) if kernel in m.group(1) else None
+                elif name is not None:
+                    c = counts.setdefault((kernel, name), [0, 0])
+                    c[0] += bool(re.search(r"HGMMA\.\S*TF32", line))
+                    c[1] += bool(re.search(r"\bHMMA\b", line))
+        from representationlearning_tpu_torch.ops import mit_block as tmb
+
+        for kernel, n in (("linear_wg_kernel", 2 * len(tmb.LINEAR_TILES_F32)),   # with and without LN
+                          ("taps_wg_kernel", 4)):                                 # hid 96 to 192
+            got = [v for (k, _), v in counts.items() if k == kernel]
+            log(f"  SASS of {kernel}'s {len(got)} instantiations: TF32 HGMMA "
+                f"{[h for h, _ in got]}, HMMA {[m for _, m in got]}")
+            self.check(len(got) == n and all(h >= 12 for h, _ in got)
+                       and (kernel != "linear_wg_kernel" or all(m == 0 for _, m in got)),
+                       f"{kernel}: the f32 products run on TF32 HGMMA (12 a K step: 3 products x "
+                       f"4 k slices){', no HMMA' if kernel == 'linear_wg_kernel' else ''}")
 
     def _k1_f32_edges(self, tmb, gen) -> None:
         """K1's three product kernels with f32 operands at PR 7's edges of `linear` (M of
@@ -5689,8 +5752,8 @@ class Phases:
                                     kw["residual"] = rand(M, Nout)
                                 got = tmb.linear(a, w, **kw)
                                 runs = [tmb.linear(a, w, **kw)]
-                                runs += [tmb.linear(a, w, plan=(tile, per), **kw)
-                                         for tile in tmb.LINEAR_TILES for per in (1, 2)]
+                                runs += [tmb.linear(a, w, plan=pl, **kw)
+                                         for pl in linear_plans(tmb, M, Nout, K, f32)]
                                 torch.cuda.synchronize()
                                 worst = max(worst, held("linear", got, tmb.linear_reference(a, w, **kw)))
                                 self.f32_same &= all(torch.equal(got, r) for r in runs)
@@ -5820,7 +5883,7 @@ class Phases:
                         p["bn3_scale"], p["bn3_shift"])
                 f32_flag = int(dtype == f32)
                 warps = tm.fc1_plan(BATCH * side * side, dim, hid, dtype)[0]
-                tiles = tm.taps_tiles(hid)
+                tiles = tm.taps_tiles(hid, dtype)
                 held = ([lib.k5_fc1_blocks_per_sm(dim, -(-dim // 16) * 16, hp, f32_flag, warps)]
                         + [lib.k5_taps_blocks_per_sm(hp, f32_flag, t) for t in tiles])
                 want_held = ([tm.fc1_blocks_per_sm(dim, warps, hid, dtype)]
@@ -5896,7 +5959,8 @@ class Phases:
                             f"fc1_library_ms_{d}": lib_ms})
                 log(f"  K5 {d} dim {dim} a launch at {BATCH} x {side}²: fc1 {fc1_ms:.4f} ms (bound "
                     f"{max(b_fc1):.4f}, F.linear {lib_ms:.4f}), taps {taps_ms:.4f} ms (bound "
-                    f"{max(b_taps):.4f}, by {'bytes' if b_taps[0] >= b_taps[1] else 'operations'})")
+                    f"{max(b_taps):.4f}, by {'bytes' if b_taps[0] >= b_taps[1] else 'operations'}, "
+                    f"{max(b_taps) / taps_ms:.0%} of it; library call none)")
                 if dtype == f32 and dim == RSS_DIM:   # the kernels line's f32 fields, a predict forward
                     xs = x[:RSS_BATCH].contiguous()
                     with torch.no_grad():

@@ -164,4 +164,18 @@ __device__ __forceinline__ void mma_slice(float (&c)[4], const uint32_t (&a)[4],
   }
 }
 
+// the arguments of `linear` (gemm.cu, gemm_f32.cu): out[M, Nout] = LN?(a) @ w^T + bias (+ res)
+template <typename T>
+struct LinArgs {
+  const float* a;
+  const T* w;
+  const float* bias;
+  const float* stats;
+  const float* lnw;
+  const float* lnb;
+  const float* res;
+  float* out;
+  int M, Nout, K, per;
+};
+
 }  // namespace k1

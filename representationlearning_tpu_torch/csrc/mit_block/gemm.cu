@@ -1,8 +1,9 @@
 // K1 part 2: the block's linear layers, out = LN?(a) @ w^T + bias (+ residual), as
 // one pipelined tensor-core product with a LayerNorm prologue and a bias/residual
-// epilogue. The operand type T is a template parameter: bf16 (the TPU kernel's
-// bf16 path) or float (its f32 default), the latter as 3xTF32 `mma.sync` m16n8k8. (The sr x sr conv of the block has a kernel of its own,
-// sr_conv.cu.)
+// epilogue, selected at compile time by the operand type: bf16 (the TPU kernel's bf16
+// path) runs `linear_kernel` below, on `mma.sync`; float (its f32 default) runs
+// `linear_wg_kernel` (gemm_f32.cu, a source of its own so that nvcc builds it side by
+// side), 3xTF32 `wgmma` fed by tensor-map copies. (The sr x sr conv of the block has a kernel of its own, sr_conv.cu.)
 //
 // Replaces: every `_mm` of the TPU kernel's body
 //   representationlearning_tpu/ops/pallas/mit_block.py:42-44, reached from
@@ -16,7 +17,7 @@
 //   a 512 x 512 forward), and at K = 64 a tile has only two K steps. Where Nout
 //   and K are large (stages 3 and 4), small tiles re-read A and the weights from
 //   L2 so often that L2 sets the pace.
-// What the design does about it:
+// What the design does about it (bf16; float's design is noted at `linear_wg_kernel`):
 //   * Tiles from a plan. The wrapper's `linear_plan` (ops/mit_block.py, a function
 //     of the shapes only) picks one of three output tiles, 64 x 64 and 64 x 128
 //     (four warps, three or four blocks an SM) or 128 x 256 (eight warps, one
@@ -33,11 +34,7 @@
 //     bf16 operands to the product; a row's statistics are loaded a tile ahead and
 //     the LN weight and bias as float4 a step ahead, in registers.
 //   * `ldmatrix` fragments from padded (conflict-free) tiles into `mma.sync`
-//     m16n8k16 with f32 sums (bf16), or into three m16n8k8 TF32 products a k slice
-//     (float: big and small halves of each operand, `mma_slice` in common.cuh). In
-//     float the A step is normalised in place in its ring slot and read from there:
-//     no second A buffer, so the rings of f32 A and f32 weights fit (59, 90 and 180
-//     KB for the three tiles, 3 stages). Every output sums its whole K in one block, K step
+//     m16n8k16 with f32 sums. Every output sums its whole K in one block, K step
 //     after K step: no split of K, no atomics, the same bits from every plan.
 //   * A row-wise epilogue: each warp stages eight rows of its accumulators at a
 //     time in shared memory of its own and writes them as whole rows of 128 or
@@ -49,43 +46,26 @@
 namespace k1 {
 
 constexpr int kLinBK = 32;
-// pitch of the A and B tiles, in elements of the operand type: a row of 32 and 16
-// bytes of padding (80 bytes for bf16, 144 for f32), so `ldmatrix` is conflict-free
+// pitch of the bf16 A and B tiles, in elements: a row of 32 and 16 bytes of padding (80
+// bytes), so `ldmatrix` is conflict-free; the f32 A ring is bare (converted to the bf16 A
+// buffer)
 template <typename T>
 constexpr int kLinPitch = kLinBK + 16 / (int)sizeof(T);
-// pitch of the f32 A ring: bare in bf16 (converted to the bf16 A buffer), padded in
-// float (read by `ldmatrix` where it lies)
-template <typename T>
-constexpr int kAfPitch = sizeof(T) == 2 ? kLinBK : kLinPitch<float>;
 
-template <typename T>
-struct LinArgs {
-  const float* a;
-  const T* w;
-  const float* bias;
-  const float* stats;
-  const float* lnw;
-  const float* lnb;
-  const float* res;
-  float* out;
-  int M, Nout, K, per;
-};
-
-// bytes of dynamic shared memory: the ring of f32 A steps and of T B steps, the bf16
-// A double buffer (bf16 only), and each warp's staging of 8 output rows
+// bytes of dynamic shared memory: the ring of f32 A steps and of bf16 B steps, the bf16
+// A double buffer, and each warp's staging of 8 output rows
 template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
 constexpr int linear_smem() {
-  return STAGES * BM * kAfPitch<T> * 4 + STAGES * BN * kLinPitch<T> * (int)sizeof(T) +
-         (sizeof(T) == 2 ? 2 * BM * kLinPitch<T> * 2 : 0) +
-         WARPS_M * WARPS_N * 8 * (BN / WARPS_N + 8) * 4;
+  return STAGES * BM * kLinBK * 4 + STAGES * BN * kLinPitch<T> * (int)sizeof(T) +
+         2 * BM * kLinPitch<T> * 2 + WARPS_M * WARPS_N * 8 * (BN / WARPS_N + 8) * 4;
 }
 
 template <typename T, int BM, int BN, int WARPS_M, int WARPS_N, int STAGES, int MIN_BLOCKS,
           bool LN>
 __global__ void __launch_bounds__(32 * WARPS_M * WARPS_N, MIN_BLOCKS)
 linear_kernel(const LinArgs<T> p) {
-  constexpr bool kF32 = sizeof(T) == 4;
-  constexpr int kAP = kAfPitch<T>, kBP = kLinPitch<T>;
+  static_assert(sizeof(T) == 2, "bf16 operands: f32 runs linear_wg_kernel");
+  constexpr int kAP = kLinBK, kBP = kLinPitch<T>;
   constexpr int kSK = kSliceK<T>;                       // k of one slice of the products
   constexpr int kThreads = 32 * WARPS_M * WARPS_N;
   constexpr int kRowsA = kThreads / 8;                  // A rows a pass: 8 threads a row
@@ -99,8 +79,8 @@ linear_kernel(const LinArgs<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Af = reinterpret_cast<float*>(smem);                   // [STAGES][BM][kAP] f32
   T* Bs = reinterpret_cast<T*>(Af + STAGES * BM * kAP);         // [STAGES][BN][kBP]
-  bf16* As = reinterpret_cast<bf16*>(Bs + STAGES * BN * kBP);   // [2][BM][kBP] (bf16 only)
-  float* Cs = reinterpret_cast<float*>(As + (kF32 ? 0 : 2 * BM * kBP));  // [warp][8][kCPitch]
+  bf16* As = reinterpret_cast<bf16*>(Bs + STAGES * BN * kBP);   // [2][BM][kBP]
+  float* Cs = reinterpret_cast<float*>(As + 2 * BM * kBP);      // [warp][8][kCPitch]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n0 = blockIdx.x * BN;
@@ -165,9 +145,8 @@ linear_kernel(const LinArgs<T> p) {
     gw_n = __ldg(reinterpret_cast<const float4*>(p.lnw + k + kc));
     gb_n = __ldg(reinterpret_cast<const float4*>(p.lnb + k + kc));
   };
-  // step s of this thread's A pieces: LayerNorm, round to bf16, to the A buffer (bf16);
-  // LayerNorm in place in the ring slot (float; nothing to do without LN). A row past
-  // M holds zeros or their image: it reaches only rows that are never written.
+  // step s of this thread's A pieces: LayerNorm, round to bf16, to the A buffer. A row
+  // past M holds zeros or their image: it reaches only rows that are never written.
   auto convert = [&](int s) {
     if (LN) {
       if (c_k == 0) {  // a new tile
@@ -183,21 +162,7 @@ linear_kernel(const LinArgs<T> p) {
     }
     c_k = c_k + kLinBK == p.K ? 0 : c_k + kLinBK;
     if (LN) load_lnw(c_k);
-    float* src = Af + (s % STAGES) * BM * kAP;
-    if constexpr (kF32) {
-      if (LN) {
-#pragma unroll
-        for (int i = 0; i < kAIters; ++i) {
-          float4* at = reinterpret_cast<float4*>(src + (ar + kRowsA * i) * kAP + kc);
-          const float4 a = *at;
-          *at = make_float4(ln_apply(a.x, mu[i], rs[i], gw.x, gb.x),
-                            ln_apply(a.y, mu[i], rs[i], gw.y, gb.y),
-                            ln_apply(a.z, mu[i], rs[i], gw.z, gb.z),
-                            ln_apply(a.w, mu[i], rs[i], gw.w, gb.w));
-        }
-      }
-      return;
-    }
+    const float* src = Af + (s % STAGES) * BM * kAP;
     bf16* dst = As + (s & 1) * BM * kBP;
 #pragma unroll
     for (int i = 0; i < kAIters; ++i) {
@@ -305,9 +270,7 @@ linear_kernel(const LinArgs<T> p) {
     __syncthreads();  // A of step s is converted and B of step s has landed for every
                       // thread, and every warp is done with step s - 1: its slots are free
     fetch();          // step s + STAGES - 1, in flight during the products below
-    // A of step s: the bf16 buffer, or the f32 ring slot itself
-    const T* A = kF32 ? reinterpret_cast<const T*>(Af + (s % STAGES) * BM * kAP)
-                      : reinterpret_cast<const T*>(As + (s & 1) * BM * kBP);
+    const T* A = As + (s & 1) * BM * kBP;   // A of step s, in bf16
     const T* Bt = Bs + (s % STAGES) * BN * kBP;
 #pragma unroll
     for (int kk = 0; kk < kLinBK; kk += kSK) {
@@ -380,9 +343,8 @@ struct Linear {
   }
 };
 
-// rows, columns, warps (M x N), stages, blocks an SM. Shared memory: bf16 54, 73, 182
-// KB; float 59, 90, 180 KB (three stages of f32 A and f32 weights each), so the f32
-// 64 x 128 tile holds two blocks an SM in place of three.
+// the bf16 tiles: rows, columns, warps (M x N), stages, blocks an SM. Shared memory 54,
+// 73, 182 KB.
 template <int TILE, bool LN, typename T>
 struct LinearTile;
 template <bool LN>
@@ -391,12 +353,10 @@ template <bool LN>
 struct LinearTile<1, LN, bf16> : Linear<bf16, 64, 128, 2, 2, 3, 3, LN> {};   // 4 warps of 32 x 64
 template <bool LN>
 struct LinearTile<2, LN, bf16> : Linear<bf16, 128, 256, 2, 4, 4, 1, LN> {};  // 8 warps of 64 x 64
-template <bool LN>
-struct LinearTile<0, LN, float> : Linear<float, 64, 64, 2, 2, 3, 3, LN> {};
-template <bool LN>
-struct LinearTile<1, LN, float> : Linear<float, 64, 128, 2, 2, 3, 2, LN> {};
-template <bool LN>
-struct LinearTile<2, LN, float> : Linear<float, 128, 256, 2, 4, 3, 1, LN> {};
+
+// the f32 operand path, `linear_wg_kernel` (gemm_f32.cu, built beside this file)
+int linear_f32(const LinArgs<float>& p, int tile, int blocks, cudaStream_t st);
+int linear_f32_blocks_per_sm(int tile, int ln);
 
 template <int TILE, typename T>
 cudaError_t run_linear(const LinArgs<T>& p, cudaStream_t st) {
@@ -411,21 +371,29 @@ int linear_of(const void* a, const void* w, const void* bias, const void* stats,
   const LinArgs<T> p{(const float*)a, (const T*)w,       (const float*)bias,
                      (const float*)stats, (const float*)lnw, (const float*)lnb,
                      (const float*)res,   (float*)out,       M, Nout, K, per};
-  switch (tile) {
-    case 0: return (int)run_linear<0, T>(p, st);
-    case 1: return (int)run_linear<1, T>(p, st);
-    case 2: return (int)run_linear<2, T>(p, st);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (sizeof(T) == 4) {   // `per` is the number of persistent blocks
+    return linear_f32(p, tile, per, st);
+  } else {
+    switch (tile) {
+      case 0: return (int)run_linear<0, T>(p, st);
+      case 1: return (int)run_linear<1, T>(p, st);
+      case 2: return (int)run_linear<2, T>(p, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
 template <typename T>
 int blocks_of(int tile, int ln) {
-  switch (tile) {
-    case 0: return ln ? LinearTile<0, true, T>::blocks_per_sm() : LinearTile<0, false, T>::blocks_per_sm();
-    case 1: return ln ? LinearTile<1, true, T>::blocks_per_sm() : LinearTile<1, false, T>::blocks_per_sm();
-    case 2: return ln ? LinearTile<2, true, T>::blocks_per_sm() : LinearTile<2, false, T>::blocks_per_sm();
-    default: return -1;
+  if constexpr (sizeof(T) == 4) {
+    return linear_f32_blocks_per_sm(tile, ln);
+  } else {
+    switch (tile) {
+      case 0: return ln ? LinearTile<0, true, T>::blocks_per_sm() : LinearTile<0, false, T>::blocks_per_sm();
+      case 1: return ln ? LinearTile<1, true, T>::blocks_per_sm() : LinearTile<1, false, T>::blocks_per_sm();
+      case 2: return ln ? LinearTile<2, true, T>::blocks_per_sm() : LinearTile<2, false, T>::blocks_per_sm();
+      default: return -1;
+    }
   }
 }
 
@@ -434,8 +402,9 @@ int blocks_of(int tile, int ln) {
 // out[M, Nout] = LN?(a)[M, K] @ w[Nout, K]^T + bias (+ res). LN is applied when
 // `stats` is not null. a, res, out f32; w bf16, or f32 where `f32` is set (the
 // operand type of the products); K % 32 == 0; a, res, out, bias and the LN weights
-// 16-byte aligned. `tile` (0: 64 x 64, 1: 64 x 128, 2: 128 x 256 outputs a block)
-// and `per` (M tiles a block walks) come from the wrapper's plan.
+// 16-byte aligned. `tile` and `per` come from the wrapper's plan: bf16, the tile (0: 64 x
+// 64, 1: 64 x 128, 2: 128 x 256 outputs a block) and the M tiles a block walks; f32, the
+// tile (0: 128 x 64, 1: 128 x 128, 2: 64 x 64) and the number of persistent blocks.
 extern "C" int k1_linear(const void* a, const void* w, const void* bias, const void* stats,
                          const void* lnw, const void* lnb, const void* res, void* out,
                          int M, int Nout, int K, int tile, int per, int f32, void* stream) {

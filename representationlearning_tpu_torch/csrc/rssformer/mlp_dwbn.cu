@@ -1,9 +1,10 @@
 // K5's C entry points and its bf16 instantiations; the kernels and the notes on their
-// design are in mlp_dwbn.cuh, the float instantiations in mlp_dwbn_f32.cu.
+// design are in mlp_dwbn.cuh, the float instantiations in mlp_dwbn_f32.cu and
+// mlp_dwbn_taps_f32.cu.
 #include "mlp_dwbn.cuh"
 
 namespace rss {
-// built in mlp_dwbn_f32.cu
+// built in mlp_dwbn_f32.cu (fc1) and mlp_dwbn_taps_f32.cu (taps)
 extern template int fc1_run<float>(const Fc1Args<float>&, int, int, cudaStream_t, int*);
 extern template int taps_run<float>(const TapsArgs<float>&, int, int, int, cudaStream_t, int*);
 template int fc1_run<bf16>(const Fc1Args<bf16>&, int, int, cudaStream_t, int*);

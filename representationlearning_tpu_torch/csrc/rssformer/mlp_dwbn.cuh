@@ -1,7 +1,9 @@
-// K5: the RSSFormer MlpDWBN feed-forward block, as two kernels, templates on the
-// operand type T of the products (bf16, or float as 3xTF32) and on the padded hidden
-// width HP. mlp_dwbn.cu holds the C entry points and the bf16 instantiations,
-// mlp_dwbn_f32.cu the float ones (two sources, so that nvcc builds them side by side).
+// K5: the RSSFormer MlpDWBN feed-forward block, as two kernels on the padded hidden
+// width HP: fc1, a template on the operand type T of the products (bf16, or float as
+// 3xTF32 `mma.sync`), and the taps, selected at compile time by T: bf16 `taps_kernel`
+// (`mma.sync`), float `taps_wg_kernel` (3xTF32 `wgmma`). mlp_dwbn.cu holds the C entry
+// points and the bf16 instantiations, mlp_dwbn_f32.cu the float ones (two sources, so
+// that nvcc builds them side by side).
 //
 // Replaces: `fused_mlp_dwbn_pallas`
 //   (representationlearning_tpu/ops/pallas/mlp_dwbn.py:115, call :132), whose body
@@ -46,8 +48,9 @@
 //   them as whole rows with 16-byte stores. Every plan computes each output by the
 //   same instructions: equal bits.
 //
-//   `taps_kernel` is an implicit GEMM bound by its products (37.8 GFLOP of in-plane
-//   taps a launch at the predict shape, hid 128, 38 us at the card's bf16 peak);
+//   `taps_kernel` (bf16 operands; f32 runs `taps_wg_kernel`, its note further down) is
+//   an implicit GEMM bound by its products (37.8 GFLOP of in-plane taps a launch at
+//   the predict shape, hid 128, 38 us at the card's bf16 peak);
 //   behind them come the copies into shared memory: each tile of tokens reads all 19
 //   tap matrices (B) and its own rows once a tap (A). Persistent blocks (grid from the
 //   wrapper's `taps_plan`) walk tiles of 128 or 256 consecutive tokens, all HP hidden
@@ -64,16 +67,16 @@
 //   in-plane taps a fragment row, made once a tile. Products are `ldmatrix` +
 //   `mma_slice` with f32 sums, the next k slice's fragments loading while this one's
 //   products run. The epilogue works on the accumulator registers: bias + bn2 + GELU
-//   in T, which are, as they stand, the A fragments of fc2 (bf16: adjacent n8 tiles
-//   make one k16 fragment; f32: one n8 tile is one k8 fragment, its keys (2t, 2t + 1)
-//   taken as TF32 k (t, t + 4), and fc2's weight read in the same order); fc2's
-//   weight and the six vectors wait in shared memory, bn3 + GELU apply to fc2's
+//   in bf16, which are, as they stand, the A fragments of fc2 (adjacent n8 tiles make
+//   one k16 fragment); fc2's weight and the six vectors wait in shared memory, bn3 +
+//   GELU apply to fc2's
 //   accumulators, and a swap between lane pairs makes whole 16-byte pieces of the f32
 //   output (scalar stores where cout is no multiple of 4). The second hidden plane
 //   never leaves the registers. Every plan computes each output by the same
 //   instructions in the same order: equal bits.
 #pragma once
 
+#include "../hopper/wgmma.cuh"
 #include "common.cuh"
 
 namespace rss {
@@ -383,6 +386,7 @@ __global__ void __launch_bounds__(kTapsThreads, 1) taps_kernel(const TapsArgs<T>
   constexpr int kA = BM * kLd, kB = HP * kLd;
   static_assert(HP % BK == 0 && kSlices % 2 == 0 && STAGES >= 3 && BM % kRowsPass == 0,
                 "taps geometry");
+  static_assert(sizeof(T) == 2, "bf16 operands: f32 runs taps_wg_kernel");
   extern __shared__ __align__(128) unsigned char smem[];
   T* As = reinterpret_cast<T*>(smem);            // [STAGES][BM][kLd]
   T* Bs = As + STAGES * kA;                      // [STAGES][HP][kLd]
@@ -447,8 +451,8 @@ __global__ void __launch_bounds__(kTapsThreads, 1) taps_kernel(const TapsArgs<T>
   // wm + 16 i + g and + 8
   const int wm = warp * 16 * MI;
   auto epilogue = [&](int m0) {
-    // bias + bn2 + GELU in T: fc2's A fragment of k slice u. bf16: n8 tiles 2u and
-    // 2u + 1 (hidden features 16u .. 16u + 15); f32: n8 tile u, (2t, 2t + 1) as (t, t + 4)
+    // bias + bn2 + GELU in bf16: fc2's A fragment of k slice u, n8 tiles 2u and 2u + 1
+    // (hidden features 16u .. 16u + 15)
     uint32_t ha[MI][kFs][4];
 #pragma unroll
     for (int j = 0; j < HP / 8; ++j) {
@@ -462,15 +466,8 @@ __global__ void __launch_bounds__(kTapsThreads, 1) taps_kernel(const TapsArgs<T>
         const float e1 = bias_bn_gelu(acc[i][j][1], bb.y, ss.y, sh.y);
         const float e2 = bias_bn_gelu(acc[i][j][2], bb.x, ss.x, sh.x);
         const float e3 = bias_bn_gelu(acc[i][j][3], bb.y, ss.y, sh.y);
-        if constexpr (sizeof(T) == 4) {
-          ha[i][j][0] = __float_as_uint(e0);
-          ha[i][j][1] = __float_as_uint(e2);
-          ha[i][j][2] = __float_as_uint(e1);
-          ha[i][j][3] = __float_as_uint(e3);
-        } else {
-          ha[i][j / 2][2 * (j % 2)] = pack_bf16(e0, e1);
-          ha[i][j / 2][2 * (j % 2) + 1] = pack_bf16(e2, e3);
-        }
+        ha[i][j / 2][2 * (j % 2)] = pack_bf16(e0, e1);
+        ha[i][j / 2][2 * (j % 2) + 1] = pack_bf16(e2, e3);
         acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
       }
     }
@@ -482,30 +479,15 @@ __global__ void __launch_bounds__(kTapsThreads, 1) taps_kernel(const TapsArgs<T>
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) o[i][h2][0] = o[i][h2][1] = o[i][h2][2] = o[i][h2][3] = 0.f;
-      if constexpr (sizeof(T) == 4) {
-        // b0 = w2[n][8u + 2t], b1 = w2[n][8u + 2t + 1] for n = n0 + g and n0 + 8 + g
-        const float* w0 = reinterpret_cast<const float*>(w2s) + (n0 + g) * kLdW + 2 * t;
+      const T* wl = w2s + (n0 + (lane & 7) + (lane >> 4) * 8) * kLdW + ((lane >> 3) & 1) * 8;
 #pragma unroll
-        for (int u = 0; u < kFs; ++u) {
-          const float2 wa = *reinterpret_cast<const float2*>(w0 + 8 * u);
-          const float2 wb = *reinterpret_cast<const float2*>(w0 + 8 * kLdW + 8 * u);
+      for (int u = 0; u < kFs; ++u) {
+        uint32_t wb[4];   // outputs n0 .. + 7 (k 0-7, 8-15), then n0 + 8 .. + 15
+        ldsm_x4(wb, wl + 16 * u);
 #pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            mma_slice<T>(o[i][0], ha[i][u], __float_as_uint(wa.x), __float_as_uint(wa.y));
-            mma_slice<T>(o[i][1], ha[i][u], __float_as_uint(wb.x), __float_as_uint(wb.y));
-          }
-        }
-      } else {
-        const T* wl = w2s + (n0 + (lane & 7) + (lane >> 4) * 8) * kLdW + ((lane >> 3) & 1) * 8;
-#pragma unroll
-        for (int u = 0; u < kFs; ++u) {
-          uint32_t wb[4];   // outputs n0 .. + 7 (k 0-7, 8-15), then n0 + 8 .. + 15
-          ldsm_x4(wb, wl + 16 * u);
-#pragma unroll
-          for (int i = 0; i < MI; ++i) {
-            mma_slice<T>(o[i][0], ha[i][u], wb[0], wb[1]);
-            mma_slice<T>(o[i][1], ha[i][u], wb[2], wb[3]);
-          }
+        for (int i = 0; i < MI; ++i) {
+          mma_slice<T>(o[i][0], ha[i][u], wb[0], wb[1]);
+          mma_slice<T>(o[i][1], ha[i][u], wb[2], wb[3]);
         }
       }
       // bn3 + GELU; lanes t and t ^ 1 swap pairs, so that an even t holds columns
@@ -671,23 +653,313 @@ struct Taps {
   }
 };
 
-// the instantiation of (HP, tile): tiles of 256 tokens up to HP 128, 128 at every HP
-template <typename T>
-int taps_run(const TapsArgs<T>& p, int hp, int tile, int blocks, cudaStream_t st, int* held) {
-  if (tile == 128) {
-    switch (hp) {
-      case 96: return Taps<T, 96, 1>::run(p, blocks, st, held);
-      case 128: return Taps<T, 128, 1>::run(p, blocks, st, held);
-      case 160: return Taps<T, 160, 1>::run(p, blocks, st, held);
-      case 192: return Taps<T, 192, 1>::run(p, blocks, st, held);
+// ---- taps with f32 operands: 3xTF32 `wgmma` (sm_90a), the building blocks of
+// csrc/hopper/wgmma.cuh
+//
+// A block is three warpgroups: two consumers of 64 tokens each (a tile of 128), one
+// producer. The producer walks the block's steps (tile, tap, chunk of kWgBK hidden
+// features) in the bf16 kernel's order. Its first thread waits for the ring's slot to be
+// empty and starts two tensor-map copies into it: the tile's rows shifted by the tap (a
+// 2-d map over (M, HP): rows outside [0, M), negative ones too, arrive as zeros) and the
+// tap matrix's HP rows of the chunk (a map over (19 HP, HP)). Its warps 1-3 follow: once a
+// copy has landed they write the TF32 small half of the tap matrix's chunk into the
+// slot's second B buffer and arrive on the slot's ready barrier. A consumer warp
+// loads its 16 rows of A from the slot by `ldmatrix` (the swizzle makes it conflict-free),
+// zeroes the rows that the tap takes outside the plane (the bf16 kernel's mask of in-plane
+// taps), splits them, waits for the tap matrix's small half and issues the three
+// products of each k slice as m64nHPk8 `wgmma`s with B from the slot, half a step (two k
+// slices) a commit group; it releases the slot once both halves have completed, while the next half is in flight (two register sets of
+// A, `wgmma.wait_group 1`). The epilogue is the bf16 kernel's, a warp on its 16 rows:
+// bias + bn2 + GELU from the accumulators (the m64nN accumulator of a warp is the m16n8
+// layout of `mma.sync`, n8 tile after n8 tile), which become fc2's TF32 A fragments as
+// they lie; fc2 (1 / 20 of the products at cout = hid / 4) stays on 3xTF32 `mma.sync`,
+// its weight and the six vectors read through L1 (the ring takes the shared memory), then
+// bn3 + GELU and the stores. The producer walks on into the next tile while the
+// consumers finish this one. `setmaxnreg` gives the consumers 232 registers a thread and
+// the producer 40 (the accumulators of HP 192 and fc2's fragments fit without spilling).
+constexpr int kTwgTile = 128;       // tokens a tile
+constexpr int kTwgThreads = 384;    // warpgroups: two consumers, then the producer
+constexpr int kTwgMaxStages = 8;
+constexpr int kTwgRegs = 168;       // registers a thread at launch (65536 / 384, rounded to 8)
+
+template <int HP>
+__host__ __device__ constexpr int twg_stage_bytes() {   // A, the tap matrix's chunk big and small
+  return (kTwgTile + 2 * HP) * hop::kWgRowBytes;
+}
+template <int HP>
+__host__ __device__ constexpr int twg_stages() {   // the barriers and 1 KB of alignment aside
+  const int s = (kSmemLimit - 1024 - 3 * 8 * kTwgMaxStages) / twg_stage_bytes<HP>();
+  return s > kTwgMaxStages ? kTwgMaxStages : s;
+}
+template <int HP>
+__host__ __device__ constexpr int twg_smem() {
+  return 1024 + 3 * 8 * kTwgMaxStages + twg_stages<HP>() * twg_stage_bytes<HP>();
+}
+
+template <int HP>
+__global__ void __launch_bounds__(kTwgThreads, 1)
+taps_wg_kernel(const TapsArgs<float> p, const __grid_constant__ CUtensorMap hmap,
+               const __grid_constant__ CUtensorMap tmap) {
+  using namespace hop;
+  constexpr int S = twg_stages<HP>();
+  constexpr int kChunks = HP / kWgBK, kSteps = kTaps * kChunks;
+  constexpr int kA = kTwgTile * kWgRowBytes, kB = HP * kWgRowBytes, kStage = kA + 2 * kB;
+  constexpr int kHalf = kWgBK / 16;                 // k slices a half step
+  constexpr int kFs = HP / 8;                       // k slices of fc2
+  static_assert(S >= 3 && HP % kWgBK == 0 && kWgBK % 16 == 0, "taps geometry");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const uint32_t full0 = smem_u32(smem + S * kStage), ready0 = full0 + 8 * S,
+                 empty0 = ready0 + 8 * S;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int my_tiles = (int)blockIdx.x < p.tiles ? (p.tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int total = my_tiles * kSteps;
+  if (tid == 256) {   // the producer's copying thread
+    tensormap_prefetch(&hmap);
+    tensormap_prefetch(&tmap);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(ready0 + 8 * s, kWgSplitThreads);
+      mbar_init(empty0 + 8 * s, 8);
     }
-  } else if (tile == 256) {
-    switch (hp) {
-      case 96: return Taps<T, 96, 2>::run(p, blocks, st, held);
-      case 128: return Taps<T, 128, 2>::run(p, blocks, st, held);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {   // ---- the producer warpgroup
+    regs_dec<40>();
+    if (warp == 8) {   // the copies
+      if (lane == 0) {
+        for (int f = 0; f < total; ++f) {
+          const int slot = f % S;
+          mbar_wait(empty0 + 8 * slot, ((f / S) & 1) ^ 1);
+          const int st = f % kSteps, tap = st / kChunks, k0 = (st % kChunks) * kWgBK;
+          const int m0 = (blockIdx.x + (f / kSteps) * gridDim.x) * kTwgTile;
+          int dy, dx;
+          tap_offset(tap, dy, dx);
+          unsigned char* stage = smem + slot * kStage;
+          mbar_arrive_expect(full0 + 8 * slot, kA + kB);
+          tma_load_2d(stage, &hmap, k0, m0 + dy * p.W + dx, full0 + 8 * slot);
+          tma_load_2d(stage + kA, &tmap, k0, tap * HP, full0 + 8 * slot);
+        }
+      }
+    } else {           // the split of the weights, a step behind the copies
+      const int stid = tid - 8 * 32 - 32;
+      for (int f = 0; f < total; ++f) {
+        const int slot = f % S;
+        mbar_wait(full0 + 8 * slot, (f / S) & 1);
+        unsigned char* stage = smem + slot * kStage;
+        split_stage(stage + kA, stage + kA + kB, kB / 16, stid, kWgSplitThreads);
+        fence_proxy_async();
+        mbar_arrive(ready0 + 8 * slot);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: warp w owns rows 16 w .. 16 w + 15 of the tile
+  regs_inc<232>();
+  const int g = lane / 4, t = lane % 4, r0 = 16 * warp;
+  float acc[HP / 2];
+#pragma unroll
+  for (int i = 0; i < HP / 2; ++i) acc[i] = 0.f;
+  uint32_t abig[2][kHalf][4], asmall[2][kHalf][4];   // [half][k slice][fragment]
+  uint32_t in_plane[2] = {0u, 0u};   // bit tap: rows g, g + 8 read inside the plane
+  int f = 0, pending = -1;
+  auto release = [&](int slot) {
+    if (slot >= 0 && lane == 0) mbar_arrive(empty0 + 8 * slot);
+  };
+
+  for (int k = 0; k < my_tiles; ++k) {
+    const int m0 = (blockIdx.x + k * gridDim.x) * kTwgTile;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = (m0 + r0 + g + 8 * h) % p.N, y = n / p.W, x = n - y * p.W;
+      uint32_t m = 0;
+#pragma unroll
+      for (int tap = 0; tap < kTaps; ++tap) {
+        int dy, dx;
+        tap_offset(tap, dy, dx);
+        m |= (uint32_t)(y + dy >= 0 && y + dy < p.H && x + dx >= 0 && x + dx < p.W) << tap;
+      }
+      in_plane[h] = m;
+    }
+    for (int st = 0; st < kSteps; ++st, ++f) {
+      const int slot = f % S;
+      const uint32_t par = (f / S) & 1;
+      mbar_wait(full0 + 8 * slot, par);
+      const int tap = st / kChunks;
+      const unsigned char* stage = smem + slot * kStage;
+      const uint32_t keep_g = 0u - ((in_plane[0] >> tap) & 1u);
+      const uint32_t keep_g8 = 0u - ((in_plane[1] >> tap) & 1u);
+      const uint64_t db = desc_sw(stage + kA), ds = desc_sw(stage + kA + kB);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+        for (int kk = 0; kk < kHalf; ++kk) {
+          uint32_t x[4];
+          ldsm_a(x, stage, r0, kHalf * hf + kk, lane);
+          x[0] &= keep_g;
+          x[1] &= keep_g8;
+          x[2] &= keep_g;
+          x[3] &= keep_g8;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            abig[hf][kk][i] = tf32_big(x[i]);
+            asmall[hf][kk][i] = tf32_small_of(x[i]);
+          }
+        }
+        if (hf == 0) mbar_wait(ready0 + 8 * slot, par);   // the tap matrix's small half
+        fence_acc(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < kHalf; ++kk) {
+          const int s2 = 2 * (kHalf * hf + kk);   // 32 bytes a k slice, in 16-byte units
+          mma3<HP>(acc, abig[hf][kk], asmall[hf][kk], db + s2, ds + s2, (st | hf | kk) != 0);
+        }
+        wg_commit();
+        if (hf == 0) {          // the step before has completed: its slot is free
+          wg_wait<1>();
+          fence_acc(acc);
+          release(pending);
+          pending = -1;
+        } else if (st == kSteps - 1) {   // the tile is summed
+          wg_wait<0>();
+          fence_acc(acc);
+          release(slot);
+        } else {
+          wg_wait<1>();
+          fence_acc(acc);
+          pending = slot;
+        }
+      }
+    }
+
+    // ---- the epilogue of this warp's 16 rows: bias + bn2 + GELU, fc2's A fragment of k
+    // slice j taken from n8 tile j, (2t, 2t + 1) as TF32 k (t, t + 4)
+    uint32_t ha[kFs][4];
+#pragma unroll
+    for (int j = 0; j < kFs; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(p.dwb + col));
+      const float2 ss = __ldg(reinterpret_cast<const float2*>(p.s2 + col));
+      const float2 sh = __ldg(reinterpret_cast<const float2*>(p.t2 + col));
+      ha[j][0] = __float_as_uint(bias_bn_gelu(acc[4 * j], bb.x, ss.x, sh.x));
+      ha[j][1] = __float_as_uint(bias_bn_gelu(acc[4 * j + 2], bb.x, ss.x, sh.x));
+      ha[j][2] = __float_as_uint(bias_bn_gelu(acc[4 * j + 1], bb.y, ss.y, sh.y));
+      ha[j][3] = __float_as_uint(bias_bn_gelu(acc[4 * j + 3], bb.y, ss.y, sh.y));
+    }
+    const bool whole = (p.cout & 3) == 0;   // rows of the output are 16-byte aligned
+    for (int n0 = 0; n0 < p.coutp; n0 += 16) {
+      float o[2][4] = {};
+      // b0 = w2[n][8u + 2t], b1 = w2[n][8u + 2t + 1] for n = n0 + g and n0 + 8 + g
+      const float* w0 = p.w2 + (size_t)(n0 + g) * HP + 2 * t;
+#pragma unroll
+      for (int u = 0; u < kFs; ++u) {
+        const float2 wa = __ldg(reinterpret_cast<const float2*>(w0 + 8 * u));
+        const float2 wb = __ldg(reinterpret_cast<const float2*>(w0 + 8 * HP + 8 * u));
+        mma_slice<float>(o[0], ha[u], __float_as_uint(wa.x), __float_as_uint(wa.y));
+        mma_slice<float>(o[1], ha[u], __float_as_uint(wb.x), __float_as_uint(wb.y));
+      }
+      // bn3 + GELU; lanes t and t ^ 1 swap pairs, so that an even t holds columns
+      // 2t .. 2t + 3 of row g and an odd t columns 2t - 2 .. 2t + 1 of row g + 8
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int col = n0 + 8 * h2 + 2 * t;
+        const float2 bb = __ldg(reinterpret_cast<const float2*>(p.b2 + col));
+        const float2 ss = __ldg(reinterpret_cast<const float2*>(p.s3 + col));
+        const float2 sh = __ldg(reinterpret_cast<const float2*>(p.t3 + col));
+        const float v0 = bias_bn_gelu(o[h2][0], bb.x, ss.x, sh.x);
+        const float v1 = bias_bn_gelu(o[h2][1], bb.y, ss.y, sh.y);
+        const float v2 = bias_bn_gelu(o[h2][2], bb.x, ss.x, sh.x);
+        const float v3 = bias_bn_gelu(o[h2][3], bb.y, ss.y, sh.y);
+        const int rg = m0 + r0 + g;
+        if (!whole) {   // scalar stores of the columns below cout
+          const float ev[4] = {v0, v1, v2, v3};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int row = rg + (q >> 1) * 8, c = col + (q & 1);
+            if (row < p.M && c < p.cout) p.out[(size_t)row * p.cout + c] = ev[q];
+          }
+          continue;
+        }
+        const bool odd = t & 1;
+        const float s0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
+        const float s1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
+        const int row = rg + (odd ? 8 : 0), c4 = col - (odd ? 2 : 0);
+        if (row < p.M && c4 < p.cout)
+          *reinterpret_cast<float4*>(p.out + (size_t)row * p.cout + c4) =
+              odd ? make_float4(s0, s1, v2, v3) : make_float4(v0, v1, s0, s1);
+      }
     }
   }
-  return (int)cudaErrorInvalidValue;
+}
+
+// The f32 instantiation at HP: its shared memory allowed once per process (and the
+// register count that `setmaxnreg` counts on checked), its tensor maps and launch, or,
+// with `held` given, the blocks an SM holds
+template <int HP>
+struct TapsWg {
+  static constexpr int kSmem = twg_smem<HP>();
+  static_assert(kSmem <= kSmemLimit, "the ring fits a block's shared memory");
+
+  static cudaError_t prepare() {
+    static const cudaError_t err = [] {
+      cudaFuncAttributes attr;
+      cudaError_t e = cudaFuncGetAttributes(&attr, taps_wg_kernel<HP>);
+      if (e == cudaSuccess && attr.numRegs != kTwgRegs) e = cudaErrorInvalidConfiguration;
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(taps_wg_kernel<HP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kSmem);
+      return e;
+    }();
+    return err;
+  }
+  static int run(const TapsArgs<float>& p, int blocks, cudaStream_t st, int* held) {
+    const cudaError_t err = prepare();
+    if (err != cudaSuccess) return (int)err;
+    if (held != nullptr)
+      return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(held, taps_wg_kernel<HP>,
+                                                                kTwgThreads, kSmem);
+    if (p.coutp > kTapsCoutMax<float, HP>) return (int)cudaErrorInvalidValue;
+    CUtensorMap hm = {}, tm = {};
+    cudaError_t e = hop::wg_tensor_map(&hm, p.h, p.M, HP, kTwgTile);
+    if (e == cudaSuccess) e = hop::wg_tensor_map(&tm, p.taps, (long long)kTaps * HP, HP, HP);
+    if (e != cudaSuccess) return (int)e;
+    taps_wg_kernel<HP><<<blocks, kTwgThreads, kSmem, st>>>(p, hm, tm);
+    return (int)cudaGetLastError();
+  }
+};
+
+// the instantiation of (HP, tile): bf16 tiles of 256 tokens up to HP 128, 128 at every
+// HP; f32 the wgmma kernel's tile of 128
+template <typename T>
+int taps_run(const TapsArgs<T>& p, int hp, int tile, int blocks, cudaStream_t st, int* held) {
+  if constexpr (sizeof(T) == 4) {
+    if (tile != kTwgTile) return (int)cudaErrorInvalidValue;
+    switch (hp) {
+      case 96: return TapsWg<96>::run(p, blocks, st, held);
+      case 128: return TapsWg<128>::run(p, blocks, st, held);
+      case 160: return TapsWg<160>::run(p, blocks, st, held);
+      case 192: return TapsWg<192>::run(p, blocks, st, held);
+    }
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (tile == 128) {
+      switch (hp) {
+        case 96: return Taps<T, 96, 1>::run(p, blocks, st, held);
+        case 128: return Taps<T, 128, 1>::run(p, blocks, st, held);
+        case 160: return Taps<T, 160, 1>::run(p, blocks, st, held);
+        case 192: return Taps<T, 192, 1>::run(p, blocks, st, held);
+      }
+    } else if (tile == 256) {
+      switch (hp) {
+        case 96: return Taps<T, 96, 2>::run(p, blocks, st, held);
+        case 128: return Taps<T, 128, 2>::run(p, blocks, st, held);
+      }
+    }
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace rss

@@ -105,11 +105,16 @@ def _sources(name: str) -> list[Path]:
     return srcs
 
 
+# headers of csrc/ that more than one library includes (the Hopper building blocks)
+SHARED_HEADERS = ("hopper",)
+
+
 def _digest(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted((CSRC / name).glob("*.cu*")):
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
+    for d in (name, *SHARED_HEADERS):
+        for p in sorted((CSRC / d).glob("*.cu*")):
+            h.update(f"{d}/{p.name}".encode())
+            h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 

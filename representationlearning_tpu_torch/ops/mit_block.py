@@ -23,9 +23,10 @@ block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
 Intermediates between kernels stay f32; matmul operands are rounded to the
 compute dtype (bf16, or f32 as the TPU kernel's default) and accumulate in f32,
 LayerNorm, softmax and GELU run in f32 -- the numerics of the TPU kernel. On the
-card the f32 products of `linear`, `sr_conv` and `attention` are 3xTF32 `mma.sync`
-products (f32 to about 2^-21 of each product), the operand type a template
-parameter of the same kernels. Each of the five wrappers below runs its kernel on a
+card the f32 products are 3xTF32 products (f32 to about 2^-21 of each product):
+`sr_conv` and `attention` run them on `mma.sync`, the operand type a template
+parameter of the same kernels; `linear` runs them on `wgmma` in a kernel of its
+own for f32, selected at compile time (gemm.cu). Each of the five wrappers below runs its kernel on a
 CUDA tensor (compute dtype f32 or bf16; anything else raises) and its plain PyTorch version,
 ``<name>_reference``, on a CPU tensor. ``fused_block_reference`` is the same
 composition with the plain versions only; ``fused_block`` is the dispatcher.
@@ -64,16 +65,23 @@ def reset_launches() -> None:
 # tiles stream through shared memory in two passes (csrc/mit_block/attention.cu).
 ATTN_ONE_PASS_KEYS = 256
 
-# The linear kernel (csrc/mit_block/gemm.cu): a block's output tile, (rows, columns),
-# one of these instantiations (their index is the kernel's tile id), and the blocks of
-# each that an SM holds at once, with bf16 and with f32 operands; K walked in steps of
-# LINEAR_K_STEP columns through LINEAR_STAGES[dtype] ring slots.
+# The linear kernel (csrc/mit_block/gemm.cu) with bf16 operands: a block's output tile,
+# (rows, columns), one of these instantiations (their index is the kernel's tile id),
+# and the blocks of each that an SM holds at once; K walked in steps of LINEAR_K_STEP
+# columns through LINEAR_STAGES[dtype] ring slots.
 LINEAR_TILES = ((64, 64), (64, 128), (128, 256))
 LINEAR_BLOCKS_PER_SM = (4, 3, 1)
-LINEAR_BLOCKS_PER_SM_F32 = (3, 2, 1)
-LINEAR_STAGES = {torch.bfloat16: (3, 3, 4), torch.float32: (3, 3, 3)}
+LINEAR_STAGES = {torch.bfloat16: (3, 3, 4)}
 LINEAR_WARPS = ((2, 2), (2, 2), (2, 4))   # warps along M and N
 LINEAR_K_STEP = 32
+# With f32 operands the kernel is `linear_wg_kernel` (3xTF32 `wgmma`): BM / 64 consumer
+# warpgroups of 64 rows and a producer warpgroup a block, one block an SM, persistent
+# blocks walking the output tiles; a ring of tensor-map copies of LINEAR_WG_K_STEP
+# columns (128-byte rows of A, of the weights and of their TF32 small half), as many
+# slots as fit, at most LINEAR_WG_MAX_STAGES.
+LINEAR_TILES_F32 = ((128, 64), (128, 128), (64, 64))
+LINEAR_BLOCKS_PER_SM_F32 = (1, 1, 1)
+LINEAR_WG_K_STEP, LINEAR_WG_MAX_STAGES = 32, 8
 SMEM_LIMIT = 227 * 1024       # dynamic shared memory a block may ask for on sm_90
 LINEAR_SMS = 132
 LINEAR_WIDE_MIN_BLOCKS = 96   # the 128 x 256 tile needs about one block an SM
@@ -81,33 +89,77 @@ LINEAR_MAX_PER = 4
 LINEAR_MAX_GROUPS = 65535     # the grid's second dimension
 
 
+def linear_tiles(dtype=torch.bfloat16) -> tuple[tuple[int, int], ...]:
+    """The output tiles (rows, columns) of the linear kernel with `dtype` operands; a
+    tile's index is the kernel's tile id."""
+    return LINEAR_TILES_F32 if dtype == torch.float32 else LINEAR_TILES
+
+
+def _wg_stage_bytes(tile: int) -> int:
+    bm, bn = LINEAR_TILES_F32[tile]
+    return (bm + 2 * bn) * LINEAR_WG_K_STEP * 4
+
+
+def linear_stages(tile: int, dtype) -> int:
+    """Slots of the kernel's ring: bf16 LINEAR_STAGES; f32 as many as fit in
+    SMEM_LIMIT beside the barriers and 1 KB of alignment, at most LINEAR_WG_MAX_STAGES
+    (gemm.cu's `lwg_stages`)."""
+    if dtype != torch.float32:
+        return LINEAR_STAGES[dtype][tile]
+    return min(LINEAR_WG_MAX_STAGES, (SMEM_LIMIT - 1024 - 24 * LINEAR_WG_MAX_STAGES)
+               // _wg_stage_bytes(tile))
+
+
 def linear_smem_bytes(tile: int, dtype) -> int:
-    """Shared memory of the linear kernel's tile `tile` (an index of LINEAR_TILES) with
-    `dtype` operands, as gemm.cu's `linear_smem` counts it: the ring of f32 A steps
-    (pitch 32, padded to 36 in f32), the ring of weight steps (a row of 32 and 16
-    bytes), the bf16 A double buffer (bf16 only) and each warp's 8 staged rows."""
+    """Shared memory of the linear kernel's tile `tile` (an index of
+    `linear_tiles(dtype)`), as gemm.cu counts it. bf16 (`linear_smem`): the ring of f32
+    A steps (pitch 32), the ring of weight steps (a row of 32 and 16 bytes), the bf16 A
+    double buffer and each warp's 8 staged rows. f32 (`lwg_smem`): the ring's slots of
+    A (rows of 128 bytes), the weights and their TF32 small half, the ring's barriers
+    and 1 KB to align it."""
+    if dtype == torch.float32:
+        return 1024 + 24 * LINEAR_WG_MAX_STAGES + linear_stages(tile, dtype) * _wg_stage_bytes(tile)
     (bm, bn), (wm, wn) = LINEAR_TILES[tile], LINEAR_WARPS[tile]
     stages, size = LINEAR_STAGES[dtype][tile], torch.finfo(dtype).bits // 8
     pitch = LINEAR_K_STEP + 16 // size
-    a_pitch = LINEAR_K_STEP if size == 2 else pitch
-    return (stages * bm * a_pitch * 4 + stages * bn * pitch * size
-            + (2 * bm * pitch * 2 if size == 2 else 0) + wm * wn * 8 * (bn // wn + 8) * 4)
+    return (stages * bm * LINEAR_K_STEP * 4 + stages * bn * pitch * size
+            + 2 * bm * pitch * 2 + wm * wn * 8 * (bn // wn + 8) * 4)
+
+
+def _linear_plan_f32(M: int, Nout: int, K: int) -> tuple[tuple[int, int], int]:
+    """The f32 tile whose waves of one tile an SM take the fewest SM cycles by a model
+    of the kernel: a column of K costs a BM x BN tile the larger of its products (three
+    TF32 products of BM x BN, 1024 multiply-adds an SM a cycle) and its copies (BM + BN
+    f32 at 24 bytes an SM a cycle from L2), the epilogue BM x BN / 3 (so that a product
+    of one wave takes the tile with the shortest chain a block: 64 x 64 at the kv of the
+    first stages); blocks one a tile up to one an SM."""
+    best = None
+    for t, (bm, bn) in enumerate(LINEAR_TILES_F32):
+        tiles = max(1, math.ceil(M / bm)) * math.ceil(Nout / bn)
+        per_column = max(3 * bm * bn / 1024, (bm + bn) * 4 / 24)
+        cost = math.ceil(tiles / LINEAR_SMS) * (K * per_column + bm * bn / 3)
+        if best is None or cost < best[0]:
+            best = (cost, t, tiles)
+    _, t, tiles = best
+    return LINEAR_TILES_F32[t], min(tiles, LINEAR_SMS)
 
 
 @functools.lru_cache(maxsize=1024)   # the host's time a launch counts: shapes repeat
-def linear_plan(M: int, Nout: int, K: int) -> tuple[tuple[int, int], int]:
-    """(tile, per) of the linear kernel for an (M, K) x (K, Nout) product: the
-    block's output tile and the number of M tiles a block walks (the same for bf16
-    and f32 operands: every tile fits either). The 128 x 256 tile
-    (half the L2 traffic of the others per product) where 256 divides Nout and it
-    still gives about one block an SM, its blocks walking up to LINEAR_MAX_PER M
-    tiles so that the grid is about one wave; else the 64 x 128 tile where it gives
-    at least two blocks an SM; else 64 x 64. The four-warp tiles walk one M tile a
-    block: three or four of them share an SM. A function of the shapes only; every
-    plan sums each output over its whole K in the same order, so all give the same
-    bits."""
+def linear_plan(M: int, Nout: int, K: int, dtype=torch.bfloat16) -> tuple[tuple[int, int], int]:
+    """The plan of the linear kernel for an (M, K) x (K, Nout) product. bf16: (tile,
+    per), the block's output tile and the number of M tiles a block walks: the 128 x 256
+    tile (half the L2 traffic of the others per product) where 256 divides Nout and it
+    still gives about one block an SM, its blocks walking up to LINEAR_MAX_PER M tiles so
+    that the grid is about one wave; else the 64 x 128 tile where it gives at least two
+    blocks an SM; else 64 x 64. The four-warp tiles walk one M tile a block: three or
+    four of them share an SM. f32: (tile, blocks), a tile of `LINEAR_TILES_F32` and the
+    number of persistent blocks (`_linear_plan_f32`). A function of the shapes only;
+    every plan sums each output over its whole K in the same order, so all give the
+    same bits."""
     if K % LINEAR_K_STEP:
         raise ValueError(f"linear: K={K} is not a multiple of {LINEAR_K_STEP}")
+    if dtype == torch.float32:
+        return _linear_plan_f32(M, Nout, K)
 
     def blocks(t):
         rows, cols = LINEAR_TILES[t]
@@ -124,6 +176,20 @@ def linear_plan(M: int, Nout: int, K: int) -> tuple[tuple[int, int], int]:
         per = min(LINEAR_MAX_PER, math.ceil(blocks(t) / LINEAR_SMS))
     mtiles = max(1, math.ceil(M / LINEAR_TILES[t][0]))
     return LINEAR_TILES[t], max(per, math.ceil(mtiles / LINEAR_MAX_GROUPS))
+
+
+def check_linear_plan(plan, dtype=torch.bfloat16) -> tuple[int, int]:
+    """(tile id, per or blocks) of a plan, or ValueError if the kernel does not take it."""
+    try:
+        tile, n = plan
+        tile, n = (int(tile[0]), int(tile[1])), int(n)
+    except (TypeError, ValueError, IndexError):
+        raise ValueError(f"linear: plan {plan!r} is not ((rows, columns), count)") from None
+    tiles = linear_tiles(dtype)
+    if tile not in tiles or n < 1:
+        raise ValueError(f"linear: plan {plan!r} is not one the kernel takes with {dtype} "
+                         f"operands (tile in {tiles}, count >= 1)")
+    return tiles.index(tile), n
 
 
 # The sr conv kernel (csrc/mit_block/sr_conv.cu): output tiles of SR_TILE_M rows,
@@ -373,8 +439,11 @@ def _aligned(t, name: str, nbytes: int = 16) -> None:
 
 def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
            dtype=torch.bfloat16, plan=None):
-    """`plan`: a (tile, per) other than `linear_plan`'s, for tests and tuning; every
-    plan gives the same bits on the card, and it changes nothing on the CPU."""
+    """`plan`: a (tile, per) (bf16) or (tile, blocks) (f32) other than `linear_plan`'s,
+    for tests and tuning; it is checked on any device, every plan gives the same bits on
+    the card, and it changes nothing on the CPU."""
+    if plan is not None:
+        check_linear_plan(plan, dtype)
     if not a.is_cuda:
         return linear_reference(a, w, bias, stats=stats, ln_w=ln_w, ln_b=ln_b,
                                 residual=residual, dtype=dtype)
@@ -396,16 +465,16 @@ def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
     out = torch.empty(a.shape[:-1] + (Nout,), device=dev, dtype=torch.float32)
     if residual is not None:
         _check(residual, "residual", dev, out.shape)
-    for t, name in ((a, "a"), (bias, "bias"), (ln_w, "ln_w"), (ln_b, "ln_b"),
+    for t, name in ((a, "a"), (w, "w"), (bias, "bias"), (ln_w, "ln_w"), (ln_b, "ln_b"),
                     (residual, "residual")):
         _aligned(t, name)
     _aligned(stats, "stats", 8)
     if M:
-        tile, per = linear_plan(M, Nout, K) if plan is None else plan
-        tile_id = LINEAR_TILES.index(tuple(tile)) if tuple(tile) in LINEAR_TILES else -1
+        tile_id, n = check_linear_plan(linear_plan(M, Nout, K, dtype) if plan is None else plan,
+                                       dtype)
         _launch("k1_linear", dev, a.data_ptr(), w.data_ptr(), bias.data_ptr(), _ptr(stats),
                 _ptr(ln_w), _ptr(ln_b), _ptr(residual), out.data_ptr(), M, Nout, K,
-                tile_id, per, int(dtype == torch.float32))
+                tile_id, n, int(dtype == torch.float32))
         LAUNCHES["linear"] += 1   # one a call, whatever plan it runs
     return out
 

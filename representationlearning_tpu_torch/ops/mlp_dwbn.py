@@ -14,7 +14,7 @@ the hidden plane, shifted by the tap offsets and zero outside the plane, with
 The TPU kernel keeps a whole image in VMEM (the hidden plane alone is 8.4 MB at
 128 x 128 x 128 f32); an H100 block has 227 KB of shared memory. On the card K5
 is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cuh``), templates on the operand type
-(bf16, or f32 as 3xTF32 `mma.sync` products) and on the hidden width:
+(bf16, or f32 as 3xTF32 products) and on the hidden width:
 
     mlp_fc1    x -> gelu(bn1(x W1 + b1)), written to device memory in the compute
                dtype: under bf16 the TPU kernel rounds h to bf16 at each of its 19
@@ -23,7 +23,10 @@ is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cuh``), templates on the operand 
     mlp_taps   a 19-tap implicit GEMM over tiles of 128 or 256 tokens (taps
                outside the plane read as zero, no padded copy), bias + bn2 + GELU,
                then fc2 from the accumulator registers + bn3 + GELU; persistent
-               blocks walk the tiles, their tile and count from `taps_plan`
+               blocks walk the tiles, their tile and count from `taps_plan`. bf16
+               runs `mma.sync` from a `cp.async` ring; f32 runs `wgmma` (3xTF32,
+               A from registers) from a ring of tensor-map copies, one producer
+               and two consumer warpgroups a block
 
 The kernels take a padded hidden width (`padded_hid`: hid rounded up to a multiple
 of 32, at least 96: HRNetV2's hid 72 / 128 / 160 / 192 run at 96 / 128 / 160 / 192)
@@ -134,23 +137,37 @@ def check_fc1_plan(plan, cin: int, hid: int = HID, dtype=torch.bfloat16) -> tupl
         raise ValueError(f"mlp_fc1: plan {plan!r} is not one the kernel takes at cin={cin}")
     return warps, per
 
-# The taps kernel: eight warps a block, a tile of TAPS_TILES tokens (16 or 32 rows a
-# warp, all hp hidden features; 256 only up to hp 128, where two 16-row tiles of
-# accumulators fit a warp's registers), a ring of `taps_stages` slots of A and B, each
-# a K step of `taps_bk` features of one tap (a row of 128 bytes, or 64 where hp allows
-# no 128), beside fc2's weight (up to `taps_cout_max` rows) and the six vectors, which
-# stay in shared memory.
+# The taps kernel, bf16: eight warps a block, a tile of TAPS_TILES tokens (16 or 32 rows
+# a warp, all hp hidden features; 256 only up to hp 128, where two 16-row tiles of
+# accumulators fit a warp's registers), a ring of `taps_stages` slots of A and B, each a
+# K step of `taps_bk` features of one tap (a row of 128 bytes, or 64 where hp allows no
+# 128), beside fc2's weight (up to `taps_cout_max` rows) and the six vectors, which stay
+# in shared memory. f32: the 3xTF32 `wgmma` kernel, three warpgroups a block (two
+# consumers of 64 tokens, one producer), a tile of TAPS_TILE_F32 tokens, a ring of
+# tensor-map copies of TAPS_BK_F32 features (128-byte rows: the tile's A rows, the tap
+# matrix's chunk, and that chunk's TF32 small half), as many slots as fit beside the
+# ring's barriers (at most TAPS_MAX_STAGES_F32); fc2's weight and the vectors are read
+# through L1.
 TAPS_TILES, TAPS_WARPS = (128, 256), 8
+TAPS_TILE_F32, TAPS_BK_F32, TAPS_MAX_STAGES_F32 = 128, 32, 8
 TAPS_SMS = FC1_SMS
-TAPS_BLOCKS_BY_REGS = 1   # blocks of eight warps the registers of an SM hold
+TAPS_BLOCKS_BY_REGS = 1   # blocks of eight warps (bf16) or three warpgroups (f32) an SM's registers hold
 
 
-def taps_tiles(hid: int = HID) -> tuple[int, ...]:
+def _f32(dtype) -> bool:
+    return _size(dtype) == 4
+
+
+def taps_tiles(hid: int = HID, dtype=torch.bfloat16) -> tuple[int, ...]:
+    if _f32(dtype):
+        return (TAPS_TILE_F32,)
     return TAPS_TILES if padded_hid(hid) <= 128 else TAPS_TILES[:1]
 
 
 def taps_bk(hid: int = HID, dtype=torch.bfloat16) -> int:
-    """Features of one tap a K step takes (mlp_dwbn.cuh's kTapsBK)."""
+    """Features of one tap a K step takes (mlp_dwbn.cuh's kTapsBK, hop::kWgBK in f32)."""
+    if _f32(dtype):
+        return TAPS_BK_F32
     return 64 if _size(dtype) == 2 and padded_hid(hid) % 64 == 0 else 32
 
 
@@ -161,28 +178,38 @@ def taps_cout_max(hid: int = HID, dtype=torch.bfloat16) -> int:
 
 def _taps_smem(tile: int, hid: int, dtype, stages: int) -> int:
     hp, size = padded_hid(hid), _size(dtype)
+    if _f32(dtype):   # mlp_dwbn.cuh's twg_smem: 1 KB of alignment, the barriers, the ring
+        return 1024 + 3 * TAPS_MAX_STAGES_F32 * 8 + stages * (tile + 2 * hp) * TAPS_BK_F32 * 4
     return stages * (tile + hp) * (taps_bk(hid, dtype) * size + 16) \
         + taps_cout_max(hid, dtype) * (hp * size + 16) + 6 * hp * 4
 
 
 def taps_stages(tile: int, hid: int = HID, dtype=torch.bfloat16) -> int:
-    """Slots of the ring: four where they fit beside the epilogue's constants, else
-    three (the kernel needs three)."""
+    """Slots of the ring. bf16: four where they fit beside the epilogue's constants,
+    else three (the kernel needs three). f32: as many as fit, at most
+    TAPS_MAX_STAGES_F32 (5 / 4 / 4 / 3 at hp 96 / 128 / 160 / 192)."""
+    if _f32(dtype):
+        fixed = _taps_smem(tile, hid, dtype, 0)
+        return min(TAPS_MAX_STAGES_F32, (SMEM_LIMIT - fixed)
+                   // (_taps_smem(tile, hid, dtype, 1) - fixed))
     return 4 if _taps_smem(tile, hid, dtype, 4) <= SMEM_LIMIT else 3
 
 
 def taps_smem_bytes(tile: int, hid: int = HID, dtype=torch.bfloat16) -> int:
-    """The ring's slots of A (tile rows) and B (hp rows), each row `taps_bk` features
-    and 16 bytes; fc2's weight (`taps_cout_max` rows of hp features and 16 bytes) and
-    six f32 vectors of hp."""
+    """bf16: the ring's slots of A (tile rows) and B (hp rows), each row `taps_bk`
+    features and 16 bytes; fc2's weight (`taps_cout_max` rows of hp features and 16
+    bytes) and six f32 vectors of hp. f32: the ring's slots of A (tile rows) and the
+    tap matrix's chunk twice (hp rows), rows of 128 bytes; the ring's barriers and 1 KB
+    to align the ring."""
     return _taps_smem(tile, hid, dtype, taps_stages(tile, hid, dtype))
 
 
 def taps_blocks_per_sm(tile: int, hid: int = HID, dtype=torch.bfloat16) -> int:
     """Blocks of the taps kernel an SM holds at once, by its shared memory and its
     registers: a block is built to hold more than 128 registers a thread (its launch
-    bounds ask for one block an SM), so the registers hold one block of eight warps.
-    `chip_smoke.py` checks the estimate against the card's count."""
+    bounds ask for one block an SM), so the registers hold one block of eight warps
+    (bf16) or of three warpgroups (f32). `chip_smoke.py` checks the estimate against
+    the card's count."""
     smem = taps_smem_bytes(tile, hid, dtype)
     return max(1, min(SMEM_PER_SM // (smem + 1024), TAPS_BLOCKS_BY_REGS))
 
@@ -190,29 +217,31 @@ def taps_blocks_per_sm(tile: int, hid: int = HID, dtype=torch.bfloat16) -> int:
 @functools.lru_cache(maxsize=256)
 def taps_plan(B: int, H: int, W: int, cout: int, hid: int = HID,
               dtype=torch.bfloat16) -> tuple[int, int]:
-    """(tile, blocks) of the taps kernel for B planes of H x W tokens: tiles of 256
-    tokens (the tap matrices read half as often as with 128) where the width has them,
-    unless that leaves more than half the SMs without a tile; then 128. Blocks: one
-    wave of the blocks the card holds, or one a tile where there are fewer tiles. A
-    function of the shapes only; every plan computes each output by the same
-    instructions in the same order, so all give the same bits."""
+    """(tile, blocks) of the taps kernel for B planes of H x W tokens. bf16: tiles of
+    256 tokens (the tap matrices read half as often as with 128) where the width has
+    them, unless that leaves more than half the SMs without a tile; then 128. f32: the
+    wgmma kernel's one tile. Blocks: one wave of the blocks the card holds, or one a
+    tile where there are fewer tiles. A function of the shapes only; every plan
+    computes each output by the same instructions in the same order, so all give the
+    same bits."""
     _widths(hid, cout=cout, dtype=dtype)
     M = B * H * W
-    big = 256 in taps_tiles(hid) and math.ceil(M / 256) >= TAPS_SMS // 2
-    tile = 256 if big else 128
+    tiles = taps_tiles(hid, dtype)
+    big = 256 in tiles and math.ceil(M / 256) >= TAPS_SMS // 2
+    tile = 256 if big else tiles[0]
     return tile, max(1, min(math.ceil(M / tile),
                             taps_blocks_per_sm(tile, hid, dtype) * TAPS_SMS))
 
 
-def check_taps_plan(plan, hid: int = HID) -> tuple[int, int]:
+def check_taps_plan(plan, hid: int = HID, dtype=torch.bfloat16) -> tuple[int, int]:
     """The plan as (tile, blocks), or ValueError if the kernel does not take it."""
     try:
         tile, blocks = (int(v) for v in plan)
     except (TypeError, ValueError):
         raise ValueError(f"mlp_taps: plan {plan!r} is not (tile, blocks)") from None
-    if tile not in taps_tiles(hid) or blocks < 1:
+    if tile not in taps_tiles(hid, dtype) or blocks < 1:
         raise ValueError(f"mlp_taps: plan {plan!r} is not one the kernel takes (tile in "
-                         f"{taps_tiles(hid)}, blocks >= 1)")
+                         f"{taps_tiles(hid, dtype)}, blocks >= 1)")
     return tile, blocks
 
 
@@ -352,7 +381,7 @@ def mlp_taps(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, *, H, W,
     (hid itself where that is a padded width, as 128)."""
     hid = taps.shape[1]
     if plan is not None:
-        plan = check_taps_plan(plan, hid)
+        plan = check_taps_plan(plan, hid, dtype)
     if not h.is_cuda:
         return mlp_taps_reference(h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3,
                                   H=H, W=W, dtype=dtype)

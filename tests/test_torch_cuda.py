@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import (affinity_plans, bwd_plans, drfl_agreement, drfl_card_vs_cpu,
-                        isa_trap_move, taps_plans, varm_plans)
+                        isa_trap_move, linear_plans, taps_plans, varm_plans)
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -99,10 +99,14 @@ def test_linear_refuses_what_the_kernel_does_not_take(dev):
         tmb.linear(a[:, :48].contiguous(), w[:, :48].contiguous(), b)
     with pytest.raises(ValueError, match="aligned"):
         tmb.linear(torch.empty(8 * 64 + 1, device=dev)[1:].view(8, 64), w, b)
-    with pytest.raises(RuntimeError, match="k1_linear"):      # no such tile
+    with pytest.raises(ValueError, match="plan"):      # no such tile
         tmb.linear(a, w, b, plan=((64, 96), 1))
-    with pytest.raises(RuntimeError, match="k1_linear"):      # no M tile a block
+    with pytest.raises(ValueError, match="plan"):      # no M tile a block
         tmb.linear(a, w, b, plan=((64, 64), 0))
+    with pytest.raises(ValueError, match="plan"):      # the f32 kernel's tile, with bf16
+        tmb.linear(a, w, b, plan=((128, 64), 1))
+    with pytest.raises(ValueError, match="plan"):      # the bf16 kernel's tile, with f32
+        tmb.linear(a, w.float(), b, plan=((64, 128), 1), dtype=torch.float32)
     assert torch.isfinite(tmb.linear(a, w, b)).all()           # and goes on working
 
 
@@ -844,12 +848,13 @@ def test_mlp_taps_blocks_per_sm_matches_the_estimate(dev):
     for hp in TM.HIDDEN_WIDTHS:
         for dtype in (torch.float32, BF16):
             f32 = int(dtype == torch.float32)
-            for tile in TM.taps_tiles(hp):
+            for tile in TM.taps_tiles(hp, dtype):
                 assert lib.k5_taps_blocks_per_sm(hp, f32, tile) == \
                     TM.taps_blocks_per_sm(tile, hp, dtype), (hp, dtype, tile)
             assert lib.k5_taps_blocks_per_sm(hp, f32, 64) == -1
             assert lib.k5_taps_blocks_per_sm(hp, f32, 512) == -1
     assert lib.k5_taps_blocks_per_sm(160, 0, 256) == -1 and lib.k5_taps_blocks_per_sm(64, 0, 128) == -1
+    assert lib.k5_taps_blocks_per_sm(128, 1, 256) == -1   # the f32 kernel has one tile
 
 
 def test_mlp_taps_refuses_what_it_does_not_take(dev):
@@ -887,9 +892,15 @@ def test_fused_mlp_dwbn_refuses_what_it_does_not_take(dev):
 F32_TOL = 1e-4   # 3xTF32 products (f32 to about 2^-21 of each) against f32 products
 
 
-@pytest.mark.parametrize("M,Nout,K,ln,res", [(100, 96, 64, True, False), (257, 640, 2048, True, True),
-                                             (1, 1280, 32, False, True), (8 * 1024, 320, 1280, False, False)])
+@pytest.mark.parametrize("M", [1, 63, 65, 127, 129, 8 * 1024])
+@pytest.mark.parametrize("Nout,K", [(96, 32), (95, 64), (640, 2048), (1280, 64), (320, 1280)])
+@pytest.mark.parametrize("ln,res", [(False, False), (True, False), (False, True), (True, True)])
 def test_linear_f32_every_plan_gives_equal_bits(dev, M, Nout, K, ln, res):
+    """The 3xTF32 wgmma kernel around its 128-row tiles (and one of 8192 rows), Nout that
+    no column tile divides (95: pairs of columns split, scalar stores), K of one K step
+    to 64, LayerNorm and residual on and off: within 1e-4 of max(1, largest) of the plain
+    version in f32, and a rerun and every plan (both tiles; one block, three and the
+    plan's) give equal bits; one launch a call."""
     g = torch.Generator().manual_seed(M + Nout + K)
     a, w = _rand(g, M, K, dev=dev), _rand(g, Nout, K, dev=dev, scale=K ** -0.5)
     kw = dict(bias=_rand(g, Nout, dev=dev), dtype=torch.float32)
@@ -901,10 +912,11 @@ def test_linear_f32_every_plan_gives_equal_bits(dev, M, Nout, K, ln, res):
     tmb.reset_launches()
     got = tmb.linear(a, w, **kw)
     _close(got, tmb.linear_reference(a, w, **kw), F32_TOL)
-    for tile in tmb.LINEAR_TILES:
-        for per in (1, 2):
-            assert torch.equal(got, tmb.linear(a, w, plan=(tile, per), **kw)), (tile, per)
-    assert tmb.LAUNCHES["linear"] == 7
+    assert torch.equal(got, tmb.linear(a, w, **kw))
+    plans = linear_plans(tmb, M, Nout, K, torch.float32)
+    for plan in plans:
+        assert torch.equal(got, tmb.linear(a, w, plan=plan, **kw)), plan
+    assert tmb.LAUNCHES["linear"] == 2 + len(plans)
 
 
 @pytest.mark.parametrize("H,C,sr", [(16, 64, 8), (9, 320, 2), (13, 128, 4)])
@@ -962,7 +974,7 @@ def test_fused_block_f32_matches_plain(dev, hw, C, sr, nh, export):
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
 @pytest.mark.parametrize("dim", [18, 32, 40, 48])
-@pytest.mark.parametrize("B,H,W", [(2, 7, 9), (1, 20, 45), (2, 64, 64), (1, 1, 1)])
+@pytest.mark.parametrize("B,H,W", [(2, 7, 9), (1, 20, 45), (3, 13, 29), (2, 64, 64), (1, 1, 1)])
 def test_k5_at_hrnet_widths(dev, dim, dtype, B, H, W):
     """K5 at HRNetV2's dims (hid = 4 dim, run at `padded_hid`), f32 and bf16: fc1 (its
     padded features 0), taps and the whole block against the plain versions, a rerun and
@@ -991,7 +1003,7 @@ def test_k5_at_hrnet_widths(dev, dim, dtype, B, H, W):
         for plan in [(w, per) for w in (1, 2, 4, 8) for per in (1, 3)
                      if TM.fc1_fits(dim, w, hid, dtype)]:
             assert torch.equal(h, TM.mlp_fc1(x, *f1, dtype=dtype, plan=plan)), plan
-        for tile in TM.taps_tiles(hid):
+        for tile in TM.taps_tiles(hid, dtype):
             for blocks in (1, 3, 132):
                 assert torch.equal(out, TM.mlp_taps(h, *rest, H=H, W=W, dtype=dtype,
                                                     plan=(tile, blocks))), (tile, blocks)

@@ -339,22 +339,35 @@ def test_linear_plan_picks_a_tile_the_kernel_has(M, Nout, K):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linear_and_sr_conv_tiles_fit_shared_memory_with_either_operand_type(dtype):
     """Every tile of `linear` and of `sr_conv` fits the 227 KB a block may ask for with
-    bf16 and with f32 operands (gemm.cu's `linear_smem`, sr_conv.cu's `sr_smem`), an SM
-    (228 KB, 1 KB a block reserved) holds the blocks of each `linear` tile that the
-    plan counts on, and the plans at the headline's and the CAM forwards' geometries
-    cover every token once with tiles that fit (the plans do not depend on the type)."""
-    per_sm = tmb.LINEAR_BLOCKS_PER_SM_F32 if dtype == torch.float32 else tmb.LINEAR_BLOCKS_PER_SM
-    smem = [tmb.linear_smem_bytes(t, dtype) for t in range(len(tmb.LINEAR_TILES))]
-    if dtype == torch.bfloat16:
+    bf16 and with f32 operands (gemm.cu's `linear_smem` and `lwg_smem`, sr_conv.cu's
+    `sr_smem`), an SM (228 KB, 1 KB a block reserved) holds the blocks of each `linear`
+    tile that the plan counts on, and the plans at the headline's and the CAM forwards'
+    geometries cover every token once with tiles that fit: bf16 M tiles in groups of
+    `per`, f32 output tiles walked by at most one persistent block an SM."""
+    f32 = dtype == torch.float32
+    tiles = tmb.linear_tiles(dtype)
+    per_sm = tmb.LINEAR_BLOCKS_PER_SM_F32 if f32 else tmb.LINEAR_BLOCKS_PER_SM
+    smem = [tmb.linear_smem_bytes(t, dtype) for t in range(len(tiles))]
+    if f32:   # the ring of 128-byte rows: 7, 4 and 8 slots of A, weights and their small half
+        assert smem == [230592, 197824, 197824]
+        assert [tmb.linear_stages(t, dtype) for t in (0, 1, 2)] == [7, 4, 8]
+    else:
         assert smem == [55296, 74752, 186368]   # 54, 73, 182 KB, as gemm.cu notes
+    assert len(per_sm) == len(tiles)
     for n, b in zip(per_sm, smem):
         assert b <= tmb.SMEM_LIMIT and n * (b + 1024) <= 228 * 1024
     assert all(tmb.sr_conv_smem_bytes(t, dtype) <= tmb.SMEM_LIMIT for t in (64, 128))
     for M, Nout, K in LINEAR_GEOMETRIES:
-        tile, per = tmb.linear_plan(M, Nout, K)
-        rows, _ = tile
-        groups = -(-(-(-M // rows)) // per)
-        assert groups * per * rows >= M > (groups - 1) * per * rows
+        tile, n = tmb.linear_plan(M, Nout, K, dtype)
+        assert (tile, n) == tmb.linear_plan(M, Nout, K, dtype) and tile in tiles
+        rows, cols = tile
+        if f32:
+            out_tiles = -(-M // rows) * -(-Nout // cols)
+            assert 1 <= n <= min(out_tiles, tmb.LINEAR_SMS)
+            assert n == min(out_tiles, tmb.LINEAR_SMS)   # no block idle, one wave at most
+            continue
+        groups = -(-(-(-M // rows)) // n)
+        assert groups * n * rows >= M > (groups - 1) * n * rows
     for B, hw, C, sr in SR_GEOMETRIES:
         M, K = B * (hw // sr) ** 2, sr * sr * C
         tile, slices = tmb.sr_conv_plan(M, C, K)
@@ -367,9 +380,10 @@ def test_linear_and_sr_conv_tiles_fit_shared_memory_with_either_operand_type(dty
 @pytest.mark.parametrize("per", [1, 3])
 @pytest.mark.parametrize("ln,res", [(True, False), (False, True)])
 def test_linear_with_a_plan_on_cpu_is_the_plain_version(tile, per, ln, res):
-    """On CPU tensors `linear(..., plan=)` runs `linear_reference` whatever the plan,
-    launches nothing, and is held to the JAX kernel's `_ln` and `_mm` (f32 operands:
-    the same math summed in another order, 2e-5, this file's per-block bound)."""
+    """On CPU tensors `linear(..., plan=)` runs `linear_reference` whatever the plan (a bf16
+    tile walking `per` M tiles; for f32 the f32 tile of the same place, `per` persistent
+    blocks), launches nothing, and is held to the JAX kernel's `_ln` and `_mm` (f32
+    operands: the same math summed in another order, 2e-5, this file's per-block bound)."""
     rng = np.random.default_rng(per + 7 * ln)
     M, Nout, K = 37, 96, 64
     a = rng.standard_normal((M, K)).astype(np.float32) * 2 + 0.5
@@ -382,8 +396,9 @@ def test_linear_with_a_plan_on_cpu_is_the_plain_version(tile, per, ln, res):
         kw.update(stats=tmb.ln_stats_reference(at), ln_w=torch.from_numpy(lw),
                   ln_b=torch.from_numpy(lb))
     tmb.reset_launches()
-    for dtype in (torch.bfloat16, torch.float32):
-        got = tmb.linear(at, torch.from_numpy(w), torch.from_numpy(b), plan=(tile, per),
+    f32_tile = tmb.LINEAR_TILES_F32[tmb.LINEAR_TILES.index(tile) % len(tmb.LINEAR_TILES_F32)]
+    for dtype, plan in ((torch.bfloat16, (tile, per)), (torch.float32, (f32_tile, per))):
+        got = tmb.linear(at, torch.from_numpy(w), torch.from_numpy(b), plan=plan,
                          dtype=dtype, **kw)
         assert torch.equal(got, tmb.linear_reference(at, torch.from_numpy(w),
                                                      torch.from_numpy(b), dtype=dtype, **kw))
@@ -492,3 +507,70 @@ def test_dwconv_gelu_with_a_plan_on_cpu_is_the_plain_version(cols, rows):
     for i in range(B):
         np.testing.assert_allclose(got[i].numpy(), _jax_dwconv_gelu(f[i], w, b, H, W),
                                    atol=2e-6, rtol=0)
+
+
+# --------------------------------- linear with f32 operands: the 3xTF32 wgmma kernel
+def _f32_cost(M, Nout, K, tile):
+    """`_linear_plan_f32`'s model of one tile's SM cycles, times the waves of tiles."""
+    bm, bn = tile
+    tiles = -(-M // bm) * -(-Nout // bn)
+    return -(-tiles // tmb.LINEAR_SMS) * (K * max(3 * bm * bn / 1024, (bm + bn) * 4 / 24)
+                                          + bm * bn / 3)
+
+
+@pytest.mark.parametrize("M,Nout,K", LINEAR_GEOMETRIES)
+def test_linear_plan_f32_picks_a_tile_of_the_wgmma_kernel(M, Nout, K):
+    """With f32 operands the plan is (tile, blocks): a tile of LINEAR_TILES_F32, the one
+    its model of SM cycles rates fastest (the wider on a tie), and one persistent block a
+    tile up to one an SM; a function of (M, Nout, K) alone, and the bf16 plan unchanged."""
+    tile, blocks = tmb.linear_plan(M, Nout, K, torch.float32)
+    assert (tile, blocks) == tmb.linear_plan(M, Nout, K, torch.float32)
+    assert tmb.check_linear_plan((tile, blocks), torch.float32) == \
+        (tmb.LINEAR_TILES_F32.index(tile), blocks)
+    costs = [_f32_cost(M, Nout, K, t) for t in tmb.LINEAR_TILES_F32]
+    assert _f32_cost(M, Nout, K, tile) == min(costs)
+    out_tiles = -(-M // tile[0]) * -(-Nout // tile[1])
+    assert blocks == min(out_tiles, tmb.LINEAR_SMS)
+    assert tmb.linear_plan(M, Nout, K) == tmb.linear_plan(M, Nout, K, torch.bfloat16)
+    assert tmb.linear_plan(M, Nout, K)[0] in tmb.LINEAR_TILES
+
+
+@pytest.mark.parametrize("dtype,plan", [
+    (torch.float32, ((64, 128), 1)), (torch.float32, ((128, 256), 1)),
+    (torch.float32, ((128, 64), 0)), (torch.float32, ((128, 64),)),
+    (torch.bfloat16, ((128, 64), 1)), (torch.bfloat16, ((64, 96), 1)),
+    (torch.bfloat16, ((64, 64), 0)), (torch.bfloat16, "ab"), (torch.float32, 7)])
+def test_linear_refuses_a_plan_the_kernel_does_not_take_on_the_cpu_too(dtype, plan):
+    """A tile the kernel of that operand type lacks (the f32 kernel's tiles are not the
+    bf16 kernel's), no block or M tile, and what is no (tile, count) pair raise on CPU
+    tensors as on the card, before anything runs."""
+    a, w, b = torch.zeros(8, 64), torch.zeros(96, 64), torch.zeros(96)
+    with pytest.raises(ValueError, match="plan"):
+        tmb.linear(a, w, b, dtype=dtype, plan=plan)
+    assert tmb.linear(a, w, b, dtype=dtype, plan=tmb.linear_plan(8, 96, 64, dtype)).shape == (8, 96)
+
+
+@pytest.mark.parametrize("M", [1, 63, 65, 127, 129])
+@pytest.mark.parametrize("ln,res", [(False, False), (True, True)])
+def test_linear_reference_f32_matches_jax_at_the_tile_edges(M, ln, res):
+    """The plain `linear` that the card tests hold the f32 kernel to, at the row counts
+    around its 128-row tiles (and the bf16 kernel's 64), Nout that no column tile
+    divides: the JAX kernel's `_ln` and `_mm` in f32 to 2e-5."""
+    rng = np.random.default_rng(M + 2 * ln)
+    K, Nout = 96, 200
+    a = rng.standard_normal((M, K)).astype(np.float32) * 2 + 0.5
+    w = (rng.standard_normal((Nout, K)) * 0.1).astype(np.float32)
+    b, lw, lb = (rng.standard_normal(n).astype(np.float32) for n in (Nout, K, K))
+    r = rng.standard_normal((M, Nout)).astype(np.float32)
+    at = torch.from_numpy(a)
+    kw = dict(residual=torch.from_numpy(r) if res else None)
+    if ln:
+        kw.update(stats=tmb.ln_stats_reference(at), ln_w=torch.from_numpy(lw),
+                  ln_b=torch.from_numpy(lb))
+    got = tmb.linear_reference(at, torch.from_numpy(w), torch.from_numpy(b),
+                               dtype=torch.float32, **kw)
+    x = jmb._ln(jnp.asarray(a), jnp.asarray(lw), jnp.asarray(lb)) if ln else jnp.asarray(a)
+    want = jmb._mm(x, jnp.asarray(w).T, jnp.float32) + jnp.asarray(b)
+    if res:
+        want = want + jnp.asarray(r)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)

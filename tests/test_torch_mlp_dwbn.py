@@ -237,8 +237,9 @@ def test_taps_plan_covers_every_token_once(B, H, W, cout):
 @pytest.mark.parametrize("plan", [None, (128, 1), (128, 5), (256, 2), (256, 132)])
 def test_taps_with_a_plan_on_cpu_is_the_plain_version(plan):
     """On CPU tensors `mlp_taps(..., plan=)` runs `mlp_taps_reference` whatever the plan
-    and launches nothing; after the port's plain fc1 it is the TPU kernel's `_mlp_math`
-    (the JAX reference and the Pallas kernel in interpret mode), f32 operands."""
+    (f32 takes the plan's blocks on its one tile of 128 tokens) and launches nothing;
+    after the port's plain fc1 it is the TPU kernel's `_mlp_math` (the JAX reference and
+    the Pallas kernel in interpret mode), f32 operands."""
     H, W, cin, hid, cout = 13, 15, 16, 128, 16
     x, jp, tp = _setup(H, W, cin, hid, cout, seed=11)
     h = tm.mlp_fc1_reference(torch.from_numpy(x), tp["fc1_weight"].reshape(hid, cin),
@@ -248,8 +249,9 @@ def test_taps_with_a_plan_on_cpu_is_the_plain_version(plan):
             tp["fc2_weight"].reshape(cout, hid), tp["fc2_bias"], tp["bn3_scale"],
             tp["bn3_shift"])
     tm.reset_launches()
-    for dtype in (torch.bfloat16, torch.float32):
-        got = tm.mlp_taps(h, *rest, H=H, W=W, dtype=dtype, plan=plan)
+    f32_plan = None if plan is None else (tm.TAPS_TILE_F32, plan[1])
+    for dtype, pl in ((torch.bfloat16, plan), (torch.float32, f32_plan)):
+        got = tm.mlp_taps(h, *rest, H=H, W=W, dtype=dtype, plan=pl)
         assert torch.equal(got, tm.mlp_taps_reference(h, *rest, H=H, W=W, dtype=dtype))
     assert sum(tm.LAUNCHES.values()) == 0
     want = np.asarray(jm.fused_mlp_dwbn_reference(jnp.asarray(x), jp, H=H, W=W))
@@ -426,3 +428,36 @@ def test_compute_dtype_takes_f32_and_bf16_and_refuses_f16():
         with pytest.raises(NotImplementedError, match=f"{name} takes compute dtype float32 or "
                                                       "bfloat16"):
             check(torch.float16)
+
+
+# ----------------------------------- taps with f32 operands: the 3xTF32 wgmma kernel
+@pytest.mark.parametrize("dim,stages", [(18, 5), (32, 4), (40, 4), (48, 3)])
+def test_taps_f32_ring_fits_the_wgmma_kernel(dim, stages):
+    """With f32 operands the taps run on the wgmma kernel: one tile of 128 tokens, K steps
+    of 32 features (128-byte rows), as many ring slots as 227 KB holds beside the barriers
+    and 1 KB of alignment (mlp_dwbn.cuh's `twg_smem`), at least three (two the consumers
+    hold, one loading), one block an SM; its plan one block a tile up to one an SM."""
+    f32, hid = torch.float32, 4 * dim
+    hp = tm.padded_hid(hid)
+    assert tm.taps_tiles(hid, f32) == (128,) and tm.taps_bk(hid, f32) == 32
+    assert tm.taps_stages(128, hid, f32) == stages >= 3
+    smem = tm.taps_smem_bytes(128, hid, f32)
+    assert smem == 1024 + 3 * 8 * 8 + stages * (128 + 2 * hp) * 128 <= tm.SMEM_LIMIT
+    assert smem + (128 + 2 * hp) * 128 > tm.SMEM_LIMIT or stages == tm.TAPS_MAX_STAGES_F32
+    assert tm.taps_blocks_per_sm(128, hid, f32) == 1
+    for B, H, W in ((8, 128, 128), (3, 13, 29), (1, 1, 1)):
+        tiles = -(-(B * H * W) // 128)
+        assert tm.taps_plan(B, H, W, dim, hid, f32) == (128, min(tiles, tm.TAPS_SMS))
+
+
+@pytest.mark.parametrize("plan", [(256, 1), (256, 132), (64, 1), (128, 0)])
+def test_taps_f32_refuses_a_plan_of_the_bf16_kernel(plan):
+    """The bf16 kernel's 256-token tile, and what neither kernel takes, raise with f32
+    operands on CPU tensors as on the card; 128 runs."""
+    g = torch.Generator().manual_seed(0)
+    args = (torch.randn(1, 12, 128, generator=g), torch.randn(19, 128, 128, generator=g),
+            *(torch.randn(128, generator=g) for _ in range(3)),
+            torch.randn(16, 128, generator=g), *(torch.randn(16, generator=g) for _ in range(3)))
+    with pytest.raises(ValueError, match="plan"):
+        tm.mlp_taps(*args, H=3, W=4, dtype=torch.float32, plan=plan)
+    assert tm.mlp_taps(*args, H=3, W=4, dtype=torch.float32, plan=(128, 1)).shape == (1, 12, 16)

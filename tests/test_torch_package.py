@@ -159,13 +159,15 @@ def test_kernel_build_is_keyed_by_the_sources():
     d = _build._digest("mit_block")
     assert len(d) == 16 and d == _build._digest("mit_block")
     assert {p.name for p in (_build.CSRC / "mit_block").glob("*.cu")} == {
-        "ln_stats.cu", "gemm.cu", "sr_conv.cu", "attention.cu", "dwconv_gelu.cu"}
+        "ln_stats.cu", "gemm.cu", "gemm_f32.cu", "sr_conv.cu", "attention.cu", "dwconv_gelu.cu"}
     assert {p.name for p in (_build.CSRC / "refine").glob("*.cu")} == {
         "affinity.cu", "varm.cu"}
     assert {p.name for p in (_build.CSRC / "attention").glob("*.cu")} == {
         "flash_fwd.cu", "flash_bwd.cu"}
     assert {p.name for p in (_build.CSRC / "rssformer").glob("*.cu")} == {
-        "mlp_dwbn.cu", "mlp_dwbn_f32.cu", "isa_attention.cu"}
+        "mlp_dwbn.cu", "mlp_dwbn_f32.cu", "mlp_dwbn_taps_f32.cu", "isa_attention.cu"}
+    # the Hopper building blocks that mit_block and rssformer include are in their keys
+    assert _build.SHARED_HEADERS == ("hopper",) and (_build.CSRC / "hopper" / "wgmma.cuh").exists()
     assert len({d, _build._digest("refine"), _build._digest("attention"),
                 _build._digest("rssformer")}) == 4
     assert set(_build.SIGNATURES["rssformer"]) == {"k5_mlp_fc1", "k5_fc1_blocks_per_sm",
