@@ -660,6 +660,12 @@ RSS_TOL, RSS_SHARE = 3e-2, 0.99
 F32_PIECE_TOL = {**PIECE_TOL, "linear": 1e-4, "sr_conv": 1e-4, "attention": 1e-4,
                  "logits": LOGIT_TOL}
 TSCD_F32_TOL = 2e-4
+# Phase 7l's edges of the f32 attention: key counts around its key tile of 64 and the
+# bf16 one-pass bound, the WSSS command lines' 25 / 100 / 225 and 400 / 900 (no multiple of
+# the tile; 25 and 225 no multiple of 4: the export's unaligned rows), 1024; query counts
+# around a warpgroup's 64 and a block's 128
+K1_F32_ATTN_KEYS = (1, 7, 8, 25, 63, 64, 65, 100, 225, 255, 256, 257, 400, 900, 1024)
+K1_F32_ATTN_QUERIES = (1, 63, 64, 65, 127, 129)
 HRNET_F32_TOL = 1e-3
 
 
@@ -817,6 +823,15 @@ def linear_plans(tmb, M: int, Nout: int, K: int, dtype) -> list:
         n = tmb.linear_plan(M, Nout, K, dtype)[1]
         return [(tile, b) for tile in tmb.linear_tiles(dtype) for b in sorted({1, 3, n})]
     return [(tile, per) for tile in tmb.LINEAR_TILES for per in (1, 2)]
+
+
+def attention_plans(tmb, B: int, N: int, Nk: int, C: int, nh: int) -> list[tuple[int, int]]:
+    """Every plan of the attention kernel with f32 operands: 64 and 128 queries a block,
+    with one persistent block, three, and the plan's count."""
+    import torch
+
+    n = tmb.attention_plan(B, N, Nk, C, nh, torch.float32)[1]
+    return [(q, b) for q in tmb.ATTN_WG_QUERIES for b in sorted({1, 3, n})]
 
 
 def varm_plans(tv, B: int, C: int, H: int, W: int, dilations) -> list[tuple[int, int, int]]:
@@ -5599,7 +5614,7 @@ class Phases:
         tmb, tm, ti = mods[0], mods[4], mods[5]
         t_phase = time.perf_counter()
         log(f"== f32 and K5 widths (phase 7l): K1 linear / sr_conv / attention with f32 operands "
-            f"(3xTF32: linear on wgmma, sr_conv and attention on mma.sync), K5 at hid 72 / 128 / "
+            f"(3xTF32: linear and attention on wgmma, sr_conv on mma.sync), K5 at hid 72 / 128 / "
             f"160 / 192 in f32 and bf16 (taps on 3xTF32 wgmma); {card}")
         gen = torch.Generator().manual_seed(self.seed + 31)
         self.f32 = {k: {"ms": 0.0, "bound": [0.0, 0.0], "lib": 0.0, "err": 0.0}
@@ -5607,12 +5622,13 @@ class Phases:
         self.f32_same = True
         log(f"  K1 at the headline's four stage geometries (B = {BATCH}, {IMAGE}², f32 tokens "
             f"and operands), each piece against its plain version, a rerun and every plan of "
-            f"`linear` for equal bits, timed by graph replay with its f32 library call")
+            f"`linear` and `attention` for equal bits, timed by graph replay with its f32 "
+            f"library call")
         for stage in STAGES:
             self._k1_f32_block(tmb, gen, BATCH, *stage)
         self._k1_f32_edges(tmb, gen)
-        self.check(self.f32_same, "K1 with f32 operands: a rerun, and every `linear` plan, give "
-                                  "equal bits at every geometry of the phase")
+        self.check(self.f32_same, "K1 with f32 operands: a rerun, and every `linear` and `attention` "
+                                  "plan, give equal bits at every geometry of the phase")
         for k in PIECE_TOL:
             e = self.f32[k]
             ratio = e["ms"] / self.piece_ms[k] if self.piece_ms.get(k) else float("nan")
@@ -5646,6 +5662,10 @@ class Phases:
                 if name == "linear":
                     M, (Nout, K) = a[0].numel() // a[0].shape[-1], a[1].shape
                     runs += [fn(*a, plan=pl, **kw) for pl in linear_plans(tmb, M, Nout, K, f32)]
+                if name == "attention":
+                    (B_, N_, C_), Nk_ = a[0].shape, a[1].shape[1]
+                    runs += [fn(*a, plan=pl, **kw)
+                             for pl in attention_plans(tmb, B_, N_, Nk_, C_, kw["nh"])]
                 want = getattr(tmb, name + "_reference")(*a, **kw)
                 torch.cuda.synchronize()
                 got_t = got if isinstance(got, tuple) else (got,)
@@ -5688,14 +5708,16 @@ class Phases:
                         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
 
     def _wgmma_sass(self) -> None:
-        """The SASS of the f32 `linear` and `taps` instantiations (`cuobjdump -sass` on the
-        built libraries): their main products are TF32 `HGMMA`s, and `linear` holds no
-        `HMMA` (the taps' `HMMA` are fc2's 3xTF32 `mma.sync`, 1 / 20 of its products)."""
+        """The SASS of the f32 `linear`, `attention` and `taps` instantiations (`cuobjdump
+        -sass` on the built libraries): their main products are TF32 `HGMMA`s, and `linear`
+        and `attention` hold no `HMMA` (the taps' `HMMA` are fc2's 3xTF32 `mma.sync`, 1 / 20
+        of its products)."""
         from representationlearning_tpu_torch.ops import _build
 
         tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
         counts = {}
-        for lib, kernel in (("mit_block", "linear_wg_kernel"), ("rssformer", "taps_wg_kernel")):
+        for lib, kernel in (("mit_block", "linear_wg_kernel"), ("mit_block", "attention_wg_kernel"),
+                            ("rssformer", "taps_wg_kernel")):
             sass = run_cmd([tool, "-sass", _build.build_log[lib]["path"]])
             name = None
             for line in sass.splitlines():
@@ -5708,21 +5730,29 @@ class Phases:
                     c[1] += bool(re.search(r"\bHMMA\b", line))
         from representationlearning_tpu_torch.ops import mit_block as tmb
 
-        for kernel, n in (("linear_wg_kernel", 2 * len(tmb.LINEAR_TILES_F32)),   # with and without LN
-                          ("taps_wg_kernel", 4)):                                 # hid 96 to 192
+        # (instantiations, least TF32 HGMMA each): linear with and without LN, 12 a K step
+        # (3 products x 4 k slices); attention at head width 32 and 64 with one and two
+        # consumer warpgroups, 36 a key tile at least (q k^T: 3 x hd / 8, p v: 3 x 8); taps
+        # at hid 96 to 192
+        for kernel, n, least in (("linear_wg_kernel", 2 * len(tmb.LINEAR_TILES_F32), 12),
+                                 ("attention_wg_kernel", 2 * len(tmb.ATTN_WG_QUERIES), 36),
+                                 ("taps_wg_kernel", 4, 12)):
             got = [v for (k, _), v in counts.items() if k == kernel]
+            no_hmma = kernel != "taps_wg_kernel"
             log(f"  SASS of {kernel}'s {len(got)} instantiations: TF32 HGMMA "
                 f"{[h for h, _ in got]}, HMMA {[m for _, m in got]}")
-            self.check(len(got) == n and all(h >= 12 for h, _ in got)
-                       and (kernel != "linear_wg_kernel" or all(m == 0 for _, m in got)),
-                       f"{kernel}: the f32 products run on TF32 HGMMA (12 a K step: 3 products x "
-                       f"4 k slices){', no HMMA' if kernel == 'linear_wg_kernel' else ''}")
+            self.check(len(got) == n and all(h >= least for h, _ in got)
+                       and (not no_hmma or all(m == 0 for _, m in got)),
+                       f"{kernel}: the f32 products run on TF32 HGMMA (at least {least} an "
+                       f"instantiation){', no HMMA' if no_hmma else ''}")
 
     def _k1_f32_edges(self, tmb, gen) -> None:
         """K1's three product kernels with f32 operands at PR 7's edges of `linear` (M of
         one row and of a tile less or more one, Nout 96 / 640 / 1280, K 32 / 64 / 2048,
         LayerNorm and residual on and off, every plan), `sr_conv` at every number of K
-        slices and both tiles, `attention` at the one-pass bound and one either side."""
+        slices and both tiles, `attention` (its `wgmma` kernel) at K1_F32_ATTN_KEYS x
+        K1_F32_ATTN_QUERIES, head widths 32 and 64, with and without export, every plan;
+        its shared memory as the kernel and the plan count it."""
         torch = self.torch
         f32 = torch.float32
 
@@ -5779,22 +5809,37 @@ class Phases:
             self.check(worst <= 1.0, f"sr_conv f32 with K cut into {tried[0]} slices (K = 4096) "
                                      f"and {tried[1]} (K = 1280), tiles 64 and 128: largest error "
                                      f"{worst:.3f} of its tolerance")
-            worst, bound = 0.0, tmb.ATTN_ONE_PASS_KEYS
-            for Nk in (bound - 1, bound, bound + 1):
-                for (C, nh), N in ((64, 2), 9), ((64, 1), 36), ((128, 2), 36), ((32, 1), 9):
-                    q, kv = rand(2, N, C), rand(2, Nk, 2 * C)
-                    for export in (False, True):
-                        got = tmb.attention(q, kv, nh=nh, dtype=f32, export=export)
-                        again = tmb.attention(q, kv, nh=nh, dtype=f32, export=export)
-                        torch.cuda.synchronize()
-                        want = tmb.attention_reference(q, kv, nh=nh, dtype=f32, export=export)
-                        for i in (0, 1):
-                            if got[i] is not None:
-                                worst = max(worst, held("attention", got[i], want[i], i))
-                                self.f32_same &= torch.equal(got[i], again[i])
-            self.check(worst <= 1.0, f"attention f32 at Nk = {bound - 1}, {bound}, {bound + 1}, "
-                                     f"head widths 32 and 64, N = 9 and 36, with and without "
-                                     f"export: largest error {worst:.3f} of its tolerance")
+            from representationlearning_tpu_torch.ops import _build
+
+            lib = _build.load_library("mit_block")
+            smem = {(hd, q): (lib.k1_attention_wg_smem(hd, q),
+                              tmb.attention_smem_bytes((q, 1), hd, f32))
+                    for hd in (32, 64) for q in tmb.ATTN_WG_QUERIES}
+            self.check(all(a == b <= tmb.SMEM_LIMIT for a, b in smem.values()),
+                       f"attention f32: the kernel's shared memory at head widths 32 and 64, "
+                       f"64 and 128 queries a block {smem} (bytes: kernel, plan), within "
+                       f"{tmb.SMEM_LIMIT}")
+            worst, n = 0.0, 0
+            for Nk in K1_F32_ATTN_KEYS:
+                for N in K1_F32_ATTN_QUERIES:
+                    for C, nh in ((64, 1), (64, 2), (128, 2)):   # head widths 64, 32, 64
+                        q, kv = rand(2, N, C), rand(2, Nk, 2 * C)
+                        for export in (False, True):
+                            got = tmb.attention(q, kv, nh=nh, dtype=f32, export=export)
+                            runs = [tmb.attention(q, kv, nh=nh, dtype=f32, export=export)]
+                            runs += [tmb.attention(q, kv, nh=nh, dtype=f32, export=export, plan=pl)
+                                     for pl in attention_plans(tmb, 2, N, Nk, C, nh)]
+                            torch.cuda.synchronize()
+                            want = tmb.attention_reference(q, kv, nh=nh, dtype=f32, export=export)
+                            for i in (0, 1):
+                                if got[i] is not None:
+                                    worst = max(worst, held("attention", got[i], want[i], i))
+                                    self.f32_same &= all(torch.equal(got[i], r[i]) for r in runs)
+                            n += 1
+            self.check(worst <= 1.0, f"attention f32 (wgmma) at Nk = {K1_F32_ATTN_KEYS}, N = "
+                                     f"{K1_F32_ATTN_QUERIES}, head widths 32 and 64, with and "
+                                     f"without export ({n} cases, every plan): largest error "
+                                     f"{worst:.3f} of its tolerance")
 
     def _tscd_f32(self, tmb) -> None:
         """TSCD(dtype=f32, fused_blocks=True) at the headline's 8 x 512² against its plain

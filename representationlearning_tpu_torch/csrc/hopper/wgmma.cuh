@@ -17,6 +17,8 @@
 //     stage has landed, small into the stage's second B buffer (a launch-free place:
 //     the weights change between calls, and the wrapper would need a launch of its
 //     own to split them).
+// K1's f32 `attention` (csrc/mit_block/attention_f32.cu) takes the same blocks, with 3-d
+// tensor maps (one box a head), TMA stores, a named barrier and the n32 product.
 // Nothing here depends on the kernel that includes it; it uses no PyTorch header.
 #pragma once
 
@@ -74,23 +76,63 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// the same for a 3-d tensor map: inner corner x, then y, then z
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
+// A box of shared memory (1024-byte aligned, laid out as a load of the same map lays it)
+// to a 3-d tensor map at corner (x, y, z); elements outside the tensor are not written.
+// The copy reads the box after this thread's call returns: the writing threads fence
+// (`fence_proxy_async`) and meet at a barrier before it, and the box is written again
+// only after `bulk_wait_read`.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int x, int y,
+                                             int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];" ::"l"(
+          reinterpret_cast<unsigned long long>(map)),
+      "r"(x), "r"(y), "r"(z), "r"(smem_u32(src))
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// this thread's stores committed before have read their shared memory (all but N groups)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// ... and have completed
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// a named barrier: `threads` threads (a multiple of 32) meet at barrier `id` (1-15; 0 is
+// __syncthreads')
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // brings a tensor map (a kernel parameter) into the copy engine's cache ahead of its first use
 __device__ __forceinline__ void tensormap_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<unsigned long long>(map))
                : "memory");
 }
 
-// A tensor map of an f32 matrix of `rows` x `cols` (row-major, rows 16-byte aligned),
-// read in boxes of `box_rows` x kWgBK with the 128-byte swizzle that the wgmma
-// descriptors below name; encoded by `cuTensorMapEncodeTiled` (libcuda), fetched
-// once through the runtime's entry-point query (the library links the runtime only)
-inline cudaError_t wg_tensor_map(CUtensorMap* map, const float* base, long long rows,
-                                 long long cols, int box_rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+// `cuTensorMapEncodeTiled` (libcuda), fetched once through the runtime's entry-point query
+// (the library links the runtime only); null where the driver lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+inline cudaError_t encode_tiled(EncodeTiled* fn) {
+  static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     cudaDriverEntryPointQueryResult found;
     const cudaError_t err = cudaGetDriverEntryPoint(
@@ -100,11 +142,43 @@ inline cudaError_t wg_tensor_map(CUtensorMap* map, const float* base, long long 
       return err != cudaSuccess ? err : cudaErrorNotSupported;
     }
   }
+  *fn = encode;
+  return cudaSuccess;
+}
+
+// A tensor map of an f32 matrix of `rows` x `cols` (row-major, rows 16-byte aligned),
+// read in boxes of `box_rows` x kWgBK with the 128-byte swizzle that the wgmma
+// descriptors below name
+inline cudaError_t wg_tensor_map(CUtensorMap* map, const float* base, long long rows,
+                                 long long cols, int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
   const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+                            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map of an f32 array of d2 x d1 x d0 elements (d0 innermost; the pitches of d1 and
+// d2 in bytes, multiples of 16), in boxes of 1 x `box1` x kWgBK with the 128-byte swizzle;
+// elements outside the array are read as zeros and not written
+inline cudaError_t wg_tensor_map_3d(CUtensorMap* map, const float* base, long long d0,
+                                    long long d1, long long d2, long long pitch1,
+                                    long long pitch2, int box1) {
+  EncodeTiled encode;
+  const cudaError_t err = encode_tiled(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)pitch1, (cuuint64_t)pitch2};
+  const cuuint32_t box[3] = {(cuuint32_t)kWgBK, (cuuint32_t)box1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(base),
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -187,6 +261,21 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 // accumulators.
 template <int N>
 struct Tf32Rs;
+
+template <>
+struct Tf32Rs<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
 
 template <>
 struct Tf32Rs<64> {

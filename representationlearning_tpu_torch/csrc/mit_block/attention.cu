@@ -1,21 +1,25 @@
 // K1 part 3: spatial-reduction attention, softmax(q k^T * hd^-1/2) v per head,
-// with the optional export of the raw pre-scale logits. The operand type T of the
-// two products is a template parameter: bf16, or float as 3xTF32 (`mma_slice` in
-// common.cuh); what follows says bf16, and the f32 form differs where it says so.
+// with the optional export of the raw pre-scale logits, selected at compile time by the
+// operand type of the two products: bf16 (the TPU kernel's bf16 path) runs the two
+// kernels below, on `mma.sync`; float (its f32 default) runs `attention_wg_kernel`
+// (attention_f32.cu, a source of its own so that nvcc builds it side by side): 3xTF32
+// `wgmma` fed by tensor-map copies, ONE pass over the keys at every Nk with an online
+// softmax, which f32 may do and bf16 may not (see below and attention_f32.cu).
 //
 // Replaces: the per-head attention loop of the TPU kernel
 //   representationlearning_tpu/ops/pallas/mit_block.py:146-163 (reached from
 //   `fused_block_pallas` :259 -> `_kernel` :216 -> `_block_math` :62), including
 //   the `export=True` logits output (:150-151, :185-186) and the Nk == 0 case
 //   (:152-157).
-// What bounds it on the H100: bytes. Without export q is read and the output
+// What bounds it on the H100: bytes (bf16). Without export q is read and the output
 //   written once (67 MB at stage 1 of the 512 x 512 forward, 8.6 GFLOP beside
 //   it); with export (stage 4: 8 x 8 x 1024 x 1024 f32, 268 MB a launch) the
 //   write of the logits to device memory is nearly all of it. What a block
 //   really waits for, though, is its own chain of load, product, softmax and
 //   product, so the design keeps that chain in registers and the loads off it.
-// What the design does about it:
-//   * A pre-pass (`kv_to_bf16_kernel`) rounds k and v to bf16 once, head by
+//   With f32 operands the three TF32 products of each f32 product bound it.
+// What the design does about it (bf16; float's design is noted at `attention_wg_kernel`):
+//   * A pre-pass (`kv_to_heads_kernel`) rounds k and v to bf16 once, head by
 //     head, into a workspace of the wrapper, [(b, head), k | v, key, d]. Every
 //     later load of a key or value is a 16-byte `cp.async` straight into shared
 //     memory: no conversion in a block's loop, half the bytes.
@@ -54,12 +58,6 @@
 //     neighbouring lanes for 16-byte stores. All with a streaming hint
 //     (`__stcs`: 268 MB pass the 50 MB L2 and are not read back here). Nk that
 //     is no multiple of 4 falls back to scalar streaming stores.
-//   * In f32 the pre-pass copies k and v head by head unrounded; q k^T reads its
-//     K fragments by the same `ldmatrix` addresses in bytes (a k slice is 8 f32);
-//     q's fragments are f32 elements (d t, d t + 4) of each slice of 8; p v takes
-//     one score tile of 8 keys a k slice, its accumulators as they stand, keys in
-//     the order (2t, 2t + 1) -> (t, t + 4), and V's fragments from shared memory in
-//     the same order. K, V and the rings take twice the bytes (139 KB for 256 keys).
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -74,10 +72,11 @@ constexpr int kOnePassKeys = 256;  // the one-pass form holds at most this many 
 constexpr int kKT = 64;            // keys a tile of the streaming form
 constexpr int kRing = 3;           // stages of its ring
 
-// kv (B, Nk, 2C) f32 -> ws [(b * nh + h) * 2 + i2][Nk][hd] T, eight features a thread
+// kv (B, Nk, 2C) f32 -> ws [(b * nh + h) * 2 + i2][Nk][hd] bf16, eight features a thread
 template <typename T>
 __global__ void kv_to_heads_kernel(const float* __restrict__ kv, T* __restrict__ ws,
                                    size_t total8, int Nk, int C, int nh, int hd) {
+  static_assert(sizeof(T) == 2, "bf16 operands: f32 runs attention_wg_kernel");
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total8) return;
   const int per_row = 2 * C / 8;
@@ -88,17 +87,12 @@ __global__ void kv_to_heads_kernel(const float* __restrict__ kv, T* __restrict__
   const float4* src = reinterpret_cast<const float4*>(kv + row * 2 * C + f);
   const float4 lo = src[0], hi = src[1];
   T* dst = ws + (((b * nh + h) * 2 + i2) * Nk + key) * hd + d;
-  if constexpr (sizeof(T) == 4) {
-    reinterpret_cast<float4*>(dst)[0] = lo;
-    reinterpret_cast<float4*>(dst)[1] = hi;
-  } else {
-    uint4 o;
-    o.x = pack_bf16(lo.x, lo.y);
-    o.y = pack_bf16(lo.z, lo.w);
-    o.z = pack_bf16(hi.x, hi.y);
-    o.w = pack_bf16(hi.z, hi.w);
-    *reinterpret_cast<uint4*>(dst) = o;
-  }
+  uint4 o;
+  o.x = pack_bf16(lo.x, lo.y);
+  o.y = pack_bf16(lo.z, lo.w);
+  o.z = pack_bf16(hi.x, hi.y);
+  o.w = pack_bf16(hi.z, hi.w);
+  *reinterpret_cast<uint4*>(dst) = o;
 }
 
 // the padding of a row of K or V in shared memory: 16 bytes, in elements
@@ -122,7 +116,7 @@ __device__ __forceinline__ void load_rows(T* dst, const T* src, int first, int r
 }
 
 // the A fragments of this lane's two query rows (row0 = tile row g, row0 + 8), a k
-// slice each: bf16 pairs (d 2t, 2t + 1 | 2t + 8, 2t + 9) of 16, or f32 (d t | t + 4) of 8
+// slice each: bf16 pairs (d 2t, 2t + 1 | 2t + 8, 2t + 9) of 16
 template <int HD, typename T>
 __device__ __forceinline__ void load_q(uint32_t (&qa)[kDSlices<HD, T>][4], const float* qb,
                                        int C, int row0, int N, int t) {
@@ -131,15 +125,10 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[kDSlices<HD, T>][4], const
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + (i & 1) * 8;
-      if constexpr (sizeof(T) == 4) {
-        const int c = kk * 8 + t + (i >> 1) * 4;
-        qa[kk][i] = r < N ? __float_as_uint(qb[(size_t)r * C + c]) : 0u;
-      } else {
-        const int c = kk * 16 + 2 * t + (i >> 1) * 8;
-        float2 v = make_float2(0.f, 0.f);
-        if (r < N) v = *reinterpret_cast<const float2*>(qb + (size_t)r * C + c);
-        qa[kk][i] = pack_bf16(v.x, v.y);
-      }
+      const int c = kk * 16 + 2 * t + (i >> 1) * 8;
+      float2 v = make_float2(0.f, 0.f);
+      if (r < N) v = *reinterpret_cast<const float2*>(qb + (size_t)r * C + c);
+      qa[kk][i] = pack_bf16(v.x, v.y);
     }
   }
 }
@@ -169,7 +158,7 @@ __device__ __forceinline__ void qk_tiles(float (*s)[4], const uint32_t (&qa)[kDS
       mma_slice<T>(s[u], qa[k], kb[u][k / 2][2 * (k & 1)], kb[u][k / 2][2 * (k & 1) + 1]);
 }
 
-// bf16: o += p (16 queries x 16 keys, packed in pa) . V(16 keys starting at row `vrow`)
+// o += p (16 queries x 16 keys, packed in pa) . V(16 keys starting at row `vrow`)
 template <int HD>
 __device__ __forceinline__ void pv_step(float (&o)[HD / 8][4], const uint32_t (&pa)[4],
                                         const bf16* vrow, int lane) {
@@ -180,23 +169,6 @@ __device__ __forceinline__ void pv_step(float (&o)[HD / 8][4], const uint32_t (&
     mma_bf16(o[2 * n2], pa, vb[0], vb[1]);
     mma_bf16(o[2 * n2 + 1], pa, vb[2], vb[3]);
   }
-}
-
-// f32: o += p . V over the 8 keys of one score tile, p its accumulators c times the
-// rows' scales (l0 for row g, l1 for row g + 8). The lane holds keys 2t and 2t + 1; as
-// TF32 k indices t and t + 4 they are a0 = c0, a1 = c2, a2 = c1, a3 = c3, and V's
-// fragments follow: b0 = V[key 2t][d g], b1 = V[key 2t + 1][d g].
-template <int HD>
-__device__ __forceinline__ void pv_tile_f32(float (&o)[HD / 8][4], const float (&c)[4],
-                                            float l0, float l1, const float* vrow, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const uint32_t pa[4] = {__float_as_uint(__fmul_rn(c[0], l0)), __float_as_uint(__fmul_rn(c[2], l1)),
-                          __float_as_uint(__fmul_rn(c[1], l0)), __float_as_uint(__fmul_rn(c[3], l1))};
-  const float* v0 = vrow + (2 * t) * (HD + kPad<float>) + g;
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n)
-    mma_slice<float>(o[n], pa, __float_as_uint(v0[8 * n]),
-                     __float_as_uint(v0[HD + kPad<float> + 8 * n]));
 }
 
 // exp(v - m) as 2^((v - m) log2 e): a subtraction, a multiplication and one
@@ -259,6 +231,7 @@ __global__ void __launch_bounds__(kAttnThreads)
 attention_onepass_kernel(const float* __restrict__ q, const T* __restrict__ kvb,
                          float* __restrict__ out, float* __restrict__ logits, int N, int Nk,
                          int C, int nh, float scale) {
+  static_assert(sizeof(T) == 2, "bf16 operands: f32 runs attention_wg_kernel");
   constexpr int kP = HD + kPad<T>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
@@ -339,13 +312,8 @@ attention_onepass_kernel(const float* __restrict__ q, const T* __restrict__ kvb,
     float o[HD / 8][4];
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-    if constexpr (sizeof(T) == 4) {  // normalised in f32, one tile of 8 keys a k slice
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
-        if (j * 8 < nk16) pv_tile_f32<HD>(o, s[j], l0, l1, Vs + j * 8 * kP, lane);
-    }
-#pragma unroll
-    for (int kk = 0; kk < (sizeof(T) == 2 ? NT / 2 : 0); ++kk) {
+    for (int kk = 0; kk < NT / 2; ++kk) {
       if (kk * 16 < nk16) {
         // normalised in f32, then rounded: the accumulator tiles 2kk and 2kk + 1
         // are the A fragment of this step of 16 keys
@@ -410,6 +378,7 @@ __global__ void __launch_bounds__(kStreamThreads)
 attention_stream_kernel(const float* __restrict__ q, const T* __restrict__ kvb,
                         float* __restrict__ out, float* __restrict__ logits, int N, int Nk,
                         int C, int nh, float scale) {
+  static_assert(sizeof(T) == 2, "bf16 operands: f32 runs attention_wg_kernel");
   constexpr int kP = HD + kPad<T>;
   constexpr int kTile = kKT * kP;  // elements of one K or V tile
   extern __shared__ __align__(128) unsigned char smem[];
@@ -548,8 +517,7 @@ attention_stream_kernel(const float* __restrict__ q, const T* __restrict__ kvb,
   cp_async_wait<0>();
   __syncthreads();  // the ring is free again
 
-  // pass 2: q k^T again, p = exp(s - max) * (1 / sum) in f32, rounded to bf16 (bf16
-  // only), o += p v
+  // pass 2: q k^T again, p = exp(s - max) * (1 / sum) in f32, rounded to bf16, o += p v
   fetch(0, true);
   fetch(1, true);
   float o[kMT][HD / 8][4];
@@ -580,14 +548,6 @@ attention_stream_kernel(const float* __restrict__ q, const T* __restrict__ kvb,
       }
     }
     const T* Vs = vring + (tile % kRing) * kTile;
-    if constexpr (sizeof(T) == 4) {
-#pragma unroll
-      for (int j = 0; j < kKT / 8; ++j)
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt)
-          pv_tile_f32<HD>(o[mt], s[mt][j], 1.0f, 1.0f, Vs + j * 8 * kP, lane);
-      continue;
-    }
     uint32_t pa[kMT][kKT / 16][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
@@ -731,16 +691,21 @@ int launch_attention(const float* q, const float* kv, void* kvb, float* out, flo
   return launch_onepass<HD, 32, T>(a);
 }
 
-template <typename T>
-int attention_of(const void* q, const void* kv, void* kvb, void* out, void* logits, int B,
-                 int N, int Nk, int C, int nh, float scale, cudaStream_t st) {
+// the f32 operand path, `attention_wg_kernel` (attention_f32.cu, built beside this file)
+int attention_f32(const float* q, const float* kv, float* ws, float* out, float* logits, int B,
+                  int N, int Nk, int C, int nh, float scale, int queries, int blocks,
+                  cudaStream_t st);
+int attention_f32_smem(int hd, int queries);
+
+int attention_bf16(const void* q, const void* kv, void* kvb, void* out, void* logits, int B,
+                   int N, int Nk, int C, int nh, float scale, cudaStream_t st) {
   const int hd = C / nh;
   if (hd == 64)
-    return launch_attention<64, T>((const float*)q, (const float*)kv, kvb, (float*)out,
-                                   (float*)logits, B, N, Nk, C, nh, scale, st);
+    return launch_attention<64, bf16>((const float*)q, (const float*)kv, kvb, (float*)out,
+                                      (float*)logits, B, N, Nk, C, nh, scale, st);
   if (hd == 32)
-    return launch_attention<32, T>((const float*)q, (const float*)kv, kvb, (float*)out,
-                                   (float*)logits, B, N, Nk, C, nh, scale, st);
+    return launch_attention<32, bf16>((const float*)q, (const float*)kv, kvb, (float*)out,
+                                      (float*)logits, B, N, Nk, C, nh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -748,17 +713,27 @@ int attention_of(const void* q, const void* kv, void* kvb, void* out, void* logi
 
 // out (B, N, C) = per-head softmax(q k^T * scale) v; q (B, N, C), kv (B, Nk, 2C),
 // all f32. logits (B, nh, N, Nk) f32 receives the raw q k^T when not null. kvb is
-// a workspace of B * Nk * 2C elements of the operand type, bf16, or f32 where `f32`
-// is set. C / nh must be 32 or 64, Nk at least 1 (with no key the output is zero by
-// definition and the wrapper launches nothing). Up to k1_attention_one_pass_keys()
-// keys take the one-pass form, more the streaming form.
+// a workspace of the wrapper: bf16, B * Nk * 2C elements; f32 (`f32` set), B * C * (Nk +
+// Nkp) elements, Nkp = Nk rounded up to 64 (K and V^T head by head).
+// C / nh must be 32 or 64, Nk at least 1 (with no key the output is zero by
+// definition and the wrapper launches nothing). bf16: up to
+// k1_attention_one_pass_keys() keys take the one-pass form, more the streaming form;
+// `queries` and `blocks` are not read. f32: the plan, `queries` a block (64 or 128: one
+// or two consumer warpgroups) and `blocks` persistent blocks; q 16-byte aligned.
 extern "C" int k1_attention(const void* q, const void* kv, void* kvb, void* out, void* logits,
                             int B, int N, int Nk, int C, int nh, float scale, int f32,
-                            void* stream) {
+                            int queries, int blocks, void* stream) {
   if (B < 1 || N < 1 || Nk < 1 || nh < 1 || C % nh) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return f32 ? k1::attention_of<float>(q, kv, kvb, out, logits, B, N, Nk, C, nh, scale, st)
-             : k1::attention_of<k1::bf16>(q, kv, kvb, out, logits, B, N, Nk, C, nh, scale, st);
+  return f32 ? k1::attention_f32((const float*)q, (const float*)kv, (float*)kvb, (float*)out,
+                                 (float*)logits, B, N, Nk, C, nh, scale, queries, blocks, st)
+             : k1::attention_bf16(q, kv, kvb, out, logits, B, N, Nk, C, nh, scale, st);
 }
 
 extern "C" int k1_attention_one_pass_keys() { return k1::kOnePassKeys; }
+
+// Bytes of dynamic shared memory of the f32 kernel at head width `hd` with `queries` a
+// block; -1 for a geometry it lacks.
+extern "C" int k1_attention_wg_smem(int hd, int queries) {
+  return k1::attention_f32_smem(hd, queries);
+}

@@ -40,9 +40,10 @@ SIGNATURES = {
         # x, stats, ln_w, ln_b, w, bias, workspace, out, B, H, W, C, sr, tile, slices, f32,
         # stream
         "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-        # q, kv, workspace, out, logits, B, N, Nk, C, nh, scale, f32, stream
-        "k1_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
+        # q, kv, workspace, out, logits, B, N, Nk, C, nh, scale, f32, queries, blocks, stream
+        "k1_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
         "k1_attention_one_pass_keys": (),
+        "k1_attention_wg_smem": (_I, _I),   # head width, queries a block
         # f, w, bias, out, B, H, W, hid, columns a thread, rows a thread, stream
         "k1_dwconv_gelu": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "k1_gelu_as_mismatches": (),   # a check of the tests: returns a count

@@ -15,7 +15,10 @@ block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
     sr_conv       the stride-sr sr x sr conv as an implicit-im2col GEMM (sr > 1),
                   split along K by `sr_conv_plan`, the slices added in order
     attention     per-head softmax(q k^T * scale) v, optional raw-logit export;
-                  one pass over the keys up to ATTN_ONE_PASS_KEYS, two beyond
+                  bf16: one pass over the keys up to ATTN_ONE_PASS_KEYS, two
+                  beyond; f32: one pass with an online softmax at every Nk, the
+                  queries a block and the persistent blocks chosen by
+                  `attention_plan`
     dwconv_gelu   3x3 depthwise conv + bias + exact (A&S erf) GELU, a thread
                   walking a run of rows over 4 channels x a run of columns
                   chosen by `dwconv_plan`
@@ -24,9 +27,13 @@ Intermediates between kernels stay f32; matmul operands are rounded to the
 compute dtype (bf16, or f32 as the TPU kernel's default) and accumulate in f32,
 LayerNorm, softmax and GELU run in f32 -- the numerics of the TPU kernel. On the
 card the f32 products are 3xTF32 products (f32 to about 2^-21 of each product):
-`sr_conv` and `attention` run them on `mma.sync`, the operand type a template
-parameter of the same kernels; `linear` runs them on `wgmma` in a kernel of its
-own for f32, selected at compile time (gemm.cu). Each of the five wrappers below runs its kernel on a
+`sr_conv` runs them on `mma.sync`, the operand type a template parameter of the same
+kernel; `linear` and `attention` run them on `wgmma` in kernels of their own for f32,
+selected at compile time (gemm.cu, attention.cu). The f32 `attention` takes one pass
+over the keys with an online softmax: the bf16 kernels must normalise each row before
+they round its probabilities to bf16 (two passes beyond ATTN_ONE_PASS_KEYS), while in
+f32 nothing is rounded to bf16 and an online softmax differs from the plain version
+only in the order of f32 operations (attention_f32.cu). Each of the five wrappers below runs its kernel on a
 CUDA tensor (compute dtype f32 or bf16; anything else raises) and its plain PyTorch version,
 ``<name>_reference``, on a CPU tensor. ``fused_block_reference`` is the same
 composition with the plain versions only; ``fused_block`` is the dispatcher.
@@ -60,10 +67,25 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# The attention kernel keeps all keys of an (image, head) in shared memory and the
-# whole score rows in registers up to this many keys (one pass); beyond it, key
-# tiles stream through shared memory in two passes (csrc/mit_block/attention.cu).
+# The attention kernel with bf16 operands keeps all keys of an (image, head) in shared
+# memory and the whole score rows in registers up to this many keys (one pass: K and V
+# of ATTN_ONE_PASS_TILES keys, the first that holds Nk); beyond it, key tiles of
+# ATTN_STREAM_KEYS stream through shared memory in two passes (csrc/mit_block/attention.cu).
 ATTN_ONE_PASS_KEYS = 256
+ATTN_ONE_PASS_TILES = (64, 128, 256)
+ATTN_STREAM_KEYS = 64
+# With f32 operands the kernel is `attention_wg_kernel` (3xTF32 `wgmma`,
+# csrc/mit_block/attention_f32.cu): one or two consumer warpgroups of 64 queries and a
+# producer warpgroup a block, persistent blocks walking units of 64 or 128 queries of one
+# (image, head); key tiles of ATTN_WG_KEYS (K and V^T, written by the call's pre-pass into
+# a workspace, keys padded to the tile; their TF32 small halves split in shared memory)
+# through a ring of tensor-map copies, as many slots as fit beside each warpgroup's staged
+# score tile, at most ATTN_WG_MAX_STAGES. The key tile is a constant: every plan gives
+# the same bits.
+ATTN_WG_KEYS = 64
+ATTN_WG_QUERIES = (64, 128)
+ATTN_WG_MAX_STAGES = 4
+ATTN_SMS = 132
 
 # The linear kernel (csrc/mit_block/gemm.cu) with bf16 operands: a block's output tile,
 # (rows, columns), one of these instantiations (their index is the kernel's tile id),
@@ -190,6 +212,89 @@ def check_linear_plan(plan, dtype=torch.bfloat16) -> tuple[int, int]:
         raise ValueError(f"linear: plan {plan!r} is not one the kernel takes with {dtype} "
                          f"operands (tile in {tiles}, count >= 1)")
     return tiles.index(tile), n
+
+
+def _attn_wg_stage_bytes(hd: int) -> int:
+    return 16 * hd * ATTN_WG_KEYS     # K, V^T and their small halves, f32
+
+
+def attention_stages(queries: int, hd: int) -> int:
+    """Slots of the f32 kernel's ring: as many as fit in SMEM_LIMIT beside 1 KB of
+    alignment, the barriers and the consumer warpgroups' staged score tiles, at most
+    ATTN_WG_MAX_STAGES (attention_f32.cu's `aw_stages`)."""
+    staging = queries * ATTN_WG_KEYS * 4
+    return min(ATTN_WG_MAX_STAGES, (SMEM_LIMIT - 1024 - 24 * ATTN_WG_MAX_STAGES - staging)
+               // _attn_wg_stage_bytes(hd))
+
+
+def attention_smem_bytes(plan, hd: int, dtype) -> int:
+    """Shared memory of the attention kernel that `plan` (of `attention_plan`) runs at
+    head width `hd`. f32 (`aw_smem`): 1 KB to align, the ring (K, V^T and their small
+    halves a slot), a 64 x ATTN_WG_KEYS score tile a consumer warpgroup, the barriers.
+    bf16: the one-pass form's K and V of `keys` keys, or the streaming form's ring of
+    three K and V tiles, rows of hd bf16 and 16 bytes (`launch_onepass`,
+    `launch_stream`)."""
+    if dtype == torch.float32:
+        queries = plan[0]
+        return (1024 + attention_stages(queries, hd) * _attn_wg_stage_bytes(hd)
+                + queries * ATTN_WG_KEYS * 4 + 24 * ATTN_WG_MAX_STAGES)
+    form, keys = plan
+    rows = 2 * keys if form == "one_pass" else 3 * 2 * keys
+    return rows * 2 * (hd + 8)
+
+
+def attention_workspace_elems(B: int, Nk: int, C: int, dtype) -> int:
+    """Elements of the workspace the kernel's pre-pass fills: bf16, k and v head by head
+    (B Nk 2C); f32, K and V^T head by head, V^T's keys padded to a multiple of
+    ATTN_WG_KEYS."""
+    if dtype == torch.float32:
+        nkp = -(-Nk // ATTN_WG_KEYS) * ATTN_WG_KEYS
+        return B * C * (Nk + nkp)
+    return B * Nk * 2 * C
+
+
+def attention_units(B: int, N: int, nh: int, queries: int) -> int:
+    """Units of work of the f32 kernel: `queries` queries of one (image, head)."""
+    return B * nh * -(-N // queries)
+
+
+@functools.lru_cache(maxsize=1024)   # the host's time a launch counts: shapes repeat
+def attention_plan(B: int, N: int, Nk: int, C: int, nh: int, dtype=torch.bfloat16):
+    """The plan of the attention kernel. f32: (queries, blocks), the queries a block
+    (128, two consumer warpgroups side by side, unless that leaves more than half the
+    SMs without a unit: then 64) and the persistent blocks, one a unit up
+    to one an SM. bf16: the form its kernel takes by itself, ("one_pass", keys) with the
+    smallest of ATTN_ONE_PASS_TILES that holds Nk, or ("streaming", ATTN_STREAM_KEYS)
+    beyond ATTN_ONE_PASS_KEYS. A function of the shapes only; every f32 plan gives the
+    same bits."""
+    if dtype == torch.float32:
+        queries = 128 if 2 * attention_units(B, N, nh, 128) > ATTN_SMS else 64
+        return queries, max(1, min(attention_units(B, N, nh, queries), ATTN_SMS))
+    if Nk > ATTN_ONE_PASS_KEYS:
+        return "streaming", ATTN_STREAM_KEYS
+    return "one_pass", next(k for k in ATTN_ONE_PASS_TILES if Nk <= k)
+
+
+def check_attention_plan(plan, B: int, N: int, Nk: int, C: int, nh: int,
+                         dtype=torch.bfloat16):
+    """The plan as the kernel takes it, or ValueError: f32, (queries, blocks) with
+    queries one of ATTN_WG_QUERIES and at least one block; bf16, only its own form
+    (`attention_plan`'s)."""
+    if dtype != torch.float32:
+        want = attention_plan(B, N, Nk, C, nh, dtype)
+        if plan != want:
+            raise ValueError(f"attention: plan {plan!r} is not one the bf16 kernel takes: it "
+                             f"chooses its form from Nk ({want!r})")
+        return want
+    try:
+        queries, blocks = plan
+        queries, blocks = int(queries), int(blocks)
+    except (TypeError, ValueError):
+        raise ValueError(f"attention: plan {plan!r} is not (queries, blocks)") from None
+    if queries not in ATTN_WG_QUERIES or blocks < 1:
+        raise ValueError(f"attention: plan {plan!r} is not one the f32 kernel takes: queries "
+                         f"one of {ATTN_WG_QUERIES}, blocks at least 1")
+    return queries, blocks
 
 
 # The sr conv kernel (csrc/mit_block/sr_conv.cu): output tiles of SR_TILE_M rows,
@@ -511,12 +616,18 @@ def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat1
     return out
 
 
-def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False):
+def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False, plan=None):
+    """`plan`: an f32 (queries, blocks) other than `attention_plan`'s, for tests and
+    tuning; it is checked on any device, every plan gives the same bits on the card, and
+    it changes nothing on the CPU. With bf16 operands only the kernel's own form is
+    taken."""
+    B, N, C = q.shape
+    Nk = kv.shape[1]
+    if plan is not None:
+        plan = check_attention_plan(plan, B, N, Nk, C, nh, dtype)
     if not q.is_cuda:
         return attention_reference(q, kv, nh=nh, dtype=dtype, export=export)
     _compute_dtype(dtype)
-    B, N, C = q.shape
-    Nk = kv.shape[1]
     if C % nh or C // nh not in (32, 64):
         raise NotImplementedError(f"attention kernel takes head dim 32 or 64, got C={C}, nh={nh}")
     _check(q, "q", q.device)
@@ -527,12 +638,18 @@ def attention(q, kv, *, nh, dtype=torch.bfloat16, export=False):
         return torch.zeros((B, N, C), device=q.device, dtype=torch.float32), logits
     out = torch.empty((B, N, C), device=q.device, dtype=torch.float32)
     if B * N:
-        # k and v in the compute dtype, head by head, by the kernel's first step
-        kvb = torch.empty((B * Nk * 2 * C,), device=q.device, dtype=dtype)
-        _launch("k1_attention", q.device, q.data_ptr(), kv.data_ptr(), kvb.data_ptr(), out.data_ptr(),
-                _ptr(logits), B, N, Nk, C, nh, float(C // nh) ** -0.5,
-                int(dtype == torch.float32))
-        LAUNCHES["attention"] += 1
+        f32 = dtype == torch.float32
+        queries, blocks = 0, 0
+        if f32:     # q is read in 16-byte pieces
+            _aligned(q, "q")
+            queries, blocks = attention_plan(B, N, Nk, C, nh, dtype) if plan is None else plan
+        # k and v in the operand type's layout, head by head, by the kernel's first step
+        ws = torch.empty((attention_workspace_elems(B, Nk, C, dtype),), device=q.device,
+                         dtype=dtype)
+        _launch("k1_attention", q.device, q.data_ptr(), kv.data_ptr(), ws.data_ptr(),
+                out.data_ptr(), _ptr(logits), B, N, Nk, C, nh, float(C // nh) ** -0.5,
+                int(f32), queries, blocks)
+        LAUNCHES["attention"] += 1   # one a call, whatever plan it runs
     return out, logits
 
 

@@ -12,8 +12,9 @@ import math
 import pytest
 import torch
 
-from chip_smoke import (affinity_plans, bwd_plans, drfl_agreement, drfl_card_vs_cpu,
-                        isa_trap_move, linear_plans, taps_plans, varm_plans)
+from chip_smoke import (K1_F32_ATTN_KEYS, K1_F32_ATTN_QUERIES, affinity_plans, attention_plans,
+                        bwd_plans, drfl_agreement, drfl_card_vs_cpu, isa_trap_move, linear_plans,
+                        taps_plans, varm_plans)
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -171,6 +172,55 @@ def test_attention_streaming_form(dev, Nk):
     _close(out, want, TOL["attention"])
     _close(logits, want_logits, TOL["logits"])
     assert torch.equal(tmb.attention(q, kv, nh=2, export=True)[1], logits)
+
+
+# the f32 attention (3xTF32 `wgmma`, one pass with an online softmax) against its plain
+# version in f32: f32 sums in another order (chip_smoke.F32_PIECE_TOL, LOGIT_TOL)
+F32_ATTN_TOL = 1e-4
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("Nk", K1_F32_ATTN_KEYS)
+def test_attention_f32_at_the_edges_every_plan_gives_equal_bits(dev, Nk, hd):
+    """Phase 7l's edges: key counts around the key tile, the CLIs' 25 / 100 / 225 / 400 /
+    900 (unaligned export rows at 25 and 225), 1024; query counts around a warpgroup's and
+    a block's queries; with and without export; a rerun and every plan give equal bits;
+    one launch a call."""
+    nh = 2
+    C = nh * hd
+    g = torch.Generator().manual_seed(Nk + hd)
+    for N in K1_F32_ATTN_QUERIES:
+        q, kv = _rand(g, 2, N, C, dev=dev), _rand(g, 2, Nk, 2 * C, dev=dev)
+        for export in (False, True):
+            before = tmb.LAUNCHES["attention"]
+            out, logits = tmb.attention(q, kv, nh=nh, dtype=torch.float32, export=export)
+            assert tmb.LAUNCHES["attention"] == before + 1
+            want, want_logits = tmb.attention_reference(q, kv, nh=nh, dtype=torch.float32,
+                                                        export=export)
+            _close(out, want, F32_ATTN_TOL)
+            if export:
+                _close(logits, want_logits, TOL["logits"])
+            for plan in [None] + attention_plans(tmb, 2, N, Nk, C, nh):
+                again = tmb.attention(q, kv, nh=nh, dtype=torch.float32, export=export, plan=plan)
+                assert torch.equal(again[0], out)
+                assert not export or torch.equal(again[1], logits)
+
+
+def test_attention_f32_refuses_what_the_kernel_does_not_take(dev):
+    """A plan the f32 kernel lacks, and q that is not 16-byte aligned, raise before a
+    launch; the kernel's shared memory is the plan's."""
+    from representationlearning_tpu_torch.ops import _build
+    lib = _build.load_library("mit_block")
+    for hd in (32, 64):
+        for queries in tmb.ATTN_WG_QUERIES:
+            assert lib.k1_attention_wg_smem(hd, queries) == \
+                tmb.attention_smem_bytes((queries, 1), hd, torch.float32)
+    q, kv = torch.zeros(1, 9, 64, device=dev), torch.zeros(1, 5, 128, device=dev)
+    with pytest.raises(ValueError, match="plan"):
+        tmb.attention(q, kv, nh=1, dtype=torch.float32, plan=(32, 1))
+    with pytest.raises(ValueError, match="aligned"):
+        tmb.attention(torch.zeros(9 * 64 + 1, device=dev)[1:].view(1, 9, 64), kv, nh=1,
+                      dtype=torch.float32)
 
 
 @pytest.mark.parametrize("tile", [64, 128])

@@ -574,3 +574,140 @@ def test_linear_reference_f32_matches_jax_at_the_tile_edges(M, ln, res):
     if res:
         want = want + jnp.asarray(r)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_ATOL)
+
+
+# ------------------------------------------------ attention's plan with f32 operands
+# (C, nh, sr) of the four MiT stages, and the token grids of a forward at side x side
+# (side / 4, / 8, / 16, / 16: stride 1 at stage 4, so that stage 4 exports N = Nk)
+_ATTN_ARCHS = {"mit_b1": [(64, 1, 8), (128, 2, 4), (320, 5, 2), (512, 8, 1)],
+               "mit_b0": [(32, 1, 8), (64, 2, 4), (160, 5, 2), (256, 8, 1)]}
+
+
+def _attention_geometries():
+    """(B, N, Nk, C, nh) of every `attention` launch of the headline forward (8 x 512²)
+    and of the WSSS command lines' f32 CAM twins (16 images: a batch and its flips, at
+    320² and scales 0.5 and 1.5), for MiT-B1 and MiT-B0 (head width 32 at stage 1)."""
+    geos = []
+    for stages in _ATTN_ARCHS.values():
+        for B, side in ((8, 512), (16, 320), (16, 160), (16, 480)):
+            t = side // 4
+            for hw, (C, nh, sr) in zip((t, t // 2, t // 4, t // 4), stages):
+                geos.append((B, hw * hw, (hw // sr) ** 2, C, nh))
+    return sorted(set(geos))
+
+
+ATTENTION_GEOMETRIES = _attention_geometries()
+
+
+@pytest.mark.parametrize("B,N,Nk,C,nh", ATTENTION_GEOMETRIES)
+def test_attention_plan_f32_covers_every_query_once_and_fits(B, N, Nk, C, nh):
+    """With f32 operands the plan is (queries, blocks): 128 queries a block (two consumer
+    warpgroups) unless that leaves more than half the SMs without a unit, persistent
+    blocks one a unit up to one an SM; a function of the shapes alone. The kernel's walk
+    (unit u = block, block + blocks, ...; a unit `queries` queries of one (image, head))
+    takes every query of every head once, and the block's shared memory fits. The
+    geometries hold the CLIs' Nk 25, 100, 225 (no multiple of the key tile) and exporting
+    N = Nk = 100, 400, 900."""
+    f32 = torch.float32
+    queries, blocks = tmb.attention_plan(B, N, Nk, C, nh, f32)
+    assert (queries, blocks) == tmb.attention_plan(B, N, Nk, C, nh, f32)
+    assert tmb.check_attention_plan((queries, blocks), B, N, Nk, C, nh, f32) == (queries, blocks)
+    units = tmb.attention_units(B, N, nh, queries)
+    assert queries == (128 if 2 * tmb.attention_units(B, N, nh, 128) > tmb.ATTN_SMS else 64)
+    assert blocks == min(units, tmb.ATTN_SMS)
+    qtiles = -(-N // queries)
+    seen = np.zeros((B * nh, N), np.int32)
+    for block in range(blocks):
+        for u in range(block, units, blocks):
+            bh, qt = divmod(u, qtiles)
+            seen[bh, qt * queries: (qt + 1) * queries] += 1
+    assert (seen == 1).all()
+    hd = C // nh
+    assert tmb.attention_stages(queries, hd) >= 2
+    assert tmb.attention_smem_bytes((queries, blocks), hd, f32) <= tmb.SMEM_LIMIT
+    nkp = -(-Nk // tmb.ATTN_WG_KEYS) * tmb.ATTN_WG_KEYS
+    assert tmb.attention_workspace_elems(B, Nk, C, f32) == B * nh * hd * (Nk + nkp)
+
+
+def test_attention_bf16_forms_are_unchanged():
+    """The bf16 kernel keeps its forms: one pass up to 256 keys (K and V of 64, 128 or
+    256 keys in shared memory), two passes over tiles of 64 keys beyond; it takes no plan
+    but its own, and its workspace is k and v in bf16."""
+    bf16 = torch.bfloat16
+    assert tmb.ATTN_ONE_PASS_KEYS == 256 and tmb.ATTN_STREAM_KEYS == 64
+    for Nk, want in ((1, ("one_pass", 64)), (64, ("one_pass", 64)), (65, ("one_pass", 128)),
+                     (128, ("one_pass", 128)), (129, ("one_pass", 256)),
+                     (256, ("one_pass", 256)), (257, ("streaming", 64)),
+                     (1024, ("streaming", 64))):
+        plan = tmb.attention_plan(2, 100, Nk, 128, 2, bf16)
+        assert plan == want == tmb.check_attention_plan(want, 2, 100, Nk, 128, 2, bf16)
+        for hd in (32, 64):
+            assert tmb.attention_smem_bytes(plan, hd, bf16) <= 72 * 1024 + 4096
+    assert tmb.attention_workspace_elems(2, 100, 128, bf16) == 2 * 100 * 256
+
+
+@pytest.mark.parametrize("plan", [(64, 1), (128, 3), (128, 132), (64, 500)])
+@pytest.mark.parametrize("export", [False, True])
+def test_attention_with_a_plan_on_cpu_is_the_plain_version(plan, export):
+    """`attention(..., dtype=f32, plan=)` on CPU tensors runs `attention_reference`
+    and launches nothing, whatever plan it is given."""
+    g = torch.Generator().manual_seed(len(plan) + plan[1])
+    q, kv = torch.randn(2, 65, 64, generator=g), torch.randn(2, 25, 128, generator=g)
+    before = dict(tmb.LAUNCHES)
+    got = tmb.attention(q, kv, nh=2, dtype=torch.float32, export=export, plan=plan)
+    want = tmb.attention_reference(q, kv, nh=2, dtype=torch.float32, export=export)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (not export) and (not export or torch.equal(got[1], want[1]))
+    assert tmb.LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,plan", [
+    (torch.float32, (32, 1)), (torch.float32, (128, 0)), (torch.float32, (128,)),
+    (torch.float32, "ab"), (torch.float32, 7), (torch.float32, ("one_pass", 64)),
+    (torch.bfloat16, (128, 1)), (torch.bfloat16, ("streaming", 64)),
+    (torch.bfloat16, ("one_pass", 256))])
+def test_attention_refuses_a_plan_the_kernel_does_not_take_on_the_cpu_too(dtype, plan):
+    """A query count the f32 kernel lacks, no block, what is no (queries, blocks) pair,
+    and for bf16 any plan but its own form (64 keys: ("one_pass", 64)) raise on CPU
+    tensors as on the card, before anything runs."""
+    q, kv = torch.zeros(1, 9, 64), torch.zeros(1, 40, 128)
+    with pytest.raises(ValueError, match="plan"):
+        tmb.attention(q, kv, nh=1, dtype=dtype, plan=plan)
+    own = tmb.attention_plan(1, 9, 40, 64, 1, dtype)
+    assert tmb.attention(q, kv, nh=1, dtype=dtype, plan=own)[0].shape == (1, 9, 64)
+
+
+@pytest.mark.parametrize("N,Nk", [(400, 100), (100, 100), (400, 400)])
+@pytest.mark.parametrize("nh", [1, 2])
+def test_attention_reference_f32_matches_jax_block_math_at_the_cli_geometries(N, Nk, nh):
+    """The plain `attention` that the card tests hold the f32 kernel to, exporting, at the
+    WSSS command lines' (N, Nk) at 320² (stage 1-3 Nk = 100 against N = 400 and 100, stage
+    4 N = Nk = 400), head widths 64 and 32: the JAX kernel's `_block_math` with q and kv
+    handed in (the PRE_SR form: h = q through an identity q kernel, xs with kv = xs W +
+    b), the projection an identity, x and fc2 zero, so that its output is the attention
+    output; f32 on both sides to this file's 2e-5 (logits 2e-4)."""
+    rng = np.random.default_rng(N + Nk + nh)
+    C, hid = 64, 64
+    side = int(round(N ** 0.5))
+    h = rng.standard_normal((N, C)).astype(np.float32)
+    xs = rng.standard_normal((Nk, C)).astype(np.float32)
+    w_kv = (rng.standard_normal((C, 2 * C)) * 0.3).astype(np.float32)
+    b_kv = (rng.standard_normal(2 * C) * 0.1).astype(np.float32)
+    f32 = jnp.float32
+    p = {"q_kernel": jnp.eye(C, dtype=f32), "q_bias": jnp.zeros(C, f32),
+         "kv_kernel": jnp.asarray(w_kv), "kv_bias": jnp.asarray(b_kv),
+         "proj_kernel": jnp.eye(C, dtype=f32), "proj_bias": jnp.zeros(C, f32),
+         "ln2_scale": jnp.ones(C, f32), "ln2_bias": jnp.zeros(C, f32),
+         "fc1_kernel": jnp.asarray(rng.standard_normal((C, hid)).astype(np.float32) * 0.1),
+         "fc1_bias": jnp.zeros(hid, f32), "dw_kernel": jnp.ones((3, 3, hid), f32),
+         "dw_bias": jnp.zeros(hid, f32), "fc2_kernel": jnp.zeros((hid, C), f32),
+         "fc2_bias": jnp.zeros(C, f32)}
+    want, want_logits = jmb._block_math(jnp.zeros((N, C), f32), p, H=side, W=side, sr=1,
+                                         nh=nh, dtype=f32, export=True, h=jnp.asarray(h),
+                                         xs=jnp.asarray(xs))
+    kv = np.array(jmb._mm(jnp.asarray(xs), p["kv_kernel"], f32) + p["kv_bias"])
+    out, logits = tmb.attention_reference(torch.from_numpy(h)[None], torch.from_numpy(kv)[None],
+                                          nh=nh, dtype=torch.float32, export=True)
+    assert logits.shape == (1, nh, N, Nk)
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(want), atol=F32_ATOL)
+    np.testing.assert_allclose(logits[0].numpy(), np.asarray(want_logits), atol=LOGIT_ATOL)
