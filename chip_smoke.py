@@ -288,6 +288,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import hashlib
 import inspect
 import io
 import json
@@ -666,6 +667,14 @@ TSCD_F32_TOL = 2e-4
 # around a warpgroup's 64 and a block's 128
 K1_F32_ATTN_KEYS = (1, 7, 8, 25, 63, 64, 65, 100, 225, 255, 256, 257, 400, 900, 1024)
 K1_F32_ATTN_QUERIES = (1, 63, 64, 65, 127, 129)
+# (B, H, W, C, sr) of phase 7l's f32 `sr_conv` edges: grids cropped to full windows (H, W
+# not multiples of sr, W != H), patch rows that cross images, one patch, one patch row of 65,
+# one patch an image, tiles of a row more or less, the n32 / n96 / n160 / n192 tiles, and
+# the WSSS command lines' CAM forwards at stage 1 (M 100 / 400 / 900)
+K1_F32_SR_EDGES = ((2, 15, 13, 64, 8), (3, 13, 11, 128, 4), (5, 11, 7, 320, 2),
+                   (3, 40, 24, 64, 8), (1, 8, 8, 64, 8), (1, 8, 520, 64, 8), (1, 2, 2, 32, 2),
+                   (65, 2, 2, 96, 2), (129, 4, 2, 64, 2), (2, 7, 7, 192, 2), (5, 33, 17, 160, 2),
+                   (4, 40, 40, 64, 8), (4, 80, 80, 64, 8), (4, 120, 120, 64, 8))
 HRNET_F32_TOL = 1e-3
 
 
@@ -823,6 +832,19 @@ def linear_plans(tmb, M: int, Nout: int, K: int, dtype) -> list:
         n = tmb.linear_plan(M, Nout, K, dtype)[1]
         return [(tile, b) for tile in tmb.linear_tiles(dtype) for b in sorted({1, 3, n})]
     return [(tile, per) for tile in tmb.LINEAR_TILES for per in (1, 2)]
+
+
+def sr_conv_plans(tmb, M: int, C: int, K: int) -> list:
+    """Every plan of the sr conv kernel with f32 operands at this shape: 64 and 128 rows a
+    tile, at the plan's columns and the widest (`sr_conv_columns`), every number of K slices
+    a cluster holds. Each cuts K its own way, so each adds in another order: it is held to
+    the plain version, not to the others' bits."""
+    import torch
+
+    f32 = torch.float32
+    widths = sorted({tmb.sr_conv_plan(M, C, K, f32)[0][1], tmb.sr_conv_columns(C)})
+    return [((rows, cols), s) for rows in tmb.SR_WG_ROWS for cols in widths
+            for s in tmb.sr_conv_slice_counts(K, f32)]
 
 
 def attention_plans(tmb, B: int, N: int, Nk: int, C: int, nh: int) -> list[tuple[int, int]]:
@@ -5614,16 +5636,16 @@ class Phases:
         tmb, tm, ti = mods[0], mods[4], mods[5]
         t_phase = time.perf_counter()
         log(f"== f32 and K5 widths (phase 7l): K1 linear / sr_conv / attention with f32 operands "
-            f"(3xTF32: linear and attention on wgmma, sr_conv on mma.sync), K5 at hid 72 / 128 / "
-            f"160 / 192 in f32 and bf16 (taps on 3xTF32 wgmma); {card}")
+            f"(3xTF32 on wgmma; sr_conv's K slices summed in a thread-block cluster), K5 at hid "
+            f"72 / 128 / 160 / 192 in f32 and bf16 (taps on 3xTF32 wgmma); {card}")
         gen = torch.Generator().manual_seed(self.seed + 31)
         self.f32 = {k: {"ms": 0.0, "bound": [0.0, 0.0], "lib": 0.0, "err": 0.0}
                     for k in (*PIECE_TOL, "mlp_fc1", "mlp_taps")}
         self.f32_same = True
         log(f"  K1 at the headline's four stage geometries (B = {BATCH}, {IMAGE}², f32 tokens "
             f"and operands), each piece against its plain version, a rerun and every plan of "
-            f"`linear` and `attention` for equal bits, timed by graph replay with its f32 "
-            f"library call")
+            f"`linear` and `attention` for equal bits, every plan of `sr_conv` against the plain "
+            f"version and its rerun, timed by graph replay with its f32 library call")
         for stage in STAGES:
             self._k1_f32_block(tmb, gen, BATCH, *stage)
         self._k1_f32_edges(tmb, gen)
@@ -5637,6 +5659,7 @@ class Phases:
                 f", {sum(e['bound']) / e['ms']:.0%} of it), library call {e['lib']:.4f} ms, largest "
                 f"error {e['err']:.3e}; f32 / bf16 kernel time {ratio:.2f}")
         self._wgmma_sass()
+        self._sr_conv_bf16_digest(tmb)
         self._tscd_f32(tmb)
         self._k5_widths(tm, gen)
         self._hrnet_widths(tm, ti)
@@ -5667,6 +5690,19 @@ class Phases:
                     runs += [fn(*a, plan=pl, **kw)
                              for pl in attention_plans(tmb, B_, N_, Nk_, C_, kw["nh"])]
                 want = getattr(tmb, name + "_reference")(*a, **kw)
+                if name == "sr_conv":   # each plan cuts K its own way: held to the plain version
+                    B_, _, C_ = a[0].shape
+                    sr_ = kw["sr"]
+                    M_ = B_ * (kw["H"] // sr_) * (kw["W"] // sr_)
+                    for pl in sr_conv_plans(tmb, M_, C_, sr_ * sr_ * C_):
+                        got_p, again = fn(*a, plan=pl, **kw), fn(*a, plan=pl, **kw)
+                        torch.cuda.synchronize()
+                        err, mag = max_err(got_p, want)
+                        self.check(err <= F32_PIECE_TOL[name] * max(1.0, mag),
+                                   f"sr_conv f32 @ B={B} N={N} C={C} plan {pl}: max abs err "
+                                   f"{err:.3e} (max |plain| {mag:.3e})")
+                        self.f32[name]["err"] = max(self.f32[name]["err"], err)
+                        self.f32_same &= torch.equal(got_p, again)
                 torch.cuda.synchronize()
                 got_t = got if isinstance(got, tuple) else (got,)
                 want_t = want if isinstance(want, tuple) else (want,)
@@ -5685,6 +5721,11 @@ class Phases:
                 return got
             return run
 
+        def sr_plan(a, kw):
+            B_, _, C_ = a[0].shape
+            sr_ = kw["sr"]
+            return tmb.sr_conv_plan(B_ * (kw["H"] // sr_) * (kw["W"] // sr_), C_, sr_ * sr_ * C_, f32)
+
         ops = SimpleNamespace(**{n: recording(n) for n in PIECE_TOL})
         with torch.no_grad():
             tmb._block(x, p, ops=ops, H=hw, W=hw, sr=sr, nh=nh, dtype=f32, export=export)
@@ -5702,22 +5743,23 @@ class Phases:
                 e["lib"] += DEPTH * (lib_ms or 0.0)
                 if name in ("linear", "sr_conv", "attention"):
                     log(f"  {name} f32 @ N={N} C={C}{', exporting' if export and name == 'attention' else ''}"
-                        f"{f' {shape_of(a)}' if name == 'linear' else ''}, a launch: kernel "
+                        f"{f' {shape_of(a)}' if name == 'linear' else ''}"
+                        f"{f' plan {sr_plan(a, kw)}' if name == 'sr_conv' else ''}, a launch: kernel "
                         f"{k_ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
                         f"({max(t_bytes, t_ops) / k_ms:.0%} of it), library call "
                         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
 
     def _wgmma_sass(self) -> None:
-        """The SASS of the f32 `linear`, `attention` and `taps` instantiations (`cuobjdump
-        -sass` on the built libraries): their main products are TF32 `HGMMA`s, and `linear`
-        and `attention` hold no `HMMA` (the taps' `HMMA` are fc2's 3xTF32 `mma.sync`, 1 / 20
-        of its products)."""
+        """The SASS of the f32 `linear`, `sr_conv`, `attention` and `taps` instantiations
+        (`cuobjdump -sass` on the built libraries): their main products are TF32 `HGMMA`s, and
+        `linear`, `sr_conv` and `attention` hold no `HMMA` (the taps' `HMMA` are fc2's 3xTF32
+        `mma.sync`, 1 / 20 of its products)."""
         from representationlearning_tpu_torch.ops import _build
 
         tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
         counts = {}
-        for lib, kernel in (("mit_block", "linear_wg_kernel"), ("mit_block", "attention_wg_kernel"),
-                            ("rssformer", "taps_wg_kernel")):
+        for lib, kernel in (("mit_block", "linear_wg_kernel"), ("mit_block", "sr_conv_wg_kernel"),
+                            ("mit_block", "attention_wg_kernel"), ("rssformer", "taps_wg_kernel")):
             sass = run_cmd([tool, "-sass", _build.build_log[lib]["path"]])
             name = None
             for line in sass.splitlines():
@@ -5731,10 +5773,11 @@ class Phases:
         from representationlearning_tpu_torch.ops import mit_block as tmb
 
         # (instantiations, least TF32 HGMMA each): linear with and without LN, 12 a K step
-        # (3 products x 4 k slices); attention at head width 32 and 64 with one and two
-        # consumer warpgroups, 36 a key tile at least (q k^T: 3 x hd / 8, p v: 3 x 8); taps
-        # at hid 96 to 192
+        # (3 products x 4 k slices); sr_conv at every tile, 12 a K step; attention at head
+        # width 32 and 64 with one and two consumer warpgroups, 36 a key tile at least (q k^T:
+        # 3 x hd / 8, p v: 3 x 8); taps at hid 96 to 192
         for kernel, n, least in (("linear_wg_kernel", 2 * len(tmb.LINEAR_TILES_F32), 12),
+                                 ("sr_conv_wg_kernel", len(tmb.SR_WG_ROWS) * len(tmb.SR_WG_COLUMNS), 12),
                                  ("attention_wg_kernel", 2 * len(tmb.ATTN_WG_QUERIES), 36),
                                  ("taps_wg_kernel", 4, 12)):
             got = [v for (k, _), v in counts.items() if k == kernel]
@@ -5749,10 +5792,12 @@ class Phases:
     def _k1_f32_edges(self, tmb, gen) -> None:
         """K1's three product kernels with f32 operands at PR 7's edges of `linear` (M of
         one row and of a tile less or more one, Nout 96 / 640 / 1280, K 32 / 64 / 2048,
-        LayerNorm and residual on and off, every plan), `sr_conv` at every number of K
-        slices and both tiles, `attention` (its `wgmma` kernel) at K1_F32_ATTN_KEYS x
-        K1_F32_ATTN_QUERIES, head widths 32 and 64, with and without export, every plan;
-        its shared memory as the kernel and the plan count it."""
+        LayerNorm and residual on and off, every plan), `sr_conv` at K1_F32_SR_EDGES (grids
+        cropped to full windows, patch rows that cross images, tiles of a row more or less,
+        every tile width) at every plan, `attention` (its `wgmma` kernel) at K1_F32_ATTN_KEYS
+        x K1_F32_ATTN_QUERIES, head widths 32 and 64, with and without export, every plan;
+        the shared memory of `sr_conv` and `attention` as the kernel and the plan count it,
+        and the clusters of `sr_conv` the card holds as its plan counts them."""
         torch = self.torch
         f32 = torch.float32
 
@@ -5791,27 +5836,37 @@ class Phases:
             self.check(worst <= 1.0, f"linear f32 at M = {ms}, Nout = 96, 640, 1280, K = 32, 64, "
                                      f"2048, LayerNorm and residual on and off ({n} cases, every "
                                      f"plan): largest error {worst:.3f} of its tolerance")
-            worst, tried = 0.0, []
-            for H, C, sr in ((16, 64, 8), (9, 320, 2)):
-                x = rand(2, H * H, C)
+            worst, n = 0.0, 0
+            for B, H, W, C, sr in K1_F32_SR_EDGES:
+                x = rand(B, H * W, C)
                 args = (x, tmb.ln_stats_reference(x), rand(C) + 1.0, rand(C, scale=0.1),
                         rand(C, sr * sr * C, scale=0.05), rand(C))
-                want = tmb.sr_conv_reference(*args, H=H, W=H, sr=sr, dtype=f32)
-                counts = tmb.sr_conv_slice_counts(sr * sr * C)
-                tried.append(counts)
-                for tile in (64, 128):
-                    for slices in counts:
-                        got = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=f32, plan=(tile, slices))
-                        again = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=f32, plan=(tile, slices))
-                        torch.cuda.synchronize()
-                        worst = max(worst, held("sr_conv", got, want))
-                        self.f32_same &= torch.equal(got, again)
-            self.check(worst <= 1.0, f"sr_conv f32 with K cut into {tried[0]} slices (K = 4096) "
-                                     f"and {tried[1]} (K = 1280), tiles 64 and 128: largest error "
+                want = tmb.sr_conv_reference(*args, H=H, W=W, sr=sr, dtype=f32)
+                M = B * (H // sr) * (W // sr)
+                for plan in sr_conv_plans(tmb, M, C, sr * sr * C):
+                    got = tmb.sr_conv(*args, H=H, W=W, sr=sr, dtype=f32, plan=plan)
+                    again = tmb.sr_conv(*args, H=H, W=W, sr=sr, dtype=f32, plan=plan)
+                    torch.cuda.synchronize()
+                    worst = max(worst, held("sr_conv", got, want))
+                    self.f32_same &= torch.equal(got, again)
+                    n += 1
+            self.check(worst <= 1.0, f"sr_conv f32 at {len(K1_F32_SR_EDGES)} edge geometries "
+                                     f"({n} cases, every plan: 64 and 128 rows, 1 to "
+                                     f"{tmb.SR_WG_MAX_SLICES} K slices a cluster): largest error "
                                      f"{worst:.3f} of its tolerance")
             from representationlearning_tpu_torch.ops import _build
 
             lib = _build.load_library("mit_block")
+            tiles = [(r, c) for r in tmb.SR_WG_ROWS for c in tmb.SR_WG_COLUMNS]
+            smem = {t: (lib.k1_sr_conv_wg_smem(*t), tmb.sr_conv_smem_bytes(t, f32)) for t in tiles}
+            clusters = {t: [lib.k1_sr_conv_wg_clusters(*t, s)
+                            for s in range(1, tmb.SR_WG_MAX_SLICES + 1)] for t in tiles}
+            self.check(all(a == b <= tmb.SMEM_LIMIT for a, b in smem.values())
+                       and all(c == list(tmb.SR_WG_CLUSTERS) for c in clusters.values()),
+                       f"sr_conv f32: the kernel's shared memory at every tile equals the plan's "
+                       f"(within {tmb.SMEM_LIMIT}), and the card holds {list(tmb.SR_WG_CLUSTERS)} "
+                       f"clusters of 1 to {tmb.SR_WG_MAX_SLICES} blocks at every tile (the card: "
+                       f"{clusters[(128, 64)]} at 128 x 64)")
             smem = {(hd, q): (lib.k1_attention_wg_smem(hd, q),
                               tmb.attention_smem_bytes((q, 1), hd, f32))
                     for hd in (32, 64) for q in tmb.ATTN_WG_QUERIES}
@@ -5840,6 +5895,24 @@ class Phases:
                                      f"{K1_F32_ATTN_QUERIES}, head widths 32 and 64, with and "
                                      f"without export ({n} cases, every plan): largest error "
                                      f"{worst:.3f} of its tolerance")
+
+    def _sr_conv_bf16_digest(self, tmb) -> None:
+        """The bf16 `sr_conv` (its `mma.sync` kernel) at the headline's three stage geometries
+        on inputs from a fixed seed: a SHA-256 of each output, to be compared with another
+        tree's line (`tools/time_port_sr_conv.py --dtype bf16` prints the same digests)."""
+        torch = self.torch
+        gen = torch.Generator().manual_seed(0)
+        digests = []
+        for hw, C, _, sr, _ in STAGES[:3]:
+            K = sr * sr * C
+            x = (2.0 * torch.randn(BATCH, hw * hw, C, generator=gen) + 0.5).to(self.dev)
+            a = (x, tmb.ln_stats_reference(x), (torch.randn(C, generator=gen) + 1.0).to(self.dev),
+                 (0.1 * torch.randn(C, generator=gen)).to(self.dev),
+                 (K ** -0.5 * torch.randn(C, K, generator=gen)).to(self.dev).to(torch.bfloat16),
+                 torch.randn(C, generator=gen).to(self.dev))
+            out = tmb.sr_conv(*a, H=hw, W=hw, sr=sr, dtype=torch.bfloat16)
+            digests.append(hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
+        log(f"  sr_conv bf16 at the headline's stages 1-3, SHA-256: {' '.join(digests)}")
 
     def _tscd_f32(self, tmb) -> None:
         """TSCD(dtype=f32, fused_blocks=True) at the headline's 8 x 512² against its plain

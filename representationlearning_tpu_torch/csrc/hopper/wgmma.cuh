@@ -18,7 +18,11 @@
 //     the weights change between calls, and the wrapper would need a launch of its
 //     own to split them).
 // K1's f32 `attention` (csrc/mit_block/attention_f32.cu) takes the same blocks, with 3-d
-// tensor maps (one box a head), TMA stores, a named barrier and the n32 product.
+// tensor maps (one box a head), TMA stores, a named barrier and the n32 product. K1's f32
+// `sr_conv` (csrc/mit_block/sr_conv_f32.cu) stages its A operand through an im2col tensor
+// map (the stride-sr patches of an NHWC token grid, one box a K step) and sums its K
+// slices across a thread-block cluster: `st.async` stores into another block's shared
+// memory, completing on its `mbarrier`.
 // Nothing here depends on the kernel that includes it; it uses no PyTorch header.
 #pragma once
 
@@ -59,6 +63,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
       "WAIT_%=:\n mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
       " @!p bra WAIT_%=;\n}\n" ::"r"(bar), "r"(parity) : "memory");
 }
+// the same for a barrier that other blocks of the cluster complete (`st.async`): what they
+// stored before is seen after it returns
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      "WAIT_%=:\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(bar), "r"(parity) : "memory");
+}
 // this thread's earlier shared-memory writes, made visible to the async proxy (wgmma)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
@@ -83,6 +95,22 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<unsigned long long>(map)), "r"(x), "r"(y), "r"(z), "r"(bar)
+      : "memory");
+}
+
+// An im2col box of a 4-d (C, W, H, N) tensor map: `pixels` (the map's) pixels of
+// kWgBK channels from channel c, the walk starting at the window whose top-left element
+// is (w, h, n) and going on through the map's bounding box (W fastest, then H, then N,
+// by its traversal strides), each pixel displaced by the filter offset (dw, dh); pixels
+// outside the tensor arrive as zeros
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst, const CUtensorMap* map, int c, int w,
+                                                   int h, int n, uint16_t dw, uint16_t dh,
+                                                   uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6], {%7, %8};" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(map)), "r"(c), "r"(w), "r"(h), "r"(n), "r"(bar),
+      "h"(dw), "h"(dh)
       : "memory");
 }
 
@@ -117,6 +145,26 @@ __device__ __forceinline__ void bulk_wait() {
 // __syncthreads')
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---- thread-block clusters: every thread of every block of the cluster arrives (release)
+// and waits (acquire), so shared-memory writes before the barrier are seen by the
+// cluster's other blocks after it; the calling warp is converged
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;" ::: "memory");
+}
+// the address of this block's shared-memory byte `addr` in block `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// two floats into another block's shared memory (`addr` and `bar` mapped by `cluster_map`),
+// the store completing `bar`'s transaction count by 8 bytes
+__device__ __forceinline__ void st_async_f2(uint32_t addr, float a, float b, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];"
+               ::"r"(addr), "f"(a), "f"(b), "r"(bar)
+               : "memory");
 }
 
 // brings a tensor map (a kernel parameter) into the copy engine's cache ahead of its first use
@@ -182,6 +230,51 @@ inline cudaError_t wg_tensor_map_3d(CUtensorMap* map, const float* base, long lo
                             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// `cuTensorMapEncodeIm2col` (libcuda), fetched as `encode_tiled` fetches its sibling
+using EncodeIm2col = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+                                  cuuint32_t, cuuint32_t, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+inline cudaError_t encode_im2col(EncodeIm2col* fn) {
+  static EncodeIm2col encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeIm2col", reinterpret_cast<void**>(&encode), cudaEnableDefault, &found);
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess || encode == nullptr) {
+      encode = nullptr;
+      return err != cudaSuccess ? err : cudaErrorNotSupported;
+    }
+  }
+  *fn = encode;
+  return cudaSuccess;
+}
+
+// An im2col tensor map of the f32 token grid of n images of h x w tokens of c channels
+// (NHWC, c % 4 == 0), read as the patches of a stride-`s` s x s conv without padding: the
+// bounding box holds the windows' top-left tokens that leave a whole window inside the
+// image (rows and columns 0, s, 2s, ... up to h - s and w - s, so the grid is cropped to
+// full windows), a box is `pixels` windows of kWgBK channels, rows of 128 bytes with the
+// 128-byte swizzle that the wgmma descriptors and `ldsm_a` read; windows past the last
+// image arrive as zeros
+inline cudaError_t wg_patch_map(CUtensorMap* map, const float* base, long long c, long long w,
+                                long long h, long long n, int s, int pixels) {
+  EncodeIm2col encode;
+  const cudaError_t err = encode_im2col(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)c, (cuuint64_t)w, (cuuint64_t)h, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)c * 4, (cuuint64_t)(c * w) * 4,
+                                 (cuuint64_t)(c * w * h) * 4};
+  const int lower[2] = {0, 0}, upper[2] = {1 - s, 1 - s};
+  const cuuint32_t step[4] = {1, (cuuint32_t)s, (cuuint32_t)s, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(base),
+                            dims, strides, lower, upper, (cuuint32_t)kWgBK, (cuuint32_t)pixels,
+                            step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

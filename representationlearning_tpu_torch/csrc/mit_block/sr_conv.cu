@@ -1,7 +1,9 @@
 // K1 part 2b: the spatial-reduction conv of the block, the stride-sr sr x sr
 // conv of LN(x) on the token grid, as an implicit-im2col tensor-core product split
-// along K. The operand type T is a template parameter: bf16, or float as 3xTF32
-// (`mma_slice` in common.cuh), whose tiles (72 KB) live in dynamic shared memory.
+// along K. This file holds the kernel with bf16 operands (`mma.sync`) and the C entry
+// point; with f32 operands the entry point launches `sr_conv_wg_kernel` (3xTF32
+// `wgmma`, its K slices summed inside a thread-block cluster; sr_conv_f32.cu, a source
+// of its own so that nvcc builds it side by side).
 //
 // Replaces: the sr x sr stride-sr patch conv + bias of the TPU kernel
 //   representationlearning_tpu/ops/pallas/mit_block.py:85-135 ("taps"), reached
@@ -12,7 +14,7 @@
 //   1,280; 1 GFLOP beside 33.5 / 16.8 / 10.5 MB of f32 activations that are
 //   read once. What it really waits for is latency: tiled over M and Nout
 //   alone the grid is a few dozen blocks, each walking a long K alone.
-// What the design does about it:
+// What the design of the bf16 kernel does about it:
 //   * Split K, deterministically. The wrapper's plan (`sr_conv_plan` in
 //     ops/mit_block.py, a function of the shapes only) cuts K into slices of
 //     whole K steps so that the grid fills the card's 132 SMs; the block of
@@ -41,17 +43,16 @@
 namespace k1 {
 
 constexpr int kSrBM = 64, kSrBK = 32;
-// pitch of the A and B tiles in elements: 32 and 16 bytes of padding (80 bytes for
-// bf16, 144 for f32), conflict-free for `ldmatrix`
-template <typename T>
-constexpr int kSrPitch = kSrBK + 16 / (int)sizeof(T);
+// pitch of the A and B tiles in elements: 32 and 16 bytes of padding (80 bytes),
+// conflict-free for `ldmatrix`
+constexpr int kSrPitch = kSrBK + 8;
 constexpr int kSrThreads = 128;      // 2 x 2 warps, a warp owns 32 x BN / 2 outputs
 constexpr int kSrRing = 3;
 
 // bytes of dynamic shared memory: two A tiles and a ring of kSrRing B tiles
-template <typename T, int BN>
+template <int BN>
 constexpr int sr_smem() {
-  return (2 * kSrBM + kSrRing * BN) * kSrPitch<T> * (int)sizeof(T);
+  return (2 * kSrBM + kSrRing * BN) * kSrPitch * (int)sizeof(bf16);
 }
 
 struct SrGeo {
@@ -59,17 +60,17 @@ struct SrGeo {
   int steps_per_slice;  // K steps of 32 a slice
 };
 
-template <typename T, int BN>
+template <int BN>
 __global__ void __launch_bounds__(kSrThreads)
 sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
                const float* __restrict__ lnw, const float* __restrict__ lnb,
-               const T* __restrict__ Wt, const float* __restrict__ bias,
+               const bf16* __restrict__ Wt, const float* __restrict__ bias,
                float* __restrict__ dst, SrGeo g) {
   constexpr int kNT = BN / 16;  // 8-column accumulator tiles a warp
-  constexpr int kP = kSrPitch<T>, kSK = kSliceK<T>;
+  constexpr int kP = kSrPitch, kSK = kSliceK<bf16>;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* As0 = reinterpret_cast<T*>(smem);       // [2][kSrBM * kP]
-  T* Bs0 = As0 + 2 * kSrBM * kP;             // [kSrRing][BN * kP]
+  bf16* As0 = reinterpret_cast<bf16*>(smem);    // [2][kSrBM * kP]
+  bf16* Bs0 = As0 + 2 * kSrBM * kP;             // [kSrRing][BN * kP]
   auto As = [&](int i) { return As0 + i * kSrBM * kP; };
   auto Bs = [&](int i) { return Bs0 + i * BN * kP; };
 
@@ -133,7 +134,7 @@ sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
       }
     }
   };
-  auto store_a = [&](T* dstA) {  // LayerNorm, rounded to T, to shared memory
+  auto store_a = [&](bf16* dstA) {  // LayerNorm, rounded to bf16, to shared memory
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float4 n = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -142,18 +143,15 @@ sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
                         ln_apply(a[i].y, mu[i], rs[i], gw.y, gb.y),
                         ln_apply(a[i].z, mu[i], rs[i], gw.z, gb.z),
                         ln_apply(a[i].w, mu[i], rs[i], gw.w, gb.w));
-      T* at = dstA + ((tid >> 3) + 16 * i) * kP + kc;
-      if constexpr (sizeof(T) == 4)
-        *reinterpret_cast<float4*>(at) = n;
-      else
-        *reinterpret_cast<uint2*>(at) = make_uint2(pack_bf16(n.x, n.y), pack_bf16(n.z, n.w));
+      bf16* at = dstA + ((tid >> 3) + 16 * i) * kP + kc;
+      *reinterpret_cast<uint2*>(at) = make_uint2(pack_bf16(n.x, n.y), pack_bf16(n.z, n.w));
     }
   };
   auto fetch_b = [&](int step) {  // one commit group a call, empty past the end
     if (step < nsteps) {
-      T* d = Bs(step % kSrRing);
-      const T* src = Wt + (size_t)(first + step) * kSrBK;
-      constexpr int kPieces = kSrBK * (int)sizeof(T) / 16, kPer = 16 / (int)sizeof(T);
+      bf16* d = Bs(step % kSrRing);
+      const bf16* src = Wt + (size_t)(first + step) * kSrBK;
+      constexpr int kPieces = kSrBK * (int)sizeof(bf16) / 16, kPer = 16 / (int)sizeof(bf16);
       for (int idx = tid; idx < BN * kPieces; idx += kSrThreads) {
         const int r = idx / kPieces, c = (idx % kPieces) * kPer;
         const bool ok = n0 + r < g.C;
@@ -180,8 +178,8 @@ sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
     __syncthreads();  // B of this step has landed, A of this step is stored, and every
                       // warp is done with the step before: its buffers are free
     fetch_b(step + 2);
-    const T* A = As(step & 1);
-    const T* Bt = Bs(step % kSrRing);
+    const bf16* A = As(step & 1);
+    const bf16* Bt = Bs(step % kSrRing);
 #pragma unroll
     for (int kk = 0; kk < kSrBK; kk += kSK) {
       uint32_t af[2][4];
@@ -195,8 +193,8 @@ sr_conv_kernel(const float* __restrict__ x, const float* __restrict__ stats,
                         ((lane >> 3) & 1) * (kSK / 2));
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
-          mma_slice<T>(acc[i][2 * j2], af[i], bf[0], bf[1]);
-          mma_slice<T>(acc[i][2 * j2 + 1], af[i], bf[2], bf[3]);
+          mma_slice<bf16>(acc[i][2 * j2], af[i], bf[0], bf[1]);
+          mma_slice<bf16>(acc[i][2 * j2 + 1], af[i], bf[2], bf[3]);
         }
       }
     }
@@ -244,31 +242,37 @@ __global__ void sr_reduce_kernel(const float* __restrict__ ws, const float* __re
       make_float4(v.x + b.x, v.y + b.y, v.z + b.z, v.w + b.w);
 }
 
-// lets the instantiation take its dynamic shared memory (above 48 KB for f32), once
-template <typename T, int BN>
+// lets the instantiation take its dynamic shared memory, once
+template <int BN>
 cudaError_t sr_prepare() {
   static const cudaError_t err = cudaFuncSetAttribute(
-      sr_conv_kernel<T, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, sr_smem<T, BN>());
+      sr_conv_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize, sr_smem<BN>());
   return err;
 }
 
-template <typename T>
 cudaError_t sr_launch(const float* x, const float* stats, const float* lnw, const float* lnb,
                       const void* w, const float* bias, float* dst, const SrGeo& g, int bn,
                       dim3 grid, cudaStream_t st) {
   if (bn == 64) {
-    const cudaError_t err = sr_prepare<T, 64>();
+    const cudaError_t err = sr_prepare<64>();
     if (err != cudaSuccess) return err;
-    sr_conv_kernel<T, 64><<<grid, kSrThreads, sr_smem<T, 64>(), st>>>(
-        x, stats, lnw, lnb, (const T*)w, bias, dst, g);
+    sr_conv_kernel<64><<<grid, kSrThreads, sr_smem<64>(), st>>>(
+        x, stats, lnw, lnb, (const bf16*)w, bias, dst, g);
   } else {
-    const cudaError_t err = sr_prepare<T, 128>();
+    const cudaError_t err = sr_prepare<128>();
     if (err != cudaSuccess) return err;
-    sr_conv_kernel<T, 128><<<grid, kSrThreads, sr_smem<T, 128>(), st>>>(
-        x, stats, lnw, lnb, (const T*)w, bias, dst, g);
+    sr_conv_kernel<128><<<grid, kSrThreads, sr_smem<128>(), st>>>(
+        x, stats, lnw, lnb, (const bf16*)w, bias, dst, g);
   }
   return cudaGetLastError();
 }
+
+// the f32 operand path, `sr_conv_wg_kernel` (sr_conv_f32.cu, built beside this file)
+int sr_conv_f32(const float* x, const float* stats, const float* lnw, const float* lnb,
+                const float* w, const float* bias, float* out, int B, int H, int W, int C, int sr,
+                int rows, int bn, int slices, cudaStream_t st);
+int sr_conv_f32_smem(int rows, int bn);
+int sr_conv_f32_clusters(int rows, int bn, int slices);
 
 }  // namespace k1
 
@@ -276,32 +280,43 @@ cudaError_t sr_launch(const float* x, const float* stats, const float* lnw, cons
 // stride-sr sr x sr conv over the (H, W) token grid of x (B, H*W, C), cropped to
 // full windows. w is the OHWI weight flattened to (C, sr*sr*C), bf16, or f32 where
 // `f32` is set (the operand type of the products); C % 32 == 0.
-// `bn` (64 or 128) is the width of a block's output tile and `slices` the number
-// of K slices, both from the wrapper's plan; with slices > 1, `ws` holds
-// slices * M * C floats.
+// The plan is the wrapper's: bf16, `bn` (64 or 128) the width of a block's output tile
+// (`rows` 64) and `slices` the number of K slices; with slices > 1, `ws` holds slices *
+// M * C floats and a second kernel adds them. f32, a tile of `rows` x `bn` (64 or 128 x
+// 32 to 192) and `slices` K slices (at most 16), the blocks of one cluster: one kernel, no
+// workspace.
 extern "C" int k1_sr_conv(const void* x, const void* stats, const void* lnw, const void* lnb,
                           const void* w, const void* bias, void* ws, void* out, int B, int H,
-                          int W, int C, int sr, int bn, int slices, int f32, void* stream) {
+                          int W, int C, int sr, int rows, int bn, int slices, int f32,
+                          void* stream) {
   using namespace k1;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (f32)
+    return sr_conv_f32((const float*)x, (const float*)stats, (const float*)lnw,
+                       (const float*)lnb, (const float*)w, (const float*)bias, (float*)out, B, H,
+                       W, C, sr, rows, bn, slices, st);
   const int Hs = H / sr, Ws = W / sr;
   const int M = B * Hs * Ws, K = sr * sr * C, steps = K / kSrBK;
-  if (M < 1 || C % kSrBK || slices < 1 || slices > steps || (bn != 64 && bn != 128) ||
-      (slices > 1 && ws == nullptr))
+  if (M < 1 || C % kSrBK || slices < 1 || slices > steps || rows != kSrBM ||
+      (bn != 64 && bn != 128) || (slices > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const int per = (steps + slices - 1) / slices;
   if ((slices - 1) * per >= steps) return (int)cudaErrorInvalidValue;  // an empty slice
   const SrGeo g{C, H, W, sr, Hs, Ws, M, K, per};
   const dim3 grid((M + kSrBM - 1) / kSrBM, (C + bn - 1) / bn, slices);
   float* dst = slices > 1 ? (float*)ws : (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err =
-      f32 ? sr_launch<float>((const float*)x, (const float*)stats, (const float*)lnw,
-                             (const float*)lnb, w, (const float*)bias, dst, g, bn, grid, st)
-          : sr_launch<bf16>((const float*)x, (const float*)stats, (const float*)lnw,
-                            (const float*)lnb, w, (const float*)bias, dst, g, bn, grid, st);
+  cudaError_t err = sr_launch((const float*)x, (const float*)stats, (const float*)lnw,
+                              (const float*)lnb, w, (const float*)bias, dst, g, bn, grid, st);
   if (err != cudaSuccess || slices == 1) return (int)err;
   const size_t total4 = (size_t)M * C / 4;
   sr_reduce_kernel<<<(unsigned)((total4 + 255) / 256), 256, 0, st>>>(
       (const float*)ws, (const float*)bias, (float*)out, total4, C, slices);
   return (int)cudaGetLastError();
+}
+
+// the f32 kernel's dynamic shared memory at a tile, and the clusters of `slices` blocks
+// the card holds at once (-1 for a tile it lacks)
+extern "C" int k1_sr_conv_wg_smem(int rows, int bn) { return k1::sr_conv_f32_smem(rows, bn); }
+extern "C" int k1_sr_conv_wg_clusters(int rows, int bn, int slices) {
+  return k1::sr_conv_f32_clusters(rows, bn, slices);
 }

@@ -37,9 +37,11 @@ SIGNATURES = {
         # a, w, bias, stats, ln_w, ln_b, residual, out, M, Nout, K, tile, per, f32, stream
         "k1_linear": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "k1_linear_blocks_per_sm": (_I, _I, _I),   # tile, LayerNorm prologue, f32
-        # x, stats, ln_w, ln_b, w, bias, workspace, out, B, H, W, C, sr, tile, slices, f32,
-        # stream
-        "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        # x, stats, ln_w, ln_b, w, bias, workspace, out, B, H, W, C, sr, rows, columns,
+        # slices, f32, stream
+        "k1_sr_conv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+        "k1_sr_conv_wg_smem": (_I, _I),           # f32: rows, columns of the tile
+        "k1_sr_conv_wg_clusters": (_I, _I, _I),   # f32: rows, columns, blocks a cluster
         # q, kv, workspace, out, logits, B, N, Nk, C, nh, scale, f32, queries, blocks, stream
         "k1_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _P),
         "k1_attention_one_pass_keys": (),

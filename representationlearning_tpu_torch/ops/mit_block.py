@@ -13,7 +13,8 @@ block runs as a few token-tiled CUDA kernels (``csrc/mit_block/``):
                   (q, kv, proj + residual, fc1, fc2 + residual), its output
                   tile and the M tiles a block walks chosen by `linear_plan`
     sr_conv       the stride-sr sr x sr conv as an implicit-im2col GEMM (sr > 1),
-                  split along K by `sr_conv_plan`, the slices added in order
+                  split along K by `sr_conv_plan`, the slices added in order (bf16:
+                  by a second kernel; f32: inside the thread-block cluster of a tile)
     attention     per-head softmax(q k^T * scale) v, optional raw-logit export;
                   bf16: one pass over the keys up to ATTN_ONE_PASS_KEYS, two
                   beyond; f32: one pass with an online softmax at every Nk, the
@@ -27,9 +28,8 @@ Intermediates between kernels stay f32; matmul operands are rounded to the
 compute dtype (bf16, or f32 as the TPU kernel's default) and accumulate in f32,
 LayerNorm, softmax and GELU run in f32 -- the numerics of the TPU kernel. On the
 card the f32 products are 3xTF32 products (f32 to about 2^-21 of each product):
-`sr_conv` runs them on `mma.sync`, the operand type a template parameter of the same
-kernel; `linear` and `attention` run them on `wgmma` in kernels of their own for f32,
-selected at compile time (gemm.cu, attention.cu). The f32 `attention` takes one pass
+`linear`, `sr_conv` and `attention` run them on `wgmma` in kernels of their own for f32
+(gemm_f32.cu, sr_conv_f32.cu, attention_f32.cu). The f32 `attention` takes one pass
 over the keys with an online softmax: the bf16 kernels must normalise each row before
 they round its probabilities to bf16 (two passes beyond ATTN_ONE_PASS_KEYS), while in
 f32 nothing is rounded to bf16 and an online softmax differs from the plain version
@@ -297,21 +297,82 @@ def check_attention_plan(plan, B: int, N: int, Nk: int, C: int, nh: int,
     return queries, blocks
 
 
-# The sr conv kernel (csrc/mit_block/sr_conv.cu): output tiles of SR_TILE_M rows,
-# K walked in steps of SR_K_STEP columns.
+# The sr conv kernel with bf16 operands (csrc/mit_block/sr_conv.cu): output tiles of
+# SR_TILE_M rows, K walked in steps of SR_K_STEP columns.
 SR_TILE_M, SR_K_STEP = 64, 32
 SR_TARGET_BLOCKS = 2 * 132   # two thread blocks on each of the H100's 132 SMs
 SR_MIN_STEPS = 4             # a slice shorter than this is all prologue
 SR_MAX_SLICES = 32
+# With f32 operands the kernel is `sr_conv_wg_kernel` (3xTF32 `wgmma`,
+# csrc/mit_block/sr_conv_f32.cu): a block is rows / 64 consumer warpgroups and a producer
+# warpgroup, owns one output tile of SR_WG_ROWS x SR_WG_COLUMNS and one K slice; the K
+# slices of a tile are the blocks of one thread-block cluster (at most SR_WG_MAX_SLICES,
+# the H100's largest; above 8 a non-portable size), which sums them in slice order. A
+# ring of tensor-map copies of SR_K_STEP columns (an im2col box of the tokens, the weights
+# and their TF32 small half), as many slots as fit beside a copy of the LayerNorm vectors
+# (SR_WG_MAX_C channels) and the barriers, at most SR_WG_MAX_STAGES.
+SR_WG_ROWS = (64, 128)
+SR_WG_COLUMNS = (32, 64, 96, 128, 160, 192)
+SR_WG_MAX_SLICES, SR_WG_MAX_STAGES, SR_WG_MAX_C = 16, 8, 512
+SR_WG_MIN_STEPS = 2            # a slice shorter than this is all prologue
+# clusters of 1 to 16 blocks (one an SM) that the H100 holds at once: its SMs come in groups,
+# and a cluster lies in one (`cudaOccupancyMaxActiveClusters`, `k1_sr_conv_wg_clusters`;
+# chip_smoke.py checks them). A grid of more clusters runs in two waves.
+SR_WG_CLUSTERS = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
 
 
-def sr_conv_plan(M: int, C: int, K: int) -> tuple[int, int]:
-    """(tile, slices) of the sr conv kernel for an (M, K) x (K, C) product: the
-    width of a block's output tile and the number of slices K is cut into, so
-    that tiles x slices comes as near to SR_TARGET_BLOCKS as the work allows. A
-    function of the shapes only: the same call always adds in the same order."""
+def sr_conv_columns(C: int) -> int:
+    """The f32 kernel's widest output tile for C channels: C cut into the fewest tiles of
+    at most 192 columns, each a multiple of 32 (C 64 -> 64, 128 -> 128, 320 -> 2 x 160)."""
+    tiles = max(1, math.ceil(C / SR_WG_COLUMNS[-1]))
+    return SR_K_STEP * math.ceil(C / tiles / SR_K_STEP)
+
+
+def _sr_slices(steps: int, tiles: int) -> int:
+    """The f32 kernel's K slices for `tiles` output tiles: the most whose clusters the card
+    holds in one wave (SR_WG_CLUSTERS), at most SR_WG_MAX_SLICES, at least SR_WG_MIN_STEPS
+    K steps a slice, none empty."""
+    s = max([n for n in range(1, SR_WG_MAX_SLICES + 1) if tiles <= SR_WG_CLUSTERS[n - 1]]
+            + [1])
+    s = min(s, max(1, steps // SR_WG_MIN_STEPS))
+    return math.ceil(steps / math.ceil(steps / s))
+
+
+def _sr_conv_plan_f32(M: int, C: int, K: int) -> tuple[tuple[int, int], int]:
+    steps = K // SR_K_STEP
+    # few rows (the WSSS command lines' validation and CAM forwards): a slice's K steps are
+    # the launch's critical path, so the narrowest columns whose 64-row tiles the card holds
+    # in one wave at the most slices K allows
+    most = _sr_slices(steps, 1)
+    for bn in range(SR_K_STEP, sr_conv_columns(C) + 1, SR_K_STEP):
+        if _sr_slices(steps, math.ceil(M / 64) * math.ceil(C / bn)) == most:
+            return (64, bn), most
+    bn = sr_conv_columns(C)
+    ntiles = math.ceil(C / bn)
+
+    def blocks(rows):
+        tiles = max(1, math.ceil(M / rows)) * ntiles
+        return tiles * _sr_slices(steps, tiles), _sr_slices(steps, tiles)
+
+    rows = 128 if M > 64 and blocks(128)[0] >= blocks(64)[0] else 64
+    return (rows, bn), blocks(rows)[1]
+
+
+@functools.lru_cache(maxsize=1024)   # the host's time a launch counts: shapes repeat
+def sr_conv_plan(M: int, C: int, K: int, dtype=torch.bfloat16):
+    """The plan of the sr conv kernel for an (M, K) x (K, C) product. bf16: (tile,
+    slices), the width of a block's output tile and the number of slices K is cut into,
+    so that tiles x slices comes as near to SR_TARGET_BLOCKS as the work allows. f32:
+    ((rows, columns), slices), the output tile and the K slices, the blocks of one cluster
+    (`_sr_slices`): where some column width lets 64-row tiles take the most slices K allows
+    in one wave, the narrowest such; else `sr_conv_columns` and the rows whose one wave
+    holds the more blocks, 128 on a tie where M has more than 64 rows (a tile's A is
+    normalised and split once for twice the products). A function of the shapes only: the
+    same call always adds in the same order."""
     if K % SR_K_STEP:
         raise ValueError(f"sr_conv: K={K} is not a multiple of {SR_K_STEP}")
+    if dtype == torch.float32:
+        return _sr_conv_plan_f32(M, C, K)
     tile = 64 if C <= 64 else 128
     steps = K // SR_K_STEP
     tiles = max(1, math.ceil(M / SR_TILE_M)) * math.ceil(C / tile)
@@ -321,19 +382,61 @@ def sr_conv_plan(M: int, C: int, K: int) -> tuple[int, int]:
     return tile, math.ceil(steps / per)     # no slice is empty
 
 
-def sr_conv_smem_bytes(tile: int, dtype) -> int:
-    """Shared memory of the sr conv kernel at output width `tile` (64 or 128) with
-    `dtype` operands: two A tiles and a ring of three B tiles, rows of SR_K_STEP
-    elements and 16 bytes (sr_conv.cu's `sr_smem`)."""
+def check_sr_conv_plan(plan, K: int, dtype=torch.bfloat16):
+    """An f32 plan as the kernel takes it, ((rows, columns), slices), or ValueError: rows
+    of SR_WG_ROWS, columns of SR_WG_COLUMNS, slices that leave none empty, at most
+    SR_WG_MAX_SLICES. A bf16 plan (tile, slices) is checked by the kernel, which raises
+    at launch."""
+    if dtype != torch.float32:
+        return plan
+    try:
+        (rows, cols), slices = plan
+        rows, cols, slices = int(rows), int(cols), int(slices)
+    except (TypeError, ValueError):
+        raise ValueError(f"sr_conv: plan {plan!r} is not ((rows, columns), slices)") from None
+    if (rows not in SR_WG_ROWS or cols not in SR_WG_COLUMNS
+            or slices not in sr_conv_slice_counts(K, dtype)):
+        raise ValueError(f"sr_conv: plan {plan!r} is not one the f32 kernel takes: rows one of "
+                         f"{SR_WG_ROWS}, columns one of {SR_WG_COLUMNS}, slices one of "
+                         f"{sr_conv_slice_counts(K, dtype)}")
+    return (rows, cols), slices
+
+
+def _sr_wg_fixed_bytes() -> int:
+    """The f32 kernel's shared memory beside its ring: 1 KB to align the ring, the
+    LayerNorm weight and bias of SR_WG_MAX_C channels, 3 barriers a slot and the sum's."""
+    return 1024 + 2 * SR_WG_MAX_C * 4 + 8 * (3 * SR_WG_MAX_STAGES + 1)
+
+
+def sr_conv_stages(tile) -> int:
+    """Slots of the f32 kernel's ring at tile (rows, columns): as many as fit in
+    SMEM_LIMIT beside `_sr_wg_fixed_bytes`, at most SR_WG_MAX_STAGES (sr_conv_f32.cu's
+    `sw_stages`)."""
+    rows, cols = tile
+    return min(SR_WG_MAX_STAGES,
+               (SMEM_LIMIT - _sr_wg_fixed_bytes()) // ((rows + 2 * cols) * SR_K_STEP * 4))
+
+
+def sr_conv_smem_bytes(tile, dtype) -> int:
+    """Shared memory of the sr conv kernel. bf16, at output width `tile` (64 or 128): two
+    A tiles and a ring of three B tiles, rows of SR_K_STEP elements and 16 bytes
+    (sr_conv.cu's `sr_smem`). f32, at `tile` (rows, columns): the ring's slots of A, the
+    weights and their TF32 small half (rows of 128 bytes) and `_sr_wg_fixed_bytes`
+    (sr_conv_f32.cu's `sw_smem`); the partials of the cluster's sum land in the ring."""
+    if dtype == torch.float32:
+        rows, cols = tile
+        return _sr_wg_fixed_bytes() + sr_conv_stages(tile) * (rows + 2 * cols) * SR_K_STEP * 4
     size = torch.finfo(dtype).bits // 8
     return (2 * SR_TILE_M + 3 * tile) * (SR_K_STEP + 16 // size) * size
 
 
-def sr_conv_slice_counts(K: int) -> list[int]:
+def sr_conv_slice_counts(K: int, dtype=torch.bfloat16) -> list[int]:
     """Every number of slices the kernel takes for this K: those that leave no slice
-    empty when each but the last holds ceil(steps / slices) K steps."""
+    empty when each but the last holds ceil(steps / slices) K steps, at most
+    SR_MAX_SLICES (bf16) or SR_WG_MAX_SLICES (f32, a cluster's blocks)."""
     steps = K // SR_K_STEP
-    return [s for s in range(1, SR_MAX_SLICES + 1) if (s - 1) * math.ceil(steps / s) < steps]
+    most = SR_WG_MAX_SLICES if dtype == torch.float32 else SR_MAX_SLICES
+    return [s for s in range(1, most + 1) if (s - 1) * math.ceil(steps / s) < steps]
 
 
 def sr_conv_slices(K: int, slices: int) -> list[tuple[int, int]]:
@@ -586,16 +689,21 @@ def linear(a, w, bias, *, stats=None, ln_w=None, ln_b=None, residual=None,
 
 def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat16,
             plan=None):
-    """`plan`: a (tile, slices) other than `sr_conv_plan`'s, for tests and tuning; it
-    changes the order of the f32 sums on the card and nothing on the CPU."""
+    """`plan`: a plan other than `sr_conv_plan`'s, for tests and tuning: bf16 (tile,
+    slices), checked by the kernel; f32 ((rows, columns), slices), checked on any device.
+    It changes the order of the f32 sums on the card and nothing on the CPU."""
+    f32 = dtype == torch.float32
+    if plan is not None and f32:
+        plan = check_sr_conv_plan(plan, sr * sr * x.shape[-1], dtype)
     if not x.is_cuda:
         return sr_conv_reference(x, stats, ln_w, ln_b, w_flat, bias, H=H, W=W, sr=sr,
                                  dtype=dtype)
     _compute_dtype(dtype)
     B, N, C = x.shape
     dev = x.device
-    if N != H * W or C % 32:
-        raise ValueError(f"sr_conv: N={N}, H*W={H * W}, C={C} (C % 32 must be 0)")
+    if N != H * W or C % 32 or (f32 and C > SR_WG_MAX_C):
+        raise ValueError(f"sr_conv: N={N}, H*W={H * W}, C={C} (C % 32 must be 0; with f32 "
+                         f"operands C <= {SR_WG_MAX_C})")
     _check(x, "x", dev)
     _check(stats, "stats", dev, (B, N, 2))
     _check(ln_w, "ln_w", dev, (C,))
@@ -605,13 +713,22 @@ def sr_conv(x, stats, ln_w, ln_b, w_flat, bias, *, H, W, sr, dtype=torch.bfloat1
     Nk = (H // sr) * (W // sr)
     out = torch.empty((B, Nk, C), device=dev, dtype=torch.float32)
     if B * Nk:
-        tile, slices = sr_conv_plan(B * Nk, C, sr * sr * C) if plan is None else plan
-        # the slices' partial results; the kernel's second step adds them in order
-        ws = (torch.empty((slices, B * Nk, C), device=dev, dtype=torch.float32)
-              if slices > 1 else None)
+        M, K = B * Nk, sr * sr * C
+        ws = None
+        if f32:     # tensor-map copies and 16-byte loads: no workspace, one kernel
+            for t, name in ((x, "x"), (w_flat, "w_flat"), (bias, "bias")):
+                _aligned(t, name)
+            _aligned(stats, "stats", 8)
+            (rows, tile), slices = sr_conv_plan(M, C, K, dtype) if plan is None else plan
+        else:
+            rows = SR_TILE_M
+            tile, slices = sr_conv_plan(M, C, K) if plan is None else plan
+            # the slices' partial results; the kernel's second step adds them in order
+            if slices > 1:
+                ws = torch.empty((slices, M, C), device=dev, dtype=torch.float32)
         _launch("k1_sr_conv", dev, x.data_ptr(), stats.data_ptr(), ln_w.data_ptr(),
                 ln_b.data_ptr(), w_flat.data_ptr(), bias.data_ptr(), _ptr(ws),
-                out.data_ptr(), B, H, W, C, sr, tile, slices, int(dtype == torch.float32))
+                out.data_ptr(), B, H, W, C, sr, rows, tile, slices, int(f32))
         LAUNCHES["sr_conv"] += 1   # one a call, whatever number of device kernels it takes
     return out
 

@@ -12,9 +12,9 @@ import math
 import pytest
 import torch
 
-from chip_smoke import (K1_F32_ATTN_KEYS, K1_F32_ATTN_QUERIES, affinity_plans, attention_plans,
-                        bwd_plans, drfl_agreement, drfl_card_vs_cpu, isa_trap_move, linear_plans,
-                        taps_plans, varm_plans)
+from chip_smoke import (K1_F32_ATTN_KEYS, K1_F32_ATTN_QUERIES, K1_F32_SR_EDGES, affinity_plans,
+                        attention_plans, bwd_plans, drfl_agreement, drfl_card_vs_cpu, isa_trap_move,
+                        linear_plans, sr_conv_plans, taps_plans, varm_plans)
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -969,20 +969,95 @@ def test_linear_f32_every_plan_gives_equal_bits(dev, M, Nout, K, ln, res):
     assert tmb.LAUNCHES["linear"] == 2 + len(plans)
 
 
+def _sr_args(g, B, H, W, C, sr, dev, dtype=torch.float32):
+    x = _rand(g, B, H * W, C, dev=dev, scale=2.0, shift=0.5)
+    return (x, tmb.ln_stats_reference(x), _rand(g, C, dev=dev, shift=1.0),
+            _rand(g, C, dev=dev, scale=0.1),
+            _rand(g, C, sr * sr * C, dev=dev, scale=(sr * sr * C) ** -0.5).to(dtype),
+            _rand(g, C, dev=dev))
+
+
 @pytest.mark.parametrize("H,C,sr", [(16, 64, 8), (9, 320, 2), (13, 128, 4)])
 def test_sr_conv_f32_at_every_number_of_slices(dev, H, C, sr):
+    """Every plan of the f32 kernel (64 and 128 rows, the plan's and the widest columns,
+    every slice count a cluster holds): within F32_TOL of the plain version and of the
+    sliced plain version at its cut, equal bits on a second run."""
     g = torch.Generator().manual_seed(H * C)
     x = _rand(g, 2, H * H, C, dev=dev)
     args = (x, tmb.ln_stats_reference(x), _rand(g, C, dev=dev, shift=1.0),
             _rand(g, C, dev=dev, scale=0.1), _rand(g, C, sr * sr * C, dev=dev, scale=0.05),
             _rand(g, C, dev=dev))
     want = tmb.sr_conv_reference(*args, H=H, W=H, sr=sr, dtype=torch.float32)
-    for tile in (64, 128):
-        for slices in tmb.sr_conv_slice_counts(sr * sr * C):
-            got = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32, plan=(tile, slices))
-            _close(got, want, F32_TOL)
-            assert torch.equal(got, tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32,
-                                                plan=(tile, slices)))
+    K, M = sr * sr * C, 2 * (H // sr) ** 2
+    for plan in sr_conv_plans(tmb, M, C, K):
+        got = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32, plan=plan)
+        _close(got, want, F32_TOL)
+        _close(got, tmb.sr_conv_sliced_reference(*args, H=H, W=H, sr=sr, slices=plan[1],
+                                                 dtype=torch.float32), F32_TOL)
+        assert torch.equal(got, tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32,
+                                            plan=plan)), plan
+
+
+@pytest.mark.parametrize("B,H,W,C,sr", K1_F32_SR_EDGES)
+def test_sr_conv_f32_at_the_edges(dev, B, H, W, C, sr):
+    """The f32 kernel where the copy engine's walk through the windows turns: cropped
+    grids, patch rows that cross images, tiles of one row more or less, every tile width;
+    at every plan, against the plain version, a rerun giving equal bits."""
+    g = torch.Generator().manual_seed(B * H * W + C)
+    args = _sr_args(g, B, H, W, C, sr, dev)
+    want = tmb.sr_conv_reference(*args, H=H, W=W, sr=sr, dtype=torch.float32)
+    K, M = sr * sr * C, B * (H // sr) * (W // sr)
+    for plan in sr_conv_plans(tmb, M, C, K):
+        got = tmb.sr_conv(*args, H=H, W=W, sr=sr, dtype=torch.float32, plan=plan)
+        assert got.shape == (B, (H // sr) * (W // sr), C)
+        _close(got, want, F32_TOL)
+        assert torch.equal(got, tmb.sr_conv(*args, H=H, W=W, sr=sr, dtype=torch.float32,
+                                            plan=plan)), plan
+
+
+def test_sr_conv_f32_is_one_kernel_and_one_count(dev):
+    """An f32 call at the headline's stage-1 geometry is one device kernel, the
+    `sr_conv_wg_kernel` (no workspace and no reduction kernel), and one LAUNCHES count;
+    the kernel's shared memory and the clusters the card holds are the plan's tables."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from representationlearning_tpu_torch.ops import _build
+    lib = _build.load_library("mit_block")
+    for rows in tmb.SR_WG_ROWS:
+        for cols in tmb.SR_WG_COLUMNS:
+            assert lib.k1_sr_conv_wg_smem(rows, cols) == \
+                tmb.sr_conv_smem_bytes((rows, cols), torch.float32)
+            assert [lib.k1_sr_conv_wg_clusters(rows, cols, s)
+                    for s in range(1, tmb.SR_WG_MAX_SLICES + 1)] == list(tmb.SR_WG_CLUSTERS)
+    g = torch.Generator().manual_seed(1)
+    args = _sr_args(g, 8, 128, 128, 64, 8, dev)
+    want = tmb.sr_conv(*args, H=128, W=128, sr=8, dtype=torch.float32)
+    torch.cuda.synchronize()
+    before = tmb.LAUNCHES["sr_conv"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = tmb.sr_conv(*args, H=128, W=128, sr=8, dtype=torch.float32)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "sr_conv_wg_kernel" in kernels[0], kernels
+    assert tmb.LAUNCHES["sr_conv"] == before + 1 and torch.equal(got, want)
+
+
+def test_sr_conv_f32_refuses_what_the_kernel_does_not_take(dev):
+    """A plan the f32 kernel lacks, more than 512 channels, and tokens that are not 16-byte
+    aligned raise before a launch."""
+    g = torch.Generator().manual_seed(2)
+    args = _sr_args(g, 1, 4, 4, 64, 2, dev)
+    with pytest.raises(ValueError, match="plan"):
+        tmb.sr_conv(*args, H=4, W=4, sr=2, dtype=torch.float32, plan=(64, 2))
+    with pytest.raises(ValueError, match="plan"):
+        tmb.sr_conv(*args, H=4, W=4, sr=2, dtype=torch.float32, plan=((64, 64), 9))
+    wide = _sr_args(g, 1, 2, 2, 544, 2, dev)
+    with pytest.raises(ValueError, match="512"):
+        tmb.sr_conv(*wide, H=2, W=2, sr=2, dtype=torch.float32)
+    x = torch.zeros(16 * 64 + 1, device=dev)[1:].view(1, 16, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        tmb.sr_conv(x, *args[1:], H=4, W=4, sr=2, dtype=torch.float32)
+    assert torch.isfinite(tmb.sr_conv(*args, H=4, W=4, sr=2, dtype=torch.float32)).all()
 
 
 @pytest.mark.parametrize("N,Nk,C,nh", [(70, 50, 64, 1), (64, 255, 128, 2), (33, 257, 160, 5),

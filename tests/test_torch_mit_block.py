@@ -6,6 +6,9 @@ and `fused_block_pallas` (interpret mode on the CPU) and through the port's
 version). Geometries are those of `tests/test_pallas_attention.py:156-157`,
 including grids that the sr stride does not divide (19 % 8, 13 % 4).
 """
+import functools
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -235,6 +238,100 @@ def test_sr_conv_sum_in_slice_order_matches_plain(hw, C, sr, slices):
         assert torch.equal(got, want)
 
 
+# The f32 kernel's plans, (M, C, sr): the headline (8 x 512²: M 2,048 at every stage), the
+# WSSS command lines' CAM forwards (batch 4 of 5 / 10 / 15 patches a side: M 100 / 400 / 900),
+# their validation (96 x 128 at batch 1: 12 rows at stage 1, up to 24 with [x; flip x]), the
+# edges of the tiles (M 1, 64 and 128 less and more one) at every MiT width that has sr > 1,
+# and a grid larger than one wave (the CAM forward at 480² and batch 16: 3,600 rows)
+_SR_F32_WIDTHS = [(32, 8), (64, 8), (128, 4), (160, 2), (320, 2)]   # C, sr of MiT-B0..B5
+SR_F32_GEOMETRIES = [(M, C, sr) for M in (2048, 100, 400, 900, 12, 16, 20, 24)
+                     for C, sr in [(64, 8), (128, 4), (320, 2)]]
+SR_F32_GEOMETRIES += [(M, C, sr) for M in (1, 63, 64, 65, 127, 128, 129, 3600)
+                      for C, sr in _SR_F32_WIDTHS]
+
+
+@pytest.mark.parametrize("M,C,sr", SR_F32_GEOMETRIES)
+def test_sr_conv_f32_plan_covers_the_product_in_one_wave(M, C, sr):
+    """The f32 plan ((rows, columns), slices) is one the kernel takes: a function of the
+    shapes; every K step in exactly one slice, none empty; at most 16 slices (the blocks of
+    one cluster, the H100's largest); columns no wider than `sr_conv_columns`, and narrower
+    only in 64-row tiles at the most slices K allows; the tiles cover M x C with less than
+    a tile to spare;
+    the card holds the grid's clusters in one wave (SR_WG_CLUSTERS) wherever the tiles fit
+    one; the ring, the LayerNorm vectors and the barriers within SMEM_LIMIT, and the
+    partials of the cluster's sum within the ring. At the headline at least 96 blocks."""
+    f32 = torch.float32
+    K = sr * sr * C
+    plan = tmb.sr_conv_plan(M, C, K, f32)
+    (rows, cols), slices = plan
+    assert plan == tmb.sr_conv_plan(M, C, K, f32) == tmb.check_sr_conv_plan(plan, K, f32)
+    assert rows in tmb.SR_WG_ROWS and cols in tmb.SR_WG_COLUMNS and cols <= tmb.sr_conv_columns(C)
+    assert 1 <= slices <= tmb.SR_WG_MAX_SLICES == 16
+    if cols < tmb.sr_conv_columns(C):
+        most = K // (tmb.SR_WG_MIN_STEPS * tmb.SR_K_STEP)   # slices of the fewest K steps
+        assert rows == 64
+        assert slices == max(s for s in tmb.sr_conv_slice_counts(K, f32) if s <= most)
+    cuts = tmb.sr_conv_slices(K, slices)
+    assert len(cuts) == slices and all(k1 > k0 for k0, k1 in cuts)
+    steps = [k for k0, k1 in cuts for k in range(k0, k1, tmb.SR_K_STEP)]
+    assert steps == list(range(0, K, tmb.SR_K_STEP))
+    mt, nt = -(-M // rows), -(-C // cols)
+    assert mt * rows >= M > (mt - 1) * rows and nt * cols >= C > (nt - 1) * cols
+    tiles = mt * nt
+    if tiles <= tmb.SR_WG_CLUSTERS[0]:
+        assert tiles <= tmb.SR_WG_CLUSTERS[slices - 1]
+    else:
+        assert slices == 1
+    stages = tmb.sr_conv_stages((rows, cols))
+    assert tmb.sr_conv_smem_bytes((rows, cols), f32) <= tmb.SMEM_LIMIT and stages >= 2
+    assert (rows + tmb.SR_WG_MAX_SLICES - 1) * (cols + 8) * 4 <= stages * (rows + 2 * cols) * 128
+    if M == 2048:
+        assert tiles * slices >= 96
+
+
+@pytest.mark.parametrize("plan", [((96, 64), 2), ((64, 48), 2), ((64, 64), 9), ((64, 64), 0),
+                                  ((128, 64), 5), (64, 2), ((64, 64),), "plan", ((64, 32), 17)])
+def test_sr_conv_refuses_an_f32_plan_the_kernel_does_not_take(plan):
+    """An f32 plan is checked on any device: a tile the kernel lacks, more slices than a
+    cluster holds (or K steps), none, a cut that leaves a slice empty (K = 8 steps in 5
+    slices of 2) and a bf16 plan's form are refused; a plan it takes runs the plain
+    version on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    C, sr, H = 64, 2, 6
+    x = torch.randn(2, H * H, C, generator=g)
+    args = (x, tmb.ln_stats_reference(x), torch.randn(C, generator=g) + 1.0,
+            torch.randn(C, generator=g) * 0.1, torch.randn(C, sr * sr * C, generator=g) * 0.05,
+            torch.randn(C, generator=g))
+    with pytest.raises(ValueError, match="plan"):
+        tmb.check_sr_conv_plan(plan, sr * sr * C, torch.float32)
+    with pytest.raises(ValueError, match="plan"):
+        tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32, plan=plan)
+    got = tmb.sr_conv(*args, H=H, W=H, sr=sr, dtype=torch.float32, plan=((64, 64), 4))
+    assert torch.equal(got, tmb.sr_conv_reference(*args, H=H, W=H, sr=sr, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("hw,C,sr,nh", [g for g in GEOMETRIES if g[2] > 1])
+@pytest.mark.parametrize("cut", ["plan", "every"])
+def test_sr_conv_f32_slice_order_in_the_block_matches_jax_block_math(hw, C, sr, nh, cut):
+    """The block with `sr_conv` summed in the f32 kernel's order (`sr_conv_sliced_reference`
+    at the K slices of the f32 plan, or at every slice count the f32 kernel takes) against
+    JAX's `_block_math` in f32 ("taps", the TPU kernel's form) on the same numpy inputs,
+    within this file's per-block bound."""
+    f32 = torch.float32
+    tok, p, tp = _setup(hw, C, sr, nh, seed=hw * sr + C)
+    block = functools.partial(jmb._block_math, p=p, H=hw, W=hw, sr=sr, nh=nh, dtype=jnp.float32)
+    want = np.asarray(jax.vmap(lambda xb: block(xb))(jnp.asarray(tok)))
+    M, K = 2 * (hw // sr) ** 2, sr * sr * C
+    counts = ([tmb.sr_conv_plan(M, C, K, f32)[1]] if cut == "plan"
+              else tmb.sr_conv_slice_counts(K, f32))
+    for slices in counts:
+        ops = SimpleNamespace(**{**vars(tmb.PLAIN), "sr_conv": functools.partial(
+            tmb.sr_conv_sliced_reference, slices=slices)})
+        got = tmb._block(torch.from_numpy(tok), tp, H=hw, W=hw, sr=sr, nh=nh, dtype=f32,
+                         export=False, ops=ops)
+        np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL)
+
+
 def _setup_hw(H, W, C, sr, nh, seed):
     rng = np.random.default_rng(seed)
     tok = rng.standard_normal((1, H * W, C)).astype(np.float32)
@@ -356,7 +453,9 @@ def test_linear_and_sr_conv_tiles_fit_shared_memory_with_either_operand_type(dty
     assert len(per_sm) == len(tiles)
     for n, b in zip(per_sm, smem):
         assert b <= tmb.SMEM_LIMIT and n * (b + 1024) <= 228 * 1024
-    assert all(tmb.sr_conv_smem_bytes(t, dtype) <= tmb.SMEM_LIMIT for t in (64, 128))
+    sr_tiles = ([(r, c) for r in tmb.SR_WG_ROWS for c in tmb.SR_WG_COLUMNS] if f32
+                else [64, 128])
+    assert all(tmb.sr_conv_smem_bytes(t, dtype) <= tmb.SMEM_LIMIT for t in sr_tiles)
     for M, Nout, K in LINEAR_GEOMETRIES:
         tile, n = tmb.linear_plan(M, Nout, K, dtype)
         assert (tile, n) == tmb.linear_plan(M, Nout, K, dtype) and tile in tiles
@@ -370,7 +469,7 @@ def test_linear_and_sr_conv_tiles_fit_shared_memory_with_either_operand_type(dty
         assert groups * n * rows >= M > (groups - 1) * n * rows
     for B, hw, C, sr in SR_GEOMETRIES:
         M, K = B * (hw // sr) ** 2, sr * sr * C
-        tile, slices = tmb.sr_conv_plan(M, C, K)
+        tile, slices = tmb.sr_conv_plan(M, C, K, dtype)
         cuts = tmb.sr_conv_slices(K, slices)
         assert cuts[0][0] == 0 and cuts[-1][1] == K and tmb.sr_conv_smem_bytes(tile, dtype) \
             <= tmb.SMEM_LIMIT

@@ -159,8 +159,8 @@ def test_kernel_build_is_keyed_by_the_sources():
     d = _build._digest("mit_block")
     assert len(d) == 16 and d == _build._digest("mit_block")
     assert {p.name for p in (_build.CSRC / "mit_block").glob("*.cu")} == {
-        "ln_stats.cu", "gemm.cu", "gemm_f32.cu", "sr_conv.cu", "attention.cu", "attention_f32.cu",
-        "dwconv_gelu.cu"}
+        "ln_stats.cu", "gemm.cu", "gemm_f32.cu", "sr_conv.cu", "sr_conv_f32.cu", "attention.cu",
+        "attention_f32.cu", "dwconv_gelu.cu"}
     assert {p.name for p in (_build.CSRC / "refine").glob("*.cu")} == {
         "affinity.cu", "varm.cu"}
     assert {p.name for p in (_build.CSRC / "attention").glob("*.cu")} == {
