@@ -647,6 +647,22 @@ K5_NEAR, K5_FAR_SHARE = 1e-3, 1e-3
 # `torch.exp`; with bf16 operands a probability next to a rounding boundary may
 # take the neighbouring bf16 value (2^-8 of a value below 1).
 K6_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# SHA-256 (first 16 hex digits) of the bf16 `mlp_fc1` at HRNetV2's widths and phase 7l's planes
+# (`tools/time_port_dwconv_fc1.py::fc1_bf16_digests`), recorded on an H100 before the f32 fc1
+# became `fc1_wg_kernel`: the bf16 kernel keeps its bits
+FC1_BF16_SHA256 = {
+    "w18 8x128x128": "c3f76ee602176c8d", "w18 2x96x96": "b7c5249162610d63",
+    "w18 2x7x9": "f1e5d19e408145ab", "w18 1x20x45": "c052e2c12aa8d958",
+    "w18 3x13x29": "dde6c108890f8c88", "w18 1x1x1": "d79e40a86460f664",
+    "w32 8x128x128": "87d246fac65c7063", "w32 2x96x96": "db6f8055925f6db9",
+    "w32 2x7x9": "25685f58fc7827cb", "w32 1x20x45": "96be5a71ce66f270",
+    "w32 3x13x29": "5afa072cc0878c2f", "w32 1x1x1": "635f041196642d45",
+    "w40 8x128x128": "bb42e2c0fbbf626a", "w40 2x96x96": "192e7e443f81847b",
+    "w40 2x7x9": "a9ac7919880028ab", "w40 1x20x45": "12348411121ae03f",
+    "w40 3x13x29": "59dd9e1dfb4b1157", "w40 1x1x1": "4fe5573ddee7b479",
+    "w48 8x128x128": "e1aafc27565f40e0", "w48 2x96x96": "5f3efe8b9cb19db6",
+    "w48 2x7x9": "fa999bee839d2897", "w48 1x20x45": "dbc73d368108488c",
+    "w48 3x13x29": "c005427b6a706b08", "w48 1x1x1": "0600053ac8e53a3a"}
 # RSSFormer probabilities (in [0, 1]), K5 and K6 against the cuDNN convolutions
 # and the plain attention core, both in bf16: the unfused FFN rounds each conv's
 # result to bf16 and adds the three branches in bf16, K5 keeps f32 sums, so the
@@ -805,9 +821,19 @@ def dwconv_plans(tmb) -> list[tuple[int, int]]:
 
 
 def fc1_plans(tm, cin: int) -> list[tuple[int, int]]:
-    """Every warp count of the fc1 kernel that fits at this width, walking 1, 2 and 3
+    """Every warp count of the bf16 fc1 kernel that fits at this width, walking 1, 2 and 3
     steps a block."""
     return [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3) if tm.fc1_fits(cin, w)]
+
+
+def fc1_f32_plans(tm, M: int, cin: int, hid: int) -> list[tuple[int, int]]:
+    """Every tile of hidden features of the f32 fc1 kernel at this width, with 1, 3 and
+    132 blocks, and the plan's own."""
+    import torch
+
+    f32 = torch.float32
+    return sorted({(t, n) for t in tm.fc1_f32_tiles(cin, hid) for n in (1, 3, 132)}
+                  | {tm.fc1_plan(M, cin, hid, f32)})
 
 
 def taps_plans(tm, B: int, H: int, W: int, hid: int = 128, dtype=None) -> list[tuple[int, int]]:
@@ -1239,6 +1265,7 @@ class Phases:
         # K6's in an f32 HRNetFusion forward
         self.f32: dict[str, dict] = {}
         self.k5_widths: dict[str, dict] = {}
+        self.k6_f32: dict[str, dict] = {}
         self.launches_f32: dict[str, int] = {}
         self.launches_hrnet_f32: dict[str, int] = {}
         self.refine_inputs = None
@@ -5662,6 +5689,8 @@ class Phases:
         self._sr_conv_bf16_digest(tmb)
         self._tscd_f32(tmb)
         self._k5_widths(tm, gen)
+        self._fc1_bf16_digests(tm)
+        self._k6_f32_widths(ti, gen)
         self._hrnet_widths(tm, ti)
         log(f"  phase 7l: {time.perf_counter() - t_phase:.1f} s")
 
@@ -5750,16 +5779,17 @@ class Phases:
                         f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}")
 
     def _wgmma_sass(self) -> None:
-        """The SASS of the f32 `linear`, `sr_conv`, `attention` and `taps` instantiations
+        """The SASS of the f32 `linear`, `sr_conv`, `attention`, `taps` and `fc1` instantiations
         (`cuobjdump -sass` on the built libraries): their main products are TF32 `HGMMA`s, and
-        `linear`, `sr_conv` and `attention` hold no `HMMA` (the taps' `HMMA` are fc2's 3xTF32
-        `mma.sync`, 1 / 20 of its products)."""
+        all but `taps` hold no `HMMA` (the taps' `HMMA` are fc2's 3xTF32 `mma.sync`, 1 / 20 of
+        its products)."""
         from representationlearning_tpu_torch.ops import _build
 
         tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
         counts = {}
         for lib, kernel in (("mit_block", "linear_wg_kernel"), ("mit_block", "sr_conv_wg_kernel"),
-                            ("mit_block", "attention_wg_kernel"), ("rssformer", "taps_wg_kernel")):
+                            ("mit_block", "attention_wg_kernel"), ("rssformer", "taps_wg_kernel"),
+                            ("rssformer", "fc1_wg_kernel")):
             sass = run_cmd([tool, "-sass", _build.build_log[lib]["path"]])
             name = None
             for line in sass.splitlines():
@@ -5775,11 +5805,12 @@ class Phases:
         # (instantiations, least TF32 HGMMA each): linear with and without LN, 12 a K step
         # (3 products x 4 k slices); sr_conv at every tile, 12 a K step; attention at head
         # width 32 and 64 with one and two consumer warpgroups, 36 a key tile at least (q k^T:
-        # 3 x hd / 8, p v: 3 x 8); taps at hid 96 to 192
+        # 3 x hd / 8, p v: 3 x 8); taps at hid 96 to 192; fc1 at tiles of 32 and 96 to 192
+        # hidden features, 6 a pair of k slices
         for kernel, n, least in (("linear_wg_kernel", 2 * len(tmb.LINEAR_TILES_F32), 12),
                                  ("sr_conv_wg_kernel", len(tmb.SR_WG_ROWS) * len(tmb.SR_WG_COLUMNS), 12),
                                  ("attention_wg_kernel", 2 * len(tmb.ATTN_WG_QUERIES), 36),
-                                 ("taps_wg_kernel", 4, 12)):
+                                 ("taps_wg_kernel", 4, 12), ("fc1_wg_kernel", 5, 6)):
             got = [v for (k, _), v in counts.items() if k == kernel]
             no_hmma = kernel != "taps_wg_kernel"
             log(f"  SASS of {kernel}'s {len(got)} instantiations: TF32 HGMMA "
@@ -6000,20 +6031,24 @@ class Phases:
                         p["bn2_shift"], p["fc2_weight"].reshape(cout, hid).to(dtype), p["fc2_bias"],
                         p["bn3_scale"], p["bn3_shift"])
                 f32_flag = int(dtype == f32)
-                warps = tm.fc1_plan(BATCH * side * side, dim, hid, dtype)[0]
+                first = tm.fc1_plan(BATCH * side * side, dim, hid, dtype)[0]   # warps, or tile (f32)
                 tiles = tm.taps_tiles(hid, dtype)
-                held = ([lib.k5_fc1_blocks_per_sm(dim, -(-dim // 16) * 16, hp, f32_flag, warps)]
+                held = ([lib.k5_fc1_blocks_per_sm(dim, -(-dim // 16) * 16, hp, f32_flag, first)]
                         + [lib.k5_taps_blocks_per_sm(hp, f32_flag, t) for t in tiles])
-                want_held = ([tm.fc1_blocks_per_sm(dim, warps, hid, dtype)]
+                want_held = ([tm.fc1_blocks_per_sm(dim, first, hid, dtype)]
                              + [tm.taps_blocks_per_sm(t, hid, dtype) for t in tiles])
                 self.check(held == want_held, f"K5 {d} dim {dim}: blocks an SM holds of fc1 "
-                                              f"({warps} warps) and of the taps tiles {tiles}: "
-                                              f"{held}, the plans' estimates {want_held}")
-                fc1_pl = [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3)
-                          if tm.fc1_fits(dim, w, hid, dtype)]
+                                              f"({first} {'features a tile' if f32_flag else 'warps'})"
+                                              f" and of the taps tiles {tiles}: {held}, the plans' "
+                                              f"estimates {want_held}")
                 same, worst = True, {"mlp_fc1": 0.0, "mlp_taps": 0.0, "whole": 0.0}
+                fc1_seen = set()
                 for B, H, W in planes:
                     M = B * H * W
+                    fc1_pl = (fc1_f32_plans(tm, M, dim, hid) if dtype == f32 else
+                              [(w, per) for w in (1, 2, 4, 8) for per in (1, 2, 3)
+                               if tm.fc1_fits(dim, w, hid, dtype)])
+                    fc1_seen.update(fc1_pl)
                     x = torch.randn(B, H * W, dim, generator=gen).to(self.dev)
                     taps_pl = [(t, n) for t in tiles for n in sorted(
                         {1, 3, max(1, min(-(-M // t), tm.taps_blocks_per_sm(t, hid, dtype) * tm.TAPS_SMS))})]
@@ -6048,9 +6083,9 @@ class Phases:
                            f"largest error of fc1 / taps / the whole block "
                            f"{' / '.join(f'{v:.3f}' for v in worst.values())} of its tolerance"
                            + ("" if far is None else f" (and of the share beyond {K5_NEAR:.0e})"))
-                self.check(same, f"K5 {d} dim {dim}: a rerun and every plan of fc1 {fc1_pl} and "
-                                 f"of the taps (tiles {tiles}) give equal bits; the padded hidden "
-                                 f"features are 0")
+                self.check(same, f"K5 {d} dim {dim}: a rerun and every plan of fc1 {sorted(fc1_seen)} "
+                                 f"and of the taps (tiles {tiles}) give equal bits; the padded "
+                                 f"hidden features are 0")
                 # a launch of each at BATCH x 128², the kernel and fc1's library call by replay
                 x = torch.randn(BATCH, side * side, dim, generator=gen).to(self.dev)
                 with torch.no_grad():
@@ -6076,7 +6111,8 @@ class Phases:
                             f"fc1_bound_ms_{d}": max(b_fc1), f"taps_bound_ms_{d}": max(b_taps),
                             f"fc1_library_ms_{d}": lib_ms})
                 log(f"  K5 {d} dim {dim} a launch at {BATCH} x {side}²: fc1 {fc1_ms:.4f} ms (bound "
-                    f"{max(b_fc1):.4f}, F.linear {lib_ms:.4f}), taps {taps_ms:.4f} ms (bound "
+                    f"{max(b_fc1):.4f}, by {'bytes' if b_fc1[0] >= b_fc1[1] else 'operations'}, "
+                    f"{max(b_fc1) / fc1_ms:.0%} of it; F.linear {lib_ms:.4f}), taps {taps_ms:.4f} ms (bound "
                     f"{max(b_taps):.4f}, by {'bytes' if b_taps[0] >= b_taps[1] else 'operations'}, "
                     f"{max(b_taps) / taps_ms:.0%} of it; library call none)")
                 if dtype == f32 and dim == RSS_DIM:   # the kernels line's f32 fields, a predict forward
@@ -6098,6 +6134,59 @@ class Phases:
                         e["ms"] = RSS_BLOCKS * k_ms
                         e["bound"][0 if tb >= to else 1] = RSS_BLOCKS * max(tb, to)
                         e["lib"] = RSS_BLOCKS * lib_s if name == "mlp_fc1" else None
+
+    def _fc1_bf16_digests(self, tm) -> None:
+        """The bf16 `mlp_fc1` at HRNetV2's widths and phase 7l's planes, on inputs drawn by
+        numpy from a fixed seed: a SHA-256 of each output against FC1_BF16_SHA256, the
+        digests of the tree before the f32 fc1 became `fc1_wg_kernel` (the same bf16 kernel)."""
+        from tools.time_port_dwconv_fc1 import fc1_bf16_digests
+
+        got = fc1_bf16_digests(self.torch, tm, self.dev)
+        same = [k for k, v in got.items() if FC1_BF16_SHA256.get(k) == v]
+        log(f"  fc1 bf16 at the four widths and {len(got) // 4} planes, SHA-256: "
+            + ", ".join(f"{k} {v}" for k, v in got.items()))
+        self.check(len(same) == len(FC1_BF16_SHA256) == len(got),
+                   f"fc1 bf16: {len(same)} of {len(FC1_BF16_SHA256)} outputs equal the recorded "
+                   f"SHA-256 (the same bits as before the f32 redesign)")
+
+    def _k6_f32_widths(self, ti, gen) -> None:
+        """K6 with f32 operands (plain f32 multiply-adds) at the head widths of phase 7l's
+        f32 HRNetFusion (dim 18 / 40 / 48, two heads: 9 / 20 / 24), on the windows of its
+        branch-0 plane ({BATCH} x 128², 7 x 7 windows): a launch by graph replay beside its
+        byte bound and `F.scaled_dot_product_attention` f32 without the DAL gate."""
+        torch = self.torch
+        import torch.nn.functional as F
+
+        f32, side = torch.float32, IMAGE // 4
+        NW, T = BATCH * (-(-side // RSS_WINDOW)) ** 2, RSS_WINDOW * RSS_WINDOW
+        self.k6_f32 = {}
+        for dim in (18, 40, 48):
+            nh, hd = RSS_HEADS, dim // RSS_HEADS
+            q, k, v = (torch.randn(NW, T, dim, generator=gen).to(self.dev) for _ in range(3))
+            q = q * hd ** -0.5
+            with torch.no_grad():
+                got = ti.isa_core(q, k, v, nh=nh, dtype=f32)
+                torch.cuda.synchronize()
+                err, mag = max_err(got, ti.isa_core_reference(q, k, v, nh=nh, dtype=f32))
+                ms = self.graph_ms(lambda: ti.isa_core(q, k, v, nh=nh, dtype=f32))
+
+                def heads(t):
+                    return t.reshape(NW, T, nh, hd).transpose(1, 2).contiguous()
+
+                qh, kh, vh = heads(q), heads(k), heads(v)
+                lib_ms = self.graph_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=1.0))
+            t_bytes = 1e3 * nbytes(q, k, v, got) / PEAK_BYTES
+            t_ops = 1e3 * NW * (4.0 * T * T * dim + 2.0 * T * dim * hd) / PEAK_F32
+            self.check(err <= K6_TOL["float32"] * max(1.0, mag),
+                       f"isa_core f32 at head width {hd}: max abs err {err:.3e}")
+            self.k6_f32[f"w{dim}"] = {"head_width": hd, "ms": ms, "bound_ms": max(t_bytes, t_ops),
+                                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                                      "library_ms": lib_ms, "max_abs_err": err}
+            log(f"  isa_core f32, {NW} windows of {T} x {dim}, head width {hd}, a launch: kernel "
+                f"{ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+                f"({'bytes' if t_bytes >= t_ops else 'f32 operations'}, {max(t_bytes, t_ops) / ms:.0%} "
+                f"of it; operations {t_ops:.4f}), SDPA f32 without the DAL gate {lib_ms:.4f} ms, max "
+                f"abs err {err:.2e}")
 
     def _hrnet_widths(self, tm, ti) -> None:
         """HRNetFusion at hrnetv2_w18, w40 and w48 with fused_mlp and fused_attn (K5 at hid
@@ -6398,6 +6487,7 @@ def main() -> int:
         if k == "isa_core":
             entry["max_abs_err_f32"] = ph.piece_err["isa_core_f32"]
             entry["ms_f32"] = ph.isa_f32_ms
+            entry["f32_hrnet_widths"] = ph.k6_f32
         if k == "mit_block_presr":
             entry["library_front_ms"] = ph.presr_front_ms
             entry["library_front_graph_ms"] = ph.front_graph_ms["library"]

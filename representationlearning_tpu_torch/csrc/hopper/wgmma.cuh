@@ -17,6 +17,8 @@
 //     stage has landed, small into the stage's second B buffer (a launch-free place:
 //     the weights change between calls, and the wrapper would need a launch of its
 //     own to split them).
+// K5's f32 `fc1` (csrc/rssformer/mlp_dwbn_fc1_f32.cu) holds its weights in shared memory,
+// split once a block, and stores by 2-d tensor maps.
 // K1's f32 `attention` (csrc/mit_block/attention_f32.cu) takes the same blocks, with 3-d
 // tensor maps (one box a head), TMA stores, a named barrier and the n32 product. K1's f32
 // `sr_conv` (csrc/mit_block/sr_conv_f32.cu) stages its A operand through an im2col tensor
@@ -125,6 +127,23 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];" ::"l"(
           reinterpret_cast<unsigned long long>(map)),
       "r"(x), "r"(y), "r"(z), "r"(smem_u32(src))
+      : "memory");
+}
+// the same for a 2-d tensor map at corner (x, y)
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];" ::"l"(
+          reinterpret_cast<unsigned long long>(map)),
+      "r"(x), "r"(y), "r"(smem_u32(src))
+      : "memory");
+}
+// `bytes` contiguous bytes of device memory into shared memory (both 16-byte aligned, bytes a
+// multiple of 16), completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<unsigned long long>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {

@@ -1,22 +1,26 @@
 // K5's C entry points and its bf16 instantiations; the kernels and the notes on their
-// design are in mlp_dwbn.cuh, the float instantiations in mlp_dwbn_f32.cu and
-// mlp_dwbn_taps_f32.cu.
+// design are in mlp_dwbn.cuh, the f32 instantiations in mlp_dwbn_fc1_f32.cu (fc1) and
+// mlp_dwbn_taps_f32.cu (taps).
 #include "mlp_dwbn.cuh"
 
 namespace rss {
-// built in mlp_dwbn_f32.cu (fc1) and mlp_dwbn_taps_f32.cu (taps)
-extern template int fc1_run<float>(const Fc1Args<float>&, int, int, cudaStream_t, int*);
+// built in mlp_dwbn_taps_f32.cu
 extern template int taps_run<float>(const TapsArgs<float>&, int, int, int, cudaStream_t, int*);
-template int fc1_run<bf16>(const Fc1Args<bf16>&, int, int, cudaStream_t, int*);
 template int taps_run<bf16>(const TapsArgs<bf16>&, int, int, int, cudaStream_t, int*);
 
-template <typename T>
-int fc1_call(const void* x, const void* w1, const void* b1, const void* s1, const void* t1,
-             void* h, int M, int cin, int cinp, int hp, int warps, int per, cudaStream_t st,
-             int* held) {
-  const Fc1Args<T> p{(const float*)x, (const T*)w1, (const float*)b1, (const float*)s1,
-                     (const float*)t1, (T*)h, M, cin, cinp, per};
-  return fc1_run<T>(p, hp, warps, st, held);
+// bf16: `a` warps a block walking `b` steps; f32: the tile of `a` hidden features, `b`
+// blocks a tile
+inline int fc1_call(const void* x, const void* w1, const void* b1, const void* s1,
+                    const void* t1, void* h, int M, int cin, int cinp, int hp, int f32, int a,
+                    int b, cudaStream_t st, int* held) {
+  if (f32) {
+    const Fc1F32Args p{(const float*)x, (const float*)w1, (const float*)b1, (const float*)s1,
+                       (const float*)t1, (float*)h, M, cin, cinp, hp};
+    return fc1_f32_run(p, a, b, st, held);
+  }
+  const Fc1Args p{(const float*)x, (const bf16*)w1, (const float*)b1, (const float*)s1,
+                  (const float*)t1, (bf16*)h, M, cin, cinp, b};
+  return fc1_run(p, hp, a, st, held);
 }
 
 template <typename T>
@@ -36,26 +40,21 @@ int taps_call(const void* h, const void* taps, const void* dwb, const void* s2, 
 // h (M, hp) from x (M, cin) f32 and w1 (hp, cinp), h and w1 bf16, or f32 where `f32` is
 // set; cinp is cin rounded up to 16 and hp a padded hidden width (96, 128, 160, 192),
 // w1's padding zeros. x 4-byte aligned (16 where cin % 4 == 0), the rest 16-byte.
-// `warps` and `per` (steps a block walks) come from the wrapper's plan.
+// `a` and `b` are the wrapper's plan: bf16 (warps, steps a block), f32 (tile, blocks).
 extern "C" int k5_mlp_fc1(const void* x, const void* w1, const void* b1, const void* s1,
                           const void* t1, void* h, int M, int cin, int cinp, int hp, int f32,
-                          int warps, int per, void* stream) {
-  using namespace rss;
-  if (M < 1 || per < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return f32 ? fc1_call<float>(x, w1, b1, s1, t1, h, M, cin, cinp, hp, warps, per, st, nullptr)
-             : fc1_call<bf16>(x, w1, b1, s1, t1, h, M, cin, cinp, hp, warps, per, st, nullptr);
+                          int a, int b, void* stream) {
+  if (M < 1 || b < 1) return (int)cudaErrorInvalidValue;
+  return rss::fc1_call(x, w1, b1, s1, t1, h, M, cin, cinp, hp, f32, a, b, (cudaStream_t)stream,
+                       nullptr);
 }
 
-// Blocks of fc1 with that many warps one SM holds at once, as the card reports it;
-// -1 for a width or warp count the kernel does not take.
-extern "C" int k5_fc1_blocks_per_sm(int cin, int cinp, int hp, int f32, int warps) {
-  using namespace rss;
+// Blocks of fc1 with that many warps (bf16) or that tile (f32) one SM holds at once, as
+// the card reports it; -1 for a width, warp count or tile the kernel does not take.
+extern "C" int k5_fc1_blocks_per_sm(int cin, int cinp, int hp, int f32, int a) {
   int n = -1;
-  const int rc = f32 ? fc1_call<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
-                                       cin, cinp, hp, warps, 1, nullptr, &n)
-                     : fc1_call<bf16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
-                                      cin, cinp, hp, warps, 1, nullptr, &n);
+  const int rc = rss::fc1_call(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, cin, cinp,
+                               hp, f32, a, 1, nullptr, &n);
   return rc == 0 ? n : -1;
 }
 

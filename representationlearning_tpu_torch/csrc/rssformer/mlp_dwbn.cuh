@@ -1,9 +1,9 @@
 // K5: the RSSFormer MlpDWBN feed-forward block, as two kernels on the padded hidden
-// width HP: fc1, a template on the operand type T of the products (bf16, or float as
-// 3xTF32 `mma.sync`), and the taps, selected at compile time by T: bf16 `taps_kernel`
-// (`mma.sync`), float `taps_wg_kernel` (3xTF32 `wgmma`). mlp_dwbn.cu holds the C entry
-// points and the bf16 instantiations, mlp_dwbn_f32.cu the float ones (two sources, so
-// that nvcc builds them side by side).
+// width HP: fc1 and the taps, each with bf16 operands on `mma.sync` (`fc1_kernel`,
+// `taps_kernel`) or f32 operands as 3xTF32 `wgmma` (`fc1_wg_kernel` in
+// mlp_dwbn_fc1_f32.cu, `taps_wg_kernel` below). mlp_dwbn.cu holds the C entry points and
+// the bf16 instantiations, mlp_dwbn_fc1_f32.cu and mlp_dwbn_taps_f32.cu the f32 ones
+// (three sources, so that nvcc builds them side by side).
 //
 // Replaces: `fused_mlp_dwbn_pallas`
 //   (representationlearning_tpu/ops/pallas/mlp_dwbn.py:115, call :132), whose body
@@ -18,7 +18,7 @@
 // What the design does about it: the Pallas kernel holds one whole image, its
 //   hidden plane and a copy padded by 12 in VMEM; a Hopper block has 227 KB, and a
 //   tile with a halo of 12 would compute fc1 several times over. So `fc1_kernel`
-//   writes the hidden plane once, in T (the TPU kernel rounds it to bf16 at each of
+//   writes the hidden plane once, in the operand type (the TPU kernel rounds it to bf16 at each of
 //   its 19 uses under bf16: the same rounding, done once), 16.8 MB at hid 128 in bf16
 //   that stay in the 50 MB L2.
 //
@@ -28,11 +28,12 @@
 //   with zeros: a padded hidden feature is gelu(0 * s + 0) = 0 after fc1 and after the
 //   taps, and its weight columns in the taps and in fc2 are 0, so padding changes no
 //   output. x keeps its cin columns in device memory (rows of 18 f32 are not 16-byte
-//   aligned: they travel by 4-byte copies), and its rows are padded with zeros to
+//   aligned: the bf16 fc1 copies them by 4 bytes), and its rows are padded with zeros to
 //   cinp, cin rounded up to 16, in shared memory; fc2 runs over coutp, cout rounded up
 //   to 16, and stores only the cout columns.
 //
-//   `fc1_kernel` alone is bound by bytes (x f32 in, h bf16 out: 25.2 MB a launch at
+//   `fc1_kernel` (bf16 operands; f32 runs `fc1_wg_kernel`, its note in
+//   mlp_dwbn_fc1_f32.cu) alone is bound by bytes (x f32 in, h bf16 out: 25.2 MB a launch at
 //   the predict shape, 7.5 us), but its GELU costs as much in instructions (about
 //   30 an element over 8.4 M elements: 8 us of the card's issue slots at best).
 //   Persistent blocks (grid from the wrapper's `fc1_plan`) walk 16-row tiles, one a
@@ -40,11 +41,10 @@
 //   own, so loads overlap the products and the epilogue with no block barrier; w1
 //   is copied to shared memory once a block and read by `ldmatrix` (its fragments
 //   held in registers for the whole walk capped the warps an SM holds and were
-//   slower, PERF.md). In bf16, A fragments are built from f32 with round-to-nearest
-//   bf16 conversion, as the plain version's `.to(bf16)`; in f32 they are read from
-//   the ring by `ldmatrix` as they lie. A warp finishes its 16 rows in two halves of
+//   slower, PERF.md). A fragments are built from f32 with round-to-nearest bf16
+//   conversion, as the plain version's `.to(bf16)`. A warp finishes its 16 rows in two halves of
 //   HP / 2 features: the epilogue works on the accumulator registers (bias, bn1, a
-//   branch-free GELU, T pairs), stages the half rows in shared memory and writes
+//   branch-free GELU, bf16 pairs), stages the half rows in shared memory and writes
 //   them as whole rows with 16-byte stores. Every plan computes each output by the
 //   same instructions: equal bits.
 //
@@ -98,7 +98,7 @@ __device__ __forceinline__ void tap_offset(int tap, int& dy, int& dx) {
   dx = (k % 3 - 1) * d;
 }
 
-// ---- fc1: h[M, HP] (T) = gelu(bn1(x[M, cin] @ w1[HP, cinp]^T + b1)) ----
+// ---- fc1 with bf16 operands: h[M, HP] (bf16) = gelu(bn1(x[M, cin] @ w1[HP, cinp]^T + b1))
 //
 // A persistent grid: the wrapper's `fc1_plan` gives the warps a block and the steps
 // `per` it walks; a step of a block is warps x 16 consecutive rows, one m16 tile a
@@ -112,53 +112,48 @@ constexpr int kFc1Rows = 16;               // rows of x a warp takes a step
 constexpr int kFc1MaxWarps = 8;
 constexpr int kFc1Stages = 2;
 
-template <typename T>
 struct Fc1Args {
   const float* x;
-  const T* w1;
+  const bf16* w1;
   const float* b1;
   const float* s1;
   const float* t1;
-  T* h;
+  bf16* h;
   int M, cin, cinp, per;
 };
 
-// f32 pitch of the x ring: bf16 reads float2 pairs from it (cinp + 8); f32 reads it by
-// `ldmatrix`, conflict-free at an odd number of 16-byte pieces a row (cinp + 4)
-template <typename T>
-__host__ __device__ constexpr int fc1_xpitch(int cinp) { return cinp + (sizeof(T) == 2 ? 8 : 4); }
-// T pitch of w1 in shared memory
-template <typename T>
-__host__ __device__ constexpr int fc1_wpitch(int cinp) { return cinp + kPadE<T>; }
+// f32 pitch of the x ring (A fragments read float2 pairs from it)
+__host__ __device__ constexpr int fc1_xpitch(int cinp) { return cinp + 8; }
+// bf16 pitch of w1 in shared memory
+__host__ __device__ constexpr int fc1_wpitch(int cinp) { return cinp + kPadE<bf16>; }
 // 32-bit words of a warp's staged half row
-template <typename T, int HP>
-constexpr int kFc1StagePitch = (HP / 2) * (int)sizeof(T) / 4 + 4;
+template <int HP>
+constexpr int kFc1StagePitch = (HP / 2) * 2 / 4 + 4;
 
 // bytes of dynamic shared memory: b1, s1, t1; each warp's ring of f32 x tiles and its
-// staged half rows; w1 in T
-template <typename T, int HP>
+// staged half rows; w1 in bf16
+template <int HP>
 inline int fc1_smem(int cinp, int warps) {
   return 3 * HP * 4 +
-         warps * (kFc1Stages * kFc1Rows * fc1_xpitch<T>(cinp) * 4 +
-                  kFc1Rows * kFc1StagePitch<T, HP> * 4) +
-         HP * fc1_wpitch<T>(cinp) * (int)sizeof(T);
+         warps * (kFc1Stages * kFc1Rows * fc1_xpitch(cinp) * 4 + kFc1Rows * kFc1StagePitch<HP> * 4) +
+         HP * fc1_wpitch(cinp) * 2;
 }
 
-template <typename T, int HP>
-__global__ void __launch_bounds__(32 * kFc1MaxWarps, 2) fc1_kernel(const Fc1Args<T> p) {
+template <int HP>
+__global__ void __launch_bounds__(32 * kFc1MaxWarps, 2) fc1_kernel(const Fc1Args p) {
   constexpr int FH = HP / 2, NJ = FH / 8;  // features a warp finishes at a time, n8 tiles
-  constexpr int kSK = kSliceK<T>, kE = 16 / (int)sizeof(T);
-  constexpr int SP = kFc1StagePitch<T, HP>;
+  constexpr int kSK = kSliceK<bf16>, kE = 8;
+  constexpr int SP = kFc1StagePitch<HP>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int cin = p.cin, cinp = p.cinp, ks = cinp / kSK;
-  const int xp = fc1_xpitch<T>(cinp), wp = fc1_wpitch<T>(cinp);
+  const int xp = fc1_xpitch(cinp), wp = fc1_wpitch(cinp);
   float* vec = reinterpret_cast<float*>(smem);                              // b1, s1, t1
   const int per_warp = kFc1Stages * kFc1Rows * xp + kFc1Rows * SP;           // in 4 bytes
   float* ring = vec + 3 * HP + warp * per_warp;
   uint32_t* staged = reinterpret_cast<uint32_t*>(ring + kFc1Stages * kFc1Rows * xp);
-  T* ws = reinterpret_cast<T*>(vec + 3 * HP + warps * per_warp);
+  bf16* ws = reinterpret_cast<bf16*>(vec + 3 * HP + warps * per_warp);
 
   for (int i = threadIdx.x; i < HP * cinp / kE; i += blockDim.x) {
     const int n = i / (cinp / kE), c = (i - n * (cinp / kE)) * kE;
@@ -204,7 +199,7 @@ __global__ void __launch_bounds__(32 * kFc1MaxWarps, 2) fc1_kernel(const Fc1Args
 
   // ldmatrix.x4 of w1 rows [n0, n0 + 16) x one k slice: b0, b1 of n tiles n0 / 8 and
   // n0 / 8 + 1
-  const T* wl = ws + ((lane / 16) * 8 + lane % 8) * wp + ((lane / 8) % 2) * (kSK / 2);
+  const bf16* wl = ws + ((lane / 16) * 8 + lane % 8) * wp + ((lane / 8) % 2) * (kSK / 2);
 
   for (int i = 0; i < p.per; ++i) {
     load(i + 1);   // into the slot this warp emptied a step ago
@@ -220,30 +215,26 @@ __global__ void __launch_bounds__(32 * kFc1MaxWarps, 2) fc1_kernel(const Fc1Args
 #pragma unroll
       for (int j = 0; j < NJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
       for (int k = 0; k < ks; ++k) {
+        // A from f32, rounded to nearest bf16 as the plain version's .to(bf16)
         uint32_t af[4];
-        if constexpr (sizeof(T) == 4) {
-          ldsm_x4(af, xs + (lane & 15) * xp + kSK * k + (lane >> 4) * 4);
-        } else {
-          // A from f32, rounded to nearest bf16 as the plain version's .to(bf16)
-          const float* ak = xs + g * xp + 2 * t + 16 * k;
-          const float2 v0 = *reinterpret_cast<const float2*>(ak);
-          const float2 v1 = *reinterpret_cast<const float2*>(ak + 8 * xp);
-          const float2 v2 = *reinterpret_cast<const float2*>(ak + 8);
-          const float2 v3 = *reinterpret_cast<const float2*>(ak + 8 * xp + 8);
-          af[0] = pack_bf16(v0.x, v0.y);
-          af[1] = pack_bf16(v1.x, v1.y);
-          af[2] = pack_bf16(v2.x, v2.y);
-          af[3] = pack_bf16(v3.x, v3.y);
-        }
+        const float* ak = xs + g * xp + 2 * t + 16 * k;
+        const float2 v0 = *reinterpret_cast<const float2*>(ak);
+        const float2 v1 = *reinterpret_cast<const float2*>(ak + 8 * xp);
+        const float2 v2 = *reinterpret_cast<const float2*>(ak + 8);
+        const float2 v3 = *reinterpret_cast<const float2*>(ak + 8 * xp + 8);
+        af[0] = pack_bf16(v0.x, v0.y);
+        af[1] = pack_bf16(v1.x, v1.y);
+        af[2] = pack_bf16(v2.x, v2.y);
+        af[3] = pack_bf16(v3.x, v3.y);
 #pragma unroll
         for (int j = 0; j < NJ; j += 2) {
           uint32_t r[4];
           ldsm_x4(r, wl + (FH * half + 8 * j) * wp + kSK * k);
-          mma_slice<T>(acc[j], af, r[0], r[1]);
-          mma_slice<T>(acc[j + 1], af, r[2], r[3]);
+          mma_slice<bf16>(acc[j], af, r[0], r[1]);
+          mma_slice<bf16>(acc[j + 1], af, r[2], r[3]);
         }
       }
-      // epilogue from the accumulators: (acc + b1) s1 + t1, GELU, T pairs staged as
+      // epilogue from the accumulators: (acc + b1) s1 + t1, GELU, bf16 pairs staged as
       // half rows; then they leave as whole rows with 16-byte stores
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -255,16 +246,11 @@ __global__ void __launch_bounds__(32 * kFc1MaxWarps, 2) fc1_kernel(const Fc1Args
         const float e1 = bias_bn_gelu(acc[j][1], b.y, s.y, sh.y);
         const float e2 = bias_bn_gelu(acc[j][2], b.x, s.x, sh.x);
         const float e3 = bias_bn_gelu(acc[j][3], b.y, s.y, sh.y);
-        if constexpr (sizeof(T) == 4) {
-          *reinterpret_cast<float2*>(staged + g * SP + 8 * j + 2 * t) = make_float2(e0, e1);
-          *reinterpret_cast<float2*>(staged + (g + 8) * SP + 8 * j + 2 * t) = make_float2(e2, e3);
-        } else {
-          staged[g * SP + 4 * j + t] = pack_bf16(e0, e1);
-          staged[(g + 8) * SP + 4 * j + t] = pack_bf16(e2, e3);
-        }
+        staged[g * SP + 4 * j + t] = pack_bf16(e0, e1);
+        staged[(g + 8) * SP + 4 * j + t] = pack_bf16(e2, e3);
       }
       __syncwarp();
-      constexpr int PR = FH * (int)sizeof(T) / 16;   // 16-byte pieces of a half row
+      constexpr int PR = FH * 2 / 16;   // 16-byte pieces of a half row
 #pragma unroll
       for (int q = lane; q < kFc1Rows * PR; q += 32) {
         const int r = q / PR, c = q - r * PR;
@@ -280,48 +266,64 @@ __global__ void __launch_bounds__(32 * kFc1MaxWarps, 2) fc1_kernel(const Fc1Args
 
 // lets the kernel take `smem` bytes of dynamic shared memory: once per process,
 // instantiation and size (a larger grant covers every smaller one)
-template <typename T, int HP>
+template <int HP>
 inline cudaError_t fc1_prepare(int smem) {
   static int granted = 48 * 1024;
   if (smem <= granted) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      fc1_kernel<T, HP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err =
+      cudaFuncSetAttribute(fc1_kernel<HP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess) granted = smem;
   return err;
 }
 
-template <typename T, int HP>
+template <int HP>
 inline bool fc1_takes(int cin, int cinp, int warps) {
   return cin >= 1 && cinp >= cin && cinp < cin + 16 && cinp <= 256 && cinp % 16 == 0 &&
-         warps >= 1 && warps <= kFc1MaxWarps && fc1_smem<T, HP>(cinp, warps) <= kSmemLimit;
+         warps >= 1 && warps <= kFc1MaxWarps && fc1_smem<HP>(cinp, warps) <= kSmemLimit;
 }
 
 // fc1 at HP: launch, or, with `held` given, store there the blocks of that many warps an
 // SM holds and launch nothing
-template <typename T, int HP>
-int fc1_at(const Fc1Args<T>& p, int warps, cudaStream_t st, int* held) {
-  if (!fc1_takes<T, HP>(p.cin, p.cinp, warps)) return (int)cudaErrorInvalidValue;
-  const int smem = fc1_smem<T, HP>(p.cinp, warps);
-  cudaError_t err = fc1_prepare<T, HP>(smem);
+template <int HP>
+int fc1_at(const Fc1Args& p, int warps, cudaStream_t st, int* held) {
+  if (!fc1_takes<HP>(p.cin, p.cinp, warps)) return (int)cudaErrorInvalidValue;
+  const int smem = fc1_smem<HP>(p.cinp, warps);
+  cudaError_t err = fc1_prepare<HP>(smem);
   if (err != cudaSuccess) return (int)err;
   if (held != nullptr)
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(held, fc1_kernel<T, HP>,
-                                                              32 * warps, smem);
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(held, fc1_kernel<HP>, 32 * warps,
+                                                              smem);
   const int steps = ((p.M + kFc1Rows - 1) / kFc1Rows + warps - 1) / warps;
-  fc1_kernel<T, HP><<<(steps + p.per - 1) / p.per, 32 * warps, smem, st>>>(p);
+  fc1_kernel<HP><<<(steps + p.per - 1) / p.per, 32 * warps, smem, st>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fc1_run(const Fc1Args<T>& p, int hp, int warps, cudaStream_t st, int* held) {
+inline int fc1_run(const Fc1Args& p, int hp, int warps, cudaStream_t st, int* held) {
   switch (hp) {
-    case 96: return fc1_at<T, 96>(p, warps, st, held);
-    case 128: return fc1_at<T, 128>(p, warps, st, held);
-    case 160: return fc1_at<T, 160>(p, warps, st, held);
-    case 192: return fc1_at<T, 192>(p, warps, st, held);
+    case 96: return fc1_at<96>(p, warps, st, held);
+    case 128: return fc1_at<128>(p, warps, st, held);
+    case 160: return fc1_at<160>(p, warps, st, held);
+    case 192: return fc1_at<192>(p, warps, st, held);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// ---- fc1 with f32 operands (`fc1_wg_kernel`, built in mlp_dwbn_fc1_f32.cu): the same
+// function, h in f32. x (M, cin) f32, 16-byte aligned where cin % 4 == 0 and 4-byte
+// aligned otherwise; w1 (hp, cinp) and the vectors 16-byte aligned. The plan is (tile,
+// blocks): the block's tile of hidden features (hp, or 32) and its blocks a tile of
+// features; the grid is blocks x (hp / tile).
+struct Fc1F32Args {
+  const float* x;
+  const float* w1;
+  const float* b1;
+  const float* s1;
+  const float* t1;
+  float* h;
+  int M, cin, cinp, hp;
+};
+// launch, or, with `held` given, store there the blocks of that tile an SM holds
+int fc1_f32_run(const Fc1F32Args& p, int tile, int blocks, cudaStream_t st, int* held);
 
 // ---- taps: out[M, cout] = gelu(bn3(gelu(bn2(sum_t shift_t(h) @ taps[t]^T + dwb)) @ w2^T + b2))
 //

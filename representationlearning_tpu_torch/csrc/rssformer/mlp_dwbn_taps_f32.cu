@@ -1,5 +1,5 @@
 // K5's float taps instantiation (3xTF32 `wgmma`, `taps_wg_kernel`), a source of its own so
-// that nvcc builds it beside mlp_dwbn.cu and mlp_dwbn_f32.cu; see mlp_dwbn.cuh.
+// that nvcc builds it beside mlp_dwbn.cu and mlp_dwbn_fc1_f32.cu; see mlp_dwbn.cuh.
 #include "mlp_dwbn.cuh"
 
 namespace rss {

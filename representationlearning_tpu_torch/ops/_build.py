@@ -71,10 +71,10 @@ SIGNATURES = {
         "k4_flash_bwd_blocks_per_sm": (_I, _I, _I, _I),  # Nk, D, is_bf16, rows
     },
     "rssformer": {
-        # x, w1, b1, scale1, shift1, h, M, Cin, padded Cin, padded hid, f32, warps,
-        # steps a block, stream
+        # x, w1, b1, scale1, shift1, h, M, Cin, padded Cin, padded hid, f32, plan (bf16:
+        # warps, steps a block; f32: tile of hidden features, blocks), stream
         "k5_mlp_fc1": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-        "k5_fc1_blocks_per_sm": (_I, _I, _I, _I, _I),   # Cin, padded Cin, padded hid, f32, warps
+        "k5_fc1_blocks_per_sm": (_I, _I, _I, _I, _I),   # Cin, padded Cin, padded hid, f32, warps / tile
         # h, taps, dw_bias, scale2, shift2, w2, b2, scale3, shift3, out, B, H, W, Cout,
         # padded Cout, padded hid, f32, tile, blocks, stream
         "k5_mlp_taps": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

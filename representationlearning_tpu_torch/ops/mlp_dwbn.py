@@ -18,8 +18,11 @@ is two CUDA kernels (``csrc/rssformer/mlp_dwbn.cuh``), templates on the operand 
 
     mlp_fc1    x -> gelu(bn1(x W1 + b1)), written to device memory in the compute
                dtype: under bf16 the TPU kernel rounds h to bf16 at each of its 19
-               uses, so storing the rounded plane is the same rounding, done once;
-               persistent blocks walk 16-row tiles a warp, their count from `fc1_plan`
+               uses, so storing the rounded plane is the same rounding, done once.
+               bf16 runs `mma.sync`, persistent blocks walking 16-row tiles a warp,
+               their count from `fc1_plan`; f32 runs `wgmma` (3xTF32, A from
+               registers), w1 split once a block, x fed and h drained by the tensor
+               memory accelerator, two consumer warpgroups and a producer a block
     mlp_taps   a 19-tap implicit GEMM over tiles of 128 or 256 tokens (taps
                outside the plane read as zero, no padded copy), bias + bn2 + GELU,
                then fc2 from the accumulator registers + bn3 + GELU; persistent
@@ -60,18 +63,32 @@ DILATIONS = (6, 12)  # of dw6 and dw12 (`ffn_block.py`); the kernel has them bui
 HID = 128            # the hidden width of hrnetv2_w32, the default of the functions below
 HIDDEN_WIDTHS = (96, 128, 160, 192)   # the padded hidden widths the kernels are built for
 
-# The fc1 kernel (csrc/rssformer/mlp_dwbn.cu): a warp takes FC1_ROWS rows of x a step,
-# a block FC1_WARPS warps (at most FC1_MAX_WARPS), each warp with a ring of FC1_STAGES
-# slots of its x tiles.
+# The fc1 kernel with bf16 operands (csrc/rssformer/mlp_dwbn.cuh): a warp takes FC1_ROWS
+# rows of x a step, a block FC1_WARPS warps (at most FC1_MAX_WARPS), each warp with a ring
+# of FC1_STAGES slots of its x tiles. Its plan is (warps, steps a block).
 FC1_ROWS, FC1_WARPS, FC1_MAX_WARPS, FC1_STAGES = 16, 8, 8, 2
 FC1_SMS = 132
 SMEM_LIMIT = 227 * 1024       # dynamic shared memory a block may ask for on sm_90
 SMEM_PER_SM = 228 * 1024      # shared memory of an SM, 1 KB of it reserved a block
 FC1_WARPS_PER_SM = 16         # the registers of an SM hold 16 warps of the kernel
 
+# The fc1 kernel with f32 operands (csrc/rssformer/mlp_dwbn_fc1_f32.cu): persistent blocks
+# of two consumer warpgroups and a producer warpgroup walk tiles of FC1_F32_ROWS rows of x (a
+# consumer takes one half at a time) and compute a tile of hidden features: all hp, or
+# FC1_F32_NARROW where the ring would keep fewer than two stages beside hp rows of w1 (big
+# and small halves, 32 columns a chunk). x streams through a ring of stages of half a tile,
+# as many as shared memory holds (at most FC1_F32_MAX_STAGES); each consumer warp stages h
+# in FC1_F32_BOXES boxes of 16 rows x 32 features. Its plan is (tile, blocks): the grid is
+# blocks x (hp / tile).
+FC1_F32_ROWS, FC1_F32_NARROW, FC1_F32_MAX_STAGES, FC1_F32_BOXES = 128, 32, 32, 2
+
 
 def _size(dtype) -> int:
     return torch.finfo(dtype).bits // 8
+
+
+def _f32(dtype) -> bool:
+    return _size(dtype) == 4
 
 
 def padded_hid(hid: int) -> int:
@@ -88,37 +105,79 @@ def _pad16(n: int) -> int:
     return -(-n // 16) * 16
 
 
-def fc1_smem_bytes(cin: int, warps: int, hid: int = HID, dtype=torch.bfloat16) -> int:
-    """b1, s1, t1 in f32; a ring of f32 x tiles (pitch cinp + 8 in bf16, cinp + 4 in
-    f32, cinp = cin rounded up to 16) and 16 staged half rows (hp / 2 elements and 16
-    bytes) a warp; w1 in the compute dtype (a row of cinp and 16 bytes)."""
-    hp, cinp, size = padded_hid(hid), _pad16(cin), _size(dtype)
-    xp = cinp + (8 if size == 2 else 4)
-    staged = (hp // 2) * size + 16
-    return 3 * hp * 4 + warps * (FC1_STAGES * FC1_ROWS * xp * 4 + FC1_ROWS * staged) \
-        + hp * (cinp * size + 16)
+def _fc1_f32_layout(cin: int, tile: int) -> tuple[int, int]:
+    """(stages, bytes of shared memory) of the f32 kernel (mlp_dwbn_fc1_f32.cu's
+    `f1_layout`): 1 KB of alignment; the barriers and b1, s1, t1 of the tile; w1's chunks
+    of 32 columns, big and small, `tile` rows of 128 bytes each; eight warps' staging boxes
+    of 2 KB; the ring, each stage half a tile of x: by tensor map 32-column chunks of 64
+    rows of 128 bytes (cin % 4 == 0), else the 64 rows as they lie, and 16 bytes, rounded
+    up to 1 KB and at least 4 KB: the ring takes what is left, up to FC1_F32_MAX_STAGES
+    stages, so that a block holds more than half an SM's shared memory."""
+    nch = -(-cin // 32)
+    stage = nch * 64 * 128 if cin % 4 == 0 else max(4096, -(-(64 * cin * 4 + 16) // 1024) * 1024)
+    fixed = 1024 + 1024 + -(-(12 * tile) // 1024) * 1024 + 2 * nch * tile * 128 \
+        + 8 * FC1_F32_BOXES * 16 * 128
+    stages = min(FC1_F32_MAX_STAGES, (SMEM_LIMIT - fixed) // stage)
+    return stages, fixed + stages * stage
 
 
-def fc1_fits(cin: int, warps: int, hid: int = HID, dtype=torch.bfloat16) -> bool:
-    """Whether a block of `warps` warps at this width fits in shared memory."""
-    return 1 <= warps <= FC1_MAX_WARPS and fc1_smem_bytes(cin, warps, hid, dtype) <= SMEM_LIMIT
+def fc1_f32_stages(cin: int, tile: int) -> int:
+    """Stages of the f32 kernel's ring at this width and tile of hidden features."""
+    return _fc1_f32_layout(cin, tile)[0]
 
 
-def fc1_blocks_per_sm(cin: int, warps: int, hid: int = HID, dtype=torch.bfloat16) -> int:
+def fc1_f32_tiles(cin: int, hid: int = HID) -> tuple[int, ...]:
+    """The tiles of hidden features the f32 kernel takes at this width: hp and
+    FC1_F32_NARROW, each where its ring keeps at least two stages (hp first)."""
+    hp = padded_hid(hid)
+    return tuple(t for t in dict.fromkeys((hp, FC1_F32_NARROW)) if fc1_f32_stages(cin, t) >= 2)
+
+
+def fc1_smem_bytes(cin: int, w: int, hid: int = HID, dtype=torch.bfloat16) -> int:
+    """`w` is the plan's first entry. bf16, `w` warps: b1, s1, t1 in f32; a ring of f32
+    x tiles (pitch cinp + 8, cinp = cin rounded up to 16) and 16 staged half rows (hp / 2
+    bf16 and 16 bytes) a warp; w1 in bf16 (a row of cinp and 16 bytes). f32, a tile of
+    `w` hidden features: `_fc1_f32_layout`."""
+    if _f32(dtype):
+        return _fc1_f32_layout(cin, w)[1]
+    hp, cinp = padded_hid(hid), _pad16(cin)
+    staged = (hp // 2) * 2 + 16
+    return 3 * hp * 4 + w * (FC1_STAGES * FC1_ROWS * (cinp + 8) * 4 + FC1_ROWS * staged) \
+        + hp * (cinp * 2 + 16)
+
+
+def fc1_fits(cin: int, w: int, hid: int = HID, dtype=torch.bfloat16) -> bool:
+    """Whether the kernel takes the plan's first entry `w` at this width: a block of `w`
+    warps that shared memory holds (bf16), one of `fc1_f32_tiles` (f32)."""
+    if _f32(dtype):
+        return w in fc1_f32_tiles(cin, hid)
+    return 1 <= w <= FC1_MAX_WARPS and fc1_smem_bytes(cin, w, hid, dtype) <= SMEM_LIMIT
+
+
+def fc1_blocks_per_sm(cin: int, w: int, hid: int = HID, dtype=torch.bfloat16) -> int:
     """Blocks of the fc1 kernel an SM holds at once, by its shared memory and its
-    registers (`chip_smoke.py` checks the estimate against the card's own count)."""
-    smem = fc1_smem_bytes(cin, warps, hid, dtype)
-    return max(1, min(SMEM_PER_SM // (smem + 1024), FC1_WARPS_PER_SM // warps))
+    registers (`chip_smoke.py` checks the estimate against the card's own count). In
+    f32 the ring takes what shared memory is left, so a block takes more than half of it."""
+    smem = fc1_smem_bytes(cin, w, hid, dtype)
+    by_regs = 1 if _f32(dtype) else FC1_WARPS_PER_SM // w
+    return max(1, min(SMEM_PER_SM // (smem + 1024), by_regs))
 
 
 @functools.lru_cache(maxsize=256)
 def fc1_plan(M: int, cin: int, hid: int = HID, dtype=torch.bfloat16) -> tuple[int, int]:
-    """(warps, per) of the fc1 kernel for M tokens of cin features: the warps a block
-    (FC1_WARPS, fewer where shared memory cannot hold their rings) and the steps a
-    block walks, a step being one 16-row tile a warp, so that the grid is about one
-    wave of the blocks the card holds at once. A function of the shapes only; every
-    plan computes each output by the same instructions, so all give the same bits."""
+    """The plan of the fc1 kernel for M tokens of cin features, a function of the shapes
+    only, so that the grid is about one wave of the blocks the card holds at once; every
+    plan computes each output by the same instructions, so all give the same bits.
+    bf16: (warps, per), the warps a block (FC1_WARPS, fewer where shared memory cannot hold
+    their rings) and the steps a block walks, a step being one 16-row tile a warp. f32:
+    (tile, blocks), the widest tile of `fc1_f32_tiles` and one block a tile of rows up to
+    one wave over the hp / tile slices of the features."""
     _widths(hid, cin=cin)
+    if _f32(dtype):
+        tile = fc1_f32_tiles(cin, hid)[0]
+        resident = fc1_blocks_per_sm(cin, tile, hid, dtype) * FC1_SMS
+        return tile, max(1, min(math.ceil(M / FC1_F32_ROWS),
+                                resident // (padded_hid(hid) // tile)))
     warps = FC1_WARPS
     while warps > 1 and not fc1_fits(cin, warps, hid, dtype):
         warps //= 2
@@ -128,14 +187,18 @@ def fc1_plan(M: int, cin: int, hid: int = HID, dtype=torch.bfloat16) -> tuple[in
 
 
 def check_fc1_plan(plan, cin: int, hid: int = HID, dtype=torch.bfloat16) -> tuple[int, int]:
-    """The plan as (warps, per), or ValueError if the kernel does not take it."""
+    """The plan as (warps, per) in bf16 or (tile, blocks) in f32, or ValueError if the
+    kernel does not take it."""
+    names = "(tile, blocks)" if _f32(dtype) else "(warps, per)"
     try:
-        warps, per = (int(v) for v in plan)
+        w, n = (int(v) for v in plan)
     except (TypeError, ValueError):
-        raise ValueError(f"mlp_fc1: plan {plan!r} is not (warps, per)") from None
-    if not (per >= 1 and fc1_fits(cin, warps, hid, dtype)):
-        raise ValueError(f"mlp_fc1: plan {plan!r} is not one the kernel takes at cin={cin}")
-    return warps, per
+        raise ValueError(f"mlp_fc1: plan {plan!r} is not {names}") from None
+    if not (n >= 1 and fc1_fits(cin, w, hid, dtype)):
+        raise ValueError(f"mlp_fc1: plan {plan!r} is not one the kernel takes at cin={cin}"
+                         + (f" (tile in {fc1_f32_tiles(cin, hid)}, blocks >= 1)"
+                            if _f32(dtype) else ""))
+    return w, n
 
 # The taps kernel, bf16: eight warps a block, a tile of TAPS_TILES tokens (16 or 32 rows
 # a warp, all hp hidden features; 256 only up to hp 128, where two 16-row tiles of
@@ -152,10 +215,6 @@ TAPS_TILES, TAPS_WARPS = (128, 256), 8
 TAPS_TILE_F32, TAPS_BK_F32, TAPS_MAX_STAGES_F32 = 128, 32, 8
 TAPS_SMS = FC1_SMS
 TAPS_BLOCKS_BY_REGS = 1   # blocks of eight warps (bf16) or three warpgroups (f32) an SM's registers hold
-
-
-def _f32(dtype) -> bool:
-    return _size(dtype) == 4
 
 
 def taps_tiles(hid: int = HID, dtype=torch.bfloat16) -> tuple[int, ...]:
@@ -340,9 +399,9 @@ def _pad(t: torch.Tensor, *shape: int) -> torch.Tensor:
 
 
 def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16, plan=None):
-    """`plan`: a (warps, per) other than `fc1_plan`'s, for tests and tuning; it is
-    checked on any device, every plan gives the same bits on the card, and it
-    changes nothing on the CPU. On the card the hidden plane comes back at the padded
+    """`plan`: a (warps, per) in bf16 or a (tile, blocks) in f32 other than `fc1_plan`'s,
+    for tests and tuning; it is checked on any device, every plan gives the same bits
+    on the card, and it changes nothing on the CPU. On the card the hidden plane comes back at the padded
     width `padded_hid(hid)`, its padded features 0."""
     hid = w1.shape[0]
     if plan is not None:
@@ -365,10 +424,10 @@ def mlp_fc1(x, w1, b1, scale, shift, *, dtype=torch.bfloat16, plan=None):
         _aligned(t, name)
     h = torch.empty((B, N, hp), device=dev, dtype=dtype)
     if B * N:
-        warps, per = fc1_plan(B * N, cin, hid, dtype) if plan is None else plan
+        a, b = fc1_plan(B * N, cin, hid, dtype) if plan is None else plan
         _launch("k5_mlp_fc1", dev, x.data_ptr(), w1p.data_ptr(), b1p.data_ptr(),
                 s1p.data_ptr(), t1p.data_ptr(), h.data_ptr(), B * N, cin, cinp, hp,
-                int(dtype == torch.float32), warps, per)
+                int(dtype == torch.float32), a, b)
         LAUNCHES["mlp_fc1"] += 1   # one a call, whatever plan it runs
     return h
 

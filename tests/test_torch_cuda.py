@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from chip_smoke import (K1_F32_ATTN_KEYS, K1_F32_ATTN_QUERIES, K1_F32_SR_EDGES, affinity_plans,
-                        attention_plans, bwd_plans, drfl_agreement, drfl_card_vs_cpu, isa_trap_move,
-                        linear_plans, sr_conv_plans, taps_plans, varm_plans)
+                        attention_plans, bwd_plans, drfl_agreement, drfl_card_vs_cpu, fc1_f32_plans,
+                        isa_trap_move, linear_plans, sr_conv_plans, taps_plans, varm_plans)
 from representationlearning_tpu_torch.ops import affinity as TA
 from representationlearning_tpu_torch.ops import attention as TF
 from representationlearning_tpu_torch.ops import isa_attention as TI
@@ -1125,13 +1125,88 @@ def test_k5_at_hrnet_widths(dev, dim, dtype, B, H, W):
         _close(TM.fused_mlp_dwbn(x, p, H=H, W=W, dtype=dtype),
                TM.fused_mlp_dwbn_reference(x, p, H=H, W=W, dtype=dtype), tol["taps"])
         assert TM.LAUNCHES == {"mlp_fc1": 2, "mlp_taps": 2}
-        for plan in [(w, per) for w in (1, 2, 4, 8) for per in (1, 3)
-                     if TM.fc1_fits(dim, w, hid, dtype)]:
+        for plan in _fc1_plans_at(dim, hid, dtype, B * H * W):
             assert torch.equal(h, TM.mlp_fc1(x, *f1, dtype=dtype, plan=plan)), plan
         for tile in TM.taps_tiles(hid, dtype):
             for blocks in (1, 3, 132):
                 assert torch.equal(out, TM.mlp_taps(h, *rest, H=H, W=W, dtype=dtype,
                                                     plan=(tile, blocks))), (tile, blocks)
+
+
+def _fc1_plans_at(cin, hid, dtype, M):
+    """bf16: 1, 2, 4, 8 warps walking 1 or 3 steps; f32: `chip_smoke.fc1_f32_plans`."""
+    if dtype == BF16:
+        return [(w, per) for w in (1, 2, 4, 8) for per in (1, 3) if TM.fc1_fits(cin, w, hid, dtype)]
+    return fc1_f32_plans(TM, M, cin, hid)
+
+
+# f32 fc1 (the 3xTF32 `wgmma` kernel): HRNetV2's widths, and cin 256 (w1 in 32-feature
+# slices) at two hidden widths
+FC1_F32_WIDTHS = [(18, 72), (32, 128), (40, 160), (48, 192), (256, 128), (256, 192)]
+
+
+@pytest.mark.parametrize("cin,hid", FC1_F32_WIDTHS)
+@pytest.mark.parametrize("M", [1, 15, 17, 1000, 8517])
+def test_mlp_fc1_f32_every_plan_gives_equal_bits(dev, cin, hid, M):
+    """f32 fc1 at token counts of one row, of a half tile less or more one and of no
+    multiple of any tile: within F32_TOL of the plain version, its padded features 0, and
+    a rerun and every plan (each tile of hidden features, 1, 3 and 132 blocks) give the
+    same bits; one launch a call."""
+    g = torch.Generator().manual_seed(M + cin + hid)
+    x = _rand(g, 1, M, cin, dev=dev)
+    f1 = (_rand(g, hid, cin, dev=dev, scale=cin ** -0.5), _rand(g, hid, dev=dev, scale=0.1),
+          _rand(g, hid, dev=dev, scale=0.2, shift=1.0), _rand(g, hid, dev=dev, scale=0.1))
+    f32 = torch.float32
+    plans = _fc1_plans_at(cin, hid, f32, M)
+    TM.reset_launches()
+    with torch.no_grad():
+        h = TM.mlp_fc1(x, *f1, dtype=f32)
+        assert h.shape == (1, M, TM.padded_hid(hid)) and not h[..., hid:].any()
+        _close(h[..., :hid], TM.mlp_fc1_reference(x, *f1, dtype=f32), F32_TOL)
+        assert torch.equal(h, TM.mlp_fc1(x, *f1, dtype=f32))
+        for plan in plans:
+            assert torch.equal(h, TM.mlp_fc1(x, *f1, dtype=f32, plan=plan)), plan
+    assert TM.LAUNCHES["mlp_fc1"] == 2 + len(plans)
+
+
+def test_mlp_fc1_f32_is_one_kernel_and_one_count(dev):
+    """An f32 call at the predict's width (cin 32, hid 128: nothing to pad) is one device
+    kernel, the `fc1_wg_kernel`, and one LAUNCHES count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator().manual_seed(2)
+    x = _rand(g, 4, 128 * 128, 32, dev=dev)
+    f1 = (_rand(g, 128, 32, dev=dev, scale=32 ** -0.5), _rand(g, 128, dev=dev),
+          _rand(g, 128, dev=dev), _rand(g, 128, dev=dev))
+    want = TM.mlp_fc1(x, *f1, dtype=torch.float32)
+    torch.cuda.synchronize()
+    before = TM.LAUNCHES["mlp_fc1"]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = TM.mlp_fc1(x, *f1, dtype=torch.float32)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "fc1_wg_kernel" in kernels[0], kernels
+    assert TM.LAUNCHES["mlp_fc1"] == before + 1 and torch.equal(got, want)
+
+
+def test_mlp_fc1_f32_takes_x_4_bytes_off_at_cin_18_and_refuses_it_at_cin_32(dev):
+    """Rows of 72 bytes come by bulk copies whatever x's 16-byte offset: x 4 bytes off at cin
+    18 (a ragged head before every half tile's copy) gives the bits of the same values
+    16-byte aligned; at cin 32 (rows by tensor map) such an x raises."""
+    g = torch.Generator().manual_seed(3)
+    f32 = torch.float32
+    for cin, hid in ((18, 72), (32, 128)):
+        f1 = (_rand(g, hid, cin, dev=dev), _rand(g, hid, dev=dev), _rand(g, hid, dev=dev),
+              _rand(g, hid, dev=dev))
+        for M in (1000, 17):
+            odd = _rand(g, M * cin + 1, dev=dev)[1:].view(1, M, cin)   # contiguous, 4 bytes off
+            if cin % 4:
+                got = TM.mlp_fc1(odd, *f1, dtype=f32)
+                assert torch.equal(got, TM.mlp_fc1(odd.clone(), *f1, dtype=f32))
+                _close(got[..., :hid], TM.mlp_fc1_reference(odd, *f1, dtype=f32), F32_TOL)
+            else:
+                with pytest.raises(ValueError, match="aligned"):
+                    TM.mlp_fc1(odd, *f1, dtype=f32)
 
 
 def test_k5_fc1_blocks_per_sm_at_hrnet_widths(dev):

@@ -172,11 +172,16 @@ def test_fc1_plan_covers_every_token_once(M, cin):
     assert blocks <= resident and (per == 1 or -(-steps // (per - 1)) > resident)
 
 
+# the f32 kernel's plan (tile of hidden features, blocks) beside each bf16 (warps, per)
+F32_PLAN_OF = {None: None, (1, 1): (128, 1), (2, 3): (32, 3), (4, 2): (128, 2), (8, 1): (32, 132)}
+
+
 @pytest.mark.parametrize("plan", [None, (1, 1), (2, 3), (4, 2), (8, 1)])
 def test_fc1_with_a_plan_on_cpu_is_the_plain_version(plan):
-    """On CPU tensors `mlp_fc1(..., plan=)` runs `mlp_fc1_reference` whatever the plan,
-    launches nothing, and is held to the TPU kernel's fc1 + bn1 + GELU (`_mlp_math`'s
-    first lines): f32 operands, the same math summed in another order."""
+    """On CPU tensors `mlp_fc1(..., plan=)` runs `mlp_fc1_reference` whatever the plan
+    (bf16 (warps, per), f32 (tile, blocks)), launches nothing, and is held to the TPU
+    kernel's fc1 + bn1 + GELU (`_mlp_math`'s first lines): f32 operands, the same math
+    summed in another order."""
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, 37, 32)).astype(np.float32)
     w1 = (rng.standard_normal((128, 32)) * 0.2).astype(np.float32)
@@ -184,8 +189,8 @@ def test_fc1_with_a_plan_on_cpu_is_the_plain_version(plan):
     s1 = (rng.standard_normal(128) * 0.2 + 1.0).astype(np.float32)
     args = [torch.from_numpy(a) for a in (x, w1, b1, s1, t1)]
     tm.reset_launches()
-    for dtype in (torch.bfloat16, torch.float32):
-        got = tm.mlp_fc1(*args, dtype=dtype, plan=plan)
+    for dtype, pl in ((torch.bfloat16, plan), (torch.float32, F32_PLAN_OF[plan])):
+        got = tm.mlp_fc1(*args, dtype=dtype, plan=pl)
         assert torch.equal(got, tm.mlp_fc1_reference(*args, dtype=dtype))
     assert sum(tm.LAUNCHES.values()) == 0
     want = jm._gelu((jm._mm(jnp.asarray(x), jnp.asarray(w1.T), jnp.float32) + b1) * s1 + t1)
@@ -392,9 +397,13 @@ def test_plans_at_hrnet_widths_fit_and_cover_every_token_once(dim, dtype):
     plane (8 x 128 x 128), the edge planes of the card tests, and one token."""
     dt, hid = getattr(torch, dtype), 4 * dim
     for M in (8 * 128 * 128, 2 * 7 * 9, 1):
-        warps, per = tm.fc1_plan(M, dim, hid, dt)
-        assert tm.check_fc1_plan((warps, per), dim, hid, dt) == (warps, per)
-        assert tm.fc1_smem_bytes(dim, warps, hid, dt) <= tm.SMEM_LIMIT
+        plan = tm.fc1_plan(M, dim, hid, dt)
+        assert tm.check_fc1_plan(plan, dim, hid, dt) == plan
+        assert tm.fc1_smem_bytes(dim, plan[0], hid, dt) <= tm.SMEM_LIMIT
+        if dt == torch.float32:
+            _fc1_f32_walk_covers_every_token_once(M, dim, hid, plan)
+            continue
+        warps, per = plan
         tiles = -(-M // tm.FC1_ROWS)
         blocks = -(-(-(-tiles // warps)) // per)
         b, i, w = np.meshgrid(np.arange(blocks), np.arange(per), np.arange(warps),
@@ -428,6 +437,114 @@ def test_compute_dtype_takes_f32_and_bf16_and_refuses_f16():
         with pytest.raises(NotImplementedError, match=f"{name} takes compute dtype float32 or "
                                                       "bfloat16"):
             check(torch.float16)
+
+
+# ----------------------------------- fc1 with f32 operands: the 3xTF32 wgmma kernel
+def _fc1_f32_walk_covers_every_token_once(M, cin, hid, plan):
+    """Laid out as `fc1_wg_kernel` walks it: block (b, s) of the grid (blocks, hp / tile)
+    takes the 128-row tiles b, b + blocks, ..., each as two 64-row halves (the last tile's
+    second half dropped where it starts at or past M), and the features [s tile, (s + 1)
+    tile). Every (token, feature) is computed exactly once, and the grid is one wave."""
+    tile, blocks = plan
+    hp = tm.padded_hid(hid)
+    assert hp % tile == 0 and blocks >= 1
+    tiles = -(-M // tm.FC1_F32_ROWS)
+    rows = np.zeros(M, int)
+    for b in range(blocks):
+        mine = (tiles - 1 - b) // blocks + 1 if b < tiles else 0
+        halves = [(b + (f // 2) * blocks) * 128 + (f % 2) * 64 for f in range(2 * mine)]
+        if halves and halves[-1] >= M:
+            halves.pop()
+        for r0 in halves:
+            assert r0 < M
+            rows[r0:r0 + 64] += 1
+    assert (rows == 1).all()   # each slice of features the same walk
+    assert blocks * (hp // tile) <= tm.fc1_blocks_per_sm(cin, tile, hid, torch.float32) * tm.FC1_SMS
+
+
+# the planes of phase 7l's K5 checks (chip_smoke.py `_k5_widths`) and the w32 predict's
+FC1_F32_PLANES = [(8, 128, 128), (4, 128, 128), (2, 96, 96), (2, 7, 9), (1, 20, 45), (3, 13, 29),
+                  (1, 1, 1)]
+
+
+@pytest.mark.parametrize("dim", HRNET_DIMS)
+@pytest.mark.parametrize("B,H,W", FC1_F32_PLANES)
+def test_fc1_f32_plan_covers_every_token_once_in_one_wave(dim, B, H, W):
+    """The f32 plan at each HRNetV2 width and phase-7l plane: the whole padded width as
+    one tile (its w1 fits beside the ring), one block a 128-row tile up to one wave of
+    the 132 SMs, each (token, feature) once; every other plan the wrapper takes (each
+    tile, 1 to 132 blocks) covers them once too."""
+    f32, hid, M = torch.float32, 4 * dim, B * H * W
+    hp = tm.padded_hid(hid)
+    plan = tm.fc1_plan(M, dim, hid, f32)
+    assert plan == (hp, min(-(-M // 128), tm.FC1_SMS)) == tm.fc1_plan(M, dim, hid, f32)
+    assert tm.check_fc1_plan(plan, dim, hid, f32) == plan
+    for pl in [plan] + [(t, n) for t in tm.fc1_f32_tiles(dim, hid) for n in (1, 3, 132 * t // hp)]:
+        _fc1_f32_walk_covers_every_token_once(M, dim, hid, pl)
+
+
+@pytest.mark.parametrize("hid", [72, 128, 160, 192])
+def test_fc1_f32_shared_memory_fits_at_each_hidden_width(hid):
+    """`fc1_wg_kernel`'s shared memory (mlp_dwbn_fc1_f32.cu's `f1_layout`) at every input
+    width: its tiles keep at least two ring stages within 227 KB and take more than half
+    an SM (one block an SM); the whole padded width fits up to cin 64 at every hp (two
+    chunks of w1, big and small; HRNetV2's widths among them) and not at cin 256; the
+    32-feature tile fits everywhere; rows of x by tensor map at cin % 4 == 0, else as
+    they lie."""
+    f32, hp = torch.float32, tm.padded_hid(hid)
+    for cin in range(1, 257):
+        tiles = tm.fc1_f32_tiles(cin, hid)
+        assert tm.FC1_F32_NARROW in tiles and set(tiles) <= {hp, tm.FC1_F32_NARROW}
+        for t in tiles:
+            smem, stages = tm.fc1_smem_bytes(cin, t, hid, f32), tm.fc1_f32_stages(cin, t)
+            nch = -(-cin // 32)
+            stage = nch * 64 * 128 if cin % 4 == 0 else max(4096, -(-(256 * cin + 16) // 1024) * 1024)
+            fixed = 2048 + -(-(12 * t) // 1024) * 1024 + 2 * nch * t * 128 + 8 * 2 * 2048
+            assert smem == fixed + stages * stage <= tm.SMEM_LIMIT
+            assert 2 <= stages <= tm.FC1_F32_MAX_STAGES
+            assert stages == tm.FC1_F32_MAX_STAGES or smem + stage > tm.SMEM_LIMIT
+            assert smem + 1024 > tm.SMEM_PER_SM // 2
+            assert tm.fc1_blocks_per_sm(cin, t, hid, f32) == 1
+        assert (hp in tiles) == (tm.fc1_f32_stages(cin, hp) >= 2)
+    assert all(hp in tm.fc1_f32_tiles(c, hid) for c in range(1, 65))
+    assert hp not in tm.fc1_f32_tiles(256, hid)
+
+
+def test_fc1_f32_refuses_a_plan_the_kernel_does_not_take_on_the_cpu_too():
+    """With f32 operands a plan is (tile, blocks): a tile other than hp and 32, hp where
+    w1 does not fit (cin 256), no block, the bf16 kernel's (warps, per), and what is no
+    pair raise on CPU tensors as on the card; (32, blocks) runs the plain version."""
+    f32 = torch.float32
+    x, w1, v = torch.zeros(1, 16, 256), torch.zeros(192, 256), torch.zeros(192)
+    for plan in ((64, 1), (96, 1), (192, 1), (32, 0), (8, 1), (192,), "ab"):
+        with pytest.raises(ValueError, match="plan"):
+            tm.mlp_fc1(x, w1, v, v, v, dtype=f32, plan=plan)
+    tm.reset_launches()
+    assert tm.mlp_fc1(x, w1, v, v, v, dtype=f32, plan=(32, 5)).shape == (1, 16, 192)
+    assert tm.fc1_plan(16, 256, 192, f32) == (32, 1) and sum(tm.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="tile"):
+        tm.check_fc1_plan((160, 1), 48, 192, f32)
+
+
+@pytest.mark.parametrize("dim", HRNET_DIMS)
+def test_fc1_f32_plain_version_at_the_padded_width_is_jax_mlp_math_step_1(dim):
+    """What the f32 kernel computes, `mlp_fc1_reference` on w1 and the vectors zero-padded
+    to (hp, cinp) as the wrapper pads them, is step (1) of JAX's `_mlp_math` (fc1, bn1,
+    GELU, f32 operands) on its first hid features, within the file's f32 bound, and 0 on
+    the padded ones."""
+    hid = 4 * dim
+    hp, cinp = tm.padded_hid(hid), -(-dim // 16) * 16
+    x, jp, tp = _setup(9, 11, dim, hid, dim, seed=dim + 1)
+    xt = torch.from_numpy(x)
+    w1 = tp["fc1_weight"].reshape(hid, dim)
+    v1 = [tp[k] for k in ("fc1_bias", "bn1_scale", "bn1_shift")]
+    got = tm.mlp_fc1_reference(torch.nn.functional.pad(xt, (0, cinp - dim)), tm._pad(w1, hp, cinp),
+                               *(tm._pad(v, hp) for v in v1), dtype=torch.float32)
+    assert got.shape == (2, 9 * 11, hp) and not got[..., hid:].any()
+    f = jnp.float32
+    want = jm._gelu((jm._mm(jnp.asarray(x), jp["fc1_kernel"], f) + jp["fc1_bias"]) * jp["bn1_scale"]
+                    + jp["bn1_shift"])
+    np.testing.assert_allclose(got[..., :hid].numpy(), np.asarray(want), atol=F32_ATOL, rtol=0)
 
 
 # ----------------------------------- taps with f32 operands: the 3xTF32 wgmma kernel

@@ -166,7 +166,7 @@ def test_kernel_build_is_keyed_by_the_sources():
     assert {p.name for p in (_build.CSRC / "attention").glob("*.cu")} == {
         "flash_fwd.cu", "flash_bwd.cu"}
     assert {p.name for p in (_build.CSRC / "rssformer").glob("*.cu")} == {
-        "mlp_dwbn.cu", "mlp_dwbn_f32.cu", "mlp_dwbn_taps_f32.cu", "isa_attention.cu"}
+        "mlp_dwbn.cu", "mlp_dwbn_fc1_f32.cu", "mlp_dwbn_taps_f32.cu", "isa_attention.cu"}
     # the Hopper building blocks that mit_block and rssformer include are in their keys
     assert _build.SHARED_HEADERS == ("hopper",) and (_build.CSRC / "hopper" / "wgmma.cuh").exists()
     assert len({d, _build._digest("refine"), _build._digest("attention"),
